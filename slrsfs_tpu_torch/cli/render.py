@@ -1,0 +1,315 @@
+"""Render an animated video from a still image and a motion field, on the GPU:
+
+    python -m slrsfs_tpu_torch.cli.render IMAGE FLOW SAVE_DIR [--ckpt CKPT] ...
+
+PyTorch port of ``slrsfs_tpu/cli/render.py`` for the single-layer baseline
+(``model_type=softmax_splating``) without crop decode. Protocol: the input is
+resized to W² (PIL bilinear) and normalised to [-1, 1]; the flow is scaled
+by W/source · speed and nearest-resized (test_baseline_4eval.py:161-184);
+an optional align.json rescales it by frame/N (:198-202); frames go to
+<save_dir>/<name>/PredImg/%06d.png at the output size (raw, or half the
+input image) and into an mp4. Flow editing: --speed, --rotate (degrees) and
+--flow-scale.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+# Decode-chunk budget in decoded pixels x frames: the decoder's live
+# activations scale with decode_batch x window area, so the auto chooser
+# caps their product. From chip_smoke.py's peak-memory reading on an NVIDIA
+# H100 80GB HBM3 (700 W limit): a float32 decode chunk of 60 frames at
+# 256^2 adds 14.68 GiB, 4008 bytes per pixel-frame (bfloat16: 1290), so half
+# of the card's 79.2 GiB holds 10.6 M float32 pixel-frames.
+DECODE_PX_BUDGET = 10_000_000
+
+
+def edit_flow(flow: np.ndarray, rotate_deg: float = 0.0,
+              scale: float = 1.0) -> np.ndarray:
+    """Rotate motion vectors by an angle and scale their magnitude."""
+    if rotate_deg:
+        th = np.deg2rad(rotate_deg)
+        c, s = np.cos(th), np.sin(th)
+        u = flow[..., 0] * c - flow[..., 1] * s
+        v = flow[..., 0] * s + flow[..., 1] * c
+        flow = np.stack([u, v], -1).astype(np.float32)
+    return flow * scale
+
+
+def auto_decode_batch(n_frames: int, area: int, cap: int = 60) -> int:
+    """Largest divisor of ``n_frames`` (<= cap) whose decode chunk fits the
+    budget for a decode window of ``area`` pixels."""
+    db = max(1, min(cap, n_frames, DECODE_PX_BUDGET // max(1, area)))
+    while n_frames % db:
+        db -= 1
+    return db
+
+
+def _load_flow(path: str) -> np.ndarray:
+    from slrsfs_tpu_torch.data.tensors import load_compressed_tensor, motion_to_hw2
+    from slrsfs_tpu_torch.utils.flow_viz import read_flo
+
+    if path.endswith(".flo"):
+        return read_flo(path)
+    return motion_to_hw2(load_compressed_tensor(path))
+
+
+def to_u8(frames: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] frames → uint8 [0, 255], rounded, on the frames' device."""
+    v = frames.to(torch.float32) * 0.5 + 0.5
+    return (v.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device to render on. A missing card raises: there is no silent
+    CPU path; pass device='cpu' for the plain PyTorch path."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch path on the CPU")
+    return dev
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+
+
+class SceneRenderer:
+    """Model and device state shared across scenes.
+
+    ``frames()`` renders in memory; ``render()`` adds the file protocol
+    (image/flow loading, PNG and mp4 output)."""
+
+    def __init__(self, ckpt: str = None, W: int = 256, n_frames: int = 60,
+                 dtype: str = "float32", decode_batch: int = None,
+                 seed: int = 0, motion_ckpt: str = None,
+                 opt_overrides: dict = None, shard_frames: bool = False,
+                 sparsify_eps: float = None, crop_decode: str = "off",
+                 device="cuda"):
+        from slrsfs_tpu_torch.config import Options
+        from slrsfs_tpu_torch.io.checkpoint import load_baseline_state, load_checkpoint
+        from slrsfs_tpu_torch.models.baseline import BaselineModel, init_random_weights
+
+        if dtype == "bfloat16-fast":
+            raise _not_ported("--dtype bfloat16-fast (bf16 splat accumulation)",
+                              "§1 item 7")
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown dtype {dtype!r}")
+        if crop_decode == "auto":
+            raise _not_ported("--crop-decode auto", "§1 item 8")
+        if crop_decode != "off":
+            raise ValueError(f"unknown crop_decode {crop_decode!r}")
+        if motion_ckpt:
+            raise _not_ported("--motion-ckpt (motion regressor)", "§1 item 11")
+        if shard_frames:
+            raise _not_ported("--shard-frames (multi-GPU)", "§1 item 14")
+        self.device = resolve_device(device)
+
+        if ckpt:
+            sd, opt = load_checkpoint(ckpt)
+            opt = opt.replace(W=W)
+        else:  # random weights (smoke/benchmark mode)
+            opt = Options(W=W, bn_noise_misc=True, **(opt_overrides or {}))
+        if opt.model_type != "softmax_splating":
+            raise _not_ported(f"model_type {opt.model_type!r}", "§1 item 9")
+        if opt.use_softmax_splatter_v2:
+            raise _not_ported("v2 Z-norm", "§1 item 10")
+        self.opt = opt
+        model = BaselineModel(opt).eval()
+        if ckpt:
+            load_baseline_state(model, sd)
+        else:
+            init_random_weights(model, seed)
+        self.compute_dtype = (torch.bfloat16 if dtype == "bfloat16"
+                              else torch.float32)
+        self.model = model.to(self.device, self.compute_dtype)
+        self.W, self.n_frames = W, n_frames
+        if decode_batch is not None:
+            while n_frames % decode_batch:
+                decode_batch -= 1
+        self.decode_batch = decode_batch
+        # zero sub-threshold motion so estimated (dense) flows ride the
+        # sparse path; eps = 0.5/N bounds each zeroed pixel's drift at half a
+        # pixel. None = auto: 0.5/N for --rawsize renders, else 0.
+        self.sparsify_eps = sparsify_eps
+
+    def decode_batch_for(self, area: int) -> int:
+        if self.decode_batch is not None:
+            return self.decode_batch
+        return auto_decode_batch(self.n_frames, area)
+
+    def frames(self, img: np.ndarray, flow: np.ndarray,
+               plain: bool = False) -> torch.Tensor:
+        """img (W, W, 3) in [-1, 1], flow (W, W, 2) in output pixels →
+        (N, W, W, 3) float32 frames in [-1, 1] on the device. ``plain`` runs
+        the kernels' plain PyTorch versions instead of the kernels."""
+        from slrsfs_tpu_torch.engine.rollout import (
+            baseline_rollout_sparse,
+            prepare_scene_sparse,
+        )
+
+        positions, valid = prepare_scene_sparse(flow)
+        dev = self.device
+        img = np.ascontiguousarray(img, np.float32)[None]
+        flow = np.ascontiguousarray(flow, np.float32)
+        return baseline_rollout_sparse(
+            self.model, torch.from_numpy(img).to(dev), torch.from_numpy(flow).to(dev),
+            self.n_frames, torch.from_numpy(positions).to(dev),
+            torch.from_numpy(valid).to(dev),
+            decode_batch=self.decode_batch_for(self.W * self.W),
+            compute_dtype=self.compute_dtype, plain=plain)
+
+    def load_inputs(self, image_path: str, flow_path: str, name: str,
+                    speed: float = 1.0, align_json: str = "None",
+                    rawsize: bool = False, rotate: float = 0.0,
+                    flow_scale: float = 1.0):
+        """→ (img (W, W, 3), flow (W, W, 2), out_w, out_h) per the protocol."""
+        from PIL import Image
+
+        from slrsfs_tpu_torch.data.transforms import transform_flow
+
+        W, n_frames = self.W, self.n_frames
+        img_pil = Image.open(image_path).convert("RGB")
+        out_w, out_h = img_pil.size if rawsize else (img_pil.size[0] // 2,
+                                                     img_pil.size[1] // 2)
+        img = np.asarray(img_pil.resize((W, W), Image.BILINEAR), np.float32)
+        img = (img / 255.0 - 0.5) / 0.5
+
+        flow = edit_flow(_load_flow(flow_path), rotate, flow_scale)
+        flow = transform_flow(flow, W, speed=speed)
+        if align_json and align_json != "None":
+            with open(align_json) as f:
+                align = json.load(f)
+            if name in align:
+                flow = flow * (align[name] / float(n_frames))
+        eps = self.sparsify_eps
+        if eps is None:
+            eps = 0.5 / n_frames if rawsize else 0.0
+        if eps > 0.0:
+            speed_px = np.sqrt(flow[..., 0] ** 2 + flow[..., 1] ** 2)
+            sub = speed_px < eps
+            zeroed = sub & (speed_px > 0)
+            if zeroed.any():
+                print(f"sparsify eps={eps:g}: zeroed {zeroed.mean():.1%} of "
+                      f"pixels (max trajectory drift "
+                      f"{speed_px[zeroed].max() * n_frames:.2f}px over "
+                      f"{n_frames} frames)")
+            flow = np.where(sub[..., None], 0.0, flow)
+        return img, np.asarray(flow, np.float32), out_w, out_h
+
+    def render(self, image_path: str, flow_path: str, save_dir: str,
+               name: str = None, speed: float = 1.0, align_json: str = "None",
+               rawsize: bool = False, rotate: float = 0.0,
+               flow_scale: float = 1.0, alpha_region_path: str = None) -> str:
+        if alpha_region_path:
+            raise _not_ported("--alpha-region (SLR two-layer model)", "§1 item 9")
+        name = name or os.path.splitext(os.path.basename(image_path))[0]
+        out_dir = os.path.join(save_dir, name)
+        os.makedirs(out_dir, exist_ok=True)
+        img, flow, out_w, out_h = self.load_inputs(
+            image_path, flow_path, name, speed, align_json, rawsize, rotate,
+            flow_scale)
+        frames = to_u8(self.frames(img, flow)).cpu().numpy()
+        return save_frames(frames, out_dir, name, out_w, out_h)
+
+
+def render_scene(image_path: str, flow_path: str, save_dir: str,
+                 ckpt: str = None, name: str = None, W: int = 256,
+                 n_frames: int = 60, speed: float = 1.0,
+                 align_json: str = "None", rawsize: bool = False,
+                 rotate: float = 0.0, flow_scale: float = 1.0,
+                 dtype: str = "float32", decode_batch: int = None,
+                 seed: int = 0, opt_overrides: dict = None,
+                 sparsify_eps: float = 0.0, device="cuda") -> str:
+    """One-shot render of one scene (the reference single-scene script)."""
+    r = SceneRenderer(ckpt=ckpt, W=W, n_frames=n_frames, dtype=dtype,
+                      decode_batch=decode_batch, seed=seed,
+                      opt_overrides=opt_overrides, sparsify_eps=sparsify_eps,
+                      device=device)
+    return r.render(image_path, flow_path, save_dir, name=name, speed=speed,
+                    align_json=align_json, rawsize=rawsize, rotate=rotate,
+                    flow_scale=flow_scale)
+
+
+def save_frames(frames: np.ndarray, out_dir: str, name: str, out_w: int,
+                out_h: int) -> str:
+    """uint8 (N, H, W, 3) RGB frames → PredImg/%06d.png at the output size and
+    PredImg_<name>.mp4 (ffmpeg, else OpenCV's writer)."""
+    import cv2
+
+    kdir = os.path.join(out_dir, "PredImg")
+    os.makedirs(kdir, exist_ok=True)
+    for t in range(frames.shape[0]):
+        im = cv2.resize(frames[t], (out_w, out_h), interpolation=cv2.INTER_LINEAR)
+        cv2.imwrite(os.path.join(kdir, f"{t:06d}.png"),
+                    cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+    mp4 = os.path.join(out_dir, f"PredImg_{name}.mp4")
+    try:
+        subprocess.run(
+            ["ffmpeg", "-loglevel", "quiet", "-framerate", "30", "-i",
+             os.path.join(kdir, "%06d.png"), "-y", mp4], check=True)
+    except (FileNotFoundError, subprocess.CalledProcessError):
+        vw = cv2.VideoWriter(mp4, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (out_w, out_h))
+        for t in range(frames.shape[0]):
+            vw.write(cv2.imread(os.path.join(kdir, f"{t:06d}.png")))
+        vw.release()
+    return out_dir
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("image")
+    p.add_argument("flow")
+    p.add_argument("save_dir")
+    p.add_argument("--ckpt", default=None)
+    p.add_argument("--name", default=None)
+    p.add_argument("--W", type=int, default=256)
+    p.add_argument("--n-frames", type=int, default=60)
+    p.add_argument("--speed", type=float, default=1.0)
+    p.add_argument("--align", default="None")
+    p.add_argument("--rawsize", action="store_true")
+    p.add_argument("--rotate", type=float, default=0.0)
+    p.add_argument("--flow-scale", type=float, default=1.0)
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16", "bfloat16-fast"],
+                   help="'bfloat16': bf16 encoder/decoder, f32 splat "
+                        "accumulation; 'bfloat16-fast' is not ported yet")
+    p.add_argument("--alpha-region", default=None,
+                   help="SLR two-layer edit region (not ported yet)")
+    p.add_argument("--motion-ckpt", default=None,
+                   help="motion-regressor checkpoint (not ported yet)")
+    p.add_argument("--shard-frames", action="store_true",
+                   help="shard frames over several GPUs (not ported yet)")
+    p.add_argument("--sparsify-eps", type=float, default=None,
+                   help="zero motion below this speed so dense estimated "
+                        "flows ride the sparse path; default: 0.5/N for "
+                        "--rawsize renders, 0 otherwise")
+    p.add_argument("--crop-decode", choices=["auto", "off"], default="off",
+                   help="'auto' (moving-region cropped decode) is not "
+                        "ported yet")
+    p.add_argument("--decode-batch", type=int, default=None,
+                   help="frames per decode chunk; default sizes the chunk "
+                        "to DECODE_PX_BUDGET")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu' for the plain path")
+    a = p.parse_args(argv)
+    r = SceneRenderer(ckpt=a.ckpt, W=a.W, n_frames=a.n_frames, dtype=a.dtype,
+                      motion_ckpt=a.motion_ckpt, decode_batch=a.decode_batch,
+                      shard_frames=a.shard_frames, sparsify_eps=a.sparsify_eps,
+                      crop_decode=a.crop_decode, device=a.device)
+    out = r.render(a.image, a.flow, a.save_dir, name=a.name, speed=a.speed,
+                   align_json=a.align, rawsize=a.rawsize, rotate=a.rotate,
+                   flow_scale=a.flow_scale, alpha_region_path=a.alpha_region)
+    print(f"rendered to {out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,79 @@
+"""Reference ``.pth`` checkpoints → the port's baseline model.
+
+A reference checkpoint is ``{state_dict, ..., opts}`` with the
+hyperparameters pickled as an argparse namespace (``train_animating.py:
+243-261``). The port's modules keep the reference's key names, so after the
+key surgery of ``slrsfs_tpu/io/checkpoint.py:64-77`` the state_dict loads
+directly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Tuple
+
+import torch
+
+from slrsfs_tpu_torch.config import Options
+
+_DROP_KEYS = ("xyzs", "ones", "Z_predictor", "min_z", "max_z", "discretized_zs")
+
+
+def opts_from_namespace(ns) -> Options:
+    """argparse.Namespace (pickled in the checkpoint) → typed Options."""
+    known = {f.name for f in dataclasses.fields(Options)}
+    kw = {}
+    for k, v in vars(ns).items():
+        if k in known:
+            kw[k] = tuple(v) if isinstance(v, list) else v
+    return Options(**kw)
+
+
+def _strip_prefixes(k: str, prefixes=("model.", "module.")) -> str:
+    stripped = True
+    while stripped:
+        stripped = False
+        for p in prefixes:
+            if k.startswith(p):
+                k, stripped = k[len(p):], True
+    return k
+
+
+def clean_state_dict(sd: Mapping) -> Dict:
+    """Drop DataParallel/BaseModel prefixes and the keys the reference drops;
+    apply the fix-motion remap (train_animating_fixmotion.py:438-446)."""
+    out = {}
+    for k, v in sd.items():
+        k = _strip_prefixes(k)
+        if any(part in _DROP_KEYS for part in k.split(".")):
+            continue
+        if k.startswith("motion_predictor."):
+            k = "motion_regressor." + k
+        out[k] = v
+    return out
+
+
+def load_baseline_state(model: torch.nn.Module, sd: Mapping) -> None:
+    """Copy the model's tensors out of a cleaned state_dict. Keys the model
+    does not have (training-only buffers, other heads) are ignored; a key the
+    model needs and the checkpoint lacks raises."""
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} keys, e.g. {missing[:3]}")
+    model.load_state_dict({k: sd[k] for k in own})
+
+
+def load_checkpoint(path: str) -> Tuple[Dict, Options]:
+    """(cleaned state_dict, Options) of a reference-style checkpoint, with
+    ``bn_noise_misc`` set as inference does (test_baseline_4eval.py:127)."""
+    # the options travel as a pickled argparse namespace
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    opt = opts_from_namespace(ckpt["opts"]) if "opts" in ckpt else Options()
+    opt = opt.replace(bn_noise_misc=True)
+    sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    if opt.model_type != "softmax_splating":
+        raise NotImplementedError(
+            f"model_type {opt.model_type!r} is not ported yet: the SLR "
+            "two-layer model is ROADMAP §1 item 9, the motion regressor item 11")
+    return clean_state_dict(sd), opt

@@ -1,0 +1,91 @@
+"""JAX variables → the port's ``state_dict``.
+
+``from_jax_variables`` is the inverse of ``slrsfs_tpu/io/torch_import.py``
+(:55-128): it takes the JAX ``{'params', 'batch_stats', 'spectral'}`` tree
+as numpy arrays and returns a ``state_dict`` under the reference's key
+names. Conv kernels go from HWIO to OIHW, dense kernels from (in, out) to
+(out, in), and a conv's spectral ``v`` from the (kh, kw, I) flattening back
+to torch's (I, kh, kw).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from slrsfs_tpu_torch.config import Options
+
+# torch module path segments → JAX module names
+_RENAMES = (
+    (re.compile(r"\bgblocks\.(\d+)\b"), r"gblock_\1"),
+    (re.compile(r"\beblocks\.(\d+)\b"), r"eblock_\1"),
+    (re.compile(r"\bch_a\.0\b"), "bn_noise1"),
+    (re.compile(r"\bch_a\.2\b"), "conv_aa"),
+    (re.compile(r"\bch_a\.3\b"), "bn_noise2"),
+    (re.compile(r"\bch_a\.5\b"), "conv_ab"),
+    (re.compile(r"\bch_b\.0\b"), "conv_b"),
+)
+
+
+def _get(tree: Mapping, path) -> np.ndarray:
+    node = tree
+    for p in path:
+        node = node[p]
+    return np.asarray(node, dtype=np.float32)
+
+
+def _jax_leaf(variables: Mapping, key: str, partial: set) -> np.ndarray:
+    """The JAX array behind one torch ``state_dict`` key."""
+    module, leaf = key.rsplit(".", 1)
+    for pat, rep in _RENAMES:
+        module = pat.sub(rep, module)
+    parts = module.split(".")
+    # a partial noise-BN wraps its NoiseBN in 'nbn'; its stats child is
+    # 'pbn' in torch and 'bn' in JAX
+    for i in range(len(parts), 0, -1):
+        if ".".join(parts[:i]) in partial:
+            parts = parts[:i] + ["nbn"] + parts[i:]
+            break
+    parts = ["bn" if p == "pbn" else p for p in parts]
+    if leaf in ("weight_orig", "weight"):
+        w = _get(variables["params"], parts + ["kernel"])
+        return w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T
+    if leaf == "weight_u":
+        return _get(variables["spectral"], parts + ["sn", "u"])
+    if leaf == "weight_v":
+        v = _get(variables["spectral"], parts + ["sn", "v"])
+        kernel = _get(variables["params"], parts + ["kernel"])
+        if kernel.ndim == 4:
+            kh, kw, i, _ = kernel.shape
+            v = v.reshape(kh, kw, i).transpose(2, 0, 1).reshape(-1)
+        return v
+    if leaf == "bias":
+        return _get(variables["params"], parts + ["bias"])
+    if leaf in ("stored_mean", "stored_var"):
+        return _get(variables["batch_stats"], parts + [leaf])
+    raise KeyError(f"no JAX counterpart for {key}")
+
+
+def from_jax_variables(variables_np: Mapping, opt: Options) -> Dict[str, torch.Tensor]:
+    """JAX BaselineModel variables (numpy leaves) → the port's state_dict."""
+    from slrsfs_tpu_torch.models.baseline import BaselineModel
+
+    with torch.device("meta"):
+        model = BaselineModel(opt)
+    partial = set()
+    for name, mod in model.named_modules():
+        if getattr(mod, "partial", False):
+            module = name
+            for pat, rep in _RENAMES:
+                module = pat.sub(rep, module)
+            partial.add(module)
+    sd = {}
+    for key, ref in model.state_dict().items():
+        arr = _jax_leaf(variables_np, key, partial)
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: JAX shape {arr.shape} != {tuple(ref.shape)}")
+        sd[key] = torch.tensor(arr)
+    return sd

@@ -1,0 +1,144 @@
+"""Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled on first use by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``. The
+library lands in ``build/kernels/`` at the repository root, named by a hash
+of its source and flags, so a changed source never loads a stale build.
+Nothing is compiled at import: this module imports on a host without CUDA.
+
+Every C entry point launches on the stream it is given (the wrapper passes
+``torch.cuda.current_stream()``) and returns ``cudaGetLastError()``; a
+non-zero code raises here. Each :class:`Kernel` counts its launches so that
+a run can show that the main path went through it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, List, Optional, Sequence
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "build", "kernels")
+# -fmad=false keeps the plain versions' rounding: without it nvcc may fuse a
+# multiply and an add that PyTorch rounds separately
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+class Kernel:
+    """One ``.cu`` source, its C entry point and its launch count."""
+
+    def __init__(self, name: str, source: str, symbol: str,
+                 argtypes: Sequence):
+        self.name = name
+        self.source = source  # path relative to the repository root
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.build_log = ""
+        self.build_seconds: Optional[float] = None
+        self._fn = None
+
+    @property
+    def _src_path(self) -> str:
+        return os.path.join(_CSRC, os.path.basename(self.source))
+
+    def _lib_path(self) -> str:
+        with open(self._src_path, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        return os.path.join(BUILD_DIR, f"{self.name}-{digest.hexdigest()[:16]}.so")
+
+    def _start_build(self):
+        """Start nvcc unless the library exists; returns (Popen, tmp, lib)."""
+        lib = self._lib_path()
+        if os.path.exists(lib):
+            return None, None, lib
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, self._src_path]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, lib
+
+    def _finish_build(self, proc, tmp: str, lib: str, t0: float) -> None:
+        if proc is not None:
+            out, _ = proc.communicate()
+            self.build_log = out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
+            os.replace(tmp, lib)
+        self.build_seconds = time.perf_counter() - t0
+        fn = getattr(ctypes.CDLL(lib), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+
+    def load(self) -> None:
+        if self._fn is None:
+            t0 = time.perf_counter()
+            self._finish_build(*self._start_build(), t0)
+
+    def launch(self, *args) -> None:
+        """Call the C entry point; raises on a non-zero CUDA error code."""
+        self.load()
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(f"CUDA error {err} launching {self.name}")
+        self.launches += 1
+
+
+EULER = Kernel(
+    "euler_compact_dual", "slrsfs_tpu_torch/csrc/euler.cu",
+    "euler_compact_dual",
+    # motion, positions, disp_f, disp_b, P, H, W, n_fwd, n_bwd, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+
+SPLAT = Kernel(
+    "splat_dual_normalize", "slrsfs_tpu_torch/csrc/splat.cu",
+    "splat_dual_normalize",
+    # u_mov, positions, valid, disp_a, disp_b, w_a, w_b, u_static, acc, out,
+    # P, C1, H, W, out_bf16, stream
+    [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+
+KERNELS: List[Kernel] = [EULER, SPLAT]
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every kernel not yet built, one nvcc per source, all at once.
+    Returns seconds per kernel (build and load)."""
+    t0 = time.perf_counter()
+    started = [(k, k._start_build()) for k in KERNELS if k._fn is None]
+    for k, job in started:
+        k._finish_build(*job, t0)
+    return {k.name: k.build_seconds for k in KERNELS}
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}

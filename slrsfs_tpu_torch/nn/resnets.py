@@ -1,0 +1,69 @@
+"""The baseline's encoder and partial-conv decoder, eval mode (PyTorch port of
+``slrsfs_tpu/nn/resnets.py``). NCHW inside; the children are named as in the
+reference (``gblocks.{i}``, ``eblocks.{i}``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from slrsfs_tpu_torch.config import Options, partial_bn, spectral, woresbias
+from slrsfs_tpu_torch.nn.archs import get_resnet_arch
+from slrsfs_tpu_torch.nn.blocks import ResNetBlock, ResNetBlockPconv2
+
+Tensor = torch.Tensor
+
+
+class ResNetEncoderWithZ(nn.Module):
+    """Encoder whose last block emits one extra channel, returned as Z
+    (reference architectures.py:155-197)."""
+
+    def __init__(self, opt: Options, in_channels: int = 3,
+                 model_type: Optional[str] = None):
+        super().__init__()
+        arch = get_resnet_arch(model_type or opt.refine_model_type, opt,
+                               in_channels)
+        layers = list(arch["layers_enc"])
+        layers[-1] += 1
+        self.gblocks = nn.ModuleList(
+            ResNetBlock(layers[i - 1], layers[i],
+                        downsample=arch["downsample"][i - 1],
+                        spectral=spectral(opt))
+            for i in range(1, len(layers)))
+
+    def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        for blk in self.gblocks:
+            x = blk(x)
+        return x[:, :-1], x[:, -1:]
+
+
+class ResNetDecoderPconv2(nn.Module):
+    """Partial-conv decoder; holes are where the splatted input is exactly 0
+    (reference architectures.py:345-375). ``in_channels`` is the live input
+    width, the encoder's feature width."""
+
+    def __init__(self, opt: Options, in_channels: int,
+                 model_type: Optional[str] = None):
+        super().__init__()
+        arch = get_resnet_arch(model_type or opt.refine_model_type, opt)
+        self.mask_all_ones = "mask1" in opt.pconv
+        layers = list(arch["layers_dec"])
+        layers[0] = in_channels
+        acts = arch.get("activation", ["Relu"] * (len(layers) - 1))
+        self.eblocks = nn.ModuleList(
+            ResNetBlockPconv2(layers[i - 1], layers[i],
+                              downsample=arch["upsample"][i - 1],
+                              activation=acts[i - 1],
+                              spectral=spectral(opt),
+                              partial_bn=partial_bn(opt),
+                              shortcut_bias=not woresbias(opt))
+            for i in range(1, len(layers)))
+
+    def forward(self, x: Tensor) -> Tensor:
+        mask = torch.ones_like(x) if self.mask_all_ones else (x != 0).to(x.dtype)
+        for blk in self.eblocks:
+            x, mask = blk(x, mask)
+        return x

@@ -1,0 +1,161 @@
+"""Forward-warping (splatting) ops (PyTorch port of ``slrsfs_tpu/ops/splat.py``).
+
+Layout is NHWC and a displacement is ``(..., 2)`` with channel 0 = x. Every
+source pixel ``(y, x)`` moves to ``(x + u, y + v)`` and its value is split
+bilinearly over the four integer neighbours of the target; corners outside
+the grid are dropped.
+
+``splat_dual_normalize`` is the main path's kernel wrapper (K2,
+``csrc/splat.cu``): the dual-ended sparse splat plus the softmax-splat
+normalisation of ``slrsfs_tpu/engine/rollout.py:577-581``.
+``splat_dual_normalize_plain`` is its plain version (``index_add_`` into a
+flat buffer, then the division). ``softsplat_sum`` is the plain dense
+forward splat used by the dense rollout.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from slrsfs_tpu_torch import kernels
+
+Tensor = torch.Tensor
+
+NORM_EPS = 1e-8  # reference animating_softmax_splating.py:691
+
+
+def _corner_taps(ox: Tensor, oy: Tensor, height: int, width: int
+                 ) -> List[Tuple[Tensor, Tensor]]:
+    """Flat target index (clipped) and validity-masked bilinear weight of the
+    four corners (NW, NE, SW, SE) of target positions ``(ox, oy)``."""
+    x0f = torch.floor(ox)
+    y0f = torch.floor(oy)
+    dx = ox - x0f
+    dy = oy - y0f
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    taps = []
+    for cx, cy, w in ((x0, y0, (1.0 - dx) * (1.0 - dy)),
+                      (x0 + 1, y0, dx * (1.0 - dy)),
+                      (x0, y0 + 1, (1.0 - dx) * dy),
+                      (x0 + 1, y0 + 1, dx * dy)):
+        valid = (cx >= 0) & (cx < width) & (cy >= 0) & (cy < height)
+        lin = cy.clamp(0, height - 1) * width + cx.clamp(0, width - 1)
+        taps.append((lin, torch.where(valid, w, torch.zeros_like(w))))
+    return taps
+
+
+def softsplat_sum(inp: Tensor, flow: Tensor) -> Tensor:
+    """Summation forward splat (plain). inp (B, H, W, C), flow (B, H, W, 2).
+
+    Weights are computed at flow precision and cast to ``inp.dtype``, as the
+    JAX ``_splat_sum_single`` does."""
+    B, H, W, C = inp.shape
+    xs = torch.arange(W, dtype=flow.dtype, device=flow.device)[None, :]
+    ys = torch.arange(H, dtype=flow.dtype, device=flow.device)[:, None]
+    out = torch.zeros((B, H * W, C), dtype=inp.dtype, device=inp.device)
+    for b in range(B):
+        ox = (xs + flow[b, ..., 0]).reshape(-1)
+        oy = (ys + flow[b, ..., 1]).reshape(-1)
+        rows = inp[b].reshape(H * W, C)
+        for lin, w in _corner_taps(ox, oy, H, W):
+            out[b].index_add_(0, lin, rows * w.to(inp.dtype)[:, None])
+    return out.reshape(B, H, W, C)
+
+
+def splat_dual_normalize_plain(u_mov: Tensor, positions: Tensor,
+                               valid: Tensor, disp_a: Tensor, disp_b: Tensor,
+                               w_a: float, w_b: float, u_static: Tensor,
+                               out_dtype: torch.dtype) -> Tensor:
+    """Plain version of K2.
+
+    u_mov (P, C+1) f32 moving rows; positions (P, 2) int [x, y]; valid (P,)
+    f32, rows with 0 are padding and contribute nothing; disp_a / disp_b
+    (P, 2) f32; w_a / w_b the temporal weights; u_static (H, W, C+1) f32, the
+    accumulator's start. Returns ``g[..., :C] / max(g[..., C], 1e-8)`` in
+    ``out_dtype``, shape (H, W, C), where ``g = u_static + splat(u_mov·w_a,
+    disp_a) + splat(u_mov·w_b, disp_b)``.
+    """
+    H, W, C1 = u_static.shape
+    acc = u_static.reshape(H * W, C1).clone()
+    keep = (valid != 0).to(u_mov.dtype)
+    px = positions[:, 0].to(disp_a.dtype)
+    py = positions[:, 1].to(disp_a.dtype)
+    for w_t, disp in ((w_a, disp_a), (w_b, disp_b)):
+        rows = u_mov * w_t
+        for lin, w in _corner_taps(px + disp[:, 0], py + disp[:, 1], H, W):
+            acc.index_add_(0, lin, rows * (w * keep)[:, None])
+    g = acc.reshape(H, W, C1)
+    return (g[..., :-1] / torch.clamp(g[..., -1:], min=NORM_EPS)).to(out_dtype)
+
+
+def _check_splat(u_mov, positions, valid, disp_a, disp_b, u_static, out):
+    P, C1 = u_mov.shape
+    H, W, C1s = u_static.shape
+    shapes = {"positions": (positions, (P, 2), torch.int32),
+              "valid": (valid, (P,), torch.float32),
+              "disp_a": (disp_a, (P, 2), torch.float32),
+              "disp_b": (disp_b, (P, 2), torch.float32),
+              "u_mov": (u_mov, (P, C1), torch.float32),
+              "u_static": (u_static, (H, W, C1), torch.float32)}
+    for name, (t, shape, dtype) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != u_mov.device:
+            raise ValueError(f"{name} is on {t.device}, u_mov on {u_mov.device}")
+    if tuple(out.shape) != (H, W, C1 - 1):
+        raise ValueError(f"out must be {(H, W, C1 - 1)}, got {tuple(out.shape)}")
+    if out.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out must be float32 or bfloat16, got {out.dtype}")
+    if out.device != u_mov.device:
+        raise ValueError(f"out is on {out.device}, u_mov on {u_mov.device}")
+    for name, t in dict(u_mov=u_mov, positions=positions, valid=valid,
+                        disp_a=disp_a, disp_b=disp_b, u_static=u_static,
+                        out=out).items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def splat_dual_normalize(u_mov: Tensor, positions: Tensor, valid: Tensor,
+                         disp_a: Tensor, disp_b: Tensor, w_a: float,
+                         w_b: float, u_static: Tensor, out: Tensor,
+                         acc: Tensor = None) -> Tensor:
+    """K2 wrapper: writes ``splat_dual_normalize_plain(...)`` into ``out``
+    ((H, W, C), f32 or bf16, e.g. one frame slot of a decode chunk).
+
+    On the card the CUDA kernel computes it, with ``acc`` ((H·W·(C+1),) f32)
+    as its scratch accumulator (allocated when None); on the CPU the plain
+    version does."""
+    _check_splat(u_mov, positions, valid, disp_a, disp_b, u_static, out)
+    if u_mov.device.type == "cpu":
+        out.copy_(splat_dual_normalize_plain(u_mov, positions, valid, disp_a,
+                                             disp_b, w_a, w_b, u_static,
+                                             out.dtype))
+        return out
+    if u_mov.device.type != "cuda":
+        raise ValueError(f"unsupported device {u_mov.device}")
+    H, W, C1 = u_static.shape
+    if acc is None:
+        acc = torch.empty((H * W * C1,), dtype=torch.float32,
+                          device=u_mov.device)
+    if acc.dtype != torch.float32 or acc.numel() != H * W * C1 \
+            or acc.device != u_mov.device or not acc.is_contiguous():
+        raise ValueError("acc must be a contiguous float32 buffer of "
+                         "H*W*(C+1) elements on the inputs' device")
+    named = dict(u_mov=u_mov, positions=positions, valid=valid, disp_a=disp_a,
+                 disp_b=disp_b, u_static=u_static, acc=acc, out=out)
+    for name, t in named.items():
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned")
+    with torch.cuda.device(u_mov.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.SPLAT.launch(
+            u_mov.data_ptr(), positions.data_ptr(), valid.data_ptr(),
+            disp_a.data_ptr(), disp_b.data_ptr(), float(w_a), float(w_b),
+            u_static.data_ptr(), acc.data_ptr(), out.data_ptr(),
+            u_mov.shape[0], C1, H, W, int(out.dtype == torch.bfloat16), stream)
+    return out

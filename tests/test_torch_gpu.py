@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain versions on a card.
+
+Every test here needs a CUDA device and skips without one. The file imports
+no JAX, so it also runs where JAX is absent:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+K1 must match bit for bit (same arithmetic, no FMA contraction); K2 sums
+with atomics in another order, so it is held at 1e-5; a rollout through
+the kernels is held at 1e-4 against one through the plain versions."""
+
+import numpy as np
+import pytest
+import torch
+
+from slrsfs_tpu_torch import kernels
+from slrsfs_tpu_torch.config import Options
+from slrsfs_tpu_torch.engine.rollout import baseline_rollout_sparse, prepare_scene_sparse
+from slrsfs_tpu_torch.models.baseline import BaselineModel, init_random_weights
+from slrsfs_tpu_torch.ops.euler import euler_compact_dual, euler_compact_dual_plain
+from slrsfs_tpu_torch.ops.splat import splat_dual_normalize, splat_dual_normalize_plain
+
+H, W = 40, 36
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _motion(seed, half_integer=False):
+    rng = np.random.default_rng(seed)
+    m = (rng.standard_normal((H, W, 2)) * 1.4).astype(np.float32)
+    if half_integer:
+        m = np.round(m * 2.0) / 2.0
+    m[H - 5:, :, 1] += 5.0  # leaves the frame within a few steps
+    m[: H // 3] = 0.0
+    return m.astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half_integer", [False, True])
+def test_k1_matches_plain_on_card(half_integer):
+    dev = _card()
+    m = _motion(0, half_integer)
+    pos, _ = prepare_scene_sparse(m, pad_multiple=64)
+    motion, positions = torch.from_numpy(m).to(dev), torch.from_numpy(pos).to(dev)
+    kf, kb = euler_compact_dual(motion, positions, 9, 10)
+    pf, pb = euler_compact_dual_plain(motion, positions, 9, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(kf, pf) and torch.equal(kb, pb)
+    assert (kb == max(H, W) + 1).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k2_matches_plain_on_card(out_dtype):
+    dev = _card()
+    rng = np.random.default_rng(1)
+    m = _motion(1)
+    pos, val = prepare_scene_sparse(m, pad_multiple=64)
+    C1 = 17
+    ez = np.exp(-rng.uniform(0, 3, (H, W, 1))).astype(np.float32)
+    u = np.concatenate([rng.standard_normal((H, W, C1 - 1)).astype(np.float32)
+                        * ez, ez], -1)
+    static = np.all(m == 0, axis=-1).astype(np.float32)[..., None]
+    disp_f, disp_b = euler_compact_dual_plain(torch.from_numpy(m),
+                                              torch.from_numpy(pos), 4, 5)
+    da = disp_f[3].clone()
+    da[0::3] = max(H, W) + 1  # OOB sentinel
+    da[1::3] = torch.tensor([3.0, -2.0])  # integer shift
+    t = [torch.from_numpy(x).to(dev) for x in
+         (u[pos[:, 1], pos[:, 0]] * val[:, None], pos, val)]
+    t += [da.to(dev), disp_b[2].to(dev)]
+    u_static = torch.from_numpy(u * static).to(dev)
+    out = torch.empty((H, W, C1 - 1), dtype=out_dtype, device=dev)
+    kernels.reset_counts()
+    splat_dual_normalize(*t, 0.4, 0.6, u_static, out=out)
+    assert kernels.counts()["splat_dual_normalize"] == 1
+    ref = splat_dual_normalize_plain(*t, 0.4, 0.6, u_static, out_dtype)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if out_dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-5)
+    assert torch.equal(out == 0, ref == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rollout_kernels_match_plain_on_card(dtype):
+    dev = _card()
+    opt = Options(ngf=16, W=32, bn_noise_misc=True)
+    model = BaselineModel(opt).eval()
+    init_random_weights(model, seed=0)
+    model = model.to(dev)
+    rng = np.random.default_rng(2)
+    flow = (rng.standard_normal((32, 32, 2)) * 1.2).astype(np.float32)
+    flow[:16] = 0.0
+    pos, val = prepare_scene_sparse(flow, pad_multiple=64)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32))
+    args = (model, img.to(dev), torch.from_numpy(flow).to(dev), 6,
+            torch.from_numpy(pos).to(dev), torch.from_numpy(val).to(dev))
+    kernels.reset_counts()
+    got = baseline_rollout_sparse(*args, decode_batch=3, compute_dtype=dtype)
+    assert kernels.counts() == {"euler_compact_dual": 1, "splat_dual_normalize": 6}
+    want = baseline_rollout_sparse(*args, decode_batch=3, compute_dtype=dtype,
+                                   plain=True)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)

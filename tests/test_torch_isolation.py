@@ -1,0 +1,61 @@
+"""The port stands alone: importing any of its modules (or chip_smoke.py)
+pulls in neither JAX nor the JAX package, builds no kernel, and its entry
+points refuse to run without a card unless asked for the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = textwrap.dedent("""
+    import importlib, json, pkgutil, runpy, sys
+    import slrsfs_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        slrsfs_tpu_torch.__path__, "slrsfs_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")
+    from slrsfs_tpu_torch import kernels
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                           "slrsfs_tpu"))
+    built = [k.name for k in kernels.KERNELS if k._fn is not None]
+    print(json.dumps({"n": len(names), "leaked": leaked, "built": built}))
+""")
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["n"] >= 20, res
+    assert res["leaked"] == [], res
+    assert res["built"] == [], res
+
+
+def test_scene_renderer_without_card_raises():
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SceneRenderer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SceneRenderer(W=16, n_frames=2, opt_overrides=dict(ngf=8), device="cuda")
+
+
+def test_chip_smoke_fails_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
