@@ -3,13 +3,17 @@
     python -m slrsfs_tpu_torch.cli.render IMAGE FLOW SAVE_DIR [--ckpt CKPT] ...
 
 PyTorch port of ``slrsfs_tpu/cli/render.py`` for the single-layer baseline
-(``model_type=softmax_splating``) without crop decode. Protocol: the input is
-resized to W² (PIL bilinear) and normalised to [-1, 1]; the flow is scaled
-by W/source · speed and nearest-resized (test_baseline_4eval.py:161-184);
-an optional align.json rescales it by frame/N (:198-202); frames go to
-<save_dir>/<name>/PredImg/%06d.png at the output size (raw, or half the
-input image) and into an mp4. Flow editing: --speed, --rotate (degrees) and
---flow-scale.
+(``model_type=softmax_splating``) and the SLR two-layer model
+(``softmax_splating_2layers_alpha_seperate``), with any Z-norm the
+checkpoint's options select (v2 included), without crop decode. Protocol:
+the input is resized to W² (PIL bilinear) and normalised to [-1, 1]; the
+flow is scaled by W/source · speed and nearest-resized
+(test_baseline_4eval.py:161-184); an optional align.json rescales it by
+frame/N (:198-202); frames go to <save_dir>/<name>/<key>/%06d.png at the
+output size (raw, or half the input image) and into one mp4 per key: PredImg
+for the baseline, PredImg, FluidImg and CompositeFluidAlpha plus BGImg.png
+for SLR. --alpha-region (a grayscale image) keeps the SLR composite inside
+the region. Flow editing: --speed, --rotate (degrees) and --flow-scale.
 """
 
 from __future__ import annotations
@@ -29,6 +33,12 @@ import torch
 # 256^2 adds 14.68 GiB, 4008 bytes per pixel-frame (bfloat16: 1290), so half
 # of the card's 79.2 GiB holds 10.6 M float32 pixel-frames.
 DECODE_PX_BUDGET = 10_000_000
+# An SLR chunk runs the fluid and the alpha decoder one after the other and
+# also holds the 65-channel splat field, the accumulator and the outputs. A
+# whole float32 SLR render with 60-frame chunks at 256^2 adds 15.86 GiB,
+# 4332 bytes per pixel-frame (bfloat16: 1482; same card and script), so half
+# of the card holds 9.8 M float32 pixel-frames.
+DECODE_PX_BUDGET_SLR = 9_500_000
 
 
 def edit_flow(flow: np.ndarray, rotate_deg: float = 0.0,
@@ -43,10 +53,12 @@ def edit_flow(flow: np.ndarray, rotate_deg: float = 0.0,
     return flow * scale
 
 
-def auto_decode_batch(n_frames: int, area: int, cap: int = 60) -> int:
+def auto_decode_batch(n_frames: int, area: int, slr: bool = False,
+                      cap: int = 60) -> int:
     """Largest divisor of ``n_frames`` (<= cap) whose decode chunk fits the
     budget for a decode window of ``area`` pixels."""
-    db = max(1, min(cap, n_frames, DECODE_PX_BUDGET // max(1, area)))
+    budget = DECODE_PX_BUDGET_SLR if slr else DECODE_PX_BUDGET
+    db = max(1, min(cap, n_frames, budget // max(1, area)))
     while n_frames % db:
         db -= 1
     return db
@@ -61,10 +73,21 @@ def _load_flow(path: str) -> np.ndarray:
     return motion_to_hw2(load_compressed_tensor(path))
 
 
-def to_u8(frames: torch.Tensor) -> torch.Tensor:
-    """[-1, 1] frames → uint8 [0, 255], rounded, on the frames' device."""
-    v = frames.to(torch.float32) * 0.5 + 0.5
+def to_u8(frames: torch.Tensor, image: bool = True) -> torch.Tensor:
+    """[-1, 1] frames (``image``) or [0, 1] alpha maps → uint8 [0, 255],
+    rounded, on the frames' device."""
+    v = frames.to(torch.float32)
+    if image:
+        v = v * 0.5 + 0.5
     return (v.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def outputs_to_u8(outs) -> dict:
+    """{key: uint8 numpy} of a rollout's outputs: a tensor is PredImg; keys
+    with 'Img' are [-1, 1] images, the others [0, 1] alpha maps."""
+    if torch.is_tensor(outs):
+        outs = {"PredImg": outs}
+    return {k: to_u8(v, image="Img" in k).cpu().numpy() for k, v in outs.items()}
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -94,8 +117,13 @@ class SceneRenderer:
                  sparsify_eps: float = None, crop_decode: str = "off",
                  device="cuda"):
         from slrsfs_tpu_torch.config import Options
-        from slrsfs_tpu_torch.io.checkpoint import load_baseline_state, load_checkpoint
+        from slrsfs_tpu_torch.io.checkpoint import (
+            RENDER_MODEL_TYPES,
+            load_checkpoint,
+            load_model_state,
+        )
         from slrsfs_tpu_torch.models.baseline import BaselineModel, init_random_weights
+        from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRModel
 
         if dtype == "bfloat16-fast":
             raise _not_ported("--dtype bfloat16-fast (bf16 splat accumulation)",
@@ -117,14 +145,13 @@ class SceneRenderer:
             opt = opt.replace(W=W)
         else:  # random weights (smoke/benchmark mode)
             opt = Options(W=W, bn_noise_misc=True, **(opt_overrides or {}))
-        if opt.model_type != "softmax_splating":
-            raise _not_ported(f"model_type {opt.model_type!r}", "§1 item 9")
-        if opt.use_softmax_splatter_v2:
-            raise _not_ported("v2 Z-norm", "§1 item 10")
+        if opt.model_type not in RENDER_MODEL_TYPES:
+            raise _not_ported(f"model_type {opt.model_type!r}", "§1 item 11")
         self.opt = opt
-        model = BaselineModel(opt).eval()
+        self.slr = opt.model_type == SLR_MODEL_TYPE
+        model = (SLRModel if self.slr else BaselineModel)(opt).eval()
         if ckpt:
-            load_baseline_state(model, sd)
+            load_model_state(model, sd)
         else:
             init_random_weights(model, seed)
         self.compute_dtype = (torch.bfloat16 if dtype == "bfloat16"
@@ -143,28 +170,39 @@ class SceneRenderer:
     def decode_batch_for(self, area: int) -> int:
         if self.decode_batch is not None:
             return self.decode_batch
-        return auto_decode_batch(self.n_frames, area)
+        return auto_decode_batch(self.n_frames, area, slr=self.slr)
 
-    def frames(self, img: np.ndarray, flow: np.ndarray,
-               plain: bool = False) -> torch.Tensor:
-        """img (W, W, 3) in [-1, 1], flow (W, W, 2) in output pixels →
-        (N, W, W, 3) float32 frames in [-1, 1] on the device. ``plain`` runs
-        the kernels' plain PyTorch versions instead of the kernels."""
+    def frames(self, img: np.ndarray, flow: np.ndarray, plain: bool = False,
+               alpha_region: np.ndarray = None):
+        """img (W, W, 3) in [-1, 1], flow (W, W, 2) in output pixels → on
+        the device, the baseline's (N, W, W, 3) float32 frames in [-1, 1],
+        or SLR's dict of PredImg, FluidImg (N, W, W, 3), CompositeFluidAlpha
+        (N, W, W, 1) and BGImg (W, W, 3). ``alpha_region`` (W, W) in [0, 1]
+        is the SLR edit region (the baseline ignores it, as the JAX CLI
+        does). ``plain`` runs the kernels' plain PyTorch versions instead of
+        the kernels."""
         from slrsfs_tpu_torch.engine.rollout import (
             baseline_rollout_sparse,
             prepare_scene_sparse,
+            slr_rollout_sparse,
         )
 
         positions, valid = prepare_scene_sparse(flow)
         dev = self.device
-        img = np.ascontiguousarray(img, np.float32)[None]
-        flow = np.ascontiguousarray(flow, np.float32)
-        return baseline_rollout_sparse(
-            self.model, torch.from_numpy(img).to(dev), torch.from_numpy(flow).to(dev),
-            self.n_frames, torch.from_numpy(positions).to(dev),
-            torch.from_numpy(valid).to(dev),
-            decode_batch=self.decode_batch_for(self.W * self.W),
-            compute_dtype=self.compute_dtype, plain=plain)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        args = (self.model, t(np.asarray(img, np.float32)[None]),
+                t(np.asarray(flow, np.float32)), self.n_frames, t(positions),
+                t(valid))
+        kw = dict(decode_batch=self.decode_batch_for(self.W * self.W),
+                  compute_dtype=self.compute_dtype, plain=plain)
+        if not self.slr:
+            return baseline_rollout_sparse(*args, **kw)
+        region = (None if alpha_region is None
+                  else t(np.asarray(alpha_region, np.float32)[None, ..., None]))
+        return slr_rollout_sparse(*args, alpha_region=region, **kw)
 
     def load_inputs(self, image_path: str, flow_path: str, name: str,
                     speed: float = 1.0, align_json: str = "None",
@@ -208,16 +246,20 @@ class SceneRenderer:
                name: str = None, speed: float = 1.0, align_json: str = "None",
                rawsize: bool = False, rotate: float = 0.0,
                flow_scale: float = 1.0, alpha_region_path: str = None) -> str:
-        if alpha_region_path:
-            raise _not_ported("--alpha-region (SLR two-layer model)", "§1 item 9")
+        from PIL import Image
+
         name = name or os.path.splitext(os.path.basename(image_path))[0]
         out_dir = os.path.join(save_dir, name)
         os.makedirs(out_dir, exist_ok=True)
         img, flow, out_w, out_h = self.load_inputs(
             image_path, flow_path, name, speed, align_json, rawsize, rotate,
             flow_scale)
-        frames = to_u8(self.frames(img, flow)).cpu().numpy()
-        return save_frames(frames, out_dir, name, out_w, out_h)
+        region = None
+        if alpha_region_path:
+            r = Image.open(alpha_region_path).convert("L").resize((self.W, self.W))
+            region = np.asarray(r, np.float32) / 255.0
+        outs = outputs_to_u8(self.frames(img, flow, alpha_region=region))
+        return save_outputs(outs, out_dir, name, out_w, out_h)
 
 
 def render_scene(image_path: str, flow_path: str, save_dir: str,
@@ -227,7 +269,8 @@ def render_scene(image_path: str, flow_path: str, save_dir: str,
                  rotate: float = 0.0, flow_scale: float = 1.0,
                  dtype: str = "float32", decode_batch: int = None,
                  seed: int = 0, opt_overrides: dict = None,
-                 sparsify_eps: float = 0.0, device="cuda") -> str:
+                 sparsify_eps: float = 0.0, alpha_region_path: str = None,
+                 device="cuda") -> str:
     """One-shot render of one scene (the reference single-scene script)."""
     r = SceneRenderer(ckpt=ckpt, W=W, n_frames=n_frames, dtype=dtype,
                       decode_batch=decode_batch, seed=seed,
@@ -235,32 +278,42 @@ def render_scene(image_path: str, flow_path: str, save_dir: str,
                       device=device)
     return r.render(image_path, flow_path, save_dir, name=name, speed=speed,
                     align_json=align_json, rawsize=rawsize, rotate=rotate,
-                    flow_scale=flow_scale)
+                    flow_scale=flow_scale, alpha_region_path=alpha_region_path)
 
 
-def save_frames(frames: np.ndarray, out_dir: str, name: str, out_w: int,
-                out_h: int) -> str:
-    """uint8 (N, H, W, 3) RGB frames → PredImg/%06d.png at the output size and
-    PredImg_<name>.mp4 (ffmpeg, else OpenCV's writer)."""
+def save_outputs(outs: dict, out_dir: str, name: str, out_w: int,
+                 out_h: int) -> str:
+    """{key: uint8 array} → per (N, H, W, C) key <key>/%06d.png at the output
+    size (alpha maps as gray RGB) and <key>_<name>.mp4 (ffmpeg, else
+    OpenCV's writer); a single (H, W, 3) image → <key>.png. As the JAX
+    ``_save_outputs``."""
     import cv2
 
-    kdir = os.path.join(out_dir, "PredImg")
-    os.makedirs(kdir, exist_ok=True)
-    for t in range(frames.shape[0]):
-        im = cv2.resize(frames[t], (out_w, out_h), interpolation=cv2.INTER_LINEAR)
-        cv2.imwrite(os.path.join(kdir, f"{t:06d}.png"),
-                    cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
-    mp4 = os.path.join(out_dir, f"PredImg_{name}.mp4")
-    try:
-        subprocess.run(
-            ["ffmpeg", "-loglevel", "quiet", "-framerate", "30", "-i",
-             os.path.join(kdir, "%06d.png"), "-y", mp4], check=True)
-    except (FileNotFoundError, subprocess.CalledProcessError):
-        vw = cv2.VideoWriter(mp4, cv2.VideoWriter_fourcc(*"mp4v"), 30,
-                             (out_w, out_h))
-        for t in range(frames.shape[0]):
-            vw.write(cv2.imread(os.path.join(kdir, f"{t:06d}.png")))
-        vw.release()
+    def write(path, im):
+        if im.shape[-1] == 1:
+            im = np.repeat(im, 3, -1)
+        im = cv2.resize(im, (out_w, out_h), interpolation=cv2.INTER_LINEAR)
+        cv2.imwrite(path, cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+
+    for key, arr in outs.items():
+        if arr.ndim == 3:
+            write(os.path.join(out_dir, f"{key}.png"), arr)
+            continue
+        kdir = os.path.join(out_dir, key)
+        os.makedirs(kdir, exist_ok=True)
+        for t in range(arr.shape[0]):
+            write(os.path.join(kdir, f"{t:06d}.png"), arr[t])
+        mp4 = os.path.join(out_dir, f"{key}_{name}.mp4")
+        try:
+            subprocess.run(
+                ["ffmpeg", "-loglevel", "quiet", "-framerate", "30", "-i",
+                 os.path.join(kdir, "%06d.png"), "-y", mp4], check=True)
+        except (FileNotFoundError, subprocess.CalledProcessError):
+            vw = cv2.VideoWriter(mp4, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                                 (out_w, out_h))
+            for t in range(arr.shape[0]):
+                vw.write(cv2.imread(os.path.join(kdir, f"{t:06d}.png")))
+            vw.release()
     return out_dir
 
 
@@ -283,7 +336,8 @@ def main(argv=None):
                    help="'bfloat16': bf16 encoder/decoder, f32 splat "
                         "accumulation; 'bfloat16-fast' is not ported yet")
     p.add_argument("--alpha-region", default=None,
-                   help="SLR two-layer edit region (not ported yet)")
+                   help="SLR edit region: a grayscale image, white where the "
+                        "two-layer composite applies")
     p.add_argument("--motion-ckpt", default=None,
                    help="motion-regressor checkpoint (not ported yet)")
     p.add_argument("--shard-frames", action="store_true",

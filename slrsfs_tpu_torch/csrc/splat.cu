@@ -11,6 +11,16 @@
 // over the four integer neighbours with bilinear weights, dropping corners
 // outside the grid.
 //
+// A second entry, splat_dual_normalize_slr, runs the same splat with the
+// SLR epilogue of slrsfs_tpu/models/slr.py:slr_unpack_splatted (:228, the
+// use_alpha0 layout [fs*e^Z (C-1), af*e^C, e^C, e^Z], C1 = C + 2):
+//
+//   out = [g[..., :C-1] / max(g[..., C+1], 1e-8), g[..., C-1] / max(g[..., C], 1e-8)]
+//
+// i.e. the warped features over the Z normaliser and the warped fluid alpha
+// over the blending-weight normaliser, 65 channels at full width, written
+// into the decode chunk's slot that both SLR decoders read.
+//
 // What bounds it on an H100: bytes. Per frame it reads the moving rows
 // (P x 65 f32), their positions and two displacement fields, the static
 // identity (H x W x 65 f32) and writes the normalised field (H x W x 64);
@@ -28,6 +38,7 @@
 //  (c) epilogue: one thread per output element divides by the clamped
 //      weight channel and stores f32 or bf16 (round to nearest even) into
 //      the decode chunk's slot, which is NHWC in memory.
+// The SLR epilogue is step (c) with a second divisor per pixel.
 // Cells no moving tap reaches keep u_static exactly, so the decoder's
 // x != 0 hole mask is unchanged. Atomic summation order differs from the
 // deterministic XLA scatter, so results agree to float rounding, not bits.
@@ -99,6 +110,44 @@ __global__ void splat_normalize_kernel(const float* __restrict__ acc,
   out[i] = from_f32<T>(g[c] / fmaxf(g[C], 1e-8f));
 }
 
+// SLR epilogue: acc rows are [fs (C-1), af, e^C, e^Z] (C + 2 channels).
+template <typename T>
+__global__ void splat_normalize_slr_kernel(const float* __restrict__ acc,
+                                           T* __restrict__ out, int HW,
+                                           int C) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)HW * C) return;
+  const int pix = (int)(i / C);
+  const int c = (int)(i - (long long)pix * C);
+  const float* g = acc + (size_t)pix * (C + 2);
+  const float den = c < C - 1 ? g[C + 1] : g[C];
+  out[i] = from_f32<T>(g[c] / fmaxf(den, 1e-8f));
+}
+
+static const int kThreads = 256;
+
+// steps (a) and (b): acc = u_static + both ends' splats
+static cudaError_t splat_accumulate(const void* u_mov, const void* positions,
+                                    const void* valid, const void* disp_a,
+                                    const void* disp_b, float w_a, float w_b,
+                                    const void* u_static, void* acc, int P,
+                                    int C1, int H, int W, cudaStream_t s) {
+  const size_t acc_bytes = (size_t)H * W * C1 * sizeof(float);
+  cudaError_t err =
+      cudaMemcpyAsync(acc, u_static, acc_bytes, cudaMemcpyDeviceToDevice, s);
+  if (err != cudaSuccess) return err;
+  const long long n_scatter = 2LL * P * C1;
+  if (n_scatter > 0) {
+    const unsigned blocks = (unsigned)((n_scatter + kThreads - 1) / kThreads);
+    splat_dual_scatter_kernel<<<blocks, kThreads, 0, s>>>(
+        (const float*)u_mov, (const int2*)positions, (const float*)valid,
+        (const float2*)disp_a, (const float2*)disp_b, w_a, w_b, (float*)acc,
+        P, C1, H, W);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
 // u_mov (P, C1) f32, positions (P, 2) int32 [x, y], valid (P,) f32,
 // disp_a / disp_b (P, 2) f32, u_static (H, W, C1) f32, acc (H, W, C1) f32
 // scratch, out (H, W, C1 - 1) f32 (out_bf16 == 0) or bf16 (out_bf16 == 1).
@@ -109,31 +158,40 @@ extern "C" int splat_dual_normalize(const void* u_mov, const void* positions,
                                     void* out, int P, int C1, int H, int W,
                                     int out_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t acc_bytes = (size_t)H * W * C1 * sizeof(float);
-  cudaError_t err =
-      cudaMemcpyAsync(acc, u_static, acc_bytes, cudaMemcpyDeviceToDevice, s);
+  cudaError_t err = splat_accumulate(u_mov, positions, valid, disp_a, disp_b,
+                                     w_a, w_b, u_static, acc, P, C1, H, W, s);
   if (err != cudaSuccess) return (int)err;
-
-  const int threads = 256;
-  const long long n_scatter = 2LL * P * C1;
-  if (n_scatter > 0) {
-    const unsigned blocks = (unsigned)((n_scatter + threads - 1) / threads);
-    splat_dual_scatter_kernel<<<blocks, threads, 0, s>>>(
-        (const float*)u_mov, (const int2*)positions, (const float*)valid,
-        (const float2*)disp_a, (const float2*)disp_b, w_a, w_b, (float*)acc,
-        P, C1, H, W);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-
   const int C = C1 - 1;
   const long long n_out = (long long)H * W * C;
-  const unsigned blocks = (unsigned)((n_out + threads - 1) / threads);
+  const unsigned blocks = (unsigned)((n_out + kThreads - 1) / kThreads);
   if (out_bf16) {
-    splat_normalize_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+    splat_normalize_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
         (const float*)acc, (__nv_bfloat16*)out, H * W, C);
   } else {
-    splat_normalize_kernel<float><<<blocks, threads, 0, s>>>(
+    splat_normalize_kernel<float><<<blocks, kThreads, 0, s>>>(
+        (const float*)acc, (float*)out, H * W, C);
+  }
+  return (int)cudaGetLastError();
+}
+
+// As splat_dual_normalize, over the SLR layout; out (H, W, C1 - 2).
+extern "C" int splat_dual_normalize_slr(
+    const void* u_mov, const void* positions, const void* valid,
+    const void* disp_a, const void* disp_b, float w_a, float w_b,
+    const void* u_static, void* acc, void* out, int P, int C1, int H, int W,
+    int out_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = splat_accumulate(u_mov, positions, valid, disp_a, disp_b,
+                                     w_a, w_b, u_static, acc, P, C1, H, W, s);
+  if (err != cudaSuccess) return (int)err;
+  const int C = C1 - 2;
+  const long long n_out = (long long)H * W * C;
+  const unsigned blocks = (unsigned)((n_out + kThreads - 1) / kThreads);
+  if (out_bf16) {
+    splat_normalize_slr_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        (const float*)acc, (__nv_bfloat16*)out, H * W, C);
+  } else {
+    splat_normalize_slr_kernel<float><<<blocks, kThreads, 0, s>>>(
         (const float*)acc, (float*)out, H * W, C);
   }
   return (int)cudaGetLastError();

@@ -1,4 +1,4 @@
-"""Reference ``.pth`` checkpoints → the port's baseline model.
+"""Reference ``.pth`` checkpoints → the port's baseline or SLR model.
 
 A reference checkpoint is ``{state_dict, ..., opts}`` with the
 hyperparameters pickled as an argparse namespace (``train_animating.py:
@@ -53,7 +53,7 @@ def clean_state_dict(sd: Mapping) -> Dict:
     return out
 
 
-def load_baseline_state(model: torch.nn.Module, sd: Mapping) -> None:
+def load_model_state(model: torch.nn.Module, sd: Mapping) -> None:
     """Copy the model's tensors out of a cleaned state_dict. Keys the model
     does not have (training-only buffers, other heads) are ignored; a key the
     model needs and the checkpoint lacks raises."""
@@ -64,16 +64,22 @@ def load_baseline_state(model: torch.nn.Module, sd: Mapping) -> None:
     model.load_state_dict({k: sd[k] for k in own})
 
 
+RENDER_MODEL_TYPES = ("softmax_splating",
+                      "softmax_splating_2layers_alpha_seperate")
+
+
 def load_checkpoint(path: str) -> Tuple[Dict, Options]:
-    """(cleaned state_dict, Options) of a reference-style checkpoint, with
-    ``bn_noise_misc`` set as inference does (test_baseline_4eval.py:127)."""
+    """(cleaned state_dict, Options) of a reference-style baseline or SLR
+    checkpoint, with ``bn_noise_misc`` set as inference does
+    (test_baseline_4eval.py:127); as the JAX ``import_checkpoint`` (:297)
+    reads it."""
     # the options travel as a pickled argparse namespace
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     opt = opts_from_namespace(ckpt["opts"]) if "opts" in ckpt else Options()
     opt = opt.replace(bn_noise_misc=True)
     sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
-    if opt.model_type != "softmax_splating":
+    if opt.model_type not in RENDER_MODEL_TYPES:
         raise NotImplementedError(
-            f"model_type {opt.model_type!r} is not ported yet: the SLR "
-            "two-layer model is ROADMAP §1 item 9, the motion regressor item 11")
+            f"model_type {opt.model_type!r} is not ported yet: the motion "
+            "regressor is ROADMAP §1 item 11")
     return clean_state_dict(sd), opt

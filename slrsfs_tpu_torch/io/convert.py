@@ -1,7 +1,8 @@
 """JAX variables → the port's ``state_dict``.
 
 ``from_jax_variables`` is the inverse of ``slrsfs_tpu/io/torch_import.py``
-(:55-128): it takes the JAX ``{'params', 'batch_stats', 'spectral'}`` tree
+(:55-128) for the baseline and SLR models: it takes the JAX ``{'params',
+'batch_stats', 'spectral'}`` tree
 as numpy arrays and returns a ``state_dict`` under the reference's key
 names. Conv kernels go from HWIO to OIHW, dense kernels from (in, out) to
 (out, in), and a conv's spectral ``v`` from the (kh, kw, I) flattening back
@@ -70,11 +71,14 @@ def _jax_leaf(variables: Mapping, key: str, partial: set) -> np.ndarray:
 
 
 def from_jax_variables(variables_np: Mapping, opt: Options) -> Dict[str, torch.Tensor]:
-    """JAX BaselineModel variables (numpy leaves) → the port's state_dict."""
+    """JAX ``BaselineModel`` or ``SLRModel`` variables (numpy leaves; the
+    model is chosen by ``opt.model_type``) → the port's state_dict."""
     from slrsfs_tpu_torch.models.baseline import BaselineModel
+    from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRModel
 
     with torch.device("meta"):
-        model = BaselineModel(opt)
+        model = (SLRModel if opt.model_type == SLR_MODEL_TYPE
+                 else BaselineModel)(opt)
     partial = set()
     for name, mod in model.named_modules():
         if getattr(mod, "partial", False):

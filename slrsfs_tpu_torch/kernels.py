@@ -2,9 +2,11 @@
 
 Each source is compiled on first use by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
-library lands in ``build/kernels/`` at the repository root, named by a hash
-of its source and flags, so a changed source never loads a stale build.
-Nothing is compiled at import: this module imports on a host without CUDA.
+library lands in ``build/kernels/`` at the repository root, named after its
+source and a hash of the source and flags, so a changed source never loads
+a stale build. Several entry points may share one source (K2's two
+epilogues); it is built once. Nothing is compiled at import: this module
+imports on a host without CUDA.
 
 Every C entry point launches on the stream it is given (the wrapper passes
 ``torch.cuda.current_stream()``) and returns ``cudaGetLastError()``; a
@@ -68,7 +70,8 @@ class Kernel:
     def _lib_path(self) -> str:
         with open(self._src_path, "rb") as f:
             digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-        return os.path.join(BUILD_DIR, f"{self.name}-{digest.hexdigest()[:16]}.so")
+        stem = os.path.splitext(os.path.basename(self.source))[0]
+        return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
     def _start_build(self):
         """Start nvcc unless the library exists; returns (Popen, tmp, lib)."""
@@ -122,16 +125,42 @@ SPLAT = Kernel(
     # P, C1, H, W, out_bf16, stream
     [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
-KERNELS: List[Kernel] = [EULER, SPLAT]
+SPLAT_SLR = Kernel(
+    "splat_dual_normalize_slr", "slrsfs_tpu_torch/csrc/splat.cu",
+    "splat_dual_normalize_slr",
+    # as SPLAT
+    [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+
+MAXWARP_SPARSE = Kernel(
+    "maximum_warp_norm_sparse", "slrsfs_tpu_torch/csrc/maxwarp_sparse.cu",
+    "maximum_warp_norm_sparse",
+    # z, static_mask, z_mov, positions, valid, disp, mx, zmax_dense,
+    # zmax_mov, P, H, W, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+
+MAXWARP_SPLAT = Kernel(
+    "maximum_warp_norm_splat", "slrsfs_tpu_torch/csrc/maxwarp.cu",
+    "maximum_warp_norm_splat",
+    # z, flow, mx, out, B, H, W, stream
+    [_P, _P, _P, _P, _I, _I, _I, _P])
+
+KERNELS: List[Kernel] = [EULER, SPLAT, SPLAT_SLR, MAXWARP_SPARSE,
+                         MAXWARP_SPLAT]
 
 
 def build_all() -> Dict[str, float]:
-    """Compile every kernel not yet built, one nvcc per source, all at once.
+    """Compile every source not yet built, one nvcc per source, all at once.
     Returns seconds per kernel (build and load)."""
     t0 = time.perf_counter()
-    started = [(k, k._start_build()) for k in KERNELS if k._fn is None]
-    for k, job in started:
-        k._finish_build(*job, t0)
+    jobs = {}
+    for k in KERNELS:
+        if k._fn is None and k.source not in jobs:
+            jobs[k.source] = k._start_build()
+    for k in KERNELS:
+        if k._fn is None:
+            # a sibling entry of an already started source only loads
+            k._finish_build(*jobs.pop(k.source, (None, None, k._lib_path())),
+                            t0)
     return {k.name: k.build_seconds for k in KERNELS}
 
 

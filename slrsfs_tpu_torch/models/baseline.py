@@ -11,6 +11,7 @@ from torch import nn
 from slrsfs_tpu_torch.config import Options
 from slrsfs_tpu_torch.nn.archs import get_resnet_arch
 from slrsfs_tpu_torch.nn.resnets import ResNetDecoderPconv2, ResNetEncoderWithZ
+from slrsfs_tpu_torch.ops.maxwarp import maximum_warp_norm_splat
 from slrsfs_tpu_torch.ops.splat import NORM_EPS, softsplat_sum
 
 Tensor = torch.Tensor
@@ -24,6 +25,11 @@ def _nhwc(x: Tensor) -> Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def feature_width(opt: Options) -> int:
+    """Width of the encoder features the splat carries."""
+    return get_resnet_arch(opt.refine_model_type, opt, 3)["layers_enc"][-1]
+
+
 class BaselineModel(nn.Module):
     """``encoder`` and ``projector`` (the decoder), named as in the reference
     checkpoint."""
@@ -32,8 +38,7 @@ class BaselineModel(nn.Module):
         super().__init__()
         self.opt = opt
         self.encoder = ResNetEncoderWithZ(opt, in_channels=3)
-        fs_width = get_resnet_arch(opt.refine_model_type, opt, 3)["layers_enc"][-1]
-        self.projector = ResNetDecoderPconv2(opt, in_channels=fs_width)
+        self.projector = ResNetDecoderPconv2(opt, in_channels=feature_width(opt))
 
     def encode(self, img: Tensor):
         """img (B, H, W, 3) → (features (B, H, W, C), Z (B, H, W, 1))."""
@@ -55,7 +60,8 @@ def _l2_normalize(v: Tensor, eps: float = 1e-12) -> Tensor:
 @torch.no_grad()
 def init_random_weights(model: nn.Module, seed: int,
                         power_iters: int = 30) -> None:
-    """Seeded random weights for a model built on the CPU: LeCun-normal
+    """Seeded random weights for a model built on the CPU (baseline or SLR:
+    every conv and dense layer in ``model.modules()``): LeCun-normal
     kernels, zero biases, BN statistics (0, 1).
 
     Random spectral vectors would give a sigma far from the true spectral
@@ -82,12 +88,16 @@ def init_random_weights(model: nn.Module, seed: int,
             mod.weight_v.copy_(v)
 
 
-def z_normalize(opt: Options, z: Tensor) -> Tensor:
-    """Reference Z-norm variants except v2 (animating_softmax_splating.py:593-605)."""
+def z_normalize(opt: Options, z: Tensor, flow: Tensor = None) -> Tensor:
+    """Reference Z-norm variants (animating_softmax_splating.py:593-605).
+
+    z (B, H, W, 1); flow (B, H, W, 2) f32, needed only for v2, whose
+    per-source maximum-warp norm runs through K6."""
     if opt.use_softmax_splatter_v2:
-        raise NotImplementedError(
-            "v2 Z-norm (maximum-warp-norm) is not ported yet: ROADMAP §1 item 10")
-    if opt.use_softmax_splatter_v1:
+        if flow is None:
+            raise ValueError("the v2 Z-norm needs the flow")
+        zn = z - maximum_warp_norm_splat(z.contiguous(), flow.contiguous())
+    elif opt.use_softmax_splatter_v1:
         zn = z
     elif opt.use_softmax_splatter_v3:
         zn = torch.sigmoid(z) * 20.0

@@ -1,6 +1,8 @@
-"""The baseline's encoder and partial-conv decoder, eval mode (PyTorch port of
-``slrsfs_tpu/nn/resnets.py``). NCHW inside; the children are named as in the
-reference (``gblocks.{i}``, ``eblocks.{i}``).
+"""Encoders and decoders, eval mode (PyTorch port of
+``slrsfs_tpu/nn/resnets.py``): the baseline's encoder and partial-conv
+decoder, and the SLR model's plain encoder (alpha head) and background
+decoder. NCHW inside; the children are named as in the reference
+(``gblocks.{i}``, ``eblocks.{i}``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,45 @@ from slrsfs_tpu_torch.nn.blocks import ResNetBlock, ResNetBlockPconv2
 Tensor = torch.Tensor
 
 
+def _block_stack(opt: Options, layers, resample) -> nn.ModuleList:
+    return nn.ModuleList(
+        ResNetBlock(layers[i - 1], layers[i], downsample=resample[i - 1],
+                    spectral=spectral(opt))
+        for i in range(1, len(layers)))
+
+
+class ResNetEncoder(nn.Module):
+    """Plain encoder (reference architectures.py:121-153); the SLR alpha
+    head."""
+
+    def __init__(self, opt: Options, in_channels: int = 3,
+                 model_type: Optional[str] = None):
+        super().__init__()
+        arch = get_resnet_arch(model_type or opt.refine_model_type, opt,
+                               in_channels)
+        self.gblocks = _block_stack(opt, arch["layers_enc"], arch["downsample"])
+
+    def forward(self, x: Tensor) -> Tensor:
+        for blk in self.gblocks:
+            x = blk(x)
+        return x
+
+
+class ResNetBGDecoder(nn.Module):
+    """Background ('mean video') network: image in, image out, no output
+    nonlinearity (reference architectures.py:233-260, utilities.py:98-101)."""
+
+    def __init__(self, opt: Options):
+        super().__init__()
+        arch = get_resnet_arch(opt.bg_refine_model_type, opt)
+        self.eblocks = _block_stack(opt, arch["layers_dec"], arch["upsample"])
+
+    def forward(self, x: Tensor) -> Tensor:
+        for blk in self.eblocks:
+            x = blk(x)
+        return x
+
+
 class ResNetEncoderWithZ(nn.Module):
     """Encoder whose last block emits one extra channel, returned as Z
     (reference architectures.py:155-197)."""
@@ -28,11 +69,7 @@ class ResNetEncoderWithZ(nn.Module):
                                in_channels)
         layers = list(arch["layers_enc"])
         layers[-1] += 1
-        self.gblocks = nn.ModuleList(
-            ResNetBlock(layers[i - 1], layers[i],
-                        downsample=arch["downsample"][i - 1],
-                        spectral=spectral(opt))
-            for i in range(1, len(layers)))
+        self.gblocks = _block_stack(opt, layers, arch["downsample"])
 
     def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
         for blk in self.gblocks:

@@ -8,9 +8,11 @@ the grid are dropped.
 ``splat_dual_normalize`` is the main path's kernel wrapper (K2,
 ``csrc/splat.cu``): the dual-ended sparse splat plus the softmax-splat
 normalisation of ``slrsfs_tpu/engine/rollout.py:577-581``.
-``splat_dual_normalize_plain`` is its plain version (``index_add_`` into a
-flat buffer, then the division). ``softsplat_sum`` is the plain dense
-forward splat used by the dense rollout.
+``splat_dual_normalize_slr`` is the same splat with the SLR epilogue
+(``slrsfs_tpu/models/slr.py:slr_unpack_splatted``, two normalisers).
+``*_plain`` are their plain versions (``index_add_`` into a flat buffer,
+then the division). ``softsplat_sum`` is the plain dense forward splat used
+by the dense rollouts.
 """
 
 from __future__ import annotations
@@ -26,25 +28,34 @@ Tensor = torch.Tensor
 NORM_EPS = 1e-8  # reference animating_softmax_splating.py:691
 
 
-def _corner_taps(ox: Tensor, oy: Tensor, height: int, width: int
-                 ) -> List[Tuple[Tensor, Tensor]]:
-    """Flat target index (clipped) and validity-masked bilinear weight of the
-    four corners (NW, NE, SW, SE) of target positions ``(ox, oy)``."""
+def corners(ox: Tensor, oy: Tensor, height: int, width: int
+            ) -> List[Tuple[Tensor, Tensor, Tensor]]:
+    """Flat target index (clipped), bilinear weight and in-grid flag of the
+    four corners (NW, NE, SW, SE) of target positions ``(ox, oy)``, as the
+    JAX ``_corners`` computes them."""
     x0f = torch.floor(ox)
     y0f = torch.floor(oy)
     dx = ox - x0f
     dy = oy - y0f
     x0 = x0f.to(torch.int64)
     y0 = y0f.to(torch.int64)
-    taps = []
+    out = []
     for cx, cy, w in ((x0, y0, (1.0 - dx) * (1.0 - dy)),
                       (x0 + 1, y0, dx * (1.0 - dy)),
                       (x0, y0 + 1, (1.0 - dx) * dy),
                       (x0 + 1, y0 + 1, dx * dy)):
-        valid = (cx >= 0) & (cx < width) & (cy >= 0) & (cy < height)
+        inside = (cx >= 0) & (cx < width) & (cy >= 0) & (cy < height)
         lin = cy.clamp(0, height - 1) * width + cx.clamp(0, width - 1)
-        taps.append((lin, torch.where(valid, w, torch.zeros_like(w))))
-    return taps
+        out.append((lin, w, inside))
+    return out
+
+
+def _corner_taps(ox: Tensor, oy: Tensor, height: int, width: int
+                 ) -> List[Tuple[Tensor, Tensor]]:
+    """Flat target index (clipped) and validity-masked bilinear weight of the
+    four corners of target positions ``(ox, oy)``."""
+    return [(lin, torch.where(inside, w, torch.zeros_like(w)))
+            for lin, w, inside in corners(ox, oy, height, width)]
 
 
 def softsplat_sum(inp: Tensor, flow: Tensor) -> Tensor:
@@ -65,6 +76,23 @@ def softsplat_sum(inp: Tensor, flow: Tensor) -> Tensor:
     return out.reshape(B, H, W, C)
 
 
+def _splat_dual_plain(u_mov: Tensor, positions: Tensor, valid: Tensor,
+                      disp_a: Tensor, disp_b: Tensor, w_a: float, w_b: float,
+                      u_static: Tensor) -> Tensor:
+    """``g = u_static + splat(u_mov·w_a, disp_a) + splat(u_mov·w_b, disp_b)``,
+    (H, W, C1) f32, the accumulator both K2 epilogues normalise."""
+    H, W, C1 = u_static.shape
+    acc = u_static.reshape(H * W, C1).clone()
+    keep = (valid != 0).to(u_mov.dtype)
+    px = positions[:, 0].to(disp_a.dtype)
+    py = positions[:, 1].to(disp_a.dtype)
+    for w_t, disp in ((w_a, disp_a), (w_b, disp_b)):
+        rows = u_mov * w_t
+        for lin, w in _corner_taps(px + disp[:, 0], py + disp[:, 1], H, W):
+            acc.index_add_(0, lin, rows * (w * keep)[:, None])
+    return acc.reshape(H, W, C1)
+
+
 def splat_dual_normalize_plain(u_mov: Tensor, positions: Tensor,
                                valid: Tensor, disp_a: Tensor, disp_b: Tensor,
                                w_a: float, w_b: float, u_static: Tensor,
@@ -78,20 +106,30 @@ def splat_dual_normalize_plain(u_mov: Tensor, positions: Tensor,
     ``out_dtype``, shape (H, W, C), where ``g = u_static + splat(u_mov·w_a,
     disp_a) + splat(u_mov·w_b, disp_b)``.
     """
-    H, W, C1 = u_static.shape
-    acc = u_static.reshape(H * W, C1).clone()
-    keep = (valid != 0).to(u_mov.dtype)
-    px = positions[:, 0].to(disp_a.dtype)
-    py = positions[:, 1].to(disp_a.dtype)
-    for w_t, disp in ((w_a, disp_a), (w_b, disp_b)):
-        rows = u_mov * w_t
-        for lin, w in _corner_taps(px + disp[:, 0], py + disp[:, 1], H, W):
-            acc.index_add_(0, lin, rows * (w * keep)[:, None])
-    g = acc.reshape(H, W, C1)
+    g = _splat_dual_plain(u_mov, positions, valid, disp_a, disp_b, w_a, w_b,
+                          u_static)
     return (g[..., :-1] / torch.clamp(g[..., -1:], min=NORM_EPS)).to(out_dtype)
 
 
-def _check_splat(u_mov, positions, valid, disp_a, disp_b, u_static, out):
+def splat_dual_normalize_slr_plain(u_mov: Tensor, positions: Tensor,
+                                   valid: Tensor, disp_a: Tensor,
+                                   disp_b: Tensor, w_a: float, w_b: float,
+                                   u_static: Tensor,
+                                   out_dtype: torch.dtype) -> Tensor:
+    """Plain version of K2's SLR epilogue: the splat of
+    ``splat_dual_normalize_plain`` over the SLR layout ``[fs·e^Z (C-1),
+    af·e^C, e^C, e^Z]`` (C1 = C + 2 channels), then
+    ``[fs·e^Z / max(e^Z, 1e-8), af·e^C / max(e^C, 1e-8)]``, shape (H, W, C):
+    ``slr_unpack_splatted`` with ``use_alpha0``, both halves in one tensor."""
+    g = _splat_dual_plain(u_mov, positions, valid, disp_a, disp_b, w_a, w_b,
+                          u_static)
+    return torch.cat([g[..., :-3] / torch.clamp(g[..., -1:], min=NORM_EPS),
+                      g[..., -3:-2] / torch.clamp(g[..., -2:-1], min=NORM_EPS)],
+                     dim=-1).to(out_dtype)
+
+
+def _check_splat(u_mov, positions, valid, disp_a, disp_b, u_static, out,
+                 n_norm):
     P, C1 = u_mov.shape
     H, W, C1s = u_static.shape
     shapes = {"positions": (positions, (P, 2), torch.int32),
@@ -107,8 +145,9 @@ def _check_splat(u_mov, positions, valid, disp_a, disp_b, u_static, out):
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != u_mov.device:
             raise ValueError(f"{name} is on {t.device}, u_mov on {u_mov.device}")
-    if tuple(out.shape) != (H, W, C1 - 1):
-        raise ValueError(f"out must be {(H, W, C1 - 1)}, got {tuple(out.shape)}")
+    if tuple(out.shape) != (H, W, C1 - n_norm):
+        raise ValueError(f"out must be {(H, W, C1 - n_norm)}, "
+                         f"got {tuple(out.shape)}")
     if out.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out must be float32 or bfloat16, got {out.dtype}")
     if out.device != u_mov.device:
@@ -118,6 +157,39 @@ def _check_splat(u_mov, positions, valid, disp_a, disp_b, u_static, out):
                         out=out).items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _splat_launch(kernel, plain, n_norm, u_mov, positions, valid, disp_a,
+                  disp_b, w_a, w_b, u_static, out, acc):
+    _check_splat(u_mov, positions, valid, disp_a, disp_b, u_static, out,
+                 n_norm)
+    if u_mov.device.type == "cpu":
+        out.copy_(plain(u_mov, positions, valid, disp_a, disp_b, w_a, w_b,
+                        u_static, out.dtype))
+        return out
+    if u_mov.device.type != "cuda":
+        raise ValueError(f"unsupported device {u_mov.device}")
+    H, W, C1 = u_static.shape
+    if acc is None:
+        acc = torch.empty((H * W * C1,), dtype=torch.float32,
+                          device=u_mov.device)
+    if acc.dtype != torch.float32 or acc.numel() != H * W * C1 \
+            or acc.device != u_mov.device or not acc.is_contiguous():
+        raise ValueError("acc must be a contiguous float32 buffer of "
+                         "H*W*C1 elements on the inputs' device")
+    named = dict(u_mov=u_mov, positions=positions, valid=valid, disp_a=disp_a,
+                 disp_b=disp_b, u_static=u_static, acc=acc, out=out)
+    for name, t in named.items():
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned")
+    with torch.cuda.device(u_mov.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel.launch(
+            u_mov.data_ptr(), positions.data_ptr(), valid.data_ptr(),
+            disp_a.data_ptr(), disp_b.data_ptr(), float(w_a), float(w_b),
+            u_static.data_ptr(), acc.data_ptr(), out.data_ptr(),
+            u_mov.shape[0], C1, H, W, int(out.dtype == torch.bfloat16), stream)
+    return out
 
 
 def splat_dual_normalize(u_mov: Tensor, positions: Tensor, valid: Tensor,
@@ -130,32 +202,20 @@ def splat_dual_normalize(u_mov: Tensor, positions: Tensor, valid: Tensor,
     On the card the CUDA kernel computes it, with ``acc`` ((H·W·(C+1),) f32)
     as its scratch accumulator (allocated when None); on the CPU the plain
     version does."""
-    _check_splat(u_mov, positions, valid, disp_a, disp_b, u_static, out)
-    if u_mov.device.type == "cpu":
-        out.copy_(splat_dual_normalize_plain(u_mov, positions, valid, disp_a,
-                                             disp_b, w_a, w_b, u_static,
-                                             out.dtype))
-        return out
-    if u_mov.device.type != "cuda":
-        raise ValueError(f"unsupported device {u_mov.device}")
-    H, W, C1 = u_static.shape
-    if acc is None:
-        acc = torch.empty((H * W * C1,), dtype=torch.float32,
-                          device=u_mov.device)
-    if acc.dtype != torch.float32 or acc.numel() != H * W * C1 \
-            or acc.device != u_mov.device or not acc.is_contiguous():
-        raise ValueError("acc must be a contiguous float32 buffer of "
-                         "H*W*(C+1) elements on the inputs' device")
-    named = dict(u_mov=u_mov, positions=positions, valid=valid, disp_a=disp_a,
-                 disp_b=disp_b, u_static=u_static, acc=acc, out=out)
-    for name, t in named.items():
-        if t.data_ptr() % 8:
-            raise ValueError(f"{name} must be 8-byte aligned")
-    with torch.cuda.device(u_mov.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernels.SPLAT.launch(
-            u_mov.data_ptr(), positions.data_ptr(), valid.data_ptr(),
-            disp_a.data_ptr(), disp_b.data_ptr(), float(w_a), float(w_b),
-            u_static.data_ptr(), acc.data_ptr(), out.data_ptr(),
-            u_mov.shape[0], C1, H, W, int(out.dtype == torch.bfloat16), stream)
-    return out
+    return _splat_launch(kernels.SPLAT, splat_dual_normalize_plain, 1, u_mov,
+                         positions, valid, disp_a, disp_b, w_a, w_b, u_static,
+                         out, acc)
+
+
+def splat_dual_normalize_slr(u_mov: Tensor, positions: Tensor, valid: Tensor,
+                             disp_a: Tensor, disp_b: Tensor, w_a: float,
+                             w_b: float, u_static: Tensor, out: Tensor,
+                             acc: Tensor = None) -> Tensor:
+    """K2 with the SLR epilogue: writes ``splat_dual_normalize_slr_plain(...)``
+    into ``out`` ((H, W, C1 - 2), f32 or bf16), which is then both the fluid
+    decoder's input (its first C1 - 3 channels) and the alpha decoder's
+    ``[gen_fs, af]``. Kernel on the card, plain version on the CPU; ``acc``
+    as for ``splat_dual_normalize``."""
+    return _splat_launch(kernels.SPLAT_SLR, splat_dual_normalize_slr_plain, 2,
+                         u_mov, positions, valid, disp_a, disp_b, w_a, w_b,
+                         u_static, out, acc)

@@ -5,9 +5,10 @@ no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-K1 must match bit for bit (same arithmetic, no FMA contraction); K2 sums
-with atomics in another order, so it is held at 1e-5; a rollout through
-the kernels is held at 1e-4 against one through the plain versions."""
+K1, K5 and K6 must match bit for bit (same arithmetic, no FMA contraction;
+max is order-free); K2 (both epilogues) sums with atomics in another order,
+so it is held at 1e-5; a rollout through the kernels is held at 1e-4
+against one through the plain versions."""
 
 import numpy as np
 import pytest
@@ -15,10 +16,22 @@ import torch
 
 from slrsfs_tpu_torch import kernels
 from slrsfs_tpu_torch.config import Options
-from slrsfs_tpu_torch.engine.rollout import baseline_rollout_sparse, prepare_scene_sparse
+from slrsfs_tpu_torch.engine.rollout import (
+    baseline_rollout_sparse,
+    prepare_scene_sparse,
+    slr_rollout_dense,
+    slr_rollout_sparse,
+)
 from slrsfs_tpu_torch.models.baseline import BaselineModel, init_random_weights
+from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRModel
+from slrsfs_tpu_torch.ops import maxwarp
 from slrsfs_tpu_torch.ops.euler import euler_compact_dual, euler_compact_dual_plain
-from slrsfs_tpu_torch.ops.splat import splat_dual_normalize, splat_dual_normalize_plain
+from slrsfs_tpu_torch.ops.splat import (
+    splat_dual_normalize,
+    splat_dual_normalize_plain,
+    splat_dual_normalize_slr,
+    splat_dual_normalize_slr_plain,
+)
 
 H, W = 40, 36
 
@@ -54,9 +67,18 @@ def test_k1_matches_plain_on_card(half_integer):
     assert (kb == max(H, W) + 1).any()
 
 
+def _special(d: torch.Tensor) -> torch.Tensor:
+    d = d.clone()
+    d[0::3] = max(H, W) + 1  # OOB sentinel
+    d[1::3] = torch.tensor([3.0, -2.0])  # integer shift
+    d[2::3] = torch.tensor([-0.75, -5.5])  # fractional border landing
+    return d
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_k2_matches_plain_on_card(out_dtype):
+@pytest.mark.parametrize("slr", [False, True])
+def test_k2_matches_plain_on_card(out_dtype, slr):
     dev = _card()
     rng = np.random.default_rng(1)
     m = _motion(1)
@@ -65,6 +87,8 @@ def test_k2_matches_plain_on_card(out_dtype):
     ez = np.exp(-rng.uniform(0, 3, (H, W, 1))).astype(np.float32)
     u = np.concatenate([rng.standard_normal((H, W, C1 - 1)).astype(np.float32)
                         * ez, ez], -1)
+    if slr:  # [fs·e^Z, af·e^C, e^C, e^Z]
+        u[..., -2] = np.exp(rng.uniform(0, 1, (H, W)))
     static = np.all(m == 0, axis=-1).astype(np.float32)[..., None]
     disp_f, disp_b = euler_compact_dual_plain(torch.from_numpy(m),
                                               torch.from_numpy(pos), 4, 5)
@@ -75,11 +99,15 @@ def test_k2_matches_plain_on_card(out_dtype):
          (u[pos[:, 1], pos[:, 0]] * val[:, None], pos, val)]
     t += [da.to(dev), disp_b[2].to(dev)]
     u_static = torch.from_numpy(u * static).to(dev)
-    out = torch.empty((H, W, C1 - 1), dtype=out_dtype, device=dev)
+    wrapper, plain, n_norm = ((splat_dual_normalize_slr,
+                               splat_dual_normalize_slr_plain, 2) if slr else
+                              (splat_dual_normalize, splat_dual_normalize_plain, 1))
+    out = torch.empty((H, W, C1 - n_norm), dtype=out_dtype, device=dev)
     kernels.reset_counts()
-    splat_dual_normalize(*t, 0.4, 0.6, u_static, out=out)
-    assert kernels.counts()["splat_dual_normalize"] == 1
-    ref = splat_dual_normalize_plain(*t, 0.4, 0.6, u_static, out_dtype)
+    wrapper(*t, 0.4, 0.6, u_static, out=out)
+    assert kernels.counts()[kernels.SPLAT_SLR.name if slr
+                            else kernels.SPLAT.name] == 1
+    ref = plain(*t, 0.4, 0.6, u_static, out_dtype)
     torch.cuda.synchronize()
     rtol = 1e-5 if out_dtype == torch.float32 else 2 ** -8
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-5)
@@ -103,8 +131,91 @@ def test_rollout_kernels_match_plain_on_card(dtype):
             torch.from_numpy(pos).to(dev), torch.from_numpy(val).to(dev))
     kernels.reset_counts()
     got = baseline_rollout_sparse(*args, decode_batch=3, compute_dtype=dtype)
-    assert kernels.counts() == {"euler_compact_dual": 1, "splat_dual_normalize": 6}
+    counts = kernels.counts()
+    assert counts["euler_compact_dual"] == 1
+    assert counts["splat_dual_normalize"] == 6
     want = baseline_rollout_sparse(*args, decode_batch=3, compute_dtype=dtype,
                                    plain=True)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def _maxwarp_inputs(dev, special: bool):
+    m = _motion(3)
+    pos, val = prepare_scene_sparse(m, pad_multiple=64)
+    disp_f, _ = euler_compact_dual_plain(torch.from_numpy(m),
+                                         torch.from_numpy(pos), 6, 6)
+    d = _special(disp_f[5]) if special else disp_f[5]
+    z = torch.from_numpy(np.random.default_rng(4).standard_normal((H, W))
+                         .astype(np.float32) * 4.0)
+    static = torch.from_numpy(np.all(m == 0, axis=-1).astype(np.float32))
+    p = torch.from_numpy(pos)
+    z_mov = z[p[:, 1].long(), p[:, 0].long()].contiguous()
+    return [t.to(dev) for t in (z, static, z_mov, p, torch.from_numpy(val), d)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("special", [False, True])
+def test_k5_matches_plain_on_card(special):
+    dev = _card()
+    args = _maxwarp_inputs(dev, special)
+    kernels.reset_counts()
+    kd, km = maxwarp.maximum_warp_norm_sparse(*args)
+    assert kernels.counts()[kernels.MAXWARP_SPARSE.name] == 1
+    pd, pm = maxwarp.maximum_warp_norm_sparse_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(km, pm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("special", [False, True])
+def test_k6_matches_plain_on_card(special):
+    dev = _card()
+    m = _motion(5)
+    grid = torch.from_numpy(np.stack(np.meshgrid(np.arange(W), np.arange(H)),
+                                     -1).reshape(-1, 2).astype(np.int32))
+    disp_f, _ = euler_compact_dual_plain(torch.from_numpy(m), grid, 4, 4)
+    d = _special(disp_f[3]) if special else disp_f[3]
+    flow = d.reshape(1, H, W, 2).to(dev)
+    z = torch.from_numpy(np.random.default_rng(6).standard_normal((1, H, W, 1))
+                         .astype(np.float32) * 4.0).to(dev)
+    kernels.reset_counts()
+    got = maxwarp.maximum_warp_norm_splat(z, flow)
+    assert kernels.counts()[kernels.MAXWARP_SPLAT.name] == 1
+    want = maxwarp.maximum_warp_norm_splat_plain(z, flow)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v2", [False, True])
+def test_slr_rollout_kernels_match_plain_on_card(v2):
+    """K1, K2-SLR and (v2) K5 against the plain path, and the sparse render
+    against the dense one, whose v2 Z-norm runs K6."""
+    dev = _card()
+    opt = Options(ngf=16, W=32, bn_noise_misc=True, model_type=SLR_MODEL_TYPE,
+                  use_alpha0_as_blending_weight=True,
+                  use_softmax_splatter_v2=v2)
+    model = SLRModel(opt).eval()
+    init_random_weights(model, seed=0)
+    model = model.to(dev)
+    rng = np.random.default_rng(7)
+    flow = (rng.standard_normal((32, 32, 2)) * 1.2).astype(np.float32)
+    flow[:16] = 0.0
+    pos, val = prepare_scene_sparse(flow, pad_multiple=64)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32))
+    args = (model, img.to(dev), torch.from_numpy(flow).to(dev), 6,
+            torch.from_numpy(pos).to(dev), torch.from_numpy(val).to(dev))
+    kernels.reset_counts()
+    got = slr_rollout_sparse(*args, decode_batch=3)
+    counts = kernels.counts()
+    assert counts[kernels.EULER.name] == 1
+    assert counts[kernels.SPLAT_SLR.name] == 6
+    assert counts[kernels.MAXWARP_SPARSE.name] == (6 if v2 else 0)
+    want = slr_rollout_sparse(*args, decode_batch=3, plain=True)
+    kernels.reset_counts()
+    dense = slr_rollout_dense(*args[:4], decode_batch=3)
+    assert kernels.counts()[kernels.MAXWARP_SPLAT.name] == (6 if v2 else 0)
+    for k in got:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got[k], dense[k], rtol=1e-4, atol=1e-4)

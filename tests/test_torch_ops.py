@@ -6,6 +6,8 @@ even, negate the gathered vector and compare in the same order. K2 and the
 dense splat sum in another order than the XLA scatter, so they are held at
 1e-5."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -159,10 +161,14 @@ def test_wrappers_reject_bad_inputs(bad):
 
 
 def test_kernel_libraries_are_keyed_by_source():
-    """Each library's name carries a hash of its source and flags, so a
-    changed source never loads a stale build."""
+    """Each library's name carries its source's name and a hash of the
+    source and flags, so a changed source never loads a stale build; entry
+    points of one source share its library."""
     for k in kernels.KERNELS:
         lib = k._lib_path()
         assert lib.startswith(kernels.BUILD_DIR)
-        assert lib.endswith(".so") and k.name in lib
+        stem = os.path.splitext(os.path.basename(k.source))[0]
+        assert lib.endswith(".so") and os.path.basename(lib).startswith(stem + "-")
+    assert kernels.SPLAT._lib_path() == kernels.SPLAT_SLR._lib_path()
+    assert len({k.name for k in kernels.KERNELS}) == len(kernels.KERNELS)
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)

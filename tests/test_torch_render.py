@@ -108,8 +108,8 @@ def test_auto_decode_batch_divides_frames():
                                 dict(crop_decode="auto"),
                                 dict(motion_ckpt="motion.pth"),
                                 dict(shard_frames=True),
-                                dict(opt_overrides=dict(use_softmax_splatter_v2=True,
-                                                        ngf=8))])
+                                dict(opt_overrides=dict(
+                                    model_type="SPADE_unet_mask_motion", ngf=8))])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_render.SceneRenderer(W=16, n_frames=2, device="cpu", **kw)

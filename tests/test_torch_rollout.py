@@ -120,4 +120,6 @@ def test_cpu_rollout_launches_no_kernel(real32_env):
         torch.from_numpy(val), decode_batch=2)
     assert bool(torch.isfinite(out).all())
     assert out.shape == (2, 16, 16, 3)
-    assert kernels.counts() == {"euler_compact_dual": 0, "splat_dual_normalize": 0}
+    counts = kernels.counts()
+    assert "euler_compact_dual" in counts and "splat_dual_normalize" in counts
+    assert set(counts.values()) == {0}, counts
