@@ -16,9 +16,19 @@ moving, random weights from a seed) through SceneRenderer.render with:
   K1, K2's SLR epilogue and, for v2, K5 (sparse maximum-warp norm); its
   dense check path runs K6 (dense maximum-warp norm).
 
+Then the stage-1 training path (Options() defaults at full width, batch 16,
+W = 256, T = 60, float32; a smaller batch only if 16 does not fit, said so):
+K7 (phased Euler integration, dense and compact) bit for bit and K3 (the
+dense splat's scatter forward and gather backward) at 1e-5 against their
+plain versions; one warm-up and 3 timed G+D steps of Trainer.train_step on
+a synthetic batch, dense and with 50 % moving rows (compact K7), with their
+launch counts, CUDA-event stage times and peak memory; a kernel-path step
+against a plain-path step from one snapshot; and the train CLI for 2 steps
+on a synthetic dataset, whose checkpoint SceneRenderer then renders.
+
 Each path runs with the launch counts set to 0 just before it and read just
-after. The script times the kernels and the renders with CUDA events and
-prints:
+after. The script times the kernels, the renders and the steps with CUDA
+events and prints:
 
 * one line per phase (and ptxas's register/spill report per kernel);
 * the card's name and power limit as nvidia-smi reports them;
@@ -134,6 +144,415 @@ def read_png(path):
     import cv2
 
     return cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+
+
+# ---- training: kernels K7 and K3, the G+D step, the train CLI -----------
+#
+# The shipped stage-1 training shape (tools/train_bench.py:1-6,
+# train_baseline2_pconv.sh): Options() defaults at full width, batch 16,
+# W = 256, T = train_max_steps = 60, float32.
+TRAIN_B = 16
+TRAIN_T = 60
+TRAIN_C = 65  # the packed splat channels: 64 features + e^Z
+
+
+def make_train_batch(rng, B: int, W_: int, moving_frac: float = 1.0):
+    """The synthetic batch of tools/train_bench.py:make_batch, as numpy."""
+    imgs = [(rng.standard_normal((B, W_, W_, 3)) * 0.25).astype(np.float32)
+            for _ in range(3)]
+    idx = np.zeros((B, 3), np.int32)
+    idx[:, 1] = rng.integers(1, 59, size=B)
+    idx[:, 2] = 59
+    motions = rng.standard_normal((B, W_, W_, 2)).astype(np.float32) * 2.0
+    if moving_frac < 1.0:
+        motions[:, : int(W_ * (1.0 - moving_frac))] = 0.0
+    return {"images": imgs, "index": idx, "motions": motions}
+
+
+def phased_counts(idx: np.ndarray, T: int):
+    """(t_f, t_p) of each sample as BaselineTrainable.forward_train clips
+    them."""
+    t_f = np.clip(idx[:, 1] - idx[:, 0], 0, T).astype(np.int32)
+    t_p = np.minimum(np.clip(idx[:, 2] + 1 - idx[:, 1], 0, None),
+                     T - t_f).astype(np.int32)
+    return t_f, t_p
+
+
+def k7_phase(dev, scene_flow: np.ndarray):
+    """K7 against its plain versions, bit for bit, dense and compact, at
+    the training shape: the scene's motion (static top half, a moving pixel
+    at (0, 0)) and random motion that leaves the grid, with t_p = 0,
+    t_f = 0, t_f + t_p = T and random counts."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.cli.train import attach_moving_sets
+    from slrsfs_tpu_torch.ops.euler import (
+        euler_integrate_phased,
+        euler_integrate_phased_compact,
+        euler_integrate_phased_compact_plain,
+        euler_integrate_phased_plain,
+    )
+
+    B, T = TRAIN_B, TRAIN_T
+    rng = np.random.default_rng(SEED + 7)
+    scene = np.repeat(scene_flow[None], B, axis=0).copy()
+    scene[:, 0, 0] = [0.5, 0.5]
+    t_f = rng.integers(0, T + 1, size=B).astype(np.int32)
+    t_p = (rng.integers(0, T + 1, size=B) % (T - t_f + 1)).astype(np.int32)
+    t_f[:3], t_p[:3] = [T, 0, 30], [0, T, 30]  # t_p = 0, t_f = 0, sum = T
+    tf_d, tp_d = torch.from_numpy(t_f).to(dev), torch.from_numpy(t_p).to(dev)
+    err = 0.0
+    for label, m_np in (("scene", scene),
+                        ("random", rng.standard_normal(scene.shape)
+                         .astype(np.float32) * 2.0)):
+        m = torch.from_numpy(m_np).to(dev)
+        got = euler_integrate_phased(m, tf_d, tp_d, T)
+        want = euler_integrate_phased_plain(m, tf_d, tp_d, T)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"K7 dense {label}: kernel differs from plain")
+        err = max(err, *((g - w).abs().max().item() for g, w in zip(got, want)))
+        n_oob = int((want[1][..., 0] == max(H, W) + 1).sum())
+        print(f"phase 8 K7 dense {label}: B={B} {H}x{W} T={T} bit-exact; "
+              f"{n_oob} backward trajectories left the grid")
+    sets = attach_moving_sets({"motions": scene}, max_frac=1.0)
+    pos = torch.from_numpy(sets["mov_pos"]).to(dev)
+    val = torch.from_numpy(sets["mov_valid"]).to(dev)
+    m = torch.from_numpy(scene).to(dev)
+    got = euler_integrate_phased_compact(m, pos, val, tf_d, tp_d, T)
+    want = euler_integrate_phased_compact_plain(m, pos, val, tf_d, tp_d, T)
+    dense = euler_integrate_phased_plain(m, tf_d, tp_d, T)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "K7 compact: kernel differs from plain")
+    check(all(torch.equal(g, d) for g, d in zip(got, dense)),
+          "K7 compact differs from K7 dense")
+    check(bool((got[0][:, 0, 0] != 0).any()), "the moving pixel at (0, 0) lost")
+    err = max(err, *((g - w).abs().max().item() for g, w in zip(got, want)))
+    P = pos.shape[1]
+    n_pad = int((val == 0).sum())
+    print(f"phase 8 K7 compact: P={P} ({n_pad} padded rows at (0, 0)) "
+          f"bit-exact and equal to the dense form")
+    # timing inputs: the training batch's counts on the scene's motion
+    idx = make_train_batch(np.random.default_rng(SEED), B, W)["index"]
+    tf_b, tp_b = (torch.from_numpy(a).to(dev) for a in phased_counts(idx, T))
+    ms = cuda_time(lambda: euler_integrate_phased(m, tf_b, tp_b, T), reps=20)
+    plain_ms = cuda_time(lambda: euler_integrate_phased_plain(m, tf_b, tp_b, T),
+                         reps=3, warmup=1)
+    ms_c = cuda_time(lambda: euler_integrate_phased_compact(m, pos, val, tf_b,
+                                                            tp_b, T), reps=20)
+    # per trajectory and step ~20 operations (round x2, clamp x4, index,
+    # gather, sign, add x2, 4 compares, pin, subtract x2, 2 latches); the
+    # loop runs to the last latching step; bytes: motion and counts in, both
+    # displacement fields out
+    steps = int(np.where(tp_b.cpu().numpy() > 0,
+                         (tf_b + tp_b).cpu().numpy(), tf_b.cpu().numpy()).sum())
+    bnd = bound(B * H * W * 8 + B * 8 + 2 * B * H * W * 8, steps * H * W * 20)
+    print(f"phase 8 K7: dense {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]}); compact P={P} {ms_c:.4f} ms")
+    kernels.reset_counts()
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd,
+            "ms_compact": ms_c}
+
+
+def k3_phase(dev, scene_flow: np.ndarray):
+    """K3's forward and backward against their plain versions at the
+    training shape (B = 16, 256², C = 65): random inputs with a random flow,
+    and with the scene's flow integrated by K7 (sentinels included)."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.euler import euler_integrate_phased
+    from slrsfs_tpu_torch.ops.splat import (
+        _corner_taps,
+        softsplat_sum_bwd_kernel,
+        softsplat_sum_fwd_kernel,
+        softsplat_sum_grad_plain,
+        softsplat_sum_plain,
+    )
+
+    B, C = TRAIN_B, TRAIN_C
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    inp = torch.randn((B, H, W, C), generator=gen, device=dev)
+    g = torch.randn((B, H, W, C), generator=gen, device=dev)
+    idx = make_train_batch(np.random.default_rng(SEED), B, W)["index"]
+    tf_b, tp_b = (torch.from_numpy(a).to(dev) for a in phased_counts(idx, TRAIN_T))
+    m = torch.from_numpy(np.repeat(scene_flow[None], B, axis=0)).to(dev)
+    flows = {"random flow": torch.randn((B, H, W, 2), generator=gen,
+                                        device=dev) * 3.0,
+             "scene flow (K7)": euler_integrate_phased(m, tf_b, tp_b,
+                                                       TRAIN_T)[1]}
+    res = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for label, flow in flows.items():
+        out = softsplat_sum_fwd_kernel(inp, flow)
+        ref = softsplat_sum_plain(inp, flow)
+        torch.cuda.synchronize()
+        e = (out - ref).abs().max().item()
+        check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
+              f"K3 forward {label}: max abs {e}")
+        check(torch.equal(out == 0, ref == 0),
+              f"K3 forward {label}: zero pattern differs")
+        gi, gf = softsplat_sum_bwd_kernel(inp, flow, g)
+        wi, wf = softsplat_sum_grad_plain(inp, flow, g)
+        torch.cuda.synchronize()
+        eb = []
+        for name, a, b in (("grad_inp", gi, wi), ("grad_flow", gf, wf)):
+            scale = b.abs().max().item()
+            d = (a - b).abs().max().item()
+            check(d <= 1e-5 * scale, f"K3 backward {label} {name}: max abs "
+                  f"{d} vs 1e-5 x {scale}")
+            eb.append(d)
+        res["fwd_err"] = max(res["fwd_err"], e)
+        res["bwd_err"] = max(res["bwd_err"], *eb)
+        print(f"phase 9 K3 {label}: forward max abs {e:.3g} (atol/rtol 1e-5), "
+              f"zeros match ({int((ref == 0).all(-1).sum())} empty cells); "
+              f"backward max abs grad_inp {eb[0]:.3g}, grad_flow {eb[1]:.3g} "
+              f"(limit 1e-5 of each output's max)")
+    flow = flows["scene flow (K7)"]
+    res["ms_fwd"] = cuda_time(lambda: softsplat_sum_fwd_kernel(inp, flow), reps=20)
+    res["plain_fwd"] = cuda_time(lambda: softsplat_sum_plain(inp, flow), reps=3,
+                                 warmup=1)
+    res["ms_bwd"] = cuda_time(lambda: softsplat_sum_bwd_kernel(inp, flow, g),
+                              reps=20)
+    res["plain_bwd"] = cuda_time(lambda: softsplat_sum_grad_plain(inp, flow, g),
+                                 reps=3, warmup=1)
+    # yardstick for the forward: ONE index_add_ of the 4·B·HW weighted rows
+    xs = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    lins, rows = [], []
+    for b in range(B):
+        for lin, w in _corner_taps((xs + flow[b, ..., 0]).reshape(-1),
+                                   (ys + flow[b, ..., 1]).reshape(-1), H, W):
+            lins.append(lin + b * H * W)
+            rows.append(inp[b].reshape(H * W, C) * w[:, None])
+    lin_all, rows_all = torch.cat(lins), torch.cat(rows)
+    del lins, rows
+    acc = torch.zeros((B * H * W, C), device=dev)
+    res["lib_fwd"] = cuda_time(lambda: acc.index_add_(0, lin_all, rows_all), reps=20)
+    del lin_all, rows_all, acc
+    n = B * H * W
+    # forward: inp and flow in, out out; per pixel ~20 ops of corner math
+    # and per channel 4 multiplies and 4 adds
+    res["bound_fwd"] = bound(n * C * 4 * 2 + n * 8, n * (8 * C + 20))
+    # backward: inp, flow and g in, grad_inp and grad_flow out; per channel
+    # and corner 2 multiply-adds (g·w, inp·g)
+    res["bound_bwd"] = bound(n * C * 4 * 3 + n * 8 * 2, n * (16 * C + 40))
+    print(f"phase 9 K3 forward: {res['ms_fwd']:.4f} ms (plain "
+          f"{res['plain_fwd']:.2f} ms, index_add_ {res['lib_fwd']:.4f} ms, bound "
+          f"{res['bound_fwd'][0]:.4f} ms by {res['bound_fwd'][1]}); backward: "
+          f"{res['ms_bwd']:.4f} ms (plain {res['plain_bwd']:.2f} ms, bound "
+          f"{res['bound_bwd'][0]:.4f} ms by {res['bound_bwd'][1]})")
+    return res
+
+
+def _step_times(tr, batch, n_steps: int):
+    """n timed G+D steps: (host ms per step list, mean CUDA-event stage ms,
+    logs of the last step)."""
+    import torch
+
+    stages = {}
+    host = []
+    logs = None
+    for _ in range(n_steps):
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append((name, e))
+
+        t0 = time.perf_counter()
+        logs = tr.train_step(batch, timer=mark)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        for (_, a), (name, b) in zip(events, events[1:]):
+            stages.setdefault(name, []).append(a.elapsed_time(b))
+    return host, {k: float(np.mean(v)) for k, v in stages.items()}, logs
+
+
+def _max_grad_diff(a, b):
+    scale = max(x.abs().max().item() for x in b)
+    return max((x - y).abs().max().item() for x, y in zip(a, b)), scale
+
+
+def training_phase(dev):
+    """The full-width G+D step through Trainer.train_step: dense batch
+    (K7 dense) and a batch with 50 % moving rows through
+    attach_moving_sets (K7 compact). One warm-up and 3 timed steps each;
+    launches counted over the dense timed steps; kernel path against plain
+    path from one snapshot."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.cli.train import (
+        attach_moving_sets,
+        build,
+        to_device_batch,
+    )
+    from slrsfs_tpu_torch.config import Options
+
+    B = TRAIN_B
+    while True:
+        opt = Options(W=W, batch_size=B)  # full width: ngf 64, D ndf 64
+        _, tr = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED)
+        batch = to_device_batch(make_train_batch(np.random.default_rng(SEED), B, W), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            tr.train_step(batch)  # warm-up
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            peak = torch.cuda.max_memory_allocated()
+            del tr, batch
+            torch.cuda.empty_cache()
+            print(f"phase 10 batch {B} does not fit the card (peak "
+                  f"{peak / 2**30:.1f} GiB at the failure); halving")
+            check(B > 1, "batch 1 does not fit")
+            B //= 2
+    warm_peak = torch.cuda.max_memory_allocated()
+    kernels.reset_counts()
+    host, stages, logs = _step_times(tr, batch, 3)
+    launches = kernels.counts()
+    want = {**{k.name: 0 for k in kernels.KERNELS}, "splat_dense_fwd": 6,
+            "splat_dense_bwd": 6, "euler_phased": 3}
+    check(launches == want, f"training launches over 3 steps: {launches}")
+    for k, v in logs.items():
+        check(bool(torch.isfinite(v)), f"training loss {k} = {v}")
+    step_ms = float(np.median(host))
+    print(f"phase 10 training step (dense K7): B={B} {W}^2 ngf={opt.ngf} "
+          f"T={TRAIN_T}: {step_ms:.1f} ms/step median = {B / step_ms * 1e3:.2f} "
+          f"samples/s (runs {[round(x, 1) for x in host]} ms); stages "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
+          + f"; launches over 3 steps {launches}; peak {warm_peak / 2**30:.2f} GiB"
+          + "; losses " + ", ".join(f"{k} {v.item():.4f}" for k, v in logs.items()))
+
+    sparse_np = attach_moving_sets(make_train_batch(np.random.default_rng(SEED + 1),
+                                                    B, W, moving_frac=0.5))
+    check("mov_pos" in sparse_np, "the 50 % batch has no moving sets")
+    sparse = to_device_batch(sparse_np, dev)
+    tr.train_step(sparse)  # warm-up
+    kernels.reset_counts()
+    host_s, stages_s, logs_s = _step_times(tr, sparse, 3)
+    launches_s = kernels.counts()
+    check(launches_s == want, f"compact training launches: {launches_s}")
+    for k, v in logs_s.items():
+        check(bool(torch.isfinite(v)), f"compact training loss {k} = {v}")
+    step_ms_s = float(np.median(host_s))
+    print(f"phase 10 training step (50 % moving, compact K7, P="
+          f"{sparse_np['mov_pos'].shape[1]}): {step_ms_s:.1f} ms/step median = "
+          f"{B / step_ms_s * 1e3:.2f} samples/s (runs "
+          f"{[round(x, 1) for x in host_s]} ms); stages "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in stages_s.items()))
+
+    # kernel path against plain path, from one snapshot, both batches
+    path = {}
+    for label, b in (("dense", batch), ("compact", sparse)):
+        snap = tr.snapshot()
+        got = tr.train_step(b)
+        g_k = [x.clone() for x in tr.last_grads["g"] + tr.last_grads["d"]]
+        tr.restore(snap)
+        want_l = tr.train_step(b, plain=True)
+        g_p = tr.last_grads["g"] + tr.last_grads["d"]
+        tr.restore(snap)
+        loss_rel = max(abs(got[k].item() - want_l[k].item())
+                       / max(abs(want_l[k].item()), 1e-12) for k in want_l)
+        g_diff, g_scale = _max_grad_diff(g_k, g_p)
+        check(loss_rel <= 1e-4, f"{label} kernel vs plain step: losses differ "
+              f"by {loss_rel:.3g} relative")
+        check(g_diff <= 1e-3 * g_scale, f"{label} kernel vs plain step: "
+              f"gradients differ by {g_diff:.3g} (largest {g_scale:.3g})")
+        path[label] = (loss_rel, g_diff / g_scale)
+        del g_k, g_p, snap
+    print("phase 10 kernel vs plain step: " + "; ".join(
+        f"{k}: losses {v[0]:.3g} relative (limit 1e-4), gradients "
+        f"{v[1]:.3g} of the largest (limit 1e-3)" for k, v in path.items()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 10 peak memory of a step: {peak / 2**30:.2f} GiB allocated "
+          f"({(peak - base) / 2**30:.2f} GiB above the resident "
+          f"{base / 2**30:.2f} GiB of weights, optimizer and batch)")
+    return {"B": B, "launches": launches, "step_ms": step_ms,
+            "step_ms_compact": step_ms_s, "stages": stages, "peak": peak}
+
+
+def write_train_fixture(root: str, seed: int):
+    """Two training scenes and one validation scene in the reference layout
+    (<split>/<scene>_gt.mp4 and _motion.npz), as tests/conftest.py makes
+    them: 12 frames of 256x144, the bottom half moving."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    h, w, n = 144, 256, 12
+    for split, scenes in (("train", ["00001_00000", "00002_00000"]),
+                          ("validation", ["00980_00000"])):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        for scene in scenes:
+            vw = cv2.VideoWriter(os.path.join(root, split, f"{scene}_gt.mp4"),
+                                 cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+            base = rng.integers(0, 255, (h, w, 3), np.uint8)
+            for t in range(n):
+                vw.write(cv2.cvtColor(np.roll(base, t, axis=1),
+                                      cv2.COLOR_RGB2BGR))
+            vw.release()
+            motion = np.zeros((h, w, 2), np.float32)
+            motion[h // 2:, :, 0] = 1.0
+            np.savez_compressed(os.path.join(root, split,
+                                             f"{scene}_motion.npz"), motion)
+
+
+def train_cli_phase(scene_dir: str, img_path: str, flow_path: str):
+    """``python -m slrsfs_tpu_torch.cli.train`` for 2 steps (full width,
+    W = 64, batch 2) on a synthetic dataset, then SceneRenderer renders
+    from the checkpoint it saved."""
+    import shutil
+
+    import torch
+
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+
+    root = os.path.join(OUT_DIR, "train_data")
+    out = os.path.join(OUT_DIR, "train_run")
+    for d in (root, out):
+        shutil.rmtree(d, ignore_errors=True)
+    write_train_fixture(root, SEED)
+    cmd = [sys.executable, "-m", "slrsfs_tpu_torch.cli.train", "--data-root",
+           root, "--out", out, "--batch-size", "2", "--W", "64", "--niter", "1",
+           "--niter-decay", "0", "--steps-per-epoch", "2", "--val-steps", "1",
+           "--seed", str(SEED)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"train CLI failed:\n{proc.stdout}\n{proc.stderr}")
+    ckpt = os.path.join(out, "checkpoint.pth")
+    check(os.path.exists(ckpt), "train CLI wrote no checkpoint")
+    with open(os.path.join(out, "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r for r in rows if r["split"] == "train"]
+    check(len(steps) == 2, f"train CLI logged {len(steps)} steps")
+    for r in rows:
+        check(all(np.isfinite(v) for k, v in r.items() if k != "split"),
+              f"train CLI log not finite: {r}")
+    r = SceneRenderer(ckpt=ckpt, W=64, n_frames=8)
+    out_dir, frames = render_capture(r, img_path, flow_path,
+                                     os.path.join(scene_dir, "trained"),
+                                     name="synthetic")
+    torch.cuda.synchronize()
+    check(tuple(frames.shape) == (8, 64, 64, 3), f"frames {frames.shape}")
+    check(bool(torch.isfinite(frames).all()), "trained render not finite")
+    pngs = sorted(os.listdir(os.path.join(out_dir, "PredImg")))
+    check(len(pngs) == 8, f"trained render wrote {len(pngs)} PNGs")
+    print(f"phase 11 train CLI: 2 steps + validation + checkpoint in "
+          f"{secs:.1f} s (subprocess, kernels loaded from the build); last "
+          f"step Total Loss {steps[-1]['Total Loss']:.4f}; SceneRenderer "
+          f"rendered its checkpoint: 8 PNGs, frame range "
+          f"[{frames.min().item():.3f}, {frames.max().item():.3f}]")
 
 
 def main() -> int:
@@ -639,7 +1058,24 @@ def main() -> int:
               f"pixel-frame; half of {total / 2**30:.1f} GiB holds "
               f"{int(total / 2 / per_px):,} pixel-frames")
 
-    # ---- phase 8: summary --------------------------------------------
+    # ---- phases 8-11: training ---------------------------------------
+    del chunk, chunk_bf, chunk65, chunk65_bf
+    torch.cuda.empty_cache()
+    k7 = k7_phase(dev, flow_np)
+    k3 = k3_phase(dev, flow_np)
+    train = training_phase(dev)
+    st = train["stages"]
+    print(f"phase 10 step stages with the kernels (dense, B={train['B']}): "
+          f"G forward {st['G forward']:.1f} ms, of which K7 {k7['ms']:.3f} ms "
+          f"and K3 forward x2 {2 * k3['ms_fwd']:.3f} ms; G backward "
+          f"{st['G backward']:.1f} ms, of which K3 backward x2 "
+          f"{2 * k3['ms_bwd']:.3f} ms; D step {st['D step']:.1f} ms; updates "
+          f"{st['updates']:.1f} ms; K3 and K7 together "
+          f"{100 * (k7['ms'] + 2 * k3['ms_fwd'] + 2 * k3['ms_bwd']) / train['step_ms']:.2f} "
+          f"% of the step")
+    train_cli_phase(scene_dir, img_path, flow_path)
+
+    # ---- phase 12: summary -------------------------------------------
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd, lib_ms):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_, "max_abs_err": err,
@@ -667,9 +1103,20 @@ def main() -> int:
             "slrsfs_tpu/ops/splat.py:240",
             dense_launches["maximum_warp_norm_splat"], k6_err, ms_k6,
             ms_k6_plain, k6_bound, lib["K6"]),
+        row("splat_dense_fwd", "slrsfs_tpu_torch/csrc/splat_dense.cu",
+            "slrsfs_tpu/ops/splat.py:139", train["launches"]["splat_dense_fwd"],
+            k3["fwd_err"], k3["ms_fwd"], k3["plain_fwd"], k3["bound_fwd"],
+            k3["lib_fwd"]),
+        row("splat_dense_bwd", "slrsfs_tpu_torch/csrc/splat_dense.cu",
+            "slrsfs_tpu/ops/splat.py:111", train["launches"]["splat_dense_bwd"],
+            k3["bwd_err"], k3["ms_bwd"], k3["plain_bwd"], k3["bound_bwd"], None),
+        row("euler_phased", "slrsfs_tpu_torch/csrc/euler_phased.cu",
+            "slrsfs_tpu/ops/euler.py:249", train["launches"]["euler_phased"],
+            k7["err"], k7["ms"], k7["plain_ms"], k7["bound"], None),
     ]
-    print("phase 8 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
-          + "; all checks passed")
+    print("phase 12 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
+          + f"; training step {train['step_ms']:.1f} ms at B={train['B']} "
+          f"({train['B'] / train['step_ms'] * 1e3:.2f} samples/s); all checks passed")
     print(smi)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,8 @@ import subprocess
 import numpy as np
 import torch
 
+from slrsfs_tpu_torch.engine.init_utils import resolve_device, settle
+
 # Decode-chunk budget in decoded pixels x frames: the decoder's live
 # activations scale with decode_batch x window area, so the auto chooser
 # caps their product. From chip_smoke.py's peak-memory reading on an NVIDIA
@@ -90,16 +92,6 @@ def outputs_to_u8(outs) -> dict:
     return {k: to_u8(v, image="Img" in k).cpu().numpy() for k, v in outs.items()}
 
 
-def resolve_device(device="cuda") -> torch.device:
-    """The device to render on. A missing card raises: there is no silent
-    CPU path; pass device='cpu' for the plain PyTorch path."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the plain PyTorch path on the CPU")
-    return dev
-
-
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
@@ -152,11 +144,18 @@ class SceneRenderer:
         model = (SLRModel if self.slr else BaselineModel)(opt).eval()
         if ckpt:
             load_model_state(model, sd)
+            model = model.to(self.device)
         else:
+            # settle at 64² whatever the render size, n = 6, zero noise, as
+            # the JAX renderer does (slrsfs_tpu/cli/render.py:177-191)
             init_random_weights(model, seed)
+            model = model.to(self.device)
+            small = np.random.default_rng(seed + 2).standard_normal(
+                (1, 64, 64, 3)).astype(np.float32) * 0.25
+            settle(model, (torch.from_numpy(small).to(self.device),), n=6)
         self.compute_dtype = (torch.bfloat16 if dtype == "bfloat16"
                               else torch.float32)
-        self.model = model.to(self.device, self.compute_dtype)
+        self.model = model.to(self.compute_dtype)
         self.W, self.n_frames = W, n_frames
         if decode_batch is not None:
             while n_frames % decode_batch:

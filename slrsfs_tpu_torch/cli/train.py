@@ -1,0 +1,238 @@
+"""Stage-1 training entry point (port of ``slrsfs_tpu/cli/train.py`` for
+``--model-type softmax_splating``, reference ``train_animating.py``).
+
+Epochs of ``--steps-per-epoch`` G+D steps, a validation pass on the
+validation split after each, scalars as JSON lines in
+``<out>/scalars.jsonl``, and a reference-style checkpoint
+``<out>/checkpoint.pth`` after each epoch (the port's and the JAX package's
+render CLIs load it).
+
+    python -m slrsfs_tpu_torch.cli.train --data-root DATA --out RUNDIR \\
+        [--device cpu] ...
+
+Resume, preemption, accumulation, bf16 and the bg, SLR and motion model
+types are not ported yet (ROADMAP §1 item 12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from slrsfs_tpu_torch.engine.rollout import geometric_bucket
+
+MODEL_TYPE = "softmax_splating"
+
+
+def attach_moving_sets(batch: Dict, max_frac: float = 0.5,
+                       state: Optional[Dict] = None, eps: float = 0.0,
+                       n_steps: Optional[int] = None) -> Dict:
+    """Host-side moving-pixel sets for the compact training integration
+    (port of the JAX ``attach_moving_sets``).
+
+    Adds ``mov_pos`` (B, P, 2) int32 [x, y] and ``mov_valid`` (B, P) float32,
+    P on the ×1.25 geometric series from 1024, and returns the batch
+    unchanged when the largest sample's moving fraction exceeds
+    ``max_frac``. ``eps`` > 0 first zeroes motion slower than ``eps``
+    (a zeroed pixel drifts at most T·eps over a T-step integration).
+    ``state``, a dict kept across batches, makes the choice sticky for a
+    run: the first batch picks sparse or dense and P only grows."""
+    m = np.asarray(batch["motions"])
+    flow = m[..., :2] * m[..., 2:3] if m.shape[-1] == 3 else m
+    if eps > 0.0:
+        speed = np.sqrt(flow[..., 0] ** 2 + flow[..., 1] ** 2)
+        sub = speed < eps
+        if sub.any():
+            zeroed = sub & (speed > 0)
+            if zeroed.any() and not (state or {}).get("eps_logged"):
+                T = n_steps if n_steps else round(0.5 / eps)
+                print(f"train sparsify eps={eps:g}: zeroed "
+                      f"{zeroed.mean():.1%} of pixels (max trajectory drift "
+                      f"{speed[zeroed].max() * T:.2f}px over the "
+                      f"{T}-step integration)", flush=True)
+                if state is not None:
+                    state["eps_logged"] = True
+            m = np.where(sub[..., None], 0.0, m).astype(m.dtype)
+            flow = np.where(sub[..., None], 0.0, flow)
+            batch = dict(batch)
+            batch["motions"] = m
+    moving = np.any(flow != 0.0, axis=-1)
+    B, H, W = moving.shape
+    need = int(moving.reshape(B, -1).sum(1).max())
+    if state is not None and "mode" not in state:
+        state["mode"] = "dense" if need > max_frac * H * W else "sparse"
+    if state is not None:
+        if state["mode"] == "dense":
+            return batch
+    elif need > max_frac * H * W:
+        return batch
+    P = max(geometric_bucket(need, 1024, 1.25, H * W),
+            state.get("P", 0) if state is not None else 0)
+    if state is not None:
+        state["P"] = P
+    pos = np.zeros((B, P, 2), np.int32)
+    val = np.zeros((B, P), np.float32)
+    for b in range(B):
+        ys, xs = np.nonzero(moving[b])
+        n = len(xs)
+        pos[b, :n, 0] = xs
+        pos[b, :n, 1] = ys
+        val[b, :n] = 1.0
+    out = dict(batch)
+    out["mov_pos"] = pos
+    out["mov_valid"] = val
+    return out
+
+
+def to_device_batch(batch: Dict, device) -> Dict:
+    """numpy batch → tensors on ``device`` (images stay a list of three)."""
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+
+    return {k: [t(x) for x in v] if k == "images" else t(v)
+            for k, v in batch.items()}
+
+
+def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,
+          steps_per_epoch: int = 500, vgg=None):
+    """The stage-1 model and trainer (``softmax_splating``) on ``device``,
+    with seeded random weights (LeCun-normal kernels, zero biases, spectral
+    vectors from power iterations)."""
+    from slrsfs_tpu_torch.engine.trainer import Trainer
+    from slrsfs_tpu_torch.models.baseline import (
+        BaselineTrainable,
+        init_random_weights,
+    )
+    from slrsfs_tpu_torch.nn.discriminators import MultiscaleDiscriminator
+
+    if opt.model_type != MODEL_TYPE:
+        raise NotImplementedError(
+            f"model_type {opt.model_type!r} is not ported yet: the bg, SLR "
+            "and motion stages are ROADMAP §1 item 12")
+    model = BaselineTrainable(opt, train_max_steps=train_max_steps)
+    init_random_weights(model, seed)
+    d_model = MultiscaleDiscriminator(opt)
+    init_random_weights(d_model, seed + 1)
+    trainer = Trainer(opt, model, steps_per_epoch=steps_per_epoch, vgg=vgg,
+                      d_model=d_model, seed=seed, device=device)
+    return model, trainer
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--model-type", default=MODEL_TYPE, choices=[MODEL_TYPE])
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--W", type=int, default=256)
+    p.add_argument("--ngf", type=int, default=64)
+    p.add_argument("--niter", type=int, default=100)
+    p.add_argument("--niter-decay", type=int, default=10)
+    p.add_argument("--steps-per-epoch", type=int, default=500)
+    p.add_argument("--val-steps", type=int, default=8)
+    p.add_argument("--lr-g", type=float, default=5e-4 / 2)
+    p.add_argument("--lr-d", type=float, default=1e-3 * 2)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--vgg-pth", default=None,
+                   help="torchvision vgg19 state_dict for the content loss "
+                        "(default: seeded random VGG weights)")
+    p.add_argument("--init-from", default=None,
+                   help="reference-style .pth to warm-start G (and D, when "
+                        "it holds netD.* keys) from")
+    p.add_argument("--train-sparse-motion", choices=["auto", "off"],
+                   default="auto",
+                   help="integrate only each sample's moving pixels (compact "
+                        "K7) when at most half of them move")
+    p.add_argument("--train-sparsify-eps", type=float, default=None,
+                   help="zero training motion below this speed; default "
+                        "0.5/train_max_steps; 0 disables")
+    p.add_argument("--train-max-steps", type=int, default=60,
+                   help="bound on the per-sample Euler steps (T)")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu' for the plain path")
+    a = p.parse_args(argv)
+
+    from slrsfs_tpu_torch.config import Options
+    from slrsfs_tpu_torch.data.datasets import get_dataset
+    from slrsfs_tpu_torch.io.checkpoint import (
+        clean_state_dict,
+        load_model_state,
+        save_checkpoint,
+    )
+    from slrsfs_tpu_torch.nn.vgg import VGG19Features, import_vgg19
+
+    opt = Options(model_type=a.model_type, dataset="eulerian_data",
+                  batch_size=a.batch_size, W=a.W, ngf=a.ngf, niter=a.niter,
+                  niter_decay=a.niter_decay, lr_g=a.lr_g, lr_d=a.lr_d,
+                  seed=a.seed)
+    os.makedirs(a.out, exist_ok=True)
+    with open(os.path.join(a.out, "options.json"), "w") as f:
+        f.write(opt.to_json())
+
+    vgg = None
+    if a.vgg_pth:
+        vgg = VGG19Features()
+        vgg.load_state_dict(import_vgg19(
+            torch.load(a.vgg_pth, map_location="cpu", weights_only=False)))
+    model, trainer = build(opt, a.train_max_steps, a.device, a.seed,
+                           a.steps_per_epoch, vgg)
+    if a.init_from:
+        ckpt = torch.load(a.init_from, map_location="cpu", weights_only=False)
+        sd = ckpt.get("state_dict", ckpt)
+        load_model_state(model, clean_state_dict(sd))
+        d_sd = {k[len("netD.netD."):]: v for k, v in sd.items()
+                if k.startswith("netD.netD.")}
+        if d_sd:
+            load_model_state(trainer.d_model, d_sd)
+
+    dataset = get_dataset(opt, a.data_root, split="train", seed=a.seed)
+    sparse = a.train_sparse_motion != "off"
+    eps = a.train_sparsify_eps
+    if eps is None:
+        eps = 0.5 / a.train_max_steps if sparse else 0.0
+    mov_state: Dict = {}
+    dev = trainer.device
+    log_path = os.path.join(a.out, "scalars.jsonl")
+    ckpt_path = os.path.join(a.out, "checkpoint.pth")
+    with open(log_path, "a") as log:
+        for epoch in range(a.niter + a.niter_decay):
+            dataset.totrain(epoch)
+            t0 = time.time()
+            for it, batch in enumerate(dataset.batches(
+                    a.batch_size, num_batches=a.steps_per_epoch)):
+                if sparse:
+                    batch = attach_moving_sets(batch, state=mov_state, eps=eps,
+                                               n_steps=a.train_max_steps)
+                logs = trainer.train_step(to_device_batch(batch, dev))
+                row = {k: float(v) for k, v in logs.items()}
+                log.write(json.dumps({"split": "train", "epoch": epoch,
+                                      "step": trainer.step_count, **row}) + "\n")
+                if it % 100 == 0:
+                    print(f"epoch {epoch} it {it}: " + " ".join(
+                        f"{k}={row[k]:.4f}" for k in
+                        ("Total Loss", "L1", "Perceptual", "psnr", "GAN")
+                        if k in row), flush=True)
+            dataset.toval(epoch)
+            val: Dict = {}
+            for batch in dataset.batches(a.batch_size, num_batches=a.val_steps):
+                for k, v in trainer.eval_step(to_device_batch(batch, dev)).items():
+                    val.setdefault(k, []).append(float(v))
+            val_means = {k: float(np.mean(v)) for k, v in val.items()}
+            log.write(json.dumps({"split": "val", "epoch": epoch,
+                                  "step": trainer.step_count, **val_means}) + "\n")
+            log.flush()
+            save_checkpoint(ckpt_path, model, trainer.d_model, opt, epoch=epoch)
+            print(f"epoch {epoch} done in {time.time() - t0:.0f}s; val "
+                  f"{val_means}; saved {ckpt_path}", flush=True)
+    return ckpt_path
+
+
+if __name__ == "__main__":
+    main()

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from slrsfs_tpu_torch.engine.init_utils import no_tf32
 from slrsfs_tpu_torch.models.baseline import (
     BaselineModel,
     pack_splat_input,
@@ -49,7 +50,7 @@ from slrsfs_tpu_torch.ops.maxwarp import (
     maximum_warp_norm_sparse_plain,
 )
 from slrsfs_tpu_torch.ops.splat import (
-    softsplat_sum,
+    softsplat_sum_plain,
     splat_dual_normalize,
     splat_dual_normalize_plain,
     splat_dual_normalize_slr,
@@ -81,19 +82,10 @@ def _alphas(t: int, n: int, slr: bool = False):
     return a, np.float32(1.0) - a
 
 
-@contextlib.contextmanager
 def _fp32_convs(dtype: torch.dtype):
-    """Keep float32 convolutions in float32: cuDNN runs them in TF32 by
-    default, which keeps about three decimal digits."""
-    if dtype != torch.float32:
-        yield
-        return
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+    """Keep float32 convolutions in float32 (``no_tf32``) when computing in
+    float32."""
+    return no_tf32() if dtype == torch.float32 else contextlib.nullcontext()
 
 
 @torch.no_grad()
@@ -494,8 +486,8 @@ def slr_rollout_dense(model: SLRModel, img: Tensor, flow: Tensor,
             if v2:  # one Z-norm, from the forward displacement, for both ends
                 u, use_alpha0 = slr_pack_splat_input(
                     opt, fs, z_normalize(opt, z, ff), a_fl_logits, a_bg_sig)
-            g = (softsplat_sum(u, ff) * torch.tensor(a, device=flow.device)
-                 + softsplat_sum(u, fp) * torch.tensor(b, device=flow.device))
+            g = (softsplat_sum_plain(u, ff) * torch.tensor(a, device=flow.device)
+                 + softsplat_sum_plain(u, fp) * torch.tensor(b, device=flow.device))
             packed.append(torch.cat(slr_unpack_splatted(g, use_alpha0), -1)[0])
         return _slr_decode_stack(model, torch.stack(packed), img, a_bg_sig,
                                  a_bg_logits, bg_tanh, region, opt,

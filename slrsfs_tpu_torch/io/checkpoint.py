@@ -1,15 +1,17 @@
-"""Reference ``.pth`` checkpoints → the port's baseline or SLR model.
+"""Reference ``.pth`` checkpoints ↔ the port's models.
 
 A reference checkpoint is ``{state_dict, ..., opts}`` with the
 hyperparameters pickled as an argparse namespace (``train_animating.py:
 243-261``). The port's modules keep the reference's key names, so after the
 key surgery of ``slrsfs_tpu/io/checkpoint.py:64-77`` the state_dict loads
-directly.
+directly; ``save_checkpoint`` writes the same layout from a training run.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
 from typing import Dict, Mapping, Tuple
 
 import torch
@@ -83,3 +85,24 @@ def load_checkpoint(path: str) -> Tuple[Dict, Options]:
             f"model_type {opt.model_type!r} is not ported yet: the motion "
             "regressor is ROADMAP §1 item 11")
     return clean_state_dict(sd), opt
+
+
+def save_checkpoint(path: str, G: torch.nn.Module, D: torch.nn.Module,
+                    opt: Options, epoch: int = 0) -> str:
+    """Write a reference-style ``.pth``: the generator's state under
+    ``model.module.`` (BaseModel + DataParallel) and the discriminator's
+    under ``netD.netD.``, with ``opts`` as an argparse namespace. The port's
+    ``load_checkpoint`` and the JAX ``import_checkpoint`` (:297) and
+    ``import_discriminator`` (:227) read it. Written to a temporary file and
+    renamed, so a crash leaves the previous checkpoint."""
+    sd = {f"model.module.{k}": v.detach().cpu()
+          for k, v in G.state_dict().items()}
+    sd.update({f"netD.netD.{k}": v.detach().cpu()
+               for k, v in D.state_dict().items()})
+    opts = argparse.Namespace(**{
+        k: list(v) if isinstance(v, tuple) else v
+        for k, v in dataclasses.asdict(opt).items()})
+    tmp = f"{path}.tmp"
+    torch.save({"state_dict": sd, "opts": opts, "epoch": epoch}, tmp)
+    os.replace(tmp, path)
+    return path

@@ -1,12 +1,12 @@
 """JAX variables → the port's ``state_dict``.
 
 ``from_jax_variables`` is the inverse of ``slrsfs_tpu/io/torch_import.py``
-(:55-128) for the baseline and SLR models: it takes the JAX ``{'params',
-'batch_stats', 'spectral'}`` tree
-as numpy arrays and returns a ``state_dict`` under the reference's key
-names. Conv kernels go from HWIO to OIHW, dense kernels from (in, out) to
-(out, in), and a conv's spectral ``v`` from the (kh, kw, I) flattening back
-to torch's (I, kh, kw).
+(:55-128) for the baseline and SLR models, the multiscale discriminator and
+VGG19Features: it takes the JAX ``{'params', 'batch_stats', 'spectral'}``
+tree as numpy arrays and returns a ``state_dict`` under the reference's
+(torchvision's, for VGG) key names. Conv kernels go from HWIO to OIHW,
+dense kernels from (in, out) to (out, in), and a conv's spectral ``v`` from
+the (kh, kw, I) flattening back to torch's (I, kh, kw).
 """
 
 from __future__ import annotations
@@ -28,6 +28,11 @@ _RENAMES = (
     (re.compile(r"\bch_a\.3\b"), "bn_noise2"),
     (re.compile(r"\bch_a\.5\b"), "conv_ab"),
     (re.compile(r"\bch_b\.0\b"), "conv_b"),
+    # discriminator: model{n}.0 (plain conv) or model{n}.0.0 (the spectral
+    # conv inside the norm wrapper) is the JAX model{n}_conv
+    (re.compile(r"\bmodel(\d+)\.0(\.0)?$"), r"model\1_conv"),
+    # VGG19: torchvision features.{i} is the JAX conv_{i}
+    (re.compile(r"^features\.(\d+)$"), r"conv_\1"),
 )
 
 
@@ -70,15 +75,19 @@ def _jax_leaf(variables: Mapping, key: str, partial: set) -> np.ndarray:
     raise KeyError(f"no JAX counterpart for {key}")
 
 
-def from_jax_variables(variables_np: Mapping, opt: Options) -> Dict[str, torch.Tensor]:
-    """JAX ``BaselineModel`` or ``SLRModel`` variables (numpy leaves; the
-    model is chosen by ``opt.model_type``) → the port's state_dict."""
+def from_jax_variables(variables_np: Mapping, opt: Options,
+                       model: torch.nn.Module = None) -> Dict[str, torch.Tensor]:
+    """JAX variables (numpy leaves) → the state_dict of ``model``: by
+    default the ``BaselineModel`` or ``SLRModel`` that ``opt.model_type``
+    names; pass a ``MultiscaleDiscriminator`` or ``VGG19Features`` (any
+    device, ``meta`` included) for those."""
     from slrsfs_tpu_torch.models.baseline import BaselineModel
     from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRModel
 
-    with torch.device("meta"):
-        model = (SLRModel if opt.model_type == SLR_MODEL_TYPE
-                 else BaselineModel)(opt)
+    if model is None:
+        with torch.device("meta"):
+            model = (SLRModel if opt.model_type == SLR_MODEL_TYPE
+                     else BaselineModel)(opt)
     partial = set()
     for name, mod in model.named_modules():
         if getattr(mod, "partial", False):

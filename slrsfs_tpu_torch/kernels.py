@@ -5,7 +5,7 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root, named after its
 source and a hash of the source and flags, so a changed source never loads
 a stale build. Several entry points may share one source (K2's two
-epilogues); it is built once. Nothing is compiled at import: this module
+epilogues, K3's forward and backward); it is built once. Nothing is compiled at import: this module
 imports on a host without CUDA.
 
 Every C entry point launches on the stream it is given (the wrapper passes
@@ -144,8 +144,27 @@ MAXWARP_SPLAT = Kernel(
     # z, flow, mx, out, B, H, W, stream
     [_P, _P, _P, _P, _I, _I, _I, _P])
 
+SPLAT_DENSE_FWD = Kernel(
+    "splat_dense_fwd", "slrsfs_tpu_torch/csrc/splat_dense.cu",
+    "splat_dense_fwd",
+    # inp, flow, out, B, H, W, C, stream
+    [_P, _P, _P, _I, _I, _I, _I, _P])
+
+SPLAT_DENSE_BWD = Kernel(
+    "splat_dense_bwd", "slrsfs_tpu_torch/csrc/splat_dense.cu",
+    "splat_dense_bwd",
+    # inp, flow, g, grad_inp, grad_flow, B, H, W, C, stream
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+
+EULER_PHASED = Kernel(
+    "euler_phased", "slrsfs_tpu_torch/csrc/euler_phased.cu", "euler_phased",
+    # motion, positions, valid, t_fwd, t_bwd, out_f, out_p, B, R, H, W,
+    # n_steps, stream
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+
 KERNELS: List[Kernel] = [EULER, SPLAT, SPLAT_SLR, MAXWARP_SPARSE,
-                         MAXWARP_SPLAT]
+                         MAXWARP_SPLAT, SPLAT_DENSE_FWD, SPLAT_DENSE_BWD,
+                         EULER_PHASED]
 
 
 def build_all() -> Dict[str, float]:

@@ -1,0 +1,79 @@
+"""Reconstruction and perceptual losses (PyTorch port of
+``slrsfs_tpu/losses/synthesis.py``; reference ``models/losses/synthesis.py``).
+
+``SynthesisLoss`` parses the reference's ``--losses '1.0_l1' '10.0_content'``
+strings and adds the PSNR and SSIM metrics. Images are NHWC in [-1, 1].
+``MotionLoss`` comes with the motion stages.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from slrsfs_tpu_torch.losses.ssim import ssim
+from slrsfs_tpu_torch.nn.vgg import VGG19Features
+
+Tensor = torch.Tensor
+
+PERCEPTUAL_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
+
+
+def l1(pred: Tensor, gt: Tensor) -> Tensor:
+    return torch.mean(torch.abs(pred - gt))
+
+
+def psnr(pred: Tensor, gt: Tensor) -> Tensor:
+    """Reference PSNR (synthesis.py:113-122): the MSE sums the channels."""
+    bs = pred.shape[0]
+    mse = torch.square(pred - gt).sum(dim=-1).reshape(bs, -1).mean(dim=1)
+    return torch.mean(10.0 * torch.log10(1.0 / mse))
+
+
+def perceptual(vgg: VGG19Features, pred: Tensor, gt: Tensor) -> Tensor:
+    """VGG19 five-slice weighted L1 (synthesis.py:166-185); no gradient
+    reaches ``gt``."""
+    pf = vgg(pred)
+    with torch.no_grad():
+        gf = vgg(gt)
+    loss = 0.0
+    for w, p, g in zip(PERCEPTUAL_WEIGHTS, pf, gf):
+        loss = loss + w * torch.mean(torch.abs(p - g))
+    return loss
+
+
+class SynthesisLoss:
+    """Combiner for '--losses λ_name' strings plus PSNR/SSIM metrics."""
+
+    def __init__(self, losses: Sequence[str],
+                 vgg: Optional[VGG19Features] = None, subname: str = ""):
+        self.pairs: list[Tuple[float, str]] = []
+        for s in losses:
+            lam, name = s.split("_")
+            if name not in ("l1", "content"):
+                raise ValueError(f"synthesis loss {name!r} is not ported")
+            self.pairs.append((float(lam), name))
+        self.vgg = vgg
+        self.subname = subname
+
+    def __call__(self, pred: Tensor, gt: Tensor) -> Dict[str, Tensor]:
+        out: Dict[str, Tensor] = {}
+        total = None
+        for lam, name in self.pairs:
+            if name == "l1":
+                v = l1(pred, gt)
+                out["L1" + self.subname] = v
+            else:
+                v = perceptual(self.vgg, pred, gt)
+                out["Perceptual" + self.subname] = v
+            # reference quirk kept: the FIRST loss enters Total without its
+            # lambda (synthesis.py:98-105)
+            total = v if total is None else total + lam * v
+        if total is None:
+            total = torch.zeros((), device=pred.device)
+        with torch.no_grad():  # metrics only
+            out["psnr" + self.subname] = psnr(pred, gt)
+            out["ssim" + self.subname] = ssim(pred, gt)
+        out["Total Loss"] = total
+        return out

@@ -124,37 +124,59 @@ class SLRModel(nn.Module):
         self.net_alpha_decoder = ResNetDecoderPconv2(
             a_opt, in_channels=alpha_decoder_in_channels(opt))
 
-    def encode(self, img: Tensor) -> Tuple[Tensor, Tensor]:
+    def encode(self, img: Tensor, train: bool = False,
+               noise: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
         """img (B, H, W, 3) → (features (B, H, W, C), Z (B, H, W, 1))."""
-        fs, z = self.encoder(_nchw(img))
+        fs, z = self.encoder(_nchw(img), train, noise)
         if "relu" in self.opt.Z_model:
             z = torch.relu(z)
         return _nhwc(fs), _nhwc(z)
 
-    def bg(self, img: Tensor) -> Tensor:
+    def bg(self, img: Tensor, train: bool = False,
+           noise: Optional[torch.Generator] = None) -> Tensor:
         """Raw (pre-tanh) background image."""
-        return _nhwc(self.net_bg(_nchw(img)))
+        return _nhwc(self.net_bg(_nchw(img), train, noise))
 
     def alpha_encode(self, img: Tensor, motion: Optional[Tensor] = None,
                      mask_rock: Optional[Tensor] = None,
-                     bg_raw: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                     bg_raw: Optional[Tensor] = None, train: bool = False,
+                     noise: Optional[torch.Generator] = None
+                     ) -> Tuple[Tensor, Tensor]:
         """→ (alpha_bg_logits, alpha_fluid_logits), each (B, H, W, 1)."""
         x = build_alpha_input(self.opt, img, motion, mask_rock, bg_raw)
-        return split_alpha_output(self.opt,
-                                  _nhwc(self.net_alpha_encoder(_nchw(x))))
+        return split_alpha_output(
+            self.opt, _nhwc(self.net_alpha_encoder(_nchw(x), train, noise)))
 
-    def decode_fluid(self, gen_fs: Tensor) -> Tensor:
-        return _nhwc(torch.tanh(self.projector(_nchw(gen_fs))))
+    def decode_fluid(self, gen_fs: Tensor, train: bool = False,
+                     noise: Optional[torch.Generator] = None) -> Tensor:
+        return _nhwc(torch.tanh(self.projector(_nchw(gen_fs), train, noise)))
 
     def decode_alpha(self, gen_fs: Tensor, alpha_warped: Tensor,
-                     img: Optional[Tensor] = None) -> Tensor:
+                     img: Optional[Tensor] = None, train: bool = False,
+                     noise: Optional[torch.Generator] = None) -> Tensor:
         """Refined fluid alpha logits from the warped features and fluid
         alpha (input variants 'decouple' / 'image' as the reference)."""
         return self.decode_alpha_packed(torch.cat([gen_fs, alpha_warped], -1),
-                                        img)
+                                        img, train, noise)
+
+    def forward(self, img: Tensor, train: bool = False,
+                noise: Optional[torch.Generator] = None):
+        """The JAX ``__call__`` (the pass ``settle`` runs): every
+        sub-network once, the alpha encoder on zero motion and mask."""
+        fs, _ = self.encode(img, train, noise)
+        fluid = self.decode_fluid(fs, train, noise)
+        bg = self.bg(img, train, noise)
+        B, H, W = img.shape[:3]
+        a_bg, a_fl = self.alpha_encode(
+            img, motion=img.new_zeros((B, H, W, 2)),
+            mask_rock=img.new_zeros((B, H, W, 1)), bg_raw=bg, train=train,
+            noise=noise)
+        ga = self.decode_alpha(fs, a_fl, img, train, noise)
+        return fluid, bg, a_bg, ga
 
     def decode_alpha_packed(self, packed: Tensor,
-                            img: Optional[Tensor] = None) -> Tensor:
+                            img: Optional[Tensor] = None, train: bool = False,
+                            noise: Optional[torch.Generator] = None) -> Tensor:
         """``decode_alpha`` on ``[gen_fs, alpha_warped]`` in one tensor, the
         layout K2's SLR epilogue writes: the default variant reads it as is."""
         amt = self.opt.alpha_refine_model_type
@@ -166,7 +188,7 @@ class SLRModel(nn.Module):
             x = torch.cat([img, packed[..., -1:]], dim=-1)
         else:
             x = packed
-        return _nhwc(self.net_alpha_decoder(_nchw(x)))
+        return _nhwc(self.net_alpha_decoder(_nchw(x), train, noise))
 
 
 def slr_pack_splat_input(opt: Options, fs: Tensor, zn: Tensor,

@@ -1,8 +1,9 @@
-"""BigGAN-style ResNet blocks, eval mode (PyTorch port of
-``slrsfs_tpu/nn/blocks.py``). Child names follow the reference's
-``models/layers/blocks.py`` so the ``state_dict`` keys are the reference's:
-``ResNetBlock`` keeps the ``ch_a`` (0 = bn_noise1, 2 = conv_aa,
-3 = bn_noise2, 5 = conv_ab) and ``ch_b`` (0 = conv_b) sequences.
+"""BigGAN-style ResNet blocks (PyTorch port of ``slrsfs_tpu/nn/blocks.py``).
+Child names follow the reference's ``models/layers/blocks.py`` so the
+``state_dict`` keys are the reference's: ``ResNetBlock`` keeps the ``ch_a``
+(0 = bn_noise1, 2 = conv_aa, 3 = bn_noise2, 5 = conv_ab) and ``ch_b``
+(0 = conv_b) sequences. ``train`` and ``noise`` are the switches of
+``nn/norm.py``.
 """
 
 from __future__ import annotations
@@ -63,9 +64,13 @@ class ResNetBlock(nn.Module):
             self.ch_b = nn.Sequential(
                 Conv(in_channels, features, 1, 1, 0, spectral=spectral))
 
-    def forward(self, x: Tensor) -> Tensor:
-        h = _resample_feat(self.ch_a(x), self.downsample)
-        sc = x if self.ch_b is None else _resample_feat(self.ch_b(x),
+    def forward(self, x: Tensor, train: bool = False,
+                noise: Optional[torch.Generator] = None) -> Tensor:
+        a = self.ch_a
+        h = a[2](F.relu(a[0](x, train=train, noise=noise)), train)
+        h = a[5](F.relu(a[3](h, train=train, noise=noise)), train)
+        h = _resample_feat(h, self.downsample)
+        sc = x if self.ch_b is None else _resample_feat(self.ch_b[0](x, train),
                                                         self.downsample)
         return h + sc
 
@@ -100,13 +105,15 @@ class ResNetBlockPconv2(nn.Module):
             return upsample_nearest_2x(m)
         return m
 
-    def forward(self, x: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor]:
-        h = self.act(self.bn_noise1(x))
-        h, m = self.conv_aa(h, mask)
-        h = self.act(self.bn_noise2(h))
-        h, m = self.conv_ab(h, m)
+    def forward(self, x: Tensor, mask: Tensor, train: bool = False,
+                noise: Optional[torch.Generator] = None
+                ) -> Tuple[Tensor, Tensor]:
+        h = self.act(self.bn_noise1(x, mask, train, noise))
+        h, m = self.conv_aa(h, mask, train)
+        h = self.act(self.bn_noise2(h, m, train, noise))
+        h, m = self.conv_ab(h, m, train)
         h = _resample_feat(h, self.downsample)
         m = self._resample_mask(m)
-        sc = x if self.conv_b is None else _resample_feat(self.conv_b(x),
+        sc = x if self.conv_b is None else _resample_feat(self.conv_b(x, train),
                                                           self.downsample)
         return h + sc, m

@@ -6,7 +6,9 @@ count under each window rescales the output by ``winsize / count`` and the
 propagated mask is ``clamp(count, 0, 1)``. As in the JAX package the mask is
 kept single-channel after the first layer (the reference's per-channel mask
 is channel-constant there); the first layer's mask may be per-channel, and
-its channel sum is what the count needs.
+its channel sum is what the count needs. The mask carries no gradient.
+
+``train`` runs a spectral weight's power iteration (``nn/norm.py``).
 """
 
 from __future__ import annotations
@@ -34,9 +36,9 @@ class Conv(nn.Module):
                         spectral)
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
-    def forward(self, x: Tensor) -> Tensor:
-        return F.conv2d(x, effective_weight(self), self.bias, self.stride,
-                        self.padding)
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        return F.conv2d(x, effective_weight(self, train), self.bias,
+                        self.stride, self.padding)
 
 
 class PartialConv(Conv):
@@ -51,9 +53,11 @@ class PartialConv(Conv):
                          use_bias=True, spectral=spectral)
         self.kernel_size = kernel_size
 
-    def forward(self, x: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor]:
+    def forward(self, x: Tensor, mask: Tensor, train: bool = False
+                ) -> Tuple[Tensor, Tensor]:
         in_c = x.shape[1]
         k = self.kernel_size
+        mask = mask.detach()
         m = mask.to(x.dtype)
         if m.shape[1] > 1:
             m = m.sum(1, keepdim=True)
@@ -66,8 +70,8 @@ class PartialConv(Conv):
         update_mask = msum.clamp(0.0, 1.0)
         ratio = ratio * update_mask
         b = self.bias[:, None, None]
-        raw = F.conv2d(x * mask.to(x.dtype), effective_weight(self), self.bias,
-                       self.stride, self.padding)
+        raw = F.conv2d(x * mask.to(x.dtype), effective_weight(self, train),
+                       self.bias, self.stride, self.padding)
         out = (raw - b) * ratio + b
         return out * update_mask, update_mask
 

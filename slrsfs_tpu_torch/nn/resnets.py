@@ -1,8 +1,8 @@
-"""Encoders and decoders, eval mode (PyTorch port of
-``slrsfs_tpu/nn/resnets.py``): the baseline's encoder and partial-conv
-decoder, and the SLR model's plain encoder (alpha head) and background
-decoder. NCHW inside; the children are named as in the reference
-(``gblocks.{i}``, ``eblocks.{i}``).
+"""Encoders and decoders (PyTorch port of ``slrsfs_tpu/nn/resnets.py``):
+the baseline's encoder and partial-conv decoder, and the SLR model's plain
+encoder (alpha head) and background decoder. NCHW inside; the children are
+named as in the reference (``gblocks.{i}``, ``eblocks.{i}``). ``train`` and
+``noise`` are the switches of ``nn/norm.py``.
 """
 
 from __future__ import annotations
@@ -37,9 +37,10 @@ class ResNetEncoder(nn.Module):
                                in_channels)
         self.gblocks = _block_stack(opt, arch["layers_enc"], arch["downsample"])
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False,
+                noise: Optional[torch.Generator] = None) -> Tensor:
         for blk in self.gblocks:
-            x = blk(x)
+            x = blk(x, train, noise)
         return x
 
 
@@ -52,9 +53,10 @@ class ResNetBGDecoder(nn.Module):
         arch = get_resnet_arch(opt.bg_refine_model_type, opt)
         self.eblocks = _block_stack(opt, arch["layers_dec"], arch["upsample"])
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False,
+                noise: Optional[torch.Generator] = None) -> Tensor:
         for blk in self.eblocks:
-            x = blk(x)
+            x = blk(x, train, noise)
         return x
 
 
@@ -71,9 +73,11 @@ class ResNetEncoderWithZ(nn.Module):
         layers[-1] += 1
         self.gblocks = _block_stack(opt, layers, arch["downsample"])
 
-    def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+    def forward(self, x: Tensor, train: bool = False,
+                noise: Optional[torch.Generator] = None
+                ) -> Tuple[Tensor, Tensor]:
         for blk in self.gblocks:
-            x = blk(x)
+            x = blk(x, train, noise)
         return x[:, :-1], x[:, -1:]
 
 
@@ -99,8 +103,9 @@ class ResNetDecoderPconv2(nn.Module):
                               shortcut_bias=not woresbias(opt))
             for i in range(1, len(layers)))
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False,
+                noise: Optional[torch.Generator] = None) -> Tensor:
         mask = torch.ones_like(x) if self.mask_all_ones else (x != 0).to(x.dtype)
         for blk in self.eblocks:
-            x, mask = blk(x, mask)
+            x, mask = blk(x, mask, train, noise)
         return x

@@ -11,8 +11,13 @@ normalisation of ``slrsfs_tpu/engine/rollout.py:577-581``.
 ``splat_dual_normalize_slr`` is the same splat with the SLR epilogue
 (``slrsfs_tpu/models/slr.py:slr_unpack_splatted``, two normalisers).
 ``*_plain`` are their plain versions (``index_add_`` into a flat buffer,
-then the division). ``softsplat_sum`` is the plain dense forward splat used
-by the dense rollouts.
+then the division).
+
+``softsplat_sum`` is the dense summation splat of the training pass (K3,
+``csrc/splat_dense.cu``) as a ``torch.autograd.Function``: on the card a
+scatter kernel forward and a gather kernel backward; on the CPU its plain
+versions ``softsplat_sum_plain`` (also the dense rollouts' splat) and
+``softsplat_sum_grad_plain``.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ def _corner_taps(ox: Tensor, oy: Tensor, height: int, width: int
             for lin, w, inside in corners(ox, oy, height, width)]
 
 
-def softsplat_sum(inp: Tensor, flow: Tensor) -> Tensor:
+def softsplat_sum_plain(inp: Tensor, flow: Tensor) -> Tensor:
     """Summation forward splat (plain). inp (B, H, W, C), flow (B, H, W, 2).
 
     Weights are computed at flow precision and cast to ``inp.dtype``, as the
@@ -74,6 +79,135 @@ def softsplat_sum(inp: Tensor, flow: Tensor) -> Tensor:
         for lin, w in _corner_taps(ox, oy, H, W):
             out[b].index_add_(0, lin, rows * w.to(inp.dtype)[:, None])
     return out.reshape(B, H, W, C)
+
+
+def softsplat_sum_grad_plain(inp: Tensor, flow: Tensor, g: Tensor
+                             ) -> Tuple[Tensor, Tensor]:
+    """Plain VJP of ``softsplat_sum_plain``: (grad_inp, grad_flow) for the
+    output cotangent ``g`` (B, H, W, C), op for op the JAX
+    ``_splat_grad_single`` with ``_corner_weight_grads``: per corner,
+    gather g at the clipped target (0 where the corner is outside the
+    grid), add g·w to grad_inp and (Σ_c inp·g)·dw/d{x,y} to grad_flow, in
+    f32 (float64 inputs: in float64); grad_inp is cast back to
+    ``inp.dtype``."""
+    B, H, W, C = inp.shape
+    f32 = torch.promote_types(inp.dtype, torch.float32)
+    xs = torch.arange(W, dtype=flow.dtype, device=flow.device)[None, :]
+    ys = torch.arange(H, dtype=flow.dtype, device=flow.device)[:, None]
+    grad_inp = torch.zeros((B, H * W, C), dtype=f32, device=inp.device)
+    grad_flow = torch.zeros((B, H * W, 2), dtype=flow.dtype, device=flow.device)
+    for b in range(B):
+        ox = (xs + flow[b, ..., 0]).reshape(-1)
+        oy = (ys + flow[b, ..., 1]).reshape(-1)
+        dx = ox - torch.floor(ox)
+        dy = oy - torch.floor(oy)
+        dwdx = (-(1.0 - dy), (1.0 - dy), -dy, dy)
+        dwdy = (-(1.0 - dx), -dx, (1.0 - dx), dx)
+        gflat = g[b].reshape(H * W, C)
+        x = inp[b].reshape(H * W, C).to(f32)
+        gfx = torch.zeros((H * W,), dtype=flow.dtype, device=flow.device)
+        gfy = torch.zeros((H * W,), dtype=flow.dtype, device=flow.device)
+        for (lin, w, inside), dwx, dwy in zip(corners(ox, oy, H, W), dwdx, dwdy):
+            g_at = torch.where(inside[:, None], gflat[lin], 0.0).to(f32)
+            grad_inp[b] = grad_inp[b] + g_at * w.to(f32)[:, None]
+            inner = torch.sum(x * g_at, dim=-1)
+            gfx = gfx + (inner * dwx).to(flow.dtype)
+            gfy = gfy + (inner * dwy).to(flow.dtype)
+        grad_flow[b] = torch.stack([gfx, gfy], dim=-1)
+    return (grad_inp.reshape(B, H, W, C).to(inp.dtype),
+            grad_flow.reshape(B, H, W, 2))
+
+
+def _check_dense(inp: Tensor, flow: Tensor) -> None:
+    if inp.ndim != 4 or flow.ndim != 4 or flow.shape[-1] != 2 \
+            or tuple(flow.shape[:3]) != tuple(inp.shape[:3]):
+        raise ValueError(f"inp (B, H, W, C) and flow (B, H, W, 2) do not "
+                         f"match: {tuple(inp.shape)}, {tuple(flow.shape)}")
+    if flow.dtype != torch.float32:
+        raise TypeError(f"flow must be float32, got {flow.dtype}")
+    if inp.device != flow.device:
+        raise ValueError(f"inp is on {inp.device}, flow on {flow.device}")
+    if inp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {inp.device}")
+
+
+def _cuda_args(named: dict):
+    for name, t in named.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"the K3 kernels take float32 {name}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 8:
+            raise ValueError(f"{name} must be contiguous and 8-byte aligned")
+    return [t.data_ptr() for t in named.values()]
+
+
+def softsplat_sum_fwd_kernel(inp: Tensor, flow: Tensor) -> Tensor:
+    """K3 forward on the card: ``softsplat_sum_plain(inp, flow)`` by f32
+    ``atomicAdd`` of the four bilinear corners into a zeroed output."""
+    B, H, W, C = inp.shape
+    out = torch.zeros_like(inp)
+    ptrs = _cuda_args(dict(inp=inp, flow=flow, out=out))
+    with torch.cuda.device(inp.device):
+        kernels.SPLAT_DENSE_FWD.launch(*ptrs, B, H, W, C,
+                                       torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def softsplat_sum_bwd_kernel(inp: Tensor, flow: Tensor, g: Tensor
+                             ) -> Tuple[Tensor, Tensor]:
+    """K3 backward on the card: ``softsplat_sum_grad_plain(inp, flow, g)``
+    by a gather, one warp per source pixel."""
+    B, H, W, C = inp.shape
+    if tuple(g.shape) != tuple(inp.shape):
+        raise ValueError(f"g must be {tuple(inp.shape)}, got {tuple(g.shape)}")
+    grad_inp = torch.empty_like(inp)
+    grad_flow = torch.empty_like(flow)
+    ptrs = _cuda_args(dict(inp=inp, flow=flow, g=g, grad_inp=grad_inp,
+                           grad_flow=grad_flow))
+    with torch.cuda.device(inp.device):
+        kernels.SPLAT_DENSE_BWD.launch(*ptrs, B, H, W, C,
+                                       torch.cuda.current_stream().cuda_stream)
+    return grad_inp, grad_flow
+
+
+class SoftsplatSum(torch.autograd.Function):
+    """The summation splat with its gather VJP (the JAX ``custom_vjp``).
+    ``plain`` selects the plain versions on any device; otherwise tensors on
+    the card go through the K3 kernels and tensors on the CPU through the
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, inp: Tensor, flow: Tensor, plain: bool) -> Tensor:
+        ctx.save_for_backward(inp, flow)
+        ctx.plain = plain or inp.device.type == "cpu"
+        if ctx.plain:
+            return softsplat_sum_plain(inp, flow)
+        return softsplat_sum_fwd_kernel(inp, flow)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        inp, flow = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.plain:
+            grad_inp, grad_flow = softsplat_sum_grad_plain(inp, flow, g)
+        else:
+            grad_inp, grad_flow = softsplat_sum_bwd_kernel(inp, flow, g)
+        return grad_inp, grad_flow, None
+
+
+def softsplat_sum(inp: Tensor, flow: Tensor) -> Tensor:
+    """K3 wrapper: the summation splat of inp (B, H, W, C) by flow
+    (B, H, W, 2), differentiable in both. On the card its forward and
+    backward are the K3 kernels (float32, contiguous inputs); on the CPU
+    their plain versions."""
+    _check_dense(inp, flow)
+    return SoftsplatSum.apply(inp, flow, False)
+
+
+def softsplat_sum_plain_vjp(inp: Tensor, flow: Tensor) -> Tensor:
+    """``softsplat_sum`` through the plain versions on any device: the
+    plain path that a kernel-path training step is held against."""
+    _check_dense(inp, flow)
+    return SoftsplatSum.apply(inp, flow, True)
 
 
 def _splat_dual_plain(u_mov: Tensor, positions: Tensor, valid: Tensor,

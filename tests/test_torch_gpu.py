@@ -5,10 +5,12 @@ no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-K1, K5 and K6 must match bit for bit (same arithmetic, no FMA contraction;
-max is order-free); K2 (both epilogues) sums with atomics in another order,
-so it is held at 1e-5; a rollout through the kernels is held at 1e-4
-against one through the plain versions."""
+K1, K5, K6 and K7 must match bit for bit (same arithmetic, no FMA
+contraction; max is order-free; K7's compact scatter adds one non-zero
+term per cell); K2 (both epilogues) and K3's forward sum with atomics in
+another order, so they are held at 1e-5, and K3's backward at 1e-5 of each
+output's maximum; a rollout through the kernels is held at 1e-4 against
+one through the plain versions."""
 
 import numpy as np
 import pytest
@@ -25,8 +27,19 @@ from slrsfs_tpu_torch.engine.rollout import (
 from slrsfs_tpu_torch.models.baseline import BaselineModel, init_random_weights
 from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRModel
 from slrsfs_tpu_torch.ops import maxwarp
-from slrsfs_tpu_torch.ops.euler import euler_compact_dual, euler_compact_dual_plain
+from slrsfs_tpu_torch.ops.euler import (
+    euler_compact_dual,
+    euler_compact_dual_plain,
+    euler_integrate_phased,
+    euler_integrate_phased_compact,
+    euler_integrate_phased_compact_plain,
+    euler_integrate_phased_plain,
+)
 from slrsfs_tpu_torch.ops.splat import (
+    SoftsplatSum,
+    softsplat_sum,
+    softsplat_sum_grad_plain,
+    softsplat_sum_plain,
     splat_dual_normalize,
     splat_dual_normalize_plain,
     splat_dual_normalize_slr,
@@ -219,3 +232,97 @@ def test_slr_rollout_kernels_match_plain_on_card(v2):
     for k in got:
         torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(got[k], dense[k], rtol=1e-4, atol=1e-4)
+
+
+def _phased_inputs(dev):
+    """Four samples covering t_p = 0, t_f = 0, t_f + t_p = T and a middle
+    case, on motion that leaves the frame, with a moving pixel at (0, 0)."""
+    T = 12
+    m = np.stack([_motion(10 + b) for b in range(4)])
+    m[:, 0, 0] = [0.6, 0.4]
+    t_f = torch.tensor([5, 0, 7, 3], dtype=torch.int32)
+    t_p = torch.tensor([0, 6, 5, 4], dtype=torch.int32)
+    return torch.from_numpy(m).to(dev), t_f.to(dev), t_p.to(dev), T
+
+
+@pytest.mark.gpu
+def test_k7_matches_plain_on_card():
+    dev = _card()
+    motion, t_f, t_p, T = _phased_inputs(dev)
+    kernels.reset_counts()
+    kf, kp = euler_integrate_phased(motion, t_f, t_p, T)
+    assert kernels.counts()[kernels.EULER_PHASED.name] == 1
+    pf, pp = euler_integrate_phased_plain(motion, t_f, t_p, T)
+    torch.cuda.synchronize()
+    assert torch.equal(kf, pf) and torch.equal(kp, pp)
+    assert (kp == max(H, W) + 1).any()  # trajectories left the frame
+    # compact: each sample's moving set, padded rows at (0, 0)
+    B = motion.shape[0]
+    pos = np.zeros((B, 1536, 2), np.int32)
+    val = np.zeros((B, 1536), np.float32)
+    for b in range(B):
+        ys, xs = np.nonzero(np.any(motion[b].cpu().numpy() != 0, -1))
+        pos[b, :len(xs)] = np.stack([xs, ys], -1)
+        val[b, :len(xs)] = 1.0
+    args = (motion, torch.from_numpy(pos).to(dev), torch.from_numpy(val).to(dev),
+            t_f, t_p, T)
+    cf, cp = euler_integrate_phased_compact(*args)
+    qf, qp = euler_integrate_phased_compact_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(cf, qf) and torch.equal(cp, qp)
+    assert torch.equal(cf, pf) and torch.equal(cp, pp)  # compact == dense
+
+
+def _k3_inputs(dev, C=9, B=2):
+    rng = np.random.default_rng(20)
+    inp = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    flow = (rng.standard_normal((B, H, W, 2)) * 3.0).astype(np.float32)
+    flow[:, ::5] = np.round(flow[:, ::5])  # integer landings
+    flow[0, :4, :4] = max(H, W) + 1  # the OOB sentinel
+    return (torch.from_numpy(inp).to(dev), torch.from_numpy(flow).to(dev),
+            torch.from_numpy(rng.standard_normal((B, H, W, C))
+                             .astype(np.float32)).to(dev))
+
+
+@pytest.mark.gpu
+def test_k3_matches_plain_on_card():
+    dev = _card()
+    inp, flow, g = _k3_inputs(dev, C=65)
+    kernels.reset_counts()
+    out = softsplat_sum(inp, flow)
+    ref = softsplat_sum_plain(inp, flow)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out == 0, ref == 0)
+    x = inp.clone().requires_grad_(True)
+    f = flow.clone().requires_grad_(True)
+    SoftsplatSum.apply(x, f, False).backward(g)
+    assert kernels.counts()[kernels.SPLAT_DENSE_FWD.name] == 2
+    assert kernels.counts()[kernels.SPLAT_DENSE_BWD.name] == 1
+    want_i, want_f = softsplat_sum_grad_plain(inp, flow, g)
+    torch.cuda.synchronize()
+    for got, want in ((x.grad, want_i), (f.grad, want_f)):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+def test_k3_gradcheck_on_card():
+    """The Function's gradients on the card (f32 kernels) against a
+    finite-difference check of the plain version in float64 on the same
+    inputs, on a flow with no integer landings (the splat is piecewise
+    bilinear in the flow)."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((1, 6, 7, 3))).to(dev)
+    f = torch.from_numpy(rng.uniform(-1.7, 1.7, (1, 6, 7, 2)) + 0.123).to(dev)
+    assert torch.autograd.gradcheck(
+        lambda a, b: SoftsplatSum.apply(a, b, True),
+        (x.clone().requires_grad_(True), f.clone().requires_grad_(True)))
+    g = torch.from_numpy(rng.standard_normal((1, 6, 7, 3))).to(dev)
+    want = softsplat_sum_grad_plain(x, f, g)
+    x32 = x.float().requires_grad_(True)
+    f32 = f.float().requires_grad_(True)
+    softsplat_sum(x32, f32).backward(g.float())
+    torch.testing.assert_close(x32.grad.double(), want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(f32.grad.double(), want[1], rtol=1e-5, atol=1e-5)

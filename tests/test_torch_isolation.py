@@ -36,7 +36,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["n"] >= 20, res
+    assert res["n"] >= 28, res
     assert res["leaked"] == [], res
     assert res["built"] == [], res
 
@@ -59,3 +59,20 @@ def test_chip_smoke_fails_without_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_trainer_and_train_cli_without_card_raise(tmp_path):
+    from slrsfs_tpu_torch.cli import train
+    from slrsfs_tpu_torch.config import Options
+    from slrsfs_tpu_torch.engine.trainer import Trainer
+    from slrsfs_tpu_torch.models.baseline import BaselineTrainable
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    opt = Options(ngf=8, W=16, out_channel=9,
+                  refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(opt, BaselineTrainable(opt))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--data-root", str(tmp_path), "--out", str(tmp_path / "run"),
+                    "--W", "16", "--ngf", "8"])
