@@ -14,7 +14,22 @@ moving, random weights from a seed) through SceneRenderer.render with:
 * the full-width SLR two-layer model (use_alpha0_as_blending_weight),
   float32 and bfloat16 with the default Z-norm, and float32 with the v2 Z-norm:
   K1, K2's SLR epilogue and, for v2, K5 (sparse maximum-warp norm); its
-  dense check path runs K6 (dense maximum-warp norm).
+  dense check path runs K4, K3's forward and K6 (dense maximum-warp norm);
+* both models with dtype='bfloat16-fast' (K2 accumulating in bf16), held
+  against the bfloat16 renders: at most twice as far from them as the
+  plain paths of the two modes are from each other.
+
+The dense baseline render (K4, the dense integrator, and K3's forward) runs
+on the scene, held at 1e-4 against the sparse render, and in the
+configuration of __graft_entry__.py:entry() (256², N = 12), held at 1e-4
+against its plain path. K4 is checked bit for bit in every form; K8 (the
+exported single- and two-ended raw splats) and K2's bf16 mode against their
+plain versions in f32 (1e-5) and bf16 (1e-2 of the largest value). K9, the
+fused bf16 conv3x3 -> ReLU -> conv3x3, runs through the port's prototype
+bench (slrsfs_tpu_torch/tools/conv_prototype.py: the prototype's slice
+and, at B = 60, 256 x 480, C = F = 128, every tile shape, cuDNN and the
+plain chain timed) and at a ragged shape: within 2^-7 of max |plain| with
+at most 0.1 % of the elements more than one bf16 ulp apart.
 
 Then the stage-1 training path (Options() defaults at full width, batch 16,
 W = 256, T = 60, float32; a smaller batch only if 16 does not fit, said so):
@@ -58,6 +73,7 @@ T_CHECK = (0, 1, T_MID, N_FRAMES - 1)  # frames the kernels are checked at
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, bf16 dense tensor cores
 SLR_OPTS = dict(model_type="softmax_splating_2layers_alpha_seperate",
                 use_alpha0_as_blending_weight=True)
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -101,9 +117,9 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, peak: float = FP32_FLOPS):
     """(least ms, 'bytes' or 'operations') on the card's peak rates."""
-    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOPS * 1e3
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
@@ -144,6 +160,349 @@ def read_png(path):
     import cv2
 
     return cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+
+
+# ---- K4, K8, the dense render entry, bf16-fast renders, K9 -------------
+
+
+def k4_phase(dev, flow):
+    """K4 against its plain versions, bit for bit, at 256²: the dense dual
+    form with (N - 1, N) steps on the scene's flow and on a random flow that
+    sends many trajectories out of the frame; the dense and compact
+    single-direction forms with visibility, the last-step form and
+    n_steps = 0 on both."""
+    import torch
+
+    from slrsfs_tpu_torch.engine.rollout import prepare_scene_sparse
+    from slrsfs_tpu_torch.ops import euler as E
+
+    rng = np.random.default_rng(SEED + 4)
+    rand = torch.from_numpy((rng.standard_normal((H, W, 2)) * 2.0)
+                            .astype(np.float32)).to(dev)
+    pos = torch.from_numpy(prepare_scene_sparse(flow.cpu().numpy())[0]).to(dev)
+    n_f, n_b = N_FRAMES - 1, N_FRAMES
+    err = 0.0
+    for label, m in (("scene", flow), ("random", rand)):
+        pairs = {"dense dual": (E.euler_integrate_all_dual(m, n_f, n_b),
+                                E.euler_integrate_all_dual_plain(m, n_f, n_b)),
+                 "dense": (E.euler_integrate_all(m, N_FRAMES),
+                           E.euler_integrate_all_plain(m, N_FRAMES)),
+                 "last step": (E.euler_integrate(m, N_FRAMES),
+                               E.euler_integrate_plain(m, N_FRAMES)),
+                 "compact": (E.euler_integrate_compact(m, pos, N_FRAMES),
+                             E.euler_integrate_compact_plain(m, pos, N_FRAMES)),
+                 "n_steps=0": (E.euler_integrate_all(m, 0),
+                               E.euler_integrate_all_plain(m, 0))}
+        torch.cuda.synchronize()
+        for name, (got, want) in pairs.items():
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"K4 {label} {name}: kernel differs from plain")
+            err = max(err, *((g - w).abs().max().item() for g, w in zip(got, want)))
+        want_b = pairs["dense dual"][1][1]
+        n_oob = int((want_b[-1, ..., 0] == max(H, W) + 1).sum())
+        n_hidden = int((pairs["dense"][1][1][-1] == 0).sum())
+        print(f"phase 2 K4 {label}: {H}x{W} dense dual ({n_f}, {n_b}) steps, "
+              f"dense and last step with visibility, compact P={pos.shape[0]}, "
+              f"n_steps=0: bit-exact; {n_oob} backward trajectories and "
+              f"{n_hidden} forward ones left the frame")
+    ms = cuda_time(lambda: E.euler_integrate_all_dual(flow, n_f, n_b), reps=20)
+    plain_ms = cuda_time(lambda: E.euler_integrate_all_dual_plain(flow, n_f, n_b),
+                         reps=3, warmup=1)
+    R, steps = H * W, n_f + n_b
+    # bytes: the motion in, both displacement stacks (steps + 2 entries) out;
+    # per trajectory step ~12 operations (round x2, add x2, 4 compares,
+    # subtract x2, 2 selects)
+    bnd = bound(R * 8 + (steps + 2) * R * 8, steps * R * 12)
+    print(f"phase 2 K4 dense dual: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]})")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd}
+
+
+def k8_phase(dev, u_mov, positions, disp_a, disp_b):
+    """K8 at the render's shapes (P = 32768, C = 65, 256²): its path is the
+    four exported functions, f32 then bf16, with the counts read after each
+    dtype; each result against its plain version (f32: atol/rtol 1e-5 and
+    the same exact zeros; bf16: both sum in bf16 in other orders, so each is
+    held against the f32 sums of the same rows, the kernel at most twice as
+    far as the plain version; 1e-2 of max |out| is reported beside it);
+    times, bounds and one index_add_ of the 4P weighted rows in the same
+    dtype."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.ops import splat as S
+
+    P, C = u_mov.shape
+    px, py = positions[:, 0].float(), positions[:, 1].float()
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        u = u_mov.to(dtype)
+        kernels.reset_counts()
+        one = {name: getattr(S, name)(u, positions, disp_a, H, W)
+               for name in ("softsplat_sum_at", "softsplat_sum_at_paired",
+                            "softsplat_sum_at_quad")}
+        two = S.softsplat_sum_at_quad_dual(u, positions, disp_a, disp_b, 0.5, 0.5, H, W)
+        torch.cuda.synchronize()
+        launches = kernels.counts()
+        check(launches["splat_sum_at"] == 4 and sum(launches.values()) == 4,
+              f"K8 {dtype} launches {launches}")
+        want_one = S.softsplat_sum_at_plain(u, positions, disp_a, H, W)
+        want_two = S.softsplat_sum_at_quad_dual_plain(u, positions, disp_a, disp_b,
+                                                      0.5, 0.5, H, W)
+        if dtype == torch.bfloat16:
+            u32 = u.float()
+            ref_one = S.softsplat_sum_at_plain(u32, positions, disp_a, H, W)
+            ref_two = S.softsplat_sum_at_quad_dual_plain(u32, positions, disp_a,
+                                                         disp_b, 0.5, 0.5, H, W)
+        err, far = 0.0, []
+        for name, got, want in [(n, g, want_one) for n, g in one.items()] + [
+                ("softsplat_sum_at_quad_dual", two, want_two)]:
+            e = (got.float() - want.float()).abs().max().item()
+            if dtype == torch.float32:
+                check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                      f"K8 f32 {name}: max abs {e}")
+                check(torch.equal(got == 0, want == 0), f"K8 f32 {name}: zeros differ")
+            else:
+                ref = ref_two if got is two else ref_one
+                d_k = (got.float() - ref).abs().max().item()
+                d_p = (want.float() - ref).abs().max().item()
+                check(d_k <= 2.0 * d_p, f"K8 bf16 {name}: kernel {d_k} from the f32 "
+                      f"sums, over twice the plain version's {d_p}")
+                far.append((d_k, d_p, e / want.float().abs().max().item()))
+            err = max(err, e)
+        ms = cuda_time(lambda: S.softsplat_sum_at(u, positions, disp_a, H, W), reps=50)
+        ms_dual = cuda_time(lambda: S.softsplat_sum_at_quad_dual(
+            u, positions, disp_a, disp_b, 0.5, 0.5, H, W), reps=50)
+        plain_ms = cuda_time(lambda: S.softsplat_sum_at_plain(u, positions, disp_a,
+                                                              H, W), reps=10)
+        lins, rows = [], []
+        for lin, w in S._corner_taps(px + disp_a[:, 0], py + disp_a[:, 1], H, W):
+            lins.append(lin)
+            rows.append((u.float() * w[:, None]).to(dtype))
+        lin_all, rows_all = torch.cat(lins), torch.cat(rows)
+        acc = torch.zeros((H * W, C), dtype=dtype, device=dev)
+        lib_ms = cuda_time(lambda: acc.index_add_(0, lin_all, rows_all), reps=50)
+        e_b = u.element_size()
+        # the rows, positions and displacements in, the grid out; per row
+        # ~20 operations of corner math, per channel a scale and 4
+        # multiply-adds
+        bnd = bound(P * (C * e_b + 16) + H * W * C * e_b, P * (20 + 9 * C))
+        label = "f32" if dtype == torch.float32 else "bf16"
+        limit = "atol/rtol 1e-5, zeros match" if label == "f32" else (
+            f"from the f32 sums: kernel up to {max(f[0] for f in far):.3g}, plain "
+            f"up to {max(f[1] for f in far):.3g}, limit 2x the plain's; kernel vs "
+            f"plain up to {max(f[2] for f in far):.3g} of max |out|")
+        print(f"phase 3 K8 {label}: softsplat_sum_at, _paired, _quad and _quad_dual "
+              f"(launches {launches['splat_sum_at']}) max abs {err:.3g} vs plain "
+              f"({limit}); one end {ms:.4f} ms, two ends {ms_dual:.4f} ms (plain "
+              f"{plain_ms:.3f} ms, index_add_ of the 4P rows {lib_ms:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms by {bnd[1]})")
+        res[label] = {"launches": launches["splat_sum_at"], "err": err, "ms": ms,
+                      "ms_dual": ms_dual, "plain_ms": plain_ms, "lib_ms": lib_ms,
+                      "bound": bnd}
+        del lin_all, rows_all, acc
+    return res
+
+
+def dense_entry_phase(dev, model, img, flow, frames32):
+    """The dense render through K4 and K3's forward: (a) the scene at N = 60
+    against the sparse main-path render; (b) the configuration of
+    __graft_entry__.py:entry() (256², N = 12, img = normal x 0.25, flow =
+    standard normal, numpy seed 0) against its plain path (K4 and K3's
+    plain versions). Both with settled random full-width weights."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.engine import rollout
+
+    rng = np.random.default_rng(0)
+    img_e = torch.from_numpy((rng.standard_normal((1, H, W, 3)) * 0.25)
+                             .astype(np.float32)).to(dev)
+    flow_e = torch.from_numpy(rng.standard_normal((H, W, 2)).astype(np.float32)).to(dev)
+    img_t = torch.from_numpy(img[None]).to(dev)
+    res = {}
+    for label, (im, fl, n) in {"scene": (img_t, flow, N_FRAMES),
+                               "entry()": (img_e, flow_e, 12)}.items():
+        kernels.reset_counts()
+        got = rollout.baseline_rollout(model, im, fl, n)
+        torch.cuda.synchronize()
+        launches = kernels.counts()
+        check(launches == {**{k.name: 0 for k in kernels.KERNELS}, "euler_all": 1,
+                           "splat_dense_fwd": 2 * n},
+              f"dense render {label} launches: {launches}")
+        check(tuple(got.shape) == (n, H, W, 3) and bool(torch.isfinite(got).all()),
+              f"dense render {label}: shape {tuple(got.shape)} or not finite")
+        if label == "scene":
+            ref, against = frames32, "the sparse main-path render"
+        else:
+            ref = rollout.baseline_rollout(model, im, fl, n, plain=True)
+            against = "its plain path (K4 and K3 plain)"
+        err = (got - ref).abs().max().item()
+        check(err <= 1e-4, f"dense render {label} vs {against}: max abs {err}")
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            rollout.baseline_rollout(model, im, fl, n)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        med = sorted(ts)[1]
+        print(f"phase 5 dense render {label}: {H}x{W} N={n} launches "
+              f"{ {k: v for k, v in launches.items() if v} }; vs {against} max abs "
+              f"{err:.3g} (limit 1e-4); median {med * 1e3:.1f} ms = "
+              f"{n / med:.2f} frames/s (runs {[round(x * 1e3, 1) for x in ts]} ms); "
+              f"frame range [{got.min().item():.3f}, {got.max().item():.3f}]")
+        res[label] = {"launches": launches, "err": err, "fps": n / med}
+    return res
+
+
+def bf16_fast_phase(img_path, flow_path, scene_dir, bf16, img, flow_np):
+    """The baseline and the SLR model through SceneRenderer.render with
+    dtype='bfloat16-fast' (bf16 networks, bf16 splat accumulation): launch
+    counts, PNGs equal to the quantised outputs of the render that wrote
+    them, and the frames' distance from the 'bfloat16' render (``bf16``:
+    label -> (renderer, its kernel-path outputs)), which differs only in the
+    splat's accumulation. The plain paths of the two modes show how far
+    bf16 accumulation alone moves the frames (JAX's 2e-2 bound holds for
+    f32 networks at 32², not here); the kernel path may be at most twice as
+    far."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.cli.render import SceneRenderer, outputs_to_u8
+
+    def as_dict(o):
+        return o if isinstance(o, dict) else {"PredImg": o}
+
+    def dist(a, b):
+        a, b = as_dict(a), as_dict(b)
+        return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+    res = {}
+    for label, overrides in (("baseline", None), ("SLR", SLR_OPTS)):
+        r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="bfloat16-fast", seed=SEED,
+                          sparsify_eps=0.0, opt_overrides=overrides)
+        kernels.reset_counts()
+        out_dir, outs = render_capture(
+            r, img_path, flow_path, os.path.join(scene_dir, f"{label} bf16-fast"),
+            name="synthetic", rawsize=True)
+        torch.cuda.synchronize()
+        launches = kernels.counts()
+        k2 = "splat_dual_normalize_slr" if overrides else "splat_dual_normalize"
+        check(launches == {**{k.name: 0 for k in kernels.KERNELS},
+                           "euler_compact_dual": 1, k2: N_FRAMES},
+              f"{label} bf16-fast render launches: {launches}")
+        for k, v in as_dict(outs).items():
+            check(bool(torch.isfinite(v).all()), f"{label} bf16-fast {k} not finite")
+        r16, outs16 = bf16[label]
+        err = dist(outs, outs16)
+        plain_err = dist(r.frames(img, flow_np, plain=True),
+                         r16.frames(img, flow_np, plain=True))
+        check(err <= 2.0 * plain_err, f"{label} bf16-fast vs bfloat16 render: max "
+              f"abs {err}, over twice the plain paths' {plain_err}")
+        q = outputs_to_u8(outs)
+        for k in ("PredImg",) + (("FluidImg", "CompositeFluidAlpha") if overrides else ()):
+            for t in (0, N_FRAMES - 1):
+                png = read_png(os.path.join(out_dir, k, f"{t:06d}.png"))
+                frame = q[k][t]
+                if frame.shape[-1] == 1:
+                    frame = np.repeat(frame, 3, -1)
+                check(np.array_equal(png, frame), f"{label} bf16-fast {k} PNG {t} "
+                      f"differs from the frame")
+        med, ts = render_median(r, img, flow_np)
+        print(f"phase 6 {label} bf16-fast render: launches "
+              f"{ {k: v for k, v in launches.items() if v} }; vs the bfloat16 render "
+              f"max abs {err:.3g} (plain paths {plain_err:.3g}; limit twice that); "
+              f"PNGs equal the frames; median {med * 1e3:.1f} ms = "
+              f"{N_FRAMES / med:.2f} frames/s (runs {[round(x * 1e3, 1) for x in ts]} ms)")
+        res[label] = {"launches": launches[k2], "err": err, "plain_err": plain_err,
+                      "fps": N_FRAMES / med}
+        del r, outs
+    return res
+
+
+def k9_phase(dev):
+    """K9 through the port's prototype bench (its path: the checks of every
+    tile shape on the prototype's x[:2, :32] and the timed calls at B = 60,
+    256 x 480, C = F = 128), a ragged shape against the plain version, and
+    peak memory."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.ops import fused_conv as fc
+    from slrsfs_tpu_torch.tools import conv_prototype as cp
+
+    kernels.reset_counts()
+    res = cp.bench(reps=3)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    check(launches["fused_conv3x3_relu_conv3x3"] == sum(launches.values()) > 0,
+          f"K9 bench launches {launches}")
+    for tile, c in res["checks"].items():
+        check(cp.within_limits(c), f"K9 {tile} on x[:2, :32]: {c}")
+        print(f"phase 7 K9 {tile} on the prototype's x[:2, :32]: max abs "
+              f"{c['max_abs_err']:.3g} (limit 2^-7 x {c['scale']:.3g}), "
+              f"{c['beyond_ulp_share']:.2e} of elements beyond one bf16 ulp (limit 1e-3)")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    shape = (2, 101, 91, 128, 128)  # H, W divided by no tile
+    B, Hr, Wr, C, F = shape
+    xr = (torch.randn((B, Hr, Wr, C), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    wa = (torch.randn((3, 3, C, F), generator=g, device=dev) / (9 * C) ** 0.5
+          ).to(torch.bfloat16)
+    wb = (torch.randn((3, 3, F, F), generator=g, device=dev) / (9 * F) ** 0.5
+          ).to(torch.bfloat16)
+    ref = fc.conv_chain_plain(xr, wa, wb)
+    ragged_err = 0.0
+    for tile in fc.TILES:
+        c = cp.compare(fc.fused_conv3x3_relu_conv3x3(xr, wa, wb, tile), ref)
+        check(cp.within_limits(c), f"K9 {tile} ragged {shape}: {c}")
+        ragged_err = max(ragged_err, c["max_abs_err"])
+        print(f"phase 7 K9 {tile[0]}x{tile[1]} ragged {shape} (random inputs): max abs "
+              f"{c['max_abs_err']:.3g} (limit 2^-7 x {c['scale']:.3g}), "
+              f"{c['beyond_ulp_share']:.2e} beyond one ulp (limit 1e-3)")
+    # precision against the same chain in float64 (h rounded to bf16 too)
+    with torch.no_grad():
+        h64 = torch.nn.functional.conv2d(
+            xr.permute(0, 3, 1, 2).double(), wa.permute(3, 2, 0, 1).double(), padding=1)
+        h64 = torch.relu(h64).float().to(torch.bfloat16).double()
+        ref64 = torch.nn.functional.conv2d(h64, wb.permute(3, 2, 0, 1).double(),
+                                           padding=1).float().to(torch.bfloat16)
+        ref64 = ref64.permute(0, 2, 3, 1)
+    shares = {name: cp.compare(got, ref64)["beyond_ulp_share"] for name, got in (
+        ("kernel", fc.fused_conv3x3_relu_conv3x3(xr, wa, wb)), ("plain f32", ref),
+        ("cuDNN bf16", fc.conv_chain_library(xr, wa, wb)))}
+    print(f"phase 7 K9 ragged {shape} against the float64 chain: share of elements "
+          f"beyond one bf16 ulp: " + ", ".join(f"{k} {v:.2e}" for k, v in shares.items()))
+    x, waa, wab = res["inputs"]
+    peaks = {}
+    for name, fn in (("kernel", lambda: fc.fused_conv3x3_relu_conv3x3(x, waa, wab)),
+                     ("library", lambda: fc.conv_chain_library(x, waa, wab))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        del out
+    n_bytes = 2 * (x.numel() + waa.numel() + wab.numel()
+                   + x.numel() // x.shape[-1] * waa.shape[-1])
+    bnd = bound(n_bytes, res["flop"], BF16_FLOPS)
+    best = min((k for k in res["ms"] if k.startswith("kernel")), key=res["ms"].get)
+    s = res["shape"]
+    print(f"phase 7 K9 at B={s['B']} {s['H']}x{s['W']} C=F={s['C']} bf16 "
+          f"({res['flop'] / 1e12:.3f} TFLOP useful): "
+          + ", ".join(f"{k} {v:.3f} ms ({res['tflops'][k]:.1f} TFLOP/s)"
+                      for k, v in res["ms"].items())
+          + f"; bound {bnd[0]:.3f} ms by {bnd[1]}; launches {launches['fused_conv3x3_relu_conv3x3']}; "
+          f"peak above inputs: kernel {peaks['kernel'] / 2**30:.2f} GiB, library "
+          f"{peaks['library'] / 2**30:.2f} GiB")
+    err = max([ragged_err] + [c["max_abs_err"] for c in res["checks"].values()])
+    out = {"launches": launches["fused_conv3x3_relu_conv3x3"], "err": err,
+           "ms": res["ms"][best], "best": best, "plain_ms": res["ms"]["plain"],
+           "lib_ms": res["ms"]["library"], "bound": bnd, "ms_all": res["ms"]}
+    del x, waa, wab, res
+    torch.cuda.empty_cache()
+    return out
+
 
 
 # ---- training: kernels K7 and K3, the G+D step, the train CLI -----------
@@ -569,15 +928,17 @@ def main() -> int:
     from slrsfs_tpu_torch.ops.euler import (
         euler_compact_dual,
         euler_compact_dual_plain,
-        euler_integrate_all_dual,
+        euler_integrate_all_dual_plain,
     )
     from slrsfs_tpu_torch.ops.splat import (
         _corner_taps,
         corners,
+        softsplat_sum_at_quad_dual_plain,
         splat_dual_normalize,
         splat_dual_normalize_plain,
         splat_dual_normalize_slr,
         splat_dual_normalize_slr_plain,
+        splat_scratch,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -630,6 +991,7 @@ def main() -> int:
     special[0::3] = float(max(H, W) + 1)
     special[1::3] = torch.tensor([3.0, -2.0], device=dev)
     special[2::3] = torch.tensor([-0.75, -127.5], device=dev)
+    k4 = k4_phase(dev, flow)
 
     # ---- phase 3: K2, both epilogues, against the plain versions -----
     static = (flow.abs().sum(-1) == 0).to(torch.float32)
@@ -656,22 +1018,46 @@ def main() -> int:
                                   device=dev))
         k2[name] = st
 
-        def compare(label, da, db, a, b, out_dtype=torch.float32, rtol=1e-5):
+        st["err_bf16"] = 0.0
+
+        def compare(label, da, db, a, b, out_dtype=torch.float32, rtol=1e-5,
+                    acc_dtype=torch.float32):
             o = torch.empty((H, W, C1 - n_norm), dtype=out_dtype, device=dev)
-            wrapper(st["u_mov"], positions, valid, da, db, a, b, st["u_static"],
-                    out=o, acc=st["acc"])
-            ref = plain(st["u_mov"], positions, valid, da, db, a, b,
-                        st["u_static"], out_dtype)
+            u_mov, u_static = st["u_mov"].to(acc_dtype), st["u_static"].to(acc_dtype)
+            wrapper(u_mov, positions, valid, da, db, a, b, u_static, out=o)
+            ref = plain(u_mov, positions, valid, da, db, a, b, u_static, out_dtype)
             torch.cuda.synchronize()
             err = (o.float() - ref.float()).abs().max().item()
-            check(torch.allclose(o.float(), ref.float(), rtol=rtol, atol=1e-5),
-                  f"{name} {label}: max abs {err}")
-            check(torch.equal(o == 0, ref == 0),
-                  f"{name} {label}: zero pattern differs")
-            if out_dtype == torch.float32:
+            if acc_dtype == torch.float32:
+                check(torch.allclose(o.float(), ref.float(), rtol=rtol, atol=1e-5),
+                      f"{name} {label}: max abs {err}")
+                check(torch.equal(o == 0, ref == 0),
+                      f"{name} {label}: zero pattern differs")
+                limit = f"atol 1e-5, rtol {rtol:g}; zeros match"
+            else:
+                # bf16 sums round at every add, in the atomics' order here
+                # and in index order in the plain version; where many taps
+                # pile up and signed features cancel, the normalised field
+                # moves by percents. Both are held against the f32 sums: the
+                # kernel's distance at most twice the plain version's.
+                ref32 = plain(st["u_mov"], positions, valid, da, db, a, b,
+                              st["u_static"], torch.float32)
+                d_k = (o.float() - ref32).abs().max().item()
+                d_p = (ref.float() - ref32).abs().max().item()
+                check(d_k <= 2.0 * d_p, f"{name} {label}: kernel {d_k} from the "
+                      f"f32 sums, over twice the plain version's {d_p}")
+                # cells no moving tap reaches keep u_static's exact zeros
+                reached = softsplat_sum_at_quad_dual_plain(
+                    u_mov.abs(), positions, da, db, a, b, H, W)[..., :o.shape[-1]] != 0
+                check(torch.equal((o == 0)[~reached], (ref == 0)[~reached]),
+                      f"{name} {label}: zeros of unreached cells differ")
+                st["err_bf16"] = max(st["err_bf16"], err)
+                limit = (f"from the f32 sums: kernel {d_k:.3g}, plain {d_p:.3g}, "
+                         f"limit 2x the plain's; max |out| {ref.float().abs().max().item():.3g}; "
+                         f"unreached cells' zeros match")
+            if out_dtype == torch.float32 and acc_dtype == torch.float32:
                 st["err"] = max(st["err"], err)
-            print(f"phase 3 {name} {label}: max abs {err:.3g} (atol 1e-5, "
-                  f"rtol {rtol:g}); zeros match")
+            print(f"phase 3 {name} {label}: max abs {err:.3g} ({limit})")
 
         for t in T_CHECK:
             a = np.float32(1.0) - np.float32(t) / np.float32(N_FRAMES)
@@ -680,6 +1066,14 @@ def main() -> int:
         compare("sentinel/integer/border", special, disp_b[T_MID], 0.5, 0.5)
         compare(f"t={T_MID} bf16 out", disp_f[T_MID], disp_b[T_MID], 0.5, 0.5,
                 out_dtype=torch.bfloat16, rtol=1e-2)
+        for t in (1, T_MID):
+            a = np.float32(1.0) - np.float32(t) / np.float32(N_FRAMES)
+            compare(f"t={t} bf16 accumulation", disp_f[t], disp_b[N_FRAMES - t],
+                    float(a), float(np.float32(1.0) - a), out_dtype=torch.bfloat16,
+                    acc_dtype=torch.bfloat16)
+        compare("sentinel/integer/border bf16 accumulation", special,
+                disp_b[T_MID], 0.5, 0.5, acc_dtype=torch.bfloat16)
+    k8 = k8_phase(dev, k2["K2"]["u_mov"], positions, disp_f[T_MID], disp_b[T_MID])
 
     # ---- phase 4: K5 and K6 against the plain versions, bit for bit ---
     z2d = torch.from_numpy((rng.standard_normal((H, W)) * 3.0)
@@ -699,7 +1093,7 @@ def main() -> int:
                      (km - pm).abs().max().item())
         print(f"phase 4 K5 {label}: bit-exact (P={P}, {int((pm > z_mov).sum())} "
               f"moving rows raised by a neighbour)")
-    dense_f, _ = euler_integrate_all_dual(flow, N_FRAMES - 1, 1)
+    dense_f, _ = euler_integrate_all_dual_plain(flow, N_FRAMES - 1, 1)
     special_dense = dense_f[T_MID].reshape(-1, 2).clone()
     special_dense[0::3] = float(max(H, W) + 1)
     special_dense[1::3] = torch.tensor([3.0, -2.0], device=dev)
@@ -789,9 +1183,12 @@ def main() -> int:
     v2_dense = rollout.baseline_rollout(r32v2.model, torch.from_numpy(img[None]).to(dev),
                                         flow, N_FRAMES)
     torch.cuda.synchronize()
-    v2_dense_launches = kernels.counts()["maximum_warp_norm_splat"]
-    check(v2_dense_launches == N_FRAMES,
-          f"baseline dense v2 K6 launches: {v2_dense_launches}")
+    v2_dense_all = kernels.counts()
+    check(v2_dense_all == {**{k.name: 0 for k in kernels.KERNELS}, "euler_all": 1,
+                           "splat_dense_fwd": 2 * N_FRAMES,
+                           "maximum_warp_norm_splat": N_FRAMES},
+          f"baseline dense v2 launches: {v2_dense_all}")
+    v2_dense_launches = v2_dense_all["maximum_warp_norm_splat"]
     v2_path_err = (v2_frames - v2_plain).abs().max().item()
     v2_dense_err = (v2_frames - v2_dense).abs().max().item()
     check(v2_path_err <= 1e-4, f"baseline v2 kernel vs plain path {v2_path_err}")
@@ -801,8 +1198,9 @@ def main() -> int:
           "baseline v2 PNG differs from the frame")
     print(f"phase 5 baseline v2 render: launches {v2_launches}; kernel vs "
           f"plain path max abs {v2_path_err:.3g}, sparse v2 (K5) vs dense v2 "
-          f"(K6, launches {v2_dense_launches}) max abs {v2_dense_err:.3g} "
-          f"(limits 1e-4)")
+          f"(K4, K3 forward and K6, launches {v2_dense_all}) max abs "
+          f"{v2_dense_err:.3g} (limits 1e-4)")
+    dense = dense_entry_phase(dev, r32.model, img, flow, frames32)
 
     # ---- phase 6: the SLR paths through SceneRenderer.render ---------
     slr = {
@@ -885,8 +1283,10 @@ def main() -> int:
         alpha_region=torch.from_numpy(region[None, ..., None]).to(dev))
     torch.cuda.synchronize()
     dense_launches = kernels.counts()
-    check(dense_launches["maximum_warp_norm_splat"] == N_FRAMES,
-          f"dense v2 render launches: {dense_launches}")
+    check(dense_launches == {**{k.name: 0 for k in kernels.KERNELS}, "euler_all": 1,
+                             "splat_dense_fwd": 2 * N_FRAMES,
+                             "maximum_warp_norm_splat": N_FRAMES},
+          f"SLR dense v2 render launches: {dense_launches}")
     sparse_dense_err = max_diff(slr_frames["float32 v2"], dense_v2)
     check(sparse_dense_err <= 1e-4,
           f"SLR sparse v2 (K5) vs dense v2 (K6) max abs {sparse_dense_err}")
@@ -896,6 +1296,10 @@ def main() -> int:
           f"{dense_launches['maximum_warp_norm_splat']}) max abs "
           f"{sparse_dense_err:.3g} (limit 1e-4); bf16 vs f32 max abs "
           f"{slr_bf_err:.3g}")
+    fast = bf16_fast_phase(img_path, flow_path, scene_dir,
+                           {"baseline": (rbf, framesbf),
+                            "SLR": (slr["bfloat16"], slr_frames["bfloat16"])},
+                           img, flow_np)
 
     # ---- phase 7: times, bounds, peak memory -------------------------
     f32 = torch.float32
@@ -927,6 +1331,21 @@ def main() -> int:
         st["bound"] = bound(n_valid * (C1 * 4 + 8 + 16) + P * 4
                             + H * W * C1 * 4 + H * W * C * 4,
                             2 * n_valid * C1 * (1 + 4 * 2) + H * W * C)
+        # the bf16 accumulation mode on the same frame: bf16 rows, static
+        # identity and accumulator, the f32 field out
+        bf = torch.bfloat16
+        args_bf = (st["u_mov"].to(bf),) + args[1:-1] + (st["u_static"].to(bf),)
+        acc_bf = splat_scratch(H, W, C1, bf, dev)
+        st["ms_bf16"] = cuda_time(lambda: st["wrapper"](*args_bf, out=st["out"],
+                                                        acc=acc_bf), reps=50)
+        st["plain_ms_bf16"] = cuda_time(lambda: st["plain"](*args_bf, f32), reps=10)
+        rows_bf, flat_bf = rows_all.to(bf), flat.to(bf)
+        st["lib_ms_bf16"] = cuda_time(lambda: flat_bf.index_add_(0, lin_all, rows_bf),
+                                      reps=50)
+        st["bound_bf16"] = bound(n_valid * (C1 * 2 + 8 + 16) + P * 4
+                                 + H * W * C1 * 2 + H * W * C * 4,
+                                 2 * n_valid * C1 * (1 + 4 * 2) + H * W * C)
+        del lin_all, rows_all, flat, rows_bf, flat_bf, acc_bf
 
     # K5 and K6 at t = T_MID; yardstick: one scatter_reduce_(amax) of the
     # same corner rows
@@ -972,7 +1391,10 @@ def main() -> int:
     for name, st in k2.items():
         print(f"phase 7 {name}: {st['ms']:.4f} ms/frame (plain "
               f"{st['plain_ms']:.3f} ms, index_add_ {st['lib_ms']:.4f} ms, bound "
-              f"{st['bound'][0]:.4f} ms by {st['bound'][1]})")
+              f"{st['bound'][0]:.4f} ms by {st['bound'][1]}); bf16 accumulation "
+              f"{st['ms_bf16']:.4f} ms/frame (plain {st['plain_ms_bf16']:.3f} ms, "
+              f"bf16 index_add_ {st['lib_ms_bf16']:.4f} ms, bound "
+              f"{st['bound_bf16'][0]:.4f} ms by {st['bound_bf16'][1]})")
     print(f"phase 7 K5: {ms_k5:.4f} ms/frame (plain {ms_k5_plain:.3f} ms, "
           f"scatter_reduce_ {lib['K5']:.4f} ms, bound {k5_bound[0]:.5f} ms by "
           f"{k5_bound[1]})")
@@ -1028,6 +1450,8 @@ def main() -> int:
         fps[label] = N_FRAMES / med
         print(f"phase 7 render {label}: median {med * 1e3:.1f} ms = "
               f"{fps[label]:.2f} frames/s (runs {[round(x * 1e3, 1) for x in ts]} ms)")
+    fps.update({f"{k} bfloat16-fast": v["fps"] for k, v in fast.items()})
+    fps.update({f"dense baseline float32 ({k})": v["fps"] for k, v in dense.items()})
 
     total = torch.cuda.get_device_properties(0).total_memory
     peaks = {}
@@ -1058,9 +1482,11 @@ def main() -> int:
               f"pixel-frame; half of {total / 2**30:.1f} GiB holds "
               f"{int(total / 2 / per_px):,} pixel-frames")
 
-    # ---- phases 8-11: training ---------------------------------------
     del chunk, chunk_bf, chunk65, chunk65_bf
     torch.cuda.empty_cache()
+    k9 = k9_phase(dev)
+
+    # ---- phases 8-11: training ---------------------------------------
     k7 = k7_phase(dev, flow_np)
     k3 = k3_phase(dev, flow_np)
     train = training_phase(dev)
@@ -1086,6 +1512,9 @@ def main() -> int:
         row("euler_compact_dual", "slrsfs_tpu_torch/csrc/euler.cu",
             "slrsfs_tpu/ops/euler.py:145", launches["euler_compact_dual"],
             k1_err, ms_k1, ms_k1_plain, k1_bound, None),
+        row("euler_all", "slrsfs_tpu_torch/csrc/euler.cu",
+            "slrsfs_tpu/ops/euler.py:199", dense["entry()"]["launches"]["euler_all"],
+            k4["err"], k4["ms"], k4["plain_ms"], k4["bound"], None),
         row("splat_dual_normalize", "slrsfs_tpu_torch/csrc/splat.cu",
             "slrsfs_tpu/ops/splat.py:390", launches["splat_dual_normalize"],
             k2["K2"]["err"], k2["K2"]["ms"], k2["K2"]["plain_ms"],
@@ -1095,6 +1524,20 @@ def main() -> int:
             slr_launches["float32"]["splat_dual_normalize_slr"],
             k2["K2-SLR"]["err"], k2["K2-SLR"]["ms"], k2["K2-SLR"]["plain_ms"],
             k2["K2-SLR"]["bound"], k2["K2-SLR"]["lib_ms"]),
+        row("splat_dual_normalize (bf16 accumulation)",
+            "slrsfs_tpu_torch/csrc/splat.cu", "slrsfs_tpu/ops/splat.py:390",
+            fast["baseline"]["launches"], k2["K2"]["err_bf16"],
+            k2["K2"]["ms_bf16"], k2["K2"]["plain_ms_bf16"], k2["K2"]["bound_bf16"],
+            k2["K2"]["lib_ms_bf16"]),
+        row("splat_dual_normalize_slr (bf16 accumulation)",
+            "slrsfs_tpu_torch/csrc/splat.cu", "slrsfs_tpu/ops/splat.py:390",
+            fast["SLR"]["launches"], k2["K2-SLR"]["err_bf16"],
+            k2["K2-SLR"]["ms_bf16"], k2["K2-SLR"]["plain_ms_bf16"],
+            k2["K2-SLR"]["bound_bf16"], k2["K2-SLR"]["lib_ms_bf16"]),
+        *[row("splat_sum_at" + ("" if label == "f32" else " (bf16)"),
+              "slrsfs_tpu_torch/csrc/splat.cu", "slrsfs_tpu/ops/splat.py:255",
+              r8["launches"], r8["err"], r8["ms"], r8["plain_ms"], r8["bound"],
+              r8["lib_ms"]) for label, r8 in k8.items()],
         row("maximum_warp_norm_sparse", "slrsfs_tpu_torch/csrc/maxwarp_sparse.cu",
             "slrsfs_tpu/ops/splat.py:492",
             slr_launches["float32 v2"]["maximum_warp_norm_sparse"], k5_err,
@@ -1113,6 +1556,9 @@ def main() -> int:
         row("euler_phased", "slrsfs_tpu_torch/csrc/euler_phased.cu",
             "slrsfs_tpu/ops/euler.py:249", train["launches"]["euler_phased"],
             k7["err"], k7["ms"], k7["plain_ms"], k7["bound"], None),
+        row("fused_conv3x3_relu_conv3x3", "slrsfs_tpu_torch/csrc/fused_conv.cu",
+            "tools/pallas_conv_prototype.py:118", k9["launches"], k9["err"],
+            k9["ms"], k9["plain_ms"], k9["bound"], k9["lib_ms"]),
     ]
     print("phase 12 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
           + f"; training step {train['step_ms']:.1f} ms at B={train['B']} "

@@ -41,6 +41,7 @@ DECODE_PX_BUDGET = 10_000_000
 # 4332 bytes per pixel-frame (bfloat16: 1482; same card and script), so half
 # of the card holds 9.8 M float32 pixel-frames.
 DECODE_PX_BUDGET_SLR = 9_500_000
+DTYPES = ("float32", "bfloat16", "bfloat16-fast")
 
 
 def edit_flow(flow: np.ndarray, rotate_deg: float = 0.0,
@@ -117,10 +118,7 @@ class SceneRenderer:
         from slrsfs_tpu_torch.models.baseline import BaselineModel, init_random_weights
         from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRModel
 
-        if dtype == "bfloat16-fast":
-            raise _not_ported("--dtype bfloat16-fast (bf16 splat accumulation)",
-                              "§1 item 7")
-        if dtype not in ("float32", "bfloat16"):
+        if dtype not in DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}")
         if crop_decode == "auto":
             raise _not_ported("--crop-decode auto", "§1 item 8")
@@ -153,8 +151,12 @@ class SceneRenderer:
             small = np.random.default_rng(seed + 2).standard_normal(
                 (1, 64, 64, 3)).astype(np.float32) * 0.25
             settle(model, (torch.from_numpy(small).to(self.device),), n=6)
-        self.compute_dtype = (torch.bfloat16 if dtype == "bfloat16"
+        # 'bfloat16': bf16 networks, f32 splat; 'bfloat16-fast' also
+        # accumulates the splat in bf16 (JAX cli/render.py:112-116)
+        self.compute_dtype = (torch.bfloat16 if dtype.startswith("bfloat16")
                               else torch.float32)
+        self.splat_dtype = (torch.bfloat16 if dtype == "bfloat16-fast"
+                            else torch.float32)
         self.model = model.to(self.compute_dtype)
         self.W, self.n_frames = W, n_frames
         if decode_batch is not None:
@@ -196,7 +198,8 @@ class SceneRenderer:
                 t(np.asarray(flow, np.float32)), self.n_frames, t(positions),
                 t(valid))
         kw = dict(decode_batch=self.decode_batch_for(self.W * self.W),
-                  compute_dtype=self.compute_dtype, plain=plain)
+                  compute_dtype=self.compute_dtype, plain=plain,
+                  splat_dtype=self.splat_dtype)
         if not self.slr:
             return baseline_rollout_sparse(*args, **kw)
         region = (None if alpha_region is None
@@ -330,10 +333,10 @@ def main(argv=None):
     p.add_argument("--rawsize", action="store_true")
     p.add_argument("--rotate", type=float, default=0.0)
     p.add_argument("--flow-scale", type=float, default=1.0)
-    p.add_argument("--dtype", default="float32",
-                   choices=["float32", "bfloat16", "bfloat16-fast"],
+    p.add_argument("--dtype", default="float32", choices=DTYPES,
                    help="'bfloat16': bf16 encoder/decoder, f32 splat "
-                        "accumulation; 'bfloat16-fast' is not ported yet")
+                        "accumulation; 'bfloat16-fast': the splat also "
+                        "accumulates in bf16 (frames within ~1e-2)")
     p.add_argument("--alpha-region", default=None,
                    help="SLR edit region: a grayscale image, white where the "
                         "two-layer composite applies")

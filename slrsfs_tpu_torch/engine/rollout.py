@@ -9,9 +9,12 @@ from the forward displacement and feeds both ends.
 
 ``baseline_rollout_sparse`` and ``slr_rollout_sparse`` are the main paths:
 they splat only the moving pixels (static pixels splat onto themselves, an
-identity added densely) with kernels K1 and K2 (K5 for v2) and decode in
-frame batches. ``baseline_rollout`` and ``slr_rollout_dense`` are the dense
-forms on plain splats (K6 for v2), kept to check the sparse paths.
+identity added densely) with kernels K1 and K2 (K5 for v2), accumulating
+in float32 or, with ``splat_dtype`` bfloat16, in bf16, and decode in frame
+batches. ``baseline_rollout`` (the repository's ``entry()`` path) and
+``slr_rollout_dense`` are the dense forms, every pixel splatted: K4
+integrates, K3's forward splats (K6 for v2), and they check the sparse
+paths. Every rollout's ``plain`` runs the kernels' plain versions instead.
 """
 
 from __future__ import annotations
@@ -44,17 +47,20 @@ from slrsfs_tpu_torch.ops.euler import (
     euler_compact_dual,
     euler_compact_dual_plain,
     euler_integrate_all_dual,
+    euler_integrate_all_dual_plain,
 )
 from slrsfs_tpu_torch.ops.maxwarp import (
     maximum_warp_norm_sparse,
     maximum_warp_norm_sparse_plain,
 )
 from slrsfs_tpu_torch.ops.splat import (
+    softsplat_sum,
     softsplat_sum_plain,
     splat_dual_normalize,
     splat_dual_normalize_plain,
     splat_dual_normalize_slr,
     splat_dual_normalize_slr_plain,
+    splat_scratch,
 )
 
 Tensor = torch.Tensor
@@ -90,15 +96,19 @@ def _fp32_convs(dtype: torch.dtype):
 
 @torch.no_grad()
 def baseline_rollout(model: BaselineModel, img: Tensor, flow: Tensor,
-                     n_frames: int, decode_batch: Optional[int] = None) -> Tensor:
-    """Dense rollout on plain ops, float32. img (1, H, W, 3) normalised as
-    trained; flow (H, W, 2) in output pixels. Returns (N, H, W, 3) in [-1, 1]."""
+                     n_frames: int, decode_batch: Optional[int] = None,
+                     plain: bool = False) -> Tensor:
+    """Dense rollout, float32: K4 integrates every pixel, two K3 forwards
+    splat each frame. img (1, H, W, 3) normalised as trained; flow (H, W,
+    2) f32 in output pixels. ``plain`` runs their plain versions. Returns
+    (N, H, W, 3) in [-1, 1]."""
     opt = model.opt
     N = n_frames
+    integrate = euler_integrate_all_dual_plain if plain else euler_integrate_all_dual
     with _fp32_convs(torch.float32):
         fs, z = model.encode(img)
         z = z_for_splat(opt, fs, z)
-        disp_f, disp_p = euler_integrate_all_dual(flow, N - 1, N)
+        disp_f, disp_p = integrate(flow, N - 1, N)
         if not opt.use_softmax_splatter_v2:
             u = pack_splat_input(fs, z_normalize(opt, z))
         gen = []
@@ -109,7 +119,7 @@ def baseline_rollout(model: BaselineModel, img: Tensor, flow: Tensor,
                 # one Z-norm, from the forward displacement, for both ends
                 u = pack_splat_input(fs, z_normalize(opt, z, disp_f[t][None]))
             gen.append(splat_blend(u, disp_f[t][None], alpha, u,
-                                   disp_p[N - t][None])[0])
+                                   disp_p[N - t][None], plain=plain)[0])
         gen_all = torch.stack(gen)
         db = _auto_decode_batch(N, decode_batch)
         return torch.cat([model.decode(gen_all[i:i + db])
@@ -190,18 +200,19 @@ def _v2_zn(opt, z2d, z_mov, static_mask, positions, valid, t_disp, plain):
     return zn_d, zn_m
 
 
-def _baseline_pack_fn(opt, fs, z, positions, valid, static_mask, plain):
-    """``pack(t_disp) -> (u_static (H, W, C+1), u_mov (P, C+1))``, f32 and
-    contiguous. Frame-constant without v2; with v2 the per-frame sparse
-    maximum-warp norm (K5, or its plain version) rescales cached rows
-    (JAX ``_baseline_pack_fn``)."""
+def _baseline_pack_fn(opt, fs, z, positions, valid, static_mask, plain,
+                      splat_dtype=torch.float32):
+    """``pack(t_disp) -> (u_static (H, W, C+1), u_mov (P, C+1))`` in
+    ``splat_dtype``, contiguous. Frame-constant without v2; with v2 the
+    per-frame sparse maximum-warp norm (K5, or its plain version) rescales
+    cached rows (JAX ``_baseline_pack_fn``)."""
     px, py = positions[:, 0].long(), positions[:, 1].long()
     f32 = torch.float32
     if not opt.use_softmax_splatter_v2:
         # the static identity is α·U + (1-α)·U = U on static pixels
         u = pack_splat_input(fs, z_normalize(opt, z))[0]  # (H, W, C+1)
-        u_static = (u * static_mask[..., None]).to(f32).contiguous()
-        u_mov = (u[py, px] * valid[:, None]).to(f32).contiguous()
+        u_static = (u * static_mask[..., None]).to(splat_dtype).contiguous()
+        u_mov = (u[py, px] * valid[:, None]).to(splat_dtype).contiguous()
         return lambda t_disp: (u_static, u_mov)
 
     z2d, z_mov = _v2_z(z, positions)
@@ -213,8 +224,8 @@ def _baseline_pack_fn(opt, fs, z, positions, valid, static_mask, plain):
                             t_disp, plain)
         e_d = (torch.exp(zn_d) * static_mask)[..., None]
         e_m = (torch.exp(zn_m) * valid)[:, None]
-        return (torch.cat([fs_static * e_d, e_d], dim=-1),
-                torch.cat([fs_mov * e_m, e_m], dim=-1))
+        return (torch.cat([fs_static * e_d, e_d], dim=-1).to(splat_dtype),
+                torch.cat([fs_mov * e_m, e_m], dim=-1).to(splat_dtype))
 
     return pack
 
@@ -224,16 +235,20 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
                             n_frames: int, positions: Tensor, valid: Tensor,
                             decode_batch: int = 6,
                             compute_dtype: torch.dtype = torch.float32,
-                            plain: bool = False) -> Tensor:
+                            plain: bool = False,
+                            splat_dtype: torch.dtype = torch.float32) -> Tensor:
     """Sparse-splat, frame-batched-decode rollout; equal to
     ``baseline_rollout`` when the static pixels have exactly zero motion.
 
     img (1, H, W, 3); flow (H, W, 2) f32; positions (P, 2) int32 / valid (P,)
     f32 from ``prepare_scene_sparse``, on the model's device.
-    ``compute_dtype`` bfloat16 runs encoder and decoder in bf16 while the
-    splat accumulates in f32. ``plain`` runs K1, K2 and K5's plain PyTorch
-    versions instead of the kernels (to check the kernels on the card).
-    Returns (N, H, W, 3) float32 in [-1, 1].
+    ``compute_dtype`` bfloat16 runs encoder and decoder in bf16.
+    ``splat_dtype`` is the splat's accumulation dtype: float32, or bfloat16
+    (the render's ``bfloat16-fast`` mode, JAX ``rollout.py:523-529``: the
+    packed rows and the scatter in bf16, the bilinear weights and the
+    normalisation in f32; frames agree with float32 to ~1e-2). ``plain``
+    runs K1, K2 and K5's plain PyTorch versions instead of the kernels (to
+    check the kernels on the card). Returns (N, H, W, 3) float32 in [-1, 1].
     """
     opt = model.opt
     N = n_frames
@@ -248,7 +263,8 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
         fs, z = model.encode(img.to(compute_dtype))
         z = z_for_splat(opt, fs, z)
         pack = _baseline_pack_fn(opt, fs, z, positions, valid,
-                                 _static_mask(positions, valid, H, W), plain)
+                                 _static_mask(positions, valid, H, W), plain,
+                                 splat_dtype)
         C = fs.shape[-1]
 
         integrate = euler_compact_dual_plain if plain else euler_compact_dual
@@ -257,7 +273,7 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
         frames = torch.empty((N, H, W, 3), dtype=f32, device=dev)
         chunk = torch.empty((decode_batch, H, W, C), dtype=compute_dtype,
                             device=dev)
-        acc = torch.empty((H * W * (C + 1),), dtype=f32, device=dev)
+        acc = splat_scratch(H, W, C + 1, splat_dtype, dev)
         for c0 in range(0, N, decode_batch):
             for j in range(decode_batch):
                 t = c0 + j
@@ -314,9 +330,10 @@ def _alpha_extras(opt, img, flow, bg_img_raw, mask_rock):
 
 
 def _slr_pack_fn(opt, fs, z, a_fl_logits, a_bg_sig, positions, valid,
-                 static_mask, plain):
+                 static_mask, plain, splat_dtype=torch.float32):
     """``(pack(t_disp) -> (u_static, u_mov), use_alpha0)`` for the sparse
-    SLR rollout, rows f32 and contiguous. v2 rescales the Z-scaled channels
+    SLR rollout, rows in ``splat_dtype`` and contiguous. v2 rescales the
+    Z-scaled channels
     (``[fs·e^Z, af·e^C, e^C, e^Z]``: all but af and e^C) of cached zn = 0
     rows by the per-frame e^zn (JAX ``_slr_pack_fn``)."""
     px, py = positions[:, 0].long(), positions[:, 1].long()
@@ -326,8 +343,8 @@ def _slr_pack_fn(opt, fs, z, a_fl_logits, a_bg_sig, positions, valid,
         u, use_alpha0 = slr_pack_splat_input(
             opt, fs32, z_normalize(opt, z).to(f32), af32, a_bg_sig)
         u = u[0]
-        u_static = (u * static_mask[..., None]).contiguous()
-        u_mov = (u[py, px] * valid[:, None]).contiguous()
+        u_static = (u * static_mask[..., None]).to(splat_dtype).contiguous()
+        u_mov = (u[py, px] * valid[:, None]).to(splat_dtype).contiguous()
         return (lambda t_disp: (u_static, u_mov)), use_alpha0
 
     base, use_alpha0 = slr_pack_splat_input(
@@ -347,7 +364,7 @@ def _slr_pack_fn(opt, fs, z, a_fl_logits, a_bg_sig, positions, valid,
                             t_disp, plain)
         e_d = torch.exp(zn_d)[..., None] * sel + (1.0 - sel)
         e_m = torch.exp(zn_m)[:, None] * sel + (1.0 - sel)
-        return base_static * e_d, base_mov * e_m
+        return (base_static * e_d).to(splat_dtype), (base_mov * e_m).to(splat_dtype)
 
     return pack, use_alpha0
 
@@ -393,7 +410,8 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
                        n_frames: int, positions: Tensor, valid: Tensor,
                        alpha_region: Tensor = None, decode_batch: int = 20,
                        compute_dtype: torch.dtype = torch.float32,
-                       mask_rock: Tensor = None, plain: bool = False):
+                       mask_rock: Tensor = None, plain: bool = False,
+                       splat_dtype: torch.dtype = torch.float32):
     """Two-layer SLR rollout (reference test_v1_4eval*.py semantics):
     encode, background and alpha head once; per frame the dual-ended sparse
     splat of ``[features, fluid alpha]`` (K2 with the SLR epilogue under
@@ -402,8 +420,8 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
 
     Arguments as ``baseline_rollout_sparse``; ``alpha_region`` (1, H, W, 1)
     in [0, 1] keeps the composite inside the (blurred) region and the fluid
-    layer outside it. bf16 casts the five sub-networks; splat and composite
-    stay f32. Returns a dict of f32 tensors: PredImg, FluidImg (N, H, W, 3),
+    layer outside it. bf16 casts the five sub-networks; the splat
+    accumulates in ``splat_dtype``; the composite stays f32. Returns a dict of f32 tensors: PredImg, FluidImg (N, H, W, 3),
     CompositeFluidAlpha (N, H, W, 1) and BGImg (H, W, 3).
     """
     opt = model.opt
@@ -420,7 +438,7 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
             model, img, flow, mask_rock)
         pack, use_alpha0 = _slr_pack_fn(
             opt, fs, z, a_fl_logits, a_bg_sig, positions, valid,
-            _static_mask(positions, valid, H, W), plain)
+            _static_mask(positions, valid, H, W), plain, splat_dtype)
         if use_alpha0:
             splat = splat_dual_normalize_slr_plain if plain else splat_dual_normalize_slr
         else:  # [fs·e^Z, af·e^Z, e^Z]: the baseline epilogue
@@ -434,7 +452,7 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
         C1 = fs.shape[-1] + (3 if use_alpha0 else 2)
         chunk = torch.empty((decode_batch, H, W, fs.shape[-1] + 1),
                             dtype=compute_dtype, device=dev)
-        acc = torch.empty((H * W * C1,), dtype=torch.float32, device=dev)
+        acc = splat_scratch(H, W, C1, splat_dtype, dev)
         img_b = img.expand(decode_batch, -1, -1, -1)
         outs = _slr_outputs(N, H, W, dev)
         for c0 in range(0, N, decode_batch):
@@ -461,19 +479,23 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
 def slr_rollout_dense(model: SLRModel, img: Tensor, flow: Tensor,
                       n_frames: int, alpha_region: Tensor = None,
                       mask_rock: Tensor = None,
-                      decode_batch: Optional[int] = None):
-    """Dense SLR rollout on plain splats, f32, every pixel splatted; the v2
-    Z-norm runs over the full grid through K6. It renders what
-    ``slr_rollout_sparse`` renders and is its check. Returns the same dict.
+                      decode_batch: Optional[int] = None, plain: bool = False):
+    """Dense SLR rollout, f32, every pixel splatted: K4 integrates, two K3
+    forwards splat each frame and the v2 Z-norm runs over the full grid
+    through K6 (``plain``: the plain versions of K4 and K3). It renders
+    what ``slr_rollout_sparse`` renders and is its check. Returns the same
+    dict.
     """
     opt = model.opt
     N = n_frames
     H, W = flow.shape[0], flow.shape[1]
     v2 = opt.use_softmax_splatter_v2
+    integrate = euler_integrate_all_dual_plain if plain else euler_integrate_all_dual
+    splat = softsplat_sum_plain if plain else softsplat_sum
     with _fp32_convs(torch.float32):
         fs, z, bg_tanh, a_bg_logits, a_bg_sig, a_fl_logits = _slr_heads(
             model, img, flow, mask_rock)
-        disp_f, disp_p = euler_integrate_all_dual(flow, N - 1, N)
+        disp_f, disp_p = integrate(flow, N - 1, N)
         if not v2:
             u, use_alpha0 = slr_pack_splat_input(
                 opt, fs, z_normalize(opt, z), a_fl_logits, a_bg_sig)
@@ -486,8 +508,8 @@ def slr_rollout_dense(model: SLRModel, img: Tensor, flow: Tensor,
             if v2:  # one Z-norm, from the forward displacement, for both ends
                 u, use_alpha0 = slr_pack_splat_input(
                     opt, fs, z_normalize(opt, z, ff), a_fl_logits, a_bg_sig)
-            g = (softsplat_sum_plain(u, ff) * torch.tensor(a, device=flow.device)
-                 + softsplat_sum_plain(u, fp) * torch.tensor(b, device=flow.device))
+            g = (splat(u, ff) * torch.tensor(a, device=flow.device)
+                 + splat(u, fp) * torch.tensor(b, device=flow.device))
             packed.append(torch.cat(slr_unpack_splatted(g, use_alpha0), -1)[0])
         return _slr_decode_stack(model, torch.stack(packed), img, a_bg_sig,
                                  a_bg_logits, bg_tanh, region, opt,

@@ -4,9 +4,13 @@ Each source is compiled on first use by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root, named after its
 source and a hash of the source and flags, so a changed source never loads
-a stale build. Several entry points may share one source (K2's two
-epilogues, K3's forward and backward); it is built once. Nothing is compiled at import: this module
-imports on a host without CUDA.
+a stale build. Several entry points may share one source; it is built once:
+``euler.cu`` holds K1 (``euler_compact_dual``) and K4 (``euler_all``),
+``splat.cu`` K2's two epilogues (``splat_dual_normalize``,
+``splat_dual_normalize_slr``, f32 or bf16 accumulation) and K8
+(``splat_sum_at``), ``splat_dense.cu`` K3's forward and backward;
+``fused_conv.cu`` is K9 (``fused_conv3x3_relu_conv3x3``). Nothing is
+compiled at import: this module imports on a host without CUDA.
 
 Every C entry point launches on the stream it is given (the wrapper passes
 ``torch.cuda.current_stream()``) and returns ``cudaGetLastError()``; a
@@ -118,18 +122,31 @@ EULER = Kernel(
     # motion, positions, disp_f, disp_b, P, H, W, n_fwd, n_bwd, stream
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
+EULER_ALL = Kernel(
+    "euler_all", "slrsfs_tpu_torch/csrc/euler.cu", "euler_all",
+    # motion, positions (NULL: dense grid), disp_f, disp_b (NULL: +M only),
+    # vis_f, vis_b (NULL: no visibility), R, H, W, n_fwd, n_bwd, last_only,
+    # stream
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+
 SPLAT = Kernel(
     "splat_dual_normalize", "slrsfs_tpu_torch/csrc/splat.cu",
     "splat_dual_normalize",
     # u_mov, positions, valid, disp_a, disp_b, w_a, w_b, u_static, acc, out,
-    # P, C1, H, W, out_bf16, stream
-    [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    # P, C1, H, W, out_bf16, acc_bf16, stream
+    [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
 SPLAT_SLR = Kernel(
     "splat_dual_normalize_slr", "slrsfs_tpu_torch/csrc/splat.cu",
     "splat_dual_normalize_slr",
     # as SPLAT
-    [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+
+SPLAT_SUM_AT = Kernel(
+    "splat_sum_at", "slrsfs_tpu_torch/csrc/splat.cu", "splat_sum_at",
+    # u, positions, disp_a, disp_b (NULL: one end), w_a, w_b, out, quarters
+    # (bf16 scratch), P, C, H, W, acc_bf16, stream
+    [_P, _P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _I, _I, _P])
 
 MAXWARP_SPARSE = Kernel(
     "maximum_warp_norm_sparse", "slrsfs_tpu_torch/csrc/maxwarp_sparse.cu",
@@ -162,9 +179,16 @@ EULER_PHASED = Kernel(
     # n_steps, stream
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
-KERNELS: List[Kernel] = [EULER, SPLAT, SPLAT_SLR, MAXWARP_SPARSE,
-                         MAXWARP_SPLAT, SPLAT_DENSE_FWD, SPLAT_DENSE_BWD,
-                         EULER_PHASED]
+FUSED_CONV = Kernel(
+    "fused_conv3x3_relu_conv3x3", "slrsfs_tpu_torch/csrc/fused_conv.cu",
+    "fused_conv3x3_relu_conv3x3",
+    # x, waa, wab, out, B, H, W, C, F, tile (index into the tile shapes),
+    # stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+
+KERNELS: List[Kernel] = [EULER, EULER_ALL, SPLAT, SPLAT_SLR, SPLAT_SUM_AT,
+                         MAXWARP_SPARSE, MAXWARP_SPLAT, SPLAT_DENSE_FWD,
+                         SPLAT_DENSE_BWD, EULER_PHASED, FUSED_CONV]
 
 
 def build_all() -> Dict[str, float]:

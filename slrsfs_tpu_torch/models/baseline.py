@@ -139,11 +139,12 @@ def pack_splat_input(fs: Tensor, z_norm: Tensor) -> Tensor:
 
 
 def splat_blend(u_f: Tensor, flow_f: Tensor, alpha, u_p: Tensor,
-                flow_p: Tensor) -> Tensor:
-    """Double-ended dense splat + joint normalisation (reference :606-692),
-    on the plain splat (the dense rollouts' check path)."""
-    g = (softsplat_sum_plain(u_f, flow_f) * alpha
-         + softsplat_sum_plain(u_p, flow_p) * (1.0 - alpha))
+                flow_p: Tensor, plain: bool = False) -> Tensor:
+    """Double-ended dense splat + joint normalisation (reference :606-692):
+    two ``softsplat_sum`` (K3 on the card), or with ``plain`` two
+    ``softsplat_sum_plain``."""
+    splat = softsplat_sum_plain if plain else softsplat_sum
+    g = splat(u_f, flow_f) * alpha + splat(u_p, flow_p) * (1.0 - alpha)
     return g[..., :-1] / torch.clamp(g[..., -1:], min=NORM_EPS)
 
 

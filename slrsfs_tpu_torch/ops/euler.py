@@ -8,8 +8,12 @@ reports a displacement of ``max(H, W) + 1`` so downstream splats drop it.
 
 ``euler_compact_dual`` is the render path's kernel wrapper (K1,
 ``csrc/euler.cu``); ``euler_compact_dual_plain`` is its plain PyTorch
-version, a loop over steps on tensors. ``euler_integrate_all_dual`` is the
-dense form, used only by the plain dense rollout.
+version, a loop over steps on tensors. ``euler_integrate_all_dual`` (the
+dense rollouts' integrator), ``euler_integrate_all``, ``euler_integrate``
+and ``euler_integrate_compact`` are the dense and single-direction forms,
+one kernel with options (K4, entry ``euler_all`` of ``csrc/euler.cu``);
+``*_plain`` are their plain versions. The single-direction forms also
+return visibility (1.0 where the trajectory never left the frame).
 
 ``euler_integrate_phased`` and ``euler_integrate_phased_compact`` are the
 training pass's integrators (K7, ``csrc/euler_phased.cu``), batched over
@@ -18,13 +22,50 @@ samples with per-sample step counts; ``*_plain`` are their plain versions.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from slrsfs_tpu_torch import kernels
 
 Tensor = torch.Tensor
+
+
+def _scan_plain(motion: Tensor, coord: Tensor, sign: Tensor, n_steps: int
+                ) -> Tuple[Tensor, Tensor]:
+    """Steps 1..n_steps of the JAX scan body for rows ``coord`` (R, 2) f32
+    [x, y], each adding the gathered motion times ``sign`` (R, 1), ±1 (an
+    exact product). Returns (disps (n_steps, R, 2), visible (n_steps, R)
+    bool)."""
+    H, W, _ = motion.shape
+    oob = torch.full_like(coord, float(max(H, W) + 1))
+    motion_flat = motion.reshape(H * W, 2)
+    dest = coord
+    invalid = torch.zeros(coord.shape[:1], dtype=torch.bool, device=motion.device)
+    disps, visible = [], []
+    for _ in range(n_steps):
+        ix = torch.round(dest[:, 0]).to(torch.int64).clamp(0, W - 1)
+        iy = torch.round(dest[:, 1]).to(torch.int64).clamp(0, H - 1)
+        m = motion_flat[iy * W + ix] * sign
+        dest = dest + m
+        out = ((dest[:, 0] > W - 1) | (dest[:, 0] < 0)
+               | (dest[:, 1] > H - 1) | (dest[:, 1] < 0))
+        invalid = invalid | out
+        dest = torch.where(invalid[:, None], coord, dest)
+        disps.append(torch.where(invalid[:, None], oob, dest - coord))
+        visible.append(~invalid)
+    if not disps:
+        return (coord.new_zeros((0,) + tuple(coord.shape)),
+                torch.zeros((0,) + tuple(coord.shape[:1]), dtype=torch.bool,
+                            device=motion.device))
+    return torch.stack(disps), torch.stack(visible)
+
+
+def _grid(H: int, W: int, device) -> Tensor:
+    """(H·W, 2) int32 [x, y] of every pixel, row-major."""
+    ys, xs = torch.meshgrid(torch.arange(H, device=device),
+                            torch.arange(W, device=device), indexing="ij")
+    return torch.stack([xs, ys], dim=-1).reshape(H * W, 2).to(torch.int32)
 
 
 def euler_compact_dual_plain(motion: Tensor, positions: Tensor, n_fwd: int,
@@ -35,54 +76,93 @@ def euler_compact_dual_plain(motion: Tensor, positions: Tensor, n_fwd: int,
     (disp_fwd (n_fwd+1, P, 2), disp_bwd (n_bwd+1, P, 2)); entry 0 is zero.
     Element for element the JAX ``euler_integrate_compact_dual``.
     """
-    H, W, _ = motion.shape
     dtype = motion.dtype
     P = positions.shape[0]
     coord = torch.cat([positions, positions]).to(dtype)  # (2P, 2)
     sign = torch.cat([torch.ones((P, 1), dtype=dtype, device=motion.device),
                       -torch.ones((P, 1), dtype=dtype, device=motion.device)])
-    oob = torch.full_like(coord, float(max(H, W) + 1))
-    motion_flat = motion.reshape(H * W, 2)
-    L = max(n_fwd, n_bwd)
-
-    dest = coord
-    invalid = torch.zeros((2 * P,), dtype=torch.bool, device=motion.device)
-    disps = []
-    for _ in range(L):
-        ix = torch.round(dest[:, 0]).to(torch.int64).clamp(0, W - 1)
-        iy = torch.round(dest[:, 1]).to(torch.int64).clamp(0, H - 1)
-        m = motion_flat[iy * W + ix] * sign
-        dest = dest + m
-        out = ((dest[:, 0] > W - 1) | (dest[:, 0] < 0)
-               | (dest[:, 1] > H - 1) | (dest[:, 1] < 0))
-        invalid = invalid | out
-        dest = torch.where(invalid[:, None], coord, dest)
-        disps.append(torch.where(invalid[:, None], oob, dest - coord))
+    stack, _ = _scan_plain(motion, coord, sign, max(n_fwd, n_bwd))
     zero = torch.zeros((1, P, 2), dtype=dtype, device=motion.device)
-    stack = (torch.stack(disps) if disps
-             else torch.zeros((0, 2 * P, 2), dtype=dtype, device=motion.device))
     disp_f = torch.cat([zero, stack[:n_fwd, :P]])
     disp_b = torch.cat([zero, stack[:n_bwd, P:]])
     return disp_f, disp_b
 
 
-def _check(motion: Tensor, positions: Tensor, n_fwd: int, n_bwd: int) -> None:
+def euler_integrate_compact_plain(motion: Tensor, positions: Tensor,
+                                  n_steps: int) -> Tuple[Tensor, Tensor]:
+    """Plain K4, compact: trajectories of the pixels ``positions`` (P, 2)
+    int [x, y]. Returns (disps (n_steps+1, P, 2), visible (n_steps+1, P)
+    f32); entry 0 is zero displacement, all visible. Element for element
+    the JAX ``euler_integrate_compact``."""
+    dtype = motion.dtype
+    coord = positions.to(dtype)
+    P = coord.shape[0]
+    disps, visible = _scan_plain(
+        motion, coord, torch.ones((P, 1), dtype=dtype, device=motion.device),
+        n_steps)
+    return (torch.cat([coord.new_zeros((1, P, 2)), disps]),
+            torch.cat([torch.ones((1, P), dtype=torch.bool, device=motion.device),
+                       visible]).to(dtype))
+
+
+def euler_integrate_all_plain(motion: Tensor, n_steps: int
+                              ) -> Tuple[Tensor, Tensor]:
+    """Plain K4, dense: every pixel's trajectory. Returns (disps
+    (n_steps+1, H, W, 2), visible (n_steps+1, H, W) f32), element for
+    element the JAX ``euler_integrate_all``."""
+    H, W, _ = motion.shape
+    d, v = euler_integrate_compact_plain(motion, _grid(H, W, motion.device),
+                                         n_steps)
+    return d.reshape(n_steps + 1, H, W, 2), v.reshape(n_steps + 1, H, W)
+
+
+def euler_integrate_plain(motion: Tensor, n_steps: int) -> Tuple[Tensor, Tensor]:
+    """Plain K4, last step: (displacement (H, W, 2), visible (H, W)) after
+    exactly ``n_steps`` steps (the JAX ``euler_integrate``)."""
+    d, v = euler_integrate_all_plain(motion, n_steps)
+    return d[-1], v[-1]
+
+
+def euler_integrate_all_dual_plain(motion: Tensor, n_fwd: int, n_bwd: int
+                                   ) -> Tuple[Tensor, Tensor]:
+    """Plain K4, dense and both directions: (disp_fwd (n_fwd+1, H, W, 2),
+    disp_bwd (n_bwd+1, H, W, 2)), element for element the JAX
+    ``euler_integrate_all_dual``."""
+    H, W, _ = motion.shape
+    disp_f, disp_b = euler_compact_dual_plain(motion, _grid(H, W, motion.device),
+                                              n_fwd, n_bwd)
+    return (disp_f.reshape(n_fwd + 1, H, W, 2),
+            disp_b.reshape(n_bwd + 1, H, W, 2))
+
+
+def _check(motion: Tensor, positions, *steps: int) -> None:
+    """Shapes, types, devices and contiguity of an integrator's inputs;
+    ``positions`` None for the dense grid."""
     if motion.ndim != 3 or motion.shape[-1] != 2:
         raise ValueError(f"motion must be (H, W, 2), got {tuple(motion.shape)}")
-    if positions.ndim != 2 or positions.shape[-1] != 2:
-        raise ValueError(
-            f"positions must be (P, 2), got {tuple(positions.shape)}")
     if motion.dtype != torch.float32:
         raise TypeError(f"motion must be float32, got {motion.dtype}")
-    if positions.dtype != torch.int32:
-        raise TypeError(f"positions must be int32, got {positions.dtype}")
-    if motion.device != positions.device:
-        raise ValueError("motion and positions are on different devices")
-    if n_fwd < 0 or n_bwd < 0:
-        raise ValueError(f"negative step counts {n_fwd}, {n_bwd}")
-    for name, t in (("motion", motion), ("positions", positions)):
+    if any(n < 0 for n in steps):
+        raise ValueError(f"negative step counts {steps}")
+    named = {"motion": motion}
+    if positions is not None:
+        if positions.ndim != 2 or positions.shape[-1] != 2:
+            raise ValueError(
+                f"positions must be (P, 2), got {tuple(positions.shape)}")
+        if positions.dtype != torch.int32:
+            raise TypeError(f"positions must be int32, got {positions.dtype}")
+        if motion.device != positions.device:
+            raise ValueError("motion and positions are on different devices")
+        named["positions"] = positions
+    for name, t in named.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if motion.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {motion.device}")
+    if motion.device.type == "cuda":
+        for name, t in named.items():
+            if t.data_ptr() % 8:
+                raise ValueError(f"{name} must be 8-byte aligned")
 
 
 def euler_compact_dual(motion: Tensor, positions: Tensor, n_fwd: int,
@@ -93,11 +173,6 @@ def euler_compact_dual(motion: Tensor, positions: Tensor, n_fwd: int,
     _check(motion, positions, n_fwd, n_bwd)
     if motion.device.type == "cpu":
         return euler_compact_dual_plain(motion, positions, n_fwd, n_bwd)
-    if motion.device.type != "cuda":
-        raise ValueError(f"unsupported device {motion.device}")
-    for name, t in (("motion", motion), ("positions", positions)):
-        if t.data_ptr() % 8:
-            raise ValueError(f"{name} must be 8-byte aligned")
     H, W, _ = motion.shape
     P = positions.shape[0]
     disp_f = torch.empty((n_fwd + 1, P, 2), dtype=torch.float32,
@@ -110,6 +185,85 @@ def euler_compact_dual(motion: Tensor, positions: Tensor, n_fwd: int,
                              disp_f.data_ptr(), disp_b.data_ptr(), P, H, W,
                              n_fwd, n_bwd, stream)
     return disp_f, disp_b
+
+
+euler_integrate_compact_dual = euler_compact_dual  # the JAX package's name
+
+
+def _launch_all(motion: Tensor, positions: Optional[Tensor], n_fwd: int,
+                n_bwd: Optional[int], last_only: bool, visibility: bool):
+    """One K4 launch on the card: rows are the dense grid (``positions``
+    None) or ``positions``; ``n_bwd`` None integrates +M only. Returns
+    (disp_f, disp_b, vis_f): (E, R, 2), (E_b, R, 2) or None, (E, R) or None,
+    with E = 1 for ``last_only`` and n + 1 otherwise."""
+    H, W, _ = motion.shape
+    R = H * W if positions is None else positions.shape[0]
+    dev = motion.device
+
+    def entries(n):
+        return 1 if last_only else n + 1
+
+    disp_f = torch.empty((entries(n_fwd), R, 2), dtype=torch.float32, device=dev)
+    disp_b = (None if n_bwd is None else
+              torch.empty((entries(n_bwd), R, 2), dtype=torch.float32, device=dev))
+    vis_f = (torch.empty((entries(n_fwd), R), dtype=torch.float32, device=dev)
+             if visibility else None)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.EULER_ALL.launch(motion.data_ptr(), ptr(positions),
+                                 disp_f.data_ptr(), ptr(disp_b), ptr(vis_f), 0,
+                                 R, H, W, n_fwd, n_bwd or 0, int(last_only),
+                                 stream)
+    return disp_f, disp_b, vis_f
+
+
+def euler_integrate_all(motion: Tensor, n_steps: int) -> Tuple[Tensor, Tensor]:
+    """K4 wrapper, dense: ``euler_integrate_all_plain``'s result, from the
+    kernel for tensors on the card and the plain version on the CPU."""
+    _check(motion, None, n_steps)
+    if motion.device.type == "cpu":
+        return euler_integrate_all_plain(motion, n_steps)
+    H, W, _ = motion.shape
+    d, _, v = _launch_all(motion, None, n_steps, None, False, True)
+    return d.reshape(n_steps + 1, H, W, 2), v.reshape(n_steps + 1, H, W)
+
+
+def euler_integrate(motion: Tensor, n_steps: int) -> Tuple[Tensor, Tensor]:
+    """K4 wrapper, last step only: ``euler_integrate_plain``'s result; the
+    kernel writes the final displacement and visibility and no other
+    step."""
+    _check(motion, None, n_steps)
+    if motion.device.type == "cpu":
+        return euler_integrate_plain(motion, n_steps)
+    H, W, _ = motion.shape
+    d, _, v = _launch_all(motion, None, n_steps, None, True, True)
+    return d.reshape(H, W, 2), v.reshape(H, W)
+
+
+def euler_integrate_compact(motion: Tensor, positions: Tensor, n_steps: int
+                            ) -> Tuple[Tensor, Tensor]:
+    """K4 wrapper, compact: ``euler_integrate_compact_plain``'s result."""
+    _check(motion, positions, n_steps)
+    if motion.device.type == "cpu":
+        return euler_integrate_compact_plain(motion, positions, n_steps)
+    d, _, v = _launch_all(motion, positions, n_steps, None, False, True)
+    return d, v
+
+
+def euler_integrate_all_dual(motion: Tensor, n_fwd: int, n_bwd: int
+                             ) -> Tuple[Tensor, Tensor]:
+    """K4 wrapper, dense and both directions (the dense rollouts'
+    integrator): ``euler_integrate_all_dual_plain``'s result."""
+    _check(motion, None, n_fwd, n_bwd)
+    if motion.device.type == "cpu":
+        return euler_integrate_all_dual_plain(motion, n_fwd, n_bwd)
+    H, W, _ = motion.shape
+    d_f, d_b, _ = _launch_all(motion, None, n_fwd, n_bwd, False, False)
+    return d_f.reshape(n_fwd + 1, H, W, 2), d_b.reshape(n_bwd + 1, H, W, 2)
 
 
 def _phased_scan(motion: Tensor, coord: Tensor, t_fwd: Tensor,
@@ -266,19 +420,3 @@ def euler_integrate_phased_compact(motion: Tensor, positions: Tensor,
         raise ValueError(f"unsupported device {motion.device}")
     return _launch_phased(motion, positions, valid, t_fwd, t_bwd, n_steps,
                           positions.shape[1])
-
-
-def euler_integrate_all_dual(motion: Tensor, n_fwd: int, n_bwd: int
-                             ) -> Tuple[Tensor, Tensor]:
-    """Dense form: every pixel's trajectory, both directions (plain).
-
-    Returns (disp_fwd (n_fwd+1, H, W, 2), disp_bwd (n_bwd+1, H, W, 2)),
-    element for element the JAX ``euler_integrate_all_dual``."""
-    H, W, _ = motion.shape
-    ys, xs = torch.meshgrid(torch.arange(H, device=motion.device),
-                            torch.arange(W, device=motion.device),
-                            indexing="ij")
-    grid = torch.stack([xs, ys], dim=-1).reshape(H * W, 2)
-    disp_f, disp_b = euler_compact_dual_plain(motion, grid, n_fwd, n_bwd)
-    return (disp_f.reshape(n_fwd + 1, H, W, 2),
-            disp_b.reshape(n_bwd + 1, H, W, 2))

@@ -9,20 +9,31 @@ the grid are dropped.
 ``csrc/splat.cu``): the dual-ended sparse splat plus the softmax-splat
 normalisation of ``slrsfs_tpu/engine/rollout.py:577-581``.
 ``splat_dual_normalize_slr`` is the same splat with the SLR epilogue
-(``slrsfs_tpu/models/slr.py:slr_unpack_splatted``, two normalisers).
-``*_plain`` are their plain versions (``index_add_`` into a flat buffer,
-then the division).
+(``slrsfs_tpu/models/slr.py:slr_unpack_splatted``, two normalisers). Both
+accumulate in the dtype of the rows they are given: float32, or bfloat16
+for the render's ``bfloat16-fast`` mode.
 
-``softsplat_sum`` is the dense summation splat of the training pass (K3,
-``csrc/splat_dense.cu``) as a ``torch.autograd.Function``: on the card a
-scatter kernel forward and a gather kernel backward; on the CPU its plain
-versions ``softsplat_sum_plain`` (also the dense rollouts' splat) and
-``softsplat_sum_grad_plain``.
+``softsplat_sum_at`` (``_paired``, ``_quad``: the JAX package's TPU row
+layouts of one sum, here names of one kernel) and the raw two-ended
+``softsplat_sum_at_quad_dual`` are the sparse splats without an epilogue
+(K8, entry ``splat_sum_at`` of ``csrc/splat.cu``).
+
+``*_plain`` are the plain versions: the JAX quad layout (weighted rows
+rounded to the rows' dtype, one ``index_add_`` into a padded
+``(H·W + 2·(W+1), 4C)`` buffer, the four-quarter combine), which repeats
+the JAX order of bf16 roundings, then the division.
+
+``softsplat_sum`` is the dense summation splat of the training pass and the
+dense rollouts (K3, ``csrc/splat_dense.cu``) as a
+``torch.autograd.Function``: on the card a scatter kernel forward and a
+gather kernel backward; on the CPU its plain versions
+``softsplat_sum_plain`` and ``softsplat_sum_grad_plain``. ``softsplat``
+builds the reference's four splat modes on it.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -210,21 +221,129 @@ def softsplat_sum_plain_vjp(inp: Tensor, flow: Tensor) -> Tensor:
     return SoftsplatSum.apply(inp, flow, True)
 
 
+SPLAT_MODES = ("summation", "average", "linear", "softmax")
+
+
+def softsplat(inp: Tensor, flow: Tensor, metric: Optional[Tensor] = None,
+              mode: str = "summation") -> Tensor:
+    """The four splat modes of reference ``FunctionSoftsplat`` (the JAX
+    ``softsplat``) over ``softsplat_sum`` (K3 on the card). inp (B, H, W,
+    C), flow (B, H, W, 2), metric (B, H, W, 1) or None. Other modes than
+    summation splat a last weight channel and divide by it, exact zeros
+    replaced by 1."""
+    if mode not in SPLAT_MODES:
+        raise ValueError(f"mode must be one of {SPLAT_MODES}, got {mode!r}")
+    if mode == "average":
+        inp = torch.cat([inp, torch.ones_like(inp[..., :1])], dim=-1)
+    elif mode == "linear":
+        inp = torch.cat([inp * metric, metric], dim=-1)
+    elif mode == "softmax":
+        m = torch.exp(metric)
+        inp = torch.cat([inp * m, m], dim=-1)
+    out = softsplat_sum(inp.contiguous(), flow)
+    if mode == "summation":
+        return out
+    norm = out[..., -1:]
+    norm = torch.where(norm == 0.0, torch.ones_like(norm), norm)
+    return out[..., :-1] / norm
+
+
+def _quad_rows_plain(u: Tensor, positions: Tensor, disp: Tensor,
+                     height: int, width: int, keep: Optional[Tensor] = None):
+    """The JAX ``_quad_rows``: padded flat index q (P,) of each row's NW
+    corner and its (P, 4C) row [NW·u | NE·u | SW·u | SE·u] with the
+    bilinear weights computed in float32 (times ``keep``, 0 for padding
+    rows, when given) and the product rounded to ``u.dtype``."""
+    ox = positions[:, 0].to(disp.dtype) + disp[:, 0]
+    oy = positions[:, 1].to(disp.dtype) + disp[:, 1]
+    x0f = torch.floor(ox)
+    y0f = torch.floor(oy)
+    dx = ox - x0f
+    dy = oy - y0f
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    rows = []
+    for cx, cy, w in ((x0, y0, (1.0 - dx) * (1.0 - dy)),
+                      (x0 + 1, y0, dx * (1.0 - dy)),
+                      (x0, y0 + 1, (1.0 - dx) * dy),
+                      (x0 + 1, y0 + 1, dx * dy)):
+        inside = (cx >= 0) & (cx < width) & (cy >= 0) & (cy < height)
+        w = w * inside.to(w.dtype)
+        if keep is not None:
+            w = w * keep
+        rows.append(u.to(w.dtype) * w[:, None])
+    pad = width + 1
+    q = (y0 * width + x0 + pad).clamp(0, height * width + 2 * pad - 1)
+    return q, torch.cat(rows, dim=-1).to(u.dtype)
+
+
+def _quad_combine(buf: Tensor, height: int, width: int, C: int) -> Tensor:
+    """The JAX ``_quad_combine``: NE, SW, SE quarters shifted by +1, +W,
+    +W+1 flat cells onto the NW quarter, summed left to right."""
+    pad = width + 1
+    HW = height * width
+    return (buf[pad:pad + HW, :C]
+            + buf[pad - 1:pad - 1 + HW, C:2 * C]
+            + buf[pad - width:pad - width + HW, 2 * C:3 * C]
+            + buf[pad - width - 1:pad - width - 1 + HW, 3 * C:]
+            ).reshape(height, width, C)
+
+
+def _quad_sum_plain(ends, positions: Tensor, height: int, width: int,
+                    keep: Optional[Tensor] = None) -> Tensor:
+    """Sum of the splats of ``ends`` [(rows (P, C), disp (P, 2))] in the
+    rows' dtype: all ends' quad rows in one ``index_add_``, then the
+    combine."""
+    qs, upds = zip(*(_quad_rows_plain(u, positions, d, height, width, keep)
+                     for u, d in ends))
+    u = ends[0][0]
+    C = u.shape[-1]
+    buf = torch.zeros((height * width + 2 * (width + 1), 4 * C), dtype=u.dtype,
+                      device=u.device)
+    buf.index_add_(0, torch.cat(qs), torch.cat(upds))
+    return _quad_combine(buf, height, width, C)
+
+
+def _scaled(u: Tensor, w: float) -> Tensor:
+    """``(u · w).astype(u.dtype)`` with the product in float32."""
+    return (u.to(torch.float32) * w).to(u.dtype)
+
+
+def softsplat_sum_at_plain(u: Tensor, positions: Tensor, disp: Tensor,
+                           height: int, width: int) -> Tensor:
+    """Plain K8, one end: the summation splat of rows ``u`` (P, C) (padding
+    rows zero) from ``positions`` (P, 2) int [x, y] moved by ``disp`` (P, 2)
+    f32, onto a zero (height, width, C) grid in ``u.dtype``. The JAX
+    ``softsplat_sum_at``, ``_paired`` and ``_quad`` up to summation order."""
+    return _quad_sum_plain([(u, disp)], positions, height, width)
+
+
+softsplat_sum_at_paired_plain = softsplat_sum_at_plain
+softsplat_sum_at_quad_plain = softsplat_sum_at_plain
+
+
+def softsplat_sum_at_quad_dual_plain(u: Tensor, positions: Tensor,
+                                     disp_a: Tensor, disp_b: Tensor,
+                                     w_a: float, w_b: float, height: int,
+                                     width: int) -> Tensor:
+    """Plain K8, two ends: ``splat(u·w_a, disp_a) + splat(u·w_b, disp_b)``
+    with the scaled rows rounded to ``u.dtype`` (the JAX
+    ``softsplat_sum_at_quad_dual``)."""
+    return _quad_sum_plain([(_scaled(u, w_a), disp_a), (_scaled(u, w_b), disp_b)],
+                           positions, height, width)
+
+
 def _splat_dual_plain(u_mov: Tensor, positions: Tensor, valid: Tensor,
                       disp_a: Tensor, disp_b: Tensor, w_a: float, w_b: float,
                       u_static: Tensor) -> Tensor:
-    """``g = u_static + splat(u_mov·w_a, disp_a) + splat(u_mov·w_b, disp_b)``,
-    (H, W, C1) f32, the accumulator both K2 epilogues normalise."""
+    """``g = splat(u_mov·w_a, disp_a) + splat(u_mov·w_b, disp_b) + u_static``
+    in the rows' dtype, then float32: (H, W, C1), the accumulator both K2
+    epilogues normalise. Rows with ``valid`` 0 contribute nothing."""
     H, W, C1 = u_static.shape
-    acc = u_static.reshape(H * W, C1).clone()
-    keep = (valid != 0).to(u_mov.dtype)
-    px = positions[:, 0].to(disp_a.dtype)
-    py = positions[:, 1].to(disp_a.dtype)
-    for w_t, disp in ((w_a, disp_a), (w_b, disp_b)):
-        rows = u_mov * w_t
-        for lin, w in _corner_taps(px + disp[:, 0], py + disp[:, 1], H, W):
-            acc.index_add_(0, lin, rows * (w * keep)[:, None])
-    return acc.reshape(H, W, C1)
+    keep = (valid != 0).to(torch.float32)
+    g = _quad_sum_plain([(_scaled(u_mov, w_a), disp_a),
+                         (_scaled(u_mov, w_b), disp_b)], positions, H, W, keep)
+    return (g + u_static).to(torch.float32)
 
 
 def splat_dual_normalize_plain(u_mov: Tensor, positions: Tensor,
@@ -233,12 +352,14 @@ def splat_dual_normalize_plain(u_mov: Tensor, positions: Tensor,
                                out_dtype: torch.dtype) -> Tensor:
     """Plain version of K2.
 
-    u_mov (P, C+1) f32 moving rows; positions (P, 2) int [x, y]; valid (P,)
+    u_mov (P, C+1) moving rows; positions (P, 2) int [x, y]; valid (P,)
     f32, rows with 0 are padding and contribute nothing; disp_a / disp_b
-    (P, 2) f32; w_a / w_b the temporal weights; u_static (H, W, C+1) f32, the
-    accumulator's start. Returns ``g[..., :C] / max(g[..., C], 1e-8)`` in
-    ``out_dtype``, shape (H, W, C), where ``g = u_static + splat(u_mov·w_a,
-    disp_a) + splat(u_mov·w_b, disp_b)``.
+    (P, 2) f32; w_a / w_b the temporal weights; u_static (H, W, C+1), the
+    static identity. u_mov and u_static are float32, or bfloat16 to
+    accumulate in bf16. Returns ``g[..., :C] / max(g[..., C], 1e-8)`` in
+    ``out_dtype``, shape (H, W, C), where ``g = splat(u_mov·w_a, disp_a) +
+    splat(u_mov·w_b, disp_b) + u_static`` in the rows' dtype, divided in
+    float32.
     """
     g = _splat_dual_plain(u_mov, positions, valid, disp_a, disp_b, w_a, w_b,
                           u_static)
@@ -262,67 +383,73 @@ def splat_dual_normalize_slr_plain(u_mov: Tensor, positions: Tensor,
                      dim=-1).to(out_dtype)
 
 
-def _check_splat(u_mov, positions, valid, disp_a, disp_b, u_static, out,
-                 n_norm):
-    P, C1 = u_mov.shape
-    H, W, C1s = u_static.shape
-    shapes = {"positions": (positions, (P, 2), torch.int32),
-              "valid": (valid, (P,), torch.float32),
-              "disp_a": (disp_a, (P, 2), torch.float32),
-              "disp_b": (disp_b, (P, 2), torch.float32),
-              "u_mov": (u_mov, (P, C1), torch.float32),
-              "u_static": (u_static, (H, W, C1), torch.float32)}
-    for name, (t, shape, dtype) in shapes.items():
+SPLAT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_rows(u: Tensor, named: dict) -> None:
+    """``named`` {name: (tensor, shape, dtype)}: shapes, types, the rows'
+    device and contiguity, as the kernels take them; the rows ``u`` are
+    float32 or bfloat16 (the accumulation dtype)."""
+    if u.dtype not in SPLAT_DTYPES:
+        raise TypeError(f"rows must be float32 or bfloat16, got {u.dtype}")
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {u.device}")
+    for name, (t, shape, dtype) in named.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if t.device != u_mov.device:
-            raise ValueError(f"{name} is on {t.device}, u_mov on {u_mov.device}")
-    if tuple(out.shape) != (H, W, C1 - n_norm):
-        raise ValueError(f"out must be {(H, W, C1 - n_norm)}, "
-                         f"got {tuple(out.shape)}")
-    if out.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"out must be float32 or bfloat16, got {out.dtype}")
-    if out.device != u_mov.device:
-        raise ValueError(f"out is on {out.device}, u_mov on {u_mov.device}")
-    for name, t in dict(u_mov=u_mov, positions=positions, valid=valid,
-                        disp_a=disp_a, disp_b=disp_b, u_static=u_static,
-                        out=out).items():
+        if t.device != u.device:
+            raise ValueError(f"{name} is on {t.device}, the rows on {u.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if u.device.type == "cuda" and t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned")
+
+
+def splat_scratch(height: int, width: int, C1: int, dtype: torch.dtype,
+                  device) -> Tensor:
+    """The K2 kernel's accumulator for rows of ``dtype``: (H·W·C1,) float32,
+    or the (H·W·4·C1,) bfloat16 quarters of the bf16 mode (one per corner,
+    combined as the JAX quad layout combines them)."""
+    return torch.empty((_scratch_numel(height, width, C1, dtype),), dtype=dtype,
+                       device=device)
+
+
+def _scratch_numel(height: int, width: int, C1: int, dtype: torch.dtype) -> int:
+    return height * width * C1 * (4 if dtype == torch.bfloat16 else 1)
 
 
 def _splat_launch(kernel, plain, n_norm, u_mov, positions, valid, disp_a,
                   disp_b, w_a, w_b, u_static, out, acc):
-    _check_splat(u_mov, positions, valid, disp_a, disp_b, u_static, out,
-                 n_norm)
+    P, C1 = u_mov.shape
+    H, W = u_static.shape[:2]
+    named = {"u_mov": (u_mov, (P, C1), u_mov.dtype),
+             "positions": (positions, (P, 2), torch.int32),
+             "valid": (valid, (P,), torch.float32),
+             "disp_a": (disp_a, (P, 2), torch.float32),
+             "disp_b": (disp_b, (P, 2), torch.float32),
+             "u_static": (u_static, (H, W, C1), u_mov.dtype),
+             "out": (out, (H, W, C1 - n_norm), out.dtype)}
+    if out.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out must be float32 or bfloat16, got {out.dtype}")
+    if u_mov.device.type == "cuda":
+        if acc is None:
+            acc = splat_scratch(H, W, C1, u_mov.dtype, u_mov.device)
+        named["acc"] = (acc, (_scratch_numel(H, W, C1, u_mov.dtype),), u_mov.dtype)
+    _check_rows(u_mov, named)
     if u_mov.device.type == "cpu":
         out.copy_(plain(u_mov, positions, valid, disp_a, disp_b, w_a, w_b,
                         u_static, out.dtype))
         return out
-    if u_mov.device.type != "cuda":
-        raise ValueError(f"unsupported device {u_mov.device}")
-    H, W, C1 = u_static.shape
-    if acc is None:
-        acc = torch.empty((H * W * C1,), dtype=torch.float32,
-                          device=u_mov.device)
-    if acc.dtype != torch.float32 or acc.numel() != H * W * C1 \
-            or acc.device != u_mov.device or not acc.is_contiguous():
-        raise ValueError("acc must be a contiguous float32 buffer of "
-                         "H*W*C1 elements on the inputs' device")
-    named = dict(u_mov=u_mov, positions=positions, valid=valid, disp_a=disp_a,
-                 disp_b=disp_b, u_static=u_static, acc=acc, out=out)
-    for name, t in named.items():
-        if t.data_ptr() % 8:
-            raise ValueError(f"{name} must be 8-byte aligned")
     with torch.cuda.device(u_mov.device):
         stream = torch.cuda.current_stream().cuda_stream
         kernel.launch(
             u_mov.data_ptr(), positions.data_ptr(), valid.data_ptr(),
             disp_a.data_ptr(), disp_b.data_ptr(), float(w_a), float(w_b),
-            u_static.data_ptr(), acc.data_ptr(), out.data_ptr(),
-            u_mov.shape[0], C1, H, W, int(out.dtype == torch.bfloat16), stream)
+            u_static.data_ptr(), acc.data_ptr(), out.data_ptr(), P, C1, H, W,
+            int(out.dtype == torch.bfloat16),
+            int(u_mov.dtype == torch.bfloat16), stream)
     return out
 
 
@@ -333,9 +460,9 @@ def splat_dual_normalize(u_mov: Tensor, positions: Tensor, valid: Tensor,
     """K2 wrapper: writes ``splat_dual_normalize_plain(...)`` into ``out``
     ((H, W, C), f32 or bf16, e.g. one frame slot of a decode chunk).
 
-    On the card the CUDA kernel computes it, with ``acc`` ((H·W·(C+1),) f32)
-    as its scratch accumulator (allocated when None); on the CPU the plain
-    version does."""
+    On the card the CUDA kernel computes it, accumulating in ``u_mov``'s
+    dtype, with ``acc`` (``splat_scratch``) as its scratch accumulator
+    (allocated when None); on the CPU the plain version does."""
     return _splat_launch(kernels.SPLAT, splat_dual_normalize_plain, 1, u_mov,
                          positions, valid, disp_a, disp_b, w_a, w_b, u_static,
                          out, acc)
@@ -353,3 +480,57 @@ def splat_dual_normalize_slr(u_mov: Tensor, positions: Tensor, valid: Tensor,
     return _splat_launch(kernels.SPLAT_SLR, splat_dual_normalize_slr_plain, 2,
                          u_mov, positions, valid, disp_a, disp_b, w_a, w_b,
                          u_static, out, acc)
+
+
+def _splat_at(u: Tensor, positions: Tensor, disp_a: Tensor,
+              disp_b: Optional[Tensor], w_a: float, w_b: float, height: int,
+              width: int) -> Tensor:
+    """K8 on the card: the splat of each end's rows, scaled by its weight,
+    onto a zero (height, width, C) grid in ``u.dtype`` (bf16: summed in four
+    corner quarters, then combined, as the plain version sums)."""
+    P, C = u.shape
+    named = {"u": (u, (P, C), u.dtype),
+             "positions": (positions, (P, 2), torch.int32),
+             "disp_a": (disp_a, (P, 2), torch.float32)}
+    if disp_b is not None:
+        named["disp_b"] = (disp_b, (P, 2), torch.float32)
+    _check_rows(u, named)
+    if u.device.type == "cpu":
+        if disp_b is None:
+            return softsplat_sum_at_plain(u, positions, disp_a, height, width)
+        return softsplat_sum_at_quad_dual_plain(u, positions, disp_a, disp_b,
+                                                w_a, w_b, height, width)
+    bf16 = u.dtype == torch.bfloat16
+    out = (torch.empty if bf16 else torch.zeros)((height, width, C), dtype=u.dtype,
+                                                 device=u.device)
+    quarters = splat_scratch(height, width, C, u.dtype, u.device) if bf16 else None
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.SPLAT_SUM_AT.launch(
+            u.data_ptr(), positions.data_ptr(), disp_a.data_ptr(),
+            0 if disp_b is None else disp_b.data_ptr(), float(w_a), float(w_b),
+            out.data_ptr(), 0 if quarters is None else quarters.data_ptr(), P, C,
+            height, width, int(bf16), stream)
+    return out
+
+
+def softsplat_sum_at(u: Tensor, positions: Tensor, disp: Tensor, height: int,
+                     width: int) -> Tensor:
+    """K8 wrapper, one end: ``softsplat_sum_at_plain``'s result, from the
+    kernel (an atomic scatter in ``u``'s dtype) for tensors on the card and
+    the plain version on the CPU. Also the port's ``softsplat_sum_at_paired``
+    and ``softsplat_sum_at_quad``, whose row layouts are TPU scatter-row
+    tricks for the same sum."""
+    return _splat_at(u, positions, disp, None, 1.0, 0.0, height, width)
+
+
+softsplat_sum_at_paired = softsplat_sum_at
+softsplat_sum_at_quad = softsplat_sum_at
+
+
+def softsplat_sum_at_quad_dual(u: Tensor, positions: Tensor, disp_a: Tensor,
+                               disp_b: Tensor, w_a: float, w_b: float,
+                               height: int, width: int) -> Tensor:
+    """K8 wrapper, two ends (the raw K2 scatter, no epilogue):
+    ``softsplat_sum_at_quad_dual_plain``'s result."""
+    return _splat_at(u, positions, disp_a, disp_b, w_a, w_b, height, width)

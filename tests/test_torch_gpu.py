@@ -5,12 +5,17 @@ no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-K1, K5, K6 and K7 must match bit for bit (same arithmetic, no FMA
+K1, K4, K5, K6 and K7 must match bit for bit (same arithmetic, no FMA
 contraction; max is order-free; K7's compact scatter adds one non-zero
-term per cell); K2 (both epilogues) and K3's forward sum with atomics in
-another order, so they are held at 1e-5, and K3's backward at 1e-5 of each
-output's maximum; a rollout through the kernels is held at 1e-4 against
-one through the plain versions."""
+term per cell); K2 (both epilogues), K8 and K3's forward sum with atomics
+in another order, so they are held at 1e-5 in float32, and K3's backward
+at 1e-5 of each output's maximum; in bf16 accumulation K2 and K8 round
+at every add in another order than their plain versions, so both are held
+against the f32 sums of the same rows, the kernel at most twice as far as
+the plain version; K9
+at 2^-7 of max |plain| with at most 0.1 % of the elements more than one
+bf16 ulp apart; a rollout through the kernels is held at 1e-4 against one
+through the plain versions."""
 
 import numpy as np
 import pytest
@@ -19,6 +24,7 @@ import torch
 from slrsfs_tpu_torch import kernels
 from slrsfs_tpu_torch.config import Options
 from slrsfs_tpu_torch.engine.rollout import (
+    baseline_rollout,
     baseline_rollout_sparse,
     prepare_scene_sparse,
     slr_rollout_dense,
@@ -26,7 +32,9 @@ from slrsfs_tpu_torch.engine.rollout import (
 )
 from slrsfs_tpu_torch.models.baseline import BaselineModel, init_random_weights
 from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRModel
-from slrsfs_tpu_torch.ops import maxwarp
+from slrsfs_tpu_torch.ops import euler as port_euler
+from slrsfs_tpu_torch.ops import fused_conv, maxwarp
+from slrsfs_tpu_torch.ops import splat as port_splat
 from slrsfs_tpu_torch.ops.euler import (
     euler_compact_dual,
     euler_compact_dual_plain,
@@ -326,3 +334,156 @@ def test_k3_gradcheck_on_card():
     softsplat_sum(x32, f32).backward(g.float())
     torch.testing.assert_close(x32.grad.double(), want[0], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(f32.grad.double(), want[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half_integer", [False, True])
+def test_k4_matches_plain_on_card(half_integer):
+    """Every form of K4: dense dual, dense and last-step with visibility,
+    compact with visibility, and n_steps = 0."""
+    dev = _card()
+    m = torch.from_numpy(_motion(8, half_integer)).to(dev)
+    pos = torch.from_numpy(prepare_scene_sparse(m.cpu().numpy(),
+                                                pad_multiple=64)[0]).to(dev)
+    kernels.reset_counts()
+    pairs = [(port_euler.euler_integrate_all_dual(m, 9, 10),
+              port_euler.euler_integrate_all_dual_plain(m, 9, 10))]
+    for n in (0, 7):
+        pairs += [(port_euler.euler_integrate_all(m, n),
+                   port_euler.euler_integrate_all_plain(m, n)),
+                  (port_euler.euler_integrate(m, n),
+                   port_euler.euler_integrate_plain(m, n)),
+                  (port_euler.euler_integrate_compact(m, pos, n),
+                   port_euler.euler_integrate_compact_plain(m, pos, n))]
+    assert kernels.counts()[kernels.EULER_ALL.name] == 7
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (pairs[0][0][1] == max(H, W) + 1).any()
+
+
+def _splat_at_inputs(dev, dtype):
+    m = _motion(9)
+    pos, val = prepare_scene_sparse(m, pad_multiple=64)
+    rng = np.random.default_rng(9)
+    u = (rng.standard_normal((len(val), 17)) * val[:, None]).astype(np.float32)
+    disp_f, disp_b = euler_compact_dual_plain(torch.from_numpy(m),
+                                              torch.from_numpy(pos), 4, 5)
+    return (torch.from_numpy(u).to(dev).to(dtype), torch.from_numpy(pos).to(dev),
+            _special(disp_f[3]).to(dev), disp_b[2].to(dev))
+
+
+def _held(got, want, dtype, ref32=None):
+    """f32: 1e-5 and the same zeros; bf16: the kernel at most twice as far
+    from the f32 sums ``ref32`` as the plain version ``want``."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got == 0, want == 0)
+    else:
+        d_k = (got.float() - ref32).abs().max().item()
+        d_p = (want.float() - ref32).abs().max().item()
+        assert d_k <= 2.0 * d_p, (d_k, d_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_matches_plain_on_card(dtype):
+    dev = _card()
+    u, pos, da, db = _splat_at_inputs(dev, dtype)
+    kernels.reset_counts()
+    one = port_splat.softsplat_sum_at(u, pos, da, H, W)
+    two = port_splat.softsplat_sum_at_quad_dual(u, pos, da, db, 0.3, 0.7, H, W)
+    assert kernels.counts()[kernels.SPLAT_SUM_AT.name] == 2
+    assert one.dtype == two.dtype == dtype
+    want_one = port_splat.softsplat_sum_at_plain(u, pos, da, H, W)
+    want_two = port_splat.softsplat_sum_at_quad_dual_plain(u, pos, da, db, 0.3,
+                                                           0.7, H, W)
+    u32 = u.float()
+    ref_one = port_splat.softsplat_sum_at_plain(u32, pos, da, H, W)
+    ref_two = port_splat.softsplat_sum_at_quad_dual_plain(u32, pos, da, db, 0.3,
+                                                          0.7, H, W)
+    torch.cuda.synchronize()
+    _held(one, want_one, dtype, ref_one)
+    _held(two, want_two, dtype, ref_two)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slr", [False, True])
+def test_k2_bf16_accumulation_matches_plain_on_card(slr):
+    """K2 with bf16 rows, u_static and accumulator (the bfloat16-fast
+    mode), both epilogues."""
+    dev = _card()
+    u, pos, da, db = _splat_at_inputs(dev, torch.float32)
+    u = u.abs()  # [.., weight channels]: the normalisers are positive
+    val = (u.abs().sum(-1) > 0).to(torch.float32)
+    u_static = torch.from_numpy(np.abs(np.random.default_rng(10).standard_normal(
+        (H, W, u.shape[1]))).astype(np.float32)).to(dev)
+    u_static[: H // 2] = 0.0
+    u, u_static = u.to(torch.bfloat16), u_static.to(torch.bfloat16)
+    wrapper, plain, n_norm = ((splat_dual_normalize_slr,
+                               splat_dual_normalize_slr_plain, 2) if slr else
+                              (splat_dual_normalize, splat_dual_normalize_plain, 1))
+    out = torch.empty((H, W, u.shape[1] - n_norm), dtype=torch.float32, device=dev)
+    kernels.reset_counts()
+    wrapper(u, pos, val, da, db, 0.4, 0.6, u_static, out=out)
+    assert sum(kernels.counts().values()) == 1
+    want = plain(u, pos, val, da, db, 0.4, 0.6, u_static, torch.float32)
+    ref32 = plain(u.float(), pos, val, da, db, 0.4, 0.6, u_static.float(),
+                  torch.float32)
+    torch.cuda.synchronize()
+    _held(out, want, torch.bfloat16, ref32)
+    assert torch.equal(out == 0, want == 0)  # positive rows: no cancellation
+
+
+@pytest.mark.gpu
+def test_dense_rollout_kernels_match_plain_on_card():
+    """baseline_rollout through K4 and K3's forward against its plain
+    path."""
+    dev = _card()
+    opt = Options(ngf=16, W=32, bn_noise_misc=True)
+    model = BaselineModel(opt).eval()
+    init_random_weights(model, seed=0)
+    model = model.to(dev)
+    rng = np.random.default_rng(12)
+    flow = torch.from_numpy(rng.standard_normal((32, 32, 2)).astype(np.float32)).to(dev)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)).to(dev)
+    kernels.reset_counts()
+    got = baseline_rollout(model, img, flow, 5)
+    counts = kernels.counts()
+    assert counts[kernels.EULER_ALL.name] == 1
+    assert counts[kernels.SPLAT_DENSE_FWD.name] == 10
+    want = baseline_rollout(model, img, flow, 5, plain=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _k9_check(shape, tile, seed):
+    from slrsfs_tpu_torch.tools.conv_prototype import compare, within_limits
+
+    dev = _card()
+    B, Hc, Wc, C, F = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((B, Hc, Wc, C), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    waa = (torch.randn((3, 3, C, F), generator=g, device=dev) / (9 * C) ** 0.5
+           ).to(torch.bfloat16)
+    wab = (torch.randn((3, 3, F, F), generator=g, device=dev) / (9 * F) ** 0.5
+           ).to(torch.bfloat16)
+    kernels.reset_counts()
+    got = fused_conv.fused_conv3x3_relu_conv3x3(x, waa, wab, tile)
+    assert kernels.counts()[kernels.FUSED_CONV.name] == 1
+    want = fused_conv.conv_chain_plain(x, waa, wab)
+    torch.cuda.synchronize()
+    c = compare(got, want)
+    assert within_limits(c), c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", fused_conv.TILES)
+def test_k9_matches_plain_on_card(tile):
+    _k9_check((2, 32, 48, 128, 128), tile, seed=13)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 37, 29, 128, 128), (2, 9, 13, 32, 64)])
+def test_k9_ragged_matches_plain_on_card(shape):
+    """H and W that the tiles do not divide, and narrower C and F."""
+    _k9_check(shape, fused_conv.DEFAULT_TILE, seed=14)

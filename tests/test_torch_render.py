@@ -104,8 +104,7 @@ def test_auto_decode_batch_divides_frames():
     assert 60 % db == 0 and db * 768 * 768 <= port_render.DECODE_PX_BUDGET
 
 
-@pytest.mark.parametrize("kw", [dict(dtype="bfloat16-fast"),
-                                dict(crop_decode="auto"),
+@pytest.mark.parametrize("kw", [dict(crop_decode="auto"),
                                 dict(motion_ckpt="motion.pth"),
                                 dict(shard_frames=True),
                                 dict(opt_overrides=dict(

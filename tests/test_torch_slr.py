@@ -112,23 +112,25 @@ def env():
                 flow=flow, pos=pos, valid=valid, region=region)
 
 
-def _jax_sparse(env, v2=False, region=None, dtype=jnp.float32):
+def _jax_sparse(env, v2=False, region=None, dtype=jnp.float32,
+                splat_dtype=None):
     model = JaxSLRModel(_opts(use_softmax_splatter_v2=v2)[0])
     out = jax.jit(lambda v, i, f, p, va, rg: jax_rollout.slr_rollout_sparse(
         model, v, i, f, N, p, va, alpha_region=rg, decode_batch=DB,
-        compute_dtype=dtype))(
+        compute_dtype=dtype, splat_dtype=splat_dtype))(
         env["variables"], jnp.asarray(env["img"]), jnp.asarray(env["flow"]),
         jnp.asarray(env["pos"]), jnp.asarray(env["valid"]),
         None if region is None else jnp.asarray(region))
     return {k: np.asarray(v, np.float32) for k, v in out.items()}
 
 
-def _port_sparse(env, model, region=None, dtype=torch.float32):
+def _port_sparse(env, model, region=None, dtype=torch.float32,
+                 splat_dtype=torch.float32):
     out = port_rollout.slr_rollout_sparse(
         model, torch.from_numpy(env["img"]), torch.from_numpy(env["flow"]), N,
         torch.from_numpy(env["pos"]), torch.from_numpy(env["valid"]),
         alpha_region=None if region is None else torch.from_numpy(region),
-        decode_batch=DB, compute_dtype=dtype)
+        decode_batch=DB, compute_dtype=dtype, splat_dtype=splat_dtype)
     return {k: v.numpy() for k, v in out.items()}
 
 
@@ -205,6 +207,23 @@ def test_bf16_render_is_finite_and_near_jax_bf16(env):
     port_delta = np.abs(got["PredImg"] - want32["PredImg"]).max()
     assert jax_delta > 0.0
     assert port_delta <= 2.0 * jax_delta, (port_delta, jax_delta)
+
+
+@pytest.mark.parametrize("v2", [False, True])
+def test_bf16_fast_rollout_matches_jax(env, v2):
+    """The bfloat16-fast mode (bf16 sub-networks and bf16 splat
+    accumulation) against JAX's at compute_dtype = splat_dtype = bfloat16:
+    every output within 2e-2, the JAX package's bound for the mode
+    (tests/test_rollout_sparse.py:88)."""
+    region = env["region"] if v2 else None
+    want = _jax_sparse(env, v2=v2, region=region, dtype=jnp.bfloat16,
+                       splat_dtype=jnp.bfloat16)
+    got = _port_sparse(env, env["port_model"](use_softmax_splatter_v2=v2),
+                       region=region, dtype=torch.bfloat16,
+                       splat_dtype=torch.bfloat16)
+    for k in OUT_KEYS:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=2e-2,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("dense", [False, True])
