@@ -6,36 +6,42 @@
 //   h   = bf16(relu(conv3x3(x, waa)))  inside the image, exactly 0 outside
 //   out = bf16(conv3x3(h, wab))
 //
-// x (B, H, W, C) bf16 NHWC, waa (3, 3, C, F) and wab (3, 3, F, F) bf16
-// HWIO, out (B, H, W, F) bf16; both convolutions SAME with zero padding and
-// f32 accumulation. The halo of h outside the image is zero, not the conv
-// of zero-padded x there (the Pallas kernel's row and column masks,
-// :101-112).
+// x (B, H, W, C) bf16 NHWC, out (B, H, W, F) bf16; both convolutions SAME
+// with zero padding and f32 accumulation. The halo of h outside the image is
+// zero, not the conv of zero-padded x there (the Pallas kernel's row and
+// column masks, :101-112). The weights arrive packed by the wrapper
+// (ops/fused_conv.py:pack_weights): 18 tap images, the 9 of waa then the 9
+// of wab, each the (K, F) matrix of one tap padded to (Kp, kNp) in the
+// K-major 128-byte-swizzled layout that a tap slot holds in shared memory.
 //
 // What bounds it on an H100: operations. At the prototype's shape (B = 60,
 // 256 x 480, C = F = 128) the two convolutions are 4.35 TFLOP of bf16
 // products, 4.40 ms at the 989 TFLOP/s tensor-core peak, against 3.8 GB of
-// x and out, 1.13 ms at 3.35 TB/s; h never leaves the SM.
+// x and out, 1.13 ms at 3.35 TB/s; h never leaves the SM. Each block also
+// streams all 18 tap images (576 KiB at C = F = 128) from L2.
 //
-// Design, one block of 8 warps per (image, TH x TW output tile):
-//  (1) stage the x slab of the tile and its 2-pixel halo,
-//      (TH + 4) x (TW + 4) x C, into shared memory (zeros outside the
+// Design, one block per (image, TH x TW output tile): 8 consumer warps and
+// one producer warp.
+//  (1) the producer's lane 0 initialises a ring of kStages tap slots, each
+//      with a full and an empty mbarrier, and keeps bulk copies
+//      (cp.async.bulk, one per tap image) in flight ahead of the consumers:
+//      conv1's 9 taps stream straight into conv2's 9;
+//  (2) meanwhile the block stages the x slab of the tile and its 2-pixel
+//      halo, (TH + 4) x (TW + 4) x C, into shared memory (zeros outside the
 //      image), rows padded by 8 bf16 so ldmatrix reads hit distinct banks;
-//  (2) conv1 as an implicit GEMM over the (TH + 2) x (TW + 2) pixels of the
-//      h tile: for each of the 9 taps, the tap's C x F weights are copied
-//      into shared memory and the warps run mma.sync m16n8k16 bf16 -> f32,
-//      A rows gathered per lane by ldmatrix from the shifted slab pixels,
-//      B read by ldmatrix.trans from the HWIO tap;
-//  (3) ReLU, zero outside the image, round to bf16 and write h over the
-//      slab in shared memory;
-//  (4) conv2 the same way over the TH x TW output pixels from h, stored
+//      __syncthreads (slab loaded, barriers initialised);
+//  (3) conv1 as an implicit GEMM over the (TH + 2) x (TW + 2) pixels of h:
+//      per tap the consumers wait for the slot's full barrier, run mma.sync
+//      m16n8k16 bf16 -> f32 with A rows gathered per lane by ldmatrix from
+//      the shifted slab pixels and B read by ldmatrix from the swizzled
+//      tap image, and release the slot on its empty barrier;
+//  (4) ReLU, zero outside the image, round to bf16 into the h buffer; a
+//      named barrier of the consumers (h written);
+//  (5) conv2 the same way over the TH x TW output pixels from h, stored
 //      straight to out as bf16, the ragged edge of the image masked.
-// Each warp holds a quarter of the rows (16-row tiles) and half of F in
-// registers; each tap sums into fresh accumulators that are then added in
-// f32 (see conv_taps). The halo recompute costs (TH + 2)(TW + 2) / (TH TW)
-// of conv1 (1.41 at 8 x 16), and each block reads the 2 x 295 KB of
-// weights from L2. Weights are staged one tap at a time with no double buffering; wgmma
-// and TMA are later work.
+// No barrier of the whole block is left in the tap loop. Each consumer
+// warp holds a quarter of the rows (16-row tiles) and half of F; each tap
+// sums into fresh accumulators that are then added in f32 (see conv_taps).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,29 +51,25 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // bf16 of padding per shared-memory row
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = kConsumerWarps * 32;
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr int kStages = 3;                 // tap slots in the ring
+constexpr int kPad = 8;    // bf16 of padding per slab and h row
 constexpr int kMaxNt = 8;  // n8 tiles per warp: F / 16 <= 8
+constexpr int kNp = 128;   // output channels of a packed tap image
+constexpr int kAtomK = 64; // input channels per 128-byte swizzled row
+constexpr int kTaps = 9;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(addr));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -79,41 +81,84 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Copy one tap's (K, F) HWIO weights into shared memory rows of F + kPad.
-__device__ __forceinline__ void stage_tap(const bf16* __restrict__ w, int K,
-                                          int F, bf16* ws) {
-  const int chunks_per_row = F / 8;
-  for (int i = threadIdx.x; i < K * chunks_per_row; i += kThreads) {
-    const int k = i / chunks_per_row;
-    const int c8 = i - k * chunks_per_row;
-    *reinterpret_cast<uint4*>(ws + k * (F + kPad) + c8 * 8) =
-        __ldg(reinterpret_cast<const uint4*>(w + (size_t)k * F + c8 * 8));
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// acc = conv3x3(src, w) over M output pixels of a grid OUT_W wide, whose
-// tap (ky, kx) reads source pixel (y + ky) * (OUT_W + 2) + x + kx of src
-// (rows of K + kPad bf16). The warp owns 16-row tiles warp_m + 4 i and the
-// n8 tiles of its half of F. Each tap sums into fresh tensor-core
-// accumulators that are then added to acc in f32, a chain of K / 16 mma
-// steps instead of 9 K / 16: the tensor cores accumulate with truncation,
-// and over one long chain the drift flipped the bf16 rounding of h often
-// enough that more than 0.1 % of the outputs (random inputs, C = F = 128)
-// ended more than one bf16 ulp from the f32 plain chain. chip_smoke.py
-// prints the shares of the kernel, the plain chain and cuDNN against a
-// float64 chain.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Tap image i of the weight stream into its ring slot, completing on the
+// slot's full barrier.
+__device__ __forceinline__ void issue_tap(int i, const unsigned char* wpk,
+                                          unsigned char* ring,
+                                          uint32_t slot_bytes,
+                                          uint32_t img1_bytes,
+                                          uint32_t img2_bytes, uint64_t* full) {
+  const int slot = i % kStages;
+  const uint32_t bytes = i < kTaps ? img1_bytes : img2_bytes;
+  const unsigned char* src =
+      wpk + (i < kTaps ? (size_t)i * img1_bytes
+                       : (size_t)kTaps * img1_bytes +
+                             (size_t)(i - kTaps) * img2_bytes);
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(full + slot)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(ring + slot * slot_bytes)),
+      "l"(src), "r"(bytes), "r"(smem_addr(full + slot))
+      : "memory");
+}
+
+// acc = conv3x3(src, taps tap0 .. tap0 + 8 of the stream) over M output
+// pixels of a grid OUT_W wide, whose tap (ky, kx) reads source pixel
+// (y + ky) * (OUT_W + 2) + x + kx of src (rows of K + kPad bf16). The warp
+// owns 16-row tiles warp_m + 4 i and the n8 tiles of its half of F. Each
+// tap sums into fresh tensor-core accumulators that are then added to acc
+// in f32, a chain of K / 16 mma steps instead of 9 K / 16: the tensor
+// cores accumulate with truncation, and over one long chain the drift
+// flipped the bf16 rounding of h often enough that more than 0.1 % of the
+// outputs (random inputs, C = F = 128) ended more than one bf16 ulp from
+// the f32 plain chain. chip_smoke.py prints the shares of the kernel, the
+// plain chain and cuDNN against a float64 chain.
 template <int MT, int OUT_W>
-__device__ __forceinline__ void conv_taps(const bf16* src, int K,
-                                          const bf16* __restrict__ w, int F,
-                                          bf16* ws, int M,
+__device__ __forceinline__ void conv_taps(const bf16* src, int K, int F,
+                                          const unsigned char* ring,
+                                          uint32_t slot_bytes, uint64_t* full,
+                                          uint64_t* empty, int tap0, int M,
                                           float (&acc)[MT][kMaxNt][4]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warp_m = warp >> 1;
   const int nt = F / 16;
-  const int n_base = (warp & 1) * (F / 2);
   const int m_tiles = (M + 15) / 16;
   constexpr int SRC_W = OUT_W + 2;
+  // B: the lane's row of the ldmatrix.x4 that reads n8 tiles j, j + 1
+  const int n_lane = (warp & 1) * (F / 2) + (lane & 7) + ((lane >> 4) << 3);
+  const int kc_lane = (lane >> 3) & 1;
+  const int swz = lane & 7;  // n % 8 for every j
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -121,24 +166,25 @@ __device__ __forceinline__ void conv_taps(const bf16* src, int K,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-  for (int tap = 0; tap < 9; ++tap) {
+  for (int tap = 0; tap < kTaps; ++tap) {
     const int ky = tap / 3;
     const int kx = tap - ky * 3;
-    __syncthreads();  // every warp is done with the previous tap
-    stage_tap(w + (size_t)tap * K * F, K, F, ws);
-    __syncthreads();
+    const int t = tap0 + tap;
+    const int slot = t % kStages;
+    mbar_wait(full + slot, (t / kStages) & 1);
+    const uint32_t w_base =
+        smem_addr(ring + slot * slot_bytes) + n_lane * 128;
 
-    const bf16* a_row[MT];
+    uint32_t a_row[MT];
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       int m = (warp_m + 4 * i) * 16 + (lane & 15);
       m = m < M ? m : M - 1;  // rows past M compute garbage, never stored
       const int y = m / OUT_W;
       const int x = m - y * OUT_W;
-      a_row[i] = src + ((y + ky) * SRC_W + x + kx) * (K + kPad) +
-                 (lane >> 4) * 8;
+      a_row[i] = smem_addr(src + ((y + ky) * SRC_W + x + kx) * (K + kPad) +
+                           (lane >> 4) * 8);
     }
-    const bf16* b_row = ws + (lane & 15) * (F + kPad) + n_base + (lane >> 4) * 8;
 
     float part[MT][kMaxNt][4];
 #pragma unroll
@@ -152,12 +198,14 @@ __device__ __forceinline__ void conv_taps(const bf16* src, int K,
       uint32_t a[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
-        if (warp_m + 4 * i < m_tiles) ldmatrix_x4(a[i], a_row[i] + k0);
+        if (warp_m + 4 * i < m_tiles) ldmatrix_x4(a[i], a_row[i] + k0 * 2);
+      const uint32_t b_k = w_base + (k0 / kAtomK) * (kNp * 128) +
+                           (((((k0 % kAtomK) >> 3) + kc_lane) ^ swz) << 4);
 #pragma unroll
       for (int j = 0; j < kMaxNt; j += 2) {
         if (j < nt) {
           uint32_t b[4];  // n8 tiles j and j + 1
-          ldmatrix_x4_trans(b, b_row + k0 * (F + kPad) + j * 8);
+          ldmatrix_x4(b, b_k + j * 8 * 128);
 #pragma unroll
           for (int i = 0; i < MT; ++i) {
             if (warp_m + 4 * i < m_tiles) {  // warp-uniform
@@ -168,6 +216,8 @@ __device__ __forceinline__ void conv_taps(const bf16* src, int K,
         }
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);  // this warp is done with it
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -177,28 +227,52 @@ __device__ __forceinline__ void conv_taps(const bf16* src, int K,
   }
 }
 
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+__host__ __device__ constexpr int round_up(int a, int b) {
+  return ceil_div(a, b) * b;
+}
+
 template <int TH, int TW, int MT1, int MT2>
 __global__ void __launch_bounds__(kThreads)
-    fused_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ waa,
-                      const bf16* __restrict__ wab, bf16* __restrict__ out,
-                      int H, int W, int C, int F) {
+    fused_conv_kernel(const bf16* __restrict__ x,
+                      const unsigned char* __restrict__ wpk,
+                      bf16* __restrict__ out, int H, int W, int C, int F) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* slab = reinterpret_cast<bf16*>(smem_raw);  // x slab, then h
   constexpr int SW = TW + 4, HTW = TW + 2;
-  const int slab_elems = (TH + 4) * SW * (C + kPad);
-  const int h_elems = (TH + 2) * HTW * (F + kPad);
-  bf16* ws = slab + (slab_elems > h_elems ? slab_elems : h_elems);
+  const uint32_t slot_bytes = round_up(C > F ? C : F, kAtomK) * kNp * 2;
+  const uint32_t img1_bytes = round_up(C, kAtomK) * kNp * 2;
+  const uint32_t img2_bytes = round_up(F, kAtomK) * kNp * 2;
+  // the ring first, 1024-byte aligned (the swizzle's period), then the
+  // slab, h and the barriers
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* slab = reinterpret_cast<bf16*>(ring + kStages * slot_bytes);
+  bf16* hbuf = slab + (TH + 4) * SW * (C + kPad);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(hbuf + (TH + 2) * HTW * (F + kPad));
+  uint64_t* empty = full + kStages;
 
   const int b = blockIdx.z;
   const int oy0 = blockIdx.y * TH;
   const int ox0 = blockIdx.x * TW;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int warp_m = warp >> 1;
-  const int nt = F / 16;
-  const int n_base = (warp & 1) * (F / 2);
+  constexpr int kStream = 2 * kTaps;
 
-  // (1) the x slab with its 2-pixel halo, zeros outside the image
+  // (1) the ring's barriers and its first kStages copies
+  if (threadIdx.x == kConsumers) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < kStages; ++i)
+      issue_tap(i, wpk, ring, slot_bytes, img1_bytes, img2_bytes, full);
+  }
+
+  // (2) the x slab with its 2-pixel halo, zeros outside the image
   const int cpp = C / 8;
   for (int i = threadIdx.x; i < (TH + 4) * SW * cpp; i += kThreads) {
     const int pix = i / cpp;
@@ -211,14 +285,29 @@ __global__ void __launch_bounds__(kThreads)
           x + (((size_t)b * H + gy) * W + gx) * C + c8 * 8));
     *reinterpret_cast<uint4*>(slab + pix * (C + kPad) + c8 * 8) = v;
   }
+  __syncthreads();  // slab loaded, barriers initialised
 
-  // (2) conv1 over the (TH + 2) x (TW + 2) h tile
+  if (warp == kConsumerWarps) {  // the producer: the rest of the stream
+    if (lane == 0) {
+      for (int i = kStages; i < kStream; ++i) {
+        const int slot = i % kStages;
+        mbar_wait(empty + slot, ((i / kStages) - 1) & 1);
+        issue_tap(i, wpk, ring, slot_bytes, img1_bytes, img2_bytes, full);
+      }
+    }
+    return;
+  }
+
+  const int warp_m = warp >> 1;
+  const int nt = F / 16;
+  const int n_base = (warp & 1) * (F / 2);
+
+  // (3) conv1 over the (TH + 2) x (TW + 2) h tile
   {
     constexpr int M = (TH + 2) * HTW;
     float acc[MT1][kMaxNt][4];
-    conv_taps<MT1, HTW>(slab, C, waa, F, ws, M, acc);
-    __syncthreads();  // h overwrites the slab
-    // (3) h = bf16(relu(acc)) inside the image, 0 outside
+    conv_taps<MT1, HTW>(slab, C, F, ring, slot_bytes, full, empty, 0, M, acc);
+    // (4) h = bf16(relu(acc)) inside the image, 0 outside
 #pragma unroll
     for (int i = 0; i < MT1; ++i) {
 #pragma unroll
@@ -237,19 +326,21 @@ __global__ void __launch_bounds__(kThreads)
             const float v1 =
                 inside ? fmaxf(acc[i][j][2 * half + 1], 0.0f) : 0.0f;
             *reinterpret_cast<__nv_bfloat162*>(
-                slab + m * (F + kPad) + n_base + j * 8 + (lane & 3) * 2) =
+                hbuf + m * (F + kPad) + n_base + j * 8 + (lane & 3) * 2) =
                 __floats2bfloat162_rn(v0, v1);
           }
         }
       }
     }
   }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");  // h written
 
-  // (4) conv2 over the TH x TW output tile, stored to out
+  // (5) conv2 over the TH x TW output tile, stored to out
   {
     constexpr int M = TH * TW;
     float acc[MT2][kMaxNt][4];
-    conv_taps<MT2, TW>(slab, F, wab, F, ws, M, acc);
+    conv_taps<MT2, TW>(hbuf, F, F, ring, slot_bytes, full, empty, kTaps, M,
+                       acc);
 #pragma unroll
     for (int i = 0; i < MT2; ++i) {
 #pragma unroll
@@ -272,49 +363,50 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
 template <int TH, int TW>
-cudaError_t launch(const void* x, const void* waa, const void* wab, void* out,
-                   int B, int H, int W, int C, int F, cudaStream_t s) {
+cudaError_t launch(const void* x, const void* wpk, void* out, int B, int H,
+                   int W, int C, int F, cudaStream_t s) {
   // 16-row tiles of each conv spread over the 4 warp rows
   constexpr int MT1 = ceil_div(ceil_div((TH + 2) * (TW + 2), 16), 4);
   constexpr int MT2 = ceil_div(ceil_div(TH * TW, 16), 4);
   auto kernel = fused_conv_kernel<TH, TW, MT1, MT2>;
-  const size_t slab = (size_t)(TH + 4) * (TW + 4) * (C + kPad);
-  const size_t h = (size_t)(TH + 2) * (TW + 2) * (F + kPad);
-  const size_t ws = (size_t)(C > F ? C : F) * (F + kPad);
-  const size_t smem = ((slab > h ? slab : h) + ws) * sizeof(bf16);
+  // as ops/fused_conv.py:smem_bytes
+  const size_t ring = (size_t)kStages * round_up(C > F ? C : F, kAtomK) * kNp * 2;
+  const size_t slab = (size_t)(TH + 4) * (TW + 4) * (C + kPad) * 2;
+  const size_t h = (size_t)(TH + 2) * (TW + 2) * (F + kPad) * 2;
+  const size_t smem = 1024 + ring + slab + h + 2 * kStages * 8;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(ceil_div(W, TW), ceil_div(H, TH), B);
   if (B > 0 && H > 0 && W > 0)
-    kernel<<<grid, kThreads, smem, s>>>(
-        (const bf16*)x, (const bf16*)waa, (const bf16*)wab, (bf16*)out, H, W,
-        C, F);
+    kernel<<<grid, kThreads, smem, s>>>((const bf16*)x,
+                                        (const unsigned char*)wpk, (bf16*)out,
+                                        H, W, C, F);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (B, H, W, C), waa (3, 3, C, F), wab (3, 3, F, F), out (B, H, W, F), all
-// bf16, contiguous and 16-byte aligned; C a multiple of 16, F a multiple
-// of 32 up to 128. tile picks (TH, TW): 0 = 8 x 8, 1 = 8 x 16, 2 = 16 x 8.
-extern "C" int fused_conv3x3_relu_conv3x3(const void* x, const void* waa,
-                                          const void* wab, void* out, int B,
-                                          int H, int W, int C, int F, int tile,
+// x (B, H, W, C), out (B, H, W, F) bf16, contiguous and 16-byte aligned;
+// wpk the packed weights of ops/fused_conv.py:pack_weights; C a multiple of
+// 16 and F a multiple of 32, both up to 128. tile picks (TH, TW): 0 = 8 x 8,
+// 1 = 8 x 16, 2 = 16 x 8.
+extern "C" int fused_conv3x3_relu_conv3x3(const void* x, const void* wpk,
+                                          void* out, int B, int H, int W,
+                                          int C, int F, int tile,
                                           void* stream) {
-  if (C <= 0 || C % 16 != 0 || F <= 0 || F % 32 != 0 || F > 16 * kMaxNt)
+  if (C <= 0 || C % 16 != 0 || C > kNp || F <= 0 || F % 32 != 0 ||
+      F > 16 * kMaxNt)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (tile) {
     case 0:
-      return (int)launch<8, 8>(x, waa, wab, out, B, H, W, C, F, s);
+      return (int)launch<8, 8>(x, wpk, out, B, H, W, C, F, s);
     case 1:
-      return (int)launch<8, 16>(x, waa, wab, out, B, H, W, C, F, s);
+      return (int)launch<8, 16>(x, wpk, out, B, H, W, C, F, s);
     case 2:
-      return (int)launch<16, 8>(x, waa, wab, out, B, H, W, C, F, s);
+      return (int)launch<16, 8>(x, wpk, out, B, H, W, C, F, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -182,9 +182,9 @@ EULER_PHASED = Kernel(
 FUSED_CONV = Kernel(
     "fused_conv3x3_relu_conv3x3", "slrsfs_tpu_torch/csrc/fused_conv.cu",
     "fused_conv3x3_relu_conv3x3",
-    # x, waa, wab, out, B, H, W, C, F, tile (index into the tile shapes),
-    # stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    # x, packed weights (ops/fused_conv.py:pack_weights), out, B, H, W, C,
+    # F, tile (index into the tile shapes), stream
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
 KERNELS: List[Kernel] = [EULER, EULER_ALL, SPLAT, SPLAT_SLR, SPLAT_SUM_AT,
                          MAXWARP_SPARSE, MAXWARP_SPLAT, SPLAT_DENSE_FWD,

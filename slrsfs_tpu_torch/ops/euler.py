@@ -18,6 +18,11 @@ return visibility (1.0 where the trajectory never left the frame).
 ``euler_integrate_phased`` and ``euler_integrate_phased_compact`` are the
 training pass's integrators (K7, ``csrc/euler_phased.cu``), batched over
 samples with per-sample step counts; ``*_plain`` are their plain versions.
+
+The kernels have no backward yet: on the card every wrapper refuses a
+motion that would need a gradient (``_refuse_motion_grad``) instead of
+returning displacements that silently drop it. The plain versions on the
+CPU carry the gradient through their gathers, as JAX does.
 """
 
 from __future__ import annotations
@@ -165,6 +170,18 @@ def _check(motion: Tensor, positions, *steps: int) -> None:
                 raise ValueError(f"{name} must be 8-byte aligned")
 
 
+def _refuse_motion_grad(motion: Tensor) -> None:
+    """Raise when ``motion`` would need a gradient: the CUDA integrators
+    (K1, K4, K7) write fresh tensors with no backward. Every card branch
+    calls it before it allocates or launches anything; it does not look at
+    the device."""
+    if torch.is_grad_enabled() and motion.requires_grad:
+        raise RuntimeError(
+            "the CUDA Euler integrators have no backward yet: the motion "
+            "requires grad, and the displacements would drop its gradient; "
+            "detach the motion or run under torch.no_grad()")
+
+
 def euler_compact_dual(motion: Tensor, positions: Tensor, n_fwd: int,
                        n_bwd: int) -> Tuple[Tensor, Tensor]:
     """K1 wrapper: ``euler_compact_dual_plain``'s result, computed by the
@@ -173,6 +190,7 @@ def euler_compact_dual(motion: Tensor, positions: Tensor, n_fwd: int,
     _check(motion, positions, n_fwd, n_bwd)
     if motion.device.type == "cpu":
         return euler_compact_dual_plain(motion, positions, n_fwd, n_bwd)
+    _refuse_motion_grad(motion)
     H, W, _ = motion.shape
     P = positions.shape[0]
     disp_f = torch.empty((n_fwd + 1, P, 2), dtype=torch.float32,
@@ -196,6 +214,7 @@ def _launch_all(motion: Tensor, positions: Optional[Tensor], n_fwd: int,
     None) or ``positions``; ``n_bwd`` None integrates +M only. Returns
     (disp_f, disp_b, vis_f): (E, R, 2), (E_b, R, 2) or None, (E, R) or None,
     with E = 1 for ``last_only`` and n + 1 otherwise."""
+    _refuse_motion_grad(motion)
     H, W, _ = motion.shape
     R = H * W if positions is None else positions.shape[0]
     dev = motion.device
@@ -362,6 +381,7 @@ def _check_phased(motion: Tensor, t_fwd: Tensor, t_bwd: Tensor,
 
 
 def _launch_phased(motion, positions, valid, t_fwd, t_bwd, n_steps, R):
+    _refuse_motion_grad(motion)
     B, H, W, _ = motion.shape
     named = dict(motion=motion, t_fwd=t_fwd, t_bwd=t_bwd)
     if positions is not None:

@@ -30,14 +30,86 @@ TILES = ((8, 8), (8, 16), (16, 8))  # (TH, TW) output tiles the kernel offers
 DEFAULT_TILE = (8, 16)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
 _PAD = 8  # bf16 of padding per shared-memory row (csrc/fused_conv.cu kPad)
+STAGES = 3  # weight tap slots in the kernel's ring (kStages)
+NP = 128  # output channels of a packed tap image, zeros past F (kNp)
+ATOM_K = 64  # input channels per 128-byte swizzled row of a tap image
+
+
+ROW_TILE = 16  # rows of the kernel's MMA tiles (m16)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def tap_image_bytes(K: int) -> int:
+    """Bytes of one packed tap image of a conv with K input channels."""
+    return _round_up(K, ATOM_K) * NP * 2
 
 
 def smem_bytes(tile, C: int, F: int) -> int:
-    """Dynamic shared memory of one block: the x slab (reused for the
-    intermediate) and one tap of weights."""
+    """Dynamic shared memory of one block: 1024 bytes to align the ring,
+    the ring of STAGES tap slots, the x slab with its 2-pixel halo, the
+    intermediate h with its 1-pixel halo, and a full and an empty mbarrier
+    per slot."""
     th, tw = tile
-    slab = max((th + 4) * (tw + 4) * (C + _PAD), (th + 2) * (tw + 2) * (F + _PAD))
-    return 2 * (slab + max(C, F) * (F + _PAD))
+    ring = STAGES * tap_image_bytes(max(C, F))
+    slab = (th + 4) * (tw + 4) * (C + _PAD) * 2
+    h = (th + 2) * (tw + 2) * (F + _PAD) * 2
+    return 1024 + ring + slab + h + 2 * STAGES * 8
+
+
+def work_ratio(tile, C: int, F: int) -> float:
+    """Multiply-adds the kernel issues over the useful ones: conv1 runs on
+    the (TH + 2)(TW + 2) pixels of h, and both convs on whole ROW_TILE-row
+    tiles."""
+    th, tw = tile
+    rows1 = _round_up((th + 2) * (tw + 2), ROW_TILE)
+    rows2 = _round_up(th * tw, ROW_TILE)
+    return (rows1 * C * F + rows2 * F * F) / (th * tw * (C * F + F * F))
+
+
+def _pack(w: Tensor) -> Tensor:
+    """One conv's (3, 3, K, F) HWIO weights as 9 tap images, flat. Image
+    ``t`` is the (K, F) matrix of tap (t // 3, t % 3) padded with zeros to
+    (Kp, NP), Kp = K rounded up to ATOM_K, laid out K-major with the
+    128-byte swizzle: block ``k // 64`` of NP rows of 128 bytes, row ``n``
+    holding k % 64 = 0..63 in eight 16-byte chunks, chunk ``c`` stored at
+    position ``c ^ (n % 8)``."""
+    K, F = w.shape[2], w.shape[3]
+    kp = _round_up(K, ATOM_K)
+    t = w.new_zeros((9, kp, NP))
+    t[:, :K, :F] = w.reshape(9, K, F)
+    t = t.reshape(9, kp // ATOM_K, 8, 8, NP).permute(0, 1, 4, 2, 3)  # tap, kb, n, c, e
+    n = torch.arange(NP, device=w.device)
+    chunk = torch.arange(8, device=w.device)[None, :] ^ (n % 8)[:, None]  # (n, pos) -> c
+    return t.gather(3, chunk[None, None, :, :, None].expand(t.shape)).reshape(-1)
+
+
+def pack_weights(waa: Tensor, wab: Tensor) -> Tensor:
+    """The kernel's weight stream: the 9 tap images of ``waa`` then the 9
+    of ``wab`` (see ``_pack``), one contiguous bf16 buffer on the weights'
+    device. Each image is the exact shared-memory image a tap slot holds,
+    so the kernel moves it with one bulk copy."""
+    return torch.cat([_pack(waa), _pack(wab)])
+
+
+def unpack_weights(packed: Tensor, C: int, F: int):
+    """``pack_weights``' inverse: the (3, 3, C, F) and (3, 3, F, F) HWIO
+    weights."""
+    out = []
+    start = 0
+    for K in (C, F):
+        kp = _round_up(K, ATOM_K)
+        n_el = 9 * kp * NP
+        t = packed[start:start + n_el].reshape(9, kp // ATOM_K, NP, 8, 8)
+        start += n_el
+        n = torch.arange(NP, device=packed.device)
+        pos = torch.arange(8, device=packed.device)[None, :] ^ (n % 8)[:, None]  # (n, c) -> pos
+        t = t.gather(3, pos[None, None, :, :, None].expand(t.shape))  # tap, kb, n, c, e
+        t = t.permute(0, 1, 3, 4, 2).reshape(9, kp, NP)
+        out.append(t[:, :K, :F].reshape(3, 3, K, F))
+    return tuple(out)
 
 
 def _check(x: Tensor, waa: Tensor, wab: Tensor, tile) -> None:
@@ -58,8 +130,8 @@ def _check(x: Tensor, waa: Tensor, wab: Tensor, tile) -> None:
             raise ValueError(f"{name} must be contiguous ({'NHWC' if name == 'x' else 'HWIO'})")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if C % 16 or C <= 0:
-        raise ValueError(f"C must be a positive multiple of 16, got {C}")
+    if C % 16 or not 0 < C <= 128:
+        raise ValueError(f"C must be a multiple of 16 up to 128, got {C}")
     if Fo % 32 or not 0 < Fo <= 128:
         raise ValueError(f"F must be a multiple of 32 up to 128, got {Fo}")
     if tuple(tile) not in TILES:
@@ -101,7 +173,8 @@ def fused_conv3x3_relu_conv3x3(x: Tensor, waa: Tensor, wab: Tensor,
     """K9 wrapper: ``conv_chain_plain``'s result up to f32 summation order,
     from one kernel launch with (TH, TW) = ``tile`` output tiles for tensors
     on the card and from the plain version on the CPU. Any H and W; C a
-    multiple of 16, F a multiple of 32 up to 128."""
+    multiple of 16 and F a multiple of 32, both up to 128. The weights are
+    packed (``pack_weights``) on every call."""
     _check(x, waa, wab, tile)
     if x.device.type == "cpu":
         return conv_chain_plain(x, waa, wab)
@@ -109,8 +182,8 @@ def fused_conv3x3_relu_conv3x3(x: Tensor, waa: Tensor, wab: Tensor,
     Fo = waa.shape[-1]
     out = torch.empty((B, H, W, Fo), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
+        packed = pack_weights(waa, wab)
         kernels.FUSED_CONV.launch(
-            x.data_ptr(), waa.data_ptr(), wab.data_ptr(), out.data_ptr(), B, H,
-            W, C, Fo, TILES.index(tuple(tile)),
-            torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), packed.data_ptr(), out.data_ptr(), B, H, W, C, Fo,
+            TILES.index(tuple(tile)), torch.cuda.current_stream().cuda_stream)
     return out

@@ -9,22 +9,29 @@ patterns) it checks each tile shape of the kernel on ``x[:2, :32]`` against
 ``conv_chain_plain``, then times, at B = 60, 256 x 480, C = F = 128 bf16, the
 kernel at each tile shape, the library chain (cuDNN bf16) and the plain
 chain (float32, TF32 off), with CUDA events, and prints TFLOP/s of the
-useful work (no halo recompute). A missing card raises.
+useful work (no halo recompute) and, per tile shape, the issued/useful
+work ratio, the block's shared memory and its registers and spills (from
+ptxas's report in the build log, when this process built the kernel). A
+missing card raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 
 import torch
 
+from slrsfs_tpu_torch import kernels
 from slrsfs_tpu_torch.engine.init_utils import resolve_device
 from slrsfs_tpu_torch.ops.fused_conv import (
     TILES,
     conv_chain_library,
     conv_chain_plain,
     fused_conv3x3_relu_conv3x3,
+    smem_bytes,
+    work_ratio,
 )
 
 SHAPE = dict(B=60, H=256, W=480, C=128, F=128)  # the prototype's (:148-149)
@@ -83,6 +90,29 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_resources(build_log: str) -> dict:
+    """Registers and spill bytes per tile shape from ptxas's ``-v`` report
+    in K9's build log (the largest over a tile's instantiations); empty
+    when the library was loaded from an earlier build."""
+    res, tile = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"entry function '\S*fused_conv_kernelILi(\d+)ELi(\d+)E", line)
+        if m:
+            tile = f"{m.group(1)}x{m.group(2)}"
+            res.setdefault(tile, {"registers": 0, "spill_bytes": 0})
+            continue
+        if tile is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            res[tile]["spill_bytes"] = max(res[tile]["spill_bytes"],
+                                           int(m.group(1)) + int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            res[tile]["registers"] = max(res[tile]["registers"], int(m.group(1)))
+    return res
+
+
 def bench(reps: int = 3, plain_reps: int = 1, **shape) -> dict:
     """On the card: check every tile shape on the prototype's slice, then
     time the kernel per tile shape, the library chain and the plain chain
@@ -101,9 +131,13 @@ def bench(reps: int = 3, plain_reps: int = 1, **shape) -> dict:
         for th, tw in TILES}
     ms["library"] = cuda_ms(lambda: conv_chain_library(x, waa, wab), reps)
     ms["plain"] = cuda_ms(lambda: conv_chain_plain(x, waa, wab), plain_reps)
+    regs = kernel_resources(kernels.FUSED_CONV.build_log)
+    blocks = {f"{th}x{tw}": {"work_ratio": work_ratio((th, tw), s["C"], s["F"]),
+                             "smem_bytes": smem_bytes((th, tw), s["C"], s["F"]),
+                             **regs.get(f"{th}x{tw}", {})} for th, tw in TILES}
     return {"shape": s, "checks": {f"{th}x{tw}": c for (th, tw), c in checks.items()},
             "ms": ms, "tflops": {k: flop / (v * 1e-3) / 1e12 for k, v in ms.items()},
-            "flop": flop, "inputs": (x, waa, wab)}
+            "blocks": blocks, "flop": flop, "inputs": (x, waa, wab)}
 
 
 def main(argv=None) -> int:
@@ -118,7 +152,9 @@ def main(argv=None) -> int:
               f"elements beyond one bf16 ulp")
     for k, v in res["ms"].items():
         print(f"{k:>16}: {v:9.3f} ms ({res['tflops'][k]:.1f} TFLOP/s)")
-    print(json.dumps({k: res[k] for k in ("shape", "checks", "ms", "tflops")}))
+    for tile, blk in res["blocks"].items():
+        print(f"block {tile}: " + ", ".join(f"{k} {v:.4g}" for k, v in blk.items()))
+    print(json.dumps({k: res[k] for k in ("shape", "checks", "ms", "tflops", "blocks")}))
     return 0 if all(within_limits(c) for c in res["checks"].values()) else 1
 
 

@@ -15,7 +15,9 @@ the sums run in other orders). Measured here: against ``xla_chain``
 against interpret-mode ``fused`` 3.9e-3 at 1.45, with 3.8e-4.
 
 The wrapper on CPU tensors is the plain version, and it refuses, on every
-device, what the kernel does not take."""
+device, what the kernel does not take. ``pack_weights``, the kernel's
+weight stream (swizzled tap images), is checked against a direct formula
+for each element's address and round-tripped back to HWIO."""
 
 import functools
 import importlib.util
@@ -110,14 +112,14 @@ def test_wrapper_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("bad", ["dtype", "layout", "misaligned", "C", "F",
                                  "weights", "tile", "smem"])
-def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad, monkeypatch):
     C, F, tile = 32, 32, port.DEFAULT_TILE
     if bad == "C":
-        C = 24
+        C = 144  # past the 128 of two swizzled rows
     elif bad == "F":
         F = 48
-    elif bad == "smem":
-        C = 1024
+    elif bad == "smem":  # a card with less shared memory than the tile needs
+        monkeypatch.setattr(port, "SMEM_LIMIT", port.smem_bytes(tile, C, F) - 1)
     x = torch.zeros((1, 8, 8, C), dtype=torch.bfloat16)
     waa = torch.zeros((3, 3, C, F), dtype=torch.bfloat16)
     wab = torch.zeros((3, 3, F, F), dtype=torch.bfloat16)
@@ -133,6 +135,57 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         tile = (4, 4)
     with pytest.raises((TypeError, ValueError)):
         port.fused_conv3x3_relu_conv3x3(x, waa, wab, tile)
+
+
+def test_every_tile_fits_shared_memory_at_the_widest_channels():
+    """C = F = 128 is the widest the kernel takes; every tile's block fits
+    the H100's shared memory there, and the bench's 8x16 tile uses the
+    layout the kernel computes (1024 + ring + slab + h + barriers)."""
+    for tile in port.TILES:
+        assert port.smem_bytes(tile, 128, 128) <= port.SMEM_LIMIT
+    assert port.smem_bytes((8, 16), 128, 128) == (
+        1024 + 3 * 32768 + 12 * 20 * 136 * 2 + 10 * 18 * 136 * 2 + 48)
+    assert port.work_ratio((8, 16), 128, 128) == 1.25
+
+
+def _hwio(C, F, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.standard_normal((3, 3, C, F)).astype(np.float32)
+                             ).to(torch.bfloat16),
+            torch.from_numpy(rng.standard_normal((3, 3, F, F)).astype(np.float32)
+                             ).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("C, F", [(128, 128), (16, 32)])
+def test_pack_weights_swizzled_addresses(C, F):
+    """Every (tap, k, n) of both convs against the direct formula for its
+    byte address in the stream: image t of conv1 at t · I1, of conv2 at
+    9 · I1 + t · I2 (I = Kp · 128 · 2 bytes, Kp = K rounded up to 64), then
+    (k // 64) · 128 rows of 128 bytes, row n, the 16-byte chunk
+    ((k % 64) // 8) XOR (n % 8), the element k % 8; zeros elsewhere."""
+    waa, wab = _hwio(C, F, seed=4)
+    packed = port.pack_weights(waa, wab)
+    i1, i2 = port.tap_image_bytes(C), port.tap_image_bytes(F)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert packed.numel() * 2 == 9 * (i1 + i2)
+    want = torch.zeros_like(packed)
+    for base, w in ((0, waa), (9 * i1, wab)):
+        K = w.shape[2]
+        img = port.tap_image_bytes(K)
+        t, k, n = torch.meshgrid(torch.arange(9), torch.arange(K), torch.arange(F),
+                                 indexing="ij")
+        addr = (base + t * img + (k // 64) * 128 * 128 + n * 128
+                + (((k % 64) // 8) ^ (n % 8)) * 16 + (k % 8) * 2)
+        assert (addr % 2 == 0).all()
+        want[(addr // 2).reshape(-1)] = w.reshape(9, K, F).reshape(-1)
+    assert torch.equal(packed, want)
+
+
+@pytest.mark.parametrize("C, F", [(128, 128), (16, 32), (48, 96)])
+def test_pack_weights_round_trip(C, F):
+    waa, wab = _hwio(C, F, seed=5)
+    ua, ub = port.unpack_weights(port.pack_weights(waa, wab), C, F)
+    assert torch.equal(ua, waa) and torch.equal(ub, wab)
 
 
 def test_prototype_inputs_match_jax():

@@ -281,6 +281,51 @@ def test_k7_matches_plain_on_card():
     assert torch.equal(cf, pf) and torch.equal(cp, pp)  # compact == dense
 
 
+def _integrator_calls(dev):
+    """The seven card wrappers of K1, K4 and K7, each as (name, kernel,
+    fn(motion)) on one small case."""
+    m = _motion(8)
+    pos = torch.from_numpy(prepare_scene_sparse(m, pad_multiple=64)[0]).to(dev)
+    _, t_f, t_p, T = _phased_inputs(dev)
+    B = t_f.shape[0]
+    pos_b = torch.zeros((B, 64, 2), dtype=torch.int32, device=dev)
+    val_b = torch.ones((B, 64), dtype=torch.float32, device=dev)
+    e = port_euler
+    return [
+        ("euler_compact_dual", kernels.EULER, lambda mm: e.euler_compact_dual(mm, pos, 3, 4)),
+        ("euler_integrate_all", kernels.EULER_ALL, lambda mm: e.euler_integrate_all(mm, 3)),
+        ("euler_integrate", kernels.EULER_ALL, lambda mm: e.euler_integrate(mm, 3)),
+        ("euler_integrate_compact", kernels.EULER_ALL,
+         lambda mm: e.euler_integrate_compact(mm, pos, 3)),
+        ("euler_integrate_all_dual", kernels.EULER_ALL,
+         lambda mm: e.euler_integrate_all_dual(mm, 3, 4)),
+        ("euler_integrate_phased", kernels.EULER_PHASED,
+         lambda mm: e.euler_integrate_phased(mm.expand(B, -1, -1, -1).contiguous(),
+                                             t_f, t_p, T)),
+        ("euler_integrate_phased_compact", kernels.EULER_PHASED,
+         lambda mm: e.euler_integrate_phased_compact(
+             mm.expand(B, -1, -1, -1).contiguous(), pos_b, val_b, t_f, t_p, T)),
+    ]
+
+
+@pytest.mark.gpu
+def test_integrators_refuse_a_motion_gradient_on_card():
+    """K1, K4 and K7 have no backward: on the card each wrapper raises for
+    a motion that requires grad under grad mode, before it launches
+    anything, and runs under torch.no_grad()."""
+    dev = _card()
+    motion = torch.from_numpy(_motion(8)).to(dev).requires_grad_(True)
+    for name, kernel, fn in _integrator_calls(dev):
+        kernels.reset_counts()
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(motion)
+        assert sum(kernels.counts().values()) == 0, name
+        with torch.no_grad():
+            fn(motion)
+        assert kernels.counts()[kernel.name] == 1, name
+    torch.cuda.synchronize()
+
+
 def _k3_inputs(dev, C=9, B=2):
     rng = np.random.default_rng(20)
     inp = rng.standard_normal((B, H, W, C)).astype(np.float32)
@@ -483,7 +528,9 @@ def test_k9_matches_plain_on_card(tile):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tile", fused_conv.TILES)
 @pytest.mark.parametrize("shape", [(1, 37, 29, 128, 128), (2, 9, 13, 32, 64)])
-def test_k9_ragged_matches_plain_on_card(shape):
-    """H and W that the tiles do not divide, and narrower C and F."""
-    _k9_check(shape, fused_conv.DEFAULT_TILE, seed=14)
+def test_k9_ragged_matches_plain_on_card(shape, tile):
+    """H and W that the tiles do not divide, and narrower C and F, on
+    every tile."""
+    _k9_check(shape, tile, seed=14)
