@@ -12,7 +12,7 @@
 // column masks, :101-112). The weights arrive packed by the wrapper
 // (ops/fused_conv.py:pack_weights): 18 tap images, the 9 of waa then the 9
 // of wab, each the (K, F) matrix of one tap padded to (Kp, kNp) in the
-// K-major 128-byte-swizzled layout that a tap slot holds in shared memory.
+// K-major 128-byte-swizzled layout that wgmma reads its B operand in.
 //
 // What bounds it on an H100: operations. At the prototype's shape (B = 60,
 // 256 x 480, C = F = 128) the two convolutions are 4.35 TFLOP of bf16
@@ -20,28 +20,33 @@
 // x and out, 1.13 ms at 3.35 TB/s; h never leaves the SM. Each block also
 // streams all 18 tap images (576 KiB at C = F = 128) from L2.
 //
-// Design, one block per (image, TH x TW output tile): 8 consumer warps and
-// one producer warp.
-//  (1) the producer's lane 0 initialises a ring of kStages tap slots, each
-//      with a full and an empty mbarrier, and keeps bulk copies
-//      (cp.async.bulk, one per tap image) in flight ahead of the consumers:
-//      conv1's 9 taps stream straight into conv2's 9;
+// Design, one block per (image, TH x TW output tile): two consumer
+// warpgroups, each computing one n64 half of the kNp = 128 packed output
+// channels, and one producer warpgroup.
+//  (1) the producer's first thread initialises a ring of kStages tap
+//      slots, each with a full and an empty mbarrier, and keeps bulk
+//      copies (cp.async.bulk, one per tap image) in flight ahead of the
+//      consumers: conv1's 9 taps stream straight into conv2's 9;
 //  (2) meanwhile the block stages the x slab of the tile and its 2-pixel
 //      halo, (TH + 4) x (TW + 4) x C, into shared memory (zeros outside the
 //      image), rows padded by 8 bf16 so ldmatrix reads hit distinct banks;
-//      __syncthreads (slab loaded, barriers initialised);
-//  (3) conv1 as an implicit GEMM over the (TH + 2) x (TW + 2) pixels of h:
-//      per tap the consumers wait for the slot's full barrier, run mma.sync
-//      m16n8k16 bf16 -> f32 with A rows gathered per lane by ldmatrix from
-//      the shifted slab pixels and B read by ldmatrix from the swizzled
-//      tap image, and release the slot on its empty barrier;
+//      __syncthreads (slab loaded, barriers initialised). Then the
+//      producer gives registers up (setmaxnreg) and the consumers take them;
+//  (3) conv1 as an implicit GEMM over the (TH + 2) x (TW + 2) pixels of h,
+//      in m64 row tiles: per tap the consumers wait for the slot's full
+//      barrier and run wgmma.mma_async m64n64k16 bf16 -> f32, A from
+//      registers (each warp's 16 rows gathered by ldmatrix from the shifted
+//      slab pixels, mma.sync's m16k16 fragment), B from the slot through a
+//      128-byte-swizzle descriptor; then they release the slot on its empty
+//      barrier;
 //  (4) ReLU, zero outside the image, round to bf16 into the h buffer; a
 //      named barrier of the consumers (h written);
 //  (5) conv2 the same way over the TH x TW output pixels from h, stored
 //      straight to out as bf16, the ragged edge of the image masked.
-// No barrier of the whole block is left in the tap loop. Each consumer
-// warp holds a quarter of the rows (16-row tiles) and half of F; each tap
-// sums into fresh accumulators that are then added in f32 (see conv_taps).
+// No barrier of the whole block is left in the tap loop. Each tap sums into
+// fresh accumulators that are then added in f32 (see conv_taps). Rows of a
+// last m64 tile past the tile's pixels and the packed channels past F are
+// computed and never stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,15 +56,22 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kConsumerWarps = 8;
-constexpr int kConsumers = kConsumerWarps * 32;
-constexpr int kThreads = kConsumers + 32;  // + the producer warp
-constexpr int kStages = 3;                 // tap slots in the ring
-constexpr int kPad = 8;    // bf16 of padding per slab and h row
-constexpr int kMaxNt = 8;  // n8 tiles per warp: F / 16 <= 8
-constexpr int kNp = 128;   // output channels of a packed tap image
-constexpr int kAtomK = 64; // input channels per 128-byte swizzled row
+constexpr int kConsumerThreads = 256;  // two warpgroups
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
+constexpr int kStages = 3;                        // tap slots in the ring
+constexpr int kPad = 8;     // bf16 of padding per slab and h row
+constexpr int kNp = 128;    // output channels of a packed tap image
+constexpr int kAtomK = 64;  // input channels per 128-byte swizzled row
 constexpr int kTaps = 9;
+// registers per thread after setmaxnreg; the block launches at 168 (65536 /
+// 384 rounded down to 8), and 128 x (168 - 40) = 256 x (232 - 168)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -70,15 +82,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -132,118 +135,170 @@ __device__ __forceinline__ void issue_tap(int i, const unsigned char* wpk,
       : "memory");
 }
 
+// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled operand
+// at shared address addr: rows of 128 bytes, 8-row groups 1024 bytes apart
+// (stride byte offset), the swizzle's period 1024 bytes (the slots are
+// aligned to it, so base offset 0).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving register reads or writes across the
+// asynchronous wgmma that owns these registers.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[s][e])::"memory");
+}
+
+// d (+)= A (m64 x k16, registers) x B (k16 x n64, descriptor); scale_d 0
+// starts a fresh sum.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
 // acc = conv3x3(src, taps tap0 .. tap0 + 8 of the stream) over M output
 // pixels of a grid OUT_W wide, whose tap (ky, kx) reads source pixel
-// (y + ky) * (OUT_W + 2) + x + kx of src (rows of K + kPad bf16). The warp
-// owns 16-row tiles warp_m + 4 i and the n8 tiles of its half of F. Each
-// tap sums into fresh tensor-core accumulators that are then added to acc
-// in f32, a chain of K / 16 mma steps instead of 9 K / 16: the tensor
-// cores accumulate with truncation, and over one long chain the drift
-// flipped the bf16 rounding of h often enough that more than 0.1 % of the
-// outputs (random inputs, C = F = 128) ended more than one bf16 ulp from
-// the f32 plain chain. chip_smoke.py prints the shares of the kernel, the
-// plain chain and cuDNN against a float64 chain.
-template <int MT, int OUT_W>
-__device__ __forceinline__ void conv_taps(const bf16* src, int K, int F,
+// (y + ky) * (OUT_W + 2) + x + kx of src (rows of K + kPad bf16), for the
+// warpgroup's n64 half of the channels. Row tile i is rows 64 i .. 64 i +
+// 63; this warp holds rows 16 w .. 16 w + 15 of each.
+//
+// Each tap sums into fresh accumulators (scale-d 0 on its first wgmma) that
+// are then added to acc in f32, a chain of K / 16 steps instead of 9 K /
+// 16: the tensor cores accumulate with truncation, and over one long chain
+// the drift flipped the bf16 rounding of h often enough that more than
+// 0.1 % of the outputs (random inputs, C = F = 128) ended more than one
+// bf16 ulp from the f32 plain chain. chip_smoke.py prints the shares of
+// the kernel, the plain chain and cuDNN against a float64 chain.
+//
+// Pipelining within the warpgroup: a tap's row tiles are MT chains of NC
+// commit groups of 4 k16 steps (one 64-channel swizzle row each). Group g
+// takes its A fragments in a[g % 2] and its sum in part[i % 2]; after
+// committing group g the warpgroup waits until at most one group is in
+// flight, so group g - 1 is done: its A registers are free, and when g
+// starts a chain, chain i - 1's partial is complete and is added to acc.
+template <int MT, int OUT_W, int NC>
+__device__ __forceinline__ void conv_taps(const bf16* src, int K,
                                           const unsigned char* ring,
                                           uint32_t slot_bytes, uint64_t* full,
                                           uint64_t* empty, int tap0, int M,
-                                          float (&acc)[MT][kMaxNt][4]) {
+                                          float (&acc)[MT][32]) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warp_m = warp >> 1;
-  const int nt = F / 16;
-  const int m_tiles = (M + 15) / 16;
+  const int w = (threadIdx.x >> 5) & 3;        // warp in the warpgroup
+  const int half = threadIdx.x >> 7;           // the warpgroup's n64 half
   constexpr int SRC_W = OUT_W + 2;
-  // B: the lane's row of the ldmatrix.x4 that reads n8 tiles j, j + 1
-  const int n_lane = (warp & 1) * (F / 2) + (lane & 7) + ((lane >> 4) << 3);
-  const int kc_lane = (lane >> 3) & 1;
-  const int swz = lane & 7;  // n % 8 for every j
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < kMaxNt; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.0f;
 
+  uint32_t a[2][4][4];
+  float part[2][32];
   for (int tap = 0; tap < kTaps; ++tap) {
     const int ky = tap / 3;
     const int kx = tap - ky * 3;
     const int t = tap0 + tap;
     const int slot = t % kStages;
-    mbar_wait(full + slot, (t / kStages) & 1);
-    const uint32_t w_base =
-        smem_addr(ring + slot * slot_bytes) + n_lane * 128;
-
     uint32_t a_row[MT];
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      int m = (warp_m + 4 * i) * 16 + (lane & 15);
+      int m = i * 64 + w * 16 + (lane & 15);
       m = m < M ? m : M - 1;  // rows past M compute garbage, never stored
       const int y = m / OUT_W;
       const int x = m - y * OUT_W;
       a_row[i] = smem_addr(src + ((y + ky) * SRC_W + x + kx) * (K + kPad) +
                            (lane >> 4) * 8);
     }
+    const uint32_t b_base =
+        smem_addr(ring + slot * slot_bytes) + half * 64 * 128;
+    mbar_wait(full + slot, (t / kStages) & 1);
 
-    float part[MT][kMaxNt][4];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < MT; ++i) {
 #pragma unroll
-      for (int j = 0; j < kMaxNt; ++j)
+      for (int c = 0; c < NC; ++c) {
+        const int g = i * NC + c;  // compile-time after unrolling
+        uint32_t(&ag)[4][4] = a[g & 1];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
-
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t a[MT][4];
+        for (int s = 0; s < 4; ++s) {
+          const int k0 = c * kAtomK + s * 16;
+          if (k0 < K) ldmatrix_x4(ag[s], a_row[i] + k0 * 2);
+        }
+        fence_regs(part[i & 1]);
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-        if (warp_m + 4 * i < m_tiles) ldmatrix_x4(a[i], a_row[i] + k0 * 2);
-      const uint32_t b_k = w_base + (k0 / kAtomK) * (kNp * 128) +
-                           (((((k0 % kAtomK) >> 3) + kc_lane) ^ swz) << 4);
+        for (int s = 0; s < 4; ++s) {
+          const int k0 = c * kAtomK + s * 16;
+          if (k0 < K)  // warpgroup-uniform
+            wgmma_m64n64k16(part[i & 1], ag[s],
+                            sw128_desc(b_base + c * kNp * 128 + s * 32),
+                            (c | s) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (g > 0) fence_regs(a[(g - 1) & 1]);
+        if (c == 0 && i > 0) {
+          fence_regs(part[(i - 1) & 1]);
 #pragma unroll
-      for (int j = 0; j < kMaxNt; j += 2) {
-        if (j < nt) {
-          uint32_t b[4];  // n8 tiles j and j + 1
-          ldmatrix_x4(b, b_k + j * 8 * 128);
-#pragma unroll
-          for (int i = 0; i < MT; ++i) {
-            if (warp_m + 4 * i < m_tiles) {  // warp-uniform
-              mma_bf16(part[i][j], a[i], b[0], b[1]);
-              mma_bf16(part[i][j + 1], a[i], b[2], b[3]);
-            }
-          }
+          for (int e = 0; e < 32; ++e) acc[i - 1][e] += part[(i - 1) & 1][e];
         }
       }
     }
+    wgmma_wait<0>();
+    fence_regs(a[(MT * NC - 1) & 1]);
+    fence_regs(part[(MT - 1) & 1]);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[MT - 1][e] += part[(MT - 1) & 1][e];
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + slot);  // this warp is done with it
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < kMaxNt; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
   }
 }
 
-__host__ __device__ constexpr int ceil_div(int a, int b) {
-  return (a + b - 1) / b;
-}
-__host__ __device__ constexpr int round_up(int a, int b) {
-  return ceil_div(a, b) * b;
-}
-
-template <int TH, int TW, int MT1, int MT2>
-__global__ void __launch_bounds__(kThreads)
+template <int TH, int TW, int NC1, int NC2>
+__global__ void __launch_bounds__(kThreads, 1)
     fused_conv_kernel(const bf16* __restrict__ x,
                       const unsigned char* __restrict__ wpk,
                       bf16* __restrict__ out, int H, int W, int C, int F) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int SW = TW + 4, HTW = TW + 2;
-  const uint32_t slot_bytes = round_up(C > F ? C : F, kAtomK) * kNp * 2;
-  const uint32_t img1_bytes = round_up(C, kAtomK) * kNp * 2;
-  const uint32_t img2_bytes = round_up(F, kAtomK) * kNp * 2;
+  constexpr int M1 = (TH + 2) * HTW, M2 = TH * TW;
+  constexpr int MT1 = ceil_div(M1, 64), MT2 = ceil_div(M2, 64);
+  constexpr uint32_t img1_bytes = NC1 * kAtomK * kNp * 2;
+  constexpr uint32_t img2_bytes = NC2 * kAtomK * kNp * 2;
+  constexpr uint32_t slot_bytes = img1_bytes > img2_bytes ? img1_bytes
+                                                          : img2_bytes;
   // the ring first, 1024-byte aligned (the swizzle's period), then the
   // slab, h and the barriers
   unsigned char* ring =
@@ -258,11 +313,10 @@ __global__ void __launch_bounds__(kThreads)
   const int oy0 = blockIdx.y * TH;
   const int ox0 = blockIdx.x * TW;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   constexpr int kStream = 2 * kTaps;
 
   // (1) the ring's barriers and its first kStages copies
-  if (threadIdx.x == kConsumers) {
+  if (threadIdx.x == kConsumerThreads) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, kConsumerWarps);
@@ -287,91 +341,91 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();  // slab loaded, barriers initialised
 
-  if (warp == kConsumerWarps) {  // the producer: the rest of the stream
-    if (lane == 0) {
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumerThreads) {  // the rest of the stream
       for (int i = kStages; i < kStream; ++i) {
         const int slot = i % kStages;
         mbar_wait(empty + slot, ((i / kStages) - 1) & 1);
         issue_tap(i, wpk, ring, slot_bytes, img1_bytes, img2_bytes, full);
       }
     }
-    return;
-  }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int w = (threadIdx.x >> 5) & 3;
+    const int n_base = (threadIdx.x >> 7) * 64 + (lane & 3) * 2;
 
-  const int warp_m = warp >> 1;
-  const int nt = F / 16;
-  const int n_base = (warp & 1) * (F / 2);
+    // (3) conv1 over the (TH + 2) x (TW + 2) h tile
+    {
+      float acc1[MT1][32];
+      conv_taps<MT1, HTW, NC1>(slab, C, ring, slot_bytes, full, empty, 0, M1,
+                               acc1);
+      // (4) h = bf16(relu(acc)) inside the image, 0 outside
+#pragma unroll
+      for (int i = 0; i < MT1; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int m = i * 64 + w * 16 + (lane >> 2) + r * 8;
+          if (m >= M1) continue;
+          const int hy = m / HTW;
+          const int hx = m - hy * HTW;
+          const int gy = oy0 - 1 + hy;
+          const int gx = ox0 - 1 + hx;
+          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int n = n_base + j * 8;
+            if (n < F) {
+              const float v0 = inside ? fmaxf(acc1[i][4 * j + 2 * r], 0.0f)
+                                      : 0.0f;
+              const float v1 =
+                  inside ? fmaxf(acc1[i][4 * j + 2 * r + 1], 0.0f) : 0.0f;
+              *reinterpret_cast<__nv_bfloat162*>(hbuf + m * (F + kPad) + n) =
+                  __floats2bfloat162_rn(v0, v1);
+            }
+          }
+        }
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads)
+                 : "memory");  // h written
 
-  // (3) conv1 over the (TH + 2) x (TW + 2) h tile
-  {
-    constexpr int M = (TH + 2) * HTW;
-    float acc[MT1][kMaxNt][4];
-    conv_taps<MT1, HTW>(slab, C, F, ring, slot_bytes, full, empty, 0, M, acc);
-    // (4) h = bf16(relu(acc)) inside the image, 0 outside
+    // (5) conv2 over the TH x TW output tile, stored to out
+    {
+      float acc2[MT2][32];
+      conv_taps<MT2, TW, NC2>(hbuf, F, ring, slot_bytes, full, empty, kTaps,
+                              M2, acc2);
 #pragma unroll
-    for (int i = 0; i < MT1; ++i) {
+      for (int i = 0; i < MT2; ++i) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = (warp_m + 4 * i) * 16 + (lane >> 2) + half * 8;
-        if (m >= M) continue;
-        const int hy = m / HTW;
-        const int hx = m - hy * HTW;
-        const int gy = oy0 - 1 + hy;
-        const int gx = ox0 - 1 + hx;
-        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        for (int r = 0; r < 2; ++r) {
+          const int m = i * 64 + w * 16 + (lane >> 2) + r * 8;
+          if (m >= M2) continue;
+          const int gy = oy0 + m / TW;
+          const int gx = ox0 + m % TW;
+          if (gy >= H || gx >= W) continue;
+          bf16* o = out + (((size_t)b * H + gy) * W + gx) * F;
 #pragma unroll
-        for (int j = 0; j < kMaxNt; ++j) {
-          if (j < nt) {
-            const float v0 = inside ? fmaxf(acc[i][j][2 * half], 0.0f) : 0.0f;
-            const float v1 =
-                inside ? fmaxf(acc[i][j][2 * half + 1], 0.0f) : 0.0f;
-            *reinterpret_cast<__nv_bfloat162*>(
-                hbuf + m * (F + kPad) + n_base + j * 8 + (lane & 3) * 2) =
-                __floats2bfloat162_rn(v0, v1);
+          for (int j = 0; j < 8; ++j) {
+            const int n = n_base + j * 8;
+            if (n < F)
+              *reinterpret_cast<__nv_bfloat162*>(o + n) =
+                  __floats2bfloat162_rn(acc2[i][4 * j + 2 * r],
+                                        acc2[i][4 * j + 2 * r + 1]);
           }
         }
       }
     }
   }
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");  // h written
-
-  // (5) conv2 over the TH x TW output tile, stored to out
-  {
-    constexpr int M = TH * TW;
-    float acc[MT2][kMaxNt][4];
-    conv_taps<MT2, TW>(hbuf, F, F, ring, slot_bytes, full, empty, kTaps, M,
-                       acc);
-#pragma unroll
-    for (int i = 0; i < MT2; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = (warp_m + 4 * i) * 16 + (lane >> 2) + half * 8;
-        if (m >= M) continue;
-        const int gy = oy0 + m / TW;
-        const int gx = ox0 + m % TW;
-        if (gy >= H || gx >= W) continue;
-        bf16* o = out + (((size_t)b * H + gy) * W + gx) * F + n_base +
-                  (lane & 3) * 2;
-#pragma unroll
-        for (int j = 0; j < kMaxNt; ++j)
-          if (j < nt)
-            *reinterpret_cast<__nv_bfloat162*>(o + j * 8) =
-                __floats2bfloat162_rn(acc[i][j][2 * half],
-                                      acc[i][j][2 * half + 1]);
-      }
-    }
-  }
 }
 
-template <int TH, int TW>
+template <int TH, int TW, int NC1, int NC2>
 cudaError_t launch(const void* x, const void* wpk, void* out, int B, int H,
                    int W, int C, int F, cudaStream_t s) {
-  // 16-row tiles of each conv spread over the 4 warp rows
-  constexpr int MT1 = ceil_div(ceil_div((TH + 2) * (TW + 2), 16), 4);
-  constexpr int MT2 = ceil_div(ceil_div(TH * TW, 16), 4);
-  auto kernel = fused_conv_kernel<TH, TW, MT1, MT2>;
+  auto kernel = fused_conv_kernel<TH, TW, NC1, NC2>;
   // as ops/fused_conv.py:smem_bytes
-  const size_t ring = (size_t)kStages * round_up(C > F ? C : F, kAtomK) * kNp * 2;
+  const size_t ring = (size_t)kStages * (NC1 > NC2 ? NC1 : NC2) * kAtomK *
+                      kNp * 2;
   const size_t slab = (size_t)(TH + 4) * (TW + 4) * (C + kPad) * 2;
   const size_t h = (size_t)(TH + 2) * (TW + 2) * (F + kPad) * 2;
   const size_t smem = 1024 + ring + slab + h + 2 * kStages * 8;
@@ -386,6 +440,19 @@ cudaError_t launch(const void* x, const void* wpk, void* out, int B, int H,
   return cudaGetLastError();
 }
 
+template <int TH, int TW>
+cudaError_t launch_tile(const void* x, const void* wpk, void* out, int B,
+                        int H, int W, int C, int F, cudaStream_t s) {
+  const int nc1 = ceil_div(C, kAtomK), nc2 = ceil_div(F, kAtomK);
+  if (nc1 == 1 && nc2 == 1)
+    return launch<TH, TW, 1, 1>(x, wpk, out, B, H, W, C, F, s);
+  if (nc1 == 1)
+    return launch<TH, TW, 1, 2>(x, wpk, out, B, H, W, C, F, s);
+  if (nc2 == 1)
+    return launch<TH, TW, 2, 1>(x, wpk, out, B, H, W, C, F, s);
+  return launch<TH, TW, 2, 2>(x, wpk, out, B, H, W, C, F, s);
+}
+
 }  // namespace
 
 // x (B, H, W, C), out (B, H, W, F) bf16, contiguous and 16-byte aligned;
@@ -396,17 +463,16 @@ extern "C" int fused_conv3x3_relu_conv3x3(const void* x, const void* wpk,
                                           void* out, int B, int H, int W,
                                           int C, int F, int tile,
                                           void* stream) {
-  if (C <= 0 || C % 16 != 0 || C > kNp || F <= 0 || F % 32 != 0 ||
-      F > 16 * kMaxNt)
+  if (C <= 0 || C % 16 != 0 || C > kNp || F <= 0 || F % 32 != 0 || F > kNp)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (tile) {
     case 0:
-      return (int)launch<8, 8>(x, wpk, out, B, H, W, C, F, s);
+      return (int)launch_tile<8, 8>(x, wpk, out, B, H, W, C, F, s);
     case 1:
-      return (int)launch<8, 16>(x, wpk, out, B, H, W, C, F, s);
+      return (int)launch_tile<8, 16>(x, wpk, out, B, H, W, C, F, s);
     case 2:
-      return (int)launch<16, 8>(x, wpk, out, B, H, W, C, F, s);
+      return (int)launch_tile<16, 8>(x, wpk, out, B, H, W, C, F, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -4,7 +4,8 @@ Each source is compiled on first use by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root, named after its
 source and a hash of the source and flags, so a changed source never loads
-a stale build. Several entry points may share one source; it is built once:
+a stale build; nvcc's report (ptxas's registers and spills) is kept beside
+it and read again when a later process loads the library. Several entry points may share one source; it is built once:
 ``euler.cu`` holds K1 (``euler_compact_dual``) and K4 (``euler_all``),
 ``splat.cu`` K2's two epilogues (``splat_dual_normalize``,
 ``splat_dual_normalize_slr``, f32 or bf16 accumulation) and K8
@@ -90,12 +91,18 @@ class Kernel:
         return proc, tmp, lib
 
     def _finish_build(self, proc, tmp: str, lib: str, t0: float) -> None:
+        log = os.path.splitext(lib)[0] + ".log"
         if proc is not None:
             out, _ = proc.communicate()
             self.build_log = out
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
+            with open(log, "w") as f:
+                f.write(out)
             os.replace(tmp, lib)
+        elif os.path.exists(log):  # nvcc's report from the earlier build
+            with open(log) as f:
+                self.build_log = f.read()
         self.build_seconds = time.perf_counter() - t0
         fn = getattr(ctypes.CDLL(lib), self.symbol)
         fn.argtypes = self.argtypes

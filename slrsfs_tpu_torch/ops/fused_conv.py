@@ -35,7 +35,10 @@ NP = 128  # output channels of a packed tap image, zeros past F (kNp)
 ATOM_K = 64  # input channels per 128-byte swizzled row of a tap image
 
 
-ROW_TILE = 16  # rows of the kernel's MMA tiles (m16)
+ROW_TILE = 64  # rows of the kernel's MMA tiles (wgmma m64)
+# registers per thread: at launch (384 threads, one block per SM) and, after
+# setmaxnreg, in the two consumer warpgroups and the producer warpgroup
+LAUNCH_REGS, CONSUMER_REGS, PRODUCER_REGS = 168, 232, 40
 
 
 def _round_up(n: int, m: int) -> int:
@@ -61,12 +64,12 @@ def smem_bytes(tile, C: int, F: int) -> int:
 
 def work_ratio(tile, C: int, F: int) -> float:
     """Multiply-adds the kernel issues over the useful ones: conv1 runs on
-    the (TH + 2)(TW + 2) pixels of h, and both convs on whole ROW_TILE-row
-    tiles."""
+    the (TH + 2)(TW + 2) pixels of h, both convs on whole ROW_TILE-row
+    tiles and on all NP packed output channels."""
     th, tw = tile
     rows1 = _round_up((th + 2) * (tw + 2), ROW_TILE)
     rows2 = _round_up(th * tw, ROW_TILE)
-    return (rows1 * C * F + rows2 * F * F) / (th * tw * (C * F + F * F))
+    return (rows1 * C + rows2 * F) * NP / (th * tw * (C * F + F * F))
 
 
 def _pack(w: Tensor) -> Tensor:
