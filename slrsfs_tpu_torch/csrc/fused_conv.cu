@@ -46,7 +46,10 @@
 // No barrier of the whole block is left in the tap loop. Each tap sums into
 // fresh accumulators that are then added in f32 (see conv_taps). Rows of a
 // last m64 tile past the tile's pixels and the packed channels past F are
-// computed and never stored.
+// computed and never stored. The slab's and h's channels are rounded up to
+// whole 64-channel swizzle rows (zeros past C and F) so that no wgmma is
+// conditional: a branch around one made ptxas inject warpgroup.arrive
+// fences (its C7519 report) and cost 25 % of the time at C = F = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -191,16 +194,18 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
 
 // acc = conv3x3(src, taps tap0 .. tap0 + 8 of the stream) over M output
 // pixels of a grid OUT_W wide, whose tap (ky, kx) reads source pixel
-// (y + ky) * (OUT_W + 2) + x + kx of src (rows of K + kPad bf16), for the
-// warpgroup's n64 half of the channels. Row tile i is rows 64 i .. 64 i +
-// 63; this warp holds rows 16 w .. 16 w + 15 of each.
+// (y + ky) * (OUT_W + 2) + x + kx of src (rows of NC * kAtomK + kPad bf16,
+// zeros past the conv's input channels, as the tap images have zero rows
+// there: no k step is ever skipped, so every wgmma is unconditional), for
+// the warpgroup's n64 half of the channels. Row tile i is rows 64 i .. 64 i
+// + 63; this warp holds rows 16 w .. 16 w + 15 of each.
 //
 // Each tap sums into fresh accumulators (scale-d 0 on its first wgmma) that
 // are then added to acc in f32, a chain of K / 16 steps instead of 9 K /
-// 16: the tensor cores accumulate with truncation, and over one long chain
-// the drift flipped the bf16 rounding of h often enough that more than
-// 0.1 % of the outputs (random inputs, C = F = 128) ended more than one
-// bf16 ulp from the f32 plain chain. chip_smoke.py prints the shares of
+// 16 (K input channels): the tensor cores accumulate with truncation, and
+// over one long chain the drift flipped the bf16 rounding of h often enough
+// that more than 0.1 % of the outputs (random inputs, C = F = 128) ended
+// more than one bf16 ulp from the f32 plain chain. chip_smoke.py prints the shares of
 // the kernel, the plain chain and cuDNN against a float64 chain.
 //
 // Pipelining within the warpgroup: a tap's row tiles are MT chains of NC
@@ -210,7 +215,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
 // flight, so group g - 1 is done: its A registers are free, and when g
 // starts a chain, chain i - 1's partial is complete and is added to acc.
 template <int MT, int OUT_W, int NC>
-__device__ __forceinline__ void conv_taps(const bf16* src, int K,
+__device__ __forceinline__ void conv_taps(const bf16* src,
                                           const unsigned char* ring,
                                           uint32_t slot_bytes, uint64_t* full,
                                           uint64_t* empty, int tap0, int M,
@@ -219,6 +224,7 @@ __device__ __forceinline__ void conv_taps(const bf16* src, int K,
   const int w = (threadIdx.x >> 5) & 3;        // warp in the warpgroup
   const int half = threadIdx.x >> 7;           // the warpgroup's n64 half
   constexpr int SRC_W = OUT_W + 2;
+  constexpr int ROW = NC * kAtomK + kPad;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -238,7 +244,7 @@ __device__ __forceinline__ void conv_taps(const bf16* src, int K,
       m = m < M ? m : M - 1;  // rows past M compute garbage, never stored
       const int y = m / OUT_W;
       const int x = m - y * OUT_W;
-      a_row[i] = smem_addr(src + ((y + ky) * SRC_W + x + kx) * (K + kPad) +
+      a_row[i] = smem_addr(src + ((y + ky) * SRC_W + x + kx) * ROW +
                            (lane >> 4) * 8);
     }
     const uint32_t b_base =
@@ -251,21 +257,18 @@ __device__ __forceinline__ void conv_taps(const bf16* src, int K,
       for (int c = 0; c < NC; ++c) {
         const int g = i * NC + c;  // compile-time after unrolling
         uint32_t(&ag)[4][4] = a[g & 1];
+        uint64_t desc[4];
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
-          const int k0 = c * kAtomK + s * 16;
-          if (k0 < K) ldmatrix_x4(ag[s], a_row[i] + k0 * 2);
+          ldmatrix_x4(ag[s], a_row[i] + (c * kAtomK + s * 16) * 2);
+          desc[s] = sw128_desc(b_base + c * kNp * 128 + s * 32);
         }
+        // every register the wgmmas read is written before the fence
         fence_regs(part[i & 1]);
         wgmma_fence();
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int k0 = c * kAtomK + s * 16;
-          if (k0 < K)  // warpgroup-uniform
-            wgmma_m64n64k16(part[i & 1], ag[s],
-                            sw128_desc(b_base + c * kNp * 128 + s * 32),
-                            (c | s) != 0);
-        }
+        for (int s = 0; s < 4; ++s)
+          wgmma_m64n64k16(part[i & 1], ag[s], desc[s], (c | s) != 0);
         wgmma_commit();
         wgmma_wait<1>();
         if (g > 0) fence_regs(a[(g - 1) & 1]);
@@ -304,9 +307,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* ring =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   bf16* slab = reinterpret_cast<bf16*>(ring + kStages * slot_bytes);
-  bf16* hbuf = slab + (TH + 4) * SW * (C + kPad);
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(hbuf + (TH + 2) * HTW * (F + kPad));
+  constexpr int ROW1 = NC1 * kAtomK + kPad, ROW2 = NC2 * kAtomK + kPad;
+  bf16* hbuf = slab + (TH + 4) * SW * ROW1;
+  uint64_t* full = reinterpret_cast<uint64_t*>(hbuf + (TH + 2) * HTW * ROW2);
   uint64_t* empty = full + kStages;
 
   const int b = blockIdx.z;
@@ -326,18 +329,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       issue_tap(i, wpk, ring, slot_bytes, img1_bytes, img2_bytes, full);
   }
 
-  // (2) the x slab with its 2-pixel halo, zeros outside the image
-  const int cpp = C / 8;
+  // (2) the x slab with its 2-pixel halo, zeros outside the image and
+  // past C
+  constexpr int cpp = NC1 * kAtomK / 8;
   for (int i = threadIdx.x; i < (TH + 4) * SW * cpp; i += kThreads) {
     const int pix = i / cpp;
     const int c8 = i - pix * cpp;
     const int gy = oy0 - 2 + pix / SW;
     const int gx = ox0 - 2 + pix % SW;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W && c8 * 8 < C)
       v = __ldg(reinterpret_cast<const uint4*>(
           x + (((size_t)b * H + gy) * W + gx) * C + c8 * 8));
-    *reinterpret_cast<uint4*>(slab + pix * (C + kPad) + c8 * 8) = v;
+    *reinterpret_cast<uint4*>(slab + pix * ROW1 + c8 * 8) = v;
   }
   __syncthreads();  // slab loaded, barriers initialised
 
@@ -358,9 +362,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     // (3) conv1 over the (TH + 2) x (TW + 2) h tile
     {
       float acc1[MT1][32];
-      conv_taps<MT1, HTW, NC1>(slab, C, ring, slot_bytes, full, empty, 0, M1,
+      conv_taps<MT1, HTW, NC1>(slab, ring, slot_bytes, full, empty, 0, M1,
                                acc1);
-      // (4) h = bf16(relu(acc)) inside the image, 0 outside
+      // (4) h = bf16(relu(acc)) inside the image, 0 outside; the channels
+      // from F to the row's end are 0 too (zero weights there)
 #pragma unroll
       for (int i = 0; i < MT1; ++i) {
 #pragma unroll
@@ -375,12 +380,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const int n = n_base + j * 8;
-            if (n < F) {
+            if (n < NC2 * kAtomK) {
               const float v0 = inside ? fmaxf(acc1[i][4 * j + 2 * r], 0.0f)
                                       : 0.0f;
               const float v1 =
                   inside ? fmaxf(acc1[i][4 * j + 2 * r + 1], 0.0f) : 0.0f;
-              *reinterpret_cast<__nv_bfloat162*>(hbuf + m * (F + kPad) + n) =
+              *reinterpret_cast<__nv_bfloat162*>(hbuf + m * ROW2 + n) =
                   __floats2bfloat162_rn(v0, v1);
             }
           }
@@ -393,8 +398,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // (5) conv2 over the TH x TW output tile, stored to out
     {
       float acc2[MT2][32];
-      conv_taps<MT2, TW, NC2>(hbuf, F, ring, slot_bytes, full, empty, kTaps,
-                              M2, acc2);
+      conv_taps<MT2, TW, NC2>(hbuf, ring, slot_bytes, full, empty, kTaps, M2,
+                              acc2);
 #pragma unroll
       for (int i = 0; i < MT2; ++i) {
 #pragma unroll
@@ -426,8 +431,8 @@ cudaError_t launch(const void* x, const void* wpk, void* out, int B, int H,
   // as ops/fused_conv.py:smem_bytes
   const size_t ring = (size_t)kStages * (NC1 > NC2 ? NC1 : NC2) * kAtomK *
                       kNp * 2;
-  const size_t slab = (size_t)(TH + 4) * (TW + 4) * (C + kPad) * 2;
-  const size_t h = (size_t)(TH + 2) * (TW + 2) * (F + kPad) * 2;
+  const size_t slab = (size_t)(TH + 4) * (TW + 4) * (NC1 * kAtomK + kPad) * 2;
+  const size_t h = (size_t)(TH + 2) * (TW + 2) * (NC2 * kAtomK + kPad) * 2;
   const size_t smem = 1024 + ring + slab + h + 2 * kStages * 8;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -53,23 +53,26 @@ def tap_image_bytes(K: int) -> int:
 def smem_bytes(tile, C: int, F: int) -> int:
     """Dynamic shared memory of one block: 1024 bytes to align the ring,
     the ring of STAGES tap slots, the x slab with its 2-pixel halo, the
-    intermediate h with its 1-pixel halo, and a full and an empty mbarrier
-    per slot."""
+    intermediate h with its 1-pixel halo (both with their channels rounded
+    up to ATOM_K, zeros past C and F), and a full and an empty mbarrier per
+    slot."""
     th, tw = tile
     ring = STAGES * tap_image_bytes(max(C, F))
-    slab = (th + 4) * (tw + 4) * (C + _PAD) * 2
-    h = (th + 2) * (tw + 2) * (F + _PAD) * 2
+    slab = (th + 4) * (tw + 4) * (_round_up(C, ATOM_K) + _PAD) * 2
+    h = (th + 2) * (tw + 2) * (_round_up(F, ATOM_K) + _PAD) * 2
     return 1024 + ring + slab + h + 2 * STAGES * 8
 
 
 def work_ratio(tile, C: int, F: int) -> float:
     """Multiply-adds the kernel issues over the useful ones: conv1 runs on
     the (TH + 2)(TW + 2) pixels of h, both convs on whole ROW_TILE-row
-    tiles and on all NP packed output channels."""
+    tiles, on input channels rounded up to ATOM_K and on all NP packed
+    output channels."""
     th, tw = tile
     rows1 = _round_up((th + 2) * (tw + 2), ROW_TILE)
     rows2 = _round_up(th * tw, ROW_TILE)
-    return (rows1 * C + rows2 * F) * NP / (th * tw * (C * F + F * F))
+    issued = (rows1 * _round_up(C, ATOM_K) + rows2 * _round_up(F, ATOM_K)) * NP
+    return issued / (th * tw * (C * F + F * F))
 
 
 def _pack(w: Tensor) -> Tensor:
