@@ -48,8 +48,8 @@
 // last m64 tile past the tile's pixels and the packed channels past F are
 // computed and never stored. The slab's and h's channels are rounded up to
 // whole 64-channel swizzle rows (zeros past C and F) so that no wgmma is
-// conditional: a branch around one made ptxas inject warpgroup.arrive
-// fences (its C7519 report) and cost 25 % of the time at C = F = 128.
+// conditional: a branch around one makes ptxas inject warpgroup.arrive
+// fences (its C7519 report), which serialise the wgmmas.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -205,8 +205,9 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
 // 16 (K input channels): the tensor cores accumulate with truncation, and
 // over one long chain the drift flipped the bf16 rounding of h often enough
 // that more than 0.1 % of the outputs (random inputs, C = F = 128) ended
-// more than one bf16 ulp from the f32 plain chain. chip_smoke.py prints the shares of
-// the kernel, the plain chain and cuDNN against a float64 chain.
+// more than one bf16 ulp from the f32 plain chain. chip_smoke.py prints
+// the shares of the kernel, the plain chain and cuDNN against a float64
+// chain.
 //
 // Pipelining within the warpgroup: a tap's row tiles are MT chains of NC
 // commit groups of 4 k16 steps (one 64-channel swizzle row each). Group g
