@@ -3,8 +3,9 @@
 
 ``fused_conv3x3_relu_conv3x3`` is the kernel wrapper (K9,
 ``csrc/fused_conv.cu``): on the card one launch computes both convolutions
-with bf16 tensor cores and keeps the intermediate in shared memory.
-``conv_chain_plain`` is its plain version (float32 convolutions with TF32
+with bf16 tensor cores (``wgmma``) and keeps the intermediate in shared
+memory. ``pack_weights`` turns the weights into the kernel's stream of
+swizzled tap images, on every call. ``conv_chain_plain`` is its plain version (float32 convolutions with TF32
 off, the intermediate rounded to bf16), which the wrapper runs for tensors
 on the CPU. ``conv_chain_library`` is the yardstick the measurements time
 beside the kernel (cuDNN bf16 convolutions, channels-last); the port never
@@ -33,12 +34,10 @@ _PAD = 8  # bf16 of padding per shared-memory row (csrc/fused_conv.cu kPad)
 STAGES = 3  # weight tap slots in the kernel's ring (kStages)
 NP = 128  # output channels of a packed tap image, zeros past F (kNp)
 ATOM_K = 64  # input channels per 128-byte swizzled row of a tap image
-
-
 ROW_TILE = 64  # rows of the kernel's MMA tiles (wgmma m64)
-# registers per thread: at launch (384 threads, one block per SM) and, after
-# setmaxnreg, in the two consumer warpgroups and the producer warpgroup
-LAUNCH_REGS, CONSUMER_REGS, PRODUCER_REGS = 168, 232, 40
+# registers per thread after setmaxnreg in the two consumer warpgroups and
+# the producer warpgroup (csrc/fused_conv.cu kConsumerRegs, kProducerRegs)
+CONSUMER_REGS, PRODUCER_REGS = 232, 40
 
 
 def _round_up(n: int, m: int) -> int:
@@ -98,24 +97,6 @@ def pack_weights(waa: Tensor, wab: Tensor) -> Tensor:
     device. Each image is the exact shared-memory image a tap slot holds,
     so the kernel moves it with one bulk copy."""
     return torch.cat([_pack(waa), _pack(wab)])
-
-
-def unpack_weights(packed: Tensor, C: int, F: int):
-    """``pack_weights``' inverse: the (3, 3, C, F) and (3, 3, F, F) HWIO
-    weights."""
-    out = []
-    start = 0
-    for K in (C, F):
-        kp = _round_up(K, ATOM_K)
-        n_el = 9 * kp * NP
-        t = packed[start:start + n_el].reshape(9, kp // ATOM_K, NP, 8, 8)
-        start += n_el
-        n = torch.arange(NP, device=packed.device)
-        pos = torch.arange(8, device=packed.device)[None, :] ^ (n % 8)[:, None]  # (n, c) -> pos
-        t = t.gather(3, pos[None, None, :, :, None].expand(t.shape))  # tap, kb, n, c, e
-        t = t.permute(0, 1, 3, 4, 2).reshape(9, kp, NP)
-        out.append(t[:, :K, :F].reshape(3, 3, K, F))
-    return tuple(out)
 
 
 def _check(x: Tensor, waa: Tensor, wab: Tensor, tile) -> None:

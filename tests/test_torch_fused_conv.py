@@ -181,10 +181,27 @@ def test_pack_weights_swizzled_addresses(C, F):
     assert torch.equal(packed, want)
 
 
+def _unpack(packed, C, F):
+    """``pack_weights``' inverse: the (3, 3, C, F) and (3, 3, F, F) HWIO
+    weights, undoing the swizzle chunk by chunk."""
+    out, start = [], 0
+    for K in (C, F):
+        kp = -(-K // 64) * 64
+        t = packed[start:start + 9 * kp * 128].reshape(9, kp // 64, 128, 8, 8)
+        start += 9 * kp * 128
+        n = torch.arange(128)
+        pos = torch.arange(8)[None, :] ^ (n % 8)[:, None]  # (n, chunk) -> position
+        t = t.gather(3, pos[None, None, :, :, None].expand(t.shape))
+        t = t.permute(0, 1, 3, 4, 2).reshape(9, kp, 128)
+        out.append(t[:, :K, :F].reshape(3, 3, K, F))
+    assert start == packed.numel()
+    return out
+
+
 @pytest.mark.parametrize("C, F", [(128, 128), (16, 32), (48, 96)])
 def test_pack_weights_round_trip(C, F):
     waa, wab = _hwio(C, F, seed=5)
-    ua, ub = port.unpack_weights(port.pack_weights(waa, wab), C, F)
+    ua, ub = _unpack(port.pack_weights(waa, wab), C, F)
     assert torch.equal(ua, waa) and torch.equal(ub, wab)
 
 
