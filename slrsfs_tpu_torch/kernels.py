@@ -5,9 +5,10 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root, named after its
 source and a hash of the source and flags, so a changed source never loads
 a stale build; nvcc's report (ptxas's registers and spills) is kept beside
-it and read again when a later process loads the library. Several entry points may share one source; it is built once:
-``euler.cu`` holds K1 (``euler_compact_dual``) and K4 (``euler_all``),
-``splat.cu`` K2's two epilogues (``splat_dual_normalize``,
+it and read again when a later process loads the library. Several entry
+points may share one source; it is built once: ``euler.cu`` holds K1
+(``euler_compact_dual``) and K4 (``euler_all``), ``splat.cu`` K2's two
+epilogues (``splat_dual_normalize``,
 ``splat_dual_normalize_slr``, f32 or bf16 accumulation) and K8
 (``splat_sum_at``), ``splat_dense.cu`` K3's forward and backward;
 ``fused_conv.cu`` is K9 (``fused_conv3x3_relu_conv3x3``). Nothing is

@@ -11,8 +11,7 @@ kernel at each tile shape, the library chain (cuDNN bf16) and the plain
 chain (float32, TF32 off), with CUDA events, and prints TFLOP/s of the
 useful work (no halo recompute) and, per tile shape, the issued/useful
 work ratio, the block's shared memory and its registers and spills (from
-ptxas's report in the build log, when this process built the kernel). A
-missing card raises.
+ptxas's report in the build log). A missing card raises.
 """
 
 from __future__ import annotations
@@ -93,7 +92,7 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 def kernel_resources(build_log: str) -> dict:
     """Registers and spill bytes per tile shape from ptxas's ``-v`` report
     in K9's build log (the largest over a tile's instantiations); empty
-    when the library was loaded from an earlier build."""
+    when the log holds no report."""
     res, tile = {}, None
     for line in build_log.splitlines():
         m = re.search(r"entry function '\S*fused_conv_kernelILi(\d+)ELi(\d+)E", line)
