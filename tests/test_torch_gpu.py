@@ -15,7 +15,8 @@ against the f32 sums of the same rows, the kernel at most twice as far as
 the plain version; K9
 at 2^-7 of max |plain| with at most 0.1 % of the elements more than one
 bf16 ulp apart; a rollout through the kernels is held at 1e-4 against one
-through the plain versions."""
+through the plain versions. The card branches of K1, K4 and K7 refuse a
+motion that requires grad, before they launch anything."""
 
 import numpy as np
 import pytest
