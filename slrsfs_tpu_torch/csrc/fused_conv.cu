@@ -20,7 +20,7 @@
 // x and out, 1.13 ms at 3.35 TB/s; h never leaves the SM. Each block also
 // streams all 18 tap images (576 KiB at C = F = 128) from L2.
 //
-// Design, one block per (image, TH x TW output tile): two consumer
+// Design, one block per (image, TH x TW = 8 x 16 output tile): two consumer
 // warpgroups, each computing one n64 half of the kNp = 128 packed output
 // channels, and one producer warpgroup.
 //  (1) the producer's first thread initialises a ring of kStages tap
@@ -67,6 +67,9 @@ constexpr int kPad = 8;     // bf16 of padding per slab and h row
 constexpr int kNp = 128;    // output channels of a packed tap image
 constexpr int kAtomK = 64;  // input channels per 128-byte swizzled row
 constexpr int kTaps = 9;
+// the output tile: conv1 then runs on 3 m64 row tiles (the 10 x 18 = 180
+// pixels of h), conv2 on 2, 1.25x the useful rows; 8 x 8 issues 1.5x
+constexpr int TH = 8, TW = 16;
 // registers per thread after setmaxnreg; the block launches at 168 (65536 /
 // 384 rounded down to 8), and 128 x (168 - 40) = 256 x (232 - 168)
 constexpr int kProducerRegs = 40;
@@ -290,7 +293,7 @@ __device__ __forceinline__ void conv_taps(const bf16* src,
   }
 }
 
-template <int TH, int TW, int NC1, int NC2>
+template <int NC1, int NC2>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_conv_kernel(const bf16* __restrict__ x,
                       const unsigned char* __restrict__ wpk,
@@ -425,18 +428,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int TH, int TW, int NC1, int NC2>
+// Dynamic shared memory of a block, as the kernel lays it out: 1024 bytes
+// to align the ring, the ring of kStages tap slots, the x slab and h (their
+// channels rounded up to whole swizzle rows), a full and an empty mbarrier
+// per slot.
+int smem_bytes(int nc1, int nc2) {
+  const int ring = kStages * (nc1 > nc2 ? nc1 : nc2) * kAtomK * kNp * 2;
+  const int slab = (TH + 4) * (TW + 4) * (nc1 * kAtomK + kPad) * 2;
+  const int h = (TH + 2) * (TW + 2) * (nc2 * kAtomK + kPad) * 2;
+  return 1024 + ring + slab + h + 2 * kStages * 8;
+}
+
+template <int NC1, int NC2>
 cudaError_t launch(const void* x, const void* wpk, void* out, int B, int H,
                    int W, int C, int F, cudaStream_t s) {
-  auto kernel = fused_conv_kernel<TH, TW, NC1, NC2>;
-  // as ops/fused_conv.py:smem_bytes
-  const size_t ring = (size_t)kStages * (NC1 > NC2 ? NC1 : NC2) * kAtomK *
-                      kNp * 2;
-  const size_t slab = (size_t)(TH + 4) * (TW + 4) * (NC1 * kAtomK + kPad) * 2;
-  const size_t h = (size_t)(TH + 2) * (TW + 2) * (NC2 * kAtomK + kPad) * 2;
-  const size_t smem = 1024 + ring + slab + h + 2 * kStages * 8;
+  auto kernel = fused_conv_kernel<NC1, NC2>;
+  const int smem = smem_bytes(NC1, NC2);
+  // fails when the block does not fit the card's shared memory
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(ceil_div(W, TW), ceil_div(H, TH), B);
   if (B > 0 && H > 0 && W > 0)
@@ -446,40 +456,31 @@ cudaError_t launch(const void* x, const void* wpk, void* out, int B, int H,
   return cudaGetLastError();
 }
 
-template <int TH, int TW>
-cudaError_t launch_tile(const void* x, const void* wpk, void* out, int B,
-                        int H, int W, int C, int F, cudaStream_t s) {
-  const int nc1 = ceil_div(C, kAtomK), nc2 = ceil_div(F, kAtomK);
-  if (nc1 == 1 && nc2 == 1)
-    return launch<TH, TW, 1, 1>(x, wpk, out, B, H, W, C, F, s);
-  if (nc1 == 1)
-    return launch<TH, TW, 1, 2>(x, wpk, out, B, H, W, C, F, s);
-  if (nc2 == 1)
-    return launch<TH, TW, 2, 1>(x, wpk, out, B, H, W, C, F, s);
-  return launch<TH, TW, 2, 2>(x, wpk, out, B, H, W, C, F, s);
+bool takes(int C, int F) {
+  return C > 0 && C % 16 == 0 && C <= kNp && F > 0 && F % 32 == 0 && F <= kNp;
 }
 
 }  // namespace
 
 // x (B, H, W, C), out (B, H, W, F) bf16, contiguous and 16-byte aligned;
 // wpk the packed weights of ops/fused_conv.py:pack_weights; C a multiple of
-// 16 and F a multiple of 32, both up to 128. tile picks (TH, TW): 0 = 8 x 8,
-// 1 = 8 x 16, 2 = 16 x 8.
+// 16 and F a multiple of 32, both up to 128.
 extern "C" int fused_conv3x3_relu_conv3x3(const void* x, const void* wpk,
                                           void* out, int B, int H, int W,
-                                          int C, int F, int tile,
-                                          void* stream) {
-  if (C <= 0 || C % 16 != 0 || C > kNp || F <= 0 || F % 32 != 0 || F > kNp)
-    return (int)cudaErrorInvalidValue;
+                                          int C, int F, void* stream) {
+  if (!takes(C, F)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (tile) {
-    case 0:
-      return (int)launch_tile<8, 8>(x, wpk, out, B, H, W, C, F, s);
-    case 1:
-      return (int)launch_tile<8, 16>(x, wpk, out, B, H, W, C, F, s);
-    case 2:
-      return (int)launch_tile<16, 8>(x, wpk, out, B, H, W, C, F, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const int nc1 = ceil_div(C, kAtomK), nc2 = ceil_div(F, kAtomK);
+  if (nc1 == 1 && nc2 == 1)
+    return (int)launch<1, 1>(x, wpk, out, B, H, W, C, F, s);
+  if (nc1 == 1) return (int)launch<1, 2>(x, wpk, out, B, H, W, C, F, s);
+  if (nc2 == 1) return (int)launch<2, 1>(x, wpk, out, B, H, W, C, F, s);
+  return (int)launch<2, 2>(x, wpk, out, B, H, W, C, F, s);
+}
+
+// Bytes of dynamic shared memory a block takes for C input and F output
+// channels; -1 for channels the kernel does not take. Launches nothing.
+extern "C" int fused_conv_smem_bytes(int C, int F) {
+  return takes(C, F) ? smem_bytes(ceil_div(C, kAtomK), ceil_div(F, kAtomK))
+                     : -1;
 }

@@ -68,6 +68,7 @@ class Kernel:
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._fn = None
+        self._lib = None
 
     @property
     def _src_path(self) -> str:
@@ -105,7 +106,8 @@ class Kernel:
             with open(log) as f:
                 self.build_log = f.read()
         self.build_seconds = time.perf_counter() - t0
-        fn = getattr(ctypes.CDLL(lib), self.symbol)
+        self._lib = ctypes.CDLL(lib)
+        fn = getattr(self._lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         self._fn = fn
@@ -122,6 +124,15 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"CUDA error {err} launching {self.name}")
         self.launches += 1
+
+    def query(self, symbol: str, *args: int) -> int:
+        """Call another C function of the same library, one that takes and
+        returns ints and launches nothing (not counted)."""
+        self.load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = [_I] * len(args)
+        fn.restype = ctypes.c_int
+        return fn(*args)
 
 
 EULER = Kernel(
@@ -191,8 +202,8 @@ FUSED_CONV = Kernel(
     "fused_conv3x3_relu_conv3x3", "slrsfs_tpu_torch/csrc/fused_conv.cu",
     "fused_conv3x3_relu_conv3x3",
     # x, packed weights (ops/fused_conv.py:pack_weights), out, B, H, W, C,
-    # F, tile (index into the tile shapes), stream
-    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    # F, stream; fused_conv_smem_bytes(C, F) is the block's shared memory
+    [_P, _P, _P, _I, _I, _I, _I, _I, _P])
 
 KERNELS: List[Kernel] = [EULER, EULER_ALL, SPLAT, SPLAT_SLR, SPLAT_SUM_AT,
                          MAXWARP_SPARSE, MAXWARP_SPLAT, SPLAT_DENSE_FWD,

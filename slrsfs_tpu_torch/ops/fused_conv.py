@@ -5,11 +5,11 @@
 ``csrc/fused_conv.cu``): on the card one launch computes both convolutions
 with bf16 tensor cores (``wgmma``) and keeps the intermediate in shared
 memory. ``pack_weights`` turns the weights into the kernel's stream of
-swizzled tap images, on every call. ``conv_chain_plain`` is its plain version (float32 convolutions with TF32
-off, the intermediate rounded to bf16), which the wrapper runs for tensors
-on the CPU. ``conv_chain_library`` is the yardstick the measurements time
-beside the kernel (cuDNN bf16 convolutions, channels-last); the port never
-calls it.
+swizzled tap images, on every call. ``conv_chain_plain`` is its plain
+version (float32 convolutions with TF32 off, the intermediate rounded to
+bf16), which the wrapper runs for tensors on the CPU.
+``conv_chain_library`` is the yardstick the measurements time beside the
+kernel (cuDNN bf16 convolutions, channels-last); the port never calls it.
 
 Layouts are the JAX function's: x (B, H, W, C) NHWC, weights (3, 3, C, F)
 and (3, 3, F, F) HWIO, all bf16; the output is (B, H, W, F) bf16. Both
@@ -27,17 +27,10 @@ from slrsfs_tpu_torch.engine.init_utils import no_tf32
 
 Tensor = torch.Tensor
 
-TILES = ((8, 8), (8, 16), (16, 8))  # (TH, TW) output tiles the kernel offers
-DEFAULT_TILE = (8, 16)
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
-_PAD = 8  # bf16 of padding per shared-memory row (csrc/fused_conv.cu kPad)
-STAGES = 3  # weight tap slots in the kernel's ring (kStages)
+TILE = (8, 16)  # (TH, TW): the output tile of one block (csrc/fused_conv.cu)
 NP = 128  # output channels of a packed tap image, zeros past F (kNp)
 ATOM_K = 64  # input channels per 128-byte swizzled row of a tap image
 ROW_TILE = 64  # rows of the kernel's MMA tiles (wgmma m64)
-# registers per thread after setmaxnreg in the two consumer warpgroups and
-# the producer warpgroup (csrc/fused_conv.cu kConsumerRegs, kProducerRegs)
-CONSUMER_REGS, PRODUCER_REGS = 232, 40
 
 
 def _round_up(n: int, m: int) -> int:
@@ -49,25 +42,12 @@ def tap_image_bytes(K: int) -> int:
     return _round_up(K, ATOM_K) * NP * 2
 
 
-def smem_bytes(tile, C: int, F: int) -> int:
-    """Dynamic shared memory of one block: 1024 bytes to align the ring,
-    the ring of STAGES tap slots, the x slab with its 2-pixel halo, the
-    intermediate h with its 1-pixel halo (both with their channels rounded
-    up to ATOM_K, zeros past C and F), and a full and an empty mbarrier per
-    slot."""
-    th, tw = tile
-    ring = STAGES * tap_image_bytes(max(C, F))
-    slab = (th + 4) * (tw + 4) * (_round_up(C, ATOM_K) + _PAD) * 2
-    h = (th + 2) * (tw + 2) * (_round_up(F, ATOM_K) + _PAD) * 2
-    return 1024 + ring + slab + h + 2 * STAGES * 8
-
-
-def work_ratio(tile, C: int, F: int) -> float:
+def work_ratio(C: int, F: int) -> float:
     """Multiply-adds the kernel issues over the useful ones: conv1 runs on
     the (TH + 2)(TW + 2) pixels of h, both convs on whole ROW_TILE-row
     tiles, on input channels rounded up to ATOM_K and on all NP packed
     output channels."""
-    th, tw = tile
+    th, tw = TILE
     rows1 = _round_up((th + 2) * (tw + 2), ROW_TILE)
     rows2 = _round_up(th * tw, ROW_TILE)
     issued = (rows1 * _round_up(C, ATOM_K) + rows2 * _round_up(F, ATOM_K)) * NP
@@ -99,7 +79,7 @@ def pack_weights(waa: Tensor, wab: Tensor) -> Tensor:
     return torch.cat([_pack(waa), _pack(wab)])
 
 
-def _check(x: Tensor, waa: Tensor, wab: Tensor, tile) -> None:
+def _check(x: Tensor, waa: Tensor, wab: Tensor) -> None:
     """What the kernel takes, refused on every device alike."""
     if x.ndim != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
@@ -121,11 +101,6 @@ def _check(x: Tensor, waa: Tensor, wab: Tensor, tile) -> None:
         raise ValueError(f"C must be a multiple of 16 up to 128, got {C}")
     if Fo % 32 or not 0 < Fo <= 128:
         raise ValueError(f"F must be a multiple of 32 up to 128, got {Fo}")
-    if tuple(tile) not in TILES:
-        raise ValueError(f"tile must be one of {TILES}, got {tile}")
-    if smem_bytes(tile, C, Fo) > SMEM_LIMIT:
-        raise ValueError(f"C = {C}, F = {Fo} need {smem_bytes(tile, C, Fo)} bytes "
-                         f"of shared memory at tile {tile}, over {SMEM_LIMIT}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
 
@@ -155,14 +130,14 @@ def conv_chain_library(x: Tensor, waa: Tensor, wab: Tensor) -> Tensor:
     return out.permute(0, 2, 3, 1)
 
 
-def fused_conv3x3_relu_conv3x3(x: Tensor, waa: Tensor, wab: Tensor,
-                               tile=DEFAULT_TILE) -> Tensor:
+def fused_conv3x3_relu_conv3x3(x: Tensor, waa: Tensor, wab: Tensor) -> Tensor:
     """K9 wrapper: ``conv_chain_plain``'s result up to f32 summation order,
-    from one kernel launch with (TH, TW) = ``tile`` output tiles for tensors
-    on the card and from the plain version on the CPU. Any H and W; C a
-    multiple of 16 and F a multiple of 32, both up to 128. The weights are
-    packed (``pack_weights``) on every call."""
-    _check(x, waa, wab, tile)
+    from one kernel launch (one block per ``TILE`` of the output) for
+    tensors on the card and from the plain version on the CPU. Any H and W;
+    C a multiple of 16 and F a multiple of 32, both up to 128. The weights
+    are packed (``pack_weights``) on every call; a block that does not fit
+    the card's shared memory fails its launch, which raises."""
+    _check(x, waa, wab)
     if x.device.type == "cpu":
         return conv_chain_plain(x, waa, wab)
     B, H, W, C = x.shape
@@ -172,5 +147,5 @@ def fused_conv3x3_relu_conv3x3(x: Tensor, waa: Tensor, wab: Tensor,
         packed = pack_weights(waa, wab)
         kernels.FUSED_CONV.launch(
             x.data_ptr(), packed.data_ptr(), out.data_ptr(), B, H, W, C, Fo,
-            TILES.index(tuple(tile)), torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream)
     return out

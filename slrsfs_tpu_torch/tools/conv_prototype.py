@@ -5,13 +5,14 @@ plain version and cuDNN: the port's counterpart of the ``__main__`` of
     python -m slrsfs_tpu_torch.tools.conv_prototype [--reps 3]
 
 On the prototype's deterministic inputs (the ``% 17``, ``% 13``, ``% 11``
-patterns) it checks each tile shape of the kernel on ``x[:2, :32]`` against
+patterns) it checks the kernel on ``x[:2, :32]`` against
 ``conv_chain_plain``, then times, at B = 60, 256 x 480, C = F = 128 bf16, the
-kernel at each tile shape, the library chain (cuDNN bf16) and the plain
-chain (float32, TF32 off), with CUDA events, and prints TFLOP/s of the
-useful work (no halo recompute) and, per tile shape, the issued/useful
-work ratio, the block's shared memory and its registers and spills (from
-ptxas's report in the build log). A missing card raises.
+kernel, the library chain (cuDNN bf16) and the plain chain (float32, TF32
+off), with CUDA events, and prints TFLOP/s of the useful work (no halo
+recompute), the kernel's issued/useful work ratio, its block's shared
+memory (``fused_conv_smem_bytes``, from the kernel's library) and its
+registers and spills (from ptxas's report in the build log). A missing card
+raises.
 """
 
 from __future__ import annotations
@@ -25,11 +26,9 @@ import torch
 from slrsfs_tpu_torch import kernels
 from slrsfs_tpu_torch.engine.init_utils import resolve_device
 from slrsfs_tpu_torch.ops.fused_conv import (
-    TILES,
     conv_chain_library,
     conv_chain_plain,
     fused_conv3x3_relu_conv3x3,
-    smem_bytes,
     work_ratio,
 )
 
@@ -90,53 +89,51 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def kernel_resources(build_log: str) -> dict:
-    """Registers and spill bytes per tile shape from ptxas's ``-v`` report
-    in K9's build log (the largest over a tile's instantiations); empty
-    when the log holds no report."""
-    res, tile = {}, None
+    """Registers per thread at launch and spill bytes of K9's kernel from
+    ptxas's ``-v`` report in its build log, the largest over its
+    instantiations (one per whole swizzle rows of C and F); empty when the
+    log holds no report."""
+    res, inside = {}, False
     for line in build_log.splitlines():
-        m = re.search(r"entry function '\S*fused_conv_kernelILi(\d+)ELi(\d+)E", line)
-        if m:
-            tile = f"{m.group(1)}x{m.group(2)}"
-            res.setdefault(tile, {"registers": 0, "spill_bytes": 0})
+        if "entry function" in line:
+            inside = "fused_conv_kernel" in line
+            if inside:
+                res.setdefault("registers", 0)
+                res.setdefault("spill_bytes", 0)
             continue
-        if tile is None:
+        if not inside:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            res[tile]["spill_bytes"] = max(res[tile]["spill_bytes"],
-                                           int(m.group(1)) + int(m.group(2)))
+            res["spill_bytes"] = max(res["spill_bytes"], int(m.group(1)) + int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            res[tile]["registers"] = max(res[tile]["registers"], int(m.group(1)))
+            res["registers"] = max(res["registers"], int(m.group(1)))
     return res
 
 
 def bench(reps: int = 3, plain_reps: int = 1, **shape) -> dict:
-    """On the card: check every tile shape on the prototype's slice, then
-    time the kernel per tile shape, the library chain and the plain chain
-    at the prototype's shape (``shape`` overrides its sizes). Returns the
-    checks, the times (ms), the useful TFLOP/s and the inputs."""
+    """On the card: check the kernel on the prototype's slice, then time
+    it, the library chain and the plain chain at the prototype's shape
+    (``shape`` overrides its sizes). Returns the check, the times (ms), the
+    useful TFLOP/s, the block's resources and the inputs."""
     dev = resolve_device("cuda")
     s = {**SHAPE, **shape}
     x, waa, wab = make_inputs(s["B"], s["H"], s["W"], s["C"], s["F"], dev)
     xs = x[:2, :32].contiguous()
     ref = conv_chain_plain(xs, waa, wab)
-    checks = {tile: compare(fused_conv3x3_relu_conv3x3(xs, waa, wab, tile), ref)
-              for tile in TILES}
+    check = compare(fused_conv3x3_relu_conv3x3(xs, waa, wab), ref)
     flop = 2 * s["B"] * s["H"] * s["W"] * 9 * (s["C"] * s["F"] + s["F"] * s["F"])
-    ms = {f"kernel {th}x{tw}": cuda_ms(
-        lambda t=(th, tw): fused_conv3x3_relu_conv3x3(x, waa, wab, t), reps)
-        for th, tw in TILES}
-    ms["library"] = cuda_ms(lambda: conv_chain_library(x, waa, wab), reps)
-    ms["plain"] = cuda_ms(lambda: conv_chain_plain(x, waa, wab), plain_reps)
-    regs = kernel_resources(kernels.FUSED_CONV.build_log)
-    blocks = {f"{th}x{tw}": {"work_ratio": work_ratio((th, tw), s["C"], s["F"]),
-                             "smem_bytes": smem_bytes((th, tw), s["C"], s["F"]),
-                             **regs.get(f"{th}x{tw}", {})} for th, tw in TILES}
-    return {"shape": s, "checks": {f"{th}x{tw}": c for (th, tw), c in checks.items()},
-            "ms": ms, "tflops": {k: flop / (v * 1e-3) / 1e12 for k, v in ms.items()},
-            "blocks": blocks, "flop": flop, "inputs": (x, waa, wab)}
+    ms = {"kernel": cuda_ms(lambda: fused_conv3x3_relu_conv3x3(x, waa, wab), reps),
+          "library": cuda_ms(lambda: conv_chain_library(x, waa, wab), reps),
+          "plain": cuda_ms(lambda: conv_chain_plain(x, waa, wab), plain_reps)}
+    block = {"work_ratio": work_ratio(s["C"], s["F"]),
+             "smem_bytes": kernels.FUSED_CONV.query("fused_conv_smem_bytes",
+                                                    s["C"], s["F"]),
+             **kernel_resources(kernels.FUSED_CONV.build_log)}
+    return {"shape": s, "check": check, "ms": ms,
+            "tflops": {k: flop / (v * 1e-3) / 1e12 for k, v in ms.items()},
+            "block": block, "flop": flop, "inputs": (x, waa, wab)}
 
 
 def main(argv=None) -> int:
@@ -145,16 +142,15 @@ def main(argv=None) -> int:
                    help="timed calls of the kernel and the library chain")
     a = p.parse_args(argv)
     res = bench(reps=a.reps)
-    for tile, c in res["checks"].items():
-        print(f"correctness {tile} on x[:2, :32]: max abs err {c['max_abs_err']:.3g} "
-              f"(ref scale {c['scale']:.3g}), {c['beyond_ulp_share']:.2e} of "
-              f"elements beyond one bf16 ulp")
+    c = res["check"]
+    print(f"correctness on x[:2, :32]: max abs err {c['max_abs_err']:.3g} "
+          f"(ref scale {c['scale']:.3g}), {c['beyond_ulp_share']:.2e} of "
+          f"elements beyond one bf16 ulp")
     for k, v in res["ms"].items():
         print(f"{k:>16}: {v:9.3f} ms ({res['tflops'][k]:.1f} TFLOP/s)")
-    for tile, blk in res["blocks"].items():
-        print(f"block {tile}: " + ", ".join(f"{k} {v:.4g}" for k, v in blk.items()))
-    print(json.dumps({k: res[k] for k in ("shape", "checks", "ms", "tflops", "blocks")}))
-    return 0 if all(within_limits(c) for c in res["checks"].values()) else 1
+    print("block: " + ", ".join(f"{k} {v:.4g}" for k, v in res["block"].items()))
+    print(json.dumps({k: res[k] for k in ("shape", "check", "ms", "tflops", "block")}))
+    return 0 if within_limits(c) else 1
 
 
 if __name__ == "__main__":

@@ -104,22 +104,23 @@ def test_wrapper_on_cpu_is_the_plain_version():
     x, waa, wab = (torch.from_numpy(a).to(torch.bfloat16)
                    for a in _inputs(1, 9, 10, 32, 32, seed=3))
     kernels.reset_counts()
-    for tile in port.TILES:
-        assert torch.equal(port.fused_conv3x3_relu_conv3x3(x, waa, wab, tile),
-                           port.conv_chain_plain(x, waa, wab))
+    assert torch.equal(port.fused_conv3x3_relu_conv3x3(x, waa, wab),
+                       port.conv_chain_plain(x, waa, wab))
     assert kernels.counts()[kernels.FUSED_CONV.name] == 0
 
 
 @pytest.mark.parametrize("bad", ["dtype", "layout", "misaligned", "C", "F",
-                                 "weights", "tile", "smem"])
-def test_wrapper_refuses_what_the_kernel_does_not_take(bad, monkeypatch):
-    C, F, tile = 32, 32, port.DEFAULT_TILE
+                                 "C_wide", "F_wide", "weights"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    C, F = 32, 32
     if bad == "C":
-        C = 144  # past the 128 of two swizzled rows
+        C = 24
     elif bad == "F":
         F = 48
-    elif bad == "smem":  # a card with less shared memory than the tile needs
-        monkeypatch.setattr(port, "SMEM_LIMIT", port.smem_bytes(tile, C, F) - 1)
+    elif bad == "C_wide":
+        C = 144  # a multiple of 16 past the 128 of two swizzled rows
+    elif bad == "F_wide":
+        F = 160  # a multiple of 32 past the 128 packed output channels
     x = torch.zeros((1, 8, 8, C), dtype=torch.bfloat16)
     waa = torch.zeros((3, 3, C, F), dtype=torch.bfloat16)
     wab = torch.zeros((3, 3, F, F), dtype=torch.bfloat16)
@@ -131,21 +132,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, monkeypatch):
         x = torch.zeros((1 * 8 * 8 * C + 1,), dtype=torch.bfloat16)[1:].reshape(1, 8, 8, C)
     elif bad == "weights":
         waa = waa.permute(3, 2, 0, 1)  # OIHW, not HWIO
-    elif bad == "tile":
-        tile = (4, 4)
     with pytest.raises((TypeError, ValueError)):
-        port.fused_conv3x3_relu_conv3x3(x, waa, wab, tile)
+        port.fused_conv3x3_relu_conv3x3(x, waa, wab)
 
 
-def test_every_tile_fits_shared_memory_at_the_widest_channels():
-    """C = F = 128 is the widest the kernel takes; every tile's block fits
-    the H100's shared memory there, and the bench's 8x16 tile uses the
-    layout the kernel computes (1024 + ring + slab + h + barriers)."""
-    for tile in port.TILES:
-        assert port.smem_bytes(tile, 128, 128) <= port.SMEM_LIMIT
-    assert port.smem_bytes((8, 16), 128, 128) == (
-        1024 + 3 * 32768 + 12 * 20 * 136 * 2 + 10 * 18 * 136 * 2 + 48)
-    assert port.work_ratio((8, 16), 128, 128) == 1.25
+@pytest.mark.parametrize("C, F, ratio", [
+    (128, 128, 1.25), (64, 64, 2.5),
+    (16, 32, (192 + 128) * 64 * 128 / (128 * (16 * 32 + 32 * 32)))])
+def test_work_ratio_counts_the_issued_rows_and_channels(C, F, ratio):
+    """At the 8x16 tile conv1 runs on 3 m64 row tiles for the 180 pixels
+    of h and conv2 on 2 for 128: (192 + 128) / 256 = 1.25 at C = F = 128.
+    Input channels are rounded up to whole 64-channel swizzle rows and the
+    outputs to the 128 packed ones: C = F = 64 issues twice that, and C = 16,
+    F = 32 issues (192 + 128) · 64 · 128 multiply-adds per 128 · (16 · 32 +
+    32 · 32) useful ones."""
+    assert port.TILE == (8, 16)
+    assert port.work_ratio(C, F) == ratio
 
 
 def _hwio(C, F, seed):

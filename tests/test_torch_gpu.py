@@ -502,7 +502,7 @@ def test_dense_rollout_kernels_match_plain_on_card():
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-def _k9_check(shape, tile, seed):
+def _k9_check(shape, seed):
     from slrsfs_tpu_torch.tools.conv_prototype import compare, within_limits
 
     dev = _card()
@@ -514,7 +514,7 @@ def _k9_check(shape, tile, seed):
     wab = (torch.randn((3, 3, F, F), generator=g, device=dev) / (9 * F) ** 0.5
            ).to(torch.bfloat16)
     kernels.reset_counts()
-    got = fused_conv.fused_conv3x3_relu_conv3x3(x, waa, wab, tile)
+    got = fused_conv.fused_conv3x3_relu_conv3x3(x, waa, wab)
     assert kernels.counts()[kernels.FUSED_CONV.name] == 1
     want = fused_conv.conv_chain_plain(x, waa, wab)
     torch.cuda.synchronize()
@@ -523,15 +523,27 @@ def _k9_check(shape, tile, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", fused_conv.TILES)
-def test_k9_matches_plain_on_card(tile):
-    _k9_check((2, 32, 48, 128, 128), tile, seed=13)
+def test_k9_matches_plain_on_card():
+    _k9_check((2, 32, 48, 128, 128), seed=13)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", fused_conv.TILES)
 @pytest.mark.parametrize("shape", [(1, 37, 29, 128, 128), (2, 9, 13, 32, 64)])
-def test_k9_ragged_matches_plain_on_card(shape, tile):
-    """H and W that the tiles do not divide, and narrower C and F, on
-    every tile."""
-    _k9_check(shape, tile, seed=14)
+def test_k9_ragged_matches_plain_on_card(shape):
+    """H and W that the tile does not divide, and narrower C and F."""
+    _k9_check(shape, seed=14)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C, F", [(128, 128), (16, 32), (64, 128), (128, 64)])
+def test_k9_block_fits_the_card(C, F):
+    """The kernel's block, at each of its instantiations (one or two
+    64-channel swizzle rows of C and F), fits the card's shared memory;
+    at C = F = 128 it is the 1024 alignment bytes, the 3-slot ring, the
+    12 x 20 slab, the 10 x 18 h (rows of 128 + 8 bf16) and 6 mbarriers."""
+    dev = _card()
+    got = kernels.FUSED_CONV.query("fused_conv_smem_bytes", C, F)
+    assert 0 < got <= torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if C == F == 128:
+        assert got == 1024 + 3 * 32768 + 12 * 20 * 136 * 2 + 10 * 18 * 136 * 2 + 48
+    assert kernels.FUSED_CONV.query("fused_conv_smem_bytes", C + 8, F) == -1
