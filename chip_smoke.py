@@ -90,6 +90,18 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
+def check_zeros(got, want, msg) -> int:
+    """Fail unless the empty cells (every channel exactly 0) of two splat
+    outputs (..., C) agree; return how many single elements are exactly 0 on
+    one side only. Both sides sum by atomics in an order that varies from
+    run to run, so where signed contributions cancel, an element of a cell
+    that was reached can round to exactly 0 in one order and not in another
+    (the allclose beside this check bounds it); a whole cell cannot."""
+    check(bool(((got == 0).all(-1) == (want == 0).all(-1)).all()),
+          f"{msg}: empty cells differ")
+    return int(((got == 0) != (want == 0)).sum())
+
+
 def synthetic_scene(seed: int):
     """uint8 image and a smooth flow whose bottom half of rows moves (exact
     zeros elsewhere), both from a numpy seed."""
@@ -298,7 +310,7 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
     """K8 at the render's shapes (P = 32768, C = 65, 256²): its path is the
     four exported functions, f32 then bf16, with the counts read after each
     dtype; each result against its plain version (f32: atol/rtol 1e-5 and
-    the same exact zeros; bf16: both sum in bf16 in other orders, so each is
+    the same empty cells; bf16: both sum in bf16 in other orders, so each is
     held against the f32 sums of the same rows, the kernel at most twice as
     far as the plain version; 1e-2 of max |out| is reported beside it);
     times, bounds and one index_add_ of the 4P weighted rows in the same
@@ -330,14 +342,14 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
             ref_one = S.softsplat_sum_at_plain(u32, positions, disp_a, H, W)
             ref_two = S.softsplat_sum_at_quad_dual_plain(u32, positions, disp_a,
                                                          disp_b, 0.5, 0.5, H, W)
-        err, far = 0.0, []
+        err, far, n_cancel = 0.0, [], 0
         for name, got, want in [(n, g, want_one) for n, g in one.items()] + [
                 ("softsplat_sum_at_quad_dual", two, want_two)]:
             e = (got.float() - want.float()).abs().max().item()
             if dtype == torch.float32:
                 check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
                       f"K8 f32 {name}: max abs {e}")
-                check(torch.equal(got == 0, want == 0), f"K8 f32 {name}: zeros differ")
+                n_cancel += check_zeros(got, want, f"K8 f32 {name}")
             else:
                 ref = ref_two if got is two else ref_one
                 d_k = (got.float() - ref).abs().max().item()
@@ -364,7 +376,8 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
         # multiply-adds
         bnd = bound(P * (C * e_b + 16) + H * W * C * e_b, P * (20 + 9 * C))
         label = "f32" if dtype == torch.float32 else "bf16"
-        limit = "atol/rtol 1e-5, zeros match" if label == "f32" else (
+        limit = (f"atol/rtol 1e-5, empty cells match; {n_cancel} elements of "
+                 f"reached cells exactly 0 on one side") if label == "f32" else (
             f"from the f32 sums: kernel up to {max(f[0] for f in far):.3g}, plain "
             f"up to {max(f[1] for f in far):.3g}, limit 2x the plain's; kernel vs "
             f"plain up to {max(f[2] for f in far):.3g} of max |out|")
@@ -733,8 +746,7 @@ def k3_phase(dev, scene_flow: np.ndarray):
         e = (out - ref).abs().max().item()
         check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
               f"K3 forward {label}: max abs {e}")
-        check(torch.equal(out == 0, ref == 0),
-              f"K3 forward {label}: zero pattern differs")
+        n_cancel = check_zeros(out, ref, f"K3 forward {label}")
         gi, gf = softsplat_sum_bwd_kernel(inp, flow, g)
         wi, wf = softsplat_sum_grad_plain(inp, flow, g)
         torch.cuda.synchronize()
@@ -748,7 +760,8 @@ def k3_phase(dev, scene_flow: np.ndarray):
         res["fwd_err"] = max(res["fwd_err"], e)
         res["bwd_err"] = max(res["bwd_err"], *eb)
         print(f"phase 9 K3 {label}: forward max abs {e:.3g} (atol/rtol 1e-5), "
-              f"zeros match ({int((ref == 0).all(-1).sum())} empty cells); "
+              f"empty cells match ({int((ref == 0).all(-1).sum())}; "
+              f"{n_cancel} elements of reached cells exactly 0 on one side); "
               f"backward max abs grad_inp {eb[0]:.3g}, grad_flow {eb[1]:.3g} "
               f"(limit 1e-5 of each output's max)")
     flow = flows["scene flow (K7)"]
@@ -1116,9 +1129,9 @@ def main() -> int:
             if acc_dtype == torch.float32:
                 check(torch.allclose(o.float(), ref.float(), rtol=rtol, atol=1e-5),
                       f"{name} {label}: max abs {err}")
-                check(torch.equal(o == 0, ref == 0),
-                      f"{name} {label}: zero pattern differs")
-                limit = f"atol 1e-5, rtol {rtol:g}; zeros match"
+                n_cancel = check_zeros(o, ref, f"{name} {label}")
+                limit = (f"atol 1e-5, rtol {rtol:g}; empty cells match, {n_cancel} "
+                         f"elements of reached cells exactly 0 on one side")
             else:
                 # bf16 sums round at every add, in the atomics' order here
                 # and in index order in the plain version; where many taps

@@ -21,7 +21,8 @@
 // atomicAdds land on consecutive addresses of each target cell. The sum is
 // f32 atomicAdd into an output the wrapper zeroes; the order of the adds
 // varies, so the result matches the plain version to ~1e-7 relative, with
-// the same exact zeros.
+// the same empty cells (where signed contributions cancel, a single element
+// can round to exactly 0 in one order of the adds and not in another).
 //
 // Backward design: one warp per (sample, pixel), lanes over channels, no
 // atomics. For each corner the warp gathers g at the clipped target
