@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port (slrsfs_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --maxwarp-in TREE   # K5 and K6 of another tree
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the main paths'
@@ -32,9 +33,15 @@ B = 60, 256 x 480, C = F = 128, the kernel, cuDNN and the plain chain
 timed, with the kernel's issued/useful work, shared memory and registers)
 and at a ragged shape: within 2^-7 of max |plain| with at most 0.1 % of
 the elements more than one bf16 ulp apart; the kernel's, the plain
-chain's and cuDNN's share beyond one ulp of a float64 chain is printed. A v2 render comparison above 1e-5 (the usual value is ~1e-6; the
-limit is 1e-4) reruns both sides and prints each stage's largest
-difference: packed rows, splat field, decoded frames.
+chain's and cuDNN's share beyond one ulp of a float64 chain is printed.
+K5 and K6 (one cooperative launch each) are held bit for bit in every
+case, all rows padded and a batch of 2 included, and torch.profiler
+counts the CUDA kernels one call of each runs on the card (one). A v2
+render comparison above 1e-5 (the usual value is ~1e-6; the limit is 1e-4)
+reruns both sides and prints each stage's largest difference (packed
+rows, splat field, decoded frames) and the splat field's elements that
+are exactly 0 on one side only, then reruns both sides with
+cudnn.deterministic.
 
 Then the stage-1 training path (Options() defaults at full width, batch 16,
 W = 256, T = 60, float32; a smaller batch only if 16 does not fit, said so):
@@ -47,18 +54,27 @@ against a plain-path step from one snapshot; and the train CLI for 2 steps
 on a synthetic dataset, whose checkpoint SceneRenderer then renders.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after. The script times the kernels, the renders and the steps with CUDA
-events and prints:
+after. The script times the renders and the steps with CUDA events, and
+each kernel three ways (kernel_times): as called (events around a loop of
+calls: the card's time or the host's, whichever is longer), on the card
+alone (device_time: the calls queued behind a sleep of the card, so they
+run back to back; the phase fails unless the host enqueued them all
+before the sleep ended) and the host's cost per call. It prints:
 
 * one line per phase (and ptxas's register/spill report per kernel);
 * the card's name and power limit as nvidia-smi reports them;
 * one JSON line {"kernels": [...]} with each kernel's launches on its path,
-  error against its plain version, times and bound;
+  error against its plain version, times and bound ("ms" is the card's
+  time alone, as is "library_ms" but for K9's cuDNN chain, which its bench
+  times as called; "plain_ms" is as called);
 * last, {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero without the last
 line. It also fails when no CUDA device is present. The rendered PNGs go
-to build/chip_smoke/ (git-ignored).
+to build/chip_smoke/ (git-ignored). With --maxwarp-in TREE it only times
+K5 and K6 of the package in TREE, another unpacked tree of this
+repository, beside their yardstick (slrsfs_tpu_torch/tools/compare.sh
+runs it on several trees in turns).
 """
 
 from __future__ import annotations
@@ -132,6 +148,84 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_time(fn, reps: int, warmup: int = 2):
+    """(device ms per call, host us per call) of ``fn``.
+
+    The ``reps`` calls are queued behind ``torch.cuda._sleep``, with the
+    start event recorded after the sleep, so the card runs them back to
+    back whatever the host's cost per call; the host's enqueue time is read
+    with ``time.perf_counter`` while the card sleeps. The phase fails unless
+    the enqueue (the sleep's own launch included) was shorter than the
+    sleep: else the card waited for the host, and the time would be the
+    host's. The sleep is four times a first enqueue of the calls (at least
+    1 ms; the sleep's cycles per ms are measured first) and doubles up to
+    twice when the host was late."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(warmup):
+        fn()
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 1e6 / start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sleep_ms = max(1.0, 4e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        start.record()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t2 = time.perf_counter()
+        end.record()
+        torch.cuda.synchronize()
+        if (t2 - t0) * 1e3 < sleep_ms:
+            return start.elapsed_time(end) / reps, (t2 - t1) / reps * 1e6
+        sleep_ms *= 2.0
+    check(False, f"device_time: enqueueing {reps} calls took {(t2 - t0) * 1e3:.3f} "
+          f"ms, not shorter than the {sleep_ms / 2.0:.3f} ms sleep")
+
+
+def kernel_times(fn, reps: int, warmup: int = 2) -> dict:
+    """``fn`` timed as called (``cuda_time``: events around a loop of
+    calls, host and card together) and on the card alone
+    (``device_time``): {"called": ms, "ms": device ms, "host_us": us}."""
+    called = cuda_time(fn, reps, warmup)
+    ms, host_us = device_time(fn, reps, warmup)
+    return {"called": called, "ms": ms, "host_us": host_us}
+
+
+def fmt_times(t: dict) -> str:
+    return (f"device {t['ms']:.4f} ms (as called {t['called']:.4f} ms, host "
+            f"{t['host_us']:.1f} us)")
+
+
+def kernels_per_call(fn, reps: int = 4):
+    """(CUDA kernels the card ran per call of ``fn``, their names), from a
+    ``torch.profiler`` trace of ``reps`` calls after one warm-up; copies
+    and memsets are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(names) / reps, sorted(set(names))
 
 
 def bound(n_bytes: float, n_ops: float, peak: float = FP32_FLOPS):
@@ -224,8 +318,14 @@ def v2_stages(run, model, positions, valid):
 
 def v2_diagnostic(label, err, model, positions, valid, run_a, run_b):
     """When a v2 comparison lands above 1e-5 (the usual value is ~1e-6),
-    run both sides again and print each stage's largest difference: packed
-    rows, splat field, decoded frames."""
+    run both sides again and print each stage's largest difference (packed
+    rows, splat field, decoded frames) and how many elements of the splat
+    field are exactly 0 on one side only (the decoders' hole mask is
+    ``x != 0``); then run both sides once more with
+    ``torch.backends.cudnn.deterministic`` and print the frames' largest
+    difference."""
+    import torch
+
     if err <= 1e-5:
         return
     a, b = (v2_stages(r, model, positions, valid) for r in (run_a, run_b))
@@ -239,9 +339,18 @@ def v2_diagnostic(label, err, model, positions, valid, run_a, run_b):
             return max((diff(p, q) for p, q in zip(x, y)), default=0.0)
         return (x.float() - y.float()).abs().max().item()
 
+    zero_one_side = sum(int(((x == 0) != (y == 0)).sum()) for x, y in zip(a[1], b[1]))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = diff(run_a(), run_b())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     print(f"phase 5-6 v2 diagnostic {label} ({err:.3g} > 1e-5): max abs of the "
           f"packed rows {diff(a[0], b[0]):.3g} ({len(a[0])}/{len(b[0])} frames), "
-          f"splat field {diff(a[1], b[1]):.3g}, decoded frames {diff(a[2], b[2]):.3g}")
+          f"splat field {diff(a[1], b[1]):.3g} ({zero_one_side} elements exactly 0 "
+          f"on one side only), decoded frames {diff(a[2], b[2]):.3g}; both sides "
+          f"again with cudnn.deterministic: frames {det:.3g}")
 
 
 def read_png(path):
@@ -293,7 +402,7 @@ def k4_phase(dev, flow):
               f"dense and last step with visibility, compact P={pos.shape[0]}, "
               f"n_steps=0: bit-exact; {n_oob} backward trajectories and "
               f"{n_hidden} forward ones left the frame")
-    ms = cuda_time(lambda: E.euler_integrate_all_dual(flow, n_f, n_b), reps=20)
+    t = kernel_times(lambda: E.euler_integrate_all_dual(flow, n_f, n_b), reps=20)
     plain_ms = cuda_time(lambda: E.euler_integrate_all_dual_plain(flow, n_f, n_b),
                          reps=3, warmup=1)
     R, steps = H * W, n_f + n_b
@@ -301,9 +410,9 @@ def k4_phase(dev, flow):
     # per trajectory step ~12 operations (round x2, add x2, 4 compares,
     # subtract x2, 2 selects)
     bnd = bound(R * 8 + (steps + 2) * R * 8, steps * R * 12)
-    print(f"phase 2 K4 dense dual: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
-          f"{bnd[0]:.4f} ms by {bnd[1]})")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd}
+    print(f"phase 2 K4 dense dual: {fmt_times(t)}; plain {plain_ms:.2f} ms; bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]}")
+    return {"err": err, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd}
 
 
 def k8_phase(dev, u_mov, positions, disp_a, disp_b):
@@ -358,8 +467,9 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
                       f"sums, over twice the plain version's {d_p}")
                 far.append((d_k, d_p, e / want.float().abs().max().item()))
             err = max(err, e)
-        ms = cuda_time(lambda: S.softsplat_sum_at(u, positions, disp_a, H, W), reps=50)
-        ms_dual = cuda_time(lambda: S.softsplat_sum_at_quad_dual(
+        t = kernel_times(lambda: S.softsplat_sum_at(u, positions, disp_a, H, W),
+                         reps=50)
+        t_dual = kernel_times(lambda: S.softsplat_sum_at_quad_dual(
             u, positions, disp_a, disp_b, 0.5, 0.5, H, W), reps=50)
         plain_ms = cuda_time(lambda: S.softsplat_sum_at_plain(u, positions, disp_a,
                                                               H, W), reps=10)
@@ -369,7 +479,7 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
             rows.append((u.float() * w[:, None]).to(dtype))
         lin_all, rows_all = torch.cat(lins), torch.cat(rows)
         acc = torch.zeros((H * W, C), dtype=dtype, device=dev)
-        lib_ms = cuda_time(lambda: acc.index_add_(0, lin_all, rows_all), reps=50)
+        t_lib = kernel_times(lambda: acc.index_add_(0, lin_all, rows_all), reps=50)
         e_b = u.element_size()
         # the rows, positions and displacements in, the grid out; per row
         # ~20 operations of corner math, per channel a scale and 4
@@ -383,12 +493,12 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
             f"plain up to {max(f[2] for f in far):.3g} of max |out|")
         print(f"phase 3 K8 {label}: softsplat_sum_at, _paired, _quad and _quad_dual "
               f"(launches {launches['splat_sum_at']}) max abs {err:.3g} vs plain "
-              f"({limit}); one end {ms:.4f} ms, two ends {ms_dual:.4f} ms (plain "
-              f"{plain_ms:.3f} ms, index_add_ of the 4P rows {lib_ms:.4f} ms, bound "
-              f"{bnd[0]:.4f} ms by {bnd[1]})")
-        res[label] = {"launches": launches["splat_sum_at"], "err": err, "ms": ms,
-                      "ms_dual": ms_dual, "plain_ms": plain_ms, "lib_ms": lib_ms,
-                      "bound": bnd}
+              f"({limit}); one end {fmt_times(t)}; two ends {fmt_times(t_dual)}; "
+              f"plain {plain_ms:.3f} ms; index_add_ of the 4P rows {fmt_times(t_lib)}; "
+              f"bound {bnd[0]:.4f} ms by {bnd[1]}")
+        res[label] = {"launches": launches["splat_sum_at"], "err": err, "ms": t["ms"],
+                      "ms_dual": t_dual["ms"], "plain_ms": plain_ms,
+                      "lib_ms": t_lib["ms"], "bound": bnd}
         del lin_all, rows_all, acc
     return res
 
@@ -561,6 +671,9 @@ def k9_phase(dev):
     print(f"phase 7 K9 ragged {shape} against the float64 chain: share of elements "
           f"beyond one bf16 ulp: " + ", ".join(f"{k} {v:.2e}" for k, v in shares.items()))
     x, waa, wab = res["inputs"]
+    t = {"called": res["ms"]["kernel"]}
+    t["ms"], t["host_us"] = device_time(
+        lambda: fc.fused_conv3x3_relu_conv3x3(x, waa, wab), reps=3, warmup=1)
     peaks = {}
     for name, fn in (("kernel", lambda: fc.fused_conv3x3_relu_conv3x3(x, waa, wab)),
                      ("library", lambda: fc.conv_chain_library(x, waa, wab))):
@@ -579,7 +692,8 @@ def k9_phase(dev):
           f"({res['flop'] / 1e12:.3f} TFLOP useful): "
           + ", ".join(f"{k} {v:.3f} ms ({res['tflops'][k]:.1f} TFLOP/s)"
                       for k, v in res["ms"].items())
-          + f"; bound {bnd[0]:.3f} ms by {bnd[1]}; launches {launches['fused_conv3x3_relu_conv3x3']}; "
+          + f"; kernel {fmt_times(t)}; bound {bnd[0]:.3f} ms by {bnd[1]}; launches "
+          f"{launches['fused_conv3x3_relu_conv3x3']}; "
           f"peak above inputs: kernel {peaks['kernel'] / 2**30:.2f} GiB, library "
           f"{peaks['library'] / 2**30:.2f} GiB")
     blk = res["block"]
@@ -594,12 +708,118 @@ def k9_phase(dev):
           f"shared memory, {regs}")
     out = {"launches": launches["fused_conv3x3_relu_conv3x3"],
            "err": max(ragged_err, res["check"]["max_abs_err"]),
-           "ms": res["ms"]["kernel"], "plain_ms": res["ms"]["plain"],
+           "ms": t["ms"], "plain_ms": res["ms"]["plain"],
            "lib_ms": res["ms"]["library"], "bound": bnd}
     del x, waa, wab, res
     torch.cuda.empty_cache()
     return out
 
+
+def maxwarp_inputs(dev):
+    """K5's and K6's inputs at the v2 render's shapes, from the synthetic
+    scene: Z drawn from a seed, the moving set (P = 32768), its K1
+    displacement at T_MID and the dense displacement at T_MID, both from
+    the plain integrators."""
+    import torch
+
+    from slrsfs_tpu_torch.engine.rollout import prepare_scene_sparse
+    from slrsfs_tpu_torch.ops.euler import (
+        euler_compact_dual_plain,
+        euler_integrate_all_dual_plain,
+    )
+
+    _, flow_np = synthetic_scene(SEED)
+    pos_np, val_np = prepare_scene_sparse(flow_np)
+    flow = torch.from_numpy(flow_np).to(dev)
+    positions = torch.from_numpy(pos_np).to(dev)
+    valid = torch.from_numpy(val_np).to(dev)
+    z2d = torch.from_numpy((np.random.default_rng(SEED + 5).standard_normal((H, W))
+                            * 3.0).astype(np.float32)).to(dev)
+    static = (flow.abs().sum(-1) == 0).to(torch.float32)
+    z_mov = z2d[positions[:, 1].long(), positions[:, 0].long()].contiguous()
+    d_mid = euler_compact_dual_plain(flow, positions, N_FRAMES - 1, N_FRAMES)[0][T_MID]
+    fl_mid = euler_integrate_all_dual_plain(flow, N_FRAMES - 1, 1)[0][T_MID][None]
+    return (z2d, static, z_mov, positions, valid, d_mid.contiguous(),
+            z2d[None, ..., None].contiguous(), fl_mid.contiguous())
+
+
+def maxwarp_phase(dev, z2d, static, z_mov, positions, valid, d_mid, z4, fl_mid):
+    """K5 and K6 at the v2 render's shapes (t = T_MID): as called, on the
+    card alone and the host's cost per call (``kernel_times``), the plain
+    versions, the yardstick (one ``scatter_reduce_(amax)`` of the same
+    corner rows), the bound, and the CUDA kernels one call runs on the card
+    (``torch.profiler``, after the timings)."""
+    import torch
+
+    from slrsfs_tpu_torch.ops import maxwarp
+    from slrsfs_tpu_torch.ops.splat import corners
+
+    P, n_valid = positions.shape[0], int((valid > 0.5).sum())
+    calls = {
+        "K5": (lambda: maxwarp.maximum_warp_norm_sparse(
+                   z2d, static, z_mov, positions, valid, d_mid),
+               lambda: maxwarp.maximum_warp_norm_sparse_plain(
+                   z2d, static, z_mov, positions, valid, d_mid)),
+        "K6": (lambda: maxwarp.maximum_warp_norm_splat(z4, fl_mid),
+               lambda: maxwarp.maximum_warp_norm_splat_plain(z4, fl_mid))}
+    px, py = positions[:, 0].float(), positions[:, 1].float()
+    taps_of = {
+        "K5": (px + d_mid[:, 0], py + d_mid[:, 1], z_mov, valid > 0.5),
+        "K6": ((torch.arange(W, device=dev)[None, :] + fl_mid[0, ..., 0]).reshape(-1),
+               (torch.arange(H, device=dev)[:, None] + fl_mid[0, ..., 1]).reshape(-1),
+               z2d.reshape(-1), torch.ones(H * W, dtype=torch.bool, device=dev))}
+    # K5: z and the static mask in, the moving rows (z_mov, positions,
+    # valid, disp) in, zmax_dense and zmax_mov out; per valid row ~16 ops
+    # for the corners and weights and 4 maxes scattering, 4 gathering; per
+    # cell 3 adds and 2 maxes for the stencil, 4 maxes for zmax_dense.
+    # K6: z and the flow in, the output out; per pixel ~16 ops for the
+    # corners and weights, 4 maxes scattering and 4 gathering
+    bounds = {"K5": bound(H * W * 4 * 2 + P * (4 + 8 + 4 + 8) + H * W * 4 + P * 4,
+                          n_valid * 20 + P * 20 + H * W * 9),
+              "K6": bound(H * W * (4 + 8 + 4), H * W * 24)}
+    res = {}
+    for name, (kernel, plain) in calls.items():
+        r = kernel_times(kernel, reps=50)
+        r["plain_ms"] = cuda_time(plain, reps=10)
+        ox, oy, zv, keep = taps_of[name]
+        taps = corners(ox, oy, H, W)
+        lin_all = torch.cat([lin for lin, _, _ in taps])
+        val_all = torch.cat([torch.where(inside & keep, zv * w, float("-inf"))
+                             for _, w, inside in taps])
+        mx = torch.full((H * W,), -1000.0, device=dev)
+        r["lib"] = kernel_times(lambda: mx.scatter_reduce_(0, lin_all, val_all,
+                                                           reduce="amax"), reps=50)
+        r["bound"] = bounds[name]
+        res[name] = r
+    for name, (kernel, _) in calls.items():
+        res[name]["per_call"], res[name]["names"] = kernels_per_call(kernel)
+    return res
+
+
+def print_maxwarp(label, res):
+    for name, r in res.items():
+        print(f"{label} {name}: {fmt_times(r)}; plain {r['plain_ms']:.3f} ms; "
+              f"scatter_reduce_ {fmt_times(r['lib'])}; bound {r['bound'][0]:.5f} ms "
+              f"by {r['bound'][1]}; {r['per_call']:g} CUDA kernels per call "
+              f"({', '.join(r['names'])})")
+
+
+def maxwarp_in(tree: str) -> int:
+    """``python3 chip_smoke.py --maxwarp-in TREE``: ``maxwarp_phase`` on the
+    package of another unpacked tree of this repository (its kernels built
+    in TREE/build), to compare commits on one card
+    (slrsfs_tpu_torch/tools/compare.sh)."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import slrsfs_tpu_torch
+
+    check(os.path.dirname(os.path.dirname(os.path.abspath(slrsfs_tpu_torch.__file__)))
+          == os.path.abspath(tree), f"slrsfs_tpu_torch not imported from {tree}")
+    check(torch.cuda.is_available(), "no CUDA device")
+    dev = torch.device("cuda")
+    print_maxwarp("maxwarp", maxwarp_phase(dev, *maxwarp_inputs(dev)))
+    return 0
 
 
 # ---- training: kernels K7 and K3, the G+D step, the train CLI -----------
@@ -693,11 +913,11 @@ def k7_phase(dev, scene_flow: np.ndarray):
     # timing inputs: the training batch's counts on the scene's motion
     idx = make_train_batch(np.random.default_rng(SEED), B, W)["index"]
     tf_b, tp_b = (torch.from_numpy(a).to(dev) for a in phased_counts(idx, T))
-    ms = cuda_time(lambda: euler_integrate_phased(m, tf_b, tp_b, T), reps=20)
+    t = kernel_times(lambda: euler_integrate_phased(m, tf_b, tp_b, T), reps=20)
     plain_ms = cuda_time(lambda: euler_integrate_phased_plain(m, tf_b, tp_b, T),
                          reps=3, warmup=1)
-    ms_c = cuda_time(lambda: euler_integrate_phased_compact(m, pos, val, tf_b,
-                                                            tp_b, T), reps=20)
+    t_c = kernel_times(lambda: euler_integrate_phased_compact(m, pos, val, tf_b,
+                                                              tp_b, T), reps=20)
     # per trajectory and step ~20 operations (round x2, clamp x4, index,
     # gather, sign, add x2, 4 compares, pin, subtract x2, 2 latches); the
     # loop runs to the last latching step; bytes: motion and counts in, both
@@ -705,11 +925,11 @@ def k7_phase(dev, scene_flow: np.ndarray):
     steps = int(np.where(tp_b.cpu().numpy() > 0,
                          (tf_b + tp_b).cpu().numpy(), tf_b.cpu().numpy()).sum())
     bnd = bound(B * H * W * 8 + B * 8 + 2 * B * H * W * 8, steps * H * W * 20)
-    print(f"phase 8 K7: dense {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
-          f"{bnd[0]:.4f} ms by {bnd[1]}); compact P={P} {ms_c:.4f} ms")
+    print(f"phase 8 K7: dense {fmt_times(t)}; plain {plain_ms:.2f} ms; bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]}; compact P={P} {fmt_times(t_c)}")
     kernels.reset_counts()
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd,
-            "ms_compact": ms_c}
+    return {"err": err, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd,
+            "ms_compact": t_c["ms"]}
 
 
 def k3_phase(dev, scene_flow: np.ndarray):
@@ -765,11 +985,12 @@ def k3_phase(dev, scene_flow: np.ndarray):
               f"backward max abs grad_inp {eb[0]:.3g}, grad_flow {eb[1]:.3g} "
               f"(limit 1e-5 of each output's max)")
     flow = flows["scene flow (K7)"]
-    res["ms_fwd"] = cuda_time(lambda: softsplat_sum_fwd_kernel(inp, flow), reps=20)
+    t_fwd = kernel_times(lambda: softsplat_sum_fwd_kernel(inp, flow), reps=20)
+    res["ms_fwd"] = t_fwd["ms"]
     res["plain_fwd"] = cuda_time(lambda: softsplat_sum_plain(inp, flow), reps=3,
                                  warmup=1)
-    res["ms_bwd"] = cuda_time(lambda: softsplat_sum_bwd_kernel(inp, flow, g),
-                              reps=20)
+    t_bwd = kernel_times(lambda: softsplat_sum_bwd_kernel(inp, flow, g), reps=20)
+    res["ms_bwd"] = t_bwd["ms"]
     res["plain_bwd"] = cuda_time(lambda: softsplat_sum_grad_plain(inp, flow, g),
                                  reps=3, warmup=1)
     # yardstick for the forward: ONE index_add_ of the 4·B·HW weighted rows
@@ -784,7 +1005,8 @@ def k3_phase(dev, scene_flow: np.ndarray):
     lin_all, rows_all = torch.cat(lins), torch.cat(rows)
     del lins, rows
     acc = torch.zeros((B * H * W, C), device=dev)
-    res["lib_fwd"] = cuda_time(lambda: acc.index_add_(0, lin_all, rows_all), reps=20)
+    t_lib = kernel_times(lambda: acc.index_add_(0, lin_all, rows_all), reps=20)
+    res["lib_fwd"] = t_lib["ms"]
     del lin_all, rows_all, acc
     n = B * H * W
     # forward: inp and flow in, out out; per pixel ~20 ops of corner math
@@ -793,11 +1015,11 @@ def k3_phase(dev, scene_flow: np.ndarray):
     # backward: inp, flow and g in, grad_inp and grad_flow out; per channel
     # and corner 2 multiply-adds (g·w, inp·g)
     res["bound_bwd"] = bound(n * C * 4 * 3 + n * 8 * 2, n * (16 * C + 40))
-    print(f"phase 9 K3 forward: {res['ms_fwd']:.4f} ms (plain "
-          f"{res['plain_fwd']:.2f} ms, index_add_ {res['lib_fwd']:.4f} ms, bound "
-          f"{res['bound_fwd'][0]:.4f} ms by {res['bound_fwd'][1]}); backward: "
-          f"{res['ms_bwd']:.4f} ms (plain {res['plain_bwd']:.2f} ms, bound "
-          f"{res['bound_bwd'][0]:.4f} ms by {res['bound_bwd'][1]})")
+    print(f"phase 9 K3 forward: {fmt_times(t_fwd)}; plain {res['plain_fwd']:.2f} ms; "
+          f"index_add_ {fmt_times(t_lib)}; bound {res['bound_fwd'][0]:.4f} ms by "
+          f"{res['bound_fwd'][1]}")
+    print(f"phase 9 K3 backward: {fmt_times(t_bwd)}; plain {res['plain_bwd']:.2f} ms; "
+          f"bound {res['bound_bwd'][0]:.4f} ms by {res['bound_bwd'][1]}")
     return res
 
 
@@ -1178,35 +1400,47 @@ def main() -> int:
                            .astype(np.float32)).to(dev)
     z_mov = z2d[py, px].contiguous()
     k5_err = k6_err = 0.0
-    for label, d in [(f"t={t}", disp_f[t]) for t in T_CHECK] + [
-            ("sentinel/integer/border", special)]:
+    padded = torch.zeros_like(valid)
+    for label, d, v in [(f"t={t}", disp_f[t], valid) for t in T_CHECK] + [
+            ("sentinel/integer/border", special, valid),
+            (f"t={T_MID} all rows padded", disp_f[T_MID], padded)]:
         kd, km = maxwarp.maximum_warp_norm_sparse(z2d, static, z_mov, positions,
-                                                  valid, d)
+                                                  v, d)
         pd, pm = maxwarp.maximum_warp_norm_sparse_plain(z2d, static, z_mov,
-                                                        positions, valid, d)
+                                                        positions, v, d)
         torch.cuda.synchronize()
         check(torch.equal(kd, pd) and torch.equal(km, pm),
               f"K5 {label}: kernel differs from plain")
         k5_err = max(k5_err, (kd - pd).abs().max().item(),
                      (km - pm).abs().max().item())
-        print(f"phase 4 K5 {label}: bit-exact (P={P}, {int((pm > z_mov).sum())} "
-              f"moving rows raised by a neighbour)")
+        print(f"phase 4 K5 {label}: bit-exact (P={P}, {int(v.sum())} valid, "
+              f"{int((pm > z_mov).sum())} moving rows raised by a neighbour)")
     dense_f, _ = euler_integrate_all_dual_plain(flow, N_FRAMES - 1, 1)
     special_dense = dense_f[T_MID].reshape(-1, 2).clone()
     special_dense[0::3] = float(max(H, W) + 1)
     special_dense[1::3] = torch.tensor([3.0, -2.0], device=dev)
     special_dense[2::3] = torch.tensor([-0.75, -127.5], device=dev)
     z4 = z2d[None, ..., None].contiguous()
-    for label, fl in [(f"t={t}", dense_f[t]) for t in T_CHECK] + [
-            ("sentinel/integer/border", special_dense.reshape(H, W, 2))]:
-        fl = fl[None].contiguous()
-        got = maxwarp.maximum_warp_norm_splat(z4, fl)
-        want = maxwarp.maximum_warp_norm_splat_plain(z4, fl)
+    z4_b2 = torch.cat([z4, -0.5 * z4.flip(1)])
+    for label, z_, fl in [(f"t={t}", z4, dense_f[t][None]) for t in T_CHECK] + [
+            ("sentinel/integer/border", z4, special_dense.reshape(1, H, W, 2)),
+            (f"B=2 t=1, t={T_MID}", z4_b2, dense_f[[1, T_MID]])]:
+        fl = fl.contiguous()
+        got = maxwarp.maximum_warp_norm_splat(z_, fl)
+        want = maxwarp.maximum_warp_norm_splat_plain(z_, fl)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"K6 {label}: kernel differs from plain")
         k6_err = max(k6_err, (got - want).abs().max().item())
-        print(f"phase 4 K6 {label}: bit-exact ({int((want > z4).sum())} pixels "
+        print(f"phase 4 K6 {label}: bit-exact ({int((want > z_).sum())} pixels "
               f"raised by a neighbour)")
+    d_mid = disp_f[T_MID]
+    fl_mid = dense_f[T_MID][None].contiguous()
+    mw = maxwarp_phase(dev, z2d, static, z_mov, positions, valid, d_mid, z4, fl_mid)
+    for name, r in mw.items():
+        check(r["per_call"] == 1, f"{name}: {r['per_call']} CUDA kernels per call "
+              f"on the card ({r['names']}), not one")
+        print(f"phase 4 {name}: {r['per_call']:g} CUDA kernel per call on the card "
+              f"(torch.profiler: {', '.join(r['names'])})")
 
     # ---- phase 5: the baseline path through SceneRenderer.render -----
     from PIL import Image
@@ -1419,16 +1653,18 @@ def main() -> int:
 
     # ---- phase 7: times, bounds, peak memory -------------------------
     f32 = torch.float32
-    ms_k1 = cuda_time(lambda: euler_compact_dual(flow, positions, N_FRAMES - 1,
-                                                 N_FRAMES), reps=20)
+    t_k1 = kernel_times(lambda: euler_compact_dual(flow, positions, N_FRAMES - 1,
+                                                   N_FRAMES), reps=20)
+    ms_k1 = t_k1["ms"]
     ms_k1_plain = cuda_time(lambda: euler_compact_dual_plain(
         flow, positions, N_FRAMES - 1, N_FRAMES), reps=3, warmup=1)
     a_mid = 0.5
     for name, st in k2.items():
         args = (st["u_mov"], positions, valid, disp_f[T_MID], disp_b[T_MID], a_mid, a_mid,
                 st["u_static"])
-        st["ms"] = cuda_time(lambda: st["wrapper"](*args, out=st["out"],
-                                                   acc=st["acc"]), reps=50)
+        st["t"] = kernel_times(lambda: st["wrapper"](*args, out=st["out"],
+                                                     acc=st["acc"]), reps=50)
+        st["ms"] = st["t"]["ms"]
         st["plain_ms"] = cuda_time(lambda: st["plain"](*args, f32), reps=10)
         # yardstick: the same scatter as ONE index_add_ into the flat buffer
         lins, rows = [], []
@@ -1439,8 +1675,9 @@ def main() -> int:
                 rows.append(st["u_mov"] * w_t * (w * valid)[:, None])
         lin_all, rows_all = torch.cat(lins), torch.cat(rows)
         flat = st["u_static"].reshape(H * W, st["C1"]).clone()
-        st["lib_ms"] = cuda_time(lambda: flat.index_add_(0, lin_all, rows_all),
-                                 reps=50)
+        st["t_lib"] = kernel_times(lambda: flat.index_add_(0, lin_all, rows_all),
+                                   reps=50)
+        st["lib_ms"] = st["t_lib"]["ms"]
         C1, C = st["C1"], st["C1"] - st["n_norm"]
         # moving rows, positions and both displacements of the valid rows;
         # the valid flags of all rows; the static identity in, the field out
@@ -1452,71 +1689,33 @@ def main() -> int:
         bf = torch.bfloat16
         args_bf = (st["u_mov"].to(bf),) + args[1:-1] + (st["u_static"].to(bf),)
         acc_bf = splat_scratch(H, W, C1, bf, dev)
-        st["ms_bf16"] = cuda_time(lambda: st["wrapper"](*args_bf, out=st["out"],
-                                                        acc=acc_bf), reps=50)
+        st["t_bf16"] = kernel_times(lambda: st["wrapper"](*args_bf, out=st["out"],
+                                                          acc=acc_bf), reps=50)
+        st["ms_bf16"] = st["t_bf16"]["ms"]
         st["plain_ms_bf16"] = cuda_time(lambda: st["plain"](*args_bf, f32), reps=10)
         rows_bf, flat_bf = rows_all.to(bf), flat.to(bf)
-        st["lib_ms_bf16"] = cuda_time(lambda: flat_bf.index_add_(0, lin_all, rows_bf),
-                                      reps=50)
+        st["t_lib_bf16"] = kernel_times(lambda: flat_bf.index_add_(0, lin_all, rows_bf),
+                                        reps=50)
+        st["lib_ms_bf16"] = st["t_lib_bf16"]["ms"]
         st["bound_bf16"] = bound(n_valid * (C1 * 2 + 8 + 16) + P * 4
                                  + H * W * C1 * 2 + H * W * C * 4,
                                  2 * n_valid * C1 * (1 + 4 * 2) + H * W * C)
         del lin_all, rows_all, flat, rows_bf, flat_bf, acc_bf
 
-    # K5 and K6 at t = T_MID; yardstick: one scatter_reduce_(amax) of the
-    # same corner rows
-    d_mid = disp_f[T_MID]
-    ms_k5 = cuda_time(lambda: maxwarp.maximum_warp_norm_sparse(
-        z2d, static, z_mov, positions, valid, d_mid), reps=50)
-    ms_k5_plain = cuda_time(lambda: maxwarp.maximum_warp_norm_sparse_plain(
-        z2d, static, z_mov, positions, valid, d_mid), reps=10)
-    fl_mid = dense_f[T_MID][None].contiguous()
-    ms_k6 = cuda_time(lambda: maxwarp.maximum_warp_norm_splat(z4, fl_mid), reps=50)
-    ms_k6_plain = cuda_time(lambda: maxwarp.maximum_warp_norm_splat_plain(
-        z4, fl_mid), reps=10)
-    lib = {}
-    for name, (ox, oy, zv, keep) in {
-            "K5": (px.float() + d_mid[:, 0], py.float() + d_mid[:, 1], z_mov,
-                   valid > 0.5),
-            "K6": ((torch.arange(W, device=dev)[None, :] + fl_mid[0, ..., 0]).reshape(-1),
-                   (torch.arange(H, device=dev)[:, None] + fl_mid[0, ..., 1]).reshape(-1),
-                   z2d.reshape(-1), torch.ones(H * W, dtype=torch.bool, device=dev))
-    }.items():
-        taps = corners(ox, oy, H, W)
-        lin_all = torch.cat([lin for lin, _, _ in taps])
-        val_all = torch.cat([torch.where(inside & keep, zv * w, float("-inf"))
-                             for _, w, inside in taps])
-        mx = torch.full((H * W,), -1000.0, device=dev)
-        lib[name] = cuda_time(lambda: mx.scatter_reduce_(0, lin_all, val_all,
-                                                         reduce="amax"), reps=50)
-    # K5: z and the static mask in, the moving rows (z_mov, positions,
-    # valid, disp) in, zmax_dense and zmax_mov out; per valid row ~16 ops
-    # for the corners and weights and 4 maxes scattering, 4 gathering; per
-    # cell 3 adds and 2 maxes for the stencil, 4 maxes for zmax_dense
-    k5_bound = bound(H * W * 4 * 2 + P * (4 + 8 + 4 + 8) + H * W * 4 + P * 4,
-                     n_valid * 20 + P * 20 + H * W * 9)
-    # K6: z and the flow in, the output out; per pixel ~16 ops for the
-    # corners and weights, 4 maxes scattering and 4 gathering
-    k6_bound = bound(H * W * (4 + 8 + 4), H * W * 24)
-
     steps = (N_FRAMES - 1) + N_FRAMES
     k1_bound = bound(H * W * 8 + P * 8 + (steps + 2) * P * 8,
                      steps * P * 12)  # round x2, add x2, 4 compares, sub x2, 2 sel
-    print(f"phase 7 K1: {ms_k1:.4f} ms (plain {ms_k1_plain:.3f} ms, bound "
-          f"{k1_bound[0]:.4f} ms by {k1_bound[1]})")
+    print(f"phase 7 K1: {fmt_times(t_k1)}; plain {ms_k1_plain:.3f} ms; bound "
+          f"{k1_bound[0]:.4f} ms by {k1_bound[1]}")
     for name, st in k2.items():
-        print(f"phase 7 {name}: {st['ms']:.4f} ms/frame (plain "
-              f"{st['plain_ms']:.3f} ms, index_add_ {st['lib_ms']:.4f} ms, bound "
-              f"{st['bound'][0]:.4f} ms by {st['bound'][1]}); bf16 accumulation "
-              f"{st['ms_bf16']:.4f} ms/frame (plain {st['plain_ms_bf16']:.3f} ms, "
-              f"bf16 index_add_ {st['lib_ms_bf16']:.4f} ms, bound "
-              f"{st['bound_bf16'][0]:.4f} ms by {st['bound_bf16'][1]})")
-    print(f"phase 7 K5: {ms_k5:.4f} ms/frame (plain {ms_k5_plain:.3f} ms, "
-          f"scatter_reduce_ {lib['K5']:.4f} ms, bound {k5_bound[0]:.5f} ms by "
-          f"{k5_bound[1]})")
-    print(f"phase 7 K6: {ms_k6:.4f} ms/frame (plain {ms_k6_plain:.3f} ms, "
-          f"scatter_reduce_ {lib['K6']:.4f} ms, bound {k6_bound[0]:.5f} ms by "
-          f"{k6_bound[1]})")
+        print(f"phase 7 {name} per frame: {fmt_times(st['t'])}; plain "
+              f"{st['plain_ms']:.3f} ms; index_add_ {fmt_times(st['t_lib'])}; bound "
+              f"{st['bound'][0]:.4f} ms by {st['bound'][1]}")
+        print(f"phase 7 {name} bf16 accumulation per frame: {fmt_times(st['t_bf16'])}; "
+              f"plain {st['plain_ms_bf16']:.3f} ms; bf16 index_add_ "
+              f"{fmt_times(st['t_lib_bf16'])}; bound {st['bound_bf16'][0]:.4f} ms by "
+              f"{st['bound_bf16'][1]}")
+    print_maxwarp("phase 7", mw)
 
     # stage breakdown of one f32 baseline render and one f32 SLR render
     with torch.no_grad():
@@ -1553,7 +1752,7 @@ def main() -> int:
             lambda: mbf.decode_alpha_packed(chunk65_bf), reps=2, warmup=1)
     ms_s["K1"] = ms_k1
     ms_s[f"K2-SLR x{N_FRAMES}"] = k2["K2-SLR"]["ms"] * N_FRAMES
-    ms_s[f"K5 x{N_FRAMES}"] = ms_k5 * N_FRAMES
+    ms_s[f"K5 x{N_FRAMES}"] = mw["K5"]["ms"] * N_FRAMES
     print("phase 7 SLR stages (f32 unless noted): "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in ms_s.items()))
 
@@ -1654,14 +1853,15 @@ def main() -> int:
               "slrsfs_tpu_torch/csrc/splat.cu", "slrsfs_tpu/ops/splat.py:255",
               r8["launches"], r8["err"], r8["ms"], r8["plain_ms"], r8["bound"],
               r8["lib_ms"]) for label, r8 in k8.items()],
-        row("maximum_warp_norm_sparse", "slrsfs_tpu_torch/csrc/maxwarp_sparse.cu",
+        row("maximum_warp_norm_sparse", "slrsfs_tpu_torch/csrc/maxwarp.cu",
             "slrsfs_tpu/ops/splat.py:492",
             slr_launches["float32 v2"]["maximum_warp_norm_sparse"], k5_err,
-            ms_k5, ms_k5_plain, k5_bound, lib["K5"]),
+            mw["K5"]["ms"], mw["K5"]["plain_ms"], mw["K5"]["bound"],
+            mw["K5"]["lib"]["ms"]),
         row("maximum_warp_norm_splat", "slrsfs_tpu_torch/csrc/maxwarp.cu",
             "slrsfs_tpu/ops/splat.py:240",
-            dense_launches["maximum_warp_norm_splat"], k6_err, ms_k6,
-            ms_k6_plain, k6_bound, lib["K6"]),
+            dense_launches["maximum_warp_norm_splat"], k6_err, mw["K6"]["ms"],
+            mw["K6"]["plain_ms"], mw["K6"]["bound"], mw["K6"]["lib"]["ms"]),
         row("splat_dense_fwd", "slrsfs_tpu_torch/csrc/splat_dense.cu",
             "slrsfs_tpu/ops/splat.py:139", train["launches"]["splat_dense_fwd"],
             k3["fwd_err"], k3["ms_fwd"], k3["plain_fwd"], k3["bound_fwd"],
@@ -1687,4 +1887,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--maxwarp-in":
+        sys.exit(maxwarp_in(sys.argv[2]))
+    check(len(sys.argv) == 1, f"usage: {sys.argv[0]} [--maxwarp-in TREE]")
     sys.exit(main())

@@ -10,14 +10,16 @@ points may share one source; it is built once: ``euler.cu`` holds K1
 (``euler_compact_dual``) and K4 (``euler_all``), ``splat.cu`` K2's two
 epilogues (``splat_dual_normalize``,
 ``splat_dual_normalize_slr``, f32 or bf16 accumulation) and K8
-(``splat_sum_at``), ``splat_dense.cu`` K3's forward and backward;
+(``splat_sum_at``), ``maxwarp.cu`` K5 (``maximum_warp_norm_sparse``) and K6
+(``maximum_warp_norm_splat``), ``splat_dense.cu`` K3's forward and backward;
 ``fused_conv.cu`` is K9 (``fused_conv3x3_relu_conv3x3``). Nothing is
 compiled at import: this module imports on a host without CUDA.
 
 Every C entry point launches on the stream it is given (the wrapper passes
-``torch.cuda.current_stream()``) and returns ``cudaGetLastError()``; a
-non-zero code raises here. Each :class:`Kernel` counts its launches so that
-a run can show that the main path went through it.
+``torch.cuda.current_stream()``) and returns a CUDA error code
+(``cudaGetLastError()`` after its launches, or the cooperative launch's
+own); a non-zero code raises here. Each :class:`Kernel` counts its
+launches so that a run can show that the main path went through it.
 """
 
 from __future__ import annotations
@@ -168,7 +170,7 @@ SPLAT_SUM_AT = Kernel(
     [_P, _P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _I, _I, _P])
 
 MAXWARP_SPARSE = Kernel(
-    "maximum_warp_norm_sparse", "slrsfs_tpu_torch/csrc/maxwarp_sparse.cu",
+    "maximum_warp_norm_sparse", "slrsfs_tpu_torch/csrc/maxwarp.cu",
     "maximum_warp_norm_sparse",
     # z, static_mask, z_mov, positions, valid, disp, mx, zmax_dense,
     # zmax_mov, P, H, W, stream

@@ -7,12 +7,14 @@ reaches, where a cell holds the max of ``z·w`` over everything splatted onto
 it (floor −1000, reference ``softsplat.py:590``). The v2 normalisation is
 then ``z − zmax``.
 
-``maximum_warp_norm_splat`` is the dense form (K6, ``csrc/maxwarp.cu``),
-used by the dense rollouts; ``maximum_warp_norm_sparse`` is the sparse form
-(K5, ``csrc/maxwarp_sparse.cu``) of the sparse rollouts, where static
-pixels reduce to fixed stencils and only the moving rows scatter. Each
-wrapper launches its kernel for tensors on the card and runs its ``*_plain``
-version for tensors on the CPU.
+``maximum_warp_norm_splat`` is the dense form (K6), used by the dense
+rollouts; ``maximum_warp_norm_sparse`` is the sparse form (K5) of the
+sparse rollouts, where static pixels reduce to fixed stencils and only the
+moving rows scatter. Both kernels live in ``csrc/maxwarp.cu``, one
+cooperative launch each. Each wrapper launches its kernel for tensors on
+the card and runs its ``*_plain`` version for tensors on the CPU. On the
+card a wrapper allocates once: its outputs and the kernel's scratch max
+map are views of one buffer.
 """
 
 from __future__ import annotations
@@ -115,6 +117,17 @@ def _check(named: dict, device) -> None:
         raise ValueError(f"unsupported device {device}")
 
 
+def _launch(kernel: kernels.Kernel, device: torch.device, *args) -> None:
+    """Launch ``kernel`` on ``device``'s current stream. The C entries
+    launch on the calling thread's current device, so the device context is
+    entered only when another device is current."""
+    if device.index == torch.cuda.current_device():
+        kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
+
+
 def maximum_warp_norm_splat(z: Tensor, flow: Tensor) -> Tensor:
     """K6 wrapper: ``maximum_warp_norm_splat_plain(z, flow)`` for one
     channel, z (B, H, W, 1) f32, flow (B, H, W, 2) f32. The CUDA kernel
@@ -125,13 +138,12 @@ def maximum_warp_norm_splat(z: Tensor, flow: Tensor) -> Tensor:
            z.device)
     if z.device.type == "cpu":
         return maximum_warp_norm_splat_plain(z, flow)
-    out = torch.empty_like(z)
-    mx = torch.empty((B * H * W,), dtype=f32, device=z.device)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernels.MAXWARP_SPLAT.launch(z.data_ptr(), flow.data_ptr(),
-                                     mx.data_ptr(), out.data_ptr(), B, H, W,
-                                     stream)
+    if flow.data_ptr() % 8:
+        raise ValueError("flow must be 8-byte aligned")
+    buf = torch.empty((2, B, H, W, 1), dtype=f32, device=z.device)
+    out = buf[0]  # buf[1] is the scratch max map
+    _launch(kernels.MAXWARP_SPLAT, z.device, z.data_ptr(), flow.data_ptr(),
+            buf.data_ptr() + out.nbytes, out.data_ptr(), B, H, W)
     return out
 
 
@@ -154,14 +166,13 @@ def maximum_warp_norm_sparse(z: Tensor, static_mask: Tensor, z_mov: Tensor,
     for name, t in (("positions", positions), ("disp", disp)):
         if t.data_ptr() % 8:
             raise ValueError(f"{name} must be 8-byte aligned")
-    mx = torch.empty((H * W,), dtype=f32, device=z.device)
-    zmax_dense = torch.empty_like(z)
-    zmax_mov = torch.empty_like(z_mov)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernels.MAXWARP_SPARSE.launch(
-            z.data_ptr(), static_mask.data_ptr(), z_mov.data_ptr(),
-            positions.data_ptr(), valid.data_ptr(), disp.data_ptr(),
-            mx.data_ptr(), zmax_dense.data_ptr(), zmax_mov.data_ptr(), P, H,
-            W, stream)
+    # [zmax_dense (H, W) | scratch max map (H, W) | zmax_mov (P,)]
+    buf = torch.empty((2 * H * W + P,), dtype=f32, device=z.device)
+    zmax_dense = buf[:H * W].view(H, W)
+    zmax_mov = buf[2 * H * W:]
+    _launch(kernels.MAXWARP_SPARSE, z.device, z.data_ptr(),
+            static_mask.data_ptr(), z_mov.data_ptr(), positions.data_ptr(),
+            valid.data_ptr(), disp.data_ptr(),
+            buf.data_ptr() + zmax_dense.nbytes, zmax_dense.data_ptr(),
+            zmax_mov.data_ptr(), P, H, W)
     return zmax_dense, zmax_mov

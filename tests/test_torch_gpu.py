@@ -162,25 +162,35 @@ def test_rollout_kernels_match_plain_on_card(dtype):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-def _maxwarp_inputs(dev, special: bool):
-    m = _motion(3)
+def _maxwarp_inputs(dev, case: str):
+    if case == "256x256":  # the render's shape: half the rows move, P = 32768
+        n = 256
+        m = np.random.default_rng(7).standard_normal((n, n, 2)).astype(np.float32)
+        m[: n // 2] = 0.0
+    else:
+        n, m = None, _motion(3)
     pos, val = prepare_scene_sparse(m, pad_multiple=64)
     disp_f, _ = euler_compact_dual_plain(torch.from_numpy(m),
                                          torch.from_numpy(pos), 6, 6)
-    d = _special(disp_f[5]) if special else disp_f[5]
-    z = torch.from_numpy(np.random.default_rng(4).standard_normal((H, W))
+    d = _special(disp_f[5]) if case == "special" else disp_f[5]
+    if case == "all_rows_padded":
+        val = np.zeros_like(val)
+    z = torch.from_numpy(np.random.default_rng(4).standard_normal(m.shape[:2])
                          .astype(np.float32) * 4.0)
     static = torch.from_numpy(np.all(m == 0, axis=-1).astype(np.float32))
     p = torch.from_numpy(pos)
     z_mov = z[p[:, 1].long(), p[:, 0].long()].contiguous()
+    if n is not None:
+        assert p.shape[0] == n * n // 2
     return [t.to(dev) for t in (z, static, z_mov, p, torch.from_numpy(val), d)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("special", [False, True])
-def test_k5_matches_plain_on_card(special):
+@pytest.mark.parametrize("case", ["trajectory", "special", "all_rows_padded",
+                                  "256x256"])
+def test_k5_matches_plain_on_card(case):
     dev = _card()
-    args = _maxwarp_inputs(dev, special)
+    args = _maxwarp_inputs(dev, case)
     kernels.reset_counts()
     kd, km = maxwarp.maximum_warp_norm_sparse(*args)
     assert kernels.counts()[kernels.MAXWARP_SPARSE.name] == 1
@@ -190,23 +200,54 @@ def test_k5_matches_plain_on_card(special):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("special", [False, True])
-def test_k6_matches_plain_on_card(special):
+@pytest.mark.parametrize("case", ["trajectory", "special", "batch2_256x256"])
+def test_k6_matches_plain_on_card(case):
     dev = _card()
-    m = _motion(5)
-    grid = torch.from_numpy(np.stack(np.meshgrid(np.arange(W), np.arange(H)),
-                                     -1).reshape(-1, 2).astype(np.int32))
-    disp_f, _ = euler_compact_dual_plain(torch.from_numpy(m), grid, 4, 4)
-    d = _special(disp_f[3]) if special else disp_f[3]
-    flow = d.reshape(1, H, W, 2).to(dev)
-    z = torch.from_numpy(np.random.default_rng(6).standard_normal((1, H, W, 1))
-                         .astype(np.float32) * 4.0).to(dev)
+    if case == "batch2_256x256":
+        rng = np.random.default_rng(8)
+        flow = torch.from_numpy(rng.standard_normal((2, 256, 256, 2))
+                                .astype(np.float32) * 3.0).to(dev)
+        z = torch.from_numpy(rng.standard_normal((2, 256, 256, 1))
+                             .astype(np.float32) * 4.0).to(dev)
+    else:
+        m = _motion(5)
+        grid = torch.from_numpy(np.stack(np.meshgrid(np.arange(W), np.arange(H)),
+                                         -1).reshape(-1, 2).astype(np.int32))
+        disp_f, _ = euler_compact_dual_plain(torch.from_numpy(m), grid, 4, 4)
+        d = _special(disp_f[3]) if case == "special" else disp_f[3]
+        flow = d.reshape(1, H, W, 2).to(dev)
+        z = torch.from_numpy(np.random.default_rng(6).standard_normal((1, H, W, 1))
+                             .astype(np.float32) * 4.0).to(dev)
     kernels.reset_counts()
     got = maxwarp.maximum_warp_norm_splat(z, flow)
     assert kernels.counts()[kernels.MAXWARP_SPLAT.name] == 1
     want = maxwarp.maximum_warp_norm_splat_plain(z, flow)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 4 bytes past an 8-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+def test_maxwarp_wrappers_refuse_misaligned_pairs_on_card():
+    """K5 reads positions and disp, K6 the flow, as 8-byte pairs."""
+    dev = _card()
+    z, static, z_mov, p, val, d = _maxwarp_inputs(dev, "trajectory")
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        maxwarp.maximum_warp_norm_sparse(z, static, z_mov, _misaligned(p), val, d)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        maxwarp.maximum_warp_norm_sparse(z, static, z_mov, p, val, _misaligned(d))
+    flow = torch.zeros((1, H, W, 2), device=dev)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        maxwarp.maximum_warp_norm_splat(z[None, ..., None].contiguous(),
+                                        _misaligned(flow))
 
 
 @pytest.mark.gpu

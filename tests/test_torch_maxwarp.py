@@ -5,8 +5,12 @@ maxwarp) against the JAX ``maximum_warp_norm_sparse`` /
 Max is exact and order-free, so both plain versions must match the JAX ops
 exactly, on trajectory displacements and on rows that carry the Euler OOB
 sentinel, exact integer shifts, border landings and padding (valid = 0).
-The kernels are held against these plain versions on a card
+The cases include those a kernel's persistent grid must cover: every row
+padded, every pixel moving (no static stencil) and a non-square grid. The
+kernels are held against these plain versions on a card
 (tests/test_torch_gpu.py)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -26,12 +30,12 @@ torch.set_num_threads(1)
 H, W = 24, 20
 
 
-def _motion(seed: int) -> np.ndarray:
+def _motion(seed: int, h: int = H, w: int = W) -> np.ndarray:
     rng = np.random.default_rng(seed)
-    m = (rng.standard_normal((H, W, 2)) * 1.3).astype(np.float32)
-    m[H - 4:, :, 1] += 6.0  # leaves the bottom within a few steps
-    m[: H // 3] = 0.0  # a static band
-    m[:, : W // 4] = 0.0
+    m = (rng.standard_normal((h, w, 2)) * 1.3).astype(np.float32)
+    m[h - 4:, :, 1] += 6.0  # leaves the bottom within a few steps
+    m[: h // 3] = 0.0  # a static band
+    m[:, : w // 4] = 0.0
     return m
 
 
@@ -45,17 +49,22 @@ def _special(d: np.ndarray) -> np.ndarray:
     return d
 
 
-def _z(seed: int) -> np.ndarray:
+def _z(seed: int, h: int = H, w: int = W) -> np.ndarray:
     rng = np.random.default_rng(seed)
-    return (rng.standard_normal((H, W)) * 4.0).astype(np.float32)
+    return (rng.standard_normal((h, w)) * 4.0).astype(np.float32)
 
 
 @pytest.mark.parametrize("case", ["t1", "t5", "sentinel_integer_border",
-                                  "quarter_pixel"])
+                                  "quarter_pixel", "all_rows_padded",
+                                  "every_pixel_moving"])
 def test_sparse_matches_jax(case):
     m = _motion(0)
+    if case == "every_pixel_moving":
+        m = m + np.float32(0.25)
     positions, valid = prepare_scene_sparse(m, pad_multiple=64)
     assert (valid == 0).any()  # padded rows present
+    if case == "all_rows_padded":
+        valid = np.zeros_like(valid)
     disp_f, _ = euler_integrate_compact_dual(m, positions, 6, 6)
     d = np.array(disp_f[1 if case == "t1" else 5])
     if case == "sentinel_integer_border":
@@ -64,6 +73,7 @@ def test_sparse_matches_jax(case):
         d = np.round(d * 4.0) / 4.0
     z = _z(1)
     static = np.all(m == 0, axis=-1).astype(np.float32)
+    assert static.any() == (case != "every_pixel_moving")
     z_mov = z[positions[:, 1], positions[:, 0]]
     want_d, want_m = jax_sparse(jnp.asarray(z), jnp.asarray(static),
                                 jnp.asarray(z_mov), jnp.asarray(positions),
@@ -82,12 +92,13 @@ def test_sparse_matches_jax(case):
 
 
 @pytest.mark.parametrize("case", ["trajectory", "sentinel_integer_border",
-                                  "batch2_channels2"])
+                                  "batch2_channels2", "non_square_40x72"])
 def test_dense_matches_jax(case):
-    m = _motion(2)
+    h, w = (40, 72) if case == "non_square_40x72" else (H, W)
+    m = _motion(2, h, w)
     disp_f, _ = euler_integrate_all_dual(m, 5, 5)
     flow = np.array(disp_f[4])[None]
-    z = _z(3)[None, ..., None]
+    z = _z(3, h, w)[None, ..., None]
     if case == "sentinel_integer_border":
         flow = _special(flow.reshape(-1, 2)).reshape(flow.shape)
     elif case == "batch2_channels2":
@@ -157,3 +168,21 @@ def test_wrappers_reject_bad_inputs(bad):
         maxwarp.maximum_warp_norm_sparse(z, static, z_mov, positions, valid, disp)
     with pytest.raises((TypeError, ValueError)):
         maxwarp.maximum_warp_norm_splat(zd, flow)
+
+
+def test_k5_and_k6_share_one_source_with_one_cooperative_launch_each():
+    """Both entries live in csrc/maxwarp.cu, built once into one library;
+    each calls the one cooperative launch helper, and nothing launches with
+    the triple-chevron syntax."""
+    assert kernels.MAXWARP_SPARSE.source == kernels.MAXWARP_SPLAT.source \
+        == "slrsfs_tpu_torch/csrc/maxwarp.cu"
+    assert kernels.MAXWARP_SPARSE._lib_path() == kernels.MAXWARP_SPLAT._lib_path()
+    assert not os.path.exists(os.path.join(os.path.dirname(
+        kernels.MAXWARP_SPLAT._src_path), "maxwarp_sparse.cu"))
+    with open(kernels.MAXWARP_SPLAT._src_path) as f:
+        src = f.read()
+    for k in (kernels.MAXWARP_SPARSE, kernels.MAXWARP_SPLAT):
+        assert f'extern "C" int {k.symbol}(' in src
+    assert src.count("cudaLaunchCooperativeKernel(") == 1
+    assert src.count("return (int)launch(") == 2
+    assert "<<<" not in src
