@@ -73,8 +73,9 @@ Any failed check raises and the script exits non-zero without the last
 line. It also fails when no CUDA device is present. The rendered PNGs go
 to build/chip_smoke/ (git-ignored). With --maxwarp-in TREE it only times
 K5 and K6 of the package in TREE, another unpacked tree of this
-repository, beside their yardstick (slrsfs_tpu_torch/tools/compare.sh
-runs it on several trees in turns).
+repository, beside their yardstick, and the SLR f32 v2 render that K5
+serves (slrsfs_tpu_torch/tools/compare.sh runs it on several trees in
+turns).
 """
 
 from __future__ import annotations
@@ -805,10 +806,10 @@ def print_maxwarp(label, res):
 
 
 def maxwarp_in(tree: str) -> int:
-    """``python3 chip_smoke.py --maxwarp-in TREE``: ``maxwarp_phase`` on the
-    package of another unpacked tree of this repository (its kernels built
-    in TREE/build), to compare commits on one card
-    (slrsfs_tpu_torch/tools/compare.sh)."""
+    """``python3 chip_smoke.py --maxwarp-in TREE``: ``maxwarp_phase`` and
+    the SLR f32 v2 render (median of 5) on the package of another unpacked
+    tree of this repository (its kernels built in TREE/build), to compare
+    commits on one card (slrsfs_tpu_torch/tools/compare.sh)."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -819,6 +820,19 @@ def maxwarp_in(tree: str) -> int:
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
     print_maxwarp("maxwarp", maxwarp_phase(dev, *maxwarp_inputs(dev)))
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+
+    # the end-to-end metric K5 moves: the SLR f32 v2 render, as in phase 7
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    img_u8, flow_np = synthetic_scene(SEED)
+    img = (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
+    r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED,
+                      sparsify_eps=0.0,
+                      opt_overrides=dict(SLR_OPTS, use_softmax_splatter_v2=True))
+    med, ts = render_median(r, img, flow_np, reps=5)
+    print(f"maxwarp SLR float32 v2 render: median {med * 1e3:.1f} ms = "
+          f"{N_FRAMES / med:.2f} frames/s (runs {[round(x * 1e3, 1) for x in ts]} ms)")
     return 0
 
 

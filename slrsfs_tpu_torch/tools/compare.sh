@@ -11,7 +11,7 @@
 # maxwarp  this checkout's chip_smoke.py --maxwarp-in TREE: K5 and K6 of
 #          each tree's package, as called, on the card alone and the host's
 #          cost per call, beside scatter_reduce_, with the CUDA kernels one
-#          call runs.
+#          call runs, and the SLR f32 v2 render (median of 5).
 #
 # Prints the card's name and power limit, then each tree's bench lines
 # (JSON lines left out) prefixed with the tree. Exits 1 if a bench failed.
