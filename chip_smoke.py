@@ -317,13 +317,15 @@ def v2_stages(run, model, positions, valid):
     return rows, fields, out
 
 
-def v2_diagnostic(label, err, model, positions, valid, run_a, run_b):
+def v2_diagnostic(label, err, model, positions, valid, run_a, run_b, first=None):
     """When a v2 comparison lands above 1e-5 (the usual value is ~1e-6),
     run both sides again and print each stage's largest difference (packed
     rows, splat field, decoded frames) and how many elements of the splat
     field are exactly 0 on one side only (the decoders' hole mask is
-    ``x != 0``); then run both sides once more with
-    ``torch.backends.cudnn.deterministic`` and print the frames' largest
+    ``x != 0``): for ``first``, the stages recorded in the first call of
+    side a (the comparison's own), against side b run again; and for both
+    sides run again. Then both sides once more with
+    ``torch.backends.cudnn.deterministic``: the frames' largest
     difference."""
     import torch
 
@@ -340,18 +342,24 @@ def v2_diagnostic(label, err, model, positions, valid, run_a, run_b):
             return max((diff(p, q) for p, q in zip(x, y)), default=0.0)
         return (x.float() - y.float()).abs().max().item()
 
-    zero_one_side = sum(int(((x == 0) != (y == 0)).sum()) for x, y in zip(a[1], b[1]))
+    def stages(x, y):
+        zeros = sum(int(((p == 0) != (q == 0)).sum()) for p, q in zip(x[1], y[1]))
+        return (f"packed rows {diff(x[0], y[0]):.3g} ({len(x[0])}/{len(y[0])} "
+                f"frames), splat field {diff(x[1], y[1]):.3g} ({zeros} elements "
+                f"exactly 0 on one side only), decoded frames {diff(x[2], y[2]):.3g}")
+
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         det = diff(run_a(), run_b())
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    print(f"phase 5-6 v2 diagnostic {label} ({err:.3g} > 1e-5): max abs of the "
-          f"packed rows {diff(a[0], b[0]):.3g} ({len(a[0])}/{len(b[0])} frames), "
-          f"splat field {diff(a[1], b[1]):.3g} ({zero_one_side} elements exactly 0 "
-          f"on one side only), decoded frames {diff(a[2], b[2]):.3g}; both sides "
-          f"again with cudnn.deterministic: frames {det:.3g}")
+    head = f"phase 5-6 v2 diagnostic {label} ({err:.3g} > 1e-5)"
+    if first is not None:
+        print(f"{head}: first call vs the other side again: {stages(first, b)}; "
+              f"first call vs its own path again: frames {diff(first[2], a[2]):.3g}")
+    print(f"{head}: both sides again: {stages(a, b)}; both sides again with "
+          f"cudnn.deterministic: frames {det:.3g}")
 
 
 def read_png(path):
@@ -1514,9 +1522,12 @@ def main() -> int:
                           sparsify_eps=0.0,
                           opt_overrides=dict(use_softmax_splatter_v2=True))
     kernels.reset_counts()
-    out_dir, v2_frames = render_capture(
-        r32v2, img_path, flow_path, os.path.join(scene_dir, "baseline v2"),
-        name="synthetic", rawsize=True)
+    rows, fields, (out_dir, v2_frames) = v2_stages(
+        lambda: render_capture(r32v2, img_path, flow_path,
+                               os.path.join(scene_dir, "baseline v2"),
+                               name="synthetic", rawsize=True),
+        r32v2.model, positions, valid)
+    v2_first = (rows, fields, v2_frames)  # for v2_diagnostic
     torch.cuda.synchronize()
     v2_launches = kernels.counts()
     check(v2_launches == {**{k.name: 0 for k in kernels.KERNELS},
@@ -1540,10 +1551,12 @@ def main() -> int:
     img_t = torch.from_numpy(img[None]).to(dev)
     v2_sparse = lambda plain=False: r32v2.frames(img, flow_np, plain=plain)  # noqa: E731
     v2_diagnostic("baseline kernel vs plain path", v2_path_err, r32v2.model,
-                  positions, valid, v2_sparse, lambda: v2_sparse(True))
+                  positions, valid, v2_sparse, lambda: v2_sparse(True), v2_first)
     v2_diagnostic("baseline sparse vs dense", v2_dense_err, r32v2.model,
                   positions, valid, v2_sparse,
-                  lambda: rollout.baseline_rollout(r32v2.model, img_t, flow, N_FRAMES))
+                  lambda: rollout.baseline_rollout(r32v2.model, img_t, flow, N_FRAMES),
+                  v2_first)
+    del v2_first, rows, fields
     check(v2_path_err <= 1e-4, f"baseline v2 kernel vs plain path {v2_path_err}")
     check(v2_dense_err <= 1e-4, f"baseline sparse v2 vs dense v2 {v2_dense_err}")
     png = read_png(os.path.join(out_dir, "PredImg", f"{N_FRAMES - 1:06d}.png"))
@@ -1574,10 +1587,16 @@ def main() -> int:
     for label, r in slr.items():
         v2 = label.endswith("v2")  # the v2 render also takes an edit region
         kernels.reset_counts()
-        out_dir, outs = render_capture(
+        run = lambda: render_capture(  # noqa: E731
             r, img_path, flow_path, os.path.join(scene_dir, "slr " + label),
             name="synthetic", rawsize=True,
             alpha_region_path=region_path if v2 else None)
+        if v2:
+            rows, fields, (out_dir, outs) = v2_stages(run, r.model, positions, valid)
+            slr_v2_first = (rows, fields, outs)  # for v2_diagnostic
+            del rows, fields
+        else:
+            out_dir, outs = run()
         torch.cuda.synchronize()
         got = kernels.counts()
         want = {**{k.name: 0 for k in kernels.KERNELS}, "euler_compact_dual": 1,
@@ -1630,7 +1649,7 @@ def main() -> int:
                           slr[label].model, positions, valid,
                           lambda: slr[label].frames(img, flow_np, alpha_region=rg),
                           lambda: slr[label].frames(img, flow_np, plain=True,
-                                                    alpha_region=rg))
+                                                    alpha_region=rg), slr_v2_first)
         check(slr_path_err[label] <= 1e-4,
               f"SLR {label} kernel path vs plain path max abs "
               f"{slr_path_err[label]}")
@@ -1651,7 +1670,9 @@ def main() -> int:
                   lambda: slr["float32 v2"].frames(img, flow_np, alpha_region=region),
                   lambda: rollout.slr_rollout_dense(slr["float32 v2"].model, img_t,
                                                     flow, N_FRAMES,
-                                                    alpha_region=region_t))
+                                                    alpha_region=region_t),
+                  slr_v2_first)
+    del slr_v2_first
     check(sparse_dense_err <= 1e-4,
           f"SLR sparse v2 (K5) vs dense v2 (K6) max abs {sparse_dense_err}")
     print(f"phase 6 SLR checks: kernel vs plain path max abs "
