@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --maxwarp-in TREE   # K5 and K6 of another tree
+    python3 chip_smoke.py --k2-in TREE        # K2 and K8 of another tree
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the main paths'
@@ -23,7 +24,8 @@ moving, random weights from a seed) through SceneRenderer.render with:
 The dense baseline render (K4, the dense integrator, and K3's forward) runs
 on the scene, held at 1e-4 against the sparse render, and in the
 configuration of __graft_entry__.py:entry() (256², N = 12), held at 1e-4
-against its plain path. K4 is checked bit for bit in every form; K8 (the
+against its plain path; K3's forward is also held and timed at the dense
+render's own shape, one frame end of (1, 256, 256, 65). K4 is checked bit for bit in every form; K8 (the
 exported single- and two-ended raw splats) and K2's bf16 mode against their
 plain versions in f32 (1e-5) and bf16 (1e-2 of the largest value). K9, the
 fused bf16 conv3x3 -> ReLU -> conv3x3 (wgmma over a ring of packed weight
@@ -74,8 +76,11 @@ line. It also fails when no CUDA device is present. The rendered PNGs go
 to build/chip_smoke/ (git-ignored). With --maxwarp-in TREE it only times
 K5 and K6 of the package in TREE, another unpacked tree of this
 repository, beside their yardstick, and the SLR f32 v2 render that K5
-serves (slrsfs_tpu_torch/tools/compare.sh runs it on several trees in
-turns).
+serves; with --k2-in TREE, K2 and K2-SLR in f32 and bf16 accumulation
+(with the card's work per call split by torch.profiler into memset,
+scatter and epilogue), K8 and the bfloat16 and bfloat16-fast renders of
+both models (slrsfs_tpu_torch/tools/compare.sh runs either on several
+trees in turns).
 """
 
 from __future__ import annotations
@@ -227,6 +232,31 @@ def kernels_per_call(fn, reps: int = 4):
              if e.device_type == torch.autograd.DeviceType.CUDA
              and not e.name.startswith(("Memcpy", "Memset"))]
     return len(names) / reps, sorted(set(names))
+
+
+def launch_split(fn, reps: int = 10) -> dict:
+    """The card's work in one call of ``fn``, split by CUDA kernel, memset
+    and copy: {name: device us per call}, from a ``torch.profiler`` trace
+    of ``reps`` calls after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            split[e.name] = split.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+    return split
+
+
+def fmt_split(split: dict) -> str:
+    return "; ".join(f"{k} {v:.2f} us" for k, v in split.items()) + (
+        f" (sum {sum(split.values()):.2f} us)")
 
 
 def bound(n_bytes: float, n_ops: float, peak: float = FP32_FLOPS):
@@ -424,6 +454,107 @@ def k4_phase(dev, flow):
     return {"err": err, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd}
 
 
+def k2_inputs(dev, rng, flow, positions, valid) -> dict:
+    """K2's and K2-SLR's rows at the render's shapes, drawn from ``rng``:
+    {name: state} with the moving rows, the static identity, the wrapper,
+    its plain version and an f32 accumulator and output."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.splat import (
+        splat_dual_normalize,
+        splat_dual_normalize_plain,
+        splat_dual_normalize_slr,
+        splat_dual_normalize_slr_plain,
+    )
+
+    static = (flow.abs().sum(-1) == 0).to(torch.float32)
+    px, py = positions[:, 0].long(), positions[:, 1].long()
+    ez = np.exp(-rng.uniform(0, 3, (H, W, 1))).astype(np.float32)
+    ec = np.exp(rng.uniform(0, 1, (H, W, 1))).astype(np.float32)
+    feats = rng.normal(0, 1, (H, W, 64)).astype(np.float32)
+    layouts = {  # baseline [fs·e^Z, e^Z]; SLR [fs·e^Z, af·e^C, e^C, e^Z]
+        "K2": np.concatenate([feats * ez, ez], -1),
+        "K2-SLR": np.concatenate([feats * ez, feats[..., :1] * ec, ec, ez], -1)}
+    k2 = {}
+    for name, u_np in layouts.items():
+        u = torch.from_numpy(u_np).to(dev)
+        slr = name == "K2-SLR"
+        n_norm = 2 if slr else 1
+        C1 = u.shape[-1]
+        k2[name] = dict(
+            u_static=(u * static[..., None]).contiguous(),
+            u_mov=(u[py, px] * valid[:, None]).contiguous(), C1=C1,
+            wrapper=splat_dual_normalize_slr if slr else splat_dual_normalize,
+            plain=splat_dual_normalize_slr_plain if slr else splat_dual_normalize_plain,
+            n_norm=n_norm, err=0.0, err_bf16=0.0,
+            acc=torch.empty((H * W * C1,), dtype=torch.float32, device=dev),
+            out=torch.empty((H, W, C1 - n_norm), dtype=torch.float32, device=dev))
+    return k2
+
+
+def k2_times(dev, name, st, positions, valid, disp_a, disp_b) -> None:
+    """K2 or K2-SLR (``st`` from ``k2_inputs``) at one frame of the render,
+    f32 and bf16 accumulation: as called, on the card alone and the host's
+    cost per call (``kernel_times``), the card's work per call split by
+    ``launch_split`` (f32: copy, scatter, epilogue; bf16: memset if any,
+    scatter, epilogue), the plain version, one ``index_add_`` of the same
+    corner rows and the bound; stored in ``st`` and printed."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.splat import _corner_taps, splat_scratch
+
+    f32, bf = torch.float32, torch.bfloat16
+    P, n_valid = positions.shape[0], int((valid > 0.5).sum())
+    px, py = positions[:, 0].float(), positions[:, 1].float()
+    C1, C = st["C1"], st["C1"] - st["n_norm"]
+    w = 0.5
+    args = (st["u_mov"], positions, valid, disp_a, disp_b, w, w, st["u_static"])
+    # the bf16 accumulation mode on the same frame: bf16 rows, static
+    # identity and accumulator, the f32 field out
+    args_bf = (st["u_mov"].to(bf),) + args[1:-1] + (st["u_static"].to(bf),)
+    acc_bf = splat_scratch(H, W, C1, bf, dev)
+    calls = {"": (lambda: st["wrapper"](*args, out=st["out"], acc=st["acc"]),
+                  args, f32, st["acc"]),
+             "_bf16": (lambda: st["wrapper"](*args_bf, out=st["out"], acc=acc_bf),
+                       args_bf, bf, acc_bf)}
+    # yardstick: the same scatter as ONE index_add_ into the flat buffer
+    lins, rows = [], []
+    for d in (disp_a, disp_b):
+        for lin, wk in _corner_taps(px + d[:, 0], py + d[:, 1], H, W):
+            lins.append(lin)
+            rows.append(st["u_mov"] * w * (wk * valid)[:, None])
+    lin_all, rows_all = torch.cat(lins), torch.cat(rows)
+    del lins, rows
+    for sfx, (call, a, dtype, acc) in calls.items():
+        e_b = 2 if dtype == bf else 4
+        st["t" + sfx] = kernel_times(call, reps=50)
+        st["ms" + sfx] = st["t" + sfx]["ms"]
+        st["split" + sfx] = launch_split(call)
+        st["plain_ms" + sfx] = cuda_time(lambda: st["plain"](*a, f32), reps=10)
+        flat = a[-1].reshape(H * W, C1).clone()
+        rows_d = rows_all.to(dtype)
+        st["t_lib" + sfx] = kernel_times(lambda: flat.index_add_(0, lin_all, rows_d),
+                                         reps=50)
+        st["lib_ms" + sfx] = st["t_lib" + sfx]["ms"]
+        # moving rows, positions and both displacements of the valid rows;
+        # the valid flags of all rows; the static identity in, the f32
+        # field out; per valid row and end a scale and 4 multiply-adds per
+        # channel, per output a division
+        st["bound" + sfx] = bound(n_valid * (C1 * e_b + 8 + 16) + P * 4
+                                  + H * W * C1 * e_b + H * W * C * 4,
+                                  2 * n_valid * C1 * (1 + 4 * 2) + H * W * C)
+        del flat, rows_d
+    del lin_all, rows_all, acc_bf
+    for sfx, label in (("", "f32"), ("_bf16", "bf16 accumulation")):
+        print(f"phase 3 {name} {label} per frame: {fmt_times(st['t' + sfx])}; plain "
+              f"{st['plain_ms' + sfx]:.3f} ms; index_add_ {fmt_times(st['t_lib' + sfx])}; "
+              f"bound {st['bound' + sfx][0]:.4f} ms by {st['bound' + sfx][1]}")
+        print(f"phase 3 {name} {label} per call on the card (torch.profiler): "
+              f"{fmt_split(st['split' + sfx])}")
+    print(f"phase 3 {name} bf16 accumulation against f32 on the card: "
+          f"{st['ms_bf16']:.4f} / {st['ms']:.4f} ms = {st['ms_bf16'] / st['ms']:.2f}x")
+
+
 def k8_phase(dev, u_mov, positions, disp_a, disp_b):
     """K8 at the render's shapes (P = 32768, C = 65, 256²): its path is the
     four exported functions, f32 then bf16, with the counts read after each
@@ -480,6 +611,7 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
                          reps=50)
         t_dual = kernel_times(lambda: S.softsplat_sum_at_quad_dual(
             u, positions, disp_a, disp_b, 0.5, 0.5, H, W), reps=50)
+        split = launch_split(lambda: S.softsplat_sum_at(u, positions, disp_a, H, W))
         plain_ms = cuda_time(lambda: S.softsplat_sum_at_plain(u, positions, disp_a,
                                                               H, W), reps=10)
         lins, rows = [], []
@@ -505,6 +637,8 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
               f"({limit}); one end {fmt_times(t)}; two ends {fmt_times(t_dual)}; "
               f"plain {plain_ms:.3f} ms; index_add_ of the 4P rows {fmt_times(t_lib)}; "
               f"bound {bnd[0]:.4f} ms by {bnd[1]}")
+        print(f"phase 3 K8 {label} one end per call on the card (torch.profiler): "
+              f"{fmt_split(split)}")
         res[label] = {"launches": launches["splat_sum_at"], "err": err, "ms": t["ms"],
                       "ms_dual": t_dual["ms"], "plain_ms": plain_ms,
                       "lib_ms": t_lib["ms"], "bound": bnd}
@@ -561,6 +695,59 @@ def dense_entry_phase(dev, model, img, flow, frames32):
               f"frame range [{got.min().item():.3f}, {got.max().item():.3f}]")
         res[label] = {"launches": launches, "err": err, "fps": n / med}
     return res
+
+
+def k3_dense_render_times(dev, flow):
+    """K3's forward at the dense render's own shape: one frame end of
+    ``baseline_rollout`` splats (1, 256, 256, 65) rows (the packed
+    [fs·e^Z, e^Z] width) by the scene's displacement integrated to t =
+    T_MID. Held against its plain version (atol/rtol 1e-5, the same empty
+    cells) and timed (``kernel_times``) beside the plain version, one
+    ``index_add_`` of the 4·HW weighted rows and the bound."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.euler import euler_integrate_all_dual_plain
+    from slrsfs_tpu_torch.ops.splat import (
+        _corner_taps,
+        softsplat_sum_fwd_kernel,
+        softsplat_sum_plain,
+    )
+
+    C = 65
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    inp = torch.randn((1, H, W, C), generator=gen, device=dev)
+    disp = euler_integrate_all_dual_plain(flow, N_FRAMES - 1, N_FRAMES)[0][T_MID]
+    disp = disp[None].contiguous()
+    out = softsplat_sum_fwd_kernel(inp, disp)
+    ref = softsplat_sum_plain(inp, disp)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
+          f"K3 forward at the dense render's shape: max abs {err}")
+    n_cancel = check_zeros(out, ref, "K3 forward at the dense render's shape")
+    t = kernel_times(lambda: softsplat_sum_fwd_kernel(inp, disp), reps=50)
+    plain_ms = cuda_time(lambda: softsplat_sum_plain(inp, disp), reps=10)
+    xs = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    lins, rows = [], []
+    for lin, w in _corner_taps((xs + disp[0, ..., 0]).reshape(-1),
+                               (ys + disp[0, ..., 1]).reshape(-1), H, W):
+        lins.append(lin)
+        rows.append(inp[0].reshape(H * W, C) * w[:, None])
+    lin_all, rows_all = torch.cat(lins), torch.cat(rows)
+    acc = torch.zeros((H * W, C), device=dev)
+    t_lib = kernel_times(lambda: acc.index_add_(0, lin_all, rows_all), reps=50)
+    n = H * W
+    # as k3_phase: inp and flow in, out out; per pixel ~20 ops of corner
+    # math and per channel 4 multiplies and 4 adds
+    bnd = bound(n * C * 4 * 2 + n * 8, n * (8 * C + 20))
+    print(f"phase 5 K3 forward at the dense render's shape (1, {H}, {W}, {C}), "
+          f"t={T_MID}: max abs {err:.3g} vs plain (atol/rtol 1e-5, empty cells "
+          f"match; {n_cancel} elements of reached cells exactly 0 on one side); "
+          f"{fmt_times(t)}; plain {plain_ms:.3f} ms; index_add_ {fmt_times(t_lib)}; "
+          f"bound {bnd[0]:.4f} ms by {bnd[1]}")
+    return {"err": err, "ms": t["ms"], "plain_ms": plain_ms, "lib_ms": t_lib["ms"],
+            "bound": bnd}
 
 
 def bf16_fast_phase(img_path, flow_path, scene_dir, bf16, img, flow_np):
@@ -813,11 +1000,10 @@ def print_maxwarp(label, res):
               f"({', '.join(r['names'])})")
 
 
-def maxwarp_in(tree: str) -> int:
-    """``python3 chip_smoke.py --maxwarp-in TREE``: ``maxwarp_phase`` and
-    the SLR f32 v2 render (median of 5) on the package of another unpacked
-    tree of this repository (its kernels built in TREE/build), to compare
-    commits on one card (slrsfs_tpu_torch/tools/compare.sh)."""
+def use_tree(tree: str):
+    """Import ``slrsfs_tpu_torch`` from ``tree``, another unpacked tree of
+    this repository (its kernels build in TREE/build), and return the card
+    with TF32 off."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -826,13 +1012,21 @@ def maxwarp_in(tree: str) -> int:
     check(os.path.dirname(os.path.dirname(os.path.abspath(slrsfs_tpu_torch.__file__)))
           == os.path.abspath(tree), f"slrsfs_tpu_torch not imported from {tree}")
     check(torch.cuda.is_available(), "no CUDA device")
-    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def maxwarp_in(tree: str) -> int:
+    """``python3 chip_smoke.py --maxwarp-in TREE``: ``maxwarp_phase`` and
+    the SLR f32 v2 render (median of 5) on the package of another unpacked
+    tree of this repository (its kernels built in TREE/build), to compare
+    commits on one card (slrsfs_tpu_torch/tools/compare.sh)."""
+    dev = use_tree(tree)
     print_maxwarp("maxwarp", maxwarp_phase(dev, *maxwarp_inputs(dev)))
     from slrsfs_tpu_torch.cli.render import SceneRenderer
 
     # the end-to-end metric K5 moves: the SLR f32 v2 render, as in phase 7
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     img_u8, flow_np = synthetic_scene(SEED)
     img = (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
     r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED,
@@ -841,6 +1035,49 @@ def maxwarp_in(tree: str) -> int:
     med, ts = render_median(r, img, flow_np, reps=5)
     print(f"maxwarp SLR float32 v2 render: median {med * 1e3:.1f} ms = "
           f"{N_FRAMES / med:.2f} frames/s (runs {[round(x * 1e3, 1) for x in ts]} ms)")
+    return 0
+
+
+def k2_in(tree: str) -> int:
+    """``python3 chip_smoke.py --k2-in TREE``: on the package of another
+    unpacked tree of this repository, K2 and K2-SLR at one frame of the
+    render (``k2_times``: f32 and bf16 accumulation, each with its
+    per-launch split), K8 (``k8_phase``) and the bfloat16 and
+    bfloat16-fast renders of both models (median of 5), to compare commits
+    on one card (slrsfs_tpu_torch/tools/compare.sh)."""
+    import torch
+
+    dev = use_tree(tree)
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+    from slrsfs_tpu_torch.engine.rollout import prepare_scene_sparse
+    from slrsfs_tpu_torch.ops.euler import euler_compact_dual_plain
+
+    img_u8, flow_np = synthetic_scene(SEED)
+    pos_np, val_np = prepare_scene_sparse(flow_np)
+    flow = torch.from_numpy(flow_np).to(dev)
+    positions = torch.from_numpy(pos_np).to(dev)
+    valid = torch.from_numpy(val_np).to(dev)
+    disp_f, disp_b = euler_compact_dual_plain(flow, positions, N_FRAMES - 1, N_FRAMES)
+    da, db = disp_f[T_MID].contiguous(), disp_b[T_MID].contiguous()
+    kernels.SPLAT.load()
+    k2 = k2_inputs(dev, np.random.default_rng(SEED + 1), flow, positions, valid)
+    for name, st in k2.items():
+        k2_times(dev, name, st, positions, valid, da, db)
+    k8_phase(dev, k2["K2"]["u_mov"], positions, da, db)
+    del k2
+    # the end-to-end metric K2's bf16 mode moves: the bfloat16-fast
+    # renders, beside the bfloat16 renders they exist to speed up
+    img = (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
+    for label, overrides in (("baseline", None), ("SLR", SLR_OPTS)):
+        for dtype in ("bfloat16", "bfloat16-fast"):
+            r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype=dtype, seed=SEED,
+                              sparsify_eps=0.0, opt_overrides=overrides)
+            med, ts = render_median(r, img, flow_np, reps=5)
+            print(f"k2 {label} {dtype} render: median {med * 1e3:.1f} ms = "
+                  f"{N_FRAMES / med:.2f} frames/s (runs "
+                  f"{[round(x * 1e3, 1) for x in ts]} ms)")
+            del r
     return 0
 
 
@@ -1271,16 +1508,7 @@ def main() -> int:
         euler_compact_dual_plain,
         euler_integrate_all_dual_plain,
     )
-    from slrsfs_tpu_torch.ops.splat import (
-        _corner_taps,
-        corners,
-        softsplat_sum_at_quad_dual_plain,
-        splat_dual_normalize,
-        splat_dual_normalize_plain,
-        splat_dual_normalize_slr,
-        splat_dual_normalize_slr_plain,
-        splat_scratch,
-    )
+    from slrsfs_tpu_torch.ops.splat import softsplat_sum_at_quad_dual_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1311,7 +1539,6 @@ def main() -> int:
     flow = torch.from_numpy(flow_np).to(dev)
     positions = torch.from_numpy(pos_np).to(dev)
     valid = torch.from_numpy(val_np).to(dev)
-    n_valid = int(val_np.sum())
     rng = np.random.default_rng(SEED + 1)
 
     # ---- phase 2: K1 against its plain version, bit for bit ----------
@@ -1338,29 +1565,10 @@ def main() -> int:
     # ---- phase 3: K2, both epilogues, against the plain versions -----
     static = (flow.abs().sum(-1) == 0).to(torch.float32)
     px, py = positions[:, 0].long(), positions[:, 1].long()
-    ez = np.exp(-rng.uniform(0, 3, (H, W, 1))).astype(np.float32)
-    ec = np.exp(rng.uniform(0, 1, (H, W, 1))).astype(np.float32)
-    feats = rng.normal(0, 1, (H, W, 64)).astype(np.float32)
-    layouts = {  # baseline [fs·e^Z, e^Z]; SLR [fs·e^Z, af·e^C, e^C, e^Z]
-        "K2": np.concatenate([feats * ez, ez], -1),
-        "K2-SLR": np.concatenate([feats * ez, feats[..., :1] * ec, ec, ez], -1)}
-    k2 = {}
-    for name, u_np in layouts.items():
-        u = torch.from_numpy(u_np).to(dev)
-        slr = name == "K2-SLR"
-        n_norm = 2 if slr else 1
-        wrapper = splat_dual_normalize_slr if slr else splat_dual_normalize
-        plain = splat_dual_normalize_slr_plain if slr else splat_dual_normalize_plain
-        C1 = u.shape[-1]
-        st = dict(u_static=(u * static[..., None]).contiguous(),
-                  u_mov=(u[py, px] * valid[:, None]).contiguous(), C1=C1,
-                  wrapper=wrapper, plain=plain, n_norm=n_norm, err=0.0,
-                  acc=torch.empty((H * W * C1,), dtype=torch.float32, device=dev),
-                  out=torch.empty((H, W, C1 - n_norm), dtype=torch.float32,
-                                  device=dev))
-        k2[name] = st
-
-        st["err_bf16"] = 0.0
+    k2 = k2_inputs(dev, rng, flow, positions, valid)
+    for name, st in k2.items():
+        C1, n_norm = st["C1"], st["n_norm"]
+        wrapper, plain = st["wrapper"], st["plain"]
 
         def compare(label, da, db, a, b, out_dtype=torch.float32, rtol=1e-5,
                     acc_dtype=torch.float32):
@@ -1415,6 +1623,8 @@ def main() -> int:
                     acc_dtype=torch.bfloat16)
         compare("sentinel/integer/border bf16 accumulation", special,
                 disp_b[T_MID], 0.5, 0.5, acc_dtype=torch.bfloat16)
+    for name, st in k2.items():
+        k2_times(dev, name, st, positions, valid, disp_f[T_MID], disp_b[T_MID])
     k8 = k8_phase(dev, k2["K2"]["u_mov"], positions, disp_f[T_MID], disp_b[T_MID])
 
     # ---- phase 4: K5 and K6 against the plain versions, bit for bit ---
@@ -1545,7 +1755,6 @@ def main() -> int:
                            "splat_dense_fwd": 2 * N_FRAMES,
                            "maximum_warp_norm_splat": N_FRAMES},
           f"baseline dense v2 launches: {v2_dense_all}")
-    v2_dense_launches = v2_dense_all["maximum_warp_norm_splat"]
     v2_path_err = (v2_frames - v2_plain).abs().max().item()
     v2_dense_err = (v2_frames - v2_dense).abs().max().item()
     img_t = torch.from_numpy(img[None]).to(dev)
@@ -1567,6 +1776,7 @@ def main() -> int:
           f"(K4, K3 forward and K6, launches {v2_dense_all}) max abs "
           f"{v2_dense_err:.3g} (limits 1e-4)")
     dense = dense_entry_phase(dev, r32.model, img, flow, frames32)
+    k3_dense = k3_dense_render_times(dev, flow)
 
     # ---- phase 6: the SLR paths through SceneRenderer.render ---------
     slr = {
@@ -1687,69 +1897,16 @@ def main() -> int:
                            img, flow_np)
 
     # ---- phase 7: times, bounds, peak memory -------------------------
-    f32 = torch.float32
     t_k1 = kernel_times(lambda: euler_compact_dual(flow, positions, N_FRAMES - 1,
                                                    N_FRAMES), reps=20)
     ms_k1 = t_k1["ms"]
     ms_k1_plain = cuda_time(lambda: euler_compact_dual_plain(
         flow, positions, N_FRAMES - 1, N_FRAMES), reps=3, warmup=1)
-    a_mid = 0.5
-    for name, st in k2.items():
-        args = (st["u_mov"], positions, valid, disp_f[T_MID], disp_b[T_MID], a_mid, a_mid,
-                st["u_static"])
-        st["t"] = kernel_times(lambda: st["wrapper"](*args, out=st["out"],
-                                                     acc=st["acc"]), reps=50)
-        st["ms"] = st["t"]["ms"]
-        st["plain_ms"] = cuda_time(lambda: st["plain"](*args, f32), reps=10)
-        # yardstick: the same scatter as ONE index_add_ into the flat buffer
-        lins, rows = [], []
-        for d, w_t in ((disp_f[T_MID], a_mid), (disp_b[T_MID], a_mid)):
-            for lin, w in _corner_taps(px.float() + d[:, 0], py.float() + d[:, 1],
-                                       H, W):
-                lins.append(lin)
-                rows.append(st["u_mov"] * w_t * (w * valid)[:, None])
-        lin_all, rows_all = torch.cat(lins), torch.cat(rows)
-        flat = st["u_static"].reshape(H * W, st["C1"]).clone()
-        st["t_lib"] = kernel_times(lambda: flat.index_add_(0, lin_all, rows_all),
-                                   reps=50)
-        st["lib_ms"] = st["t_lib"]["ms"]
-        C1, C = st["C1"], st["C1"] - st["n_norm"]
-        # moving rows, positions and both displacements of the valid rows;
-        # the valid flags of all rows; the static identity in, the field out
-        st["bound"] = bound(n_valid * (C1 * 4 + 8 + 16) + P * 4
-                            + H * W * C1 * 4 + H * W * C * 4,
-                            2 * n_valid * C1 * (1 + 4 * 2) + H * W * C)
-        # the bf16 accumulation mode on the same frame: bf16 rows, static
-        # identity and accumulator, the f32 field out
-        bf = torch.bfloat16
-        args_bf = (st["u_mov"].to(bf),) + args[1:-1] + (st["u_static"].to(bf),)
-        acc_bf = splat_scratch(H, W, C1, bf, dev)
-        st["t_bf16"] = kernel_times(lambda: st["wrapper"](*args_bf, out=st["out"],
-                                                          acc=acc_bf), reps=50)
-        st["ms_bf16"] = st["t_bf16"]["ms"]
-        st["plain_ms_bf16"] = cuda_time(lambda: st["plain"](*args_bf, f32), reps=10)
-        rows_bf, flat_bf = rows_all.to(bf), flat.to(bf)
-        st["t_lib_bf16"] = kernel_times(lambda: flat_bf.index_add_(0, lin_all, rows_bf),
-                                        reps=50)
-        st["lib_ms_bf16"] = st["t_lib_bf16"]["ms"]
-        st["bound_bf16"] = bound(n_valid * (C1 * 2 + 8 + 16) + P * 4
-                                 + H * W * C1 * 2 + H * W * C * 4,
-                                 2 * n_valid * C1 * (1 + 4 * 2) + H * W * C)
-        del lin_all, rows_all, flat, rows_bf, flat_bf, acc_bf
-
     steps = (N_FRAMES - 1) + N_FRAMES
     k1_bound = bound(H * W * 8 + P * 8 + (steps + 2) * P * 8,
                      steps * P * 12)  # round x2, add x2, 4 compares, sub x2, 2 sel
     print(f"phase 7 K1: {fmt_times(t_k1)}; plain {ms_k1_plain:.3f} ms; bound "
           f"{k1_bound[0]:.4f} ms by {k1_bound[1]}")
-    for name, st in k2.items():
-        print(f"phase 7 {name} per frame: {fmt_times(st['t'])}; plain "
-              f"{st['plain_ms']:.3f} ms; index_add_ {fmt_times(st['t_lib'])}; bound "
-              f"{st['bound'][0]:.4f} ms by {st['bound'][1]}")
-        print(f"phase 7 {name} bf16 accumulation per frame: {fmt_times(st['t_bf16'])}; "
-              f"plain {st['plain_ms_bf16']:.3f} ms; bf16 index_add_ "
-              f"{fmt_times(st['t_lib_bf16'])}; bound {st['bound_bf16'][0]:.4f} ms by "
-              f"{st['bound_bf16'][1]}")
     print_maxwarp("phase 7", mw)
 
     # stage breakdown of one f32 baseline render and one f32 SLR render
@@ -1901,6 +2058,11 @@ def main() -> int:
             "slrsfs_tpu/ops/splat.py:139", train["launches"]["splat_dense_fwd"],
             k3["fwd_err"], k3["ms_fwd"], k3["plain_fwd"], k3["bound_fwd"],
             k3["lib_fwd"]),
+        row("splat_dense_fwd (dense render, B=1)", "slrsfs_tpu_torch/csrc/splat_dense.cu",
+            "slrsfs_tpu/ops/splat.py:139",
+            dense["scene"]["launches"]["splat_dense_fwd"], k3_dense["err"],
+            k3_dense["ms"], k3_dense["plain_ms"], k3_dense["bound"],
+            k3_dense["lib_ms"]),
         row("splat_dense_bwd", "slrsfs_tpu_torch/csrc/splat_dense.cu",
             "slrsfs_tpu/ops/splat.py:111", train["launches"]["splat_dense_bwd"],
             k3["bwd_err"], k3["ms_bwd"], k3["plain_bwd"], k3["bound_bwd"], None),
@@ -1922,7 +2084,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--maxwarp-in":
-        sys.exit(maxwarp_in(sys.argv[2]))
-    check(len(sys.argv) == 1, f"usage: {sys.argv[0]} [--maxwarp-in TREE]")
+    modes = {"--maxwarp-in": maxwarp_in, "--k2-in": k2_in}
+    if len(sys.argv) == 3 and sys.argv[1] in modes:
+        sys.exit(modes[sys.argv[1]](sys.argv[2]))
+    check(len(sys.argv) == 1,
+          f"usage: {sys.argv[0]} [--maxwarp-in TREE | --k2-in TREE]")
     sys.exit(main())

@@ -11,7 +11,13 @@
 # maxwarp  this checkout's chip_smoke.py --maxwarp-in TREE: K5 and K6 of
 #          each tree's package, as called, on the card alone and the host's
 #          cost per call, beside scatter_reduce_, with the CUDA kernels one
-#          call runs, and the SLR f32 v2 render (median of 5).
+#          call runs, and the SLR f32 v2 render (median of 5);
+# k2       this checkout's chip_smoke.py --k2-in TREE: K2 and K2-SLR of
+#          each tree's package in f32 and bf16 accumulation, as called, on
+#          the card alone and the host's cost per call, with the card's
+#          work per call split by CUDA kernel and memset, beside
+#          index_add_; K8; and the bfloat16 and bfloat16-fast renders of
+#          both models (median of 5).
 #
 # Prints the card's name and power limit, then each tree's bench lines
 # (JSON lines left out) prefixed with the tree. Exits 1 if a bench failed.
@@ -19,8 +25,8 @@ set -u -o pipefail
 bench=${1:-}
 shift
 case $bench in
-  k9 | maxwarp) ;;
-  *) echo "usage: $0 k9|maxwarp TREE..." >&2; exit 2 ;;
+  k9 | maxwarp | k2) ;;
+  *) echo "usage: $0 k9|maxwarp|k2 TREE..." >&2; exit 2 ;;
 esac
 here=$(cd "$(dirname "$0")/../.." && pwd)
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -29,6 +35,7 @@ for tree in "$@" $(printf '%s\n' "$@" | tac); do
   case $bench in
     k9) (cd "$tree" && PYTHONPATH=. python -m slrsfs_tpu_torch.tools.conv_prototype) ;;
     maxwarp) python "$here/chip_smoke.py" --maxwarp-in "$tree" ;;
+    k2) python "$here/chip_smoke.py" --k2-in "$tree" ;;
   esac 2>&1 | grep -v '^{' | sed "s|^|[$tree] |" || rc=1
 done
 exit $rc
