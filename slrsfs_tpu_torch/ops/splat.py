@@ -410,14 +410,18 @@ def _check_rows(u: Tensor, named: dict) -> None:
 def splat_scratch(height: int, width: int, C1: int, dtype: torch.dtype,
                   device) -> Tensor:
     """The K2 kernel's accumulator for rows of ``dtype``: (H·W·C1,) float32,
-    or the (H·W·4·C1,) bfloat16 quarters of the bf16 mode (one per corner,
-    combined as the JAX quad layout combines them)."""
+    or the (H·W·4·C1p,) bfloat16 quarters of the bf16 mode (one per corner,
+    combined as the JAX quad layout combines them). C1p is C1 rounded up to
+    a multiple of 8, so that the kernel adds 8 channels of a quarter with
+    one 16-byte reduction; the pad channels receive 0 and are never read."""
     return torch.empty((_scratch_numel(height, width, C1, dtype),), dtype=dtype,
                        device=device)
 
 
 def _scratch_numel(height: int, width: int, C1: int, dtype: torch.dtype) -> int:
-    return height * width * C1 * (4 if dtype == torch.bfloat16 else 1)
+    if dtype == torch.bfloat16:  # csrc/splat.cu:quarter_stride
+        return height * width * 4 * (-(-C1 // 8) * 8)
+    return height * width * C1
 
 
 def _splat_launch(kernel, plain, n_norm, u_mov, positions, valid, disp_a,
@@ -433,11 +437,14 @@ def _splat_launch(kernel, plain, n_norm, u_mov, positions, valid, disp_a,
              "out": (out, (H, W, C1 - n_norm), out.dtype)}
     if out.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out must be float32 or bfloat16, got {out.dtype}")
-    if u_mov.device.type == "cuda":
-        if acc is None:
-            acc = splat_scratch(H, W, C1, u_mov.dtype, u_mov.device)
+    if acc is None and u_mov.device.type == "cuda":
+        acc = splat_scratch(H, W, C1, u_mov.dtype, u_mov.device)
+    if acc is not None:  # checked on every device, used on the card
         named["acc"] = (acc, (_scratch_numel(H, W, C1, u_mov.dtype),), u_mov.dtype)
     _check_rows(u_mov, named)
+    if u_mov.device.type == "cuda" and u_mov.dtype == torch.bfloat16 \
+            and acc.data_ptr() % 16:
+        raise ValueError("the bf16 acc must be 16-byte aligned")
     if u_mov.device.type == "cpu":
         out.copy_(plain(u_mov, positions, valid, disp_a, disp_b, w_a, w_b,
                         u_static, out.dtype))
@@ -462,7 +469,8 @@ def splat_dual_normalize(u_mov: Tensor, positions: Tensor, valid: Tensor,
 
     On the card the CUDA kernel computes it, accumulating in ``u_mov``'s
     dtype, with ``acc`` (``splat_scratch``) as its scratch accumulator
-    (allocated when None); on the CPU the plain version does."""
+    (allocated when None); on the CPU the plain version does. A given
+    ``acc`` must have ``splat_scratch``'s size and dtype on every device."""
     return _splat_launch(kernels.SPLAT, splat_dual_normalize_plain, 1, u_mov,
                          positions, valid, disp_a, disp_b, w_a, w_b, u_static,
                          out, acc)

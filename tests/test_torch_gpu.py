@@ -522,6 +522,80 @@ def test_k2_bf16_accumulation_matches_plain_on_card(slr):
     assert torch.equal(out == 0, want == 0)  # positive rows: no cancellation
 
 
+def _quarter_inputs(dev, C1: int):
+    """Positive rows of width C1 (normalisers > 0, so no sum cancels to 0),
+    P = 999 (not a multiple of 32) with 27 padded rows (valid 0, zero rows
+    at (0, 0)), the sentinel/integer/border displacements at one end, and
+    a positive static identity in the bottom half."""
+    m = _motion(11)
+    pos, val = prepare_scene_sparse(m, pad_multiple=37)
+    assert len(val) % 32 and (val == 0).any()
+    rng = np.random.default_rng(C1)
+    u = np.abs(rng.standard_normal((len(val), C1))).astype(np.float32) * val[:, None]
+    u_static = np.abs(rng.standard_normal((H, W, C1))).astype(np.float32)
+    u_static[: H // 2] = 0.0
+    disp_f, disp_b = euler_compact_dual_plain(torch.from_numpy(m),
+                                              torch.from_numpy(pos), 4, 5)
+    bf = torch.bfloat16
+    return (torch.from_numpy(u).to(dev).to(bf), torch.from_numpy(pos).to(dev),
+            torch.from_numpy(val).to(dev), _special(disp_f[3]).to(dev),
+            disp_b[2].to(dev), torch.from_numpy(u_static).to(dev).to(bf))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C1", [3, 9, 65, 66, 67])
+@pytest.mark.parametrize("entry", ["K2", "K2-SLR", "K8"])
+def test_bf16_quarters_match_plain_on_card(entry, C1):
+    """The bf16 quarters (channel stride C1 rounded up to a multiple of 8,
+    8 channels per 16-byte reduction) of K2, K2-SLR and K8 (one end and two
+    ends) at widths that are and are not multiples of 8: the kernel at
+    most twice as far from the f32 sums as the plain version, with the
+    same zeros."""
+    dev = _card()
+    u, pos, val, da, db, u_static = _quarter_inputs(dev, C1)
+    kernels.reset_counts()
+    if entry == "K8":
+        got = [port_splat.softsplat_sum_at(u, pos, da, H, W),
+               port_splat.softsplat_sum_at_quad_dual(u, pos, da, db, 0.3, 0.7, H, W)]
+        launches = {kernels.SPLAT_SUM_AT.name: 2}
+        want, ref32 = ([port_splat.softsplat_sum_at_plain(x, pos, da, H, W),
+                        port_splat.softsplat_sum_at_quad_dual_plain(x, pos, da, db,
+                                                                    0.3, 0.7, H, W)]
+                       for x in (u, u.float()))
+    else:
+        slr = entry == "K2-SLR"
+        wrapper, plain, n_norm, kernel = (
+            (splat_dual_normalize_slr, splat_dual_normalize_slr_plain, 2,
+             kernels.SPLAT_SLR) if slr else
+            (splat_dual_normalize, splat_dual_normalize_plain, 1, kernels.SPLAT))
+        out = torch.empty((H, W, C1 - n_norm), device=dev)
+        got = [wrapper(u, pos, val, da, db, 0.4, 0.6, u_static, out=out)]
+        launches = {kernel.name: 1}
+        want, ref32 = ([plain(x, pos, val, da, db, 0.4, 0.6, us, torch.float32)]
+                       for x, us in ((u, u_static), (u.float(), u_static.float())))
+    assert {k: v for k, v in kernels.counts().items() if v} == launches
+    torch.cuda.synchronize()
+    for g, w, r in zip(got, want, ref32):
+        _held(g, w, torch.bfloat16, r)
+        assert torch.equal(g == 0, w == 0)
+
+
+@pytest.mark.gpu
+def test_k2_refuses_a_misaligned_bf16_scratch_on_card():
+    """The quarters take 16-byte reductions: a bf16 scratch of the right
+    size that is only 8-byte aligned is refused before any launch."""
+    dev = _card()
+    u, pos, val, da, db, u_static = _quarter_inputs(dev, 65)
+    n = port_splat._scratch_numel(H, W, 65, torch.bfloat16)
+    buf = torch.zeros((n + 8,), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((H, W, 64), device=dev)
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        splat_dual_normalize(u, pos, val, da, db, 0.4, 0.6, u_static, out=out,
+                             acc=buf[4:4 + n])
+    assert sum(kernels.counts().values()) == 0
+
+
 @pytest.mark.gpu
 def test_dense_rollout_kernels_match_plain_on_card():
     """baseline_rollout through K4 and K3's forward against its plain
