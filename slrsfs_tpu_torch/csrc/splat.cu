@@ -197,10 +197,9 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 // 8 bf16 at the 16-byte aligned addr += v, each element its own bf16 add.
 __device__ __forceinline__ void red_add_bf16x8(bf16* addr, const uint32_t v[4]) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-    asm volatile("red.global.add.noftz.bf16x2 [%0], %1;" ::"l"(addr + 2 * m), "r"(v[m])
-                 : "memory");
+  asm volatile("red.global.add.noftz.v4.bf16x2 [%0], {%1, %2, %3, %4};" ::"l"(addr),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
 }
 
 // acc (H * W, 4, C1p) bf16 += both ends' splats of rows u (P, C1) bf16,
