@@ -215,29 +215,10 @@ def fmt_times(t: dict) -> str:
             f"{t['host_us']:.1f} us)")
 
 
-def kernels_per_call(fn, reps: int = 4):
-    """(CUDA kernels the card ran per call of ``fn``, their names), from a
-    ``torch.profiler`` trace of ``reps`` calls after one warm-up; copies
-    and memsets are not counted."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not e.name.startswith(("Memcpy", "Memset"))]
-    return len(names) / reps, sorted(set(names))
-
-
 def launch_split(fn, reps: int = 10) -> dict:
     """The card's work in one call of ``fn``, split by CUDA kernel, memset
-    and copy: {name: device us per call}, from a ``torch.profiler`` trace
-    of ``reps`` calls after one warm-up."""
+    and copy: {name: (launches per call, device us per call)}, from a
+    ``torch.profiler`` trace of ``reps`` calls after one warm-up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -247,16 +228,25 @@ def launch_split(fn, reps: int = 10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = {}
+    total = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            split[e.name] = split.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
-    return split
+            n, us = total.get(e.name, (0, 0.0))
+            total[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return {k: (n / reps, us / reps) for k, (n, us) in total.items()}
+
+
+def kernels_per_call(fn, reps: int = 4):
+    """(CUDA kernels the card ran per call of ``fn``, their names), from
+    ``launch_split``; copies and memsets are not counted."""
+    split = launch_split(fn, reps)
+    names = sorted(k for k in split if not k.startswith(("Memcpy", "Memset")))
+    return sum(split[k][0] for k in names), names
 
 
 def fmt_split(split: dict) -> str:
-    return "; ".join(f"{k} {v:.2f} us" for k, v in split.items()) + (
-        f" (sum {sum(split.values()):.2f} us)")
+    return "; ".join(f"{k} {us:.2f} us" for k, (_, us) in split.items()) + (
+        f" (sum {sum(us for _, us in split.values()):.2f} us)")
 
 
 def bound(n_bytes: float, n_ops: float, peak: float = FP32_FLOPS):
@@ -1048,7 +1038,6 @@ def k2_in(tree: str) -> int:
     import torch
 
     dev = use_tree(tree)
-    from slrsfs_tpu_torch import kernels
     from slrsfs_tpu_torch.cli.render import SceneRenderer
     from slrsfs_tpu_torch.engine.rollout import prepare_scene_sparse
     from slrsfs_tpu_torch.ops.euler import euler_compact_dual_plain
@@ -1060,7 +1049,6 @@ def k2_in(tree: str) -> int:
     valid = torch.from_numpy(val_np).to(dev)
     disp_f, disp_b = euler_compact_dual_plain(flow, positions, N_FRAMES - 1, N_FRAMES)
     da, db = disp_f[T_MID].contiguous(), disp_b[T_MID].contiguous()
-    kernels.SPLAT.load()
     k2 = k2_inputs(dev, np.random.default_rng(SEED + 1), flow, positions, valid)
     for name, st in k2.items():
         k2_times(dev, name, st, positions, valid, da, db)

@@ -12,7 +12,8 @@ in another order, so they are held at 1e-5 in float32, and K3's backward
 at 1e-5 of each output's maximum; in bf16 accumulation K2 and K8 round
 at every add in another order than their plain versions, so both are held
 against the f32 sums of the same rows, the kernel at most twice as far as
-the plain version; K9
+the plain version (also at channel widths that are not multiples of the
+quarters' 8-channel reductions, with P not a multiple of 32); K9
 at 2^-7 of max |plain| with at most 0.1 % of the elements more than one
 bf16 ulp apart; a rollout through the kernels is held at 1e-4 against one
 through the plain versions. The card branches of K1, K4 and K7 refuse a
