@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --maxwarp-in TREE   # K5 and K6 of another tree
     python3 chip_smoke.py --k2-in TREE        # K2 and K8 of another tree
+    python3 chip_smoke.py --k3-in TREE        # K3's forward of another tree
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the main paths'
@@ -78,9 +79,12 @@ K5 and K6 of the package in TREE, another unpacked tree of this
 repository, beside their yardstick, and the SLR f32 v2 render that K5
 serves; with --k2-in TREE, K2 and K2-SLR in f32 and bf16 accumulation
 (with the card's work per call split by torch.profiler into memset,
-scatter and epilogue), K8 and the bfloat16 and bfloat16-fast renders of
-both models (slrsfs_tpu_torch/tools/compare.sh runs either on several
-trees in turns).
+scatter and epilogue, and the f32 window scatter's misses), K8 and the
+float32, bfloat16 and bfloat16-fast renders of both models; with --k3-in
+TREE, K3's forward at the dense render's and the training shape (split
+into the output's zeroing and the scatter, with the window misses) and the
+dense float32 render (slrsfs_tpu_torch/tools/compare.sh runs any of them
+on several trees in turns).
 """
 
 from __future__ import annotations
@@ -247,6 +251,33 @@ def kernels_per_call(fn, reps: int = 4):
 def fmt_split(split: dict) -> str:
     return "; ".join(f"{k} {us:.2f} us" for k, (_, us) in split.items()) + (
         f" (sum {sum(us for _, us in split.values()):.2f} us)")
+
+
+def window_misses(kind: str, C: int, *args) -> str:
+    """The share of the f32 window scatter's in-grid corners that land
+    outside their unit's window (and go to device memory one by one),
+    counted on the host from the displacements and the tiling that the
+    package's kernel library reports (``ops/splat.py:rows_window_misses``
+    for kind "rows", args positions, valid, displacements;
+    ``dense_window_misses`` for "dense", args flow). A package without the
+    window scatter says so."""
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.ops import splat as S
+
+    try:
+        if kind == "rows":
+            run, cap = (kernels.SPLAT.query("splat_rows_window", C, w) for w in (0, 1))
+            n_in, n_miss = S.rows_window_misses(*args, H, W, run, cap)
+            geometry = f"runs of {run} rows"
+        else:
+            ty, tx, cap = (kernels.SPLAT_DENSE_FWD.query("splat_dense_window", C, w)
+                           for w in (0, 1, 2))
+            n_in, n_miss = S.dense_window_misses(args[0], (ty, tx), cap)
+            geometry = f"{ty}x{tx} tiles"
+    except AttributeError:
+        return "window misses: this package's scatter has no window"
+    return (f"window misses {n_miss} of {n_in} corners in the grid "
+            f"({100.0 * n_miss / max(n_in, 1):.2f} %; {geometry}, windows of {cap} cells)")
 
 
 def bound(n_bytes: float, n_ops: float, peak: float = FP32_FLOPS):
@@ -535,12 +566,14 @@ def k2_times(dev, name, st, positions, valid, disp_a, disp_b) -> None:
                                   2 * n_valid * C1 * (1 + 4 * 2) + H * W * C)
         del flat, rows_d
     del lin_all, rows_all, acc_bf
+    st["misses"] = window_misses("rows", C1, positions, valid, (disp_a, disp_b))
     for sfx, label in (("", "f32"), ("_bf16", "bf16 accumulation")):
         print(f"phase 3 {name} {label} per frame: {fmt_times(st['t' + sfx])}; plain "
               f"{st['plain_ms' + sfx]:.3f} ms; index_add_ {fmt_times(st['t_lib' + sfx])}; "
               f"bound {st['bound' + sfx][0]:.4f} ms by {st['bound' + sfx][1]}")
         print(f"phase 3 {name} {label} per call on the card (torch.profiler): "
               f"{fmt_split(st['split' + sfx])}")
+    print(f"phase 3 {name} f32 {st['misses']}")
     print(f"phase 3 {name} bf16 accumulation against f32 on the card: "
           f"{st['ms_bf16']:.4f} / {st['ms']:.4f} ms = {st['ms_bf16'] / st['ms']:.2f}x")
 
@@ -602,6 +635,8 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
         t_dual = kernel_times(lambda: S.softsplat_sum_at_quad_dual(
             u, positions, disp_a, disp_b, 0.5, 0.5, H, W), reps=50)
         split = launch_split(lambda: S.softsplat_sum_at(u, positions, disp_a, H, W))
+        split_dual = launch_split(lambda: S.softsplat_sum_at_quad_dual(
+            u, positions, disp_a, disp_b, 0.5, 0.5, H, W))
         plain_ms = cuda_time(lambda: S.softsplat_sum_at_plain(u, positions, disp_a,
                                                               H, W), reps=10)
         lins, rows = [], []
@@ -627,8 +662,12 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
               f"({limit}); one end {fmt_times(t)}; two ends {fmt_times(t_dual)}; "
               f"plain {plain_ms:.3f} ms; index_add_ of the 4P rows {fmt_times(t_lib)}; "
               f"bound {bnd[0]:.4f} ms by {bnd[1]}")
-        print(f"phase 3 K8 {label} one end per call on the card (torch.profiler): "
-              f"{fmt_split(split)}")
+        print(f"phase 3 K8 {label} per call on the card (torch.profiler): one end "
+              f"{fmt_split(split)}; two ends {fmt_split(split_dual)}")
+        if dtype == torch.float32:
+            for ends, disps in (("one end", (disp_a,)), ("two ends", (disp_a, disp_b))):
+                print(f"phase 3 K8 f32 {ends} "
+                      f"{window_misses('rows', C, positions, None, disps)}")
         res[label] = {"launches": launches["splat_sum_at"], "err": err, "ms": t["ms"],
                       "ms_dual": t_dual["ms"], "plain_ms": plain_ms,
                       "lib_ms": t_lib["ms"], "bound": bnd}
@@ -687,57 +726,93 @@ def dense_entry_phase(dev, model, img, flow, frames32):
     return res
 
 
-def k3_dense_render_times(dev, flow):
-    """K3's forward at the dense render's own shape: one frame end of
-    ``baseline_rollout`` splats (1, 256, 256, 65) rows (the packed
-    [fs·e^Z, e^Z] width) by the scene's displacement integrated to t =
-    T_MID. Held against its plain version (atol/rtol 1e-5, the same empty
-    cells) and timed (``kernel_times``) beside the plain version, one
-    ``index_add_`` of the 4·HW weighted rows and the bound."""
+def k3_fwd_times(dev, label, inp, flow, reps, plain_reps=10):
+    """K3's forward on inp (B, H, W, C) by flow (B, H, W, 2): as called, on
+    the card alone and the host's cost per call (``kernel_times``), the
+    card's work per call split by ``launch_split`` (the output's zeroing and
+    the scatter), the plain version, one ``index_add_`` of the 4·B·HW
+    weighted rows, the bound and the window misses; printed after
+    ``label``."""
     import torch
 
-    from slrsfs_tpu_torch.ops.euler import euler_integrate_all_dual_plain
     from slrsfs_tpu_torch.ops.splat import (
         _corner_taps,
         softsplat_sum_fwd_kernel,
         softsplat_sum_plain,
     )
 
-    C = 65
+    B, H_, W_, C = inp.shape
+    t = kernel_times(lambda: softsplat_sum_fwd_kernel(inp, flow), reps=reps)
+    split = launch_split(lambda: softsplat_sum_fwd_kernel(inp, flow))
+    plain_ms = cuda_time(lambda: softsplat_sum_plain(inp, flow), reps=plain_reps,
+                         warmup=1)
+    xs = torch.arange(W_, device=dev, dtype=torch.float32)[None, :]
+    ys = torch.arange(H_, device=dev, dtype=torch.float32)[:, None]
+    lins, rows = [], []
+    for b in range(B):
+        for lin, w in _corner_taps((xs + flow[b, ..., 0]).reshape(-1),
+                                   (ys + flow[b, ..., 1]).reshape(-1), H_, W_):
+            lins.append(lin + b * H_ * W_)
+            rows.append(inp[b].reshape(H_ * W_, C) * w[:, None])
+    lin_all, rows_all = torch.cat(lins), torch.cat(rows)
+    del lins, rows
+    acc = torch.zeros((B * H_ * W_, C), device=dev)
+    t_lib = kernel_times(lambda: acc.index_add_(0, lin_all, rows_all), reps=reps)
+    del lin_all, rows_all, acc
+    n = B * H_ * W_
+    # inp and flow in, out out; per pixel ~20 ops of corner math and per
+    # channel 4 multiplies and 4 adds
+    bnd = bound(n * C * 4 * 2 + n * 8, n * (8 * C + 20))
+    misses = window_misses("dense", C, flow)
+    print(f"{label}: {fmt_times(t)}; plain {plain_ms:.3f} ms; index_add_ "
+          f"{fmt_times(t_lib)}; bound {bnd[0]:.4f} ms by {bnd[1]}")
+    print(f"{label} per call on the card (torch.profiler): {fmt_split(split)}; {misses}")
+    return {"t": t, "ms": t["ms"], "plain_ms": plain_ms, "lib_ms": t_lib["ms"],
+            "bound": bnd, "split": split, "misses": misses}
+
+
+def k3_dense_inputs(dev, flow):
+    """K3's forward at the dense render's own shape: one frame end of
+    ``baseline_rollout`` splats (1, 256, 256, 65) rows (the packed
+    [fs·e^Z, e^Z] width) by the scene's displacement integrated to t =
+    T_MID."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.euler import euler_integrate_all_dual_plain
+
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    inp = torch.randn((1, H, W, C), generator=gen, device=dev)
+    inp = torch.randn((1, H, W, 65), generator=gen, device=dev)
     disp = euler_integrate_all_dual_plain(flow, N_FRAMES - 1, N_FRAMES)[0][T_MID]
-    disp = disp[None].contiguous()
-    out = softsplat_sum_fwd_kernel(inp, disp)
-    ref = softsplat_sum_plain(inp, disp)
+    return inp, disp[None].contiguous()
+
+
+def k3_check(label, inp, flow) -> tuple:
+    """K3's forward against its plain version (atol/rtol 1e-5, the same
+    empty cells): (max abs, elements of reached cells exactly 0 on one side
+    only, empty cells)."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.splat import softsplat_sum_fwd_kernel, softsplat_sum_plain
+
+    out = softsplat_sum_fwd_kernel(inp, flow)
+    ref = softsplat_sum_plain(inp, flow)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
-    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
-          f"K3 forward at the dense render's shape: max abs {err}")
-    n_cancel = check_zeros(out, ref, "K3 forward at the dense render's shape")
-    t = kernel_times(lambda: softsplat_sum_fwd_kernel(inp, disp), reps=50)
-    plain_ms = cuda_time(lambda: softsplat_sum_plain(inp, disp), reps=10)
-    xs = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
-    ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
-    lins, rows = [], []
-    for lin, w in _corner_taps((xs + disp[0, ..., 0]).reshape(-1),
-                               (ys + disp[0, ..., 1]).reshape(-1), H, W):
-        lins.append(lin)
-        rows.append(inp[0].reshape(H * W, C) * w[:, None])
-    lin_all, rows_all = torch.cat(lins), torch.cat(rows)
-    acc = torch.zeros((H * W, C), device=dev)
-    t_lib = kernel_times(lambda: acc.index_add_(0, lin_all, rows_all), reps=50)
-    n = H * W
-    # as k3_phase: inp and flow in, out out; per pixel ~20 ops of corner
-    # math and per channel 4 multiplies and 4 adds
-    bnd = bound(n * C * 4 * 2 + n * 8, n * (8 * C + 20))
-    print(f"phase 5 K3 forward at the dense render's shape (1, {H}, {W}, {C}), "
-          f"t={T_MID}: max abs {err:.3g} vs plain (atol/rtol 1e-5, empty cells "
-          f"match; {n_cancel} elements of reached cells exactly 0 on one side); "
-          f"{fmt_times(t)}; plain {plain_ms:.3f} ms; index_add_ {fmt_times(t_lib)}; "
-          f"bound {bnd[0]:.4f} ms by {bnd[1]}")
-    return {"err": err, "ms": t["ms"], "plain_ms": plain_ms, "lib_ms": t_lib["ms"],
-            "bound": bnd}
+    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5), f"{label}: max abs {err}")
+    return err, check_zeros(out, ref, label), int((ref == 0).all(-1).sum())
+
+
+def k3_dense_render_times(dev, flow):
+    """K3's forward at the dense render's own shape (``k3_dense_inputs``),
+    held against its plain version and timed (``k3_fwd_times``)."""
+    inp, disp = k3_dense_inputs(dev, flow)
+    label = f"phase 5 K3 forward at the dense render's shape (1, {H}, {W}, 65), t={T_MID}"
+    err, n_cancel, _ = k3_check(label, inp, disp)
+    print(f"{label}: max abs {err:.3g} vs plain (atol/rtol 1e-5, empty cells match; "
+          f"{n_cancel} elements of reached cells exactly 0 on one side)")
+    res = k3_fwd_times(dev, label, inp, disp, reps=50)
+    res["err"] = err
+    return res
 
 
 def bf16_fast_phase(img_path, flow_path, scene_dir, bf16, img, flow_np):
@@ -1032,8 +1107,9 @@ def k2_in(tree: str) -> int:
     """``python3 chip_smoke.py --k2-in TREE``: on the package of another
     unpacked tree of this repository, K2 and K2-SLR at one frame of the
     render (``k2_times``: f32 and bf16 accumulation, each with its
-    per-launch split), K8 (``k8_phase``) and the bfloat16 and
-    bfloat16-fast renders of both models (median of 5), to compare commits
+    per-launch split, and the f32 mode's window misses), K8 (``k8_phase``)
+    and the float32, bfloat16 and bfloat16-fast renders of both models
+    (median of 5), to compare commits
     on one card (slrsfs_tpu_torch/tools/compare.sh)."""
     import torch
 
@@ -1054,11 +1130,12 @@ def k2_in(tree: str) -> int:
         k2_times(dev, name, st, positions, valid, da, db)
     k8_phase(dev, k2["K2"]["u_mov"], positions, da, db)
     del k2
-    # the end-to-end metric K2's bf16 mode moves: the bfloat16-fast
-    # renders, beside the bfloat16 renders they exist to speed up
+    # the end-to-end metrics K2 moves: the float32 renders (f32 mode), the
+    # bfloat16-fast renders (bf16 mode) beside the bfloat16 renders they
+    # exist to speed up
     img = (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
     for label, overrides in (("baseline", None), ("SLR", SLR_OPTS)):
-        for dtype in ("bfloat16", "bfloat16-fast"):
+        for dtype in ("float32", "bfloat16", "bfloat16-fast"):
             r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype=dtype, seed=SEED,
                               sparsify_eps=0.0, opt_overrides=overrides)
             med, ts = render_median(r, img, flow_np, reps=5)
@@ -1066,6 +1143,69 @@ def k2_in(tree: str) -> int:
                   f"{N_FRAMES / med:.2f} frames/s (runs "
                   f"{[round(x * 1e3, 1) for x in ts]} ms)")
             del r
+    return 0
+
+
+def k3_train_inputs(dev, scene_flow: np.ndarray, plain: bool = False):
+    """K3's forward at the training shape (B = 16, 256², C = 65): random
+    rows and the scene's flow integrated by K7 with the training batch's
+    counts (its plain version when ``plain``: the same values)."""
+    import torch
+
+    from slrsfs_tpu_torch.ops import euler as E
+
+    B = TRAIN_B
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    inp = torch.randn((B, H, W, TRAIN_C), generator=gen, device=dev)
+    idx = make_train_batch(np.random.default_rng(SEED), B, W)["index"]
+    tf_b, tp_b = (torch.from_numpy(a).to(dev) for a in phased_counts(idx, TRAIN_T))
+    m = torch.from_numpy(np.repeat(scene_flow[None], B, axis=0)).to(dev)
+    phased = E.euler_integrate_phased_plain if plain else E.euler_integrate_phased
+    return inp, phased(m, tf_b, tp_b, TRAIN_T)[1]
+
+
+def k3_in(tree: str) -> int:
+    """``python3 chip_smoke.py --k3-in TREE``: on the package of another
+    unpacked tree of this repository, K3's forward at the dense render's
+    shape (1, 256, 256, 65) and at the training shape (16, 256, 256, 65),
+    each held against its plain version and timed (``k3_fwd_times``: as
+    called, on the card alone, the host's cost, the per-launch split,
+    ``index_add_``, the bound and the window misses), and the dense
+    baseline float32 render of the scene (median of 5), to compare commits
+    on one card (slrsfs_tpu_torch/tools/compare.sh)."""
+    import torch
+
+    dev = use_tree(tree)
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+    from slrsfs_tpu_torch.engine import rollout
+
+    img_u8, flow_np = synthetic_scene(SEED)
+    flow = torch.from_numpy(flow_np).to(dev)
+    shapes = {"dense render": k3_dense_inputs(dev, flow),
+              "training": k3_train_inputs(dev, flow_np, plain=True)}
+    for name, (inp, disp) in shapes.items():
+        label = f"k3 forward, {name} {tuple(inp.shape)}"
+        err, n_cancel, _ = k3_check(label, inp, disp)
+        print(f"{label}: max abs {err:.3g} vs plain (atol/rtol 1e-5, empty cells "
+              f"match; {n_cancel} elements of reached cells exactly 0 on one side)")
+        k3_fwd_times(dev, label, inp, disp, reps=50 if inp.shape[0] == 1 else 20,
+                     plain_reps=10 if inp.shape[0] == 1 else 3)
+    del shapes
+    # the end-to-end metric K3's forward moves: the dense render
+    img = (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
+    img_t = torch.from_numpy(img[None]).to(dev)
+    r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED,
+                      sparsify_eps=0.0)
+    ts = []
+    for i in range(6):
+        t0 = time.perf_counter()
+        rollout.baseline_rollout(r.model, img_t, flow, N_FRAMES)
+        torch.cuda.synchronize()
+        if i:  # the first is the warm-up
+            ts.append(time.perf_counter() - t0)
+    med = sorted(ts)[len(ts) // 2]
+    print(f"k3 dense baseline float32 render: median {med * 1e3:.1f} ms = "
+          f"{N_FRAMES / med:.2f} frames/s (runs {[round(x * 1e3, 1) for x in ts]} ms)")
     return 0
 
 
@@ -1186,13 +1326,7 @@ def k3_phase(dev, scene_flow: np.ndarray):
     import torch
 
     from slrsfs_tpu_torch.ops.euler import euler_integrate_phased
-    from slrsfs_tpu_torch.ops.splat import (
-        _corner_taps,
-        softsplat_sum_bwd_kernel,
-        softsplat_sum_fwd_kernel,
-        softsplat_sum_grad_plain,
-        softsplat_sum_plain,
-    )
+    from slrsfs_tpu_torch.ops.splat import softsplat_sum_bwd_kernel, softsplat_sum_grad_plain
 
     B, C = TRAIN_B, TRAIN_C
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1207,13 +1341,7 @@ def k3_phase(dev, scene_flow: np.ndarray):
                                                        TRAIN_T)[1]}
     res = {"fwd_err": 0.0, "bwd_err": 0.0}
     for label, flow in flows.items():
-        out = softsplat_sum_fwd_kernel(inp, flow)
-        ref = softsplat_sum_plain(inp, flow)
-        torch.cuda.synchronize()
-        e = (out - ref).abs().max().item()
-        check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
-              f"K3 forward {label}: max abs {e}")
-        n_cancel = check_zeros(out, ref, f"K3 forward {label}")
+        e, n_cancel, n_empty = k3_check(f"K3 forward {label}", inp, flow)
         gi, gf = softsplat_sum_bwd_kernel(inp, flow, g)
         wi, wf = softsplat_sum_grad_plain(inp, flow, g)
         torch.cuda.synchronize()
@@ -1227,44 +1355,23 @@ def k3_phase(dev, scene_flow: np.ndarray):
         res["fwd_err"] = max(res["fwd_err"], e)
         res["bwd_err"] = max(res["bwd_err"], *eb)
         print(f"phase 9 K3 {label}: forward max abs {e:.3g} (atol/rtol 1e-5), "
-              f"empty cells match ({int((ref == 0).all(-1).sum())}; "
+              f"empty cells match ({n_empty}; "
               f"{n_cancel} elements of reached cells exactly 0 on one side); "
               f"backward max abs grad_inp {eb[0]:.3g}, grad_flow {eb[1]:.3g} "
               f"(limit 1e-5 of each output's max)")
     flow = flows["scene flow (K7)"]
-    t_fwd = kernel_times(lambda: softsplat_sum_fwd_kernel(inp, flow), reps=20)
-    res["ms_fwd"] = t_fwd["ms"]
-    res["plain_fwd"] = cuda_time(lambda: softsplat_sum_plain(inp, flow), reps=3,
-                                 warmup=1)
+    fwd = k3_fwd_times(dev, f"phase 9 K3 forward ({B}, {H}, {W}, {C})", inp, flow,
+                       reps=20, plain_reps=3)
+    res.update(ms_fwd=fwd["ms"], plain_fwd=fwd["plain_ms"], lib_fwd=fwd["lib_ms"],
+               bound_fwd=fwd["bound"])
     t_bwd = kernel_times(lambda: softsplat_sum_bwd_kernel(inp, flow, g), reps=20)
     res["ms_bwd"] = t_bwd["ms"]
     res["plain_bwd"] = cuda_time(lambda: softsplat_sum_grad_plain(inp, flow, g),
                                  reps=3, warmup=1)
-    # yardstick for the forward: ONE index_add_ of the 4·B·HW weighted rows
-    xs = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
-    ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
-    lins, rows = [], []
-    for b in range(B):
-        for lin, w in _corner_taps((xs + flow[b, ..., 0]).reshape(-1),
-                                   (ys + flow[b, ..., 1]).reshape(-1), H, W):
-            lins.append(lin + b * H * W)
-            rows.append(inp[b].reshape(H * W, C) * w[:, None])
-    lin_all, rows_all = torch.cat(lins), torch.cat(rows)
-    del lins, rows
-    acc = torch.zeros((B * H * W, C), device=dev)
-    t_lib = kernel_times(lambda: acc.index_add_(0, lin_all, rows_all), reps=20)
-    res["lib_fwd"] = t_lib["ms"]
-    del lin_all, rows_all, acc
     n = B * H * W
-    # forward: inp and flow in, out out; per pixel ~20 ops of corner math
-    # and per channel 4 multiplies and 4 adds
-    res["bound_fwd"] = bound(n * C * 4 * 2 + n * 8, n * (8 * C + 20))
     # backward: inp, flow and g in, grad_inp and grad_flow out; per channel
     # and corner 2 multiply-adds (g·w, inp·g)
     res["bound_bwd"] = bound(n * C * 4 * 3 + n * 8 * 2, n * (16 * C + 40))
-    print(f"phase 9 K3 forward: {fmt_times(t_fwd)}; plain {res['plain_fwd']:.2f} ms; "
-          f"index_add_ {fmt_times(t_lib)}; bound {res['bound_fwd'][0]:.4f} ms by "
-          f"{res['bound_fwd'][1]}")
     print(f"phase 9 K3 backward: {fmt_times(t_bwd)}; plain {res['plain_bwd']:.2f} ms; "
           f"bound {res['bound_bwd'][0]:.4f} ms by {res['bound_bwd'][1]}")
     return res
@@ -2072,9 +2179,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--maxwarp-in": maxwarp_in, "--k2-in": k2_in}
+    modes = {"--maxwarp-in": maxwarp_in, "--k2-in": k2_in, "--k3-in": k3_in}
     if len(sys.argv) == 3 and sys.argv[1] in modes:
         sys.exit(modes[sys.argv[1]](sys.argv[2]))
     check(len(sys.argv) == 1,
-          f"usage: {sys.argv[0]} [--maxwarp-in TREE | --k2-in TREE]")
+          f"usage: {sys.argv[0]} [--maxwarp-in TREE | --k2-in TREE | --k3-in TREE]")
     sys.exit(main())

@@ -46,18 +46,25 @@
 // bf16 quarters) stays in the 50 MB L2 between the passes.
 //
 // Design, on the caller's stream. f32:
-//  (a) K2 copies u_static into the accumulator (cudaMemcpyAsync), K8
-//      scatters into its zeroed output;
-//  (b) scatter: one thread per (end, row, channel). Consecutive threads hold
-//      consecutive channels of one row, so the weight math is shared by a
-//      warp's lanes and the four atomicAdds of a warp land on consecutive
-//      addresses. Weights are computed in f32 from position + disp exactly
-//      as _quad_rows does; rows with valid == 0 (padding) are skipped where
-//      a valid array is given. The OOB sentinel max(H, W) + 1 puts all four
-//      corners off the grid;
-//  (c) epilogue, one thread per output element: K2 divides by the clamped
-//      weight channel(s) in f32 and stores f32 or bf16 (round to nearest
-//      even) into the decode chunk's slot, which is NHWC in memory.
+//  (a) K2 zeroes the accumulator (cudaMemsetAsync), K8 scatters into its
+//      zeroed output;
+//  (b) scatter: splat_window::scatter (splat_window.cuh), one unit a run of
+//      kRun consecutive rows of one end. A warp computes each row's corners
+//      and weights once, in f32 from position + disp exactly as _quad_rows
+//      does, sums the run's taps into a shared-memory window of cells
+//      (all C1 channels of a cell; one atomicAdd per channel and corner),
+//      and reduces each touched cell into the accumulator once with 16-byte
+//      red.global.add.v4.f32 over its aligned middle; corners outside the
+//      window go to the accumulator directly. Rows with valid == 0
+//      (padding) are skipped where a valid array is given. The OOB
+//      sentinel max(H, W) + 1 puts all four corners off the grid;
+//  (c) epilogue, one block per run of pixels: the runs of the accumulator
+//      and of u_static (contiguous, not 16-byte aligned per pixel) are
+//      staged through shared memory with 16-byte loads; K2 adds them
+//      (the JAX order, splat + u_static), divides by the clamped weight
+//      channel(s) in f32 and stores f32 or bf16 (round to nearest even)
+//      into the decode chunk's slot, which is NHWC in memory, by
+//      consecutive threads.
 // bf16: the quarters are (H * W, 4, C1p), C1p = C1 rounded up to a
 // multiple of 8, so that 8 channels of a quarter are one aligned 16 bytes:
 //  (a) the quarters are zeroed (cudaMemsetAsync);
@@ -86,6 +93,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "splat_window.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 template <typename T>
@@ -101,87 +110,131 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
 
 static const int kThreads = 256;
 
-static unsigned n_blocks(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
+// ---- f32 accumulation: the tile-and-window scatter -------------------
 
-// ---- f32 accumulation -------------------------------------------------
+// Packed rows per unit of splat_window::scatter (one end's run of
+// consecutive rows; prepare_scene_sparse packs the moving pixels in raster
+// order, so a run lands on neighbouring cells when the flow is smooth).
+#ifndef SPLAT_WINDOW_RUN
+#define SPLAT_WINDOW_RUN 8
+#endif
+static const int kRun = SPLAT_WINDOW_RUN;
+static_assert(kRun <= splat_window::kItems, "a run is one unit's items");
 
-// acc (H * W, C1) += both ends' splats of rows u (P, C1). disp_b == NULL
-// splats one end; valid == NULL splats every row.
-__global__ void splat_scatter_kernel(const float* __restrict__ u,
-                                     const int2* __restrict__ positions,
-                                     const float* __restrict__ valid,
-                                     const float2* __restrict__ disp_a,
-                                     const float2* __restrict__ disp_b,
-                                     float w_a, float w_b,
-                                     float* __restrict__ acc, int P, int C1,
-                                     int H, int W) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (disp_b != nullptr ? 2LL : 1LL) * P * C1;
-  if (i >= total) return;
-  const int row = (int)(i / C1);
-  const int c = (int)(i - (long long)row * C1);
-  const bool end_a = row < P;
-  const int p = end_a ? row : row - P;
-  if (valid != nullptr && valid[p] == 0.0f) return;
+// Both ends' rows as units of splat_window::scatter: unit r < runs is run r
+// of end a, unit runs + r run r of end b; disp_b == NULL splats one end,
+// valid == NULL every row.
+struct RowsSource {
+  const float* u;
+  const int2* positions;
+  const float* valid;
+  const float2* disp_a;
+  const float2* disp_b;
+  float w_a, w_b;
+  float* acc;
+  int P, C1, runs;
 
-  const int2 src = positions[p];
-  const float2 d = end_a ? disp_a[p] : disp_b[p];
-  const float ox = (float)src.x + d.x;
-  const float oy = (float)src.y + d.y;
-  const float x0f = floorf(ox);
-  const float y0f = floorf(oy);
-  const float dx = ox - x0f;
-  const float dy = oy - y0f;
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  // the row scaled by its end's weight (exact when w = 1)
-  const float v = u[(size_t)p * C1 + c] * (end_a ? w_a : w_b);
-
-  const int cxs[4] = {x0, x0 + 1, x0, x0 + 1};
-  const int cys[4] = {y0, y0, y0 + 1, y0 + 1};
-  const float ws[4] = {(1.0f - dx) * (1.0f - dy), dx * (1.0f - dy),
-                       (1.0f - dx) * dy, dx * dy};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int cx = cxs[k];
-    const int cy = cys[k];
-    if (cx >= 0 && cx < W && cy >= 0 && cy < H) {
-      atomicAdd(&acc[((size_t)cy * W + cx) * C1 + c], v * ws[k]);
-    }
+  __device__ int units() const { return (disp_b != nullptr ? 2 : 1) * runs; }
+  __device__ int items(int unit) const {
+    const int r = unit < runs ? unit : unit - runs;
+    return min(kRun, P - r * kRun);
   }
+  __device__ bool item(int unit, int i, splat_window::Item& it) const {
+    const bool end_a = unit < runs;
+    const int p = (end_a ? unit : unit - runs) * kRun + i;
+    if (valid != nullptr && valid[p] == 0.0f) return false;
+    const int2 src = positions[p];
+    const float2 d = end_a ? disp_a[p] : disp_b[p];
+    it.row = u + (size_t)p * C1;
+    it.scale = end_a ? w_a : w_b;  // the row scaled by its end's weight
+    it.ox = (float)src.x + d.x;
+    it.oy = (float)src.y + d.y;
+    return true;
+  }
+  __device__ float* grid(int) const { return acc; }
+};
+
+__global__ void __launch_bounds__(splat_window::kGroups * splat_window::kThreads)
+    rows_scatter_kernel(RowsSource src, int H, int W) {
+  splat_window::scatter(src, H, W, src.C1);
 }
 
-// K2's f32 epilogue: out = g[:C] / max(g[C], eps) (kSlr: the features
-// over g[C + 1], the fluid alpha over g[C]), C = C1 - 1 (kSlr: C1 - 2).
-template <typename T, bool kSlr>
-__global__ void splat_normalize_kernel(const float* __restrict__ acc,
-                                       T* __restrict__ out, int HW, int C1) {
-  const int C = C1 - (kSlr ? 2 : 1);
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)HW * C) return;
-  const size_t pix = (size_t)(i / C);
-  const int c = (int)(i - (long long)pix * C);
-  const int den_ch = kSlr ? (c < C - 1 ? C + 1 : C) : C;
-  const float num = acc[pix * C1 + c];
-  const float den = acc[pix * C1 + den_ch];
-  out[i] = from_f32<T>(num / fmaxf(den, 1e-8f));
-}
-
+// acc (H * W, C1) += both ends' splats of rows u (P, C1).
 static cudaError_t scatter_f32(const void* u, const void* positions,
                                const void* valid, const void* disp_a,
                                const void* disp_b, float w_a, float w_b,
                                void* acc, int P, int C1, int H, int W,
                                cudaStream_t s) {
-  const long long n = (disp_b != nullptr ? 2LL : 1LL) * P * C1;
-  if (n > 0) {
-    splat_scatter_kernel<<<n_blocks(n), kThreads, 0, s>>>(
-        (const float*)u, (const int2*)positions, (const float*)valid,
-        (const float2*)disp_a, (const float2*)disp_b, w_a, w_b, (float*)acc, P,
-        C1, H, W);
-  }
+  const int runs = (P + kRun - 1) / kRun;
+  const long long units = (disp_b != nullptr ? 2LL : 1LL) * runs;
+  if (units == 0 || C1 == 0 || H * W == 0) return cudaGetLastError();
+  unsigned blocks = 0;
+  size_t smem = 0;
+  cudaError_t err = splat_window::launch_shape(rows_scatter_kernel, C1, units, &blocks, &smem);
+  if (err != cudaSuccess) return err;
+  const RowsSource src = {(const float*)u,      (const int2*)positions, (const float*)valid,
+                          (const float2*)disp_a, (const float2*)disp_b,  w_a,
+                          w_b,                  (float*)acc,            P,
+                          C1,                   runs};
+  rows_scatter_kernel<<<blocks, splat_window::kGroups * splat_window::kThreads, smem, s>>>(
+      src, H, W);
   return cudaGetLastError();
+}
+
+// Copies the m elements at src to shared memory, element e to dst[off + e]
+// with off = src's element offset in its 16-byte line (returned), so that
+// both sides of the 16-byte copies in between are aligned. dst holds
+// m + 16 / sizeof(T) - 1 elements.
+template <typename T>
+__device__ __forceinline__ int load_run(const T* __restrict__ src, T* dst, int m) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int off = (int)(((uintptr_t)src / sizeof(T)) & (kPer - 1));
+  const int head = min(m, (kPer - off) & (kPer - 1));
+  const int n_vec = (m - head) / kPer;
+  const uint4* s4 = (const uint4*)(src + head);
+  uint4* d4 = (uint4*)(dst + off + head);
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) d4[i] = s4[i];
+  for (int e = threadIdx.x; e < head; e += blockDim.x) dst[off + e] = src[e];
+  for (int e = head + kPer * n_vec + threadIdx.x; e < m; e += blockDim.x)
+    dst[off + e] = src[e];
+  return off;
+}
+
+// Pixels of one block of the f32 epilogue: at most 64, and two staged
+// runs of them within 48 KB of shared memory.
+static int epi_pixels(int C1) { return splat_window::imin(64, (48 * 1024 - 64) / (8 * C1)); }
+
+// Floats of one staged run of `pix` x C1 floats (rounded to 16 bytes).
+__host__ __device__ inline int epi_run(int pix, int C1) { return (pix * C1 + 3 + 3) & ~3; }
+
+// K2's f32 epilogue over a run of `pix` pixels: g = acc + u_static,
+// out = g[:C] / max(g[C], eps) (kSlr: the features over g[C + 1], the
+// fluid alpha over g[C]), C = C1 - 1 (kSlr: C1 - 2). The runs of acc and
+// u_static are staged through shared memory with 16-byte loads; the
+// outputs are written by consecutive threads.
+template <typename T, bool kSlr>
+__global__ void splat_normalize_kernel(const float* __restrict__ acc,
+                                       const float* __restrict__ u_static,
+                                       T* __restrict__ out, int HW, int C1,
+                                       int pix) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int pix0 = blockIdx.x * pix;
+  const int pix_here = min(pix, HW - pix0);
+  float* a = (float*)smem;
+  float* us = a + epi_run(pix, C1);
+  const int m = pix_here * C1;
+  const int a_off = load_run(acc + (size_t)pix0 * C1, a, m);
+  const int u_off = load_run(u_static + (size_t)pix0 * C1, us, m);
+  __syncthreads();
+  const int C = C1 - (kSlr ? 2 : 1);
+  for (int i = threadIdx.x; i < pix_here * C; i += blockDim.x) {
+    const int pr = i / C;
+    const int c = i - pr * C;
+    const int den_ch = kSlr ? (c < C - 1 ? C + 1 : C) : C;
+    const float num = a[a_off + pr * C1 + c] + us[u_off + pr * C1 + c];
+    const float den = a[a_off + pr * C1 + den_ch] + us[u_off + pr * C1 + den_ch];
+    out[(size_t)pix0 * C + i] = from_f32<T>(num / fmaxf(den, 1e-8f));
+  }
 }
 
 // ---- bf16 accumulation in four quarters ---------------------------------
@@ -281,24 +334,6 @@ __global__ void splat_scatter_quarters_kernel(
     for (int m = 0; m < 4; ++m) packed[m] = pack_bf16x2(v[2 * m] * w, v[2 * m + 1] * w);
     red_add_bf16x8(acc + ((size_t)cell * 4 + k) * C1p + 8 * j, packed);
   }
-}
-
-// Copies the m bf16 at src to shared memory, element e to dst[off + e]
-// with off = src's element offset in its 16-byte line (returned), so that
-// both sides of the 16-byte copies in between are aligned. dst holds
-// m + 7 elements.
-__device__ __forceinline__ int load_run(const bf16* __restrict__ src,
-                                        bf16* dst, int m) {
-  const int off = (int)(((uintptr_t)src >> 1) & 7);
-  const int head = min(m, (8 - off) & 7);
-  const int n_vec = (m - head) >> 3;
-  const uint4* s4 = (const uint4*)(src + head);
-  uint4* d4 = (uint4*)(dst + off + head);
-  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) d4[i] = s4[i];
-  for (int e = threadIdx.x; e < head; e += blockDim.x) dst[off + e] = src[e];
-  for (int e = head + 8 * n_vec + threadIdx.x; e < m; e += blockDim.x)
-    dst[off + e] = src[e];
-  return off;
 }
 
 __device__ __forceinline__ void unpack8(uint4 q, bf16 x[8]) {
@@ -412,8 +447,8 @@ static cudaError_t bf16_quarters(const void* u, const void* positions,
 
 // ---- entry points -------------------------------------------------------
 
-// K2: accumulator f32 (acc_bf16 == 0: u_static copied in, scatter,
-// epilogue) or the bf16 quarters, output type T.
+// K2: accumulator f32 (acc_bf16 == 0: zeroed, scatter, epilogue adding
+// u_static) or the bf16 quarters, output type T.
 template <typename T, bool kSlr>
 static cudaError_t dual_normalize(const void* u_mov, const void* positions,
                                   const void* valid, const void* disp_a,
@@ -425,16 +460,18 @@ static cudaError_t dual_normalize(const void* u_mov, const void* positions,
     return bf16_quarters<T, kSlr ? kNormalizeSlr : kNormalize>(
         u_mov, positions, valid, disp_a, disp_b, w_a, w_b, u_static, acc, out,
         P, C1, H, W, s);
-  cudaError_t err = cudaMemcpyAsync(acc, u_static, (size_t)H * W * C1 * sizeof(float),
-                                    cudaMemcpyDeviceToDevice, s);
+  cudaError_t err = cudaMemsetAsync(acc, 0, (size_t)H * W * C1 * sizeof(float), s);
   if (err == cudaSuccess)
     err = scatter_f32(u_mov, positions, valid, disp_a, disp_b, w_a, w_b, acc, P,
                       C1, H, W, s);
   if (err != cudaSuccess) return err;
-  const long long n_out = (long long)H * W * (C1 - (kSlr ? 2 : 1));
-  if (n_out > 0) {
-    splat_normalize_kernel<T, kSlr><<<n_blocks(n_out), kThreads, 0, s>>>(
-        (const float*)acc, (T*)out, H * W, C1);
+  const int HW = H * W;
+  const int pix = epi_pixels(C1);
+  if (pix < 1) return cudaErrorInvalidValue;
+  if (HW > 0 && C1 > (kSlr ? 2 : 1)) {
+    splat_normalize_kernel<T, kSlr>
+        <<<(HW + pix - 1) / pix, kThreads, 2 * epi_run(pix, C1) * sizeof(float), s>>>(
+            (const float*)acc, (const float*)u_static, (T*)out, HW, C1, pix);
   }
   return cudaGetLastError();
 }
@@ -501,4 +538,11 @@ extern "C" int splat_sum_at(const void* u, const void* positions,
                             P, C, H, W, s);
   return (int)bf16_quarters<bf16, kSum>(u, positions, nullptr, disp_a, disp_b, w_a,
                                         w_b, nullptr, quarters, out, P, C, H, W, s);
+}
+
+// The f32 scatter's geometry, for the host's count of window misses
+// (ops/splat.py:rows_window_misses): what 0 the rows of a run, 1 the
+// window's cells for C1 channels. Launches nothing.
+extern "C" int splat_rows_window(int C1, int what) {
+  return what == 0 ? kRun : splat_window::window_cap(C1);
 }

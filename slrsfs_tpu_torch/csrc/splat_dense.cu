@@ -16,13 +16,18 @@
 // C = 65); the backward reads inp, flow and g and writes grad_inp and
 // grad_flow (~835 MB). Both do a few flops per byte.
 //
-// Forward design: one thread per (sample, pixel, channel), channels
-// fastest, so a warp reads consecutive channels of one pixel and its four
-// atomicAdds land on consecutive addresses of each target cell. The sum is
-// f32 atomicAdd into an output the wrapper zeroes; the order of the adds
-// varies, so the result matches the plain version to ~1e-7 relative, with
-// the same empty cells (where signed contributions cancel, a single element
-// can round to exactly 0 in one order of the adds and not in another).
+// Forward design: splat_window::scatter (splat_window.cuh), one unit a
+// kTileY x kTileX tile of one sample's pixels. A warp computes each
+// pixel's corners and weights once (operation for operation as _corners;
+// the build disables FMA contraction), sums the tile's taps into a
+// shared-memory window of cells (all C channels of a cell), and reduces
+// each touched cell into the output, which the wrapper zeroes, once, with
+// 16-byte red.global.add.v4.f32 over its aligned middle; corners outside
+// the window go to the output by f32 atomicAdd. Cells that receive
+// nothing stay exactly 0. The order of the adds varies, so the result
+// matches the plain version to ~1e-7 relative, with the same empty cells
+// (where signed contributions cancel, a single element can round to
+// exactly 0 in one order of the adds and not in another).
 //
 // Backward design: one warp per (sample, pixel), lanes over channels, no
 // atomics. For each corner the warp gathers g at the clipped target
@@ -32,6 +37,8 @@
 // then writes grad_flow = sum_k inner_k * (dw_k/dx, dw_k/dy), all in f32.
 
 #include <cuda_runtime.h>
+
+#include "splat_window.cuh"
 
 struct Taps {
   int lin[4];      // clipped flat target index
@@ -76,24 +83,51 @@ __device__ __forceinline__ Taps taps_of(int x, int y, float2 f, int H,
   return t;
 }
 
-__global__ void splat_dense_fwd_kernel(const float* __restrict__ inp,
-                                       const float2* __restrict__ flow,
-                                       float* __restrict__ out, int B, int H,
-                                       int W, int C) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long HW = (long long)H * W;
-  if (i >= (long long)B * HW * C) return;
-  const long long pix = i / C;  // b * HW + y * W + x
-  const int c = (int)(i - pix * C);
-  const int b = (int)(pix / HW);
-  const int yx = (int)(pix - (long long)b * HW);
-  const Taps t = taps_of(yx % W, yx / W, __ldg(&flow[pix]), H, W);
-  const float v = __ldg(&inp[i]);
-  float* __restrict__ out_b = out + (size_t)b * HW * C;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (t.inside[k]) atomicAdd(&out_b[(size_t)t.lin[k] * C + c], v * t.w[k]);
+// The tile of a unit of splat_window::scatter.
+#ifndef SPLAT_DENSE_TILE_Y
+#define SPLAT_DENSE_TILE_Y 4
+#endif
+#ifndef SPLAT_DENSE_TILE_X
+#define SPLAT_DENSE_TILE_X 8
+#endif
+static const int kTileY = SPLAT_DENSE_TILE_Y;
+static const int kTileX = SPLAT_DENSE_TILE_X;
+static_assert(kTileY * kTileX <= splat_window::kItems, "a tile is one unit's items");
+
+// The pixels of inp (B, H, W, C) as units of splat_window::scatter: unit
+// (b * tiles_y + ty) * tiles_x + tx is tile (ty, tx) of sample b.
+struct DenseSource {
+  const float* inp;
+  const float2* flow;
+  float* out;
+  int B, H, W, C, tiles_y, tiles_x;
+
+  __device__ int units() const { return B * tiles_y * tiles_x; }
+  __device__ int items(int) const { return kTileY * kTileX; }
+  __device__ bool item(int unit, int i, splat_window::Item& it) const {
+    const int per_sample = tiles_y * tiles_x;
+    const int b = unit / per_sample;
+    const int tile = unit - b * per_sample;
+    const int ty = tile / tiles_x;
+    const int y = ty * kTileY + i / kTileX;
+    const int x = (tile - ty * tiles_x) * kTileX + i % kTileX;
+    if (y >= H || x >= W) return false;
+    const size_t pix = ((size_t)b * H + y) * W + x;
+    const float2 f = __ldg(&flow[pix]);
+    it.row = inp + pix * C;
+    it.scale = 1.0f;  // v * 1 is v: the weights multiply inp itself
+    it.ox = (float)x + f.x;
+    it.oy = (float)y + f.y;
+    return true;
   }
+  __device__ float* grid(int unit) const {
+    return out + (size_t)(unit / (tiles_y * tiles_x)) * H * W * C;
+  }
+};
+
+__global__ void __launch_bounds__(splat_window::kGroups * splat_window::kThreads)
+    splat_dense_fwd_kernel(DenseSource src) {
+  splat_window::scatter(src, src.H, src.W, src.C);
 }
 
 __global__ void splat_dense_bwd_kernel(const float* __restrict__ inp,
@@ -147,15 +181,24 @@ __global__ void splat_dense_bwd_kernel(const float* __restrict__ inp,
 // (B, H, W, C) f32, which the caller zeroes.
 extern "C" int splat_dense_fwd(const void* inp, const void* flow, void* out,
                                int B, int H, int W, int C, void* stream) {
-  const int threads = 256;
-  const long long n = (long long)B * H * W * C;
-  const long long blocks = (n + threads - 1) / threads;
-  if (blocks > 0) {
-    splat_dense_fwd_kernel<<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
-        (const float*)inp, (const float2*)flow, (float*)out, B, H, W, C);
-  }
+  const DenseSource src = {(const float*)inp, (const float2*)flow, (float*)out, B, H, W, C,
+                           (H + kTileY - 1) / kTileY, (W + kTileX - 1) / kTileX};
+  const long long units = (long long)B * src.tiles_y * src.tiles_x;
+  if (units == 0 || C == 0) return (int)cudaGetLastError();
+  unsigned blocks = 0;
+  size_t smem = 0;
+  cudaError_t err = splat_window::launch_shape(splat_dense_fwd_kernel, C, units, &blocks, &smem);
+  if (err != cudaSuccess) return (int)err;
+  splat_dense_fwd_kernel<<<blocks, splat_window::kGroups * splat_window::kThreads, smem,
+                           (cudaStream_t)stream>>>(src);
   return (int)cudaGetLastError();
+}
+
+// The forward's geometry, for the host's count of window misses
+// (ops/splat.py:dense_window_misses): what 0 the tile's rows, 1 its
+// columns, 2 the window's cells for C channels. Launches nothing.
+extern "C" int splat_dense_window(int C, int what) {
+  return what == 0 ? kTileY : what == 1 ? kTileX : splat_window::window_cap(C);
 }
 
 // inp, flow as above, g (B, H, W, C) f32 the output's cotangent; writes

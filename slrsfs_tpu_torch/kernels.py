@@ -3,8 +3,10 @@
 Each source is compiled on first use by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root, named after its
-source and a hash of the source and flags, so a changed source never loads
-a stale build; nvcc's report (ptxas's registers and spills) is kept beside
+source and a hash of the source, the headers it includes from ``csrc/``
+(``splat_window.cuh``, the f32 window scatter of ``splat.cu`` and
+``splat_dense.cu``) and the flags, so a changed source or header never
+loads a stale build; nvcc's report (ptxas's registers and spills) is kept beside
 it and read again when a later process loads the library. Several entry
 points may share one source; it is built once: ``euler.cu`` holds K1
 (``euler_compact_dual``) and K4 (``euler_all``), ``splat.cu`` K2's two
@@ -27,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,9 +43,29 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file_
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+def source_files(path: str) -> List[str]:
+    """``path`` and every header it includes with ``#include "..."`` from
+    its own directory, recursively, each once: the files a build depends
+    on, the source first and the headers by name."""
+    seen, todo = set(), [path]
+    while todo:
+        p = todo.pop()
+        if p in seen:
+            continue
+        seen.add(p)
+        with open(p) as f:
+            for name in _INCLUDE.findall(f.read()):
+                q = os.path.join(os.path.dirname(p), name)
+                if os.path.exists(q):
+                    todo.append(q)
+    return [path] + sorted(seen - {path})
 
 
 def nvcc_path() -> str:
@@ -77,8 +100,11 @@ class Kernel:
         return os.path.join(_CSRC, os.path.basename(self.source))
 
     def _lib_path(self) -> str:
-        with open(self._src_path, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256()
+        for path in source_files(self._src_path):
+            with open(path, "rb") as f:
+                digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+        digest.update(" ".join(NVCC_FLAGS).encode())
         stem = os.path.splitext(os.path.basename(self.source))[0]
         return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -33,6 +33,7 @@ builds the reference's four splat modes on it.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -381,6 +382,96 @@ def splat_dual_normalize_slr_plain(u_mov: Tensor, positions: Tensor,
     return torch.cat([g[..., :-3] / torch.clamp(g[..., -1:], min=NORM_EPS),
                       g[..., -3:-2] / torch.clamp(g[..., -2:-1], min=NORM_EPS)],
                      dim=-1).to(out_dtype)
+
+
+def place_windows(cx: Tensor, cy: Tensor, live: Tensor, height: int, width: int,
+                  cap: int):
+    """The f32 scatters' window of each unit (``csrc/splat_window.cuh:
+    place_window``, repeated in integers on any device): cx, cy (U, n)
+    int64 corners of the U units' items, ``live`` (U, n) the corners of
+    items that add anything. Returns (in-grid (U, n) bool, in-window (U, n)
+    bool): the bounding box of a unit's in-grid corners when it holds at
+    most ``cap`` cells, else a box about isqrt(cap) on a side, widened
+    where the bounding box is narrow, centred on the corners' mean (floor)
+    and clamped into the bounding box."""
+    ins = live & (cx >= 0) & (cx < width) & (cy >= 0) & (cy < height)
+    big = 1 << 40
+    n = ins.sum(1)
+    bx0 = torch.where(ins, cx, big).amin(1)
+    bx1 = torch.where(ins, cx, -big).amax(1)
+    by0 = torch.where(ins, cy, big).amin(1)
+    by1 = torch.where(ins, cy, -big).amax(1)
+    sx = torch.where(ins, cx, 0).sum(1) // n.clamp(min=1)
+    sy = torch.where(ins, cy, 0).sum(1) // n.clamp(min=1)
+    bw = (bx1 - bx0 + 1).clamp(min=1)
+    bh = (by1 - by0 + 1).clamp(min=1)
+    if cap < 1:
+        return ins, torch.zeros_like(ins)
+    lw = bw.clamp(max=math.isqrt(cap))
+    rows = torch.minimum(bh, cap // lw)
+    lw = torch.minimum(bw, cap // rows)
+    ox = torch.where(bw <= lw, bx0,
+                     torch.minimum(torch.maximum(sx - lw // 2, bx0), bx1 - lw + 1))
+    oy = torch.where(bh <= rows, by0,
+                     torch.minimum(torch.maximum(sy - rows // 2, by0), by1 - rows + 1))
+    dx, dy = cx - ox[:, None], cy - oy[:, None]
+    return ins, ins & (dx >= 0) & (dx < lw[:, None]) & (dy >= 0) & (dy < rows[:, None])
+
+
+def _corner_xy(ox: Tensor, oy: Tensor) -> Tuple[Tensor, Tensor]:
+    """The four corners' integer (x, y), (..., 4) int64, of positions in f32."""
+    x0 = torch.floor(ox).to(torch.int64)
+    y0 = torch.floor(oy).to(torch.int64)
+    return (torch.stack([x0, x0 + 1, x0, x0 + 1], -1),
+            torch.stack([y0, y0, y0 + 1, y0 + 1], -1))
+
+
+def rows_window_misses(positions: Tensor, valid: Optional[Tensor], disps,
+                       height: int, width: int, run: int, cap: int
+                       ) -> Tuple[int, int]:
+    """(corners in the grid, corners outside their window) of K2's or K8's
+    f32 scatter: each end of ``disps`` split into runs of ``run``
+    consecutive rows, rows with valid 0 skipped; ``run`` and ``cap`` as the
+    kernel's library reports them (``splat_rows_window``)."""
+    P = positions.shape[0]
+    n_runs = -(-P // run)
+    pad = n_runs * run - P
+    keep = torch.ones(P, dtype=torch.bool, device=positions.device) \
+        if valid is None else valid != 0
+    n_in = n_miss = 0
+    for d in disps:
+        cx, cy = _corner_xy(positions[:, 0].to(torch.float32) + d[:, 0],
+                            positions[:, 1].to(torch.float32) + d[:, 1])
+        live = keep[:, None].expand(P, 4)
+        cx, cy, live = (torch.nn.functional.pad(t.reshape(P * 4), (0, 4 * pad))
+                        .reshape(n_runs, 4 * run) for t in (cx, cy, live))
+        ins, hit = place_windows(cx, cy, live, height, width, cap)
+        n_in += int(ins.sum())
+        n_miss += int((ins & ~hit).sum())
+    return n_in, n_miss
+
+
+def dense_window_misses(flow: Tensor, tile: Tuple[int, int], cap: int
+                        ) -> Tuple[int, int]:
+    """(corners in the grid, corners outside their window) of K3's forward
+    on flow (B, H, W, 2): each sample cut into ``tile`` (rows, columns)
+    tiles, ragged at the edges; ``tile`` and ``cap`` as the kernel's library
+    reports them (``splat_dense_window``)."""
+    B, H, W, _ = flow.shape
+    ty, tx = tile
+    Hp, Wp = -(-H // ty) * ty, -(-W // tx) * tx
+    xs = torch.arange(W, dtype=torch.float32, device=flow.device)[None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=flow.device)[:, None]
+    cx, cy = _corner_xy(xs + flow[..., 0], ys + flow[..., 1])
+    live = torch.ones_like(cx, dtype=torch.bool)
+
+    def tiles(t):
+        t = torch.nn.functional.pad(t, (0, 0, 0, Wp - W, 0, Hp - H))
+        return (t.reshape(B, Hp // ty, ty, Wp // tx, tx, 4)
+                .permute(0, 1, 3, 2, 4, 5).reshape(-1, ty * tx * 4))
+
+    ins, hit = place_windows(tiles(cx), tiles(cy), tiles(live), H, W, cap)
+    return int(ins.sum()), int((ins & ~hit).sum())
 
 
 SPLAT_DTYPES = (torch.float32, torch.bfloat16)

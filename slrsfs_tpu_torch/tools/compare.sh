@@ -16,8 +16,14 @@
 #          each tree's package in f32 and bf16 accumulation, as called, on
 #          the card alone and the host's cost per call, with the card's
 #          work per call split by CUDA kernel and memset, beside
-#          index_add_; K8; and the bfloat16 and bfloat16-fast renders of
-#          both models (median of 5).
+#          index_add_, and the f32 window scatter's misses; K8; and the
+#          float32, bfloat16 and bfloat16-fast renders of both models
+#          (median of 5);
+# k3       this checkout's chip_smoke.py --k3-in TREE: K3's forward of each
+#          tree's package at (1, 256, 256, 65) and (16, 256, 256, 65),
+#          timed the same ways and split into the output's zeroing and the
+#          scatter, beside index_add_, with the window misses; and the
+#          dense baseline float32 render (median of 5).
 #
 # Prints the card's name and power limit, then each tree's bench lines
 # (JSON lines left out) prefixed with the tree. Exits 1 if a bench failed.
@@ -25,8 +31,8 @@ set -u -o pipefail
 bench=${1:-}
 shift
 case $bench in
-  k9 | maxwarp | k2) ;;
-  *) echo "usage: $0 k9|maxwarp|k2 TREE..." >&2; exit 2 ;;
+  k9 | maxwarp | k2 | k3) ;;
+  *) echo "usage: $0 k9|maxwarp|k2|k3 TREE..." >&2; exit 2 ;;
 esac
 here=$(cd "$(dirname "$0")/../.." && pwd)
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -36,6 +42,7 @@ for tree in "$@" $(printf '%s\n' "$@" | tac); do
     k9) (cd "$tree" && PYTHONPATH=. python -m slrsfs_tpu_torch.tools.conv_prototype) ;;
     maxwarp) python "$here/chip_smoke.py" --maxwarp-in "$tree" ;;
     k2) python "$here/chip_smoke.py" --k2-in "$tree" ;;
+    k3) python "$here/chip_smoke.py" --k3-in "$tree" ;;
   esac 2>&1 | grep -v '^{' | sed "s|^|[$tree] |" || rc=1
 done
 exit $rc

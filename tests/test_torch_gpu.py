@@ -663,3 +663,146 @@ def test_k9_block_fits_the_card(C, F):
     if C == F == 128:
         assert got == 1024 + 3 * 32768 + 12 * 20 * 136 * 2 + 10 * 18 * 136 * 2 + 48
     assert kernels.FUSED_CONV.query("fused_conv_smem_bytes", C + 8, F) == -1
+
+
+# ---- the f32 tile-and-window scatter (K2, K8, K3's forward) -------------
+#
+# A ragged grid (37 x 53: neither side a multiple of K3's tile), channel
+# widths 1, 3, 65 and 67, rows at the OOB sentinel, padded rows (valid 0),
+# and either a smooth displacement (most corners in their window) or a
+# uniform one of +-40 px (most corners outside it: the scatter's direct
+# path). Held as chip_smoke.py holds them: atol/rtol 1e-5 and the same
+# empty cells (every channel exactly 0), since both sides sum by atomics
+# and a signed sum can cancel to exactly 0 in one order only.
+
+HR, WR = 37, 53
+
+
+def _same_empty_cells(got, want):
+    assert torch.equal((got == 0).all(-1), (want == 0).all(-1))
+
+
+def _window_rows(dev, C1: int, far: bool, slr: bool = False):
+    """Rows of width C1 ([signed features · e^Z, (SLR: af·e^C, e^C,) e^Z])
+    from the moving bottom two thirds of the grid, padded to a multiple of
+    37 rows (valid 0, zero rows at (0, 0)), their static identity, and two
+    ends' displacements: smooth or uniform +-40 px, every 7th row at the
+    OOB sentinel."""
+    rng = np.random.default_rng(100 + C1 + 7 * far + 3 * slr)
+    m = np.zeros((HR, WR, 2), np.float32)
+    m[HR // 3:] = 1.0
+    pos, val = prepare_scene_sparse(m, pad_multiple=37)
+    assert (val == 0).any()
+    u = rng.standard_normal((HR, WR, C1)).astype(np.float32)
+    n_pos = 2 if slr else 1
+    u[..., -n_pos:] = np.exp(rng.uniform(-2, 1, (HR, WR, n_pos)))
+    static = np.all(m == 0, axis=-1)[..., None].astype(np.float32)
+    u_mov = u[pos[:, 1], pos[:, 0]] * val[:, None]
+    disps = []
+    for _ in range(2):
+        if far:
+            d = rng.uniform(-40.0, 40.0, (len(val), 2))
+        else:
+            yy = pos[:, 1].astype(np.float64)
+            xx = pos[:, 0].astype(np.float64)
+            d = np.stack([3.0 * np.sin(yy / 7.0) + 0.4 * xx / WR,
+                          2.0 * np.cos(xx / 9.0) - 1.0], -1) + rng.normal(0, 0.3, (len(val), 2))
+        d[0::7] = max(HR, WR) + 1
+        disps.append(torch.from_numpy(d.astype(np.float32)).to(dev))
+    return (torch.from_numpy(u_mov).to(dev), torch.from_numpy(pos).to(dev),
+            torch.from_numpy(val).to(dev), disps[0], disps[1],
+            torch.from_numpy(u * static).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("far", [False, True], ids=["smooth", "far"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C1", [1, 3, 65, 67])
+@pytest.mark.parametrize("slr", [False, True], ids=["K2", "K2-SLR"])
+def test_k2_f32_window_scatter_matches_plain_on_card(slr, C1, out_dtype, far):
+    """K2's f32 mode (both epilogues) at ragged shapes and widths; cells
+    that no moving tap reaches give the plain version's quotient of
+    u_static bit for bit."""
+    if slr and C1 < 3:
+        pytest.skip("the SLR layout has at least 3 channels")
+    dev = _card()
+    u, pos, val, da, db, u_static = _window_rows(dev, C1, far, slr)
+    wrapper, plain, n_norm, kernel = (
+        (splat_dual_normalize_slr, splat_dual_normalize_slr_plain, 2, kernels.SPLAT_SLR)
+        if slr else (splat_dual_normalize, splat_dual_normalize_plain, 1, kernels.SPLAT))
+    out = torch.empty((HR, WR, C1 - n_norm), dtype=out_dtype, device=dev)
+    kernels.reset_counts()
+    wrapper(u, pos, val, da, db, 0.4, 0.6, u_static, out=out)
+    assert {k: v for k, v in kernels.counts().items() if v} == {kernel.name: 1}
+    ref = plain(u, pos, val, da, db, 0.4, 0.6, u_static, out_dtype)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if out_dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-5)
+    _same_empty_cells(out, ref)
+    reached = port_splat.softsplat_sum_at_quad_dual_plain(
+        (u.abs() + 1.0) * val[:, None], pos, da, db, 1.0, 1.0, HR, WR)[..., 0] != 0
+    assert torch.equal(out[~reached], ref[~reached])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("far", [False, True], ids=["smooth", "far"])
+@pytest.mark.parametrize("C", [1, 3, 65, 67])
+def test_k8_f32_window_scatter_matches_plain_on_card(C, far):
+    """K8's f32 mode, one end and two, at ragged shapes and widths (the
+    padded rows are zero, K8 has no valid flags)."""
+    dev = _card()
+    u, pos, _, da, db, _ = _window_rows(dev, C, far)
+    kernels.reset_counts()
+    one = port_splat.softsplat_sum_at(u, pos, da, HR, WR)
+    two = port_splat.softsplat_sum_at_quad_dual(u, pos, da, db, 0.3, 0.7, HR, WR)
+    assert {k: v for k, v in kernels.counts().items() if v} == {kernels.SPLAT_SUM_AT.name: 2}
+    want_one = port_splat.softsplat_sum_at_plain(u, pos, da, HR, WR)
+    want_two = port_splat.softsplat_sum_at_quad_dual_plain(u, pos, da, db, 0.3, 0.7, HR, WR)
+    torch.cuda.synchronize()
+    for got, want in ((one, want_one), (two, want_two)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        _same_empty_cells(got, want)
+        assert (want == 0).all(-1).any()  # some cells stay empty
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("far", [False, True], ids=["smooth", "far"])
+@pytest.mark.parametrize("C", [1, 3, 65, 67])
+def test_k3_window_scatter_matches_plain_on_card(C, far):
+    """K3's forward at B = 3 on a ragged grid, with integer landings and a
+    block of OOB sentinels."""
+    dev = _card()
+    rng = np.random.default_rng(200 + C + 7 * far)
+    inp = rng.standard_normal((3, HR, WR, C)).astype(np.float32)
+    if far:
+        flow = rng.uniform(-40.0, 40.0, (3, HR, WR, 2))
+    else:
+        yy, xx = np.mgrid[0:HR, 0:WR].astype(np.float64)
+        flow = np.stack([2.5 * np.sin(yy / 6.0), 1.5 * np.cos(xx / 8.0)], -1)[None] \
+            + rng.normal(0, 0.3, (3, HR, WR, 2))
+    flow = flow.astype(np.float32)
+    flow[:, ::5] = np.round(flow[:, ::5])  # integer landings
+    flow[1, :6, :9] = max(HR, WR) + 1  # the OOB sentinel
+    inp, flow = torch.from_numpy(inp).to(dev), torch.from_numpy(flow).to(dev)
+    kernels.reset_counts()
+    out = softsplat_sum(inp, flow)
+    assert {k: v for k, v in kernels.counts().items() if v} == {
+        kernels.SPLAT_DENSE_FWD.name: 1}
+    ref = softsplat_sum_plain(inp, flow)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    _same_empty_cells(out, ref)
+
+
+@pytest.mark.gpu
+def test_window_geometry_fits_the_card():
+    """The libraries report the window geometry that the host's miss count
+    (ops/splat.py) repeats: runs and tiles of at most 32 items, and windows
+    of at least a tile's bounding box at the paths' 65 and 67 channels."""
+    _card()
+    run = kernels.SPLAT.query("splat_rows_window", 65, 0)
+    ty, tx = (kernels.SPLAT_DENSE_FWD.query("splat_dense_window", 65, w) for w in (0, 1))
+    assert 1 <= run <= 32 and 1 <= ty * tx <= 32
+    for C in (65, 67):
+        assert kernels.SPLAT.query("splat_rows_window", C, 1) >= 2 * (run + 1)
+        assert kernels.SPLAT_DENSE_FWD.query("splat_dense_window", C, 2) >= (ty + 1) * (tx + 1)
