@@ -213,10 +213,10 @@ __host__ __device__ inline int epi_run(int pix, int C1) { return (pix * C1 + 3 +
 // u_static are staged through shared memory with 16-byte loads; the
 // outputs are written by consecutive threads.
 template <typename T, bool kSlr>
-__global__ void splat_normalize_kernel(const float* __restrict__ acc,
-                                       const float* __restrict__ u_static,
-                                       T* __restrict__ out, int HW, int C1,
-                                       int pix) {
+__global__ void splat_normalize_static_kernel(const float* __restrict__ acc,
+                                              const float* __restrict__ u_static,
+                                              T* __restrict__ out, int HW, int C1,
+                                              int pix) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int pix0 = blockIdx.x * pix;
   const int pix_here = min(pix, HW - pix0);
@@ -236,6 +236,29 @@ __global__ void splat_normalize_kernel(const float* __restrict__ acc,
     out[(size_t)pix0 * C + i] = from_f32<T>(num / fmaxf(den, 1e-8f));
   }
 }
+
+// K2's f32 epilogue when the accumulator was seeded with u_static (init
+// 0): out = g[:C] / max(g[C], eps) as above, one thread per output
+// element.
+template <typename T, bool kSlr>
+__global__ void splat_normalize_kernel(const float* __restrict__ acc,
+                                       T* __restrict__ out, int HW, int C1) {
+  const int C = C1 - (kSlr ? 2 : 1);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)HW * C) return;
+  const size_t pix = (size_t)(i / C);
+  const int c = (int)(i - (long long)pix * C);
+  const int den_ch = kSlr ? (c < C - 1 ? C + 1 : C) : C;
+  const float num = acc[pix * C1 + c];
+  const float den = acc[pix * C1 + den_ch];
+  out[i] = from_f32<T>(num / fmaxf(den, 1e-8f));
+}
+
+// How K2's f32 accumulator starts: 0 a copy of u_static, 1 zero (u_static
+// added in the epilogue).
+#ifndef SPLAT_F32_INIT
+#define SPLAT_F32_INIT 0
+#endif
 
 // ---- bf16 accumulation in four quarters ---------------------------------
 
@@ -460,16 +483,25 @@ static cudaError_t dual_normalize(const void* u_mov, const void* positions,
     return bf16_quarters<T, kSlr ? kNormalizeSlr : kNormalize>(
         u_mov, positions, valid, disp_a, disp_b, w_a, w_b, u_static, acc, out,
         P, C1, H, W, s);
-  cudaError_t err = cudaMemsetAsync(acc, 0, (size_t)H * W * C1 * sizeof(float), s);
+  const size_t bytes = (size_t)H * W * C1 * sizeof(float);
+  cudaError_t err = SPLAT_F32_INIT == 0
+                        ? cudaMemcpyAsync(acc, u_static, bytes, cudaMemcpyDeviceToDevice, s)
+                        : cudaMemsetAsync(acc, 0, bytes, s);
   if (err == cudaSuccess)
     err = scatter_f32(u_mov, positions, valid, disp_a, disp_b, w_a, w_b, acc, P,
                       C1, H, W, s);
   if (err != cudaSuccess) return err;
   const int HW = H * W;
-  const int pix = epi_pixels(C1);
-  if (pix < 1) return cudaErrorInvalidValue;
-  if (HW > 0 && C1 > (kSlr ? 2 : 1)) {
+  if (HW == 0 || C1 <= (kSlr ? 2 : 1)) return cudaGetLastError();
+  if (SPLAT_F32_INIT == 0) {
+    const long long n_out = (long long)HW * (C1 - (kSlr ? 2 : 1));
     splat_normalize_kernel<T, kSlr>
+        <<<(unsigned)((n_out + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+            (const float*)acc, (T*)out, HW, C1);
+  } else {
+    const int pix = epi_pixels(C1);
+    if (pix < 1) return cudaErrorInvalidValue;
+    splat_normalize_static_kernel<T, kSlr>
         <<<(HW + pix - 1) / pix, kThreads, 2 * epi_run(pix, C1) * sizeof(float), s>>>(
             (const float*)acc, (const float*)u_static, (T*)out, HW, C1, pix);
   }

@@ -64,12 +64,25 @@ namespace splat_window {
 #ifndef SPLAT_WINDOW_GROUPS
 #define SPLAT_WINDOW_GROUPS 4
 #endif
+// How P3 adds into the window: 0 atomicAdd, 1 red.shared.add.f32, 2 plain
+// read-modify-write by a warp whose lanes never hold one channel twice in
+// a step (one warp a group).
+#ifndef SPLAT_WINDOW_ACC
+#define SPLAT_WINDOW_ACC 2
+#endif
+// P3's (item, channel) steps whose loads are in flight at once (ACC 2).
+#ifndef SPLAT_WINDOW_BATCH
+#define SPLAT_WINDOW_BATCH 4
+#endif
 constexpr int kWarps = SPLAT_WINDOW_WARPS;
 constexpr int kThreads = 32 * kWarps;  // threads of a group
 constexpr int kItems = 32 * kWarps;    // items of a unit, at most
 constexpr int kGroups = SPLAT_WINDOW_GROUPS;
 constexpr int kWindowBytes = SPLAT_WINDOW_BYTES;
 constexpr int kCapMax = 1024;  // cells of a window, at most
+constexpr int kAcc = SPLAT_WINDOW_ACC;
+constexpr int kBatch = SPLAT_WINDOW_BATCH;
+static_assert(kAcc != 2 || kWarps == 1, "read-modify-write needs one warp a group");
 
 // Cells of a group's window for C channels (0: every corner misses).
 __host__ __device__ inline int window_cap(int C) {
@@ -162,6 +175,16 @@ __device__ __forceinline__ void group_sync(int group) {
     __syncwarp();
   } else {
     asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(kThreads) : "memory");
+  }
+}
+
+__device__ __forceinline__ void shared_add(float* a, float x) {
+  if (kAcc == 1) {
+    asm volatile("red.shared.add.f32 [%0], %1;" ::"r"((unsigned)__cvta_generic_to_shared(a)),
+                 "f"(x)
+                 : "memory");
+  } else {
+    atomicAdd(a, x);
   }
 }
 
@@ -295,39 +318,89 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
     group_sync(group);
 
     // ---- P3: every (item, channel) times every corner's weight, once
-    for (int e = t; e < n_items * gc; e += kThreads) {
-      const int i = e / gc;
-      const int g = e - i * gc;
-      const int* tg = s.tgt + 4 * i;
-      if (tg[0] == -1 && tg[1] == -1 && tg[2] == -1 && tg[3] == -1) continue;
-      const float* __restrict__ row = s.row[i];
-      const float scale = s.scale[i];
-      // channels g, g + gc, g + 2 gc, g + 3 gc: a warp's lanes hold
-      // consecutive channels, so its shared-memory adds hit distinct banks
-      float v[4];
+    if (kAcc == 2) {
+      // lanes take the (item, channel) pairs in steps of S = min(32, C):
+      // no step holds a channel twice, so no two lanes of a step touch one
+      // address, and __syncwarp orders the steps
+      const int S = min(32, C);
+      const int n_el = n_items * C;
+      for (int base = 0; base < n_el; base += S * kBatch) {
+        float v[kBatch];
+        int ie[kBatch], ce[kBatch];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = g + j * gc;
-        v[j] = c < C ? __ldg(row + c) * scale : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int code = tg[k];
-        if (code == -1) continue;
-        const float w = s.wgt[4 * i + k];
-        if (code >= 0) {
-          float* dst = s.win + (size_t)code * C;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = g + j * gc;
-            if (c < C) atomicAdd(dst + c, v[j] * w);
+        for (int b = 0; b < kBatch; ++b) {
+          const int e = base + b * S + lane;
+          ie[b] = -1;
+          if (lane < S && e < n_el) {
+            const int i = e / C;
+            const int* tg = s.tgt + 4 * i;
+            if (tg[0] != -1 || tg[1] != -1 || tg[2] != -1 || tg[3] != -1) {
+              ie[b] = i;
+              ce[b] = e - i * C;
+              v[b] = __ldg(s.row[i] + ce[b]) * s.scale[i];
+            }
           }
-        } else {
-          float* dst = grid + (size_t)(-2 - code) * C;
+        }
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = g + j * gc;
-            if (c < C) atomicAdd(dst + c, v[j] * w);
+        for (int b = 0; b < kBatch; ++b) {
+          if (ie[b] >= 0) {
+            const int* tg = s.tgt + 4 * ie[b];
+            const float* wk = s.wgt + 4 * ie[b];
+            float* p[4];
+            float old[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              p[k] = tg[k] >= 0 ? s.win + (size_t)tg[k] * C + ce[b] : nullptr;
+              old[k] = p[k] != nullptr ? *p[k] : 0.0f;
+            }
+            // the four corners of one item are four distinct cells
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              if (p[k] != nullptr) {
+                *p[k] = old[k] + v[b] * wk[k];
+              } else if (tg[k] <= -2) {
+                atomicAdd(grid + (size_t)(-2 - tg[k]) * C + ce[b], v[b] * wk[k]);
+              }
+            }
+          }
+          __syncwarp();
+        }
+      }
+    } else {
+      for (int e = t; e < n_items * gc; e += kThreads) {
+        const int i = e / gc;
+        const int g = e - i * gc;
+        const int* tg = s.tgt + 4 * i;
+        if (tg[0] == -1 && tg[1] == -1 && tg[2] == -1 && tg[3] == -1) continue;
+        const float* __restrict__ row = s.row[i];
+        const float scale = s.scale[i];
+        // channels g, g + gc, g + 2 gc, g + 3 gc: a warp's lanes hold
+        // consecutive channels, so its shared-memory adds hit distinct banks
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = g + j * gc;
+          v[j] = c < C ? __ldg(row + c) * scale : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int code = tg[k];
+          if (code == -1) continue;
+          const float w = s.wgt[4 * i + k];
+          if (code >= 0) {
+            float* dst = s.win + (size_t)code * C;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int c = g + j * gc;
+              if (c < C) shared_add(dst + c, v[j] * w);
+            }
+          } else {
+            float* dst = grid + (size_t)(-2 - code) * C;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int c = g + j * gc;
+              if (c < C) atomicAdd(dst + c, v[j] * w);
+            }
           }
         }
       }

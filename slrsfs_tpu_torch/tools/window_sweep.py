@@ -4,8 +4,9 @@
 
 Builds ``csrc/splat.cu`` and ``csrc/splat_dense.cu`` once per variant of
 ``VARIANTS`` (the ``-D`` macros of ``csrc/splat_window.cuh``: warps per
-group, the window's bytes, groups per block; ``splat.cu``'s rows per run;
-``splat_dense.cu``'s tile), all nvcc processes at once, into
+group, the window's bytes, groups per block, how the window is added to,
+loads in flight; ``splat.cu``'s rows per run and how its accumulator
+starts; ``splat_dense.cu``'s tile), all nvcc processes at once, into
 ``build/sweep/``. On ``chip_smoke.py``'s scene (256², t = 30) each variant's
 K2 f32 (``splat_dual_normalize``: memset, scatter and epilogue), K8 f32 two
 ends and K3's forward at (1, 256, 256, 65) and (16, 256, 256, 65) (the
@@ -33,16 +34,21 @@ from slrsfs_tpu_torch.ops import splat as S
 # name: -D macros; the first is the sources' own defaults
 VARIANTS = {
     "default": {},
-    "bytes16k": {"SPLAT_WINDOW_BYTES": 16 * 1024},
+    "acc0": {"SPLAT_WINDOW_ACC": 0},
+    "acc1": {"SPLAT_WINDOW_ACC": 1},
+    "init1": {"SPLAT_F32_INIT": 1},
+    "batch8": {"SPLAT_WINDOW_BATCH": 8},
+    "bytes12k": {"SPLAT_WINDOW_BYTES": 12 * 1024, "SPLAT_WINDOW_GROUPS": 8},
+    "bytes8k": {"SPLAT_WINDOW_BYTES": 8 * 1024, "SPLAT_WINDOW_GROUPS": 8},
+    "bytes12k_batch8": {"SPLAT_WINDOW_BYTES": 12 * 1024, "SPLAT_WINDOW_GROUPS": 8,
+                        "SPLAT_WINDOW_BATCH": 8},
     "bytes48k": {"SPLAT_WINDOW_BYTES": 48 * 1024, "SPLAT_WINDOW_GROUPS": 2},
-    "groups2": {"SPLAT_WINDOW_GROUPS": 2},
-    "groups8": {"SPLAT_WINDOW_GROUPS": 8, "SPLAT_WINDOW_BYTES": 12 * 1024},
     "run4": {"SPLAT_WINDOW_RUN": 4},
     "run16": {"SPLAT_WINDOW_RUN": 16},
     "tile8x4": {"SPLAT_DENSE_TILE_Y": 8, "SPLAT_DENSE_TILE_X": 4},
-    "warps4": {"SPLAT_WINDOW_WARPS": 4, "SPLAT_WINDOW_GROUPS": 1,
-               "SPLAT_WINDOW_BYTES": 96 * 1024, "SPLAT_WINDOW_RUN": 16,
-               "SPLAT_DENSE_TILE_Y": 8, "SPLAT_DENSE_TILE_X": 16},
+    "warps4acc1": {"SPLAT_WINDOW_WARPS": 4, "SPLAT_WINDOW_GROUPS": 1, "SPLAT_WINDOW_ACC": 1,
+                   "SPLAT_WINDOW_BYTES": 96 * 1024, "SPLAT_WINDOW_RUN": 16,
+                   "SPLAT_DENSE_TILE_Y": 8, "SPLAT_DENSE_TILE_X": 16},
 }
 SOURCES = ("splat.cu", "splat_dense.cu")
 
@@ -80,12 +86,13 @@ def build(names) -> dict:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {key}:\n{out}")
         dll = ctypes.CDLL(lib)
-        dll.splat_dual_normalize.argtypes = kernels.SPLAT.argtypes
-        dll.splat_sum_at.argtypes = kernels.SPLAT_SUM_AT.argtypes
-        dll.splat_dense_fwd.argtypes = kernels.SPLAT_DENSE_FWD.argtypes
-        for fn in ("splat_rows_window", "splat_dense_window"):
-            if hasattr(dll, fn):
-                getattr(dll, fn).argtypes = [ctypes.c_int, ctypes.c_int]
+        if key[1] == "splat.cu":
+            dll.splat_dual_normalize.argtypes = kernels.SPLAT.argtypes
+            dll.splat_sum_at.argtypes = kernels.SPLAT_SUM_AT.argtypes
+            dll.splat_rows_window.argtypes = [ctypes.c_int, ctypes.c_int]
+        else:
+            dll.splat_dense_fwd.argtypes = kernels.SPLAT_DENSE_FWD.argtypes
+            dll.splat_dense_window.argtypes = [ctypes.c_int, ctypes.c_int]
         libs[key] = dll
     return libs
 

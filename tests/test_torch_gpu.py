@@ -722,7 +722,10 @@ def _window_rows(dev, C1: int, far: bool, slr: bool = False):
 def test_k2_f32_window_scatter_matches_plain_on_card(slr, C1, out_dtype, far):
     """K2's f32 mode (both epilogues) at ragged shapes and widths; cells
     that no moving tap reaches give the plain version's quotient of
-    u_static bit for bit."""
+    u_static bit for bit. A bf16 output is the f32 quotient rounded once:
+    it is held within 2^-8 (a bf16 rounding) of the plain version's f32
+    quotient, plus 1e-5, since a quotient 1e-7 away from the plain one can
+    round to the neighbouring bf16 value."""
     if slr and C1 < 3:
         pytest.skip("the SLR layout has at least 3 channels")
     dev = _card()
@@ -735,9 +738,10 @@ def test_k2_f32_window_scatter_matches_plain_on_card(slr, C1, out_dtype, far):
     wrapper(u, pos, val, da, db, 0.4, 0.6, u_static, out=out)
     assert {k: v for k, v in kernels.counts().items() if v} == {kernel.name: 1}
     ref = plain(u, pos, val, da, db, 0.4, 0.6, u_static, out_dtype)
+    ref32 = plain(u, pos, val, da, db, 0.4, 0.6, u_static, torch.float32)
     torch.cuda.synchronize()
     rtol = 1e-5 if out_dtype == torch.float32 else 2 ** -8
-    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-5)
+    torch.testing.assert_close(out.float(), ref32, rtol=rtol, atol=1e-5)
     _same_empty_cells(out, ref)
     reached = port_splat.softsplat_sum_at_quad_dual_plain(
         (u.abs() + 1.0) * val[:, None], pos, da, db, 1.0, 1.0, HR, WR)[..., 0] != 0
