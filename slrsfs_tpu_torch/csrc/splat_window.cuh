@@ -81,6 +81,23 @@ constexpr int kGroups = SPLAT_WINDOW_GROUPS;
 constexpr int kWindowBytes = SPLAT_WINDOW_BYTES;
 constexpr int kCapMax = 1024;  // cells of a window, at most
 constexpr int kAcc = SPLAT_WINDOW_ACC;
+
+// -DSPLAT_WINDOW_PROFILE=1 (tools/window_sweep.py only): each group adds
+// the clock64 cycles of its phases P1..P4 and its units into
+// window_cycles, read by the library's splat_window_cycles.
+#ifdef SPLAT_WINDOW_PROFILE
+static __device__ unsigned long long window_cycles[5];
+#define WINDOW_PHASE(k)                     \
+  do {                                      \
+    const long long t1_ = clock64();        \
+    cycles[k] += (unsigned long long)(t1_ - t0_); \
+    t0_ = t1_;                              \
+  } while (0)
+#else
+#define WINDOW_PHASE(k) \
+  do {                  \
+  } while (0)
+#endif
 constexpr int kBatch = SPLAT_WINDOW_BATCH;
 static_assert(kAcc != 2 || kWarps == 1, "read-modify-write needs one warp a group");
 
@@ -228,8 +245,16 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
   const int n_units = src.units();
   const int stride = gridDim.x * kGroups;
   int parity = 0;
+#ifdef SPLAT_WINDOW_PROFILE
+  unsigned long long cycles[5] = {0, 0, 0, 0, 0};
+  long long t0_ = clock64();
+#endif
   for (int unit = blockIdx.x * kGroups + group; unit < n_units;
        unit += stride, parity ^= 1) {
+#ifdef SPLAT_WINDOW_PROFILE
+    cycles[4] += 1;
+    t0_ = clock64();
+#endif
     float* __restrict__ grid = src.grid(unit);
     const int n_items = src.items(unit);
     // ---- P1: corners, weights, the group's bounding box
@@ -285,6 +310,7 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
       s.count[warp] = n;
     }
     group_sync(group);
+    WINDOW_PHASE(0);
 
     // ---- P2: the window, the corners' slots, the touched list
     bx0 = INT_MAX; bx1 = INT_MIN; by0 = INT_MAX; by1 = INT_MIN; sx = sy = n = 0;
@@ -316,6 +342,7 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
       }
     }
     group_sync(group);
+    WINDOW_PHASE(1);
 
     // ---- P3: every (item, channel) times every corner's weight, once
     if (kAcc == 2) {
@@ -406,6 +433,7 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
       }
     }
     group_sync(group);
+    WINDOW_PHASE(2);
 
     // ---- P4: each touched cell's run into the grid, the window re-zeroed
     const int touched = *n_touched;
@@ -431,8 +459,28 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
       if (o == 0) s.mark[slot] = 0;
     }
     if (t == 0) s.n_touched[parity ^ 1] = 0;  // the next unit's list
+#ifdef SPLAT_WINDOW_PROFILE
+    group_sync(group);
+    WINDOW_PHASE(3);
+#endif
   }
+#ifdef SPLAT_WINDOW_PROFILE
+  if (t == 0)
+    for (int k = 0; k < 5; ++k) atomicAdd(&window_cycles[k], cycles[k]);
+#endif
 }
+
+#ifdef SPLAT_WINDOW_PROFILE
+// Copies the groups' phase cycles and units to out[5] and zeroes them.
+extern "C" int splat_window_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, window_cycles, sizeof(window_cycles));
+  if (err == cudaSuccess) {
+    const unsigned long long zero[5] = {0, 0, 0, 0, 0};
+    err = cudaMemcpyToSymbol(window_cycles, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+#endif
 
 // Sets the kernel's dynamic shared memory limit and returns the grid of
 // persistent blocks for `n_units` units: at most the blocks the card holds

@@ -34,21 +34,10 @@ from slrsfs_tpu_torch.ops import splat as S
 # name: -D macros; the first is the sources' own defaults
 VARIANTS = {
     "default": {},
-    "acc0": {"SPLAT_WINDOW_ACC": 0},
-    "acc1": {"SPLAT_WINDOW_ACC": 1},
-    "init1": {"SPLAT_F32_INIT": 1},
-    "batch8": {"SPLAT_WINDOW_BATCH": 8},
-    "bytes12k": {"SPLAT_WINDOW_BYTES": 12 * 1024, "SPLAT_WINDOW_GROUPS": 8},
-    "bytes8k": {"SPLAT_WINDOW_BYTES": 8 * 1024, "SPLAT_WINDOW_GROUPS": 8},
-    "bytes12k_batch8": {"SPLAT_WINDOW_BYTES": 12 * 1024, "SPLAT_WINDOW_GROUPS": 8,
-                        "SPLAT_WINDOW_BATCH": 8},
-    "bytes48k": {"SPLAT_WINDOW_BYTES": 48 * 1024, "SPLAT_WINDOW_GROUPS": 2},
-    "run4": {"SPLAT_WINDOW_RUN": 4},
-    "run16": {"SPLAT_WINDOW_RUN": 16},
-    "tile8x4": {"SPLAT_DENSE_TILE_Y": 8, "SPLAT_DENSE_TILE_X": 4},
-    "warps4acc1": {"SPLAT_WINDOW_WARPS": 4, "SPLAT_WINDOW_GROUPS": 1, "SPLAT_WINDOW_ACC": 1,
-                   "SPLAT_WINDOW_BYTES": 96 * 1024, "SPLAT_WINDOW_RUN": 16,
-                   "SPLAT_DENSE_TILE_Y": 8, "SPLAT_DENSE_TILE_X": 16},
+    "profile": {"SPLAT_WINDOW_PROFILE": 1},
+    "bytes12k_profile": {"SPLAT_WINDOW_BYTES": 12 * 1024, "SPLAT_WINDOW_GROUPS": 8,
+                         "SPLAT_WINDOW_PROFILE": 1},
+    "acc0_profile": {"SPLAT_WINDOW_ACC": 0, "SPLAT_WINDOW_PROFILE": 1},
 }
 SOURCES = ("splat.cu", "splat_dense.cu")
 
@@ -95,6 +84,22 @@ def build(names) -> dict:
             dll.splat_dense_window.argtypes = [ctypes.c_int, ctypes.c_int]
         libs[key] = dll
     return libs
+
+
+def _phases(lib, fn) -> str:
+    """A profiling build's clock64 cycles per unit of phases P1..P4 in one
+    call of ``fn`` (empty for other builds)."""
+    if not hasattr(lib, "splat_window_cycles"):
+        return ""
+    buf = (ctypes.c_ulonglong * 5)()
+    _ok(lib.splat_window_cycles(buf), "splat_window_cycles")
+    torch.cuda.synchronize()
+    fn()
+    torch.cuda.synchronize()
+    _ok(lib.splat_window_cycles(buf), "splat_window_cycles")
+    units = max(buf[4], 1)
+    return ("; cycles per unit P1 {:.0f}, P2 {:.0f}, P3 {:.0f}, P4 {:.0f} ({} units)"
+            .format(*(buf[k] / units for k in range(4)), buf[4]))
 
 
 def _ok(err: int, what: str) -> None:
@@ -160,7 +165,8 @@ def main(names) -> int:
             ms, host = cs.device_time(fn, reps=50)
             split = cs.launch_split(fn)
             print(f"window_sweep {name} {label}: device {ms:.4f} ms; {cs.fmt_split(split)}; "
-                  f"misses {100.0 * n_miss / n_in:.2f} % (runs of {run}, {cap} cells)")
+                  f"misses {100.0 * n_miss / n_in:.2f} % (runs of {run}, {cap} cells)"
+                  f"{_phases(lib, fn)}")
         for shape, (inp, fl) in dense.items():
             B, _, _, C = inp.shape
 
@@ -180,7 +186,7 @@ def main(names) -> int:
             split = cs.launch_split(k3)
             print(f"window_sweep {name} K3 forward {shape}: device {ms:.4f} ms; "
                   f"{cs.fmt_split(split)}; misses {100.0 * n_miss / n_in:.2f} % "
-                  f"({ty}x{tx} tiles, {cap3} cells)")
+                  f"({ty}x{tx} tiles, {cap3} cells){_phases(lib_d, k3)}")
     return 0
 
 
