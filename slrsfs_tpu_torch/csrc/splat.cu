@@ -142,19 +142,19 @@ struct RowsSource {
   __device__ bool item(int unit, int i, splat_window::Item& it) const {
     const bool end_a = unit < runs;
     const int p = (end_a ? unit : unit - runs) * kRun + i;
-    if (valid != nullptr && valid[p] == 0.0f) return false;
+    const float keep = valid != nullptr ? valid[p] : 1.0f;
     const int2 src = positions[p];
     const float2 d = end_a ? disp_a[p] : disp_b[p];
     it.row = u + (size_t)p * C1;
     it.scale = end_a ? w_a : w_b;  // the row scaled by its end's weight
     it.ox = (float)src.x + d.x;
     it.oy = (float)src.y + d.y;
-    return true;
+    return keep != 0.0f;
   }
   __device__ float* grid(int) const { return acc; }
 };
 
-__global__ void __launch_bounds__(splat_window::kGroups * splat_window::kThreads)
+__global__ void __launch_bounds__(splat_window::kGroups * 32)
     rows_scatter_kernel(RowsSource src, int H, int W) {
   splat_window::scatter(src, H, W, src.C1);
 }
@@ -168,6 +168,7 @@ static cudaError_t scatter_f32(const void* u, const void* positions,
   const int runs = (P + kRun - 1) / kRun;
   const long long units = (disp_b != nullptr ? 2LL : 1LL) * runs;
   if (units == 0 || C1 == 0 || H * W == 0) return cudaGetLastError();
+  if (H >= 32768 || W >= 32768) return cudaErrorInvalidValue;
   unsigned blocks = 0;
   size_t smem = 0;
   cudaError_t err = splat_window::launch_shape(rows_scatter_kernel, C1, units, &blocks, &smem);
@@ -176,7 +177,7 @@ static cudaError_t scatter_f32(const void* u, const void* positions,
                           (const float2*)disp_a, (const float2*)disp_b,  w_a,
                           w_b,                  (float*)acc,            P,
                           C1,                   runs};
-  rows_scatter_kernel<<<blocks, splat_window::kGroups * splat_window::kThreads, smem, s>>>(
+  rows_scatter_kernel<<<blocks, splat_window::kGroups * 32, smem, s>>>(
       src, H, W);
   return cudaGetLastError();
 }

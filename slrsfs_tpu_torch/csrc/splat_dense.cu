@@ -125,7 +125,7 @@ struct DenseSource {
   }
 };
 
-__global__ void __launch_bounds__(splat_window::kGroups * splat_window::kThreads)
+__global__ void __launch_bounds__(splat_window::kGroups * 32)
     splat_dense_fwd_kernel(DenseSource src) {
   splat_window::scatter(src, src.H, src.W, src.C);
 }
@@ -185,11 +185,12 @@ extern "C" int splat_dense_fwd(const void* inp, const void* flow, void* out,
                            (H + kTileY - 1) / kTileY, (W + kTileX - 1) / kTileX};
   const long long units = (long long)B * src.tiles_y * src.tiles_x;
   if (units == 0 || C == 0) return (int)cudaGetLastError();
+  if (H >= 32768 || W >= 32768) return (int)cudaErrorInvalidValue;
   unsigned blocks = 0;
   size_t smem = 0;
   cudaError_t err = splat_window::launch_shape(splat_dense_fwd_kernel, C, units, &blocks, &smem);
   if (err != cudaSuccess) return (int)err;
-  splat_dense_fwd_kernel<<<blocks, splat_window::kGroups * splat_window::kThreads, smem,
+  splat_dense_fwd_kernel<<<blocks, splat_window::kGroups * 32, smem,
                            (cudaStream_t)stream>>>(src);
   return (int)cudaGetLastError();
 }

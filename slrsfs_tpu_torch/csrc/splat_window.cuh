@@ -5,43 +5,47 @@
 // An f32 splat adds, for every source item (a packed row or a pixel), its
 // C channels times each bilinear weight into the four integer neighbours
 // of its target; corners off the grid are dropped. Done as one f32
-// reduction per (item, channel, corner) into device memory, the card's L2
-// spends its time on the reductions (the parent design: 17.0 M of them a
-// frame in K2). Neighbouring items land on neighbouring cells, so the
-// taps are summed in shared memory first, and each touched cell is then
-// reduced into device memory once, 16 bytes at a time:
+// reduction per (item, channel, corner) into device memory (the parent
+// design: 14.1 M of them a frame in K2 at 256^2), the card's L2 spends its
+// time on the reductions. Neighbouring items land on neighbouring cells,
+// so a unit's taps are summed in shared memory first, and each touched
+// cell is then reduced into device memory once, 16 bytes at a time:
 //
-//  * A group of kWarps warps owns a unit: up to 32 * kWarps items (K2: a
-//    run of consecutive packed rows of one end; K3: a 2-D tile of one
-//    sample). The groups are persistent and walk over the units.
-//  * (P1) The item threads compute their four corners and weights once, in
-//    f32, operation for operation as the JAX _corners does (the build
-//    keeps -fmad=false), into shared memory, and reduce the bounding box
-//    and the coordinate sums of the in-grid corners over the group.
+//  * A warp owns a unit of up to 32 items (K2: a run of consecutive packed
+//    rows of one end; K3: a 2-D tile of one sample). The warps are
+//    persistent and walk over the units; the block's warps share nothing.
+//  * (P1) Lane i computes item i's four corners and weights once, in f32,
+//    operation for operation as the JAX _corners does (the build keeps
+//    -fmad=false), into shared memory; warp reductions give the bounding
+//    box and the coordinate sums of the unit's in-grid corners.
 //  * (P2) The window, a rectangle of at most `cap` cells (window_cap: the
-//    group's shared-memory budget over 4 C bytes), is placed by
+//    warp's shared-memory budget over the cell's bytes), is placed by
 //    place_window: the bounding box when it fits, else a box about
 //    isqrt(cap) on a side, widened where the bounding box is narrow,
 //    centred on the mean corner and clamped into the bounding box. Each
 //    in-window corner gets its cell's slot; the first corner to reach a
-//    slot appends it to the group's list of touched cells.
-//  * (P3) One thread per (item, group of 4 channels) scales the item's
-//    channels once and adds them times each corner's weight into the
-//    window by shared-memory atomicAdd; a corner outside the window but in
-//    the grid (divergent flow, a box larger than the window) goes straight
-//    to device memory by f32 atomicAdd. Corners off the grid (the OOB
+//    slot appends it to the list of touched cells.
+//  * (P3) Lane l owns channels l, l + 32, ... of every cell: for each item
+//    it scales its channels once and adds them times each corner's weight
+//    into the window by plain read-modify-write (no other lane holds those
+//    addresses). The C mod 32 tail channels go by shared-memory atomicAdd,
+//    lanes over (item, channel). A corner outside the window but in the
+//    grid (divergent flow, a box larger than the window) goes straight to
+//    device memory by f32 atomicAdd. Corners off the grid (the OOB
 //    sentinel max(H, W) + 1 puts all four there) add nothing.
 //  * (P4) The touched cells are flushed: each one's C channels are one
 //    contiguous run in the NHWC grid, reduced with red.global.add.v4.f32
 //    (sm_90) over its 16-byte aligned middle and scalar reductions at its
-//    two ends; the window cells are zeroed behind the flush. Cells that no
-//    tap reached receive nothing, so they keep their value exactly (the
+//    two ends. A window cell keeps channel c at the same position modulo 4
+//    floats as the grid does, so each quad is one 16-byte shared-memory
+//    load; the cells are zeroed behind the flush. Cells that no tap
+//    reached receive nothing, so they keep their value exactly (the
 //    decoders' hole mask is x != 0).
 //
 // The sums agree with the plain version to rounding: a window cell sums
-// its taps in shared-memory atomic order, then lands on the grid in one
-// more add. place_window is repeated on the host by
-// slrsfs_tpu_torch/ops/splat.py:window_misses, which counts the corners
+// its taps in lane order, then lands on the grid in one more add.
+// place_window is repeated on the host by
+// slrsfs_tpu_torch/ops/splat.py:place_windows, which counts the corners
 // that miss their window from the displacements alone.
 
 #pragma once
@@ -52,58 +56,48 @@
 
 namespace splat_window {
 
-// Warps per group, items per group, and the group's shared-memory budget
-// for its window (bytes; 24 KB is 94 cells of 65 channels). Groups per
-// block: kGroups.
-#ifndef SPLAT_WINDOW_WARPS
-#define SPLAT_WINDOW_WARPS 1
-#endif
+// A warp's shared-memory budget for its window (12 KB: 45 cells of 65
+// channels), warps per block, and the items whose loads a lane has in
+// flight at once in P3. Each can be set with -D (tools/window_sweep.py).
 #ifndef SPLAT_WINDOW_BYTES
-#define SPLAT_WINDOW_BYTES (24 * 1024)
+#define SPLAT_WINDOW_BYTES (12 * 1024)
 #endif
 #ifndef SPLAT_WINDOW_GROUPS
 #define SPLAT_WINDOW_GROUPS 4
 #endif
-// How P3 adds into the window: 0 atomicAdd, 1 red.shared.add.f32, 2 plain
-// read-modify-write by a warp whose lanes never hold one channel twice in
-// a step (one warp a group).
-#ifndef SPLAT_WINDOW_ACC
-#define SPLAT_WINDOW_ACC 2
-#endif
-// P3's (item, channel) steps whose loads are in flight at once (ACC 2).
 #ifndef SPLAT_WINDOW_BATCH
-#define SPLAT_WINDOW_BATCH 4
+#define SPLAT_WINDOW_BATCH 8
 #endif
-constexpr int kWarps = SPLAT_WINDOW_WARPS;
-constexpr int kThreads = 32 * kWarps;  // threads of a group
-constexpr int kItems = 32 * kWarps;    // items of a unit, at most
+constexpr int kItems = 32;  // items of a unit, at most: one per lane
 constexpr int kGroups = SPLAT_WINDOW_GROUPS;
 constexpr int kWindowBytes = SPLAT_WINDOW_BYTES;
+constexpr int kBatch = SPLAT_WINDOW_BATCH;
 constexpr int kCapMax = 1024;  // cells of a window, at most
-constexpr int kAcc = SPLAT_WINDOW_ACC;
 
-// -DSPLAT_WINDOW_PROFILE=1 (tools/window_sweep.py only): each group adds
+// -DSPLAT_WINDOW_PROFILE=1 (tools/window_sweep.py only): each warp adds
 // the clock64 cycles of its phases P1..P4 and its units into
 // window_cycles, read by the library's splat_window_cycles.
 #ifdef SPLAT_WINDOW_PROFILE
 static __device__ unsigned long long window_cycles[5];
-#define WINDOW_PHASE(k)                     \
-  do {                                      \
-    const long long t1_ = clock64();        \
-    cycles[k] += (unsigned long long)(t1_ - t0_); \
-    t0_ = t1_;                              \
+#define WINDOW_PHASE(k)                             \
+  do {                                              \
+    const long long t1_ = clock64();                \
+    cycles[k] += (unsigned long long)(t1_ - t0_);   \
+    t0_ = t1_;                                      \
   } while (0)
 #else
 #define WINDOW_PHASE(k) \
   do {                  \
   } while (0)
 #endif
-constexpr int kBatch = SPLAT_WINDOW_BATCH;
-static_assert(kAcc != 2 || kWarps == 1, "read-modify-write needs one warp a group");
 
-// Cells of a group's window for C channels (0: every corner misses).
+// Floats of a window cell: C + 3 rounded up to a multiple of 4, room for
+// the cell's C channels shifted by their grid address modulo 4 floats.
+__host__ __device__ inline int cell_stride(int C) { return (C + 6) & ~3; }
+
+// Cells of a warp's window for C channels (0: every corner misses).
 __host__ __device__ inline int window_cap(int C) {
-  const int cap = kWindowBytes / (4 * C);
+  const int cap = kWindowBytes / (4 * cell_stride(C));
   return cap < kCapMax ? cap : kCapMax;
 }
 
@@ -143,79 +137,55 @@ struct Item {
   float ox, oy;
 };
 
-// Shared memory of one group: the window (cap x C floats), then the
-// per-slot touch flags and the list of touched slots, then the unit's
-// items. 16-byte aligned pieces.
-struct GroupSmem {
+// Shared memory of one warp, 16-byte aligned pieces: the window (cap
+// cells of cell_stride(C) floats), per slot a touch flag, the touched
+// slots and their grid cells, and the unit's items: per corner a code
+// (window float offset >= 0, -1 off the grid, -2 - cell a miss), its
+// (x, y) in 16 bits each, its weight; per item its row and scale.
+struct WarpSmem {
   float* win;
   int* mark;
   int* list;
-  int* tgt;      // [kItems][4]: slot >= 0, -1 off the grid, -2 - cell: a miss
-  float* wgt;    // [kItems][4]
+  int* cells;
+  int* code;  // [kItems][4]
+  int* xy;    // [kItems][4]
+  float* wgt;  // [kItems][4]
   const float** row;  // [kItems]
   float* scale;  // [kItems]
-  int* partial;  // [kWarps][6]: min x, max x, min y, max y, sum x, sum y
-  int* count;    // [kWarps]: in-grid corners
-  int* n_touched;  // [2], by the unit's parity
+  int* n_touched;
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
-__host__ __device__ inline size_t group_bytes(int C) {
+__host__ __device__ inline size_t warp_bytes(int C) {
   const int cap = window_cap(C);
-  return align16((size_t)cap * C * 4) + 2 * align16((size_t)cap * 4) +
-         align16(kItems * 4 * 4) * 2 + align16(kItems * sizeof(void*)) +
-         align16(kItems * 4) + align16(kWarps * 7 * 4) + 16;
+  return align16((size_t)cap * cell_stride(C) * 4) + 3 * align16((size_t)cap * 4) +
+         3 * align16(kItems * 4 * 4) + align16(kItems * sizeof(void*)) + align16(kItems * 4) +
+         16;
 }
 
-__host__ __device__ inline size_t block_bytes(int C) { return kGroups * group_bytes(C); }
+__host__ __device__ inline size_t block_bytes(int C) { return kGroups * warp_bytes(C); }
 
-__device__ inline GroupSmem carve(unsigned char* base, int C) {
+__device__ inline WarpSmem carve(unsigned char* p, int C) {
   const int cap = window_cap(C);
-  GroupSmem s;
-  unsigned char* p = base;
-  s.win = (float*)p;       p += align16((size_t)cap * C * 4);
-  s.mark = (int*)p;        p += align16((size_t)cap * 4);
-  s.list = (int*)p;        p += align16((size_t)cap * 4);
-  s.tgt = (int*)p;         p += align16(kItems * 4 * 4);
-  s.wgt = (float*)p;       p += align16(kItems * 4 * 4);
+  WarpSmem s;
+  s.win = (float*)p;        p += align16((size_t)cap * cell_stride(C) * 4);
+  s.mark = (int*)p;         p += align16((size_t)cap * 4);
+  s.list = (int*)p;         p += align16((size_t)cap * 4);
+  s.cells = (int*)p;        p += align16((size_t)cap * 4);
+  s.code = (int*)p;         p += align16(kItems * 4 * 4);
+  s.xy = (int*)p;           p += align16(kItems * 4 * 4);
+  s.wgt = (float*)p;        p += align16(kItems * 4 * 4);
   s.row = (const float**)p; p += align16(kItems * sizeof(void*));
-  s.scale = (float*)p;     p += align16(kItems * 4);
-  s.partial = (int*)p;
-  s.count = s.partial + kWarps * 6;
-  s.n_touched = s.count + kWarps;
+  s.scale = (float*)p;      p += align16(kItems * 4);
+  s.n_touched = (int*)p;
   return s;
 }
 
-__device__ __forceinline__ void group_sync(int group) {
-  if (kWarps == 1) {
-    __syncwarp();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(kThreads) : "memory");
-  }
-}
-
-__device__ __forceinline__ void shared_add(float* a, float x) {
-  if (kAcc == 1) {
-    asm volatile("red.shared.add.f32 [%0], %1;" ::"r"((unsigned)__cvta_generic_to_shared(a)),
-                 "f"(x)
-                 : "memory");
-  } else {
-    atomicAdd(a, x);
-  }
-}
-
-__device__ __forceinline__ void red4(float* a, float x, float y, float z, float w) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(a), "f"(x), "f"(y),
-               "f"(z), "f"(w)
+__device__ __forceinline__ void red4(float* a, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(a), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
                : "memory");
-}
-
-// Reductions of a run of C floats at `dst`: `head` scalars up to the first
-// 16-byte boundary, then quads, then the scalar tail; op o of n_ops(head).
-__device__ __forceinline__ int n_ops(int C, int head) {
-  const int h = min(head, C);
-  return h + (C - h) / 4 + (C - h) % 4;
 }
 
 // The grid a source writes to: `Src` provides
@@ -223,79 +193,70 @@ __device__ __forceinline__ int n_ops(int C, int head) {
 //   int items(int unit) const;          items of the unit (<= kItems)
 //   bool item(int unit, int i, Item&) const;  false: the item adds nothing
 //   float* grid(int unit) const;        the (H, W, C) grid of the unit
+// H and W are below 32768 (a corner's (x, y) packs into 32 bits).
 template <class Src>
 __device__ void scatter(const Src& src, int H, int W, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int group = threadIdx.x / kThreads;
-  const int t = threadIdx.x - group * kThreads;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int warp = t >> 5;
-  GroupSmem s = carve(smem + group * group_bytes(C), C);
+  WarpSmem s = carve(smem + warp * warp_bytes(C), C);
   const int cap = window_cap(C);
   const int side = isqrt(cap);
-  const int gc = (C + 3) / 4;  // channel groups of an item
-  int max_ops = 0;
-  for (int h = 0; h < 4; ++h) max_ops = max(max_ops, n_ops(C, h));
+  const int cs = cell_stride(C);
+  const int full = C & ~31;  // channels in whole 32-lane rounds
+  const int tail = C - full;
 
-  for (int i = t; i < cap * C; i += kThreads) s.win[i] = 0.0f;
-  for (int i = t; i < cap; i += kThreads) s.mark[i] = 0;
-  if (t < 2) s.n_touched[t] = 0;
-  group_sync(group);
+  for (int i = lane; i < cap * cs; i += 32) s.win[i] = 0.0f;
+  for (int i = lane; i < cap; i += 32) s.mark[i] = 0;
+  if (lane == 0) *s.n_touched = 0;
+  __syncwarp();
 
   const int n_units = src.units();
-  const int stride = gridDim.x * kGroups;
-  int parity = 0;
 #ifdef SPLAT_WINDOW_PROFILE
   unsigned long long cycles[5] = {0, 0, 0, 0, 0};
   long long t0_ = clock64();
 #endif
-  for (int unit = blockIdx.x * kGroups + group; unit < n_units;
-       unit += stride, parity ^= 1) {
+  for (int unit = blockIdx.x * kGroups + warp; unit < n_units; unit += gridDim.x * kGroups) {
 #ifdef SPLAT_WINDOW_PROFILE
     cycles[4] += 1;
     t0_ = clock64();
 #endif
     float* __restrict__ grid = src.grid(unit);
     const int n_items = src.items(unit);
-    // ---- P1: corners, weights, the group's bounding box
+    // ---- P1: corners, weights, the unit's bounding box
     int bx0 = INT_MAX, bx1 = INT_MIN, by0 = INT_MAX, by1 = INT_MIN, sx = 0, sy = 0, n = 0;
-    if (t < n_items) {
-      Item it;
-      const bool live = src.item(unit, t, it);
-      int* tg = s.tgt + 4 * t;
-      if (live) {
-        const float x0f = floorf(it.ox);
-        const float y0f = floorf(it.oy);
-        const float dx = it.ox - x0f;
-        const float dy = it.oy - y0f;
-        const int x0 = (int)x0f;
-        const int y0 = (int)y0f;
-        const int cxs[4] = {x0, x0 + 1, x0, x0 + 1};
-        const int cys[4] = {y0, y0, y0 + 1, y0 + 1};
-        const float ws[4] = {(1.0f - dx) * (1.0f - dy), dx * (1.0f - dy),
-                             (1.0f - dx) * dy, dx * dy};
+    if (lane < n_items) {
+      Item it = {nullptr, 0.0f, 0.0f, 0.0f};
+      const bool live = src.item(unit, lane, it);
+      const float x0f = floorf(it.ox);
+      const float y0f = floorf(it.oy);
+      const float dx = it.ox - x0f;
+      const float dy = it.oy - y0f;
+      const int x0 = (int)x0f;
+      const int y0 = (int)y0f;
+      const int cxs[4] = {x0, x0 + 1, x0, x0 + 1};
+      const int cys[4] = {y0, y0, y0 + 1, y0 + 1};
+      const float ws[4] = {(1.0f - dx) * (1.0f - dy), dx * (1.0f - dy), (1.0f - dx) * dy,
+                           dx * dy};
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const bool in = cxs[k] >= 0 && cxs[k] < W && cys[k] >= 0 && cys[k] < H;
-          // the cell for now; P2 turns it into a slot or a miss
-          tg[k] = in ? cys[k] * W + cxs[k] : -1;
-          s.wgt[4 * t + k] = ws[k];
-          if (in) {
-            bx0 = min(bx0, cxs[k]);
-            bx1 = max(bx1, cxs[k]);
-            by0 = min(by0, cys[k]);
-            by1 = max(by1, cys[k]);
-            sx += cxs[k];
-            sy += cys[k];
-            ++n;
-          }
+      for (int k = 0; k < 4; ++k) {
+        const bool in = live && cxs[k] >= 0 && cxs[k] < W && cys[k] >= 0 && cys[k] < H;
+        // the cell for now; P2 turns it into a window offset or a miss
+        s.code[4 * lane + k] = in ? cys[k] * W + cxs[k] : -1;
+        s.xy[4 * lane + k] = in ? (cys[k] << 16) | cxs[k] : 0;
+        s.wgt[4 * lane + k] = ws[k];
+        if (in) {
+          bx0 = min(bx0, cxs[k]);
+          bx1 = max(bx1, cxs[k]);
+          by0 = min(by0, cys[k]);
+          by1 = max(by1, cys[k]);
+          sx += cxs[k];
+          sy += cys[k];
+          ++n;
         }
-        s.row[t] = it.row;
-        s.scale[t] = it.scale;
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) tg[k] = -1;
       }
+      s.row[lane] = it.row;
+      s.scale[lane] = it.scale;
     }
     bx0 = __reduce_min_sync(0xffffffffu, bx0);
     bx1 = __reduce_max_sync(0xffffffffu, bx1);
@@ -304,174 +265,128 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
     sx = __reduce_add_sync(0xffffffffu, sx);
     sy = __reduce_add_sync(0xffffffffu, sy);
     n = __reduce_add_sync(0xffffffffu, n);
-    if (lane == 0) {
-      int* pw = s.partial + 6 * warp;
-      pw[0] = bx0; pw[1] = bx1; pw[2] = by0; pw[3] = by1; pw[4] = sx; pw[5] = sy;
-      s.count[warp] = n;
-    }
-    group_sync(group);
     WINDOW_PHASE(0);
 
-    // ---- P2: the window, the corners' slots, the touched list
-    bx0 = INT_MAX; bx1 = INT_MIN; by0 = INT_MAX; by1 = INT_MIN; sx = sy = n = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int* pw = s.partial + 6 * w;
-      bx0 = min(bx0, pw[0]); bx1 = max(bx1, pw[1]);
-      by0 = min(by0, pw[2]); by1 = max(by1, pw[3]);
-      sx += pw[4]; sy += pw[5]; n += s.count[w];
-    }
+    // ---- P2: the window, the corners' codes, the touched list
     Window win = {0, 0, 0, 0};
     if (n > 0 && cap > 0) win = place_window(bx0, bx1, by0, by1, sx, sy, n, cap, side);
-    int* n_touched = s.n_touched + parity;
-    if (t < n_items) {
-      int* tg = s.tgt + 4 * t;
+    // the grid's float offset modulo 4, to keep the window's quads aligned
+    const int phase = (int)(((uintptr_t)grid >> 2) & 3);
+    if (lane < n_items) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const int cell = tg[k];
+        const int cell = s.code[4 * lane + k];
         if (cell < 0) continue;
-        const int cx = cell % W - win.ox;
-        const int cy = cell / W - win.oy;
+        const int cx = (s.xy[4 * lane + k] & 0xffff) - win.ox;
+        const int cy = (s.xy[4 * lane + k] >> 16) - win.oy;
         if (cx >= 0 && cx < win.lw && cy >= 0 && cy < win.rows) {
           const int slot = cy * win.lw + cx;
-          tg[k] = slot;
-          if (atomicExch(&s.mark[slot], 1) == 0) s.list[atomicAdd(n_touched, 1)] = slot;
+          s.code[4 * lane + k] =
+              slot * cs + (int)((phase + (unsigned)cell * (unsigned)C) & 3u);
+          if (atomicExch(&s.mark[slot], 1) == 0) {
+            const int j = atomicAdd(s.n_touched, 1);
+            s.list[j] = slot;
+            s.cells[j] = cell;
+          }
         } else {
-          tg[k] = -2 - cell;
+          s.code[4 * lane + k] = -2 - cell;
         }
       }
     }
-    group_sync(group);
+    __syncwarp();
     WINDOW_PHASE(1);
 
     // ---- P3: every (item, channel) times every corner's weight, once
-    if (kAcc == 2) {
-      // lanes take the (item, channel) pairs in steps of S = min(32, C):
-      // no step holds a channel twice, so no two lanes of a step touch one
-      // address, and __syncwarp orders the steps
-      const int S = min(32, C);
-      const int n_el = n_items * C;
-      for (int base = 0; base < n_el; base += S * kBatch) {
+    for (int c = lane; c < full; c += 32) {
+      for (int i0 = 0; i0 < n_items; i0 += kBatch) {
         float v[kBatch];
-        int ie[kBatch], ce[kBatch];
 #pragma unroll
         for (int b = 0; b < kBatch; ++b) {
-          const int e = base + b * S + lane;
-          ie[b] = -1;
-          if (lane < S && e < n_el) {
-            const int i = e / C;
-            const int* tg = s.tgt + 4 * i;
-            if (tg[0] != -1 || tg[1] != -1 || tg[2] != -1 || tg[3] != -1) {
-              ie[b] = i;
-              ce[b] = e - i * C;
-              v[b] = __ldg(s.row[i] + ce[b]) * s.scale[i];
-            }
-          }
+          const int i = i0 + b;
+          // an item whose corners are all off the grid (-1) adds nothing
+          v[b] = i < n_items && (s.code[4 * i] & s.code[4 * i + 1] & s.code[4 * i + 2] &
+                                 s.code[4 * i + 3]) != -1
+                     ? __ldg(s.row[i] + c) * s.scale[i]
+                     : 0.0f;
         }
 #pragma unroll
         for (int b = 0; b < kBatch; ++b) {
-          if (ie[b] >= 0) {
-            const int* tg = s.tgt + 4 * ie[b];
-            const float* wk = s.wgt + 4 * ie[b];
-            float* p[4];
-            float old[4];
+          const int i = i0 + b;
+          if (i >= n_items) break;
+          const int4 code = *(const int4*)(s.code + 4 * i);
+          const float4 w = *(const float4*)(s.wgt + 4 * i);
+          const int ck[4] = {code.x, code.y, code.z, code.w};
+          const float wk[4] = {w.x, w.y, w.z, w.w};
+          // the four corners of an item are four distinct cells
+          float old[4];
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              p[k] = tg[k] >= 0 ? s.win + (size_t)tg[k] * C + ce[b] : nullptr;
-              old[k] = p[k] != nullptr ? *p[k] : 0.0f;
-            }
-            // the four corners of one item are four distinct cells
+          for (int k = 0; k < 4; ++k) old[k] = ck[k] >= 0 ? s.win[ck[k] + c] : 0.0f;
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              if (p[k] != nullptr) {
-                *p[k] = old[k] + v[b] * wk[k];
-              } else if (tg[k] <= -2) {
-                atomicAdd(grid + (size_t)(-2 - tg[k]) * C + ce[b], v[b] * wk[k]);
-              }
-            }
-          }
-          __syncwarp();
-        }
-      }
-    } else {
-      for (int e = t; e < n_items * gc; e += kThreads) {
-        const int i = e / gc;
-        const int g = e - i * gc;
-        const int* tg = s.tgt + 4 * i;
-        if (tg[0] == -1 && tg[1] == -1 && tg[2] == -1 && tg[3] == -1) continue;
-        const float* __restrict__ row = s.row[i];
-        const float scale = s.scale[i];
-        // channels g, g + gc, g + 2 gc, g + 3 gc: a warp's lanes hold
-        // consecutive channels, so its shared-memory adds hit distinct banks
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = g + j * gc;
-          v[j] = c < C ? __ldg(row + c) * scale : 0.0f;
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int code = tg[k];
-          if (code == -1) continue;
-          const float w = s.wgt[4 * i + k];
-          if (code >= 0) {
-            float* dst = s.win + (size_t)code * C;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int c = g + j * gc;
-              if (c < C) shared_add(dst + c, v[j] * w);
-            }
-          } else {
-            float* dst = grid + (size_t)(-2 - code) * C;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int c = g + j * gc;
-              if (c < C) atomicAdd(dst + c, v[j] * w);
+          for (int k = 0; k < 4; ++k) {
+            if (ck[k] >= 0) {
+              s.win[ck[k] + c] = old[k] + v[b] * wk[k];
+            } else if (ck[k] <= -2) {
+              atomicAdd(grid + (size_t)(-2 - ck[k]) * C + c, v[b] * wk[k]);
             }
           }
         }
       }
     }
-    group_sync(group);
+    for (int e = lane; e < n_items * tail; e += 32) {
+      const int i = e / tail;
+      const int c = full + e - i * tail;
+      const int* ck = s.code + 4 * i;
+      if (ck[0] == -1 && ck[1] == -1 && ck[2] == -1 && ck[3] == -1) continue;
+      const float v = __ldg(s.row[i] + c) * s.scale[i];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float x = v * s.wgt[4 * i + k];
+        if (ck[k] >= 0) {
+          atomicAdd(s.win + ck[k] + c, x);
+        } else if (ck[k] <= -2) {
+          atomicAdd(grid + (size_t)(-2 - ck[k]) * C + c, x);
+        }
+      }
+    }
+    __syncwarp();
     WINDOW_PHASE(2);
 
     // ---- P4: each touched cell's run into the grid, the window re-zeroed
-    const int touched = *n_touched;
-    for (int e = t; e < touched * max_ops; e += kThreads) {
-      const int j = e / max_ops;
-      const int o = e - j * max_ops;
+    const int touched = *s.n_touched;
+    __syncwarp();
+    if (lane == 0) *s.n_touched = 0;  // the next unit's list
+    for (int j = 0; j < touched; ++j) {
       const int slot = s.list[j];
-      const int cell = (win.oy + slot / win.lw) * W + win.ox + slot % win.lw;
-      float* dst = grid + (size_t)cell * C;
-      const int head = min(C, (int)((16 - ((uintptr_t)dst & 15)) & 15) >> 2);
-      if (o >= n_ops(C, head)) continue;
-      float* ws = s.win + (size_t)slot * C;
-      const int quads = (C - head) / 4;
-      if (o >= head && o < head + quads) {
-        const int c = head + 4 * (o - head);
-        red4(dst + c, ws[c], ws[c + 1], ws[c + 2], ws[c + 3]);
-        ws[c] = ws[c + 1] = ws[c + 2] = ws[c + 3] = 0.0f;
-      } else {
-        const int c = o < head ? o : o + 3 * quads;
-        atomicAdd(dst + c, ws[c]);
-        ws[c] = 0.0f;
+      float* dst = grid + (size_t)s.cells[j] * C;
+      const int d = (int)(((uintptr_t)dst >> 2) & 3);  // the run's phase
+      float* ws = s.win + slot * cs + d;  // channel c at ws[c], same phase
+      const int head = imin((4 - d) & 3, C);
+      const int quads = (C - head) >> 2;
+      const int n_ops = head + quads + (C - head - 4 * quads);
+      for (int o = lane; o < n_ops; o += 32) {
+        if (o >= head && o < head + quads) {
+          const int c = head + 4 * (o - head);
+          red4(dst + c, *(const float4*)(ws + c));
+          *(float4*)(ws + c) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else {
+          const int c = o < head ? o : o + 3 * quads;
+          atomicAdd(dst + c, ws[c]);
+          ws[c] = 0.0f;
+        }
       }
-      if (o == 0) s.mark[slot] = 0;
+      if (lane == 0) s.mark[slot] = 0;
     }
-    if (t == 0) s.n_touched[parity ^ 1] = 0;  // the next unit's list
-#ifdef SPLAT_WINDOW_PROFILE
-    group_sync(group);
+    __syncwarp();
     WINDOW_PHASE(3);
-#endif
   }
 #ifdef SPLAT_WINDOW_PROFILE
-  if (t == 0)
+  if (lane == 0)
     for (int k = 0; k < 5; ++k) atomicAdd(&window_cycles[k], cycles[k]);
 #endif
 }
 
 #ifdef SPLAT_WINDOW_PROFILE
-// Copies the groups' phase cycles and units to out[5] and zeroes them.
+// Copies the warps' phase cycles and units to out[5] and zeroes them.
 extern "C" int splat_window_cycles(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, window_cycles, sizeof(window_cycles));
   if (err == cudaSuccess) {
@@ -501,8 +416,7 @@ inline cudaError_t launch_shape(Kernel kernel, int C, long long n_units, unsigne
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGroups * kThreads,
-                                                        *smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGroups * 32, *smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     kernel_seen = (const void*)kernel;

@@ -3,10 +3,10 @@
     python -m slrsfs_tpu_torch.tools.window_sweep [NAME ...]   # from the repository root
 
 Builds ``csrc/splat.cu`` and ``csrc/splat_dense.cu`` once per variant of
-``VARIANTS`` (the ``-D`` macros of ``csrc/splat_window.cuh``: warps per
-group, the window's bytes, groups per block, how the window is added to,
-loads in flight; ``splat.cu``'s rows per run and how its accumulator
-starts; ``splat_dense.cu``'s tile), all nvcc processes at once, into
+``VARIANTS`` (the ``-D`` macros of ``csrc/splat_window.cuh``: a warp's
+window bytes, warps per block, loads in flight, the clock64 phase profile;
+``splat.cu``'s rows per run and how its accumulator starts;
+``splat_dense.cu``'s tile), all nvcc processes at once, into
 ``build/sweep/``. On ``chip_smoke.py``'s scene (256², t = 30) each variant's
 K2 f32 (``splat_dual_normalize``: memset, scatter and epilogue), K8 f32 two
 ends and K3's forward at (1, 256, 256, 65) and (16, 256, 256, 65) (the
@@ -35,9 +35,18 @@ from slrsfs_tpu_torch.ops import splat as S
 VARIANTS = {
     "default": {},
     "profile": {"SPLAT_WINDOW_PROFILE": 1},
-    "bytes12k_profile": {"SPLAT_WINDOW_BYTES": 12 * 1024, "SPLAT_WINDOW_GROUPS": 8,
+    "bytes8k": {"SPLAT_WINDOW_BYTES": 8 * 1024},
+    "bytes16k": {"SPLAT_WINDOW_BYTES": 16 * 1024},
+    "bytes24k": {"SPLAT_WINDOW_BYTES": 24 * 1024, "SPLAT_WINDOW_GROUPS": 2},
+    "bytes24k_profile": {"SPLAT_WINDOW_BYTES": 24 * 1024, "SPLAT_WINDOW_GROUPS": 2,
                          "SPLAT_WINDOW_PROFILE": 1},
-    "acc0_profile": {"SPLAT_WINDOW_ACC": 0, "SPLAT_WINDOW_PROFILE": 1},
+    "groups8": {"SPLAT_WINDOW_GROUPS": 8},
+    "batch4": {"SPLAT_WINDOW_BATCH": 4},
+    "run4": {"SPLAT_WINDOW_RUN": 4},
+    "run16": {"SPLAT_WINDOW_RUN": 16},
+    "tile8x4": {"SPLAT_DENSE_TILE_Y": 8, "SPLAT_DENSE_TILE_X": 4},
+    "tile2x16": {"SPLAT_DENSE_TILE_Y": 2, "SPLAT_DENSE_TILE_X": 16},
+    "init1": {"SPLAT_F32_INIT": 1},
 }
 SOURCES = ("splat.cu", "splat_dense.cu")
 
