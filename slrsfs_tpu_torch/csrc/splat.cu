@@ -119,12 +119,12 @@ static const int kThreads = 256;
 #define SPLAT_WINDOW_RUN 8
 #endif
 static const int kRun = SPLAT_WINDOW_RUN;
-static_assert(kRun <= splat_window::kItems, "a run is one unit's items");
 
 // Both ends' rows as units of splat_window::scatter: unit r < runs is run r
 // of end a, unit runs + r run r of end b; disp_b == NULL splats one end,
 // valid == NULL every row.
 struct RowsSource {
+  static constexpr int kItems = kRun;
   const float* u;
   const int2* positions;
   const float* valid;
@@ -171,7 +171,8 @@ static cudaError_t scatter_f32(const void* u, const void* positions,
   if (H >= 32768 || W >= 32768) return cudaErrorInvalidValue;
   unsigned blocks = 0;
   size_t smem = 0;
-  cudaError_t err = splat_window::launch_shape(rows_scatter_kernel, C1, units, &blocks, &smem);
+  cudaError_t err = splat_window::launch_shape<RowsSource::kItems>(rows_scatter_kernel, C1,
+                                                                  units, &blocks, &smem);
   if (err != cudaSuccess) return err;
   const RowsSource src = {(const float*)u,      (const int2*)positions, (const float*)valid,
                           (const float2*)disp_a, (const float2*)disp_b,  w_a,
@@ -575,7 +576,7 @@ extern "C" int splat_sum_at(const void* u, const void* positions,
 
 // The f32 scatter's geometry, for the host's count of window misses
 // (ops/splat.py:rows_window_misses): what 0 the rows of a run, 1 the
-// window's cells for C1 channels. Launches nothing.
+// window's cells. Launches nothing.
 extern "C" int splat_rows_window(int C1, int what) {
   return what == 0 ? kRun : splat_window::window_cap(C1);
 }

@@ -92,11 +92,11 @@ __device__ __forceinline__ Taps taps_of(int x, int y, float2 f, int H,
 #endif
 static const int kTileY = SPLAT_DENSE_TILE_Y;
 static const int kTileX = SPLAT_DENSE_TILE_X;
-static_assert(kTileY * kTileX <= splat_window::kItems, "a tile is one unit's items");
 
 // The pixels of inp (B, H, W, C) as units of splat_window::scatter: unit
 // (b * tiles_y + ty) * tiles_x + tx is tile (ty, tx) of sample b.
 struct DenseSource {
+  static constexpr int kItems = kTileY * kTileX;
   const float* inp;
   const float2* flow;
   float* out;
@@ -188,7 +188,8 @@ extern "C" int splat_dense_fwd(const void* inp, const void* flow, void* out,
   if (H >= 32768 || W >= 32768) return (int)cudaErrorInvalidValue;
   unsigned blocks = 0;
   size_t smem = 0;
-  cudaError_t err = splat_window::launch_shape(splat_dense_fwd_kernel, C, units, &blocks, &smem);
+  cudaError_t err = splat_window::launch_shape<DenseSource::kItems>(splat_dense_fwd_kernel, C,
+                                                                   units, &blocks, &smem);
   if (err != cudaSuccess) return (int)err;
   splat_dense_fwd_kernel<<<blocks, splat_window::kGroups * 32, smem,
                            (cudaStream_t)stream>>>(src);
@@ -197,7 +198,7 @@ extern "C" int splat_dense_fwd(const void* inp, const void* flow, void* out,
 
 // The forward's geometry, for the host's count of window misses
 // (ops/splat.py:dense_window_misses): what 0 the tile's rows, 1 its
-// columns, 2 the window's cells for C channels. Launches nothing.
+// columns, 2 the window's cells. Launches nothing.
 extern "C" int splat_dense_window(int C, int what) {
   return what == 0 ? kTileY : what == 1 ? kTileX : splat_window::window_cap(C);
 }

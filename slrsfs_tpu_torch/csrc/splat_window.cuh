@@ -8,43 +8,41 @@
 // reduction per (item, channel, corner) into device memory (the parent
 // design: 14.1 M of them a frame in K2 at 256^2), the card's L2 spends its
 // time on the reductions. Neighbouring items land on neighbouring cells,
-// so a unit's taps are summed in shared memory first, and each touched
-// cell is then reduced into device memory once, 16 bytes at a time:
+// so the corners of a unit of items that meet in one cell are summed
+// first, and each such cell is then reduced into device memory once, 16
+// bytes at a time:
 //
-//  * A warp owns a unit of up to 32 items (K2: a run of consecutive packed
-//    rows of one end; K3: a 2-D tile of one sample). The warps are
-//    persistent and walk over the units; the block's warps share nothing.
+//  * A warp owns a unit of up to Src::kItems <= 32 items (K2: a run of
+//    consecutive packed rows of one end; K3: a 2-D tile of one sample).
+//    The warps are persistent and walk over the units; a block's warps
+//    share nothing.
 //  * (P1) Lane i computes item i's four corners and weights once, in f32,
 //    operation for operation as the JAX _corners does (the build keeps
 //    -fmad=false), into shared memory; warp reductions give the bounding
-//    box and the coordinate sums of the unit's in-grid corners.
-//  * (P2) The window, a rectangle of at most `cap` cells (window_cap: the
-//    warp's shared-memory budget over the cell's bytes), is placed by
+//    box and the coordinate sums of the unit's in-grid corners. The
+//    items' rows are copied into shared memory (cp.async) meanwhile.
+//  * (P2) The window, a rectangle of at most kMapCells cells, is placed by
 //    place_window: the bounding box when it fits, else a box about
-//    isqrt(cap) on a side, widened where the bounding box is narrow,
-//    centred on the mean corner and clamped into the bounding box. Each
-//    in-window corner gets its cell's slot; the first corner to reach a
-//    slot appends it to the list of touched cells.
-//  * (P3) Lane l owns channels l, l + 32, ... of every cell: for each item
-//    it scales its channels once and adds them times each corner's weight
-//    into the window by plain read-modify-write (no other lane holds those
-//    addresses). The C mod 32 tail channels go by shared-memory atomicAdd,
-//    lanes over (item, channel). A corner outside the window but in the
-//    grid (divergent flow, a box larger than the window) goes straight to
-//    device memory by f32 atomicAdd. Corners off the grid (the OOB
-//    sentinel max(H, W) + 1 puts all four there) add nothing.
-//  * (P4) The touched cells are flushed: each one's C channels are one
-//    contiguous run in the NHWC grid, reduced with red.global.add.v4.f32
-//    (sm_90) over its 16-byte aligned middle and scalar reductions at its
-//    two ends. A window cell keeps channel c at the same position modulo 4
-//    floats as the grid does, so each quad is one 16-byte shared-memory
-//    load; the cells are zeroed behind the flush. Cells that no tap
-//    reached receive nothing, so they keep their value exactly (the
+//    isqrt(kMapCells) on a side, widened where the bounding box is narrow,
+//    centred on the mean corner and clamped into the bounding box. The
+//    window is a map from cell to entry: the corners in one window cell
+//    form one entry, each corner outside the window (divergent flow, a
+//    box larger than the window) an entry of its own. A count per cell,
+//    a warp scan over the entries and a pass over the corners list each
+//    entry's corners.
+//  * (P3) Each entry is flushed once: its cell's C channels are one
+//    contiguous run in the NHWC grid; lane o sums, in registers, the
+//    entry's corners' (row * scale) * weight over quad o of the run's
+//    16-byte aligned middle and reduces it with one
+//    red.global.add.v4.f32 (sm_90), or over one scalar at the run's two
+//    ends (atomicAdd). Corners off the grid (the OOB sentinel
+//    max(H, W) + 1 puts all four there) are in no entry, and cells that no
+//    corner reaches receive nothing, so they keep their value exactly (the
 //    decoders' hole mask is x != 0).
 //
-// The sums agree with the plain version to rounding: a window cell sums
-// its taps in lane order, then lands on the grid in one more add.
-// place_window is repeated on the host by
+// The sums agree with the plain version to rounding: an entry sums its
+// corners in the order they were counted, then lands on the grid in one
+// more add. place_window is repeated on the host by
 // slrsfs_tpu_torch/ops/splat.py:place_windows, which counts the corners
 // that miss their window from the displacements alone.
 
@@ -56,26 +54,19 @@
 
 namespace splat_window {
 
-// A warp's shared-memory budget for its window (12 KB: 45 cells of 65
-// channels), warps per block, and the items whose loads a lane has in
-// flight at once in P3. Each can be set with -D (tools/window_sweep.py).
-#ifndef SPLAT_WINDOW_BYTES
-#define SPLAT_WINDOW_BYTES (12 * 1024)
+// The window's cells (its map from cell to entry is one int each) and the
+// warps of a block; each can be set with -D (tools/window_sweep.py).
+#ifndef SPLAT_WINDOW_CELLS
+#define SPLAT_WINDOW_CELLS 512
 #endif
 #ifndef SPLAT_WINDOW_GROUPS
 #define SPLAT_WINDOW_GROUPS 4
 #endif
-#ifndef SPLAT_WINDOW_BATCH
-#define SPLAT_WINDOW_BATCH 8
-#endif
-constexpr int kItems = 32;  // items of a unit, at most: one per lane
+constexpr int kMapCells = SPLAT_WINDOW_CELLS;
 constexpr int kGroups = SPLAT_WINDOW_GROUPS;
-constexpr int kWindowBytes = SPLAT_WINDOW_BYTES;
-constexpr int kBatch = SPLAT_WINDOW_BATCH;
-constexpr int kCapMax = 1024;  // cells of a window, at most
 
 // -DSPLAT_WINDOW_PROFILE=1 (tools/window_sweep.py only): each warp adds
-// the clock64 cycles of its phases P1..P4 and its units into
+// the clock64 cycles of its phases P1..P3 and its units into
 // window_cycles, read by the library's splat_window_cycles.
 #ifdef SPLAT_WINDOW_PROFILE
 static __device__ unsigned long long window_cycles[5];
@@ -91,15 +82,10 @@ static __device__ unsigned long long window_cycles[5];
   } while (0)
 #endif
 
-// Floats of a window cell: C + 3 rounded up to a multiple of 4, room for
-// the cell's C channels shifted by their grid address modulo 4 floats.
-__host__ __device__ inline int cell_stride(int C) { return (C + 6) & ~3; }
+// Cells of a warp's window, for any C.
+__host__ __device__ inline int window_cap(int) { return kMapCells; }
 
-// Cells of a warp's window for C channels (0: every corner misses).
-__host__ __device__ inline int window_cap(int C) {
-  const int cap = kWindowBytes / (4 * cell_stride(C));
-  return cap < kCapMax ? cap : kCapMax;
-}
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
@@ -137,49 +123,59 @@ struct Item {
   float ox, oy;
 };
 
-// Shared memory of one warp, 16-byte aligned pieces: the window (cap
-// cells of cell_stride(C) floats), per slot a touch flag, the touched
-// slots and their grid cells, and the unit's items: per corner a code
-// (window float offset >= 0, -1 off the grid, -2 - cell a miss), its
-// (x, y) in 16 bits each, its weight; per item its row and scale.
+// Shared memory of one warp for units of kItems items, 16-byte aligned
+// pieces: the items' rows (kItems x C floats); the window's count per cell
+// (entry index after the scan); per entry its cell, its window cell (-1: a
+// miss) and its first corner in `corners`; the corners listed by entry
+// (item << 2 | corner); per corner its cell (-1: off the grid), its (x, y)
+// in 16 bits each, its window cell (-1: a miss, -2: off the grid), its rank
+// in its cell (a miss: its entry) and its weight; per item its row in
+// device memory and its scale.
+template <int kItems>
 struct WarpSmem {
-  float* win;
-  int* mark;
-  int* list;
-  int* cells;
-  int* code;  // [kItems][4]
-  int* xy;    // [kItems][4]
-  float* wgt;  // [kItems][4]
-  const float** row;  // [kItems]
-  float* scale;  // [kItems]
-  int* n_touched;
+  static constexpr int kCorners = 4 * kItems;
+  float* rows;
+  int* count;
+  int* entry_cell;
+  int* entry_slot;
+  int* entry_off;  // [kCorners + 1]
+  int* corners;
+  int* cell;
+  int* xy;
+  int* slot;
+  int* rank;
+  float* wgt;
+  const float** row;
+  float* scale;
+  int* n_entries;
+
+  __host__ __device__ static size_t bytes(int C) {
+    return align16((size_t)kItems * C * 4) + align16(kMapCells * 4) +
+           2 * align16(kCorners * 4) + align16((kCorners + 1) * 4) + 6 * align16(kCorners * 4) +
+           align16(kItems * sizeof(void*)) + align16(kItems * 4) + 16;
+  }
+
+  __device__ WarpSmem(unsigned char* p, int C) {
+    rows = (float*)p;        p += align16((size_t)kItems * C * 4);
+    count = (int*)p;         p += align16(kMapCells * 4);
+    entry_cell = (int*)p;    p += align16(kCorners * 4);
+    entry_slot = (int*)p;    p += align16(kCorners * 4);
+    entry_off = (int*)p;     p += align16((kCorners + 1) * 4);
+    corners = (int*)p;       p += align16(kCorners * 4);
+    cell = (int*)p;          p += align16(kCorners * 4);
+    xy = (int*)p;            p += align16(kCorners * 4);
+    slot = (int*)p;          p += align16(kCorners * 4);
+    rank = (int*)p;          p += align16(kCorners * 4);
+    wgt = (float*)p;         p += align16(kCorners * 4);
+    row = (const float**)p;  p += align16(kItems * sizeof(void*));
+    scale = (float*)p;       p += align16(kItems * 4);
+    n_entries = (int*)p;
+  }
 };
 
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
-
-__host__ __device__ inline size_t warp_bytes(int C) {
-  const int cap = window_cap(C);
-  return align16((size_t)cap * cell_stride(C) * 4) + 3 * align16((size_t)cap * 4) +
-         3 * align16(kItems * 4 * 4) + align16(kItems * sizeof(void*)) + align16(kItems * 4) +
-         16;
-}
-
-__host__ __device__ inline size_t block_bytes(int C) { return kGroups * warp_bytes(C); }
-
-__device__ inline WarpSmem carve(unsigned char* p, int C) {
-  const int cap = window_cap(C);
-  WarpSmem s;
-  s.win = (float*)p;        p += align16((size_t)cap * cell_stride(C) * 4);
-  s.mark = (int*)p;         p += align16((size_t)cap * 4);
-  s.list = (int*)p;         p += align16((size_t)cap * 4);
-  s.cells = (int*)p;        p += align16((size_t)cap * 4);
-  s.code = (int*)p;         p += align16(kItems * 4 * 4);
-  s.xy = (int*)p;           p += align16(kItems * 4 * 4);
-  s.wgt = (float*)p;        p += align16(kItems * 4 * 4);
-  s.row = (const float**)p; p += align16(kItems * sizeof(void*));
-  s.scale = (float*)p;      p += align16(kItems * 4);
-  s.n_touched = (int*)p;
-  return s;
+template <int kItems>
+__host__ __device__ inline size_t block_bytes(int C) {
+  return kGroups * WarpSmem<kItems>::bytes(C);
 }
 
 __device__ __forceinline__ void red4(float* a, float4 v) {
@@ -188,7 +184,16 @@ __device__ __forceinline__ void red4(float* a, float4 v) {
                : "memory");
 }
 
+// 4 bytes from device to shared memory, asynchronously (sm_80).
+__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
 // The grid a source writes to: `Src` provides
+//   static constexpr int kItems;        items of a unit, at most (<= 32)
 //   int units() const;                  the work units
 //   int items(int unit) const;          items of the unit (<= kItems)
 //   bool item(int unit, int i, Item&) const;  false: the item adds nothing
@@ -196,19 +201,16 @@ __device__ __forceinline__ void red4(float* a, float4 v) {
 // H and W are below 32768 (a corner's (x, y) packs into 32 bits).
 template <class Src>
 __device__ void scatter(const Src& src, int H, int W, int C) {
+  constexpr int kItems = Src::kItems;
+  static_assert(kItems >= 1 && kItems <= 32, "a unit's items are one per lane");
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  WarpSmem s = carve(smem + warp * warp_bytes(C), C);
-  const int cap = window_cap(C);
-  const int side = isqrt(cap);
-  const int cs = cell_stride(C);
-  const int full = C & ~31;  // channels in whole 32-lane rounds
-  const int tail = C - full;
+  WarpSmem<kItems> s(smem + warp * WarpSmem<kItems>::bytes(C), C);
+  const int side = isqrt(kMapCells);
 
-  for (int i = lane; i < cap * cs; i += 32) s.win[i] = 0.0f;
-  for (int i = lane; i < cap; i += 32) s.mark[i] = 0;
-  if (lane == 0) *s.n_touched = 0;
+  for (int i = lane; i < kMapCells; i += 32) s.count[i] = 0;
+  if (lane == 0) *s.n_entries = 0;
   __syncwarp();
 
   const int n_units = src.units();
@@ -223,9 +225,10 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
 #endif
     float* __restrict__ grid = src.grid(unit);
     const int n_items = src.items(unit);
-    // ---- P1: corners, weights, the unit's bounding box
+    // ---- P1: corners, weights, the unit's bounding box; the rows copied
     int bx0 = INT_MAX, bx1 = INT_MIN, by0 = INT_MAX, by1 = INT_MIN, sx = 0, sy = 0, n = 0;
     if (lane < n_items) {
+      bool any = false;  // the item has a corner in the grid
       Item it = {nullptr, 0.0f, 0.0f, 0.0f};
       const bool live = src.item(unit, lane, it);
       const float x0f = floorf(it.ox);
@@ -241,8 +244,7 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const bool in = live && cxs[k] >= 0 && cxs[k] < W && cys[k] >= 0 && cys[k] < H;
-        // the cell for now; P2 turns it into a window offset or a miss
-        s.code[4 * lane + k] = in ? cys[k] * W + cxs[k] : -1;
+        s.cell[4 * lane + k] = in ? cys[k] * W + cxs[k] : -1;
         s.xy[4 * lane + k] = in ? (cys[k] << 16) | cxs[k] : 0;
         s.wgt[4 * lane + k] = ws[k];
         if (in) {
@@ -253,10 +255,17 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
           sx += cxs[k];
           sy += cys[k];
           ++n;
+          any = true;
         }
       }
-      s.row[lane] = it.row;
+      s.row[lane] = any ? it.row : nullptr;
       s.scale[lane] = it.scale;
+    }
+    __syncwarp();
+    for (int i = 0; i < n_items; ++i) {
+      const float* r = s.row[i];
+      if (r != nullptr)
+        for (int c = lane; c < C; c += 32) copy4_async(s.rows + i * C + c, r + c);
     }
     bx0 = __reduce_min_sync(0xffffffffu, bx0);
     bx1 = __reduce_max_sync(0xffffffffu, bx1);
@@ -267,117 +276,124 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
     n = __reduce_add_sync(0xffffffffu, n);
     WINDOW_PHASE(0);
 
-    // ---- P2: the window, the corners' codes, the touched list
+    // ---- P2: the window; count the corners per cell, scan, list them
     Window win = {0, 0, 0, 0};
-    if (n > 0 && cap > 0) win = place_window(bx0, bx1, by0, by1, sx, sy, n, cap, side);
-    // the grid's float offset modulo 4, to keep the window's quads aligned
-    const int phase = (int)(((uintptr_t)grid >> 2) & 3);
+    if (n > 0) win = place_window(bx0, bx1, by0, by1, sx, sy, n, kMapCells, side);
     if (lane < n_items) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const int cell = s.code[4 * lane + k];
-        if (cell < 0) continue;
-        const int cx = (s.xy[4 * lane + k] & 0xffff) - win.ox;
-        const int cy = (s.xy[4 * lane + k] >> 16) - win.oy;
-        if (cx >= 0 && cx < win.lw && cy >= 0 && cy < win.rows) {
-          const int slot = cy * win.lw + cx;
-          s.code[4 * lane + k] =
-              slot * cs + (int)((phase + (unsigned)cell * (unsigned)C) & 3u);
-          if (atomicExch(&s.mark[slot], 1) == 0) {
-            const int j = atomicAdd(s.n_touched, 1);
-            s.list[j] = slot;
-            s.cells[j] = cell;
+        const int c = 4 * lane + k;
+        const int cell = s.cell[c];
+        int slot = -2, rank = 0;
+        if (cell >= 0) {
+          const int cx = (s.xy[c] & 0xffff) - win.ox;
+          const int cy = (s.xy[c] >> 16) - win.oy;
+          if (cx >= 0 && cx < win.lw && cy >= 0 && cy < win.rows) {
+            slot = cy * win.lw + cx;
+            rank = atomicAdd(&s.count[slot], 1);
+            if (rank == 0) {
+              const int j = atomicAdd(s.n_entries, 1);
+              s.entry_cell[j] = cell;
+              s.entry_slot[j] = slot;
+            }
+          } else {
+            slot = -1;
+            rank = atomicAdd(s.n_entries, 1);  // a miss: its own entry
+            s.entry_cell[rank] = cell;
+            s.entry_slot[rank] = -1;
           }
-        } else {
-          s.code[4 * lane + k] = -2 - cell;
         }
+        s.slot[c] = slot;
+        s.rank[c] = rank;
       }
     }
+    __syncwarp();
+    const int n_ent = *s.n_entries;
+    // exclusive scan of the entries' corner counts, 4 entries a lane
+    int cnt[4], sum = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = 4 * lane + q;
+      cnt[q] = j < n_ent ? (s.entry_slot[j] >= 0 ? s.count[s.entry_slot[j]] : 1) : 0;
+      sum += cnt[q];
+    }
+    int pre = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, pre, d);
+      if (lane >= d) pre += y;
+    }
+    pre -= sum;
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = 4 * lane + q;
+      if (j < n_ent) {
+        s.entry_off[j] = pre;
+        if (s.entry_slot[j] >= 0) s.count[s.entry_slot[j]] = j;  // now the entry
+      }
+      pre += cnt[q];
+    }
+    if (lane == 31) s.entry_off[n_ent] = pre;
+    __syncwarp();
+    if (lane < n_items) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = 4 * lane + k;
+        const int slot = s.slot[c];
+        if (slot == -2) continue;
+        const int pos = slot >= 0 ? s.entry_off[s.count[slot]] + s.rank[c]
+                                  : s.entry_off[s.rank[c]];
+        s.corners[pos] = c;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // the window's counts back to 0
+      const int j = 4 * lane + q;
+      if (j < n_ent && s.entry_slot[j] >= 0) s.count[s.entry_slot[j]] = 0;
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
     __syncwarp();
     WINDOW_PHASE(1);
 
-    // ---- P3: every (item, channel) times every corner's weight, once
-    for (int c = lane; c < full; c += 32) {
-      for (int i0 = 0; i0 < n_items; i0 += kBatch) {
-        float v[kBatch];
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int i = i0 + b;
-          // an item whose corners are all off the grid (-1) adds nothing
-          v[b] = i < n_items && (s.code[4 * i] & s.code[4 * i + 1] & s.code[4 * i + 2] &
-                                 s.code[4 * i + 3]) != -1
-                     ? __ldg(s.row[i] + c) * s.scale[i]
-                     : 0.0f;
-        }
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int i = i0 + b;
-          if (i >= n_items) break;
-          const int4 code = *(const int4*)(s.code + 4 * i);
-          const float4 w = *(const float4*)(s.wgt + 4 * i);
-          const int ck[4] = {code.x, code.y, code.z, code.w};
-          const float wk[4] = {w.x, w.y, w.z, w.w};
-          // the four corners of an item are four distinct cells
-          float old[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) old[k] = ck[k] >= 0 ? s.win[ck[k] + c] : 0.0f;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if (ck[k] >= 0) {
-              s.win[ck[k] + c] = old[k] + v[b] * wk[k];
-            } else if (ck[k] <= -2) {
-              atomicAdd(grid + (size_t)(-2 - ck[k]) * C + c, v[b] * wk[k]);
-            }
-          }
-        }
-      }
-    }
-    for (int e = lane; e < n_items * tail; e += 32) {
-      const int i = e / tail;
-      const int c = full + e - i * tail;
-      const int* ck = s.code + 4 * i;
-      if (ck[0] == -1 && ck[1] == -1 && ck[2] == -1 && ck[3] == -1) continue;
-      const float v = __ldg(s.row[i] + c) * s.scale[i];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float x = v * s.wgt[4 * i + k];
-        if (ck[k] >= 0) {
-          atomicAdd(s.win + ck[k] + c, x);
-        } else if (ck[k] <= -2) {
-          atomicAdd(grid + (size_t)(-2 - ck[k]) * C + c, x);
-        }
-      }
-    }
-    __syncwarp();
-    WINDOW_PHASE(2);
-
-    // ---- P4: each touched cell's run into the grid, the window re-zeroed
-    const int touched = *s.n_touched;
-    __syncwarp();
-    if (lane == 0) *s.n_touched = 0;  // the next unit's list
-    for (int j = 0; j < touched; ++j) {
-      const int slot = s.list[j];
-      float* dst = grid + (size_t)s.cells[j] * C;
+    // ---- P3: each entry's sums, reduced into its cell once
+    for (int j = 0; j < n_ent; ++j) {
+      const int off = s.entry_off[j];
+      const int end = s.entry_off[j + 1];
+      float* dst = grid + (size_t)s.entry_cell[j] * C;
       const int d = (int)(((uintptr_t)dst >> 2) & 3);  // the run's phase
-      float* ws = s.win + slot * cs + d;  // channel c at ws[c], same phase
       const int head = imin((4 - d) & 3, C);
       const int quads = (C - head) >> 2;
       const int n_ops = head + quads + (C - head - 4 * quads);
       for (int o = lane; o < n_ops; o += 32) {
-        if (o >= head && o < head + quads) {
-          const int c = head + 4 * (o - head);
-          red4(dst + c, *(const float4*)(ws + c));
-          *(float4*)(ws + c) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const bool quad = o >= head && o < head + quads;
+        const int c = quad ? head + 4 * (o - head) : (o < head ? o : o + 3 * quads);
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int p = off; p < end; ++p) {
+          const int ck = s.corners[p];
+          const int i = ck >> 2;
+          const float w = s.wgt[ck];
+          const float sc = s.scale[i];
+          const float* r = s.rows + i * C + c;
+          acc.x = acc.x + (r[0] * sc) * w;
+          if (quad) {
+            acc.y = acc.y + (r[1] * sc) * w;
+            acc.z = acc.z + (r[2] * sc) * w;
+            acc.w = acc.w + (r[3] * sc) * w;
+          }
+        }
+        if (quad) {
+          red4(dst + c, acc);
         } else {
-          const int c = o < head ? o : o + 3 * quads;
-          atomicAdd(dst + c, ws[c]);
-          ws[c] = 0.0f;
+          atomicAdd(dst + c, acc.x);
         }
       }
-      if (lane == 0) s.mark[slot] = 0;
     }
     __syncwarp();
-    WINDOW_PHASE(3);
+    if (lane == 0) *s.n_entries = 0;
+    __syncwarp();
+    WINDOW_PHASE(2);
   }
 #ifdef SPLAT_WINDOW_PROFILE
   if (lane == 0)
@@ -398,14 +414,15 @@ extern "C" int splat_window_cycles(unsigned long long* out) {
 #endif
 
 // Sets the kernel's dynamic shared memory limit and returns the grid of
-// persistent blocks for `n_units` units: at most the blocks the card holds
-// at once. The card's shape is queried once per (kernel, device, C).
-template <class Kernel>
+// persistent blocks for `n_units` units of kItems items: at most the
+// blocks the card holds at once. The card's shape is queried once per
+// (kernel, device, C).
+template <int kItems, class Kernel>
 inline cudaError_t launch_shape(Kernel kernel, int C, long long n_units, unsigned* blocks,
                                 size_t* smem) {
   static const void* kernel_seen = nullptr;
   static int dev_seen = -1, c_seen = -1, most = 0;
-  *smem = block_bytes(C);
+  *smem = block_bytes<kItems>(C);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

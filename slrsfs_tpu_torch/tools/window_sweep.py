@@ -3,8 +3,8 @@
     python -m slrsfs_tpu_torch.tools.window_sweep [NAME ...]   # from the repository root
 
 Builds ``csrc/splat.cu`` and ``csrc/splat_dense.cu`` once per variant of
-``VARIANTS`` (the ``-D`` macros of ``csrc/splat_window.cuh``: a warp's
-window bytes, warps per block, loads in flight, the clock64 phase profile;
+``VARIANTS`` (the ``-D`` macros of ``csrc/splat_window.cuh``: the
+window's cells, warps per block, the clock64 phase profile;
 ``splat.cu``'s rows per run and how its accumulator starts;
 ``splat_dense.cu``'s tile), all nvcc processes at once, into
 ``build/sweep/``. On ``chip_smoke.py``'s scene (256², t = 30) each variant's
@@ -35,15 +35,14 @@ from slrsfs_tpu_torch.ops import splat as S
 VARIANTS = {
     "default": {},
     "profile": {"SPLAT_WINDOW_PROFILE": 1},
-    "bytes8k": {"SPLAT_WINDOW_BYTES": 8 * 1024},
-    "bytes16k": {"SPLAT_WINDOW_BYTES": 16 * 1024},
-    "bytes24k": {"SPLAT_WINDOW_BYTES": 24 * 1024, "SPLAT_WINDOW_GROUPS": 2},
-    "bytes24k_profile": {"SPLAT_WINDOW_BYTES": 24 * 1024, "SPLAT_WINDOW_GROUPS": 2,
-                         "SPLAT_WINDOW_PROFILE": 1},
+    "cells256": {"SPLAT_WINDOW_CELLS": 256},
+    "cells1024": {"SPLAT_WINDOW_CELLS": 1024},
+    "groups2": {"SPLAT_WINDOW_GROUPS": 2},
     "groups8": {"SPLAT_WINDOW_GROUPS": 8},
-    "batch4": {"SPLAT_WINDOW_BATCH": 4},
     "run4": {"SPLAT_WINDOW_RUN": 4},
     "run16": {"SPLAT_WINDOW_RUN": 16},
+    "run32": {"SPLAT_WINDOW_RUN": 32},
+    "tile4x4": {"SPLAT_DENSE_TILE_Y": 4, "SPLAT_DENSE_TILE_X": 4},
     "tile8x4": {"SPLAT_DENSE_TILE_Y": 8, "SPLAT_DENSE_TILE_X": 4},
     "tile2x16": {"SPLAT_DENSE_TILE_Y": 2, "SPLAT_DENSE_TILE_X": 16},
     "init1": {"SPLAT_F32_INIT": 1},
@@ -96,7 +95,7 @@ def build(names) -> dict:
 
 
 def _phases(lib, fn) -> str:
-    """A profiling build's clock64 cycles per unit of phases P1..P4 in one
+    """A profiling build's clock64 cycles per unit of phases P1..P3 in one
     call of ``fn`` (empty for other builds)."""
     if not hasattr(lib, "splat_window_cycles"):
         return ""
@@ -107,8 +106,8 @@ def _phases(lib, fn) -> str:
     torch.cuda.synchronize()
     _ok(lib.splat_window_cycles(buf), "splat_window_cycles")
     units = max(buf[4], 1)
-    return ("; cycles per unit P1 {:.0f}, P2 {:.0f}, P3 {:.0f}, P4 {:.0f} ({} units)"
-            .format(*(buf[k] / units for k in range(4)), buf[4]))
+    return ("; cycles per unit P1 {:.0f}, P2 {:.0f}, P3 {:.0f} ({} units)"
+            .format(*(buf[k] / units for k in range(3)), buf[4]))
 
 
 def _ok(err: int, what: str) -> None:
