@@ -125,6 +125,7 @@ static const int kRun = SPLAT_WINDOW_RUN;
 // valid == NULL every row.
 struct RowsSource {
   static constexpr int kItems = kRun;
+  static constexpr bool kScaled = true;  // each end's rows times its weight
   const float* u;
   const int2* positions;
   const float* valid;
@@ -135,6 +136,7 @@ struct RowsSource {
   int P, C1, runs;
 
   __device__ int units() const { return (disp_b != nullptr ? 2 : 1) * runs; }
+  __device__ float scale(int unit) const { return unit < runs ? w_a : w_b; }
   __device__ int items(int unit) const {
     const int r = unit < runs ? unit : unit - runs;
     return min(kRun, P - r * kRun);
@@ -146,7 +148,6 @@ struct RowsSource {
     const int2 src = positions[p];
     const float2 d = end_a ? disp_a[p] : disp_b[p];
     it.row = u + (size_t)p * C1;
-    it.scale = end_a ? w_a : w_b;  // the row scaled by its end's weight
     it.ox = (float)src.x + d.x;
     it.oy = (float)src.y + d.y;
     return keep != 0.0f;

@@ -88,7 +88,7 @@ __device__ __forceinline__ Taps taps_of(int x, int y, float2 f, int H,
 #define SPLAT_DENSE_TILE_Y 4
 #endif
 #ifndef SPLAT_DENSE_TILE_X
-#define SPLAT_DENSE_TILE_X 8
+#define SPLAT_DENSE_TILE_X 4
 #endif
 static const int kTileY = SPLAT_DENSE_TILE_Y;
 static const int kTileX = SPLAT_DENSE_TILE_X;
@@ -97,12 +97,14 @@ static const int kTileX = SPLAT_DENSE_TILE_X;
 // (b * tiles_y + ty) * tiles_x + tx is tile (ty, tx) of sample b.
 struct DenseSource {
   static constexpr int kItems = kTileY * kTileX;
+  static constexpr bool kScaled = false;  // the weights multiply inp itself
   const float* inp;
   const float2* flow;
   float* out;
   int B, H, W, C, tiles_y, tiles_x;
 
   __device__ int units() const { return B * tiles_y * tiles_x; }
+  __device__ float scale(int) const { return 1.0f; }
   __device__ int items(int) const { return kTileY * kTileX; }
   __device__ bool item(int unit, int i, splat_window::Item& it) const {
     const int per_sample = tiles_y * tiles_x;
@@ -115,7 +117,6 @@ struct DenseSource {
     const size_t pix = ((size_t)b * H + y) * W + x;
     const float2 f = __ldg(&flow[pix]);
     it.row = inp + pix * C;
-    it.scale = 1.0f;  // v * 1 is v: the weights multiply inp itself
     it.ox = (float)x + f.x;
     it.oy = (float)y + f.y;
     return true;

@@ -31,11 +31,11 @@
 //    a warp scan over the entries and a pass over the corners list each
 //    entry's corners.
 //  * (P3) Each entry is flushed once: its cell's C channels are one
-//    contiguous run in the NHWC grid; lane o sums, in registers, the
-//    entry's corners' (row * scale) * weight over quad o of the run's
-//    16-byte aligned middle and reduces it with one
-//    red.global.add.v4.f32 (sm_90), or over one scalar at the run's two
-//    ends (atomicAdd). Corners off the grid (the OOB sentinel
+//    contiguous run in the NHWC grid; the lanes take (entry, op) pairs, an
+//    op a quad of the run's 16-byte aligned middle or a scalar at its two
+//    ends, sum the entry's corners' (row * scale) * weight in registers
+//    and reduce the quad with one red.global.add.v4.f32 (sm_90) or the
+//    scalar with atomicAdd. Corners off the grid (the OOB sentinel
 //    max(H, W) + 1 puts all four there) are in no entry, and cells that no
 //    corner reaches receive nothing, so they keep their value exactly (the
 //    decoders' hole mask is x != 0).
@@ -115,22 +115,20 @@ __host__ __device__ inline Window place_window(int bx0, int bx1, int by0, int by
   return w;
 }
 
-// One source item: its channels `row` (C floats), the factor they are
-// scaled by before the corner weights, and its target position.
+// One source item: its channels `row` (C floats) and its target position.
 struct Item {
   const float* row;
-  float scale;
   float ox, oy;
 };
 
 // Shared memory of one warp for units of kItems items, 16-byte aligned
 // pieces: the items' rows (kItems x C floats); the window's count per cell
 // (entry index after the scan); per entry its cell, its window cell (-1: a
-// miss) and its first corner in `corners`; the corners listed by entry
-// (item << 2 | corner); per corner its cell (-1: off the grid), its (x, y)
-// in 16 bits each, its window cell (-1: a miss, -2: off the grid), its rank
-// in its cell (a miss: its entry) and its weight; per item its row in
-// device memory and its scale.
+// miss) and {first corner, end, cell, the cell's float offset modulo 4};
+// the corners listed by entry, each {its item's row offset, its weight};
+// per corner its cell (-1: off the grid), its (x, y) in 16 bits each, its
+// window cell (-1: a miss, -2: off the grid), its rank in its cell (a
+// miss: its entry) and its weight; per item its row in device memory.
 template <int kItems>
 struct WarpSmem {
   static constexpr int kCorners = 4 * kItems;
@@ -138,21 +136,19 @@ struct WarpSmem {
   int* count;
   int* entry_cell;
   int* entry_slot;
-  int* entry_off;  // [kCorners + 1]
-  int* corners;
+  int4* entry;
+  int2* contrib;
   int* cell;
   int* xy;
   int* slot;
   int* rank;
   float* wgt;
   const float** row;
-  float* scale;
   int* n_entries;
 
   __host__ __device__ static size_t bytes(int C) {
-    return align16((size_t)kItems * C * 4) + align16(kMapCells * 4) +
-           2 * align16(kCorners * 4) + align16((kCorners + 1) * 4) + 6 * align16(kCorners * 4) +
-           align16(kItems * sizeof(void*)) + align16(kItems * 4) + 16;
+    return align16((size_t)kItems * C * 4) + align16(kMapCells * 4) + 7 * align16(kCorners * 4) +
+           align16(kCorners * 16) + align16(kCorners * 8) + align16(kItems * sizeof(void*)) + 16;
   }
 
   __device__ WarpSmem(unsigned char* p, int C) {
@@ -160,15 +156,14 @@ struct WarpSmem {
     count = (int*)p;         p += align16(kMapCells * 4);
     entry_cell = (int*)p;    p += align16(kCorners * 4);
     entry_slot = (int*)p;    p += align16(kCorners * 4);
-    entry_off = (int*)p;     p += align16((kCorners + 1) * 4);
-    corners = (int*)p;       p += align16(kCorners * 4);
+    entry = (int4*)p;        p += align16(kCorners * 16);
+    contrib = (int2*)p;      p += align16(kCorners * 8);
     cell = (int*)p;          p += align16(kCorners * 4);
     xy = (int*)p;            p += align16(kCorners * 4);
     slot = (int*)p;          p += align16(kCorners * 4);
     rank = (int*)p;          p += align16(kCorners * 4);
     wgt = (float*)p;         p += align16(kCorners * 4);
     row = (const float**)p;  p += align16(kItems * sizeof(void*));
-    scale = (float*)p;       p += align16(kItems * 4);
     n_entries = (int*)p;
   }
 };
@@ -194,6 +189,8 @@ __device__ __forceinline__ void copy4_async(float* dst, const float* src) {
 
 // The grid a source writes to: `Src` provides
 //   static constexpr int kItems;        items of a unit, at most (<= 32)
+//   static constexpr bool kScaled;      rows are scaled before the weights
+//   float scale(int unit) const;        the unit's scale (when kScaled)
 //   int units() const;                  the work units
 //   int items(int unit) const;          items of the unit (<= kItems)
 //   bool item(int unit, int i, Item&) const;  false: the item adds nothing
@@ -208,6 +205,11 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
   const int lane = threadIdx.x & 31;
   WarpSmem<kItems> s(smem + warp * WarpSmem<kItems>::bytes(C), C);
   const int side = isqrt(kMapCells);
+  int max_ops = 1;  // ops of a run of C floats, at its worst phase
+  for (int d = 0; d < 4; ++d) {
+    const int head = imin((4 - d) & 3, C), quads = (C - head) >> 2;
+    max_ops = imax(max_ops, head + quads + (C - head - 4 * quads));
+  }
 
   for (int i = lane; i < kMapCells; i += 32) s.count[i] = 0;
   if (lane == 0) *s.n_entries = 0;
@@ -229,7 +231,7 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
     int bx0 = INT_MAX, bx1 = INT_MIN, by0 = INT_MAX, by1 = INT_MIN, sx = 0, sy = 0, n = 0;
     if (lane < n_items) {
       bool any = false;  // the item has a corner in the grid
-      Item it = {nullptr, 0.0f, 0.0f, 0.0f};
+      Item it = {nullptr, 0.0f, 0.0f};
       const bool live = src.item(unit, lane, it);
       const float x0f = floorf(it.ox);
       const float y0f = floorf(it.oy);
@@ -259,7 +261,6 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
         }
       }
       s.row[lane] = any ? it.row : nullptr;
-      s.scale[lane] = it.scale;
     }
     __syncwarp();
     for (int i = 0; i < n_items; ++i) {
@@ -325,16 +326,18 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
     }
     pre -= sum;
     __syncwarp();
+    const uintptr_t grid_phase = ((uintptr_t)grid >> 2) & 3;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int j = 4 * lane + q;
       if (j < n_ent) {
-        s.entry_off[j] = pre;
+        const int cell = s.entry_cell[j];
+        s.entry[j] = make_int4(pre, pre + cnt[q], cell,
+                               (int)((grid_phase + (unsigned)cell * (unsigned)C) & 3u));
         if (s.entry_slot[j] >= 0) s.count[s.entry_slot[j]] = j;  // now the entry
       }
       pre += cnt[q];
     }
-    if (lane == 31) s.entry_off[n_ent] = pre;
     __syncwarp();
     if (lane < n_items) {
 #pragma unroll
@@ -342,9 +345,9 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
         const int c = 4 * lane + k;
         const int slot = s.slot[c];
         if (slot == -2) continue;
-        const int pos = slot >= 0 ? s.entry_off[s.count[slot]] + s.rank[c]
-                                  : s.entry_off[s.rank[c]];
-        s.corners[pos] = c;
+        const int pos = slot >= 0 ? s.entry[s.count[slot]].x + s.rank[c]
+                                  : s.entry[s.rank[c]].x;
+        s.contrib[pos] = make_int2(lane * C, __float_as_int(s.wgt[c]));
       }
     }
     __syncwarp();
@@ -357,38 +360,47 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
     __syncwarp();
     WINDOW_PHASE(1);
 
-    // ---- P3: each entry's sums, reduced into its cell once
-    for (int j = 0; j < n_ent; ++j) {
-      const int off = s.entry_off[j];
-      const int end = s.entry_off[j + 1];
-      float* dst = grid + (size_t)s.entry_cell[j] * C;
-      const int d = (int)(((uintptr_t)dst >> 2) & 3);  // the run's phase
-      const int head = imin((4 - d) & 3, C);
+    // ---- P3: each entry's sums, reduced into its cell once; lanes over
+    // (entry, op), an op a 16-byte quad of the run's aligned middle or a
+    // scalar at its two ends
+    const float sc = Src::kScaled ? src.scale(unit) : 1.0f;
+    int j = lane / max_ops, o = lane - (lane / max_ops) * max_ops;
+    for (; j < n_ent;) {
+      const int4 e = s.entry[j];  // {first corner, end, cell, phase}
+      const int head = imin((4 - e.w) & 3, C);
       const int quads = (C - head) >> 2;
-      const int n_ops = head + quads + (C - head - 4 * quads);
-      for (int o = lane; o < n_ops; o += 32) {
+      if (o < head + quads + (C - head - 4 * quads)) {
         const bool quad = o >= head && o < head + quads;
         const int c = quad ? head + 4 * (o - head) : (o < head ? o : o + 3 * quads);
         float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        for (int p = off; p < end; ++p) {
-          const int ck = s.corners[p];
-          const int i = ck >> 2;
-          const float w = s.wgt[ck];
-          const float sc = s.scale[i];
-          const float* r = s.rows + i * C + c;
-          acc.x = acc.x + (r[0] * sc) * w;
-          if (quad) {
-            acc.y = acc.y + (r[1] * sc) * w;
-            acc.z = acc.z + (r[2] * sc) * w;
-            acc.w = acc.w + (r[3] * sc) * w;
+        for (int p = e.x; p < e.y; ++p) {
+          const int2 ct = s.contrib[p];  // {row offset, weight}
+          const float w = __int_as_float(ct.y);
+          const float* r = s.rows + ct.x + c;
+          if (Src::kScaled) {
+            acc.x = acc.x + (r[0] * sc) * w;
+            if (quad) {
+              acc.y = acc.y + (r[1] * sc) * w;
+              acc.z = acc.z + (r[2] * sc) * w;
+              acc.w = acc.w + (r[3] * sc) * w;
+            }
+          } else {
+            acc.x = acc.x + r[0] * w;
+            if (quad) {
+              acc.y = acc.y + r[1] * w;
+              acc.z = acc.z + r[2] * w;
+              acc.w = acc.w + r[3] * w;
+            }
           }
         }
+        float* dst = grid + (size_t)e.z * C + c;
         if (quad) {
-          red4(dst + c, acc);
+          red4(dst, acc);
         } else {
-          atomicAdd(dst + c, acc.x);
+          atomicAdd(dst, acc.x);
         }
       }
+      for (o += 32; o >= max_ops; o -= max_ops) ++j;
     }
     __syncwarp();
     if (lane == 0) *s.n_entries = 0;

@@ -36,15 +36,14 @@ VARIANTS = {
     "default": {},
     "profile": {"SPLAT_WINDOW_PROFILE": 1},
     "cells256": {"SPLAT_WINDOW_CELLS": 256},
-    "cells1024": {"SPLAT_WINDOW_CELLS": 1024},
     "groups2": {"SPLAT_WINDOW_GROUPS": 2},
     "groups8": {"SPLAT_WINDOW_GROUPS": 8},
     "run4": {"SPLAT_WINDOW_RUN": 4},
-    "run16": {"SPLAT_WINDOW_RUN": 16},
-    "run32": {"SPLAT_WINDOW_RUN": 32},
-    "tile4x4": {"SPLAT_DENSE_TILE_Y": 4, "SPLAT_DENSE_TILE_X": 4},
-    "tile8x4": {"SPLAT_DENSE_TILE_Y": 8, "SPLAT_DENSE_TILE_X": 4},
-    "tile2x16": {"SPLAT_DENSE_TILE_Y": 2, "SPLAT_DENSE_TILE_X": 16},
+    "run16_cells1024": {"SPLAT_WINDOW_RUN": 16, "SPLAT_WINDOW_CELLS": 1024},
+    "run32_cells2048": {"SPLAT_WINDOW_RUN": 32, "SPLAT_WINDOW_CELLS": 2048},
+    "tile2x4": {"SPLAT_DENSE_TILE_Y": 2, "SPLAT_DENSE_TILE_X": 4},
+    "tile2x8": {"SPLAT_DENSE_TILE_Y": 2, "SPLAT_DENSE_TILE_X": 8},
+    "tile4x8": {"SPLAT_DENSE_TILE_Y": 4, "SPLAT_DENSE_TILE_X": 8},
     "init1": {"SPLAT_F32_INIT": 1},
 }
 SOURCES = ("splat.cu", "splat_dense.cu")
