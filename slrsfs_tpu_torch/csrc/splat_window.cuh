@@ -62,8 +62,15 @@ namespace splat_window {
 #ifndef SPLAT_WINDOW_GROUPS
 #define SPLAT_WINDOW_GROUPS 4
 #endif
+// 1: the unit's rows are copied into shared memory (cp.async) for P3; 0:
+// P3 reads them from device memory (through L1), and a warp needs less
+// shared memory, so more warps fit an SM.
+#ifndef SPLAT_WINDOW_STAGE
+#define SPLAT_WINDOW_STAGE 1
+#endif
 constexpr int kMapCells = SPLAT_WINDOW_CELLS;
 constexpr int kGroups = SPLAT_WINDOW_GROUPS;
+constexpr bool kStage = SPLAT_WINDOW_STAGE != 0;
 
 // -DSPLAT_WINDOW_PROFILE=1 (tools/window_sweep.py only): each warp adds
 // the clock64 cycles of its phases P1..P3 and its units into
@@ -146,13 +153,17 @@ struct WarpSmem {
   const float** row;
   int* n_entries;
 
+  __host__ __device__ static size_t rows_bytes(int C) {
+    return kStage ? align16((size_t)kItems * C * 4) : 0;
+  }
+
   __host__ __device__ static size_t bytes(int C) {
-    return align16((size_t)kItems * C * 4) + align16(kMapCells * 4) + 7 * align16(kCorners * 4) +
+    return rows_bytes(C) + align16(kMapCells * 4) + 7 * align16(kCorners * 4) +
            align16(kCorners * 16) + align16(kCorners * 8) + align16(kItems * sizeof(void*)) + 16;
   }
 
   __device__ WarpSmem(unsigned char* p, int C) {
-    rows = (float*)p;        p += align16((size_t)kItems * C * 4);
+    rows = (float*)p;        p += rows_bytes(C);
     count = (int*)p;         p += align16(kMapCells * 4);
     entry_cell = (int*)p;    p += align16(kCorners * 4);
     entry_slot = (int*)p;    p += align16(kCorners * 4);
@@ -263,10 +274,12 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
       s.row[lane] = any ? it.row : nullptr;
     }
     __syncwarp();
-    for (int i = 0; i < n_items; ++i) {
-      const float* r = s.row[i];
-      if (r != nullptr)
-        for (int c = lane; c < C; c += 32) copy4_async(s.rows + i * C + c, r + c);
+    if (kStage) {
+      for (int i = 0; i < n_items; ++i) {
+        const float* r = s.row[i];
+        if (r != nullptr)
+          for (int c = lane; c < C; c += 32) copy4_async(s.rows + i * C + c, r + c);
+      }
     }
     bx0 = __reduce_min_sync(0xffffffffu, bx0);
     bx1 = __reduce_max_sync(0xffffffffu, bx1);
@@ -347,7 +360,7 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
         if (slot == -2) continue;
         const int pos = slot >= 0 ? s.entry[s.count[slot]].x + s.rank[c]
                                   : s.entry[s.rank[c]].x;
-        s.contrib[pos] = make_int2(lane * C, __float_as_int(s.wgt[c]));
+        s.contrib[pos] = make_int2(kStage ? lane * C : lane, __float_as_int(s.wgt[c]));
       }
     }
     __syncwarp();
@@ -356,7 +369,7 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
       const int j = 4 * lane + q;
       if (j < n_ent && s.entry_slot[j] >= 0) s.count[s.entry_slot[j]] = 0;
     }
-    asm volatile("cp.async.wait_all;" ::: "memory");
+    if (kStage) asm volatile("cp.async.wait_all;" ::: "memory");
     __syncwarp();
     WINDOW_PHASE(1);
 
@@ -374,9 +387,9 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
         const int c = quad ? head + 4 * (o - head) : (o < head ? o : o + 3 * quads);
         float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         for (int p = e.x; p < e.y; ++p) {
-          const int2 ct = s.contrib[p];  // {row offset, weight}
+          const int2 ct = s.contrib[p];  // {row offset or item, weight}
           const float w = __int_as_float(ct.y);
-          const float* r = s.rows + ct.x + c;
+          const float* r = kStage ? s.rows + ct.x + c : s.row[ct.x] + c;
           if (Src::kScaled) {
             acc.x = acc.x + (r[0] * sc) * w;
             if (quad) {
