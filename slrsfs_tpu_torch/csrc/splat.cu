@@ -155,9 +155,11 @@ struct RowsSource {
   __device__ float* grid(int) const { return acc; }
 };
 
+// The moving rows (P x C1 f32, 8.5 MB at the render's P = 32768) sit in
+// L2, so P3 reads them there instead of staging them.
 __global__ void __launch_bounds__(splat_window::kGroups * 32)
     rows_scatter_kernel(RowsSource src, int H, int W) {
-  splat_window::scatter(src, H, W, src.C1);
+  splat_window::scatter<false>(src, H, W, src.C1);
 }
 
 // acc (H * W, C1) += both ends' splats of rows u (P, C1).
@@ -172,8 +174,8 @@ static cudaError_t scatter_f32(const void* u, const void* positions,
   if (H >= 32768 || W >= 32768) return cudaErrorInvalidValue;
   unsigned blocks = 0;
   size_t smem = 0;
-  cudaError_t err = splat_window::launch_shape<RowsSource::kItems>(rows_scatter_kernel, C1,
-                                                                  units, &blocks, &smem);
+  cudaError_t err = splat_window::launch_shape<RowsSource::kItems, false>(
+      rows_scatter_kernel, C1, units, &blocks, &smem);
   if (err != cudaSuccess) return err;
   const RowsSource src = {(const float*)u,      (const int2*)positions, (const float*)valid,
                           (const float2*)disp_a, (const float2*)disp_b,  w_a,

@@ -126,9 +126,23 @@ struct DenseSource {
   }
 };
 
+// kStage: the rows staged in shared memory (inp larger than L2: the
+// training batch) or read from L2 (the dense render's one frame end).
+template <bool kStage>
 __global__ void __launch_bounds__(splat_window::kGroups * 32)
     splat_dense_fwd_kernel(DenseSource src) {
-  splat_window::scatter(src, src.H, src.W, src.C);
+  splat_window::scatter<kStage>(src, src.H, src.W, src.C);
+}
+
+template <bool kStage>
+static cudaError_t dense_fwd(const DenseSource& src, long long units, cudaStream_t s) {
+  unsigned blocks = 0;
+  size_t smem = 0;
+  cudaError_t err = splat_window::launch_shape<DenseSource::kItems, kStage>(
+      splat_dense_fwd_kernel<kStage>, src.C, units, &blocks, &smem);
+  if (err != cudaSuccess) return err;
+  splat_dense_fwd_kernel<kStage><<<blocks, splat_window::kGroups * 32, smem, s>>>(src);
+  return cudaGetLastError();
 }
 
 __global__ void splat_dense_bwd_kernel(const float* __restrict__ inp,
@@ -187,14 +201,12 @@ extern "C" int splat_dense_fwd(const void* inp, const void* flow, void* out,
   const long long units = (long long)B * src.tiles_y * src.tiles_x;
   if (units == 0 || C == 0) return (int)cudaGetLastError();
   if (H >= 32768 || W >= 32768) return (int)cudaErrorInvalidValue;
-  unsigned blocks = 0;
-  size_t smem = 0;
-  cudaError_t err = splat_window::launch_shape<DenseSource::kItems>(splat_dense_fwd_kernel, C,
-                                                                   units, &blocks, &smem);
-  if (err != cudaSuccess) return (int)err;
-  splat_dense_fwd_kernel<<<blocks, splat_window::kGroups * 32, smem,
-                           (cudaStream_t)stream>>>(src);
-  return (int)cudaGetLastError();
+  bool stage = false;
+  cudaError_t err = splat_window::stage_rows((size_t)B * H * W * C * sizeof(float), &stage);
+  if (err == cudaSuccess)
+    err = stage ? dense_fwd<true>(src, units, (cudaStream_t)stream)
+                : dense_fwd<false>(src, units, (cudaStream_t)stream);
+  return (int)err;
 }
 
 // The forward's geometry, for the host's count of window misses

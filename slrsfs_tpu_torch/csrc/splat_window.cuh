@@ -56,21 +56,19 @@ namespace splat_window {
 
 // The window's cells (its map from cell to entry is one int each) and the
 // warps of a block; each can be set with -D (tools/window_sweep.py).
+// Whether a unit's rows are staged in shared memory is the kernel's
+// template parameter kStage: staged (cp.async), each row is read from
+// device memory once, which pays where the rows stream from HBM; read in
+// P3 from device memory (through L1), a warp needs less shared memory and
+// more warps fit an SM, which pays where the rows sit in L2.
 #ifndef SPLAT_WINDOW_CELLS
-#define SPLAT_WINDOW_CELLS 512
+#define SPLAT_WINDOW_CELLS 256
 #endif
 #ifndef SPLAT_WINDOW_GROUPS
 #define SPLAT_WINDOW_GROUPS 4
 #endif
-// 1: the unit's rows are copied into shared memory (cp.async) for P3; 0:
-// P3 reads them from device memory (through L1), and a warp needs less
-// shared memory, so more warps fit an SM.
-#ifndef SPLAT_WINDOW_STAGE
-#define SPLAT_WINDOW_STAGE 1
-#endif
 constexpr int kMapCells = SPLAT_WINDOW_CELLS;
 constexpr int kGroups = SPLAT_WINDOW_GROUPS;
-constexpr bool kStage = SPLAT_WINDOW_STAGE != 0;
 
 // -DSPLAT_WINDOW_PROFILE=1 (tools/window_sweep.py only): each warp adds
 // the clock64 cycles of its phases P1..P3 and its units into
@@ -136,7 +134,7 @@ struct Item {
 // per corner its cell (-1: off the grid), its (x, y) in 16 bits each, its
 // window cell (-1: a miss, -2: off the grid), its rank in its cell (a
 // miss: its entry) and its weight; per item its row in device memory.
-template <int kItems>
+template <int kItems, bool kStage>
 struct WarpSmem {
   static constexpr int kCorners = 4 * kItems;
   float* rows;
@@ -179,9 +177,9 @@ struct WarpSmem {
   }
 };
 
-template <int kItems>
+template <int kItems, bool kStage>
 __host__ __device__ inline size_t block_bytes(int C) {
-  return kGroups * WarpSmem<kItems>::bytes(C);
+  return kGroups * WarpSmem<kItems, kStage>::bytes(C);
 }
 
 __device__ __forceinline__ void red4(float* a, float4 v) {
@@ -207,14 +205,14 @@ __device__ __forceinline__ void copy4_async(float* dst, const float* src) {
 //   bool item(int unit, int i, Item&) const;  false: the item adds nothing
 //   float* grid(int unit) const;        the (H, W, C) grid of the unit
 // H and W are below 32768 (a corner's (x, y) packs into 32 bits).
-template <class Src>
+template <bool kStage, class Src>
 __device__ void scatter(const Src& src, int H, int W, int C) {
   constexpr int kItems = Src::kItems;
   static_assert(kItems >= 1 && kItems <= 32, "a unit's items are one per lane");
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  WarpSmem<kItems> s(smem + warp * WarpSmem<kItems>::bytes(C), C);
+  WarpSmem<kItems, kStage> s(smem + warp * WarpSmem<kItems, kStage>::bytes(C), C);
   const int side = isqrt(kMapCells);
   int max_ops = 1;  // ops of a run of C floats, at its worst phase
   for (int d = 0; d < 4; ++d) {
@@ -439,15 +437,16 @@ extern "C" int splat_window_cycles(unsigned long long* out) {
 #endif
 
 // Sets the kernel's dynamic shared memory limit and returns the grid of
-// persistent blocks for `n_units` units of kItems items: at most the
+// persistent blocks for `n_units` units of kItems items (rows staged or
+// not): at most the
 // blocks the card holds at once. The card's shape is queried once per
 // (kernel, device, C).
-template <int kItems, class Kernel>
+template <int kItems, bool kStage, class Kernel>
 inline cudaError_t launch_shape(Kernel kernel, int C, long long n_units, unsigned* blocks,
                                 size_t* smem) {
   static const void* kernel_seen = nullptr;
   static int dev_seen = -1, c_seen = -1, most = 0;
-  *smem = block_bytes<kItems>(C);
+  *smem = block_bytes<kItems, kStage>(C);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -468,6 +467,22 @@ inline cudaError_t launch_shape(Kernel kernel, int C, long long n_units, unsigne
   }
   const long long need = (n_units + kGroups - 1) / kGroups;
   *blocks = (unsigned)(need < most ? need : most);
+  return cudaSuccess;
+}
+
+// Whether rows of `bytes` in all should be staged: when they do not fit in
+// the card's L2.
+inline cudaError_t stage_rows(size_t bytes, bool* stage) {
+  static int dev_seen = -1, l2 = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != dev_seen) {
+    err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+    if (err != cudaSuccess) return err;
+    dev_seen = dev;
+  }
+  *stage = bytes > (size_t)l2;
   return cudaSuccess;
 }
 

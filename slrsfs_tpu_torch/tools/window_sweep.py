@@ -4,8 +4,7 @@
 
 Builds ``csrc/splat.cu`` and ``csrc/splat_dense.cu`` once per variant of
 ``VARIANTS`` (the ``-D`` macros of ``csrc/splat_window.cuh``: the
-window's cells, warps per block, whether rows are staged in shared
-memory, the clock64 phase profile;
+window's cells, warps per block, the clock64 phase profile;
 ``splat.cu``'s rows per run and how its accumulator starts;
 ``splat_dense.cu``'s tile), all nvcc processes at once, into
 ``build/sweep/``. On ``chip_smoke.py``'s scene (256², t = 30) each variant's
@@ -36,16 +35,11 @@ from slrsfs_tpu_torch.ops import splat as S
 VARIANTS = {
     "default": {},
     "profile": {"SPLAT_WINDOW_PROFILE": 1},
-    "cells256": {"SPLAT_WINDOW_CELLS": 256},
+    "cells512": {"SPLAT_WINDOW_CELLS": 512},
+    "groups2": {"SPLAT_WINDOW_GROUPS": 2},
     "groups8": {"SPLAT_WINDOW_GROUPS": 8},
-    "cells256_groups8": {"SPLAT_WINDOW_CELLS": 256, "SPLAT_WINDOW_GROUPS": 8},
-    "nostage": {"SPLAT_WINDOW_STAGE": 0},
-    "nostage_profile": {"SPLAT_WINDOW_STAGE": 0, "SPLAT_WINDOW_PROFILE": 1},
-    "nostage_cells256": {"SPLAT_WINDOW_STAGE": 0, "SPLAT_WINDOW_CELLS": 256},
-    "nostage_cells256_groups8": {"SPLAT_WINDOW_STAGE": 0, "SPLAT_WINDOW_CELLS": 256,
-                                 "SPLAT_WINDOW_GROUPS": 8},
-    "nostage_tile4x8": {"SPLAT_WINDOW_STAGE": 0, "SPLAT_DENSE_TILE_X": 8},
-    "nostage_run16": {"SPLAT_WINDOW_STAGE": 0, "SPLAT_WINDOW_RUN": 16},
+    "run16": {"SPLAT_WINDOW_RUN": 16},
+    "tile4x8": {"SPLAT_DENSE_TILE_X": 8},
     "init1": {"SPLAT_F32_INIT": 1},
 }
 SOURCES = ("splat.cu", "splat_dense.cu")

@@ -799,6 +799,32 @@ def test_k3_window_scatter_matches_plain_on_card(C, far):
 
 
 @pytest.mark.gpu
+def test_k3_window_scatter_with_staged_rows_matches_plain_on_card():
+    """K3's forward on an input larger than the card's L2 (4 x 256 x 256 x
+    65 f32, 68 MB), where the kernel stages each tile's rows in shared
+    memory: the training batch's path."""
+    dev = _card()
+    rng = np.random.default_rng(300)
+    B, Hs, Ws, C = 4, 256, 256, 65
+    assert B * Hs * Ws * C * 4 > torch.cuda.get_device_properties(dev).L2_cache_size
+    yy, xx = np.mgrid[0:Hs, 0:Ws].astype(np.float64)
+    flow = (np.stack([3.0 * np.sin(yy / 17.0), 2.0 * np.cos(xx / 23.0)], -1)[None]
+            + rng.normal(0, 0.5, (B, Hs, Ws, 2))).astype(np.float32)
+    flow[1, :8] = max(Hs, Ws) + 1  # the OOB sentinel
+    flow[2] = rng.uniform(-40.0, 40.0, (Hs, Ws, 2))  # far: the direct path
+    inp = torch.randn((B, Hs, Ws, C), generator=torch.Generator(device=dev).manual_seed(300),
+                      device=dev)
+    flow = torch.from_numpy(flow).to(dev)
+    kernels.reset_counts()
+    out = softsplat_sum(inp, flow)
+    assert kernels.counts()[kernels.SPLAT_DENSE_FWD.name] == 1
+    ref = softsplat_sum_plain(inp, flow)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    _same_empty_cells(out, ref)
+
+
+@pytest.mark.gpu
 def test_window_geometry_fits_the_card():
     """The libraries report the window geometry that the host's miss count
     (ops/splat.py) repeats: runs and tiles of at most 32 items, and windows
