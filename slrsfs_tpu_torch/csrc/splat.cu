@@ -46,25 +46,25 @@
 // bf16 quarters) stays in the 50 MB L2 between the passes.
 //
 // Design, on the caller's stream. f32:
-//  (a) K2 zeroes the accumulator (cudaMemsetAsync), K8 scatters into its
-//      zeroed output;
-//  (b) scatter: splat_window::scatter (splat_window.cuh), one unit a run of
-//      kRun consecutive rows of one end. A warp computes each row's corners
-//      and weights once, in f32 from position + disp exactly as _quad_rows
-//      does, sums the run's taps into a shared-memory window of cells
-//      (all C1 channels of a cell; one atomicAdd per channel and corner),
-//      and reduces each touched cell into the accumulator once with 16-byte
-//      red.global.add.v4.f32 over its aligned middle; corners outside the
-//      window go to the accumulator directly. Rows with valid == 0
+//  (a) K2 copies u_static into the accumulator (cudaMemcpyAsync), K8
+//      scatters into its zeroed output;
+//  (b) scatter: splat_window::scatter (splat_window.cuh), a unit one end's
+//      run of kRun consecutive rows. A warp computes each row's corners and
+//      weights once, in f32 from position + disp exactly as _quad_rows
+//      does, gathers the corners that meet in a cell, sums their weighted
+//      rows (each end's rows scaled by its weight first) in registers and
+//      reduces each such cell into the accumulator once, with 16-byte
+//      red.global.add.v4.f32 over its aligned middle. Rows with valid == 0
 //      (padding) are skipped where a valid array is given. The OOB
-//      sentinel max(H, W) + 1 puts all four corners off the grid;
-//  (c) epilogue, one block per run of pixels: the runs of the accumulator
-//      and of u_static (contiguous, not 16-byte aligned per pixel) are
-//      staged through shared memory with 16-byte loads; K2 adds them
-//      (the JAX order, splat + u_static), divides by the clamped weight
-//      channel(s) in f32 and stores f32 or bf16 (round to nearest even)
-//      into the decode chunk's slot, which is NHWC in memory, by
-//      consecutive threads.
+//      sentinel max(H, W) + 1 puts all four corners off the grid. The rows
+//      (8.5 MB at 256^2) are read from L2, not staged;
+//  (c) epilogue, one thread per output element: K2 divides by the clamped
+//      weight channel(s) in f32 and stores f32 or bf16 (round to nearest
+//      even) into the decode chunk's slot, which is NHWC in memory.
+//      Zeroing the accumulator and adding u_static here instead of (a)
+//      moves the same 68 MB a frame and took 4-5 us longer on an H100
+//      (tools/window_sweep.py: a 5 us memset, an epilogue of 26-27 us
+//      against the copy's 11.6 and this one's 16.4).
 // bf16: the quarters are (H * W, 4, C1p), C1p = C1 rounded up to a
 // multiple of 8, so that 8 channels of a quarter are one aligned 16 bytes:
 //  (a) the quarters are zeroed (cudaMemsetAsync);
@@ -109,6 +109,10 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
 }
 
 static const int kThreads = 256;
+
+static unsigned n_blocks(long long n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
 
 // ---- f32 accumulation: the tile-and-window scatter -------------------
 
@@ -186,65 +190,8 @@ static cudaError_t scatter_f32(const void* u, const void* positions,
   return cudaGetLastError();
 }
 
-// Copies the m elements at src to shared memory, element e to dst[off + e]
-// with off = src's element offset in its 16-byte line (returned), so that
-// both sides of the 16-byte copies in between are aligned. dst holds
-// m + 16 / sizeof(T) - 1 elements.
-template <typename T>
-__device__ __forceinline__ int load_run(const T* __restrict__ src, T* dst, int m) {
-  constexpr int kPer = 16 / sizeof(T);
-  const int off = (int)(((uintptr_t)src / sizeof(T)) & (kPer - 1));
-  const int head = min(m, (kPer - off) & (kPer - 1));
-  const int n_vec = (m - head) / kPer;
-  const uint4* s4 = (const uint4*)(src + head);
-  uint4* d4 = (uint4*)(dst + off + head);
-  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) d4[i] = s4[i];
-  for (int e = threadIdx.x; e < head; e += blockDim.x) dst[off + e] = src[e];
-  for (int e = head + kPer * n_vec + threadIdx.x; e < m; e += blockDim.x)
-    dst[off + e] = src[e];
-  return off;
-}
-
-// Pixels of one block of the f32 epilogue: at most 64, and two staged
-// runs of them within 48 KB of shared memory.
-static int epi_pixels(int C1) { return splat_window::imin(64, (48 * 1024 - 64) / (8 * C1)); }
-
-// Floats of one staged run of `pix` x C1 floats (rounded to 16 bytes).
-__host__ __device__ inline int epi_run(int pix, int C1) { return (pix * C1 + 3 + 3) & ~3; }
-
-// K2's f32 epilogue over a run of `pix` pixels: g = acc + u_static,
-// out = g[:C] / max(g[C], eps) (kSlr: the features over g[C + 1], the
-// fluid alpha over g[C]), C = C1 - 1 (kSlr: C1 - 2). The runs of acc and
-// u_static are staged through shared memory with 16-byte loads; the
-// outputs are written by consecutive threads.
-template <typename T, bool kSlr>
-__global__ void splat_normalize_static_kernel(const float* __restrict__ acc,
-                                              const float* __restrict__ u_static,
-                                              T* __restrict__ out, int HW, int C1,
-                                              int pix) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int pix0 = blockIdx.x * pix;
-  const int pix_here = min(pix, HW - pix0);
-  float* a = (float*)smem;
-  float* us = a + epi_run(pix, C1);
-  const int m = pix_here * C1;
-  const int a_off = load_run(acc + (size_t)pix0 * C1, a, m);
-  const int u_off = load_run(u_static + (size_t)pix0 * C1, us, m);
-  __syncthreads();
-  const int C = C1 - (kSlr ? 2 : 1);
-  for (int i = threadIdx.x; i < pix_here * C; i += blockDim.x) {
-    const int pr = i / C;
-    const int c = i - pr * C;
-    const int den_ch = kSlr ? (c < C - 1 ? C + 1 : C) : C;
-    const float num = a[a_off + pr * C1 + c] + us[u_off + pr * C1 + c];
-    const float den = a[a_off + pr * C1 + den_ch] + us[u_off + pr * C1 + den_ch];
-    out[(size_t)pix0 * C + i] = from_f32<T>(num / fmaxf(den, 1e-8f));
-  }
-}
-
-// K2's f32 epilogue when the accumulator was seeded with u_static (init
-// 0): out = g[:C] / max(g[C], eps) as above, one thread per output
-// element.
+// K2's f32 epilogue: out = g[:C] / max(g[C], eps) (kSlr: the features
+// over g[C + 1], the fluid alpha over g[C]), C = C1 - 1 (kSlr: C1 - 2).
 template <typename T, bool kSlr>
 __global__ void splat_normalize_kernel(const float* __restrict__ acc,
                                        T* __restrict__ out, int HW, int C1) {
@@ -258,12 +205,6 @@ __global__ void splat_normalize_kernel(const float* __restrict__ acc,
   const float den = acc[pix * C1 + den_ch];
   out[i] = from_f32<T>(num / fmaxf(den, 1e-8f));
 }
-
-// How K2's f32 accumulator starts: 0 a copy of u_static, 1 zero (u_static
-// added in the epilogue).
-#ifndef SPLAT_F32_INIT
-#define SPLAT_F32_INIT 0
-#endif
 
 // ---- bf16 accumulation in four quarters ---------------------------------
 
@@ -362,6 +303,24 @@ __global__ void splat_scatter_quarters_kernel(
     for (int m = 0; m < 4; ++m) packed[m] = pack_bf16x2(v[2 * m] * w, v[2 * m + 1] * w);
     red_add_bf16x8(acc + ((size_t)cell * 4 + k) * C1p + 8 * j, packed);
   }
+}
+
+// Copies the m bf16 at src to shared memory, element e to dst[off + e]
+// with off = src's element offset in its 16-byte line (returned), so that
+// both sides of the 16-byte copies in between are aligned. dst holds
+// m + 7 elements.
+__device__ __forceinline__ int load_run(const bf16* __restrict__ src,
+                                        bf16* dst, int m) {
+  const int off = (int)(((uintptr_t)src >> 1) & 7);
+  const int head = min(m, (8 - off) & 7);
+  const int n_vec = (m - head) >> 3;
+  const uint4* s4 = (const uint4*)(src + head);
+  uint4* d4 = (uint4*)(dst + off + head);
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) d4[i] = s4[i];
+  for (int e = threadIdx.x; e < head; e += blockDim.x) dst[off + e] = src[e];
+  for (int e = head + 8 * n_vec + threadIdx.x; e < m; e += blockDim.x)
+    dst[off + e] = src[e];
+  return off;
 }
 
 __device__ __forceinline__ void unpack8(uint4 q, bf16 x[8]) {
@@ -475,8 +434,8 @@ static cudaError_t bf16_quarters(const void* u, const void* positions,
 
 // ---- entry points -------------------------------------------------------
 
-// K2: accumulator f32 (acc_bf16 == 0: zeroed, scatter, epilogue adding
-// u_static) or the bf16 quarters, output type T.
+// K2: accumulator f32 (acc_bf16 == 0: u_static copied in, scatter,
+// epilogue) or the bf16 quarters, output type T.
 template <typename T, bool kSlr>
 static cudaError_t dual_normalize(const void* u_mov, const void* positions,
                                   const void* valid, const void* disp_a,
@@ -488,27 +447,16 @@ static cudaError_t dual_normalize(const void* u_mov, const void* positions,
     return bf16_quarters<T, kSlr ? kNormalizeSlr : kNormalize>(
         u_mov, positions, valid, disp_a, disp_b, w_a, w_b, u_static, acc, out,
         P, C1, H, W, s);
-  const size_t bytes = (size_t)H * W * C1 * sizeof(float);
-  cudaError_t err = SPLAT_F32_INIT == 0
-                        ? cudaMemcpyAsync(acc, u_static, bytes, cudaMemcpyDeviceToDevice, s)
-                        : cudaMemsetAsync(acc, 0, bytes, s);
+  cudaError_t err = cudaMemcpyAsync(acc, u_static, (size_t)H * W * C1 * sizeof(float),
+                                    cudaMemcpyDeviceToDevice, s);
   if (err == cudaSuccess)
     err = scatter_f32(u_mov, positions, valid, disp_a, disp_b, w_a, w_b, acc, P,
                       C1, H, W, s);
   if (err != cudaSuccess) return err;
-  const int HW = H * W;
-  if (HW == 0 || C1 <= (kSlr ? 2 : 1)) return cudaGetLastError();
-  if (SPLAT_F32_INIT == 0) {
-    const long long n_out = (long long)HW * (C1 - (kSlr ? 2 : 1));
-    splat_normalize_kernel<T, kSlr>
-        <<<(unsigned)((n_out + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-            (const float*)acc, (T*)out, HW, C1);
-  } else {
-    const int pix = epi_pixels(C1);
-    if (pix < 1) return cudaErrorInvalidValue;
-    splat_normalize_static_kernel<T, kSlr>
-        <<<(HW + pix - 1) / pix, kThreads, 2 * epi_run(pix, C1) * sizeof(float), s>>>(
-            (const float*)acc, (const float*)u_static, (T*)out, HW, C1, pix);
+  const long long n_out = (long long)H * W * (C1 - (kSlr ? 2 : 1));
+  if (n_out > 0) {
+    splat_normalize_kernel<T, kSlr><<<n_blocks(n_out), kThreads, 0, s>>>(
+        (const float*)acc, (T*)out, H * W, C1);
   }
   return cudaGetLastError();
 }

@@ -19,8 +19,9 @@
 //  * (P1) Lane i computes item i's four corners and weights once, in f32,
 //    operation for operation as the JAX _corners does (the build keeps
 //    -fmad=false), into shared memory; warp reductions give the bounding
-//    box and the coordinate sums of the unit's in-grid corners. The
-//    items' rows are copied into shared memory (cp.async) meanwhile.
+//    box and the coordinate sums of the unit's in-grid corners. Where the
+//    rows stream from HBM (kStage), they are copied into shared memory
+//    meanwhile (cp.async), so each is read from device memory once.
 //  * (P2) The window, a rectangle of at most kMapCells cells, is placed by
 //    place_window: the bounding box when it fits, else a box about
 //    isqrt(kMapCells) on a side, widened where the bounding box is narrow,
@@ -35,7 +36,8 @@
 //    op a quad of the run's 16-byte aligned middle or a scalar at its two
 //    ends, sum the entry's corners' (row * scale) * weight in registers
 //    and reduce the quad with one red.global.add.v4.f32 (sm_90) or the
-//    scalar with atomicAdd. Corners off the grid (the OOB sentinel
+//    scalar with atomicAdd: a touched cell costs C / 4 reductions instead
+//    of C per corner. Corners off the grid (the OOB sentinel
 //    max(H, W) + 1 puts all four there) are in no entry, and cells that no
 //    corner reaches receive nothing, so they keep their value exactly (the
 //    decoders' hole mask is x != 0).
@@ -69,23 +71,6 @@ namespace splat_window {
 #endif
 constexpr int kMapCells = SPLAT_WINDOW_CELLS;
 constexpr int kGroups = SPLAT_WINDOW_GROUPS;
-
-// -DSPLAT_WINDOW_PROFILE=1 (tools/window_sweep.py only): each warp adds
-// the clock64 cycles of its phases P1..P3 and its units into
-// window_cycles, read by the library's splat_window_cycles.
-#ifdef SPLAT_WINDOW_PROFILE
-static __device__ unsigned long long window_cycles[5];
-#define WINDOW_PHASE(k)                             \
-  do {                                              \
-    const long long t1_ = clock64();                \
-    cycles[k] += (unsigned long long)(t1_ - t0_);   \
-    t0_ = t1_;                                      \
-  } while (0)
-#else
-#define WINDOW_PHASE(k) \
-  do {                  \
-  } while (0)
-#endif
 
 // Cells of a warp's window, for any C.
 __host__ __device__ inline int window_cap(int) { return kMapCells; }
@@ -225,15 +210,7 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
   __syncwarp();
 
   const int n_units = src.units();
-#ifdef SPLAT_WINDOW_PROFILE
-  unsigned long long cycles[5] = {0, 0, 0, 0, 0};
-  long long t0_ = clock64();
-#endif
   for (int unit = blockIdx.x * kGroups + warp; unit < n_units; unit += gridDim.x * kGroups) {
-#ifdef SPLAT_WINDOW_PROFILE
-    cycles[4] += 1;
-    t0_ = clock64();
-#endif
     float* __restrict__ grid = src.grid(unit);
     const int n_items = src.items(unit);
     // ---- P1: corners, weights, the unit's bounding box; the rows copied
@@ -286,7 +263,6 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
     sx = __reduce_add_sync(0xffffffffu, sx);
     sy = __reduce_add_sync(0xffffffffu, sy);
     n = __reduce_add_sync(0xffffffffu, n);
-    WINDOW_PHASE(0);
 
     // ---- P2: the window; count the corners per cell, scan, list them
     Window win = {0, 0, 0, 0};
@@ -369,7 +345,6 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
     }
     if (kStage) asm volatile("cp.async.wait_all;" ::: "memory");
     __syncwarp();
-    WINDOW_PHASE(1);
 
     // ---- P3: each entry's sums, reduced into its cell once; lanes over
     // (entry, op), an op a 16-byte quad of the run's aligned middle or a
@@ -416,31 +391,13 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
     __syncwarp();
     if (lane == 0) *s.n_entries = 0;
     __syncwarp();
-    WINDOW_PHASE(2);
   }
-#ifdef SPLAT_WINDOW_PROFILE
-  if (lane == 0)
-    for (int k = 0; k < 5; ++k) atomicAdd(&window_cycles[k], cycles[k]);
-#endif
 }
-
-#ifdef SPLAT_WINDOW_PROFILE
-// Copies the warps' phase cycles and units to out[5] and zeroes them.
-extern "C" int splat_window_cycles(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, window_cycles, sizeof(window_cycles));
-  if (err == cudaSuccess) {
-    const unsigned long long zero[5] = {0, 0, 0, 0, 0};
-    err = cudaMemcpyToSymbol(window_cycles, zero, sizeof(zero));
-  }
-  return (int)err;
-}
-#endif
 
 // Sets the kernel's dynamic shared memory limit and returns the grid of
 // persistent blocks for `n_units` units of kItems items (rows staged or
-// not): at most the
-// blocks the card holds at once. The card's shape is queried once per
-// (kernel, device, C).
+// not): at most the blocks the card holds at once. The card's shape is
+// queried once per (kernel, device, C).
 template <int kItems, bool kStage, class Kernel>
 inline cudaError_t launch_shape(Kernel kernel, int C, long long n_units, unsigned* blocks,
                                 size_t* smem) {

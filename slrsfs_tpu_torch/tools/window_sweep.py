@@ -4,11 +4,10 @@
 
 Builds ``csrc/splat.cu`` and ``csrc/splat_dense.cu`` once per variant of
 ``VARIANTS`` (the ``-D`` macros of ``csrc/splat_window.cuh``: the
-window's cells, warps per block, the clock64 phase profile;
-``splat.cu``'s rows per run and how its accumulator starts;
+window's cells and the warps of a block; ``splat.cu``'s rows per run;
 ``splat_dense.cu``'s tile), all nvcc processes at once, into
 ``build/sweep/``. On ``chip_smoke.py``'s scene (256², t = 30) each variant's
-K2 f32 (``splat_dual_normalize``: memset, scatter and epilogue), K8 f32 two
+K2 f32 (``splat_dual_normalize``: copy, scatter and epilogue), K8 f32 two
 ends and K3's forward at (1, 256, 256, 65) and (16, 256, 256, 65) (the
 output zeroed in the call, as the wrapper does) are held against the plain
 versions (atol/rtol 1e-5) and timed on the card alone
@@ -34,13 +33,11 @@ from slrsfs_tpu_torch.ops import splat as S
 # name: -D macros; the first is the sources' own defaults
 VARIANTS = {
     "default": {},
-    "profile": {"SPLAT_WINDOW_PROFILE": 1},
     "cells512": {"SPLAT_WINDOW_CELLS": 512},
     "groups2": {"SPLAT_WINDOW_GROUPS": 2},
     "groups8": {"SPLAT_WINDOW_GROUPS": 8},
     "run16": {"SPLAT_WINDOW_RUN": 16},
     "tile4x8": {"SPLAT_DENSE_TILE_X": 8},
-    "init1": {"SPLAT_F32_INIT": 1},
 }
 SOURCES = ("splat.cu", "splat_dense.cu")
 
@@ -87,22 +84,6 @@ def build(names) -> dict:
             dll.splat_dense_window.argtypes = [ctypes.c_int, ctypes.c_int]
         libs[key] = dll
     return libs
-
-
-def _phases(lib, fn) -> str:
-    """A profiling build's clock64 cycles per unit of phases P1..P3 in one
-    call of ``fn`` (empty for other builds)."""
-    if not hasattr(lib, "splat_window_cycles"):
-        return ""
-    buf = (ctypes.c_ulonglong * 5)()
-    _ok(lib.splat_window_cycles(buf), "splat_window_cycles")
-    torch.cuda.synchronize()
-    fn()
-    torch.cuda.synchronize()
-    _ok(lib.splat_window_cycles(buf), "splat_window_cycles")
-    units = max(buf[4], 1)
-    return ("; cycles per unit P1 {:.0f}, P2 {:.0f}, P3 {:.0f} ({} units)"
-            .format(*(buf[k] / units for k in range(3)), buf[4]))
 
 
 def _ok(err: int, what: str) -> None:
@@ -168,8 +149,7 @@ def main(names) -> int:
             ms, host = cs.device_time(fn, reps=50)
             split = cs.launch_split(fn)
             print(f"window_sweep {name} {label}: device {ms:.4f} ms; {cs.fmt_split(split)}; "
-                  f"misses {100.0 * n_miss / n_in:.2f} % (runs of {run}, {cap} cells)"
-                  f"{_phases(lib, fn)}")
+                  f"misses {100.0 * n_miss / n_in:.2f} % (runs of {run}, {cap} cells)")
         for shape, (inp, fl) in dense.items():
             B, _, _, C = inp.shape
 
@@ -189,7 +169,7 @@ def main(names) -> int:
             split = cs.launch_split(k3)
             print(f"window_sweep {name} K3 forward {shape}: device {ms:.4f} ms; "
                   f"{cs.fmt_split(split)}; misses {100.0 * n_miss / n_in:.2f} % "
-                  f"({ty}x{tx} tiles, {cap3} cells){_phases(lib_d, k3)}")
+                  f"({ty}x{tx} tiles, {cap3} cells)")
     return 0
 
 
