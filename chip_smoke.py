@@ -253,29 +253,31 @@ def fmt_split(split: dict) -> str:
         f" (sum {sum(us for _, us in split.values()):.2f} us)")
 
 
-def window_misses(kind: str, C: int, *args) -> str:
+def window_misses(kind: str, *args) -> str:
     """The share of the f32 window scatter's in-grid corners that land
-    outside their unit's window (and go to device memory one by one),
-    counted on the host from the displacements and the tiling that the
-    package's kernel library reports (``ops/splat.py:rows_window_misses``
-    for kind "rows", args positions, valid, displacements;
-    ``dense_window_misses`` for "dense", args flow). A package without the
-    window scatter says so."""
+    outside their unit's window (each then an entry of its own, reduced
+    into its cell alone), counted on the host from the displacements and
+    the tiling that the package's kernel library reports
+    (``ops/splat.py:rows_window_misses`` for kind "rows", args positions,
+    valid, displacements; ``dense_window_misses`` for "dense", args flow).
+    A package without the window scatter (an older tree of ``--k2-in`` or
+    ``--k3-in``) says so."""
     from slrsfs_tpu_torch import kernels
     from slrsfs_tpu_torch.ops import splat as S
 
-    try:
-        if kind == "rows":
-            run, cap = (kernels.SPLAT.query("splat_rows_window", C, w) for w in (0, 1))
-            n_in, n_miss = S.rows_window_misses(*args, H, W, run, cap)
-            geometry = f"runs of {run} rows"
-        else:
-            ty, tx, cap = (kernels.SPLAT_DENSE_FWD.query("splat_dense_window", C, w)
-                           for w in (0, 1, 2))
-            n_in, n_miss = S.dense_window_misses(args[0], (ty, tx), cap)
-            geometry = f"{ty}x{tx} tiles"
-    except AttributeError:
+    if not hasattr(S, "rows_window_misses"):
         return "window misses: this package's scatter has no window"
+    if kind == "rows":
+        run = kernels.SPLAT.query("splat_rows_run")
+        cap = kernels.SPLAT.query("splat_rows_window_cells")
+        n_in, n_miss = S.rows_window_misses(*args, H, W, run, cap)
+        geometry = f"runs of {run} rows"
+    else:
+        ty = kernels.SPLAT_DENSE_FWD.query("splat_dense_tile_rows")
+        tx = kernels.SPLAT_DENSE_FWD.query("splat_dense_tile_cols")
+        cap = kernels.SPLAT_DENSE_FWD.query("splat_dense_window_cells")
+        n_in, n_miss = S.dense_window_misses(args[0], (ty, tx), cap)
+        geometry = f"{ty}x{tx} tiles"
     return (f"window misses {n_miss} of {n_in} corners in the grid "
             f"({100.0 * n_miss / max(n_in, 1):.2f} %; {geometry}, windows of {cap} cells)")
 
@@ -566,7 +568,7 @@ def k2_times(dev, name, st, positions, valid, disp_a, disp_b) -> None:
                                   2 * n_valid * C1 * (1 + 4 * 2) + H * W * C)
         del flat, rows_d
     del lin_all, rows_all, acc_bf
-    st["misses"] = window_misses("rows", C1, positions, valid, (disp_a, disp_b))
+    st["misses"] = window_misses("rows", positions, valid, (disp_a, disp_b))
     for sfx, label in (("", "f32"), ("_bf16", "bf16 accumulation")):
         print(f"phase 3 {name} {label} per frame: {fmt_times(st['t' + sfx])}; plain "
               f"{st['plain_ms' + sfx]:.3f} ms; index_add_ {fmt_times(st['t_lib' + sfx])}; "
@@ -667,7 +669,7 @@ def k8_phase(dev, u_mov, positions, disp_a, disp_b):
         if dtype == torch.float32:
             for ends, disps in (("one end", (disp_a,)), ("two ends", (disp_a, disp_b))):
                 print(f"phase 3 K8 f32 {ends} "
-                      f"{window_misses('rows', C, positions, None, disps)}")
+                      f"{window_misses('rows', positions, None, disps)}")
         res[label] = {"launches": launches["splat_sum_at"], "err": err, "ms": t["ms"],
                       "ms_dual": t_dual["ms"], "plain_ms": plain_ms,
                       "lib_ms": t_lib["ms"], "bound": bnd}
@@ -763,7 +765,7 @@ def k3_fwd_times(dev, label, inp, flow, reps, plain_reps=10):
     # inp and flow in, out out; per pixel ~20 ops of corner math and per
     # channel 4 multiplies and 4 adds
     bnd = bound(n * C * 4 * 2 + n * 8, n * (8 * C + 20))
-    misses = window_misses("dense", C, flow)
+    misses = window_misses("dense", flow)
     print(f"{label}: {fmt_times(t)}; plain {plain_ms:.3f} ms; index_add_ "
           f"{fmt_times(t_lib)}; bound {bnd[0]:.4f} ms by {bnd[1]}")
     print(f"{label} per call on the card (torch.profiler): {fmt_split(split)}; {misses}")

@@ -63,7 +63,7 @@
 //      even) into the decode chunk's slot, which is NHWC in memory.
 //      Zeroing the accumulator and adding u_static here instead of (a)
 //      moves the same 68 MB a frame and took 4-5 us longer on an H100
-//      (tools/window_sweep.py: a 5 us memset, an epilogue of 26-27 us
+//      80GB HBM3 at 700 W (a 5 us memset and an epilogue of 26-27 us,
 //      against the copy's 11.6 and this one's 16.4).
 // bf16: the quarters are (H * W, 4, C1p), C1p = C1 rounded up to a
 // multiple of 8, so that 8 channels of a quarter are one aligned 16 bytes:
@@ -119,10 +119,7 @@ static unsigned n_blocks(long long n) {
 // Packed rows per unit of splat_window::scatter (one end's run of
 // consecutive rows; prepare_scene_sparse packs the moving pixels in raster
 // order, so a run lands on neighbouring cells when the flow is smooth).
-#ifndef SPLAT_WINDOW_RUN
-#define SPLAT_WINDOW_RUN 8
-#endif
-static const int kRun = SPLAT_WINDOW_RUN;
+constexpr int kRun = 8;
 
 // Both ends' rows as units of splat_window::scatter: unit r < runs is run r
 // of end a, unit runs + r run r of end b; disp_b == NULL splats one end,
@@ -526,8 +523,7 @@ extern "C" int splat_sum_at(const void* u, const void* positions,
 }
 
 // The f32 scatter's geometry, for the host's count of window misses
-// (ops/splat.py:rows_window_misses): what 0 the rows of a run, 1 the
-// window's cells. Launches nothing.
-extern "C" int splat_rows_window(int C1, int what) {
-  return what == 0 ? kRun : splat_window::window_cap(C1);
-}
+// (ops/splat.py:rows_window_misses): the rows of a run and the window's
+// cells. They launch nothing.
+extern "C" int splat_rows_run(void) { return kRun; }
+extern "C" int splat_rows_window_cells(void) { return splat_window::kMapCells; }

@@ -16,18 +16,24 @@
 // C = 65); the backward reads inp, flow and g and writes grad_inp and
 // grad_flow (~835 MB). Both do a few flops per byte.
 //
-// Forward design: splat_window::scatter (splat_window.cuh), one unit a
-// kTileY x kTileX tile of one sample's pixels. A warp computes each
-// pixel's corners and weights once (operation for operation as _corners;
-// the build disables FMA contraction), sums the tile's taps into a
-// shared-memory window of cells (all C channels of a cell), and reduces
-// each touched cell into the output, which the wrapper zeroes, once, with
-// 16-byte red.global.add.v4.f32 over its aligned middle; corners outside
-// the window go to the output by f32 atomicAdd. Cells that receive
-// nothing stay exactly 0. The order of the adds varies, so the result
-// matches the plain version to ~1e-7 relative, with the same empty cells
-// (where signed contributions cancel, a single element can round to
-// exactly 0 in one order of the adds and not in another).
+// Forward design: splat_window::scatter (splat_window.cuh), the output
+// zeroed by the wrapper. A warp owns a unit, a kTileY x kTileX tile of one
+// sample's pixels. Lane i computes pixel i's four corners and weights once
+// (operation for operation as _corners; the build disables FMA
+// contraction). A window of at most 256 cells is placed over the tile's
+// corners; shared memory holds only its map from cell to entry (one int a
+// cell). The corners that meet in one window cell form one entry, and a
+// corner outside the window is an entry of its own. Each entry's weighted
+// rows are summed in registers, lanes over (entry, 16-byte quad or scalar
+// end of the cell's run of C floats), and every entry, a miss too, is
+// reduced into its cell once: red.global.add.v4.f32 over the run's aligned
+// middle, atomicAdd at its two ends. The tile's rows are read from device
+// memory, or staged in shared memory by cp.async when inp exceeds the
+// card's L2 (the training batch). Cells that receive nothing stay exactly
+// 0. The order of the adds varies, so the result matches the plain version
+// to ~1e-7 relative, with the same empty cells (where signed contributions
+// cancel, a single element can round to exactly 0 in one order of the
+// adds and not in another).
 //
 // Backward design: one warp per (sample, pixel), lanes over channels, no
 // atomics. For each corner the warp gathers g at the clipped target
@@ -84,14 +90,8 @@ __device__ __forceinline__ Taps taps_of(int x, int y, float2 f, int H,
 }
 
 // The tile of a unit of splat_window::scatter.
-#ifndef SPLAT_DENSE_TILE_Y
-#define SPLAT_DENSE_TILE_Y 4
-#endif
-#ifndef SPLAT_DENSE_TILE_X
-#define SPLAT_DENSE_TILE_X 4
-#endif
-static const int kTileY = SPLAT_DENSE_TILE_Y;
-static const int kTileX = SPLAT_DENSE_TILE_X;
+constexpr int kTileY = 4;
+constexpr int kTileX = 4;
 
 // The pixels of inp (B, H, W, C) as units of splat_window::scatter: unit
 // (b * tiles_y + ty) * tiles_x + tx is tile (ty, tx) of sample b.
@@ -210,11 +210,11 @@ extern "C" int splat_dense_fwd(const void* inp, const void* flow, void* out,
 }
 
 // The forward's geometry, for the host's count of window misses
-// (ops/splat.py:dense_window_misses): what 0 the tile's rows, 1 its
-// columns, 2 the window's cells. Launches nothing.
-extern "C" int splat_dense_window(int C, int what) {
-  return what == 0 ? kTileY : what == 1 ? kTileX : splat_window::window_cap(C);
-}
+// (ops/splat.py:dense_window_misses): the tile's rows and columns and the
+// window's cells. They launch nothing.
+extern "C" int splat_dense_tile_rows(void) { return kTileY; }
+extern "C" int splat_dense_tile_cols(void) { return kTileX; }
+extern "C" int splat_dense_window_cells(void) { return splat_window::kMapCells; }
 
 // inp, flow as above, g (B, H, W, C) f32 the output's cotangent; writes
 // grad_inp (B, H, W, C) and grad_flow (B, H, W, 2), both f32.

@@ -5,8 +5,8 @@
 // An f32 splat adds, for every source item (a packed row or a pixel), its
 // C channels times each bilinear weight into the four integer neighbours
 // of its target; corners off the grid are dropped. Done as one f32
-// reduction per (item, channel, corner) into device memory (the parent
-// design: 14.1 M of them a frame in K2 at 256^2), the card's L2 spends its
+// reduction per (item, channel, corner) into device memory (14.1 M of
+// them a frame in K2 at 256^2), the card's L2 spends its
 // time on the reductions. Neighbouring items land on neighbouring cells,
 // so the corners of a unit of items that meet in one cell are summed
 // first, and each such cell is then reduced into device memory once, 16
@@ -57,23 +57,13 @@
 namespace splat_window {
 
 // The window's cells (its map from cell to entry is one int each) and the
-// warps of a block; each can be set with -D (tools/window_sweep.py).
-// Whether a unit's rows are staged in shared memory is the kernel's
-// template parameter kStage: staged (cp.async), each row is read from
-// device memory once, which pays where the rows stream from HBM; read in
-// P3 from device memory (through L1), a warp needs less shared memory and
-// more warps fit an SM, which pays where the rows sit in L2.
-#ifndef SPLAT_WINDOW_CELLS
-#define SPLAT_WINDOW_CELLS 256
-#endif
-#ifndef SPLAT_WINDOW_GROUPS
-#define SPLAT_WINDOW_GROUPS 4
-#endif
-constexpr int kMapCells = SPLAT_WINDOW_CELLS;
-constexpr int kGroups = SPLAT_WINDOW_GROUPS;
-
-// Cells of a warp's window, for any C.
-__host__ __device__ inline int window_cap(int) { return kMapCells; }
+// warps of a block. Whether a unit's rows are staged in shared memory is
+// the kernel's template parameter kStage: staged (cp.async), each row is
+// read from device memory once, which pays where the rows stream from HBM;
+// read in P3 from device memory (through L1), a warp needs less shared
+// memory and more warps fit an SM, which pays where the rows sit in L2.
+constexpr int kMapCells = 256;
+constexpr int kGroups = 4;
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 

@@ -432,7 +432,8 @@ def rows_window_misses(positions: Tensor, valid: Optional[Tensor], disps,
     """(corners in the grid, corners outside their window) of K2's or K8's
     f32 scatter: each end of ``disps`` split into runs of ``run``
     consecutive rows, rows with valid 0 skipped; ``run`` and ``cap`` as the
-    kernel's library reports them (``splat_rows_window``)."""
+    kernel's library reports them (``splat_rows_run``,
+    ``splat_rows_window_cells``)."""
     P = positions.shape[0]
     n_runs = -(-P // run)
     pad = n_runs * run - P
@@ -456,7 +457,8 @@ def dense_window_misses(flow: Tensor, tile: Tuple[int, int], cap: int
     """(corners in the grid, corners outside their window) of K3's forward
     on flow (B, H, W, 2): each sample cut into ``tile`` (rows, columns)
     tiles, ragged at the edges; ``tile`` and ``cap`` as the kernel's library
-    reports them (``splat_dense_window``)."""
+    reports them (``splat_dense_tile_rows``, ``splat_dense_tile_cols``,
+    ``splat_dense_window_cells``)."""
     B, H, W, _ = flow.shape
     ty, tx = tile
     Hp, Wp = -(-H // ty) * ty, -(-W // tx) * tx

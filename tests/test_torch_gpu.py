@@ -670,8 +670,8 @@ def test_k9_block_fits_the_card(C, F):
 # A ragged grid (37 x 53: neither side a multiple of K3's tile), channel
 # widths 1, 3, 65 and 67, rows at the OOB sentinel, padded rows (valid 0),
 # and either a smooth displacement (most corners in their window) or a
-# uniform one of +-40 px (most corners outside it: the scatter's direct
-# path). Held as chip_smoke.py holds them: atol/rtol 1e-5 and the same
+# uniform one of +-40 px (most corners outside it, each then an entry of
+# its own). Held as chip_smoke.py holds them: atol/rtol 1e-5 and the same
 # empty cells (every channel exactly 0), since both sides sum by atomics
 # and a signed sum can cancel to exactly 0 in one order only.
 
@@ -828,11 +828,11 @@ def test_k3_window_scatter_with_staged_rows_matches_plain_on_card():
 def test_window_geometry_fits_the_card():
     """The libraries report the window geometry that the host's miss count
     (ops/splat.py) repeats: runs and tiles of at most 32 items, and windows
-    of at least a tile's bounding box at the paths' 65 and 67 channels."""
+    of at least a unit's bounding box under smooth flow."""
     _card()
-    run = kernels.SPLAT.query("splat_rows_window", 65, 0)
-    ty, tx = (kernels.SPLAT_DENSE_FWD.query("splat_dense_window", 65, w) for w in (0, 1))
+    run = kernels.SPLAT.query("splat_rows_run")
+    ty = kernels.SPLAT_DENSE_FWD.query("splat_dense_tile_rows")
+    tx = kernels.SPLAT_DENSE_FWD.query("splat_dense_tile_cols")
     assert 1 <= run <= 32 and 1 <= ty * tx <= 32
-    for C in (65, 67):
-        assert kernels.SPLAT.query("splat_rows_window", C, 1) >= 2 * (run + 1)
-        assert kernels.SPLAT_DENSE_FWD.query("splat_dense_window", C, 2) >= (ty + 1) * (tx + 1)
+    assert kernels.SPLAT.query("splat_rows_window_cells") >= 2 * (run + 1)
+    assert kernels.SPLAT_DENSE_FWD.query("splat_dense_window_cells") >= (ty + 1) * (tx + 1)

@@ -1,8 +1,9 @@
 """The f32 window scatter's host side (slrsfs_tpu_torch), on the CPU.
 
-K2, K8 and K3's forward sum each unit's taps in a shared-memory window of
-cells (csrc/splat_window.cuh); the corners outside the window go to device
-memory one by one. ``ops/splat.py:place_windows`` repeats the kernel's
+K2, K8 and K3's forward place a window of cells over each unit's corners
+(csrc/splat_window.cuh): the corners that meet in one window cell are
+summed in registers and reduced into the cell once, and each corner
+outside the window is reduced into its cell alone. ``ops/splat.py:place_windows`` repeats the kernel's
 window rule in integers so that the share of those misses is counted on
 the host; here it is held against a literal transcription of
 ``place_window`` over each unit, at ragged shapes, for both tilings. The
