@@ -104,6 +104,9 @@ T_CHECK = (0, 1, T_MID, N_FRAMES - 1)  # frames the kernels are checked at
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# The same cores' rate in lane-instructions: 67e12 counts an FMA as two
+# flops, and a round, clamp, compare, select or add is one instruction.
+LANE_OPS = 33.5e12
 BF16_FLOPS = 989e12  # H100 SXM, bf16 dense tensor cores
 SLR_OPTS = dict(model_type="softmax_splating_2layers_alpha_seperate",
                 use_alpha0_as_blending_weight=True)
@@ -260,11 +263,26 @@ def window_misses(kind: str, *args) -> str:
     the tiling that the package's kernel library reports
     (``ops/splat.py:rows_window_misses`` for kind "rows", args positions,
     valid, displacements; ``dense_window_misses`` for "dense", args flow).
-    A package without the window scatter (an older tree of ``--k2-in`` or
+    Kind "dense bwd", args flow and C: the same count for K3's backward
+    (a corner outside the window reads g from device memory), with the
+    share of its tiles that hold such a corner (``dense_window_units``).
+    A package without the window (an older tree of ``--k2-in`` or
     ``--k3-in``) says so."""
     from slrsfs_tpu_torch import kernels
     from slrsfs_tpu_torch.ops import splat as S
 
+    if kind == "dense bwd":
+        if not hasattr(S, "dense_window_units"):
+            return "window misses: this package's backward has no window"
+        lib = kernels.SPLAT_DENSE_BWD
+        tile = (lib.query("splat_dense_bwd_tile_rows"), lib.query("splat_dense_bwd_tile_cols"))
+        cap = lib.query("splat_dense_bwd_window_cells", args[1])
+        n_in, n_miss = S.dense_window_misses(args[0], tile, cap)
+        units, missing = S.dense_window_units(args[0], tile, cap)
+        return (f"window misses {n_miss} of {n_in} corners in the grid "
+                f"({100.0 * n_miss / max(n_in, 1):.2f} %; {tile[0]}x{tile[1]} tiles, "
+                f"windows of {cap} cells; {missing} of {units} tiles "
+                f"({100.0 * missing / max(units, 1):.2f} %) hold a miss)")
     if not hasattr(S, "rows_window_misses"):
         return "window misses: this package's scatter has no window"
     if kind == "rows":
@@ -1148,33 +1166,22 @@ def k2_in(tree: str) -> int:
     return 0
 
 
-def k3_train_inputs(dev, scene_flow: np.ndarray, plain: bool = False):
-    """K3's forward at the training shape (B = 16, 256², C = 65): random
-    rows and the scene's flow integrated by K7 with the training batch's
-    counts (its plain version when ``plain``: the same values)."""
-    import torch
-
-    from slrsfs_tpu_torch.ops import euler as E
-
-    B = TRAIN_B
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    inp = torch.randn((B, H, W, TRAIN_C), generator=gen, device=dev)
-    idx = make_train_batch(np.random.default_rng(SEED), B, W)["index"]
-    tf_b, tp_b = (torch.from_numpy(a).to(dev) for a in phased_counts(idx, TRAIN_T))
-    m = torch.from_numpy(np.repeat(scene_flow[None], B, axis=0)).to(dev)
-    phased = E.euler_integrate_phased_plain if plain else E.euler_integrate_phased
-    return inp, phased(m, tf_b, tp_b, TRAIN_T)[1]
-
-
 def k3_in(tree: str) -> int:
     """``python3 chip_smoke.py --k3-in TREE``: on the package of another
-    unpacked tree of this repository, K3's forward at the dense render's
-    shape (1, 256, 256, 65) and at the training shape (16, 256, 256, 65),
-    each held against its plain version and timed (``k3_fwd_times``: as
-    called, on the card alone, the host's cost, the per-launch split,
-    ``index_add_``, the bound and the window misses), and the dense
-    baseline float32 render of the scene (median of 5), to compare commits
-    on one card (slrsfs_tpu_torch/tools/compare.sh)."""
+    unpacked tree of this repository, the stage-1 training step's kernels
+    and the metric they move, to compare commits on one card
+    (slrsfs_tpu_torch/tools/compare.sh):
+
+    * K3's forward at the dense render's shape (1, 256, 256, 65) and at the
+      training shape (16, 256, 256, 65), each held against its plain
+      version and timed (``k3_fwd_times``: as called, on the card alone,
+      the host's cost, the per-launch split, ``index_add_``, the bound and
+      the window misses);
+    * K3's backward on phase 9's two flows, held and timed likewise
+      (``k3_bwd_times``);
+    * K7 dense and compact on phase 8's timing inputs (``k7_times``);
+    * the dense baseline float32 render of the scene (median of 5) and the
+      stage-1 training step (median of 3)."""
     import torch
 
     dev = use_tree(tree)
@@ -1183,17 +1190,27 @@ def k3_in(tree: str) -> int:
 
     img_u8, flow_np = synthetic_scene(SEED)
     flow = torch.from_numpy(flow_np).to(dev)
+    inp, g, flows = k3_bwd_inputs(dev, flow_np, plain=True)
     shapes = {"dense render": k3_dense_inputs(dev, flow),
-              "training": k3_train_inputs(dev, flow_np, plain=True)}
-    for name, (inp, disp) in shapes.items():
-        label = f"k3 forward, {name} {tuple(inp.shape)}"
-        err, n_cancel, _ = k3_check(label, inp, disp)
+              "training": (inp, flows["scene flow (K7)"])}
+    for name, (x, disp) in shapes.items():
+        label = f"k3 forward, {name} {tuple(x.shape)}"
+        err, n_cancel, _ = k3_check(label, x, disp)
         print(f"{label}: max abs {err:.3g} vs plain (atol/rtol 1e-5, empty cells "
               f"match; {n_cancel} elements of reached cells exactly 0 on one side)")
-        k3_fwd_times(dev, label, inp, disp, reps=50 if inp.shape[0] == 1 else 20,
-                     plain_reps=10 if inp.shape[0] == 1 else 3)
+        k3_fwd_times(dev, label, x, disp, reps=50 if x.shape[0] == 1 else 20,
+                     plain_reps=10 if x.shape[0] == 1 else 3)
     del shapes
-    # the end-to-end metric K3's forward moves: the dense render
+    for name, f in flows.items():
+        label = f"k3 backward, training {tuple(inp.shape)} {name}"
+        eb = k3_bwd_check(label, inp, f, g)
+        print(f"{label}: max abs grad_inp {eb[0]:.3g}, grad_flow {eb[1]:.3g} vs plain "
+              f"(limit 1e-5 of each output's max)")
+        k3_bwd_times(dev, label, inp, f, g, plain_reps=0)
+    del inp, g, flows
+    k7_times(dev, "k7", *k7_timing_inputs(dev, flow_np), plain_reps=0)
+    # the end-to-end metrics: the dense render (K3's forward) and the
+    # training step (K3 both ways, K7)
     img = (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
     img_t = torch.from_numpy(img[None]).to(dev)
     r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED,
@@ -1208,6 +1225,12 @@ def k3_in(tree: str) -> int:
     med = sorted(ts)[len(ts) // 2]
     print(f"k3 dense baseline float32 render: median {med * 1e3:.1f} ms = "
           f"{N_FRAMES / med:.2f} frames/s (runs {[round(x * 1e3, 1) for x in ts]} ms)")
+    del r
+    torch.cuda.empty_cache()
+    step, runs, stages = train_step_median(dev)
+    print(f"k3 training step (B={TRAIN_B}, {W}^2, T={TRAIN_T}, dense K7): median "
+          f"{step:.1f} ms (runs {[round(x, 1) for x in runs]} ms); stages "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()))
     return 0
 
 
@@ -1243,15 +1266,75 @@ def phased_counts(idx: np.ndarray, T: int):
     return t_f, t_p
 
 
+def k7_timing_inputs(dev, scene_flow: np.ndarray):
+    """K7 at the training shape: the scene's motion for each of the B
+    samples with a moving pixel at (0, 0), its moving sets
+    (``attach_moving_sets``, every moving pixel a row, padded rows at
+    (0, 0)) and the training batch's counts. Returns (motion, positions,
+    valid, t_f, t_p) on ``dev``."""
+    import torch
+
+    from slrsfs_tpu_torch.cli.train import attach_moving_sets
+
+    scene = np.repeat(scene_flow[None], TRAIN_B, axis=0).copy()
+    scene[:, 0, 0] = [0.5, 0.5]
+    sets = attach_moving_sets({"motions": scene}, max_frac=1.0)
+    idx = make_train_batch(np.random.default_rng(SEED), TRAIN_B, W)["index"]
+    tf_b, tp_b = (torch.from_numpy(a).to(dev) for a in phased_counts(idx, TRAIN_T))
+    return (torch.from_numpy(scene).to(dev), torch.from_numpy(sets["mov_pos"]).to(dev),
+            torch.from_numpy(sets["mov_valid"]).to(dev), tf_b, tp_b)
+
+
+def k7_times(dev, label, m, pos, val, tf_b, tp_b, plain_reps: int = 3) -> dict:
+    """K7 dense and compact on ``k7_timing_inputs``: as called, on the card
+    alone and the host's cost per call, each call's work on the card split
+    by ``launch_split`` (the compact grids' zeroing and the kernel), the
+    plain version (``plain_reps`` > 0) and the bound; printed after
+    ``label``."""
+    from slrsfs_tpu_torch.ops.euler import (
+        euler_integrate_phased,
+        euler_integrate_phased_compact,
+        euler_integrate_phased_plain,
+    )
+
+    B, H_, W_, _ = m.shape
+    T = TRAIN_T
+    dense = lambda: euler_integrate_phased(m, tf_b, tp_b, T)  # noqa: E731
+    compact = lambda: euler_integrate_phased_compact(m, pos, val, tf_b, tp_b, T)  # noqa: E731
+    t = kernel_times(dense, reps=20)
+    split = launch_split(dense)
+    t_c = kernel_times(compact, reps=20)
+    split_c = launch_split(compact)
+    plain_ms = (cuda_time(lambda: euler_integrate_phased_plain(m, tf_b, tp_b, T),
+                          reps=plain_reps, warmup=1) if plain_reps else None)
+    # per trajectory and step ~20 lane-instructions (round x2, clamp x4,
+    # index, gather, sign, add x2, 4 compares, pin, subtract x2, 2
+    # latches), at the lane-instruction rate; the steps each sample's
+    # counts ask for; bytes: motion and counts in, both displacement
+    # fields out
+    tf_np, tp_np = tf_b.cpu().numpy(), tp_b.cpu().numpy()
+    steps = int(np.where(tp_np > 0, tf_np + tp_np, tf_np).sum())
+    bnd = bound(B * H_ * W_ * 8 + B * 8 + 2 * B * H_ * W_ * 8, steps * H_ * W_ * 20,
+                peak=LANE_OPS)
+    P = pos.shape[1]
+    plain = "" if plain_ms is None else f"; plain {plain_ms:.2f} ms"
+    print(f"{label} K7 dense: {fmt_times(t)}{plain}; bound {bnd[0]:.4f} ms by "
+          f"{bnd[1]}; per call on the card (torch.profiler): {fmt_split(split)}")
+    print(f"{label} K7 compact P={P}: {fmt_times(t_c)}; per call on the card "
+          f"(torch.profiler): {fmt_split(split_c)}")
+    return {"t": t, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd, "split": split,
+            "t_compact": t_c, "ms_compact": t_c["ms"], "split_compact": split_c}
+
+
 def k7_phase(dev, scene_flow: np.ndarray):
     """K7 against its plain versions, bit for bit, dense and compact, at
     the training shape: the scene's motion (static top half, a moving pixel
     at (0, 0)) and random motion that leaves the grid, with t_p = 0,
-    t_f = 0, t_f + t_p = T and random counts."""
+    t_f = 0, t_f + t_p = T and random counts; then timed on the scene's
+    motion with the training batch's counts (``k7_times``)."""
     import torch
 
     from slrsfs_tpu_torch import kernels
-    from slrsfs_tpu_torch.cli.train import attach_moving_sets
     from slrsfs_tpu_torch.ops.euler import (
         euler_integrate_phased,
         euler_integrate_phased_compact,
@@ -1261,19 +1344,17 @@ def k7_phase(dev, scene_flow: np.ndarray):
 
     B, T = TRAIN_B, TRAIN_T
     rng = np.random.default_rng(SEED + 7)
-    scene = np.repeat(scene_flow[None], B, axis=0).copy()
-    scene[:, 0, 0] = [0.5, 0.5]
+    m, pos, val, tf_b, tp_b = k7_timing_inputs(dev, scene_flow)
     t_f = rng.integers(0, T + 1, size=B).astype(np.int32)
     t_p = (rng.integers(0, T + 1, size=B) % (T - t_f + 1)).astype(np.int32)
     t_f[:3], t_p[:3] = [T, 0, 30], [0, T, 30]  # t_p = 0, t_f = 0, sum = T
     tf_d, tp_d = torch.from_numpy(t_f).to(dev), torch.from_numpy(t_p).to(dev)
     err = 0.0
-    for label, m_np in (("scene", scene),
-                        ("random", rng.standard_normal(scene.shape)
-                         .astype(np.float32) * 2.0)):
-        m = torch.from_numpy(m_np).to(dev)
-        got = euler_integrate_phased(m, tf_d, tp_d, T)
-        want = euler_integrate_phased_plain(m, tf_d, tp_d, T)
+    for label, m_l in (("scene", m),
+                       ("random", torch.from_numpy(rng.standard_normal(tuple(m.shape))
+                                                   .astype(np.float32) * 2.0).to(dev))):
+        got = euler_integrate_phased(m_l, tf_d, tp_d, T)
+        want = euler_integrate_phased_plain(m_l, tf_d, tp_d, T)
         torch.cuda.synchronize()
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               f"K7 dense {label}: kernel differs from plain")
@@ -1281,10 +1362,6 @@ def k7_phase(dev, scene_flow: np.ndarray):
         n_oob = int((want[1][..., 0] == max(H, W) + 1).sum())
         print(f"phase 8 K7 dense {label}: B={B} {H}x{W} T={T} bit-exact; "
               f"{n_oob} backward trajectories left the grid")
-    sets = attach_moving_sets({"motions": scene}, max_frac=1.0)
-    pos = torch.from_numpy(sets["mov_pos"]).to(dev)
-    val = torch.from_numpy(sets["mov_valid"]).to(dev)
-    m = torch.from_numpy(scene).to(dev)
     got = euler_integrate_phased_compact(m, pos, val, tf_d, tp_d, T)
     want = euler_integrate_phased_compact_plain(m, pos, val, tf_d, tp_d, T)
     dense = euler_integrate_phased_plain(m, tf_d, tp_d, T)
@@ -1299,36 +1376,21 @@ def k7_phase(dev, scene_flow: np.ndarray):
     n_pad = int((val == 0).sum())
     print(f"phase 8 K7 compact: P={P} ({n_pad} padded rows at (0, 0)) "
           f"bit-exact and equal to the dense form")
-    # timing inputs: the training batch's counts on the scene's motion
-    idx = make_train_batch(np.random.default_rng(SEED), B, W)["index"]
-    tf_b, tp_b = (torch.from_numpy(a).to(dev) for a in phased_counts(idx, T))
-    t = kernel_times(lambda: euler_integrate_phased(m, tf_b, tp_b, T), reps=20)
-    plain_ms = cuda_time(lambda: euler_integrate_phased_plain(m, tf_b, tp_b, T),
-                         reps=3, warmup=1)
-    t_c = kernel_times(lambda: euler_integrate_phased_compact(m, pos, val, tf_b,
-                                                              tp_b, T), reps=20)
-    # per trajectory and step ~20 operations (round x2, clamp x4, index,
-    # gather, sign, add x2, 4 compares, pin, subtract x2, 2 latches); the
-    # loop runs to the last latching step; bytes: motion and counts in, both
-    # displacement fields out
-    steps = int(np.where(tp_b.cpu().numpy() > 0,
-                         (tf_b + tp_b).cpu().numpy(), tf_b.cpu().numpy()).sum())
-    bnd = bound(B * H * W * 8 + B * 8 + 2 * B * H * W * 8, steps * H * W * 20)
-    print(f"phase 8 K7: dense {fmt_times(t)}; plain {plain_ms:.2f} ms; bound "
-          f"{bnd[0]:.4f} ms by {bnd[1]}; compact P={P} {fmt_times(t_c)}")
+    res = k7_times(dev, "phase 8", m, pos, val, tf_b, tp_b)
     kernels.reset_counts()
-    return {"err": err, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd,
-            "ms_compact": t_c["ms"]}
+    res["err"] = err
+    return res
 
 
-def k3_phase(dev, scene_flow: np.ndarray):
-    """K3's forward and backward against their plain versions at the
-    training shape (B = 16, 256², C = 65): random inputs with a random flow,
-    and with the scene's flow integrated by K7 (sentinels included)."""
+def k3_bwd_inputs(dev, scene_flow: np.ndarray, plain: bool = False):
+    """K3 at the training shape (B = 16, 256², C = 65): random rows inp and
+    cotangent g, and two flows: a random one (3 pixels a step) and the
+    scene's flow integrated by K7 with the training batch's counts,
+    sentinels included (by K7's plain version when ``plain``: the same
+    values). Returns (inp, g, {label: flow})."""
     import torch
 
-    from slrsfs_tpu_torch.ops.euler import euler_integrate_phased
-    from slrsfs_tpu_torch.ops.splat import softsplat_sum_bwd_kernel, softsplat_sum_grad_plain
+    from slrsfs_tpu_torch.ops import euler as E
 
     B, C = TRAIN_B, TRAIN_C
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1337,23 +1399,67 @@ def k3_phase(dev, scene_flow: np.ndarray):
     idx = make_train_batch(np.random.default_rng(SEED), B, W)["index"]
     tf_b, tp_b = (torch.from_numpy(a).to(dev) for a in phased_counts(idx, TRAIN_T))
     m = torch.from_numpy(np.repeat(scene_flow[None], B, axis=0)).to(dev)
-    flows = {"random flow": torch.randn((B, H, W, 2), generator=gen,
-                                        device=dev) * 3.0,
-             "scene flow (K7)": euler_integrate_phased(m, tf_b, tp_b,
-                                                       TRAIN_T)[1]}
+    phased = E.euler_integrate_phased_plain if plain else E.euler_integrate_phased
+    return inp, g, {"random flow": torch.randn((B, H, W, 2), generator=gen,
+                                               device=dev) * 3.0,
+                    "scene flow (K7)": phased(m, tf_b, tp_b, TRAIN_T)[1]}
+
+
+def k3_bwd_check(label, inp, flow, g) -> list:
+    """K3's backward against its plain version, each output within 1e-5 of
+    its largest magnitude: [max abs grad_inp, max abs grad_flow]."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.splat import softsplat_sum_bwd_kernel, softsplat_sum_grad_plain
+
+    gi, gf = softsplat_sum_bwd_kernel(inp, flow, g)
+    wi, wf = softsplat_sum_grad_plain(inp, flow, g)
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, b in (("grad_inp", gi, wi), ("grad_flow", gf, wf)):
+        scale = b.abs().max().item()
+        d = (a - b).abs().max().item()
+        check(d <= 1e-5 * scale, f"{label} {name}: max abs {d} vs 1e-5 x {scale}")
+        errs.append(d)
+    return errs
+
+
+def k3_bwd_times(dev, label, inp, flow, g, reps: int = 20, plain_reps: int = 3) -> dict:
+    """K3's backward on ``k3_bwd_inputs``: as called, on the card alone and
+    the host's cost per call, the card's work per call split by
+    ``launch_split``, the plain version (``plain_reps`` > 0), the bound and
+    the window misses; printed after ``label``."""
+    from slrsfs_tpu_torch.ops.splat import softsplat_sum_bwd_kernel, softsplat_sum_grad_plain
+
+    B, H_, W_, C = inp.shape
+    fn = lambda: softsplat_sum_bwd_kernel(inp, flow, g)  # noqa: E731
+    t = kernel_times(fn, reps=reps)
+    split = launch_split(fn)
+    plain_ms = (cuda_time(lambda: softsplat_sum_grad_plain(inp, flow, g),
+                          reps=plain_reps, warmup=1) if plain_reps else None)
+    n = B * H_ * W_
+    # inp, flow and g in, grad_inp and grad_flow out; per channel and
+    # corner 2 multiply-adds (g·w, inp·g)
+    bnd = bound(n * C * 4 * 3 + n * 8 * 2, n * (16 * C + 40))
+    misses = window_misses("dense bwd", flow, C)
+    plain = "" if plain_ms is None else f"; plain {plain_ms:.2f} ms"
+    print(f"{label}: {fmt_times(t)}{plain}; bound {bnd[0]:.4f} ms by {bnd[1]}")
+    print(f"{label} per call on the card (torch.profiler): {fmt_split(split)}; {misses}")
+    return {"t": t, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd, "split": split,
+            "misses": misses}
+
+
+def k3_phase(dev, scene_flow: np.ndarray):
+    """K3's forward and backward against their plain versions at the
+    training shape (B = 16, 256², C = 65): random inputs with a random flow,
+    and with the scene's flow integrated by K7 (sentinels included); both
+    directions timed on the scene flow, the backward on both flows."""
+    inp, g, flows = k3_bwd_inputs(dev, scene_flow)
+    B, _, _, C = inp.shape
     res = {"fwd_err": 0.0, "bwd_err": 0.0}
     for label, flow in flows.items():
         e, n_cancel, n_empty = k3_check(f"K3 forward {label}", inp, flow)
-        gi, gf = softsplat_sum_bwd_kernel(inp, flow, g)
-        wi, wf = softsplat_sum_grad_plain(inp, flow, g)
-        torch.cuda.synchronize()
-        eb = []
-        for name, a, b in (("grad_inp", gi, wi), ("grad_flow", gf, wf)):
-            scale = b.abs().max().item()
-            d = (a - b).abs().max().item()
-            check(d <= 1e-5 * scale, f"K3 backward {label} {name}: max abs "
-                  f"{d} vs 1e-5 x {scale}")
-            eb.append(d)
+        eb = k3_bwd_check(f"K3 backward {label}", inp, flow, g)
         res["fwd_err"] = max(res["fwd_err"], e)
         res["bwd_err"] = max(res["bwd_err"], *eb)
         print(f"phase 9 K3 {label}: forward max abs {e:.3g} (atol/rtol 1e-5), "
@@ -1366,17 +1472,31 @@ def k3_phase(dev, scene_flow: np.ndarray):
                        reps=20, plain_reps=3)
     res.update(ms_fwd=fwd["ms"], plain_fwd=fwd["plain_ms"], lib_fwd=fwd["lib_ms"],
                bound_fwd=fwd["bound"])
-    t_bwd = kernel_times(lambda: softsplat_sum_bwd_kernel(inp, flow, g), reps=20)
-    res["ms_bwd"] = t_bwd["ms"]
-    res["plain_bwd"] = cuda_time(lambda: softsplat_sum_grad_plain(inp, flow, g),
-                                 reps=3, warmup=1)
-    n = B * H * W
-    # backward: inp, flow and g in, grad_inp and grad_flow out; per channel
-    # and corner 2 multiply-adds (g·w, inp·g)
-    res["bound_bwd"] = bound(n * C * 4 * 3 + n * 8 * 2, n * (16 * C + 40))
-    print(f"phase 9 K3 backward: {fmt_times(t_bwd)}; plain {res['plain_bwd']:.2f} ms; "
-          f"bound {res['bound_bwd'][0]:.4f} ms by {res['bound_bwd'][1]}")
+    bwd = {label: k3_bwd_times(dev, f"phase 9 K3 backward ({B}, {H}, {W}, {C}) {label}",
+                               inp, f, g, plain_reps=3 if label == "scene flow (K7)" else 0)
+           for label, f in flows.items()}
+    scene = bwd["scene flow (K7)"]
+    res.update(ms_bwd=scene["ms"], plain_bwd=scene["plain_ms"], bound_bwd=scene["bound"],
+               ms_bwd_random=bwd["random flow"]["ms"])
     return res
+
+
+def train_step_median(dev):
+    """The stage-1 G+D step at full width (``Options()`` defaults, batch
+    16, 256², T = 60, dense K7), one warm-up and 3 timed steps: (median ms,
+    the runs, mean CUDA-event stage ms)."""
+    import torch
+
+    from slrsfs_tpu_torch.cli.train import build, to_device_batch
+    from slrsfs_tpu_torch.config import Options
+
+    opt = Options(W=W, batch_size=TRAIN_B)
+    _, tr = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED)
+    batch = to_device_batch(make_train_batch(np.random.default_rng(SEED), TRAIN_B, W), dev)
+    tr.train_step(batch)  # warm-up
+    torch.cuda.synchronize()
+    host, stages, _ = _step_times(tr, batch, 3)
+    return float(np.median(host)), host, stages
 
 
 def _step_times(tr, batch, n_steps: int):

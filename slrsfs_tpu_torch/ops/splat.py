@@ -167,7 +167,9 @@ def softsplat_sum_fwd_kernel(inp: Tensor, flow: Tensor) -> Tensor:
 def softsplat_sum_bwd_kernel(inp: Tensor, flow: Tensor, g: Tensor
                              ) -> Tuple[Tensor, Tensor]:
     """K3 backward on the card: ``softsplat_sum_grad_plain(inp, flow, g)``
-    by a gather, one warp per source pixel."""
+    by a gather, a warp per 4 x 8 tile of source pixels with the tile's inp
+    rows and its g rows (a window, or row by row) staged in shared memory
+    (``csrc/splat_dense.cu``)."""
     B, H, W, C = inp.shape
     if tuple(g.shape) != tuple(inp.shape):
         raise ValueError(f"g must be {tuple(inp.shape)}, got {tuple(g.shape)}")
@@ -452,13 +454,11 @@ def rows_window_misses(positions: Tensor, valid: Optional[Tensor], disps,
     return n_in, n_miss
 
 
-def dense_window_misses(flow: Tensor, tile: Tuple[int, int], cap: int
-                        ) -> Tuple[int, int]:
-    """(corners in the grid, corners outside their window) of K3's forward
-    on flow (B, H, W, 2): each sample cut into ``tile`` (rows, columns)
-    tiles, ragged at the edges; ``tile`` and ``cap`` as the kernel's library
-    reports them (``splat_dense_tile_rows``, ``splat_dense_tile_cols``,
-    ``splat_dense_window_cells``)."""
+def _dense_windows(flow: Tensor, tile: Tuple[int, int], cap: int
+                   ) -> Tuple[Tensor, Tensor]:
+    """``place_windows`` over the tiles of flow (B, H, W, 2): each sample
+    cut into ``tile`` (rows, columns) tiles, ragged at the edges. Returns
+    (in-grid, in-window), each (tiles, 4 · rows · columns) bool."""
     B, H, W, _ = flow.shape
     ty, tx = tile
     Hp, Wp = -(-H // ty) * ty, -(-W // tx) * tx
@@ -472,8 +472,29 @@ def dense_window_misses(flow: Tensor, tile: Tuple[int, int], cap: int
         return (t.reshape(B, Hp // ty, ty, Wp // tx, tx, 4)
                 .permute(0, 1, 3, 2, 4, 5).reshape(-1, ty * tx * 4))
 
-    ins, hit = place_windows(tiles(cx), tiles(cy), tiles(live), H, W, cap)
+    return place_windows(tiles(cx), tiles(cy), tiles(live), H, W, cap)
+
+
+def dense_window_misses(flow: Tensor, tile: Tuple[int, int], cap: int
+                        ) -> Tuple[int, int]:
+    """(corners in the grid, corners outside their window) of K3's forward
+    or backward on flow (B, H, W, 2): each sample cut into ``tile`` (rows,
+    columns) tiles, ragged at the edges; ``tile`` and ``cap`` as the
+    kernel's library reports them (forward: ``splat_dense_tile_rows``,
+    ``splat_dense_tile_cols``, ``splat_dense_window_cells``; backward:
+    ``splat_dense_bwd_tile_rows``, ``splat_dense_bwd_tile_cols``,
+    ``splat_dense_bwd_window_cells(C)``)."""
+    ins, hit = _dense_windows(flow, tile, cap)
     return int(ins.sum()), int((ins & ~hit).sum())
+
+
+def dense_window_units(flow: Tensor, tile: Tuple[int, int], cap: int
+                       ) -> Tuple[int, int]:
+    """(tiles, tiles with a corner in the grid outside their window) on the
+    tiling of ``dense_window_misses``: K3's backward stages such a tile's
+    corner rows one by one instead of its window."""
+    ins, hit = _dense_windows(flow, tile, cap)
+    return ins.shape[0], int((ins & ~hit).any(1).sum())
 
 
 SPLAT_DTYPES = (torch.float32, torch.bfloat16)

@@ -19,11 +19,14 @@
 #          index_add_, and the f32 window scatter's misses; K8; and the
 #          float32, bfloat16 and bfloat16-fast renders of both models
 #          (median of 5);
-# k3       this checkout's chip_smoke.py --k3-in TREE: K3's forward of each
-#          tree's package at (1, 256, 256, 65) and (16, 256, 256, 65),
-#          timed the same ways and split into the output's zeroing and the
-#          scatter, beside index_add_, with the window misses; and the
-#          dense baseline float32 render (median of 5).
+# k3       this checkout's chip_smoke.py --k3-in TREE: the stage-1
+#          training step's kernels of each tree's package: K3's forward at
+#          (1, 256, 256, 65) and (16, 256, 256, 65), timed the same ways
+#          and split into the output's zeroing and the scatter, beside
+#          index_add_, with the window misses; K3's backward on the random
+#          and the scene flow, and K7 dense and compact, each with its
+#          split; the dense baseline float32 render (median of 5) and the
+#          training step (median of 3).
 #
 # Prints the card's name and power limit, then each tree's bench lines
 # (JSON lines left out) prefixed with the tree. Exits 1 if a bench failed.

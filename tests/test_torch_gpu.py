@@ -836,3 +836,138 @@ def test_window_geometry_fits_the_card():
     assert 1 <= run <= 32 and 1 <= ty * tx <= 32
     assert kernels.SPLAT.query("splat_rows_window_cells") >= 2 * (run + 1)
     assert kernels.SPLAT_DENSE_FWD.query("splat_dense_window_cells") >= (ty + 1) * (tx + 1)
+
+
+def _k3_bwd_case(dev, C: int, case: str):
+    """K3's backward inputs on a ragged grid (37 x 45: neither a multiple of
+    the 4 x 8 tile, and odd rows start at every phase of 16 bytes).
+    "smooth": smooth flow with integer landings, a block of OOB sentinels
+    and corners pushed off the grid on every side (B = 2); "far": flow of
+    up to 40 pixels, most corners outside their tile's window (B = 1);
+    "offset": the smooth case with inp and g starting 8 bytes past a
+    16-byte boundary (B = 3)."""
+    rng = np.random.default_rng(400 + C + 17 * len(case))
+    B = {"smooth": 2, "far": 1, "offset": 3}[case]
+    Hc, Wc = 37, 45
+    if case == "far":
+        flow = rng.uniform(-40.0, 40.0, (B, Hc, Wc, 2))
+    else:
+        yy, xx = np.mgrid[0:Hc, 0:Wc].astype(np.float64)
+        flow = np.stack([2.5 * np.sin(yy / 6.0), 1.5 * np.cos(xx / 8.0)], -1)[None] \
+            + rng.normal(0, 0.3, (B, Hc, Wc, 2))
+        flow[:, ::5] = np.round(flow[:, ::5])  # integer landings
+        flow[:, :, :3, 0] -= 4.0  # off the grid: left,
+        flow[:, :, -3:, 0] += 4.0  # right,
+        flow[:, :3, :, 1] -= 4.0  # top
+        flow[:, -3:, :, 1] += 4.0  # and bottom
+        flow[-1, 10:16, 8:20] = max(Hc, Wc) + 1  # the OOB sentinel
+    shape = (B, Hc, Wc, C)
+
+    def rows(seed):
+        x = torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)
+                             .astype(np.float32)).to(dev)
+        if case != "offset":
+            return x
+        buf = torch.empty(x.numel() + 4, device=dev)
+        start = (4 - buf.data_ptr() // 4 % 4 + 2) % 4  # 8 bytes past 16
+        view = buf[start:start + x.numel()].view(shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 == 8
+        return view
+
+    return rows(1), torch.from_numpy(flow.astype(np.float32)).to(dev), rows(2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["smooth", "far", "offset"])
+@pytest.mark.parametrize("C", [1, 3, 64, 65, 67, 130])
+def test_k3_backward_matches_plain_on_card(C, case):
+    """K3's staged backward against its plain version, each output within
+    1e-5 of its largest magnitude, grad_inp bit for bit (the same adds in
+    the same order)."""
+    dev = _card()
+    inp, flow, g = _k3_bwd_case(dev, C, case)
+    kernels.reset_counts()
+    gi, gf = port_splat.softsplat_sum_bwd_kernel(inp, flow, g)
+    assert {k: v for k, v in kernels.counts().items() if v} == {
+        kernels.SPLAT_DENSE_BWD.name: 1}
+    wi, wf = softsplat_sum_grad_plain(inp, flow, g)
+    torch.cuda.synchronize()
+    for got, want in ((gi, wi), (gf, wf)):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    assert torch.equal(gi, wi)
+
+
+@pytest.mark.gpu
+def test_k3_backward_geometry_fits_the_card():
+    """The backward's tile is one pixel a lane and, at the training width
+    C = 65, its window holds a tile's corners under smooth flow; the host's
+    per-tile miss count runs on that geometry."""
+    _card()
+    lib = kernels.SPLAT_DENSE_BWD
+    ty, tx = lib.query("splat_dense_bwd_tile_rows"), lib.query("splat_dense_bwd_tile_cols")
+    assert ty * tx == 32
+    assert lib.query("splat_dense_bwd_window_cells", 65) >= (ty + 1) * (tx + 1)
+    assert lib.query("splat_dense_bwd_window_cells", 4096) == 0
+    flow = torch.zeros((1, 16, 16, 2))
+    assert port_splat.dense_window_units(flow, (ty, tx), 45) == (8, 0)
+
+
+def _k7_case(dev, case: str):
+    """K7's inputs on a 37 x 45 grid (1665 pixels, not a multiple of the
+    kernel's 4 trajectories a thread), T = 14: "counts": t_f = 0, t_p = 0,
+    t_f + t_p = T and t_f + t_p < T; "leaving": fast motion that leaves
+    the frame early in each phase. A third of each sample is static and the
+    pixel at (0, 0) moves."""
+    T, Hc, Wc = 14, 37, 45
+    rng = np.random.default_rng(500 + len(case))
+    scale = 1.3 if case == "counts" else 6.0
+    m = (rng.standard_normal((5, Hc, Wc, 2)) * scale).astype(np.float32)
+    m[:, Hc - 4:, :, 1] += 4.0
+    m[:, 1: Hc // 3] = 0.0
+    m[:, 0, 0] = [0.5, 1.5]
+    t_f = np.array([0, 9, 6, 3, 14], np.int32)
+    t_p = np.array([14, 0, 8, 4, 0], np.int32)
+    if case == "leaving":
+        t_f, t_p = np.array([14, 0, 7, 2, 5], np.int32), np.array([0, 14, 7, 9, 3], np.int32)
+    return (torch.from_numpy(m).to(dev), torch.from_numpy(t_f).to(dev),
+            torch.from_numpy(t_p).to(dev), T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["counts", "leaving"])
+def test_k7_forms_match_plain_on_card(case):
+    """K7 bit for bit against its plain versions, dense and compact, and
+    compact equal to dense: counts that leave a phase out or stop short of
+    T, trajectories that leave the frame in each phase (the kernel's early
+    exit), a pixel count and a P that are not multiples of 4, padded rows
+    at (0, 0) beside a moving pixel there."""
+    dev = _card()
+    motion, t_f, t_p, T = _k7_case(dev, case)
+    kernels.reset_counts()
+    kf, kp = euler_integrate_phased(motion, t_f, t_p, T)
+    pf, pp = euler_integrate_phased_plain(motion, t_f, t_p, T)
+    torch.cuda.synchronize()
+    assert torch.equal(kf, pf) and torch.equal(kp, pp)
+    oob = max(motion.shape[1:3]) + 1
+    assert (pf == oob).any() and (pp == oob).any()  # left in each phase
+    B = motion.shape[0]
+    P = 1237  # not a multiple of 4; every sample has padded rows
+    pos = np.zeros((B, P, 2), np.int32)
+    val = np.zeros((B, P), np.float32)
+    m_np = motion.cpu().numpy()
+    for b in range(B):
+        ys, xs = np.nonzero(np.any(m_np[b] != 0, -1))
+        assert 0 < len(xs) < P
+        pos[b, :len(xs)] = np.stack([xs, ys], -1)
+        val[b, :len(xs)] = 1.0
+    args = (motion, torch.from_numpy(pos).to(dev), torch.from_numpy(val).to(dev),
+            t_f, t_p, T)
+    cf, cp = euler_integrate_phased_compact(*args)
+    qf, qp = euler_integrate_phased_compact_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.counts()[kernels.EULER_PHASED.name] == 2
+    assert torch.equal(cf, qf) and torch.equal(cp, qp)
+    assert torch.equal(cf, pf) and torch.equal(cp, pp)  # compact == dense
+    assert (cf[:, 0, 0] != 0).any()  # the moving pixel at (0, 0)

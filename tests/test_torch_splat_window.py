@@ -3,7 +3,9 @@
 K2, K8 and K3's forward place a window of cells over each unit's corners
 (csrc/splat_window.cuh): the corners that meet in one window cell are
 summed in registers and reduced into the cell once, and each corner
-outside the window is reduced into its cell alone. ``ops/splat.py:place_windows`` repeats the kernel's
+outside the window is reduced into its cell alone. K3's backward stages
+the g rows of such a window (csrc/splat_dense.cu) and takes a tile with a
+corner outside it pixel by pixel. ``ops/splat.py:place_windows`` repeats the kernel's
 window rule in integers so that the share of those misses is counted on
 the host; here it is held against a literal transcription of
 ``place_window`` over each unit, at ragged shapes, for both tilings. The
@@ -74,6 +76,32 @@ def test_dense_window_misses_follow_the_kernels_rule(spread, cap):
                 n_in, n_miss = n_in + i, n_miss + m
     assert got == (n_in, n_miss)
     assert n_in > 0
+
+
+@pytest.mark.parametrize("cap", [0, 9, 62])
+@pytest.mark.parametrize("spread", [0.8, 6.0])
+def test_dense_window_units_follow_the_kernels_rule(spread, cap):
+    """K3's backward takes a 4 x 8 tile lanes over pixels when its window
+    holds every in-grid corner of the tile, else pixel by pixel: the host
+    counts the tiles of the second kind as a literal loop over the tiles
+    does, on a ragged grid with sentinels and all-sentinel tiles."""
+    H, W, ty, tx = 14, 21, 4, 8
+    rng = np.random.default_rng(int(10 * spread) + cap)
+    flow = rng.uniform(-spread, spread, (3, H, W, 2)).astype(np.float32)
+    flow[2, :8, :16] = max(H, W) + 1  # four tiles with no corner in the grid
+    flow[1, ::3] = np.round(flow[1, ::3])
+    got = port_splat.dense_window_units(torch.from_numpy(flow), (ty, tx), cap)
+    units = missing = 0
+    for b in range(3):
+        for y0 in range(0, H, ty):
+            for x0 in range(0, W, tx):
+                pts = [c for y in range(y0, min(y0 + ty, H)) for x in range(x0, min(x0 + tx, W))
+                       for c in _corners(x, y, *flow[b, y, x], H, W)]
+                units += 1
+                missing += _unit_misses(pts, cap)[1] > 0
+    assert got == (units, missing)
+    if cap == 0:  # no window: every tile with a corner in the grid
+        assert missing == units - 4
 
 
 @pytest.mark.parametrize("cap", [0, 5, 94])

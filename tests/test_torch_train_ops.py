@@ -3,7 +3,9 @@
 * K7's plain versions against ``euler_integrate_phased`` and
   ``euler_integrate_phased_compact`` (vmapped as ``train_integrate`` does):
   bit for bit, on t_p = 0, t_f = 0, t_f + t_p = T, trajectories leaving the
-  grid, padded rows and a moving pixel at (0, 0).
+  grid, padded rows and a moving pixel at (0, 0); and a host mirror of the
+  CUDA kernel's control flow (split loops, early exit, stored compact rows)
+  bit for bit against the JAX scan, with the moving sets' contract.
 * K3: ``softsplat_sum`` (the ``torch.autograd.Function``, plain on the CPU)
   and its VJP against ``jax.vjp`` of the JAX ``softsplat_sum``: forward at
   1e-5 with the same exact zeros, ``grad_inp`` and ``grad_flow`` at 1e-5 of
@@ -85,6 +87,113 @@ def test_k7_compact_plain_matches_jax_and_dense():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         np.testing.assert_array_equal(g.numpy(), d.numpy())
     assert (got[0][:, 0, 0].numpy() != 0).any()  # the pixel at (0, 0)
+
+
+def _k7_mirror(m, t_f, t_p, n_steps, pos=None, val=None):
+    """K7's control flow (``csrc/euler_phased.cu``) in plain torch: the
+    scan split at t_f into a forward loop of +M and a backward loop of -M
+    from the source, each run only when it latches, each trajectory
+    leaving its phase at its first invalid step and the loop ending when
+    every trajectory has left; compact rows with valid != 0 store
+    0 + out · valid on a zero grid, padded rows are skipped."""
+    m = torch.from_numpy(m)
+    B, Hm, Wm, _ = m.shape
+    oob = float(max(Hm, Wm) + 1)
+    outs = [torch.zeros((B, Hm * Wm, 2)), torch.zeros((B, Hm * Wm, 2))]
+    for b in range(B):
+        mb = m[b].reshape(-1, 2)
+        if pos is None:
+            ys, xs = torch.meshgrid(torch.arange(Hm), torch.arange(Wm), indexing="ij")
+            src = torch.stack([xs, ys], -1).reshape(-1, 2).float()
+        else:
+            src = torch.from_numpy(pos[b]).float()
+        tf, tp = int(t_f[b]), int(t_p[b])
+        k0 = max(tf, 0)
+        phases = [(1.0, tf, 1 <= tf <= n_steps),
+                  (-1.0, tf + tp - k0, tp > 0 and 1 <= tf + tp <= n_steps)]
+        for out, (sign, steps, latches) in zip(outs, phases):
+            if not latches:
+                continue
+            dest = src.clone()
+            alive = torch.ones(src.shape[0], dtype=torch.bool)
+            for _ in range(steps):
+                if not alive.any():
+                    break
+                ix = torch.round(dest[alive, 0]).long().clamp(0, Wm - 1)
+                iy = torch.round(dest[alive, 1]).long().clamp(0, Hm - 1)
+                g = mb[iy * Wm + ix]
+                d = dest[alive] + (-g if sign < 0 else g)
+                dest[alive] = d
+                still = ~((d[:, 0] > Wm - 1) | (d[:, 0] < 0) | (d[:, 1] > Hm - 1) | (d[:, 1] < 0))
+                alive[alive.clone()] = still
+            disp = torch.where(alive[:, None], dest - src, torch.tensor(oob))
+            if pos is None:
+                out[b] = disp
+            else:
+                v = torch.from_numpy(val[b])
+                keep = v != 0
+                cell = torch.from_numpy(pos[b, :, 1] * Wm + pos[b, :, 0]).long()[keep]
+                out[b, cell] = 0.0 + disp[keep] * v[keep][:, None]
+    return [o.reshape(B, Hm, Wm, 2) for o in outs]
+
+
+def _leaving_case():
+    """Four samples whose trajectories mostly leave the frame within the
+    first steps of each phase: fast motion, a third of it static."""
+    rng = np.random.default_rng(5)
+    m = (rng.standard_normal((4, H, W, 2)) * 6.0).astype(np.float32)
+    m[:, : H // 3, : W // 2] = 0.0
+    m[:, 0, 0] = [0.5, -0.5]
+    return m, np.array([T, 0, 4, 2], np.int32), np.array([0, T, 5, 3], np.int32)
+
+
+@pytest.mark.parametrize("case", ["phased", "leaving"])
+def test_k7_control_flow_matches_jax_bit_for_bit(case):
+    """The exactness argument of K7's design where tests run: leaving a
+    phase once invalid, and splitting the loop at t_f, give the JAX scan's
+    displacements bit for bit, dense and compact (padded rows at (0, 0),
+    a moving pixel there)."""
+    m, t_f, t_p = _phased_case() if case == "phased" else _leaving_case()
+    want = jax.jit(jax.vmap(lambda mm, a, b: jax_phased(mm, a, b, T)))(m, t_f, t_p)
+    got = _k7_mirror(m, t_f, t_p, T)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    pos, val = _moving_sets(m, 512)
+    assert (val == 0).any() and (m[:, 0, 0] != 0).all()
+    for g, w in zip(_k7_mirror(m, t_f, t_p, T, pos, val), want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if case == "leaving":  # most trajectories leave in each phase
+        oob = max(H, W) + 1
+        moving = np.any(m != 0, -1)
+        for out, b in ((want[0], 0), (want[1], 1)):
+            left = np.asarray(out)[b][..., 0][moving[b]] == oob
+            assert left.mean() > 0.5
+
+
+def test_moving_sets_list_each_pixel_once():
+    """K7's compact form stores each row's result instead of adding it:
+    ``attach_moving_sets`` must give the rows with valid != 0 of a sample
+    distinct positions, with the padding at (0, 0) and valid 0, also with
+    ``eps`` and a sticky ``state`` whose P exceeds the sample's need."""
+    from slrsfs_tpu_torch.cli.train import attach_moving_sets
+
+    rng = np.random.default_rng(9)
+    m = (rng.standard_normal((3, 16, 16, 2)) * 0.4).astype(np.float32)
+    m[:, :10] = 0.0
+    m[1, 12:] = 0.0
+    m[2, 0, 0] = [0.3, 0.1]
+    state = {"P": 2048}
+    for kw in ({}, {"eps": 0.2}, {"state": state}):
+        sets = attach_moving_sets({"motions": m}, max_frac=0.9, **kw)
+        pos, val = sets["mov_pos"], sets["mov_valid"]
+        for b in range(m.shape[0]):
+            on = val[b] != 0
+            cells = pos[b, on, 1] * 16 + pos[b, on, 0]
+            assert len(np.unique(cells)) == on.sum()
+            moving = np.any(np.asarray(sets["motions"])[b] != 0, -1)
+            assert on.sum() == moving.sum()
+            assert (pos[b, ~on] == 0).all() and set(np.unique(val[b])) <= {0.0, 1.0}
+        assert (val == 0).any()
 
 
 def test_k7_wrappers_check_inputs():
