@@ -1285,6 +1285,42 @@ def k7_timing_inputs(dev, scene_flow: np.ndarray):
             torch.from_numpy(sets["mov_valid"]).to(dev), tf_b, tp_b)
 
 
+def k7_gathers(m, tf_b, tp_b, T: int, pos=None, val=None) -> int:
+    """The gathers K7's loops run on these inputs (csrc/euler_phased.cu):
+    for each trajectory (the grid's pixels, or the rows of ``pos`` whose
+    ``val`` is not 0) whose source has motion and each phase that latches,
+    its steps up to and including the first that leaves the frame."""
+    import torch
+
+    B, H_, W_, _ = m.shape
+    total = torch.zeros((), dtype=torch.int64, device=m.device)
+    ys, xs = torch.meshgrid(torch.arange(H_, device=m.device),
+                            torch.arange(W_, device=m.device), indexing="ij")
+    grid = torch.stack([xs, ys], -1).reshape(-1, 2).to(m.dtype)
+    for b in range(B):
+        mb = m[b].reshape(-1, 2)
+        src = grid if pos is None else pos[b][val[b] != 0].to(m.dtype)
+        tf, tp = int(tf_b[b]), int(tp_b[b])
+        for sign, steps, latches in ((1.0, tf, 1 <= tf <= T),
+                                     (-1.0, tf + tp - max(tf, 0), tp > 0 and 1 <= tf + tp <= T)):
+            if not latches:
+                continue
+            d = src.clone()
+            at = src.long()
+            moving = (mb[at[:, 1] * W_ + at[:, 0]] != 0).any(1)
+            for _ in range(steps):
+                total += moving.sum()
+                ix = torch.round(d[:, 0]).long().clamp(0, W_ - 1)
+                iy = torch.round(d[:, 1]).long().clamp(0, H_ - 1)
+                g = mb[iy * W_ + ix] * sign
+                nd = d + g
+                inside = ~((nd[:, 0] > W_ - 1) | (nd[:, 0] < 0) | (nd[:, 1] > H_ - 1)
+                           | (nd[:, 1] < 0))
+                d = torch.where(moving[:, None], nd, d)
+                moving = moving & inside
+    return int(total)
+
+
 def k7_times(dev, label, m, pos, val, tf_b, tp_b, plain_reps: int = 3) -> dict:
     """K7 dense and compact on ``k7_timing_inputs``: as called, on the card
     alone and the host's cost per call, each call's work on the card split
@@ -1309,19 +1345,19 @@ def k7_times(dev, label, m, pos, val, tf_b, tp_b, plain_reps: int = 3) -> dict:
                           reps=plain_reps, warmup=1) if plain_reps else None)
     # per trajectory and step ~20 lane-instructions (round x2, clamp x4,
     # index, gather, sign, add x2, 4 compares, pin, subtract x2, 2
-    # latches), at the lane-instruction rate; the steps each sample's
-    # counts ask for; bytes: motion and counts in, both displacement
+    # latches), at the lane-instruction rate, for the steps these inputs
+    # need (k7_gathers); bytes: motion and counts in, both displacement
     # fields out
-    tf_np, tp_np = tf_b.cpu().numpy(), tp_b.cpu().numpy()
-    steps = int(np.where(tp_np > 0, tf_np + tp_np, tf_np).sum())
-    bnd = bound(B * H_ * W_ * 8 + B * 8 + 2 * B * H_ * W_ * 8, steps * H_ * W_ * 20,
-                peak=LANE_OPS)
+    steps = k7_gathers(m, tf_b, tp_b, T)
+    bnd = bound(B * H_ * W_ * 8 + B * 8 + 2 * B * H_ * W_ * 8, steps * 20, peak=LANE_OPS)
+    steps_c = k7_gathers(m, tf_b, tp_b, T, pos, val)
     P = pos.shape[1]
     plain = "" if plain_ms is None else f"; plain {plain_ms:.2f} ms"
     print(f"{label} K7 dense: {fmt_times(t)}{plain}; bound {bnd[0]:.4f} ms by "
-          f"{bnd[1]}; per call on the card (torch.profiler): {fmt_split(split)}")
-    print(f"{label} K7 compact P={P}: {fmt_times(t_c)}; per call on the card "
-          f"(torch.profiler): {fmt_split(split_c)}")
+          f"{bnd[1]} ({steps} gathers of {B * H_ * W_ * T} at most); per call on "
+          f"the card (torch.profiler): {fmt_split(split)}")
+    print(f"{label} K7 compact P={P}: {fmt_times(t_c)} ({steps_c} gathers); per call "
+          f"on the card (torch.profiler): {fmt_split(split_c)}")
     return {"t": t, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd, "split": split,
             "t_compact": t_c, "ms_compact": t_c["ms"], "split_compact": split_c}
 

@@ -151,7 +151,7 @@ extern "C" int splat_dense_window_cells(void) { return splat_window::kMapCells; 
 // fill them; a wide C shrinks the window, to none, and the rounds.
 constexpr int kBwdTileY = 4;
 constexpr int kBwdTileX = 8;
-constexpr int kBwdWarps = 2;
+constexpr int kBwdWarps = 1;
 constexpr int kBwdMaxCells = 64;
 constexpr int kBwdWarpFloats = 6912;
 // The floats a window row may add beyond its data when padded: its phase

@@ -93,9 +93,11 @@ def _k7_mirror(m, t_f, t_p, n_steps, pos=None, val=None):
     """K7's control flow (``csrc/euler_phased.cu``) in plain torch: the
     scan split at t_f into a forward loop of +M and a backward loop of -M
     from the source, each run only when it latches, each trajectory
-    leaving its phase at its first invalid step and the loop ending when
-    every trajectory has left; compact rows with valid != 0 store
-    0 + out · valid on a zero grid, padded rows are skipped."""
+    leaving its phase at its first step that leaves the frame (a source on
+    zero motion not gathering at all), and the loop ending when every
+    trajectory has left;
+    compact rows with valid != 0 store 0 + out · valid on a zero grid,
+    padded rows are skipped."""
     m = torch.from_numpy(m)
     B, Hm, Wm, _ = m.shape
     oob = float(max(Hm, Wm) + 1)
@@ -115,18 +117,24 @@ def _k7_mirror(m, t_f, t_p, n_steps, pos=None, val=None):
             if not latches:
                 continue
             dest = src.clone()
-            alive = torch.ones(src.shape[0], dtype=torch.bool)
+            at = src.long()  # a source at rest on zero motion never moves
+            alive = (mb[at[:, 1] * Wm + at[:, 0]] != 0).any(1)  # still gathering
+            valid = torch.ones(src.shape[0], dtype=torch.bool)
             for _ in range(steps):
                 if not alive.any():
                     break
                 ix = torch.round(dest[alive, 0]).long().clamp(0, Wm - 1)
                 iy = torch.round(dest[alive, 1]).long().clamp(0, Hm - 1)
                 g = mb[iy * Wm + ix]
-                d = dest[alive] + (-g if sign < 0 else g)
+                g = -g if sign < 0 else g
+                d = dest[alive] + g
                 dest[alive] = d
-                still = ~((d[:, 0] > Wm - 1) | (d[:, 0] < 0) | (d[:, 1] > Hm - 1) | (d[:, 1] < 0))
-                alive[alive.clone()] = still
-            disp = torch.where(alive[:, None], dest - src, torch.tensor(oob))
+                inside = ~((d[:, 0] > Wm - 1) | (d[:, 0] < 0) | (d[:, 1] > Hm - 1) | (d[:, 1] < 0))
+                gone = alive.clone()
+                gone[alive] = ~inside
+                valid &= ~gone
+                alive[alive.clone()] = inside
+            disp = torch.where(valid[:, None], dest - src, torch.tensor(oob))
             if pos is None:
                 out[b] = disp
             else:
@@ -150,9 +158,9 @@ def _leaving_case():
 @pytest.mark.parametrize("case", ["phased", "leaving"])
 def test_k7_control_flow_matches_jax_bit_for_bit(case):
     """The exactness argument of K7's design where tests run: leaving a
-    phase once invalid, and splitting the loop at t_f, give the JAX scan's
-    displacements bit for bit, dense and compact (padded rows at (0, 0),
-    a moving pixel there)."""
+    phase once invalid, not integrating a source on zero motion, and
+    splitting the loop at t_f, give the JAX scan's displacements bit for bit, dense and compact
+    (padded rows at (0, 0), a moving pixel there)."""
     m, t_f, t_p = _phased_case() if case == "phased" else _leaving_case()
     want = jax.jit(jax.vmap(lambda mm, a, b: jax_phased(mm, a, b, T)))(m, t_f, t_p)
     got = _k7_mirror(m, t_f, t_p, T)
