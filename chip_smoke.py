@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --maxwarp-in TREE   # K5 and K6 of another tree
     python3 chip_smoke.py --k2-in TREE        # K2 and K8 of another tree
-    python3 chip_smoke.py --k3-in TREE        # K3's forward of another tree
+    python3 chip_smoke.py --k3-in TREE        # K3 and K7 of another tree
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the main paths'
@@ -50,7 +50,8 @@ Then the stage-1 training path (Options() defaults at full width, batch 16,
 W = 256, T = 60, float32; a smaller batch only if 16 does not fit, said so):
 K7 (phased Euler integration, dense and compact) bit for bit and K3 (the
 dense splat's scatter forward and gather backward) at 1e-5 against their
-plain versions; one warm-up and 3 timed G+D steps of Trainer.train_step on
+plain versions, each timed with its split and bound (K3's backward on a
+random and the scene flow); one warm-up and 3 timed G+D steps of Trainer.train_step on
 a synthetic batch, dense and with 50 % moving rows (compact K7), with their
 launch counts, CUDA-event stage times and peak memory; a kernel-path step
 against a plain-path step from one snapshot; and the train CLI for 2 steps
@@ -82,9 +83,11 @@ serves; with --k2-in TREE, K2 and K2-SLR in f32 and bf16 accumulation
 scatter and epilogue, and the f32 window scatter's misses), K8 and the
 float32, bfloat16 and bfloat16-fast renders of both models; with --k3-in
 TREE, K3's forward at the dense render's and the training shape (split
-into the output's zeroing and the scatter, with the window misses) and the
-dense float32 render (slrsfs_tpu_torch/tools/compare.sh runs any of them
-on several trees in turns).
+into the output's zeroing and the scatter, with the window misses), K3's
+backward on the training shape's random and scene flows, K7 dense and
+compact (each with its split), the dense float32 render and the stage-1
+training step (slrsfs_tpu_torch/tools/compare.sh runs any of them on
+several trees in turns).
 """
 
 from __future__ import annotations

@@ -206,17 +206,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // motion (B, H, W, 2) f32; t_fwd, t_bwd (B,) int32 with t_fwd + t_bwd <=
-// n_steps. Dense (positions == NULL, R = H * W): writes out_f, out_p
-// (B, H, W, 2).
-// Compact (positions (B, R, 2) int32 [x, y], valid (B, R) f32, the rows
-// with valid != 0 of a sample at distinct positions): stores
-// 0 + out * valid into out_f, out_p, which the caller zeroes.
+// n_steps; H, W below 2^22. Dense (positions == NULL, R = H * W): writes
+// out_f, out_p (B, H, W, 2). Compact (positions (B, R, 2) int32 [x, y],
+// valid (B, R) f32, the rows with valid != 0 of a sample at distinct
+// positions): stores 0 + out * valid into out_f, out_p, which the caller
+// zeroes.
 extern "C" int euler_phased(const void* motion, const void* positions,
                             const void* valid, const void* t_fwd,
                             const void* t_bwd, void* out_f, void* out_p,
                             int B, int R, int H, int W, int n_steps,
                             void* stream) {
-  if (H >= (1 << 22) || W >= (1 << 22)) return (int)cudaErrorInvalidValue;  // round_even
+  if (H >= (1 << 22) || W >= (1 << 22)) return (int)cudaErrorInvalidValue;
   const int Q = (R + kPerThread - 1) / kPerThread;
   const long long threads = (long long)B * Q;
   const long long blocks = (threads + kThreads - 1) / kThreads;

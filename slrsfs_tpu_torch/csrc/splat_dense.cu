@@ -145,13 +145,13 @@ extern "C" int splat_dense_window_cells(void) { return splat_window::kMapCells; 
 
 // ---- backward -----------------------------------------------------------
 
-// The backward's tile (one pixel a lane), warps a block, the most cells a
-// window holds, and the floats of shared memory a warp aims at: its staged
-// inp rows and its pool (the window's g rows, or a round's corner rows)
-// fill them; a wide C shrinks the window, to none, and the rounds.
+// The backward's tile (one pixel a lane; a block is one warp), the most
+// cells a window holds, and the floats of shared memory a warp aims at: its
+// staged inp rows and its pool (the window's g rows, or a round's corner
+// rows) fill them; a wide C shrinks the window, to none, and the rounds.
+// Eight such warps fit an SM.
 constexpr int kBwdTileY = 4;
 constexpr int kBwdTileX = 8;
-constexpr int kBwdWarps = 1;
 constexpr int kBwdMaxCells = 64;
 constexpr int kBwdWarpFloats = 6912;
 // The floats a window row may add beyond its data when padded: its phase
@@ -226,24 +226,14 @@ struct Pieces {
 };
 
 // Copies src[0, n) into dst[ph, ph + n), ph = src's phase (its float offset
-// modulo 16 bytes), dst 16-byte aligned; the lanes share the pieces.
-__device__ __forceinline__ void stage_run(float* dst, const float* src, int n, int lane) {
+// modulo 16 bytes), dst 16-byte aligned: the pieces first, first + step,
+// ... (the lanes of a warp share a run with (lane, 32); a lane copies a
+// row of its own with (0, 1)).
+__device__ __forceinline__ void stage_run(float* dst, const float* src, int n, int first,
+                                          int step) {
   const int ph = phase_of(src);
   const Pieces pc(ph, n);
-  for (int i = lane; i < pc.count; i += 32) {
-    const int j = pc.at(i);
-    if (pc.quad(i))
-      copy16_async(dst + ph + j, src + j);
-    else
-      splat_window::copy4_async(dst + ph + j, src + j);
-  }
-}
-
-// The same for one lane alone (a corner row of its own).
-__device__ __forceinline__ void stage_row(float* dst, const float* src, int n) {
-  const int ph = phase_of(src);
-  const Pieces pc(ph, n);
-  for (int i = 0; i < pc.count; ++i) {
+  for (int i = first; i < pc.count; i += step) {
     const int j = pc.at(i);
     if (pc.quad(i))
       copy16_async(dst + ph + j, src + j);
@@ -315,19 +305,16 @@ struct BwdArgs {
   const float* g;
   float* grad_inp;
   float2* grad_flow;
-  int B, H, W, C, tiles_y, tiles_x, cap, round_pixels, warp_floats;
+  int B, H, W, C, tiles_y, tiles_x, cap, round_pixels;
 };
 
-__global__ void __launch_bounds__(kBwdWarps * 32) splat_dense_bwd_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) float bwd_smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(32) splat_dense_bwd_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float buf[];  // the tile's rows, then g rows
+  const int lane = threadIdx.x;
   const int per_sample = a.tiles_y * a.tiles_x;
-  const long long unit = (long long)blockIdx.x * kBwdWarps + warp;
-  if (unit >= (long long)a.B * per_sample) return;  // whole warps
+  const long long unit = blockIdx.x;
   const int H = a.H, W = a.W, C = a.C;
-  float* buf = bwd_smem + (size_t)warp * a.warp_floats;  // the tile's rows
-  float* pool = buf + bwd_tile_floats(C);                 // g rows
+  float* pool = buf + bwd_tile_floats(C);
   const int b = (int)(unit / per_sample);
   const int tile = (int)(unit - (long long)b * per_sample);
   const int y0 = (tile / a.tiles_x) * kBwdTileY;
@@ -342,7 +329,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32) splat_dense_bwd_kernel(BwdArgs
 
   // the tile's inp rows into shared memory
   for (int r = 0; r < ny; ++r)
-    stage_run(buf + r * tstride, a.inp + (sample + (size_t)(y0 + r) * W + x0) * C, nx * C, lane);
+    stage_run(buf + r * tstride, a.inp + (sample + (size_t)(y0 + r) * W + x0) * C, nx * C, lane,
+              32);
 
   // taps, operation for operation as _corners and _corner_weight_grads
   float w[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dwdx[4] = {0.0f, 0.0f, 0.0f, 0.0f},
@@ -417,7 +405,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32) splat_dense_bwd_kernel(BwdArgs
     const int wstride = wd.rows <= kPaddedRows ? run_stride(wd.lw * C) : (wd.lw * C + 6) & ~3;
     const float* g_win = g_b + ((size_t)wd.oy * W + wd.ox) * C;  // the window's origin
     for (int r = 0; r < wd.rows; ++r)
-      stage_run(pool + r * wstride, g_win + (size_t)r * W * C, wd.lw * C, lane);
+      stage_run(pool + r * wstride, g_win + (size_t)r * W * C, wd.lw * C, lane, 32);
     asm volatile("cp.async.wait_all;" ::: "memory");
     __syncwarp();
     if (live) {
@@ -450,7 +438,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32) splat_dense_bwd_kernel(BwdArgs
 #pragma unroll
         for (int j = 0; j < 4; ++j) cl[j] = __shfl_sync(0xffffffffu, cell[j], r * P + idx % P);
         const int c = k == 0 ? cl[0] : k == 1 ? cl[1] : k == 2 ? cl[2] : cl[3];
-        if (idx < 4 * P && c >= 0) stage_row(pool + idx * rs, g_b + (size_t)c * C, C);
+        if (idx < 4 * P && c >= 0) stage_run(pool + idx * rs, g_b + (size_t)c * C, C, 0, 1);
       }
       asm volatile("cp.async.wait_all;" ::: "memory");
       __syncwarp();
@@ -505,11 +493,11 @@ extern "C" int splat_dense_bwd(const void* inp, const void* flow,
   const int tiles_x = (W + kBwdTileX - 1) / kBwdTileX;
   const long long units = (long long)B * tiles_y * tiles_x;
   if (units == 0 || C == 0) return (int)cudaGetLastError();
-  if (H >= 32768 || W >= 32768) return (int)cudaErrorInvalidValue;
+  if (H >= 32768 || W >= 32768 || units > INT_MAX) return (int)cudaErrorInvalidValue;
   const BwdArgs args = {(const float*)inp, (const float2*)flow, (const float*)g,
                         (float*)grad_inp, (float2*)grad_flow, B, H, W, C, tiles_y, tiles_x,
-                        bwd_window_cells(C), bwd_round_pixels(C), bwd_warp_floats(C)};
-  const size_t smem = (size_t)kBwdWarps * args.warp_floats * sizeof(float);
+                        bwd_window_cells(C), bwd_round_pixels(C)};
+  const size_t smem = (size_t)bwd_warp_floats(C) * sizeof(float);
   static int dev_seen = -1, c_seen = -1;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -525,8 +513,7 @@ extern "C" int splat_dense_bwd(const void* inp, const void* flow,
     dev_seen = dev;
     c_seen = C;
   }
-  const long long blocks = (units + kBwdWarps - 1) / kBwdWarps;
-  splat_dense_bwd_kernel<<<(unsigned)blocks, kBwdWarps * 32, smem, (cudaStream_t)stream>>>(args);
+  splat_dense_bwd_kernel<<<(unsigned)units, 32, smem, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 

@@ -420,7 +420,11 @@ def euler_integrate_phased_compact(motion: Tensor, positions: Tensor,
                                    valid: Tensor, t_fwd: Tensor, t_bwd: Tensor,
                                    n_steps: int) -> Tuple[Tensor, Tensor]:
     """K7 wrapper, compact: ``euler_integrate_phased_compact_plain``'s
-    result, from the kernel on the card and the plain version on the CPU."""
+    result, from the kernel on the card and the plain version on the CPU.
+    The kernel stores each row's result instead of adding it, so the rows
+    of a sample whose ``valid`` is not 0 must have distinct positions, as
+    ``cli/train.py:attach_moving_sets`` gives them; rows with ``valid`` 0
+    are not integrated."""
     _check_phased(motion, t_fwd, t_bwd, n_steps)
     B = motion.shape[0]
     if positions.ndim != 3 or positions.shape[0] != B or positions.shape[-1] != 2 \

@@ -153,8 +153,8 @@ def _cuda_args(named: dict):
 
 
 def softsplat_sum_fwd_kernel(inp: Tensor, flow: Tensor) -> Tensor:
-    """K3 forward on the card: ``softsplat_sum_plain(inp, flow)`` by f32
-    ``atomicAdd`` of the four bilinear corners into a zeroed output."""
+    """K3 forward on the card: ``softsplat_sum_plain(inp, flow)`` by the
+    window scatter (``csrc/splat_window.cuh``) into a zeroed output."""
     B, H, W, C = inp.shape
     out = torch.zeros_like(inp)
     ptrs = _cuda_args(dict(inp=inp, flow=flow, out=out))

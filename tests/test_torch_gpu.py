@@ -6,10 +6,10 @@ no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 K1, K4, K5, K6 and K7 must match bit for bit (same arithmetic, no FMA
-contraction; max is order-free; K7's compact scatter adds one non-zero
-term per cell); K2 (both epilogues), K8 and K3's forward sum with atomics
+contraction; max is order-free; K7's compact form stores each moving
+row's result at its own cell); K2 (both epilogues), K8 and K3's forward sum with atomics
 in another order, so they are held at 1e-5 in float32, and K3's backward
-at 1e-5 of each output's maximum; in bf16 accumulation K2 and K8 round
+at 1e-5 of each output's maximum (its grad_inp bit for bit); in bf16 accumulation K2 and K8 round
 at every add in another order than their plain versions, so both are held
 against the f32 sums of the same rows, the kernel at most twice as far as
 the plain version (also at channel widths that are not multiples of the
