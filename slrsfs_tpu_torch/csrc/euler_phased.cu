@@ -13,11 +13,12 @@
 //
 // What bounds it on an H100: the SM's issue. Each trajectory runs up to
 // T = 60 dependent steps of ~20 lane-instructions (round, clamp, index,
-// gather, add, compare); at 33.5e12 lane-instructions a second that is
-// ~0.038 ms for 16 samples of 256^2. A round and a float-to-int
-// conversion issue at a quarter of that rate, so the rounding is two adds. The bytes are one float2 of motion
-// per source pixel and two float2 outputs (~25 MB at B = 16, 256^2, a
-// 7.5 us byte bound); a sample's 512 KB motion field stays in L2.
+// gather, add, compare) at 33.5e12 lane-instructions a second, fewer where
+// it leaves the frame or rests (below). A round and a float-to-int
+// conversion issue at a quarter of that rate, so the rounding is two adds.
+// The bytes are one float2 of motion per source pixel and two float2
+// outputs (~25 MB at B = 16, 256^2, a 7.5 us byte bound); a sample's
+// 512 KB motion field stays in L2.
 //
 // Design: a thread carries kPerThread neighbouring trajectories of one
 // sample (rows kPerThread * q + j), whose gathers of one step are issued
@@ -47,13 +48,14 @@
 // Outputs: dense mode stores both per pixel (coalesced float2 rows).
 // Compact mode stores 0 + out * valid at the row's source pixel of the
 // zeroed grid, for rows with valid != 0, and skips the padded rows
-// (valid 0, at (0, 0)), which are not integrated at all. This equals the plain version's scatter-add
-// (0 + the rows' addends in any order) because cli/train.py:
-// attach_moving_sets lists each moving pixel once (rows with valid != 0
-// have distinct positions: the wrapper's contract) and a padded row's
-// addend out * 0 is +-0, which leaves any cell as it is (no cell holds -0:
-// a cell is +0 or 0 + x, and 0 + -0 is +0). Motion holding NaN breaks the
-// last step (NaN * 0 is NaN); training motion is finite.
+// (valid 0, at (0, 0)), which are not integrated at all. This equals the
+// plain version's scatter-add (0 + the rows' addends in any order)
+// because cli/train.py:attach_moving_sets lists each moving pixel once
+// (rows with valid != 0 have distinct positions: the wrapper's contract)
+// and a padded row's addend out * 0 is +-0, which leaves any cell as it
+// is (no cell holds -0: a cell is +0 or 0 + x, and 0 + -0 is +0). Motion
+// holding NaN breaks the last step (NaN * 0 is NaN); training motion is
+// finite.
 //
 // The arithmetic is the scan's, operation for operation (the rounding is
 // half-to-even like jnp.round; the backward phase negates the gathered

@@ -169,7 +169,9 @@ __host__ __device__ inline int run_stride(int n) {
 // Floats of one staged corner row of C channels, at any phase.
 __host__ __device__ inline int row_stride(int C) { return (C + 6) & ~3; }
 
-__host__ __device__ inline int bwd_tile_floats(int C) { return kBwdTileY * run_stride(kBwdTileX * C); }
+__host__ __device__ inline int bwd_tile_floats(int C) {
+  return kBwdTileY * run_stride(kBwdTileX * C);
+}
 
 __host__ __device__ inline int bwd_budget(int C) { return kBwdWarpFloats - bwd_tile_floats(C); }
 

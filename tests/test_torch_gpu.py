@@ -971,3 +971,16 @@ def test_k7_forms_match_plain_on_card(case):
     assert torch.equal(cf, qf) and torch.equal(cp, qp)
     assert torch.equal(cf, pf) and torch.equal(cp, pp)  # compact == dense
     assert (cf[:, 0, 0] != 0).any()  # the moving pixel at (0, 0)
+
+
+@pytest.mark.gpu
+def test_k3_backward_refuses_rows_larger_than_shared_memory():
+    """K3's backward stages a tile's 32 inp rows in shared memory: a C
+    whose rows do not fit one block is refused before any launch."""
+    dev = _card()
+    x = torch.zeros((1, 4, 8, 4096), device=dev)
+    f = torch.zeros((1, 4, 8, 2), device=dev)
+    kernels.reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        port_splat.softsplat_sum_bwd_kernel(x, f, x)
+    assert kernels.counts()[kernels.SPLAT_DENSE_BWD.name] == 0
