@@ -92,6 +92,8 @@ several trees in turns).
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -309,6 +311,19 @@ def bound(n_bytes: float, n_ops: float, peak: float = FP32_FLOPS):
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
+@contextlib.contextmanager
+def no_gc():
+    """Python's garbage collector run first and then held off, so that a
+    collection of the process's many objects (~0.1 s) does not land inside
+    a timed render or step."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
 def render_median(r, img, flow, reps: int = 3):
     """Median seconds of ``r.frames`` over ``reps`` runs after one warm-up."""
     import torch
@@ -316,11 +331,12 @@ def render_median(r, img, flow, reps: int = 3):
     r.frames(img, flow)
     torch.cuda.synchronize()
     ts = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        r.frames(img, flow)
-        torch.cuda.synchronize()
-        ts.append(time.perf_counter() - t0)
+    with no_gc():
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            r.frames(img, flow)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
     return sorted(ts)[len(ts) // 2], ts
 
 
@@ -1546,21 +1562,22 @@ def _step_times(tr, batch, n_steps: int):
     stages = {}
     host = []
     logs = None
-    for _ in range(n_steps):
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-        events[0][1].record()
+    with no_gc():
+        for _ in range(n_steps):
+            events = [("start", torch.cuda.Event(enable_timing=True))]
+            events[0][1].record()
 
-        def mark(name):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            events.append((name, e))
+            def mark(name):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                events.append((name, e))
 
-        t0 = time.perf_counter()
-        logs = tr.train_step(batch, timer=mark)
-        torch.cuda.synchronize()
-        host.append((time.perf_counter() - t0) * 1e3)
-        for (_, a), (name, b) in zip(events, events[1:]):
-            stages.setdefault(name, []).append(a.elapsed_time(b))
+            t0 = time.perf_counter()
+            logs = tr.train_step(batch, timer=mark)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            for (_, a), (name, b) in zip(events, events[1:]):
+                stages.setdefault(name, []).append(a.elapsed_time(b))
     return host, {k: float(np.mean(v)) for k, v in stages.items()}, logs
 
 
