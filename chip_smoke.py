@@ -5,6 +5,7 @@
     python3 chip_smoke.py --maxwarp-in TREE   # K5 and K6 of another tree
     python3 chip_smoke.py --k2-in TREE        # K2 and K8 of another tree
     python3 chip_smoke.py --k3-in TREE        # K3 and K7 of another tree
+    python3 chip_smoke.py --k1-in TREE        # K1 and K4 of another tree
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the main paths'
@@ -21,6 +22,13 @@ moving, random weights from a seed) through SceneRenderer.render with:
 * both models with dtype='bfloat16-fast' (K2 accumulating in bf16), held
   against the bfloat16 renders: at most twice as far from them as the
   plain paths of the two modes are from each other.
+
+K1 is held bit for bit on the scene's flow, a quarter-pixel flow (rounding
+ties) and a leaving flow (half the trajectories leave the frame within 4
+steps); its device time and K4's dense dual form's are printed beside two
+bounds, the bytes (every entry stored once) and the latency of 60
+dependent gathers a trajectory, which slrsfs_tpu_torch/tools/chase_probe.py
+measures in this run, each with its share.
 
 The dense baseline render (K4, the dense integrator, and K3's forward) runs
 on the scene, held at 1e-4 against the sparse render, and in the
@@ -86,8 +94,11 @@ TREE, K3's forward at the dense render's and the training shape (split
 into the output's zeroing and the scatter, with the window misses), K3's
 backward on the training shape's random and scene flows, K7 dense and
 compact (each with its split), the dense float32 render and the stage-1
-training step (slrsfs_tpu_torch/tools/compare.sh runs any of them on
-several trees in turns).
+training step; with --k1-in TREE, K1 on the scene, quarter-pixel and
+leaving flows and K4's four forms on the scene, leaving and random flows
+(each held bit for bit, timed, split and set beside its bytes and latency
+bounds) and the baseline float32 render (slrsfs_tpu_torch/tools/compare.sh
+runs any of them on several trees in turns).
 """
 
 from __future__ import annotations
@@ -461,12 +472,13 @@ def read_png(path):
 # ---- K4, K8, the dense render entry, bf16-fast renders, K9 -------------
 
 
-def k4_phase(dev, flow):
+def k4_phase(dev, flow, lat: dict):
     """K4 against its plain versions, bit for bit, at 256²: the dense dual
     form with (N - 1, N) steps on the scene's flow and on a random flow that
     sends many trajectories out of the frame; the dense and compact
     single-direction forms with visibility, the last-step form and
-    n_steps = 0 on both."""
+    n_steps = 0 on both. Then the dense dual form timed on the scene beside
+    its bytes bound and its latency bound ``lat`` (``euler_latency``)."""
     import torch
 
     from slrsfs_tpu_torch.engine.rollout import prepare_scene_sparse
@@ -478,7 +490,7 @@ def k4_phase(dev, flow):
     pos = torch.from_numpy(prepare_scene_sparse(flow.cpu().numpy())[0]).to(dev)
     n_f, n_b = N_FRAMES - 1, N_FRAMES
     err = 0.0
-    for label, m in (("scene", flow), ("random", rand)):
+    for label, m in (("scene", flow), ("random", rand), ("leaving", leaving_flow(dev))):
         pairs = {"dense dual": (E.euler_integrate_all_dual(m, n_f, n_b),
                                 E.euler_integrate_all_dual_plain(m, n_f, n_b)),
                  "dense": (E.euler_integrate_all(m, N_FRAMES),
@@ -501,17 +513,103 @@ def k4_phase(dev, flow):
               f"dense and last step with visibility, compact P={pos.shape[0]}, "
               f"n_steps=0: bit-exact; {n_oob} backward trajectories and "
               f"{n_hidden} forward ones left the frame")
-    t = kernel_times(lambda: E.euler_integrate_all_dual(flow, n_f, n_b), reps=20)
     plain_ms = cuda_time(lambda: E.euler_integrate_all_dual_plain(flow, n_f, n_b),
                          reps=3, warmup=1)
-    R, steps = H * W, n_f + n_b
-    # bytes: the motion in, both displacement stacks (steps + 2 entries) out;
-    # per trajectory step ~12 operations (round x2, add x2, 4 compares,
-    # subtract x2, 2 selects)
-    bnd = bound(R * 8 + (steps + 2) * R * 8, steps * R * 12)
-    print(f"phase 2 K4 dense dual: {fmt_times(t)}; plain {plain_ms:.2f} ms; bound "
-          f"{bnd[0]:.4f} ms by {bnd[1]}")
-    return {"err": err, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd}
+    (case,) = [c for c in euler_cases(flow, pos) if c["name"] == "K4 dense dual"]
+    r = euler_times([case], lat, "phase 2")[case["label"]]
+    return {"err": err, "ms": r["ms"], "plain_ms": plain_ms, "bound": r["bound"]}
+
+
+def leaving_flow(dev):
+    """A random 256² flow of ~32 px a step in random directions, drawn from
+    a seed: half the trajectories leave the frame within 4 steps, and are
+    then pinned to their source."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 11)
+    return torch.from_numpy((rng.standard_normal((H, W, 2)) * 32.0)
+                            .astype(np.float32)).to(dev)
+
+
+def euler_cases(flow, positions, label: str = "") -> list:
+    """K1's and K4's calls at the render paths' shapes on ``flow``: K1
+    (P = positions, (N - 1, N) steps) and K4's four forms (dense dual
+    (N - 1, N), dense and last step with visibility, N; compact with
+    visibility on ``positions``, N). Each case: its label (prefixed with
+    ``label``), the call, its rows, output entries, bytes an entry, input
+    bytes, trajectory steps, and which latency bound applies (``K1`` for
+    rows at ``positions``, ``K4`` for the grid)."""
+    from slrsfs_tpu_torch.ops import euler as E
+
+    n_f, n_b, N = N_FRAMES - 1, N_FRAMES, N_FRAMES
+    P, R = positions.shape[0], H * W
+    sfx = f" {label}" if label else ""
+
+    def case(name, call, rows, entries, entry_bytes, steps, lat, compact=False):
+        return {"name": name, "label": name + sfx, "call": call, "rows": rows, "entries": entries,
+                "entry_bytes": entry_bytes, "in_bytes": R * 8 + (P * 8 if compact else 0),
+                "steps": steps, "lat": lat}
+
+    return [
+        case("K1", lambda: E.euler_compact_dual(flow, positions, n_f, n_b), P,
+             n_f + n_b + 2, 8, n_f + n_b, "K1", compact=True),
+        case("K4 dense dual", lambda: E.euler_integrate_all_dual(flow, n_f, n_b), R,
+             n_f + n_b + 2, 8, n_f + n_b, "K4"),
+        case("K4 dense", lambda: E.euler_integrate_all(flow, N), R, N + 1, 12, N, "K4"),
+        case("K4 last step", lambda: E.euler_integrate(flow, N), R, 1, 12, N, "K4"),
+        case("K4 compact", lambda: E.euler_integrate_compact(flow, positions, N), P,
+             N + 1, 12, N, "K1", compact=True),
+    ]
+
+
+def euler_latency(dll, probe, flow, positions) -> dict:
+    """K1's and K4's latency bounds from ``tools/chase_probe.py``: device ms
+    of N dependent gathers a trajectory, no stores, from K1's rows (both
+    directions, 2P threads) and from every pixel (K4's dense grid, 2HW)."""
+    import torch
+
+    cells = positions[:, 1].long() * W + positions[:, 0].long()
+    grid = torch.arange(H * W, device=flow.device)
+    return {"K1": probe.latency_bound(dll, flow, cells, N_FRAMES, device_time),
+            "K4": probe.latency_bound(dll, flow, grid, N_FRAMES, device_time)}
+
+
+def euler_times(cases, lat: dict, prefix: str) -> dict:
+    """Each case of ``euler_cases`` as called, on the card alone and the
+    host's cost per call (``kernel_times``), with the card's work per call
+    (``launch_split``), beside its bytes bound (every entry stored once;
+    ~12 operations a trajectory step) and its latency bound ``lat`` (the
+    chase probe's, None where the data ends the chains early), with the
+    share of each; printed after ``prefix``."""
+    out = {}
+    for c in cases:
+        t = kernel_times(c["call"], reps=20)
+        sp = launch_split(c["call"])
+        bnd = bound(c["in_bytes"] + c["entries"] * c["rows"] * c["entry_bytes"],
+                    c["steps"] * c["rows"] * 12)
+        lat_ms = lat.get(c["lat"])
+        latency = ("" if lat_ms is None else
+                   f", latency {lat_ms:.4f} ms ({100 * lat_ms / t['ms']:.1f} %)")
+        print(f"{prefix} {c['label']}: {fmt_times(t)}; bounds: {bnd[1]} "
+              f"{bnd[0]:.4f} ms ({100 * bnd[0] / t['ms']:.1f} %){latency}; per call "
+              f"on the card (torch.profiler): {fmt_split(sp)}")
+        out[c["label"]] = {"t": t, "ms": t["ms"], "bound": bnd, "latency": lat_ms,
+                           "split": sp}
+    return out
+
+
+def chase_probe_module():
+    """This checkout's ``slrsfs_tpu_torch/tools/chase_probe.py``, loaded by
+    its path (an older tree of ``--k1-in`` lacks it); it builds with the
+    imported package's ``kernels`` flags."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "slrsfs_tpu_torch",
+                        "tools", "chase_probe.py")
+    spec = importlib.util.spec_from_file_location("chase_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def k2_inputs(dev, rng, flow, positions, valid) -> dict:
@@ -1253,6 +1351,71 @@ def k3_in(tree: str) -> int:
     return 0
 
 
+def k1_in(tree: str) -> int:
+    """``python3 chip_smoke.py --k1-in TREE``: on the package of another
+    unpacked tree of this repository, K1 and K4 at the render paths'
+    shapes and the metric they move, to compare commits on one card
+    (slrsfs_tpu_torch/tools/compare.sh k1):
+
+    * the latency bounds (this checkout's ``tools/chase_probe.py``, built
+      in TREE/build/probe);
+    * K1 on phase 2's scene, quarter-pixel and leaving flows (P = 32768,
+      (N - 1, N) steps), each held bit for bit against its plain version
+      and timed (``euler_times``: as called, on the card alone, the host's
+      cost, the per-launch split, the bytes bound and the latency bound);
+    * K4's four forms on the scene, the leaving flow and ``k4_phase``'s
+      random flow (``euler_cases``), held and timed likewise;
+    * the baseline float32 render of the scene (median of 5)."""
+    import torch
+
+    dev = use_tree(tree)
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+    from slrsfs_tpu_torch.engine.rollout import prepare_scene_sparse
+    from slrsfs_tpu_torch.ops import euler as E
+
+    probe = chase_probe_module()
+    dll = probe.finish_build(probe.start_build())
+    img_u8, flow_np = synthetic_scene(SEED)
+    flow = torch.from_numpy(flow_np).to(dev)
+    positions = torch.from_numpy(prepare_scene_sparse(flow_np)[0]).to(dev)
+    lat = euler_latency(dll, probe, flow, positions)
+    print(f"k1 latency bounds (tools/chase_probe.py): K1's rows {lat['K1']:.4f} ms, "
+          f"K4's grid {lat['K4']:.4f} ms")
+    rand = torch.from_numpy((np.random.default_rng(SEED + 4).standard_normal((H, W, 2))
+                             * 2.0).astype(np.float32)).to(dev)
+    flows = {"scene": flow, "quarter-pixel": torch.round(flow * 4.0) / 4.0,
+             "leaving": leaving_flow(dev), "random": rand}
+    plain = {"K1": lambda m: E.euler_compact_dual_plain(m, positions, N_FRAMES - 1,
+                                                        N_FRAMES),
+             "K4 dense dual": lambda m: E.euler_integrate_all_dual_plain(
+                 m, N_FRAMES - 1, N_FRAMES),
+             "K4 dense": lambda m: E.euler_integrate_all_plain(m, N_FRAMES),
+             "K4 last step": lambda m: E.euler_integrate_plain(m, N_FRAMES),
+             "K4 compact": lambda m: E.euler_integrate_compact_plain(m, positions,
+                                                                    N_FRAMES)}
+    which = {"scene": ("K1", "K4"), "quarter-pixel": ("K1",), "leaving": ("K1", "K4"),
+             "random": ("K4",)}
+    for label, m in flows.items():
+        cases = [c for c in euler_cases(m, positions, label)
+                 if c["name"].startswith(which[label])]
+        for c in cases:
+            got = c["call"]()
+            want = plain[c["name"]](m)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{c['label']}: kernel differs from plain")
+        # the leaving flow's chains end early: no latency bound
+        euler_times(cases, {} if label == "leaving" else lat, "k1")
+    # the end-to-end metric K1 moves: the baseline f32 render
+    img = (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
+    r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED,
+                      sparsify_eps=0.0)
+    med, ts = render_median(r, img, flow_np, reps=5)
+    print(f"k1 baseline float32 render: median {med * 1e3:.1f} ms = "
+          f"{N_FRAMES / med:.2f} frames/s (runs {[round(x * 1e3, 1) for x in ts]} ms)")
+    return 0
+
+
 # ---- training: kernels K7 and K3, the G+D step, the train CLI -----------
 #
 # The shipped stage-1 training shape (tools/train_bench.py:1-6,
@@ -1796,9 +1959,12 @@ def main() -> int:
     print(f"phase 1 device: {kind}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
+    probe = chase_probe_module()  # K1's and K4's latency bound
+    probe_job = probe.start_build()
     times = kernels.build_all()
-    print(f"phase 1 build: {time.perf_counter() - t0:.1f} s wall, "
-          + ", ".join(f"{n} {s:.1f} s" for n, s in times.items()))
+    probe_dll = probe.finish_build(probe_job)
+    print(f"phase 1 build: {time.perf_counter() - t0:.1f} s wall (with "
+          f"tools/chase_probe.cu), " + ", ".join(f"{n} {s:.1f} s" for n, s in times.items()))
     for source in dict.fromkeys(k.source for k in kernels.KERNELS):
         log = next(k.build_log for k in kernels.KERNELS if k.source == source)
         for line in log.splitlines():  # ptxas: registers, spills, wgmma
@@ -1815,9 +1981,15 @@ def main() -> int:
     rng = np.random.default_rng(SEED + 1)
 
     # ---- phase 2: K1 against its plain version, bit for bit ----------
+    lat = euler_latency(probe_dll, probe, flow, positions)
+    print(f"phase 2 latency bounds (tools/chase_probe.py, {N_FRAMES} dependent "
+          f"gathers a trajectory, no stores): K1's rows {lat['K1']:.4f} ms, K4's "
+          f"grid {lat['K4']:.4f} ms")
     quarter = torch.round(flow * 4.0) / 4.0  # half-integer rounding ties
+    leaving = leaving_flow(dev)  # most trajectories leave within a few steps
     k1_err = 0.0
-    for label, m in (("scene", flow), ("quarter-pixel", quarter)):
+    k1_plain = {}
+    for label, m in (("scene", flow), ("quarter-pixel", quarter), ("leaving", leaving)):
         kf, kb = euler_compact_dual(m, positions, N_FRAMES - 1, N_FRAMES)
         pf, pb = euler_compact_dual_plain(m, positions, N_FRAMES - 1, N_FRAMES)
         torch.cuda.synchronize()
@@ -1826,14 +1998,19 @@ def main() -> int:
         k1_err = max(k1_err, (kf - pf).abs().max().item(),
                      (kb - pb).abs().max().item())
         n_oob = int((kb[-1, :, 0] > W).sum())
+        n_oob4 = int((kb[4, :, 0] > W).sum())
         print(f"phase 2 K1 {label}: P={P} steps={N_FRAMES - 1}/{N_FRAMES} "
-              f"bit-exact; {n_oob} trajectories left the frame")
-    disp_f, disp_b = pf, pb
+              f"bit-exact; {n_oob} backward trajectories left the frame ({n_oob4} "
+              f"within 4 steps)")
+        k1_plain[label] = (pf, pb)
+    del kf, kb, pf, pb
+    disp_f, disp_b = k1_plain.pop("quarter-pixel")
+    del k1_plain
     special = disp_f[T_MID].clone()  # sentinel, integer shifts, border landings
     special[0::3] = float(max(H, W) + 1)
     special[1::3] = torch.tensor([3.0, -2.0], device=dev)
     special[2::3] = torch.tensor([-0.75, -127.5], device=dev)
-    k4 = k4_phase(dev, flow)
+    k4 = k4_phase(dev, flow, lat)
 
     # ---- phase 3: K2, both epilogues, against the plain versions -----
     static = (flow.abs().sum(-1) == 0).to(torch.float32)
@@ -2170,16 +2347,16 @@ def main() -> int:
                            img, flow_np)
 
     # ---- phase 7: times, bounds, peak memory -------------------------
-    t_k1 = kernel_times(lambda: euler_compact_dual(flow, positions, N_FRAMES - 1,
-                                                   N_FRAMES), reps=20)
-    ms_k1 = t_k1["ms"]
+    k1_cases = [c for m, label in ((flow, "scene"), (leaving, "leaving"))
+                for c in euler_cases(m, positions, label) if c["name"] == "K1"]
+    k1_lat = {"K1": lat["K1"]}  # the leaving flow's chains end early: no latency bound
+    k1_t = euler_times(k1_cases[:1], k1_lat, "phase 7")
+    k1_t.update(euler_times(k1_cases[1:], {}, "phase 7"))
+    ms_k1 = k1_t["K1 scene"]["ms"]
+    k1_bound = k1_t["K1 scene"]["bound"]
     ms_k1_plain = cuda_time(lambda: euler_compact_dual_plain(
         flow, positions, N_FRAMES - 1, N_FRAMES), reps=3, warmup=1)
-    steps = (N_FRAMES - 1) + N_FRAMES
-    k1_bound = bound(H * W * 8 + P * 8 + (steps + 2) * P * 8,
-                     steps * P * 12)  # round x2, add x2, 4 compares, sub x2, 2 sel
-    print(f"phase 7 K1: {fmt_times(t_k1)}; plain {ms_k1_plain:.3f} ms; bound "
-          f"{k1_bound[0]:.4f} ms by {k1_bound[1]}")
+    print(f"phase 7 K1 plain {ms_k1_plain:.3f} ms (as called)")
     print_maxwarp("phase 7", mw)
 
     # stage breakdown of one f32 baseline render and one f32 SLR render
@@ -2357,9 +2534,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--maxwarp-in": maxwarp_in, "--k2-in": k2_in, "--k3-in": k3_in}
+    modes = {"--maxwarp-in": maxwarp_in, "--k2-in": k2_in, "--k3-in": k3_in,
+             "--k1-in": k1_in}
     if len(sys.argv) == 3 and sys.argv[1] in modes:
         sys.exit(modes[sys.argv[1]](sys.argv[2]))
     check(len(sys.argv) == 1,
-          f"usage: {sys.argv[0]} [--maxwarp-in TREE | --k2-in TREE | --k3-in TREE]")
+          f"usage: {sys.argv[0]} [--maxwarp-in TREE | --k2-in TREE | --k3-in TREE "
+          f"| --k1-in TREE]")
     sys.exit(main())

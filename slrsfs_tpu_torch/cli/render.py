@@ -93,8 +93,16 @@ def outputs_to_u8(outs) -> dict:
     return {k: to_u8(v, image="Img" in k).cpu().numpy() for k, v in outs.items()}
 
 
+# titles of the ROADMAP §1 items that port what the render raises on
+CROP = "Crop decode"
+MOTION = "Motion regressor, render side"
+MULTI_GPU = "Multi-GPU"
+
+
 def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+    """``what`` is not ported; ``item`` is the title of the ROADMAP §1 item
+    that ports it."""
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP §1, \"{item}\"")
 
 
 class SceneRenderer:
@@ -121,13 +129,13 @@ class SceneRenderer:
         if dtype not in DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}")
         if crop_decode == "auto":
-            raise _not_ported("--crop-decode auto", "§1 item 8")
+            raise _not_ported("--crop-decode auto", CROP)
         if crop_decode != "off":
             raise ValueError(f"unknown crop_decode {crop_decode!r}")
         if motion_ckpt:
-            raise _not_ported("--motion-ckpt (motion regressor)", "§1 item 11")
+            raise _not_ported("--motion-ckpt (motion regressor)", MOTION)
         if shard_frames:
-            raise _not_ported("--shard-frames (multi-GPU)", "§1 item 14")
+            raise _not_ported("--shard-frames (multi-GPU)", MULTI_GPU)
         self.device = resolve_device(device)
 
         if ckpt:
@@ -136,7 +144,7 @@ class SceneRenderer:
         else:  # random weights (smoke/benchmark mode)
             opt = Options(W=W, bn_noise_misc=True, **(opt_overrides or {}))
         if opt.model_type not in RENDER_MODEL_TYPES:
-            raise _not_ported(f"model_type {opt.model_type!r}", "§1 item 11")
+            raise _not_ported(f"model_type {opt.model_type!r}", MOTION)
         self.opt = opt
         self.slr = opt.model_type == SLR_MODEL_TYPE
         model = (SLRModel if self.slr else BaselineModel)(opt).eval()

@@ -11,7 +11,7 @@ render CLIs load it).
         [--device cpu] ...
 
 Resume, preemption, accumulation, bf16 and the bg, SLR and motion model
-types are not ported yet (ROADMAP §1 item 12).
+types are not ported yet (ROADMAP §1, "The rest of training").
 """
 
 from __future__ import annotations
@@ -114,7 +114,7 @@ def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,
     if opt.model_type != MODEL_TYPE:
         raise NotImplementedError(
             f"model_type {opt.model_type!r} is not ported yet: the bg, SLR "
-            "and motion stages are ROADMAP §1 item 12")
+            "and motion stages are ROADMAP §1, \"The rest of training\"")
     model = BaselineTrainable(opt, train_max_steps=train_max_steps)
     init_random_weights(model, seed)
     d_model = MultiscaleDiscriminator(opt)

@@ -525,3 +525,17 @@ extern "C" int splat_dense_bwd(const void* inp, const void* flow,
 extern "C" int splat_dense_bwd_tile_rows(void) { return kBwdTileY; }
 extern "C" int splat_dense_bwd_tile_cols(void) { return kBwdTileX; }
 extern "C" int splat_dense_bwd_window_cells(int C) { return bwd_window_cells(C); }
+
+// The backward's shared memory a block for C channels, and the card's most
+// a block (the current device's opt-in limit; -1 if it cannot be read):
+// the wrapper refuses a C whose rows do not fit before it launches.
+extern "C" int splat_dense_bwd_smem_bytes(int C) {
+  return bwd_warp_floats(C) * (int)sizeof(float);
+}
+extern "C" int splat_dense_bwd_smem_most(void) {
+  int dev = 0, most = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return -1;
+  return most;
+}

@@ -100,13 +100,16 @@ class Trainer:
                  deterministic: bool = False, device="cuda"):
         if opt.num_accumulations != 1:
             raise NotImplementedError(
-                "num_accumulations > 1 is not ported yet (ROADMAP §1 item 12)")
+                "num_accumulations > 1 is not ported yet (ROADMAP §1, \"The rest "
+                "of training\")")
         if opt.train_compute_dtype != "float32":
             raise NotImplementedError(
-                "bfloat16 training is not ported yet (ROADMAP §1 item 12)")
+                "bfloat16 training is not ported yet (ROADMAP §1, \"The rest of "
+                "training\")")
         if opt.discriminator_losses == "pix2pixHDorigin":
             raise NotImplementedError(
-                "the pix2pixHDorigin discriminator is not ported yet")
+                "the pix2pixHDorigin discriminator is not ported yet (ROADMAP §1, "
+                "\"The rest of training\")")
         dev = resolve_device(device)
         self.opt = opt
         self.model = model.to(dev)

@@ -83,7 +83,7 @@ def load_checkpoint(path: str) -> Tuple[Dict, Options]:
     if opt.model_type not in RENDER_MODEL_TYPES:
         raise NotImplementedError(
             f"model_type {opt.model_type!r} is not ported yet: the motion "
-            "regressor is ROADMAP §1 item 11")
+            "regressor is ROADMAP §1, \"Motion regressor, render side\"")
     return clean_state_dict(sd), opt
 
 

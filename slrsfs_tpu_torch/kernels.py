@@ -20,8 +20,12 @@ compiled at import: this module imports on a host without CUDA.
 Every C entry point launches on the stream it is given (the wrapper passes
 ``torch.cuda.current_stream()``) and returns a CUDA error code
 (``cudaGetLastError()`` after its launches, or the cooperative launch's
-own); a non-zero code raises here. Each :class:`Kernel` counts its
-launches so that a run can show that the main path went through it.
+own); a non-zero code raises here, with the runtime's description. The
+kernels' own limits are checked by their wrappers before anything is
+allocated or launched (``check_sides``, ``check_shared_memory``), so that
+they raise a ``ValueError`` that names the limit. Each :class:`Kernel`
+counts its launches so that a run can show that the main path went
+through it.
 """
 
 from __future__ import annotations
@@ -78,6 +82,30 @@ def nvcc_path() -> str:
     if found is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
     return found
+
+
+def error_text(err: int) -> str:
+    """The CUDA runtime's description of error code ``err``."""
+    import torch
+
+    return str(torch.cuda.CudaError(err)).rsplit(" (", 1)[0]
+
+
+def check_sides(kernel: str, H: int, W: int, limit: int, why: str) -> None:
+    """Raise a ``ValueError`` naming ``kernel``'s limit unless H and W are
+    both below ``limit`` (``why``: what sets it)."""
+    if H >= limit or W >= limit:
+        raise ValueError(f"{kernel} takes H and W below {limit} ({why}); got "
+                         f"H={H}, W={W}")
+
+
+def check_shared_memory(kernel: str, need: int, most: int, what: str) -> None:
+    """Raise a ``ValueError`` naming ``kernel``'s limit when a block needs
+    ``need`` bytes of shared memory for ``what`` and the card gives at most
+    ``most``."""
+    if need > most:
+        raise ValueError(f"{kernel} stages {what} in {need} bytes of shared memory a "
+                         f"block, above the card's {most}")
 
 
 class Kernel:
@@ -150,7 +178,8 @@ class Kernel:
         self.load()
         err = self._fn(*args)
         if err != 0:
-            raise RuntimeError(f"CUDA error {err} launching {self.name}")
+            raise RuntimeError(f"CUDA error {err} ({error_text(err)}) launching "
+                               f"{self.name}")
         self.launches += 1
 
     def query(self, symbol: str, *args: int) -> int:
@@ -217,7 +246,9 @@ SPLAT_DENSE_FWD = Kernel(
 SPLAT_DENSE_BWD = Kernel(
     "splat_dense_bwd", "slrsfs_tpu_torch/csrc/splat_dense.cu",
     "splat_dense_bwd",
-    # inp, flow, g, grad_inp, grad_flow, B, H, W, C, stream
+    # inp, flow, g, grad_inp, grad_flow, B, H, W, C, stream;
+    # splat_dense_bwd_smem_bytes(C) is the block's shared memory and
+    # splat_dense_bwd_smem_most() the card's most a block
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 
 EULER_PHASED = Kernel(

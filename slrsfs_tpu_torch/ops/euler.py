@@ -158,6 +158,9 @@ def _check(motion: Tensor, positions, *steps: int) -> None:
             raise TypeError(f"positions must be int32, got {positions.dtype}")
         if motion.device != positions.device:
             raise ValueError("motion and positions are on different devices")
+        if motion.shape[0] * motion.shape[1] == 0 and positions.shape[0] \
+                and max(steps) > 0:
+            raise ValueError("an empty motion field has no cell to gather")
         named["positions"] = positions
     for name, t in named.items():
         if not t.is_contiguous():
@@ -168,6 +171,23 @@ def _check(motion: Tensor, positions, *steps: int) -> None:
         for name, t in named.items():
             if t.data_ptr() % 8:
                 raise ValueError(f"{name} must be 8-byte aligned")
+
+
+# K1, K4 and K7 round by an add of 1.5 * 2^23, exact below 2^22, and index
+# the motion field with 32-bit ints
+EULER_MAX_SIDE = 1 << 22
+
+
+def check_euler_limits(kernel: str, H: int, W: int) -> None:
+    """Raise a ``ValueError`` naming the limit when an integrator kernel
+    cannot take an (H, W) field: H or W at least ``EULER_MAX_SIDE``, or
+    H·W beyond 32-bit indices. Every card branch calls it before it
+    allocates or launches anything."""
+    kernels.check_sides(kernel, H, W, EULER_MAX_SIDE,
+                        "it rounds by an add of 1.5 * 2^23, exact below 2^22")
+    if H * W >= 1 << 31:
+        raise ValueError(f"{kernel} indexes the motion with 32-bit ints: H * W must "
+                         f"be below 2^31, got {H} * {W}")
 
 
 def _refuse_motion_grad(motion: Tensor) -> None:
@@ -192,6 +212,7 @@ def euler_compact_dual(motion: Tensor, positions: Tensor, n_fwd: int,
         return euler_compact_dual_plain(motion, positions, n_fwd, n_bwd)
     _refuse_motion_grad(motion)
     H, W, _ = motion.shape
+    check_euler_limits("K1 (euler_compact_dual)", H, W)
     P = positions.shape[0]
     disp_f = torch.empty((n_fwd + 1, P, 2), dtype=torch.float32,
                          device=motion.device)
@@ -216,6 +237,7 @@ def _launch_all(motion: Tensor, positions: Optional[Tensor], n_fwd: int,
     with E = 1 for ``last_only`` and n + 1 otherwise."""
     _refuse_motion_grad(motion)
     H, W, _ = motion.shape
+    check_euler_limits("K4 (euler_all)", H, W)
     R = H * W if positions is None else positions.shape[0]
     dev = motion.device
 
@@ -383,6 +405,7 @@ def _check_phased(motion: Tensor, t_fwd: Tensor, t_bwd: Tensor,
 def _launch_phased(motion, positions, valid, t_fwd, t_bwd, n_steps, R):
     _refuse_motion_grad(motion)
     B, H, W, _ = motion.shape
+    check_euler_limits("K7 (euler_phased)", H, W)
     named = dict(motion=motion, t_fwd=t_fwd, t_bwd=t_bwd)
     if positions is not None:
         named.update(positions=positions, valid=valid)

@@ -152,10 +152,21 @@ def _cuda_args(named: dict):
     return [t.data_ptr() for t in named.values()]
 
 
+# K3 packs a corner's (x, y) into 32 bits (csrc/splat_window.cuh)
+DENSE_MAX_SIDE = 32768
+
+
+def _check_dense_sides(kernel: str, H: int, W: int) -> None:
+    kernels.check_sides(kernel, H, W, DENSE_MAX_SIDE,
+                        "it packs a corner's (x, y) into 32 bits")
+
+
 def softsplat_sum_fwd_kernel(inp: Tensor, flow: Tensor) -> Tensor:
     """K3 forward on the card: ``softsplat_sum_plain(inp, flow)`` by the
-    window scatter (``csrc/splat_window.cuh``) into a zeroed output."""
+    window scatter (``csrc/splat_window.cuh``) into a zeroed output. H and
+    W below ``DENSE_MAX_SIDE``."""
     B, H, W, C = inp.shape
+    _check_dense_sides("K3's forward (splat_dense_fwd)", H, W)
     out = torch.zeros_like(inp)
     ptrs = _cuda_args(dict(inp=inp, flow=flow, out=out))
     with torch.cuda.device(inp.device):
@@ -169,10 +180,18 @@ def softsplat_sum_bwd_kernel(inp: Tensor, flow: Tensor, g: Tensor
     """K3 backward on the card: ``softsplat_sum_grad_plain(inp, flow, g)``
     by a gather, a warp per 4 x 8 tile of source pixels with the tile's inp
     rows and its g rows (a window, or row by row) staged in shared memory
-    (``csrc/splat_dense.cu``)."""
+    (``csrc/splat_dense.cu``). H and W below ``DENSE_MAX_SIDE``; C only
+    as large as a block's shared memory stages the tile's rows (the
+    library reports both numbers)."""
     B, H, W, C = inp.shape
     if tuple(g.shape) != tuple(inp.shape):
         raise ValueError(f"g must be {tuple(inp.shape)}, got {tuple(g.shape)}")
+    name = "K3's backward (splat_dense_bwd)"
+    _check_dense_sides(name, H, W)
+    lib = kernels.SPLAT_DENSE_BWD
+    kernels.check_shared_memory(name, lib.query("splat_dense_bwd_smem_bytes", C),
+                                lib.query("splat_dense_bwd_smem_most"),
+                                f"a tile's rows of C = {C} channels")
     grad_inp = torch.empty_like(inp)
     grad_flow = torch.empty_like(flow)
     ptrs = _cuda_args(dict(inp=inp, flow=flow, g=g, grad_inp=grad_inp,

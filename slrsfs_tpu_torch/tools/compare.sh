@@ -26,7 +26,15 @@
 #          index_add_, with the window misses; K3's backward on the random
 #          and the scene flow, and K7 dense and compact, each with its
 #          split; the dense baseline float32 render (median of 5) and the
-#          training step (median of 3).
+#          training step (median of 3);
+# k1       this checkout's chip_smoke.py --k1-in TREE: K1 of each tree's
+#          package on the scene, quarter-pixel and leaving flows, and K4's
+#          four forms on the scene, leaving and random flows, each held bit
+#          for bit against its plain version, as called, on the card alone
+#          and the host's cost per call, split by torch.profiler, beside
+#          its bytes bound and its latency bound (this checkout's
+#          tools/chase_probe.py); and the baseline float32 render (median
+#          of 5).
 #
 # Prints the card's name and power limit, then each tree's bench lines
 # (JSON lines left out) prefixed with the tree. Exits 1 if a bench failed.
@@ -34,8 +42,8 @@ set -u -o pipefail
 bench=${1:-}
 shift
 case $bench in
-  k9 | maxwarp | k2 | k3) ;;
-  *) echo "usage: $0 k9|maxwarp|k2|k3 TREE..." >&2; exit 2 ;;
+  k9 | maxwarp | k2 | k3 | k1) ;;
+  *) echo "usage: $0 k9|maxwarp|k2|k3|k1 TREE..." >&2; exit 2 ;;
 esac
 here=$(cd "$(dirname "$0")/../.." && pwd)
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -46,6 +54,7 @@ for tree in "$@" $(printf '%s\n' "$@" | tac); do
     maxwarp) python "$here/chip_smoke.py" --maxwarp-in "$tree" ;;
     k2) python "$here/chip_smoke.py" --k2-in "$tree" ;;
     k3) python "$here/chip_smoke.py" --k3-in "$tree" ;;
+    k1) python "$here/chip_smoke.py" --k1-in "$tree" ;;
   esac 2>&1 | grep -v '^{' | sed "s|^|[$tree] |" || rc=1
 done
 exit $rc

@@ -76,18 +76,40 @@ def _motion(seed, half_integer=False):
     return m.astype(np.float32)
 
 
+def _leaving(seed):
+    """Fast random motion (~13 px a step): most trajectories leave the
+    frame within a few steps and are pinned to their source; the top third
+    is static."""
+    rng = np.random.default_rng(seed)
+    m = (rng.standard_normal((H, W, 2)) * 9.0).astype(np.float32)
+    m[: H // 3] = 0.0
+    return m
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("half_integer", [False, True])
-def test_k1_matches_plain_on_card(half_integer):
+@pytest.mark.parametrize("odd", [False, True])
+@pytest.mark.parametrize("case", ["continuous", "half_integer", "leaving"])
+def test_k1_matches_plain_on_card(case, odd):
+    """K1 bit for bit: padded rows at a static (0, 0), an odd P (a thread
+    with one row; entries at 8-byte offsets on every other step), and a
+    motion that most trajectories leave within a few steps."""
     dev = _card()
-    m = _motion(0, half_integer)
-    pos, _ = prepare_scene_sparse(m, pad_multiple=64)
+    m = _leaving(0) if case == "leaving" else _motion(0, case == "half_integer")
+    pos, val = prepare_scene_sparse(m, pad_multiple=64)
+    if odd:
+        pos = pos[:-1]
     motion, positions = torch.from_numpy(m).to(dev), torch.from_numpy(pos).to(dev)
+    kernels.reset_counts()
     kf, kb = euler_compact_dual(motion, positions, 9, 10)
+    assert kernels.counts()[kernels.EULER.name] == 1
     pf, pb = euler_compact_dual_plain(motion, positions, 9, 10)
     torch.cuda.synchronize()
     assert torch.equal(kf, pf) and torch.equal(kb, pb)
-    assert (kb == max(H, W) + 1).any()
+    oob = max(H, W) + 1
+    assert (kb == oob).any()
+    if case == "leaving":  # most moving rows have left after 3 steps
+        moving = torch.from_numpy(val[:len(pos)] != 0).to(dev)
+        assert (kf[3, moving, 0] == oob).float().mean() > 0.5
 
 
 def _special(d: torch.Tensor) -> torch.Tensor:
@@ -425,14 +447,21 @@ def test_k3_gradcheck_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("half_integer", [False, True])
-def test_k4_matches_plain_on_card(half_integer):
+@pytest.mark.parametrize("odd", [False, True])
+@pytest.mark.parametrize("case", ["continuous", "half_integer", "leaving"])
+def test_k4_matches_plain_on_card(case, odd):
     """Every form of K4: dense dual, dense and last-step with visibility,
-    compact with visibility, and n_steps = 0."""
+    compact with visibility, and n_steps = 0; on a motion most trajectories
+    leave within a few steps, and with an odd row count (a 39 x 35 grid and
+    an odd P)."""
     dev = _card()
-    m = torch.from_numpy(_motion(8, half_integer)).to(dev)
-    pos = torch.from_numpy(prepare_scene_sparse(m.cpu().numpy(),
-                                                pad_multiple=64)[0]).to(dev)
+    m_np = _leaving(8) if case == "leaving" else _motion(8, case == "half_integer")
+    if odd:
+        m_np = np.ascontiguousarray(m_np[:H - 1, :W - 1])
+    m = torch.from_numpy(m_np).to(dev)
+    pos = torch.from_numpy(prepare_scene_sparse(m_np, pad_multiple=64)[0]).to(dev)
+    if odd:
+        pos = pos[:-1]
     kernels.reset_counts()
     pairs = [(port_euler.euler_integrate_all_dual(m, 9, 10),
               port_euler.euler_integrate_all_dual_plain(m, 9, 10))]
@@ -447,7 +476,7 @@ def test_k4_matches_plain_on_card(half_integer):
     torch.cuda.synchronize()
     for got, want in pairs:
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert (pairs[0][0][1] == max(H, W) + 1).any()
+    assert (pairs[0][0][1] == max(m.shape[:2]) + 1).any()
 
 
 def _splat_at_inputs(dev, dtype):
@@ -976,11 +1005,39 @@ def test_k7_forms_match_plain_on_card(case):
 @pytest.mark.gpu
 def test_k3_backward_refuses_rows_larger_than_shared_memory():
     """K3's backward stages a tile's 32 inp rows in shared memory: a C
-    whose rows do not fit one block is refused before any launch."""
+    whose rows do not fit one block is refused before any launch, with a
+    ValueError that names the limit (the library's numbers)."""
     dev = _card()
     x = torch.zeros((1, 4, 8, 4096), device=dev)
     f = torch.zeros((1, 4, 8, 2), device=dev)
+    lib = kernels.SPLAT_DENSE_BWD
+    need = lib.query("splat_dense_bwd_smem_bytes", 4096)
+    most = lib.query("splat_dense_bwd_smem_most")
+    assert 0 < lib.query("splat_dense_bwd_smem_bytes", 65) <= most < need
     kernels.reset_counts()
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(ValueError, match=f"{need} bytes of shared memory .* {most}"):
         port_splat.softsplat_sum_bwd_kernel(x, f, x)
     assert kernels.counts()[kernels.SPLAT_DENSE_BWD.name] == 0
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_inputs_beyond_their_limits_on_card():
+    """The integrators (K1, K4, K7) refuse a side of 2^22 and K3 one of
+    32768 with a ValueError that names the limit, before they allocate or
+    launch anything."""
+    dev = _card()
+    tall = torch.zeros((1 << 22, 1, 2), device=dev)
+    for name, kernel, fn in _integrator_calls(dev):
+        kernels.reset_counts()
+        with pytest.raises(ValueError, match="below 4194304"):
+            fn(tall)
+        assert sum(kernels.counts().values()) == 0, name
+    del tall
+    x = torch.zeros((1, 32768, 1, 3), device=dev)
+    f = torch.zeros((1, 32768, 1, 2), device=dev)
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match="below 32768"):
+        port_splat.softsplat_sum_fwd_kernel(x, f)
+    with pytest.raises(ValueError, match="below 32768"):
+        port_splat.softsplat_sum_bwd_kernel(x, f, x)
+    assert sum(kernels.counts().values()) == 0

@@ -1,0 +1,72 @@
+"""The port's "not ported yet" errors name the ROADMAP §1 item that ports
+the feature by its title, never by a number (numbers change as the
+roadmap is rewritten). Each branch is driven on the CPU and its message
+read."""
+
+import argparse
+import re
+
+import pytest
+import torch
+
+from slrsfs_tpu_torch import config
+from slrsfs_tpu_torch.cli import render, train
+from slrsfs_tpu_torch.io import checkpoint
+
+torch.set_num_threads(1)
+
+TITLES = ("Crop decode", "Motion regressor, render side", "The rest of training",
+          "Multi-GPU")
+
+
+def _render(**kw):
+    render.SceneRenderer(W=32, n_frames=2, device="cpu", **kw)
+
+
+def _trainer(**kw):
+    from slrsfs_tpu_torch.engine.trainer import Trainer
+
+    Trainer(config.Options(**kw), torch.nn.Identity(), device="cpu")
+
+
+def _checkpoint(tmp_path):
+    path = tmp_path / "motion.pth"
+    opts = argparse.Namespace(model_type="motion")
+    torch.save({"opts": opts, "state_dict": {}}, path)
+    checkpoint.load_checkpoint(str(path))
+
+
+BRANCHES = {
+    "render --crop-decode auto": (lambda tmp: _render(crop_decode="auto"), "Crop decode"),
+    "render --motion-ckpt": (lambda tmp: _render(motion_ckpt="m.pth"),
+                             "Motion regressor, render side"),
+    "render --shard-frames": (lambda tmp: _render(shard_frames=True), "Multi-GPU"),
+    "render model_type": (lambda tmp: _render(opt_overrides=dict(model_type="motion")),
+                          "Motion regressor, render side"),
+    "checkpoint model_type": (_checkpoint, "Motion regressor, render side"),
+    "train model_type": (lambda tmp: train.build(config.Options(model_type="motion"),
+                                                 device="cpu"),
+                         "The rest of training"),
+    "trainer num_accumulations": (lambda tmp: _trainer(num_accumulations=2),
+                                  "The rest of training"),
+    "trainer bfloat16": (lambda tmp: _trainer(train_compute_dtype="bfloat16"),
+                         "The rest of training"),
+    "trainer pix2pixHDorigin": (lambda tmp: _trainer(discriminator_losses="pix2pixHDorigin"),
+                                "The rest of training"),
+}
+
+
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_not_ported_messages_name_the_item_by_title(branch, tmp_path):
+    fn, title = BRANCHES[branch]
+    with pytest.raises(NotImplementedError) as err:
+        fn(tmp_path)
+    msg = str(err.value)
+    assert title in msg and "ROADMAP" in msg, msg
+    assert not re.search(r"item\s*\d", msg), msg
+
+
+def test_train_cli_names_the_item_by_title():
+    assert "The rest of training" in train.__doc__
+    assert not re.search(r"item\s*\d", train.__doc__)
+    assert set(TITLES) >= {t for _, t in BRANCHES.values()}

@@ -256,3 +256,40 @@ def test_k3_grad_plain_matches_autograd_of_the_forward():
         x.detach(), f.detach(), torch.from_numpy(g).double())
     np.testing.assert_allclose(gi.numpy(), x.grad.numpy(), rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(gf.numpy(), f.grad.numpy(), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_moving_sets_keep_k7_compact_contract_across_batches(masked):
+    """K7 compact's contract (rows with valid != 0 at distinct positions,
+    ``ops/euler.py:euler_integrate_phased_compact``) on batches as the
+    train CLI gives them: (flow, mask) motions of three channels or flows,
+    a sample with no moving pixel, and a sticky P that the second batch's
+    smaller sets are padded to; every moving pixel is listed, and K7's
+    compact plain version then equals its dense one."""
+    from slrsfs_tpu_torch.cli.train import attach_moving_sets
+
+    rng = np.random.default_rng(17 + masked)
+    state = {}
+    for frac in (0.4, 0.2):
+        m = (rng.standard_normal((3, 16, 16, 3 if masked else 2)) * 0.7).astype(np.float32)
+        still = rng.uniform(size=(3, 16, 16)) > frac
+        m[..., :2][still] = 0.0
+        m[1, ..., :2] = 0.0  # a sample with nothing moving
+        if masked:
+            m[..., 2] = (rng.uniform(size=(3, 16, 16)) > 0.3).astype(np.float32)
+        sets = attach_moving_sets({"motions": m}, max_frac=0.9, state=state)
+        pos, val = sets["mov_pos"], sets["mov_valid"]
+        assert pos.shape[1] == state["P"]
+        flow = m[..., :2] * m[..., 2:3] if masked else m
+        for b in range(3):
+            on = val[b] != 0
+            cells = pos[b, on, 1] * 16 + pos[b, on, 0]
+            assert len(np.unique(cells)) == on.sum() == np.any(flow[b] != 0, -1).sum()
+            assert (pos[b, ~on] == 0).all()
+        t_f = np.array([3, 0, 5], np.int32)
+        t_p = np.array([4, 6, 0], np.int32)
+        args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (flow, pos, val, t_f, t_p)]
+        compact = port_euler.euler_integrate_phased_compact(*args, 8)
+        dense = port_euler.euler_integrate_phased_plain(args[0], args[3], args[4], 8)
+        for c, d in zip(compact, dense):
+            assert torch.equal(c, d)
