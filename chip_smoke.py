@@ -65,6 +65,27 @@ launch counts, CUDA-event stage times and peak memory; a kernel-path step
 against a plain-path step from one snapshot; and the train CLI for 2 steps
 on a synthetic dataset, whose checkpoint SceneRenderer then renders.
 
+Last, the crop decode (the render's default path, crop_decode 'auto') at
+full width: Options() defaults at W = 768, N = 60, a synthetic scene whose
+rows 288-479 x columns 192-575 move (P = 73,728), planned as the JAX
+package plans it. The baseline in float32, bfloat16 and bfloat16-fast,
+crop and no-crop, each timed (median of 3); float32 crop against no-crop
+and against the crop render through the plain versions (1e-4), bf16 and
+bf16-fast crop against no-crop within twice that dtype's kernel render's
+distance from its plain render; the SLR model in float32 and float32 v2,
+crop and no-crop once each (1e-4; v2 launches K5 N + 1 times); K1 held bit
+for bit and timed on the 768^2 grid at the crop scene's moving set; K2 and
+K5 held and timed on the window grid (K5 also on the full grid with every
+row invalid). The scene sweep (cli/render_all.py, default flags) over four
+768^2 scenes, two of them sharing a window size, with PNG and mp4 saves:
+scenes/hour, the count of (P, window) shapes, and each scene's PNGs against
+a one-scene render within one u8 level. The render CLI with
+--profile-stages on the 768^2 scene: the full and crop stage times, each
+> 0, their sums (each profile's fastest pass) within 10 % of the fastest
+phase 12 render of the same kind; and one crop render
+under engine/profiler.py:profile_trace, whose trace gives the device's
+busy share of the render.
+
 Each path runs with the launch counts set to 0 just before it and read just
 after. The script times the renders and the steps with CUDA events, and
 each kernel three ways (kernel_times): as called (events around a loop of
@@ -147,18 +168,22 @@ def check_zeros(got, want, msg) -> int:
     return int(((got == 0) != (want == 0)).sum())
 
 
-def synthetic_scene(seed: int):
-    """uint8 image and a smooth flow whose bottom half of rows moves (exact
-    zeros elsewhere), both from a numpy seed."""
+def synthetic_scene(seed: int, size: int = H, rows=None, cols=None):
+    """uint8 (size, size, 3) image and a smooth flow that moves in ``rows``
+    x ``cols`` (default: the bottom half of the rows) and is exactly zero
+    elsewhere, both from a numpy seed."""
     rng = np.random.default_rng(seed)
-    coarse = rng.uniform(0, 255, (H // 16, W // 16, 3))
-    img = np.kron(coarse, np.ones((16, 16, 1))) + rng.normal(0, 8, (H, W, 3))
+    coarse = rng.uniform(0, 255, (size // 16, size // 16, 3))
+    img = np.kron(coarse, np.ones((16, 16, 1))) + rng.normal(0, 8, (size, size, 3))
     img_u8 = np.clip(img, 0, 255).astype(np.uint8)
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
     flow = np.stack([1.5 * np.sin(yy / 17.0) + 0.6 * np.cos(xx / 23.0),
                      0.8 * np.cos(xx / 29.0) + 0.3], axis=-1).astype(np.float32)
     flow += rng.normal(0, 0.05, flow.shape).astype(np.float32)
-    flow[: H // 2] = 0.0
+    keep = np.zeros((size, size), bool)
+    keep[slice(size // 2, size) if rows is None else rows,
+         slice(0, size) if cols is None else cols] = True
+    flow[~keep] = 0.0
     return img_u8, flow
 
 
@@ -353,7 +378,8 @@ def render_median(r, img, flow, reps: int = 3):
 
 def render_capture(r, *args, **kw):
     """``r.render(*args, **kw)`` and the outputs that render computed and
-    wrote: (out_dir, frames or dict of outputs)."""
+    wrote, once its background saves have finished: (out_dir, frames or
+    dict of outputs)."""
     got = {}
     frames = r.frames
 
@@ -364,6 +390,7 @@ def render_capture(r, *args, **kw):
     r.frames = spy
     try:
         out_dir = r.render(*args, **kw)
+        r.finish()
     finally:
         del r.frames
     return out_dir, got["out"]
@@ -542,7 +569,7 @@ def euler_cases(flow, positions, label: str = "") -> list:
     from slrsfs_tpu_torch.ops import euler as E
 
     n_f, n_b, N = N_FRAMES - 1, N_FRAMES, N_FRAMES
-    P, R = positions.shape[0], H * W
+    P, R = positions.shape[0], flow.shape[0] * flow.shape[1]
     sfx = f" {label}" if label else ""
 
     def case(name, call, rows, entries, entry_bytes, steps, lat, compact=False):
@@ -977,7 +1004,8 @@ def bf16_fast_phase(img_path, flow_path, scene_dir, bf16, img, flow_np):
     res = {}
     for label, overrides in (("baseline", None), ("SLR", SLR_OPTS)):
         r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="bfloat16-fast", seed=SEED,
-                          sparsify_eps=0.0, opt_overrides=overrides)
+                          sparsify_eps=0.0, crop_decode="off",
+                          opt_overrides=overrides)
         kernels.reset_counts()
         out_dir, outs = render_capture(
             r, img_path, flow_path, os.path.join(scene_dir, f"{label} bf16-fast"),
@@ -1232,7 +1260,7 @@ def maxwarp_in(tree: str) -> int:
     img_u8, flow_np = synthetic_scene(SEED)
     img = (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
     r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED,
-                      sparsify_eps=0.0,
+                      sparsify_eps=0.0, crop_decode="off",
                       opt_overrides=dict(SLR_OPTS, use_softmax_splatter_v2=True))
     med, ts = render_median(r, img, flow_np, reps=5)
     print(f"maxwarp SLR float32 v2 render: median {med * 1e3:.1f} ms = "
@@ -1274,7 +1302,8 @@ def k2_in(tree: str) -> int:
     for label, overrides in (("baseline", None), ("SLR", SLR_OPTS)):
         for dtype in ("float32", "bfloat16", "bfloat16-fast"):
             r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype=dtype, seed=SEED,
-                              sparsify_eps=0.0, opt_overrides=overrides)
+                              sparsify_eps=0.0, crop_decode="off",
+                          opt_overrides=overrides)
             med, ts = render_median(r, img, flow_np, reps=5)
             print(f"k2 {label} {dtype} render: median {med * 1e3:.1f} ms = "
                   f"{N_FRAMES / med:.2f} frames/s (runs "
@@ -1331,7 +1360,7 @@ def k3_in(tree: str) -> int:
     img = (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
     img_t = torch.from_numpy(img[None]).to(dev)
     r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED,
-                      sparsify_eps=0.0)
+                      sparsify_eps=0.0, crop_decode="off")
     ts = []
     for i in range(6):
         t0 = time.perf_counter()
@@ -1409,7 +1438,7 @@ def k1_in(tree: str) -> int:
     # the end-to-end metric K1 moves: the baseline f32 render
     img = (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
     r = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED,
-                      sparsify_eps=0.0)
+                      sparsify_eps=0.0, crop_decode="off")
     med, ts = render_median(r, img, flow_np, reps=5)
     print(f"k1 baseline float32 render: median {med * 1e3:.1f} ms = "
           f"{N_FRAMES / med:.2f} frames/s (runs {[round(x * 1e3, 1) for x in ts]} ms)")
@@ -1912,7 +1941,7 @@ def train_cli_phase(scene_dir: str, img_path: str, flow_path: str):
     for r in rows:
         check(all(np.isfinite(v) for k, v in r.items() if k != "split"),
               f"train CLI log not finite: {r}")
-    r = SceneRenderer(ckpt=ckpt, W=64, n_frames=8)
+    r = SceneRenderer(ckpt=ckpt, W=64, n_frames=8, crop_decode="off")
     out_dir, frames = render_capture(r, img_path, flow_path,
                                      os.path.join(scene_dir, "trained"),
                                      name="synthetic")
@@ -1926,6 +1955,485 @@ def train_cli_phase(scene_dir: str, img_path: str, flow_path: str):
           f"step Total Loss {steps[-1]['Total Loss']:.4f}; SceneRenderer "
           f"rendered its checkpoint: 8 PNGs, frame range "
           f"[{frames.min().item():.3f}, {frames.max().item():.3f}]")
+
+
+# ---- crop decode at full width, the scene sweep, stages and a trace ------
+
+CROP_W = 768  # the CLAW eval protocol's size
+CROP_ROWS, CROP_COLS = slice(288, 480), slice(192, 576)  # P = 73,728
+# the JAX package's prepare_crop plan for synthetic_scene(SEED, CROP_W,
+# CROP_ROWS, CROP_COLS) with Options() defaults and N = 60; the port must
+# plan the same (tests/test_torch_crop.py holds both packages to it)
+CROP_PLAN = (168, 72, 432, 624, 213, 117, 342, 534)
+# the sweep's scenes: (seed, moving rows, moving columns); a and b plan
+# windows of one size at two places, c and d one size each
+SWEEP_SCENES = {"a": (10, slice(288, 480), slice(192, 576)),
+                "b": (11, slice(320, 512), slice(160, 544)),
+                "c": (13, slice(96, 288), slice(400, 768)),
+                "d": (14, slice(480, 672), slice(64, 448))}
+
+
+def crop_scene():
+    """The crop phases' 768² scene: (uint8 image, flow, the image as the
+    renderer reads it)."""
+    img_u8, flow = synthetic_scene(SEED, CROP_W, CROP_ROWS, CROP_COLS)
+    return img_u8, flow, (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
+
+
+def crop_kernel_rows(dev, crop, flow, positions, valid, disp_f, disp_p, probe,
+                     probe_dll):
+    """The crop path's kernels at the 768² scene's shapes, each against its
+    plain version. K1 on the full 768² grid, bit for bit: the render's
+    ``prepare_crop`` displacements (``disp_f``, ``disp_p``) and the sweep's
+    moving set (bucketed at 1.25, padding rows at (0, 0)). K2 (f32) and K5
+    on the crop window's (hc, wc) grid at window coordinates, at one frame
+    (T_MID) (K2 1e-5 with the same empty cells, K5 bit for bit), with the
+    render's moving set (P = 73,728, no padding) and with the sweep's (its
+    padding rows at negative window coordinates), K5 also on the full grid
+    with every row invalid and no displacement, as the crop's static Z-norm
+    calls it. Timed at the render's shapes: K1 as ``euler_times`` times it
+    at 256² (beside its bytes bound and the chase probe's latency bound for
+    its rows), K2 and K5 as ``k2_times`` and ``maxwarp_phase`` do
+    (``kernel_times``, the plain version, one ``index_add_`` /
+    ``scatter_reduce_(amax)`` of the same corner rows, the bound)."""
+    import torch
+
+    from slrsfs_tpu_torch.engine import rollout
+    from slrsfs_tpu_torch.ops import maxwarp
+    from slrsfs_tpu_torch.ops.euler import euler_compact_dual, euler_compact_dual_plain
+    from slrsfs_tpu_torch.ops.splat import (
+        _corner_taps,
+        corners,
+        splat_dual_normalize,
+        splat_dual_normalize_plain,
+        splat_scratch,
+    )
+
+    hc, wc = crop.hc, crop.wc
+    n = N_FRAMES
+    pos_b, val_b = (torch.from_numpy(a).to(dev) for a in
+                    rollout.prepare_scene_sparse(flow.cpu().numpy(), bucket_ratio=1.25))
+    d_f, d_p = euler_compact_dual(flow, pos_b, n - 1, n)
+    k1_sets = {"render": (positions, (disp_f, disp_p)), "sweep": (pos_b, (d_f, d_p))}
+    for label, (pos, got) in k1_sets.items():
+        want = euler_compact_dual_plain(flow, pos, n - 1, n)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K1 on the {CROP_W}^2 grid, {label} set, differs from its plain version")
+    del want
+    print(f"phase 12 K1 on the {CROP_W}^2 grid: bit-exact on the render's set "
+          f"(P={positions.shape[0]}) and the sweep's (P={pos_b.shape[0]}, "
+          f"{int((val_b < 0.5).sum())} padding rows), steps {n - 1}/{n}")
+    k1_case = next(c for c in euler_cases(flow, positions, f"{CROP_W}^2 render set")
+                   if c["name"] == "K1")
+    cells = positions[:, 1].long() * flow.shape[1] + positions[:, 0].long()
+    k1 = euler_times([k1_case], {"K1": probe.latency_bound(
+        probe_dll, flow, cells, n, device_time)}, "phase 12")[k1_case["label"]]
+    k1["err"] = 0.0
+    k1["plain_ms"] = cuda_time(lambda: euler_compact_dual_plain(
+        flow, positions, n - 1, n), reps=3, warmup=1)
+    print(f"phase 12 K1 plain at the {CROP_W}^2 render set: {k1['plain_ms']:.3f} ms "
+          f"(as called)")
+    sets = {"render": (positions, valid, disp_f[T_MID], disp_p[n - T_MID]),
+            "sweep": (pos_b, val_b, d_f[T_MID], d_p[n - T_MID])}
+    shift = torch.tensor([crop.x0, crop.y0], dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(SEED + 7)
+    ez = np.exp(-rng.uniform(0, 3, (CROP_W, CROP_W, 1))).astype(np.float32)
+    u = torch.from_numpy(np.concatenate(
+        [rng.normal(0, 1, (CROP_W, CROP_W, 64)).astype(np.float32) * ez, ez],
+        -1)).to(dev)
+    C1 = u.shape[-1]
+    z_full = torch.from_numpy((np.random.default_rng(SEED + 8).standard_normal(
+        (CROP_W, CROP_W)) * 3.0).astype(np.float32)).to(dev)
+    z = rollout._crop_slice(z_full, crop).contiguous()
+    out = torch.empty((hc, wc, C1 - 1), dtype=torch.float32, device=dev)
+    acc = splat_scratch(hc, wc, C1, torch.float32, dev)
+    w = 0.5
+    checked = {}
+    for label, (pos, val, da, db) in sets.items():
+        pos_c = (pos - shift).contiguous()
+        P, n_valid = pos.shape[0], int((val > 0.5).sum())
+        check(bool((pos_c < 0).any()) == (P > n_valid),
+              f"{label} set: padding rows and negative window coordinates disagree")
+        static = rollout._static_mask(pos_c, val, hc, wc)
+        px, py = pos[:, 0].long(), pos[:, 1].long()
+        u_mov = (u[py, px] * val[:, None]).contiguous()
+        u_static = (rollout._crop_slice(u, crop) * static[..., None]).contiguous()
+        args = (u_mov, pos_c, val, da, db, w, w, u_static)
+        splat_dual_normalize(*args, out=out, acc=acc)
+        want = splat_dual_normalize_plain(*args, torch.float32)
+        z_mov = z_full[py, px].contiguous()
+        k5_args = (z, static, z_mov, pos_c, val, da)
+        kd, km = maxwarp.maximum_warp_norm_sparse(*k5_args)
+        pd, pm = maxwarp.maximum_warp_norm_sparse_plain(*k5_args)
+        full_args = (z_full, rollout._static_mask(pos, val, CROP_W, CROP_W), z_mov,
+                     pos, torch.zeros_like(val), torch.zeros_like(da))
+        fd, fm = maxwarp.maximum_warp_norm_sparse(*full_args)
+        gd, gm = maxwarp.maximum_warp_norm_sparse_plain(*full_args)
+        torch.cuda.synchronize()
+        err = (out - want).abs().max().item()
+        check(torch.allclose(out, want, rtol=1e-5, atol=1e-5),
+              f"K2 on the {hc}x{wc} window, {label} set: max abs {err}")
+        lone = check_zeros(out, want, f"K2 on the {hc}x{wc} window, {label} set")
+        check(torch.equal(kd, pd) and torch.equal(km, pm),
+              f"K5 on the {hc}x{wc} window, {label} set, differs from its plain version")
+        check(torch.equal(fd, gd) and torch.equal(fm, gm), f"K5 on the full grid, every "
+              f"row invalid, {label} set, differs from its plain version")
+        checked[label] = (P, P - n_valid, err, lone)
+        if label == "render":
+            timing = (args, k5_args, pos_c, val, da, db, u_mov, u_static, z_mov)
+        del want, kd, km, pd, pm, fd, fm, gd, gm
+    del u
+    args, k5_args, pos_c, val, da, db, u_mov, u_static, z_mov = timing
+    P, n_valid = pos_c.shape[0], int((val > 0.5).sum())
+    k2 = kernel_times(lambda: splat_dual_normalize(*args, out=out, acc=acc), reps=50)
+    k2["err"] = max(e for _, _, e, _ in checked.values())
+    k2["plain_ms"] = cuda_time(lambda: splat_dual_normalize_plain(*args, torch.float32),
+                               reps=5)
+    pcx, pcy = pos_c[:, 0].float(), pos_c[:, 1].float()
+    lins, rows = [], []
+    for d in (da, db):
+        for lin, wk in _corner_taps(pcx + d[:, 0], pcy + d[:, 1], hc, wc):
+            lins.append(lin)
+            rows.append(u_mov * w * (wk * val)[:, None])
+    lin_all, rows_all = torch.cat(lins), torch.cat(rows)
+    flat = u_static.reshape(hc * wc, C1).clone()
+    k2["lib"] = kernel_times(lambda: flat.index_add_(0, lin_all, rows_all), reps=50)
+    k2["bound"] = bound(n_valid * (C1 * 4 + 8 + 16) + P * 4 + hc * wc * C1 * 4
+                        + hc * wc * (C1 - 1) * 4,
+                        2 * n_valid * C1 * (1 + 4 * 2) + hc * wc * (C1 - 1))
+    del lins, rows, lin_all, rows_all, flat, acc
+    k5 = kernel_times(lambda: maxwarp.maximum_warp_norm_sparse(*k5_args), reps=50)
+    k5["err"] = 0.0
+    k5["plain_ms"] = cuda_time(lambda: maxwarp.maximum_warp_norm_sparse_plain(*k5_args),
+                               reps=5)
+    taps = corners(pcx + da[:, 0], pcy + da[:, 1], hc, wc)
+    lin_all = torch.cat([lin for lin, _, _ in taps])
+    val_all = torch.cat([torch.where(inside & (val > 0.5), z_mov * wk, float("-inf"))
+                         for _, wk, inside in taps])
+    mx = torch.full((hc * wc,), -1000.0, device=dev)
+    k5["lib"] = kernel_times(lambda: mx.scatter_reduce_(0, lin_all, val_all,
+                                                        reduce="amax"), reps=50)
+    k5["bound"] = bound(hc * wc * 4 * 2 + P * (4 + 8 + 4 + 8) + hc * wc * 4 + P * 4,
+                        n_valid * 20 + P * 20 + hc * wc * 9)
+    sets_note = "; ".join(f"{k} set P={p} ({pad} padding rows): K2 max abs {e:.3g} "
+                          f"({z} single elements exactly 0 on one side only), K5 "
+                          f"bit-exact on the window and on the full grid with every "
+                          f"row invalid" for k, (p, pad, e, z) in checked.items())
+    print(f"phase 12 kernels on the {hc}x{wc} window against their plain versions: "
+          f"{sets_note}")
+    for name, r in (("K2 f32", k2), ("K5", k5)):
+        print(f"phase 12 {name} at the {hc}x{wc} window (render set, P={P}): "
+              f"{fmt_times(r)}; plain {r['plain_ms']:.3f} ms; library "
+              f"{fmt_times(r['lib'])}; bound {r['bound'][0]:.4f} ms by {r['bound'][1]}")
+    return {"K1": k1, "K2": k2, "K5": k5}
+
+
+def crop_phase(dev, probe, probe_dll):
+    """The crop decode at full width: Options() defaults at W = 768, N = 60,
+    random weights from the seed, the scene of ``crop_scene`` (P = 73,728).
+    The plan must be JAX's (``CROP_PLAN``). The baseline in float32,
+    bfloat16 and bfloat16-fast through ``SceneRenderer.frames`` with
+    crop_decode 'auto' (launches counted) and 'off', each timed (median of
+    3 after a warm-up, GC held off); float32 crop against no-crop and
+    against the crop render through the plain versions (1e-4, TF32 off);
+    bf16 and bf16-fast crop against no-crop within twice that dtype's
+    no-crop kernel render's distance from its plain render. The SLR model
+    in float32 and float32 v2 crop and no-crop once each (1e-4; v2 K5 is
+    launched N + 1 times: each frame and the static Z-norm). K2 and K5 at
+    the window grid, K1 on the 768² grid (``crop_kernel_rows``, with the
+    chase probe ``probe`` built as ``probe_dll`` for K1's latency bound)."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+    from slrsfs_tpu_torch.engine import rollout
+
+    _, flow_np, img = crop_scene()
+    n = N_FRAMES
+    zero = {k.name: 0 for k in kernels.KERNELS}
+
+    def max_diff(a, b):
+        if not isinstance(a, dict):
+            a, b = {"PredImg": a}, {"PredImg": b}
+        return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+    def timed(r, mode):
+        r.crop_decode = mode
+        return render_median(r, img, flow_np)
+
+    res = {"fps": {}, "ms": {}, "fastest_ms": {}, "launches": {}}
+    for dtype in ("float32", "bfloat16", "bfloat16-fast"):
+        r = SceneRenderer(W=CROP_W, n_frames=n, dtype=dtype, seed=SEED, sparsify_eps=0.0)
+        if dtype == "float32":
+            _, flow_t, pos_t, val_t = r._tensors(img, flow_np)
+            disp, crop = rollout.prepare_crop(r.opt, False, flow_t, pos_t, val_t, n)
+            check(crop is not None and tuple(crop) == CROP_PLAN,
+                  f"crop plan {crop}, JAX plans {CROP_PLAN}")
+            res["crop"] = crop
+            res["P"] = pos_t.shape[0]
+        kernels.reset_counts()
+        got = r.frames(img, flow_np)
+        torch.cuda.synchronize()
+        launches = kernels.counts()
+        check(launches == {**zero, "euler_compact_dual": 1, "splat_dual_normalize": n},
+              f"{dtype} crop render launches: {launches}")
+        res["launches"][dtype] = launches
+        check(bool(torch.isfinite(got).all()), f"{dtype} crop render not finite")
+        r.crop_decode = "off"
+        full = r.frames(img, flow_np)
+        err = max_diff(got, full)
+        if dtype == "float32":
+            r.crop_decode = "auto"
+            plain = r.frames(img, flow_np, plain=True)
+            ref = max_diff(got, plain)
+            check(err <= 1e-4, f"float32 crop vs no-crop render max abs {err}")
+            check(ref <= 1e-4, f"float32 crop render, kernels vs plain, max abs {ref}")
+            note = (f"crop vs no-crop max abs {err:.3g}, crop kernels vs plain "
+                    f"{ref:.3g} (limits 1e-4)")
+        else:
+            ref = max_diff(full, r.frames(img, flow_np, plain=True))
+            check(err <= 2.0 * ref, f"{dtype} crop vs no-crop render max abs {err}, "
+                  f"over twice the no-crop kernel render's distance from its plain "
+                  f"render, {ref}")
+            note = (f"crop vs no-crop max abs {err:.3g} (limit twice the no-crop "
+                    f"kernel vs plain render's {ref:.3g})")
+        del got, full
+        db = {m: r.decode_batch_for(a) for m, a in
+              (("auto", crop.hc * crop.wc), ("off", CROP_W * CROP_W))}
+        for mode, label in (("auto", "crop"), ("off", "no-crop")):
+            med, ts = timed(r, mode)
+            res["ms"][f"baseline {dtype} {label}"] = med * 1e3
+            res["fastest_ms"][f"baseline {dtype} {label}"] = min(ts) * 1e3
+            res["fps"][f"baseline {dtype} {label}"] = n / med
+            print(f"phase 12 baseline {dtype} {label} render {CROP_W}^2 N={n} "
+                  f"(decode batch {db[mode]}): median {med * 1e3:.1f} ms = "
+                  f"{n / med:.2f} frames/s (runs {[round(x * 1e3, 1) for x in ts]} ms)")
+        print(f"phase 12 baseline {dtype}: {note}; crop launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        if dtype == "float32":
+            res["renderer"] = r  # for the trace
+            r.crop_decode = "auto"
+        else:
+            del r
+        torch.cuda.empty_cache()
+
+    for label, overrides in (("SLR float32", SLR_OPTS),
+                             ("SLR float32 v2", dict(SLR_OPTS,
+                                                     use_softmax_splatter_v2=True))):
+        v2 = label.endswith("v2")
+        r = SceneRenderer(W=CROP_W, n_frames=n, dtype="float32", seed=SEED,
+                          sparsify_eps=0.0, opt_overrides=overrides)
+        times = {}
+        outs = {}
+        with no_gc():
+            for mode in ("auto", "off"):
+                r.crop_decode = mode
+                kernels.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[mode] = r.frames(img, flow_np)
+                torch.cuda.synchronize()
+                times[mode] = time.perf_counter() - t0
+                if mode == "auto":
+                    launches = kernels.counts()
+        want = {**zero, "euler_compact_dual": 1, "splat_dual_normalize_slr": n,
+                "maximum_warp_norm_sparse": n + 1 if v2 else 0}
+        check(launches == want, f"{label} crop render launches: {launches}")
+        res["launches"][label] = launches
+        err = max_diff(outs["auto"], outs["off"])
+        if v2:
+            r.crop_decode = "auto"
+
+            def side(mode):
+                def run():
+                    r.crop_decode = mode
+                    return r.frames(img, flow_np)
+                return run
+
+            v2_diagnostic(f"{label} {CROP_W}^2 crop vs no-crop", err, r.model,
+                          pos_t, val_t, side("auto"), side("off"))
+        check(err <= 1e-4, f"{label} crop vs no-crop max abs {err}")
+        for mode, tag in (("auto", "crop"), ("off", "no-crop")):
+            res["ms"][f"{label} {tag}"] = times[mode] * 1e3
+            res["fps"][f"{label} {tag}"] = n / times[mode]
+        print(f"phase 12 {label} {CROP_W}^2 N={n}: crop {times['auto'] * 1e3:.1f} ms = "
+              f"{n / times['auto']:.2f} frames/s, no-crop {times['off'] * 1e3:.1f} ms = "
+              f"{n / times['off']:.2f} frames/s (once each); every output crop vs "
+              f"no-crop max abs {err:.3g} (limit 1e-4); crop launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        del r, outs
+        torch.cuda.empty_cache()
+
+    d_f, d_p = disp
+    res["kernels"] = crop_kernel_rows(dev, crop, flow_t, pos_t, val_t, d_f, d_p, probe,
+                                      probe_dll)
+    print(f"phase 12 crop plan {tuple(crop)} (JAX's), window {crop.hc}x{crop.wc} = "
+          f"{100.0 * crop.hc * crop.wc / CROP_W ** 2:.1f} % of the frame, P={res['P']}")
+    return res
+
+
+def write_flo(path: str, flow: np.ndarray) -> None:
+    """A Middlebury .flo file: the tag, width, height, then (H, W, 2) f32."""
+    with open(path, "wb") as f:
+        np.array([202021.25], np.float32).tofile(f)
+        np.array([flow.shape[1], flow.shape[0]], np.int32).tofile(f)
+        np.ascontiguousarray(flow, np.float32).tofile(f)
+
+
+def sweep_phase():
+    """``cli/render_all.py`` with its default flags (W = 768, bfloat16,
+    crop decode auto, moving sets bucketed at 1.25) over the four
+    ``SWEEP_SCENES`` (a JPEG and a .flo each), PNG and mp4 saves included;
+    its launches, scenes/hour and count of (P, window) shapes; each scene's
+    PredImg PNGs against a one-scene ``SceneRenderer.render`` of it within
+    one u8 level (bf16 renders vary by a level with K2's atomic order)."""
+    import shutil
+
+    import torch
+    from PIL import Image
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.cli import render_all
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+
+    scenes_dir = os.path.join(OUT_DIR, "sweep_scenes")
+    out_dir, one_dir = os.path.join(OUT_DIR, "sweep"), os.path.join(OUT_DIR, "sweep_one")
+    for d in (scenes_dir, out_dir, one_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(scenes_dir)
+    for name, (seed, rows, cols) in SWEEP_SCENES.items():
+        img_u8, flow = synthetic_scene(seed, CROP_W, rows, cols)
+        Image.fromarray(img_u8).save(os.path.join(scenes_dir, f"{name}_input.jpg"),
+                                     quality=95)
+        write_flo(os.path.join(scenes_dir, f"{name}_motion.flo"), flow)
+    kernels.reset_counts()
+    with no_gc():
+        res = render_all.main([scenes_dir, out_dir])
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    k = len(SWEEP_SCENES)
+    check(res["done"] == k, f"sweep rendered {res['done']} scenes")
+    check(launches == {**{kk.name: 0 for kk in kernels.KERNELS},
+                       "euler_compact_dual": k, "splat_dual_normalize": k * N_FRAMES},
+          f"sweep launches: {launches}")
+    check(res["shapes"] == k - 1, f"sweep: {res['shapes']} (P, window) shapes, "
+          f"expected {k - 1} (scenes a and b share one)")
+    r = SceneRenderer(W=CROP_W, n_frames=N_FRAMES, dtype="bfloat16", seed=SEED)
+    worst = 0
+    for name in SWEEP_SCENES:
+        r.render(os.path.join(scenes_dir, f"{name}_input.jpg"),
+                 os.path.join(scenes_dir, f"{name}_motion.flo"), one_dir, name=name)
+        r.finish()
+        for sub in (out_dir, one_dir):
+            check(len(os.listdir(os.path.join(sub, name, "PredImg"))) == N_FRAMES,
+                  f"sweep {name}: PNGs missing in {sub}")
+        check(os.path.exists(os.path.join(out_dir, name, f"PredImg_{name}.mp4")),
+              f"sweep {name}: no mp4")
+        for t in range(N_FRAMES):
+            a, b = (read_png(os.path.join(sub, name, "PredImg", f"{t:06d}.png"))
+                    .astype(np.int16) for sub in (out_dir, one_dir))
+            worst = max(worst, int(np.abs(a - b).max()))
+    check(worst <= 1, f"sweep PNGs differ from one-scene renders by {worst} u8 levels")
+    per_hour = res["done"] / res["elapsed_s"] * 3600.0
+    print(f"phase 13 sweep (cli/render_all.py, default flags: W={CROP_W}, bfloat16, "
+          f"crop auto, P buckets 1.25): {res['done']} scenes in {res['elapsed_s']:.2f} s "
+          f"incl. PNG and mp4 saves = {per_hour:.1f} scenes/hour; {res['shapes']} "
+          f"distinct (P, window) shapes {sorted(r.shapes)}; launches "
+          f"{ {kk: v for kk, v in launches.items() if v} }; PredImg PNGs against "
+          f"one-scene renders: at most {worst} u8 level(s) apart")
+    del r
+    return {"scenes_per_hour": per_hour, **res}
+
+
+def stages_phase(crop: dict):
+    """``python -m slrsfs_tpu_torch.cli.render --profile-stages`` (in this
+    process, through its ``main``) on the 768² scene at float32: the full
+    and the crop rollout's stages (t_encoder, t_euler_integration,
+    t_softmax_splating, t_decoder), each > 0. A profile's stages are those
+    of its fastest pass (JAX's ``stage_profile`` takes the fastest too),
+    and one f32 768² render varies from pass to pass by up to ~10 %, so
+    each profile is held to the fastest render of the same kind: the full stages' sum
+    within 10 % of phase 12's fastest float32 no-crop run, the crop stages'
+    within 10 % of its fastest crop run. The CLI render's own time (its
+    ``frames`` call, a crop render, timed here) is printed beside them.
+    Then one crop render under
+    ``engine/profiler.py:profile_trace``: the device's busy share of the
+    traced render (``tools/trace_busy.py``: the union of its kernel, copy
+    and memset intervals over the render's span, beside the sum of their
+    durations, which exceeds it where cuDNN's streams overlap)."""
+    import torch
+    from PIL import Image
+
+    from slrsfs_tpu_torch.cli import render as render_cli
+    from slrsfs_tpu_torch.engine.profiler import profile_trace
+    from slrsfs_tpu_torch.tools import trace_busy
+
+    img_u8, flow_np, img = crop_scene()
+    scene_dir = os.path.join(OUT_DIR, "stages")
+    os.makedirs(scene_dir, exist_ok=True)
+    img_path = os.path.join(scene_dir, "scene768.png")
+    flow_path = os.path.join(scene_dir, "scene768_motion.npy")
+    Image.fromarray(img_u8).save(img_path)
+    np.save(flow_path, flow_np)
+    own = []
+    frames = render_cli.SceneRenderer.frames
+
+    def timed_frames(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = frames(self, *a, **k)
+        torch.cuda.synchronize()
+        own.append(time.perf_counter() - t0)
+        return out
+
+    render_cli.SceneRenderer.frames = timed_frames
+    try:
+        with no_gc():
+            r = render_cli.main([img_path, flow_path, os.path.join(scene_dir, "out"),
+                                 "--W", str(CROP_W), "--n-frames", str(N_FRAMES),
+                                 "--profile-stages", "--sparsify-eps", "0"])
+    finally:
+        render_cli.SceneRenderer.frames = frames
+    st = r.stage_profiles
+    del r
+    check(st is not None and st["crop"] is not None, f"stage profiles {st}")
+    check(len(own) == 1, f"the CLI rendered {len(own)} times")
+    refs = {"full": (crop["fastest_ms"]["baseline float32 no-crop"] / 1e3,
+                     "phase 12's fastest float32 no-crop run"),
+            "crop": (crop["fastest_ms"]["baseline float32 crop"] / 1e3,
+                     "phase 12's fastest float32 crop run")}
+    names = ("t_encoder", "t_euler_integration", "t_softmax_splating", "t_decoder")
+    for kind in ("full", "crop"):
+        s = st[kind]
+        total = sum(s[k] for k in names)
+        ref, what = refs[kind]
+        print(f"phase 14 {kind} stages (--profile-stages, {CROP_W}^2 float32): "
+              + ", ".join(f"{k} {s[k] * 1e3:.2f} ms" for k in names)
+              + f"; sum {total * 1e3:.1f} ms, profiled pass {s['total'] * 1e3:.1f} ms, "
+              f"{what} {ref * 1e3:.1f} ms ({100.0 * (total / ref - 1.0):+.1f} %)"
+              + (f"; the CLI render's own time {own[0] * 1e3:.1f} ms" if kind == "crop"
+                 else ""))
+        check(all(s[k] > 0 for k in names), f"{kind} stages not all > 0: {s}")
+        check(abs(total / ref - 1.0) <= 0.10, f"{kind} stages sum {total} s, "
+              f"{what} {ref} s: more than 10 % apart")
+
+    r = crop["renderer"]
+    trace_dir = os.path.join(OUT_DIR, "trace")
+    r.frames(img, flow_np)
+    torch.cuda.synchronize()
+    with profile_trace(trace_dir):
+        with torch.profiler.record_function(trace_busy.SPAN):
+            r.frames(img, flow_np)
+            torch.cuda.synchronize()
+    busy = trace_busy.device_busy(
+        trace_busy.load_events(os.path.join(trace_dir, "trace.json")), trace_busy.SPAN)
+    check(busy["busy_us"] <= min(busy["span_us"], busy["sum_us"]) + 1e-3,
+          f"device busy {busy['busy_us']} us over a span of {busy['span_us']} us "
+          f"and durations summing to {busy['sum_us']} us")
+    share = busy["busy_us"] / busy["span_us"]
+    print(f"phase 14 trace of one {CROP_W}^2 float32 crop render (torch.profiler, "
+          f"{trace_dir}/trace.json; tools/trace_busy.py): {trace_busy.summary(busy)}")
+    return {"stages": st, "own_s": own[0], "busy_share": share}
 
 
 def main() -> int:
@@ -2141,9 +2649,9 @@ def main() -> int:
                         np.float32) / 255.0  # as render() reads it
 
     r32 = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED,
-                        sparsify_eps=0.0)
+                        sparsify_eps=0.0, crop_decode="off")
     rbf = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="bfloat16", seed=SEED,
-                        sparsify_eps=0.0)
+                        sparsify_eps=0.0, crop_decode="off")
     db = r32.decode_batch_for(H * W)
 
     kernels.reset_counts()
@@ -2179,7 +2687,7 @@ def main() -> int:
 
     # the baseline with the v2 Z-norm: K5 per frame; its dense form runs K6
     r32v2 = SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED,
-                          sparsify_eps=0.0,
+                          sparsify_eps=0.0, crop_decode="off",
                           opt_overrides=dict(use_softmax_splatter_v2=True))
     kernels.reset_counts()
     rows, fields, (out_dir, v2_frames) = v2_stages(
@@ -2231,13 +2739,13 @@ def main() -> int:
     # ---- phase 6: the SLR paths through SceneRenderer.render ---------
     slr = {
         "float32": SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32",
-                                 seed=SEED, sparsify_eps=0.0,
+                                 seed=SEED, sparsify_eps=0.0, crop_decode="off",
                                  opt_overrides=SLR_OPTS),
         "bfloat16": SceneRenderer(W=W, n_frames=N_FRAMES, dtype="bfloat16",
-                                  seed=SEED, sparsify_eps=0.0,
+                                  seed=SEED, sparsify_eps=0.0, crop_decode="off",
                                   opt_overrides=SLR_OPTS),
         "float32 v2": SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32",
-                                    seed=SEED, sparsify_eps=0.0,
+                                    seed=SEED, sparsify_eps=0.0, crop_decode="off",
                                     opt_overrides=dict(
                                         SLR_OPTS, use_softmax_splatter_v2=True)),
     }
@@ -2377,9 +2885,9 @@ def main() -> int:
         mv2 = slr["float32 v2"].model
         fs, z = mv2.encode(img_t)
         a_bg, a_fl = mv2.alpha_encode(img_t)
-        pack, _ = rollout._slr_pack_fn(
+        pack = rollout._slr_pack_fn(
             mv2.opt, fs, z, a_fl, torch.sigmoid(a_bg), positions, valid, static,
-            plain=False)
+            plain=False)[0]
         ms_s["v2 pack (incl. K5) per frame"] = cuda_time(lambda: pack(d_mid), reps=20)
         chunk65 = torch.randn((slr_db, H, W, 65), device=dev)
         ms_s[f"fluid decode {slr_db} frames"] = cuda_time(
@@ -2458,7 +2966,15 @@ def main() -> int:
           f"% of the step")
     train_cli_phase(scene_dir, img_path, flow_path)
 
-    # ---- phase 12: summary -------------------------------------------
+    # ---- phases 12-14: crop decode at 768², the sweep, stages, trace ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    crop = crop_phase(dev, probe, probe_dll)
+    sweep = sweep_phase()
+    staged = stages_phase(crop)
+    del crop["renderer"]
+
+    # ---- phase 15: summary -------------------------------------------
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd, lib_ms):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_, "max_abs_err": err,
@@ -2523,9 +3039,31 @@ def main() -> int:
             "tools/pallas_conv_prototype.py:118", k9["launches"], k9["err"],
             k9["ms"], k9["plain_ms"], k9["bound"], k9["lib_ms"]),
     ]
-    print("phase 12 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
+    c, ck = crop["crop"], crop["kernels"]
+    window = f"crop window {c.hc}x{c.wc} at {CROP_W}^2"
+    rows_out += [
+        row(f"euler_compact_dual ({CROP_W}^2 grid, P={crop['P']}, crop render)",
+            "slrsfs_tpu_torch/csrc/euler.cu", "slrsfs_tpu/ops/euler.py:145",
+            crop["launches"]["float32"]["euler_compact_dual"], ck["K1"]["err"],
+            ck["K1"]["ms"], ck["K1"]["plain_ms"], ck["K1"]["bound"], None),
+        row(f"splat_dual_normalize ({window})", "slrsfs_tpu_torch/csrc/splat.cu",
+            "slrsfs_tpu/ops/splat.py:390",
+            crop["launches"]["float32"]["splat_dual_normalize"], ck["K2"]["err"],
+            ck["K2"]["ms"], ck["K2"]["plain_ms"], ck["K2"]["bound"],
+            ck["K2"]["lib"]["ms"]),
+        row(f"maximum_warp_norm_sparse ({window}; SLR v2 crop render)",
+            "slrsfs_tpu_torch/csrc/maxwarp.cu", "slrsfs_tpu/ops/splat.py:492",
+            crop["launches"]["SLR float32 v2"]["maximum_warp_norm_sparse"],
+            ck["K5"]["err"], ck["K5"]["ms"], ck["K5"]["plain_ms"], ck["K5"]["bound"],
+            ck["K5"]["lib"]["ms"]),
+    ]
+    print("phase 15 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
           + f"; training step {train['step_ms']:.1f} ms at B={train['B']} "
-          f"({train['B'] / train['step_ms'] * 1e3:.2f} samples/s); all checks passed")
+          f"({train['B'] / train['step_ms'] * 1e3:.2f} samples/s)")
+    print(f"phase 15 {CROP_W}^2 frames/s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in crop["fps"].items())
+        + f"; sweep {sweep['scenes_per_hour']:.1f} scenes/hour; device busy "
+        f"{100.0 * staged['busy_share']:.1f} % of a traced crop render; all checks passed")
     print(smi)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {

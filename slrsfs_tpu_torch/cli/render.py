@@ -5,7 +5,7 @@
 PyTorch port of ``slrsfs_tpu/cli/render.py`` for the single-layer baseline
 (``model_type=softmax_splating``) and the SLR two-layer model
 (``softmax_splating_2layers_alpha_seperate``), with any Z-norm the
-checkpoint's options select (v2 included), without crop decode. Protocol:
+checkpoint's options select (v2 included). Protocol:
 the input is resized to W² (PIL bilinear) and normalised to [-1, 1]; the
 flow is scaled by W/source · speed and nearest-resized
 (test_baseline_4eval.py:161-184); an optional align.json rescales it by
@@ -14,6 +14,10 @@ output size (raw, or half the input image) and into one mp4 per key: PredImg
 for the baseline, PredImg, FluidImg and CompositeFluidAlpha plus BGImg.png
 for SLR. --alpha-region (a grayscale image) keeps the SLR composite inside
 the region. Flow editing: --speed, --rotate (degrees) and --flow-scale.
+--crop-decode auto (the default) splats and decodes each frame on the
+moving region's window only and pastes it onto one full-frame static decode
+(exact; engine/rollout.py, crop decode section); --profile-stages prints
+the reference's stage times for the scene (engine/stage_profile.py).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import argparse
 import json
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -94,7 +99,6 @@ def outputs_to_u8(outs) -> dict:
 
 
 # titles of the ROADMAP §1 items that port what the render raises on
-CROP = "Crop decode"
 MOTION = "Motion regressor, render side"
 MULTI_GPU = "Multi-GPU"
 
@@ -109,13 +113,16 @@ class SceneRenderer:
     """Model and device state shared across scenes.
 
     ``frames()`` renders in memory; ``render()`` adds the file protocol
-    (image/flow loading, PNG and mp4 output)."""
+    (image/flow loading, PNG and mp4 output). The PNGs and mp4s are written
+    on a background thread while the next scene renders, at most two scenes
+    pending; ``finish()`` waits for them."""
 
     def __init__(self, ckpt: str = None, W: int = 256, n_frames: int = 60,
                  dtype: str = "float32", decode_batch: int = None,
                  seed: int = 0, motion_ckpt: str = None,
                  opt_overrides: dict = None, shard_frames: bool = False,
-                 sparsify_eps: float = None, crop_decode: str = "off",
+                 sparsify_eps: float = None, crop_decode: str = "auto",
+                 p_bucket_ratio: float = None, profile_stages: bool = False,
                  device="cuda"):
         from slrsfs_tpu_torch.config import Options
         from slrsfs_tpu_torch.io.checkpoint import (
@@ -128,9 +135,7 @@ class SceneRenderer:
 
         if dtype not in DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}")
-        if crop_decode == "auto":
-            raise _not_ported("--crop-decode auto", CROP)
-        if crop_decode != "off":
+        if crop_decode not in ("auto", "off"):
             raise ValueError(f"unknown crop_decode {crop_decode!r}")
         if motion_ckpt:
             raise _not_ported("--motion-ckpt (motion regressor)", MOTION)
@@ -175,11 +180,34 @@ class SceneRenderer:
         # sparse path; eps = 0.5/N bounds each zeroed pixel's drift at half a
         # pixel. None = auto: 0.5/N for --rawsize renders, else 0.
         self.sparsify_eps = sparsify_eps
+        # 'auto': splat and decode the moving region's window when it is
+        # under 85 % of the frame, pasted onto one full-frame static decode
+        self.crop_decode = crop_decode
+        # geometric moving-set size buckets (prepare_scene_sparse): sweeps
+        # set ~1.25 so that scenes share shapes; None = 1024-padding
+        self.p_bucket_ratio = p_bucket_ratio
+        self.profile_stages = profile_stages
+        self.stage_profiles = None
+        # the (P, window height, window width) of every scene rendered
+        self.shapes = set()
+        self._save_pool = ThreadPoolExecutor(max_workers=1)
+        self._pending = []
 
     def decode_batch_for(self, area: int) -> int:
         if self.decode_batch is not None:
             return self.decode_batch
         return auto_decode_batch(self.n_frames, area, slr=self.slr)
+
+    def _tensors(self, img: np.ndarray, flow: np.ndarray):
+        """(img (1, W, W, 3), flow, positions, valid) on the device, the
+        moving set bucketed by ``p_bucket_ratio``."""
+        from slrsfs_tpu_torch.engine.rollout import prepare_scene_sparse
+
+        positions, valid = prepare_scene_sparse(flow,
+                                                bucket_ratio=self.p_bucket_ratio)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in (np.asarray(img, np.float32)[None],
+                               np.asarray(flow, np.float32), positions, valid))
 
     def frames(self, img: np.ndarray, flow: np.ndarray, plain: bool = False,
                alpha_region: np.ndarray = None):
@@ -189,30 +217,54 @@ class SceneRenderer:
         (N, W, W, 1) and BGImg (W, W, 3). ``alpha_region`` (W, W) in [0, 1]
         is the SLR edit region (the baseline ignores it, as the JAX CLI
         does). ``plain`` runs the kernels' plain PyTorch versions instead of
-        the kernels."""
+        the kernels. With ``crop_decode`` 'auto' the scene's crop is planned
+        here (``prepare_crop``, which also integrates it) and the rollout
+        runs on it, or uncropped when the plan is None; the decode batch is
+        sized to the decode window."""
         from slrsfs_tpu_torch.engine.rollout import (
             baseline_rollout_sparse,
-            prepare_scene_sparse,
+            prepare_crop,
             slr_rollout_sparse,
         )
 
-        positions, valid = prepare_scene_sparse(flow)
-        dev = self.device
-
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        args = (self.model, t(np.asarray(img, np.float32)[None]),
-                t(np.asarray(flow, np.float32)), self.n_frames, t(positions),
-                t(valid))
-        kw = dict(decode_batch=self.decode_batch_for(self.W * self.W),
+        img_t, flow_t, pos_t, val_t = self._tensors(img, flow)
+        crop = disp = None
+        if self.crop_decode == "auto":
+            disp, crop = prepare_crop(self.opt, self.slr, flow_t, pos_t, val_t,
+                                      self.n_frames, plain=plain)
+        hc, wc = (self.W, self.W) if crop is None else (crop.hc, crop.wc)
+        self.shapes.add((pos_t.shape[0], hc, wc))
+        args = (self.model, img_t, flow_t, self.n_frames, pos_t, val_t)
+        kw = dict(decode_batch=self.decode_batch_for(hc * wc),
                   compute_dtype=self.compute_dtype, plain=plain,
-                  splat_dtype=self.splat_dtype)
+                  splat_dtype=self.splat_dtype, crop=crop, disp=disp)
         if not self.slr:
             return baseline_rollout_sparse(*args, **kw)
         region = (None if alpha_region is None
-                  else t(np.asarray(alpha_region, np.float32)[None, ..., None]))
+                  else torch.from_numpy(np.asarray(alpha_region, np.float32)
+                                        [None, ..., None]).to(self.device))
         return slr_rollout_sparse(*args, alpha_region=region, **kw)
+
+    def profile(self, img: np.ndarray, flow: np.ndarray) -> dict:
+        """The baseline's stage times on this scene
+        (``engine/stage_profile.py``): {"full": the uncropped rollout's,
+        "crop": the crop rollout's, None when its plan is None or
+        ``crop_decode`` is 'off'}."""
+        from slrsfs_tpu_torch.engine.stage_profile import (
+            profile_baseline_crop_stages,
+            profile_baseline_stages,
+        )
+
+        img_t, flow_t, pos_t, val_t = self._tensors(img, flow)
+        args = (self.model, img_t, flow_t, pos_t, val_t, self.n_frames)
+        kw = dict(compute_dtype=self.compute_dtype, splat_dtype=self.splat_dtype)
+        full = profile_baseline_stages(
+            *args, decode_batch=self.decode_batch_for(self.W * self.W), **kw)[0]
+        crop = None
+        if self.crop_decode == "auto":  # the decode batch the crop render uses
+            crop = profile_baseline_crop_stages(
+                *args, decode_batch=self.decode_batch_for, **kw)
+        return {"full": full, "crop": None if crop is None else crop[0]}
 
     def load_inputs(self, image_path: str, flow_path: str, name: str,
                     speed: float = 1.0, align_json: str = "None",
@@ -268,8 +320,30 @@ class SceneRenderer:
         if alpha_region_path:
             r = Image.open(alpha_region_path).convert("L").resize((self.W, self.W))
             region = np.asarray(r, np.float32) / 255.0
+        if self.profile_stages and not self.slr:
+            from slrsfs_tpu_torch.engine.stage_profile import format_stages
+
+            self.stage_profiles = self.profile(img, flow)
+            print(f"[profile {name}] {format_stages(self.stage_profiles['full'])}")
+            if self.crop_decode == "auto":
+                stc = self.stage_profiles["crop"]
+                print(f"[profile {name}] crop: disengaged (plan None)" if stc is None
+                      else f"[profile {name}] crop (t_euler_integration = "
+                           f"prepare_crop): {format_stages(stc)}")
+            self.profile_stages = False  # once a process
         outs = outputs_to_u8(self.frames(img, flow, alpha_region=region))
-        return save_outputs(outs, out_dir, name, out_w, out_h)
+        # each pending save holds a scene's outputs in host memory
+        while len(self._pending) >= 2:
+            self._pending.pop(0).result()
+        self._pending.append(self._save_pool.submit(
+            save_outputs, outs, out_dir, name, out_w, out_h))
+        return out_dir
+
+    def finish(self):
+        """Wait for the pending background saves, raising any save error."""
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
 
 
 def render_scene(image_path: str, flow_path: str, save_dir: str,
@@ -280,15 +354,19 @@ def render_scene(image_path: str, flow_path: str, save_dir: str,
                  dtype: str = "float32", decode_batch: int = None,
                  seed: int = 0, opt_overrides: dict = None,
                  sparsify_eps: float = 0.0, alpha_region_path: str = None,
-                 device="cuda") -> str:
-    """One-shot render of one scene (the reference single-scene script)."""
+                 crop_decode: str = "auto", device="cuda") -> str:
+    """One-shot render of one scene (the reference single-scene script).
+    Scene loops build one ``SceneRenderer`` and call ``render()`` per
+    scene."""
     r = SceneRenderer(ckpt=ckpt, W=W, n_frames=n_frames, dtype=dtype,
                       decode_batch=decode_batch, seed=seed,
                       opt_overrides=opt_overrides, sparsify_eps=sparsify_eps,
-                      device=device)
-    return r.render(image_path, flow_path, save_dir, name=name, speed=speed,
-                    align_json=align_json, rawsize=rawsize, rotate=rotate,
-                    flow_scale=flow_scale, alpha_region_path=alpha_region_path)
+                      crop_decode=crop_decode, device=device)
+    out_dir = r.render(image_path, flow_path, save_dir, name=name, speed=speed,
+                       align_json=align_json, rawsize=rawsize, rotate=rotate,
+                       flow_scale=flow_scale, alpha_region_path=alpha_region_path)
+    r.finish()
+    return out_dir
 
 
 def save_outputs(outs: dict, out_dir: str, name: str, out_w: int,
@@ -356,9 +434,15 @@ def main(argv=None):
                    help="zero motion below this speed so dense estimated "
                         "flows ride the sparse path; default: 0.5/N for "
                         "--rawsize renders, 0 otherwise")
-    p.add_argument("--crop-decode", choices=["auto", "off"], default="off",
-                   help="'auto' (moving-region cropped decode) is not "
-                        "ported yet")
+    p.add_argument("--crop-decode", choices=["auto", "off"], default="auto",
+                   help="'auto': per frame, splat and decode only the moving "
+                        "region's window (receptive-field haloed, exact) and "
+                        "paste it onto one full-frame static decode, when the "
+                        "window is under 85%% of the frame")
+    p.add_argument("--profile-stages", action="store_true",
+                   help="print the reference's stage times (t_encoder, "
+                        "t_euler_integration, t_softmax_splating, t_decoder) "
+                        "of the baseline on this scene, uncropped and cropped")
     p.add_argument("--decode-batch", type=int, default=None,
                    help="frames per decode chunk; default sizes the chunk "
                         "to DECODE_PX_BUDGET")
@@ -368,11 +452,14 @@ def main(argv=None):
     r = SceneRenderer(ckpt=a.ckpt, W=a.W, n_frames=a.n_frames, dtype=a.dtype,
                       motion_ckpt=a.motion_ckpt, decode_batch=a.decode_batch,
                       shard_frames=a.shard_frames, sparsify_eps=a.sparsify_eps,
-                      crop_decode=a.crop_decode, device=a.device)
+                      crop_decode=a.crop_decode,
+                      profile_stages=a.profile_stages, device=a.device)
     out = r.render(a.image, a.flow, a.save_dir, name=a.name, speed=a.speed,
                    align_json=a.align, rawsize=a.rawsize, rotate=a.rotate,
                    flow_scale=a.flow_scale, alpha_region_path=a.alpha_region)
+    r.finish()
     print(f"rendered to {out}")
+    return r
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ import torch
 
 from slrsfs_tpu_torch import kernels
 from slrsfs_tpu_torch.config import Options
+from slrsfs_tpu_torch.engine import rollout
 from slrsfs_tpu_torch.engine.rollout import (
     baseline_rollout,
     baseline_rollout_sparse,
@@ -1041,3 +1042,115 @@ def test_kernels_refuse_inputs_beyond_their_limits_on_card():
     with pytest.raises(ValueError, match="below 32768"):
         port_splat.softsplat_sum_bwd_kernel(x, f, x)
     assert sum(kernels.counts().values()) == 0
+
+
+def _crop_window_inputs(dev):
+    """A 96 x 128 scene whose moving block sits inside the frame, integrated
+    by K1's plain version and windowed as ``plan_crop`` windows it: the
+    window at a positive offset in both axes, so that the padding rows
+    (valid 0, sources at (0, 0)) sit at negative window coordinates. →
+    (crop, moving rows' frame positions, their window positions, valid,
+    disp_f, disp_p)."""
+    h, w = 96, 128
+    m = np.zeros((h, w, 2), np.float32)
+    m[52:70, 60:93] = np.random.default_rng(12).standard_normal((18, 33, 2)) * 1.1
+    pos, val = prepare_scene_sparse(m, pad_multiple=64)
+    assert (val == 0).any()
+    disp_f, disp_p = euler_compact_dual_plain(torch.from_numpy(m),
+                                              torch.from_numpy(pos), 9, 10)
+    bounds = rollout._target_bounds(torch.from_numpy(pos), torch.from_numpy(val),
+                                    disp_f, disp_p, h, w).tolist()
+    crop = rollout.plan_crop(bounds, h, w, 15, 2, max_area_frac=1.01, bucket=8)
+    assert crop is not None and crop.y0 > 0 and crop.x0 > 0
+    shift = np.array([crop.x0, crop.y0], np.int32)
+    return (crop, torch.from_numpy(pos).to(dev),
+            torch.from_numpy(pos - shift).to(dev), torch.from_numpy(val).to(dev),
+            disp_f.to(dev), disp_p.to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16_accumulation"])
+@pytest.mark.parametrize("slr", [False, True], ids=["K2", "K2-SLR"])
+def test_k2_on_a_crop_window_matches_plain_on_card(slr, dtype):
+    """K2 on the (hc, wc) window grid at window coordinates, padding rows at
+    negative ones: f32 at 1e-5 with the same zeros; bf16 accumulation at
+    most twice the plain version's distance from the f32 sums."""
+    dev = _card()
+    crop, _, pos_c, val, disp_f, disp_p = _crop_window_inputs(dev)
+    assert (pos_c < 0).any()
+    rng = np.random.default_rng(13)
+    C1 = 67 if slr else 65
+    u = torch.from_numpy(np.abs(rng.standard_normal((len(val), C1)))
+                         .astype(np.float32)).to(dev) * val[:, None]
+    u_static = torch.from_numpy(np.abs(rng.standard_normal((crop.hc, crop.wc, C1)))
+                                .astype(np.float32)).to(dev)
+    u_static *= rollout._static_mask(pos_c, val, crop.hc, crop.wc)[..., None]
+    u, u_static = u.to(dtype), u_static.to(dtype)
+    wrapper, plain, n_norm = ((splat_dual_normalize_slr,
+                               splat_dual_normalize_slr_plain, 2) if slr else
+                              (splat_dual_normalize, splat_dual_normalize_plain, 1))
+    out = torch.empty((crop.hc, crop.wc, C1 - n_norm), dtype=torch.float32, device=dev)
+    args = (pos_c, val, disp_f[6], disp_p[4], 0.4, 0.6)
+    kernels.reset_counts()
+    wrapper(u, *args, u_static, out=out)
+    assert sum(kernels.counts().values()) == 1
+    want = plain(u, *args, u_static, torch.float32)
+    ref32 = plain(u.float(), *args, u_static.float(), torch.float32)
+    torch.cuda.synchronize()
+    _held(out, want, dtype, ref32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["window", "every_row_invalid"])
+def test_k5_on_a_crop_window_matches_plain_on_card(case):
+    """K5 bit for bit on the window grid at window coordinates (padding rows
+    at negative ones), and on the full grid with every row invalid and no
+    displacement, as the crop's static Z-norm calls it."""
+    dev = _card()
+    crop, pos, pos_c, val, disp_f, _ = _crop_window_inputs(dev)
+    z_full = torch.from_numpy(np.random.default_rng(14).standard_normal((96, 128))
+                              .astype(np.float32) * 4.0).to(dev)
+    z_mov = z_full[pos[:, 1].long(), pos[:, 0].long()].contiguous()
+    if case == "window":
+        z = z_full[crop.y0:crop.y0 + crop.hc, crop.x0:crop.x0 + crop.wc].contiguous()
+        args = (z, rollout._static_mask(pos_c, val, crop.hc, crop.wc), z_mov,
+                pos_c, val, disp_f[7])
+    else:
+        args = (z_full, rollout._static_mask(pos, val, 96, 128), z_mov, pos,
+                torch.zeros_like(val), torch.zeros_like(disp_f[7]))
+    kernels.reset_counts()
+    kd, km = maxwarp.maximum_warp_norm_sparse(*args)
+    assert kernels.counts()[kernels.MAXWARP_SPARSE.name] == 1
+    pd, pm = maxwarp.maximum_warp_norm_sparse_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(km, pm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v2", [False, True])
+def test_crop_render_matches_full_on_card(v2):
+    """A 256^2 baseline render with its crop planned (K1 in prepare_crop,
+    K2 on the window, v2: K5 per frame and once on the full grid) against
+    the uncropped render, f32, TF32 off: 1e-4."""
+    dev = _card()
+    opt = Options(ngf=16, W=256, bn_noise_misc=True, use_softmax_splatter_v2=v2)
+    model = BaselineModel(opt).eval()
+    init_random_weights(model, seed=0)
+    model = model.to(dev)
+    rng = np.random.default_rng(15)
+    flow = np.zeros((256, 256, 2), np.float32)
+    flow[170:220, 120:200] = rng.standard_normal((50, 80, 2)) * 1.2
+    pos, val = prepare_scene_sparse(flow)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 256, 3)).astype(np.float32))
+    args = (model, img.to(dev), torch.from_numpy(flow).to(dev), 6,
+            torch.from_numpy(pos).to(dev), torch.from_numpy(val).to(dev))
+    kernels.reset_counts()
+    disp, crop = rollout.prepare_crop(opt, False, args[2], *args[4:], 6)
+    assert crop is not None and crop.y0 > 0 and crop.x0 > 0
+    got = baseline_rollout_sparse(*args, decode_batch=3, crop=crop, disp=disp)
+    assert kernels.counts()["euler_compact_dual"] == 1
+    assert kernels.counts()["splat_dual_normalize"] == 6
+    assert kernels.counts()["maximum_warp_norm_sparse"] == (7 if v2 else 0)
+    want = baseline_rollout_sparse(*args, decode_batch=3)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -15,8 +15,7 @@ from slrsfs_tpu_torch.io import checkpoint
 
 torch.set_num_threads(1)
 
-TITLES = ("Crop decode", "Motion regressor, render side", "The rest of training",
-          "Multi-GPU")
+TITLES = ("Motion regressor, render side", "The rest of training", "Multi-GPU")
 
 
 def _render(**kw):
@@ -37,7 +36,6 @@ def _checkpoint(tmp_path):
 
 
 BRANCHES = {
-    "render --crop-decode auto": (lambda tmp: _render(crop_decode="auto"), "Crop decode"),
     "render --motion-ckpt": (lambda tmp: _render(motion_ckpt="m.pth"),
                              "Motion regressor, render side"),
     "render --shard-frames": (lambda tmp: _render(shard_frames=True), "Multi-GPU"),
