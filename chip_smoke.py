@@ -65,7 +65,7 @@ launch counts, CUDA-event stage times and peak memory; a kernel-path step
 against a plain-path step from one snapshot; and the train CLI for 2 steps
 on a synthetic dataset, whose checkpoint SceneRenderer then renders.
 
-Last, the crop decode (the render's default path, crop_decode 'auto') at
+Then the crop decode (the render's default path, crop_decode 'auto') at
 full width: Options() defaults at W = 768, N = 60, a synthetic scene whose
 rows 288-479 x columns 192-575 move (P = 73,728), planned as the JAX
 package plans it. The baseline in float32, bfloat16 and bfloat16-fast,
@@ -85,6 +85,20 @@ a one-scene render within one u8 level. The render CLI with
 phase 12 render of the same kind; and one crop render
 under engine/profiler.py:profile_trace, whose trace gives the device's
 busy share of the render.
+
+Last, motion from hints (phase 15, SceneRenderer(motion_ckpt=...)): a
+seeded random full-width SPADE motion regressor (32 filters, 8 downs)
+written as a reference-style .pth; the 768^2 scene's flow only seeds the
+speed-threshold mask and five k-means/RBF hints, and the regressor's dense
+motion moves nearly every pixel (P = 589,824, no crop), rendered through
+SceneRenderer.render(..., rawsize=True) in float32 and bfloat16. The hints
+on the card against the CPU's (the same centroid pixels, the field 1e-6),
+the regressor on the card against the CPU (1e-4 of max |pred|), K1 bit for
+bit and K2 (f32 1e-5, bf16 accumulation within twice the plain version's
+distance) on the whole grid, the f32 render kernels vs plain (1e-4) and
+warp_flow_rollout kernels vs plain (1e-5); t_hints, t_regressor, the
+regressor's peak memory and frames/s with the hints and the regression
+included.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. The script times the renders and the steps with CUDA events, and
@@ -360,20 +374,26 @@ def no_gc():
         gc.enable()
 
 
-def render_median(r, img, flow, reps: int = 3):
-    """Median seconds of ``r.frames`` over ``reps`` runs after one warm-up."""
+def call_median(fn, reps: int = 3):
+    """(median seconds, each run's) of ``fn()`` synchronised with the card,
+    over ``reps`` runs after one warm-up, GC held off."""
     import torch
 
-    r.frames(img, flow)
+    fn()
     torch.cuda.synchronize()
     ts = []
     with no_gc():
         for _ in range(reps):
             t0 = time.perf_counter()
-            r.frames(img, flow)
+            fn()
             torch.cuda.synchronize()
             ts.append(time.perf_counter() - t0)
     return sorted(ts)[len(ts) // 2], ts
+
+
+def render_median(r, img, flow, reps: int = 3):
+    """Median seconds of ``r.frames`` over ``reps`` runs after one warm-up."""
+    return call_median(lambda: r.frames(img, flow), reps)
 
 
 def render_capture(r, *args, **kw):
@@ -1980,6 +2000,46 @@ def crop_scene():
     return img_u8, flow, (img_u8.astype(np.float32) / 255.0 - 0.5) / 0.5
 
 
+def k2_grid_times(args, out, acc, reps: int, plain_reps: int) -> dict:
+    """K2 in f32 on ``args`` = (u_mov, positions, valid, disp_a, disp_b, w_a,
+    w_b, u_static) into ``out`` on the (h, w) grid of u_static, as
+    ``kernel_times`` times it, with the card's work per call split by
+    ``launch_split`` (copy, scatter, epilogue), beside its plain version (as
+    called), one ``index_add_`` of the same weighted corner rows into a copy
+    of u_static (device time) and its bound (each valid row, its position and both
+    displacements read once, valid read, u_static read and the output
+    written once; the corners' weights and adds and the division)."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.splat import (
+        _corner_taps,
+        splat_dual_normalize,
+        splat_dual_normalize_plain,
+    )
+
+    u_mov, pos, val, da, db, w_a, w_b, u_static = args
+    (h, w, C1), P = u_static.shape, pos.shape[0]
+    n_valid = int((val > 0.5).sum())
+    res = kernel_times(lambda: splat_dual_normalize(*args, out=out, acc=acc), reps=reps)
+    res["split"] = launch_split(lambda: splat_dual_normalize(*args, out=out, acc=acc))
+    res["plain_ms"] = cuda_time(lambda: splat_dual_normalize_plain(*args, torch.float32),
+                                reps=plain_reps)
+    pcx, pcy = pos[:, 0].float(), pos[:, 1].float()
+    lins, rows = [], []
+    for d, wt in ((da, w_a), (db, w_b)):
+        for lin, wk in _corner_taps(pcx + d[:, 0], pcy + d[:, 1], h, w):
+            lins.append(lin)
+            rows.append(u_mov * wt * (wk * val)[:, None])
+    lin_all, rows_all = torch.cat(lins), torch.cat(rows)
+    del lins, rows
+    flat = u_static.reshape(h * w, C1).clone()
+    res["lib"] = kernel_times(lambda: flat.index_add_(0, lin_all, rows_all), reps=reps)
+    res["bound"] = bound(n_valid * (C1 * 4 + 8 + 16) + P * 4 + h * w * C1 * 4
+                         + h * w * (C1 - 1) * 4,
+                         2 * n_valid * C1 * (1 + 4 * 2) + h * w * (C1 - 1))
+    return res
+
+
 def crop_kernel_rows(dev, crop, flow, positions, valid, disp_f, disp_p, probe,
                      probe_dll):
     """The crop path's kernels at the 768² scene's shapes, each against its
@@ -2002,7 +2062,6 @@ def crop_kernel_rows(dev, crop, flow, positions, valid, disp_f, disp_p, probe,
     from slrsfs_tpu_torch.ops import maxwarp
     from slrsfs_tpu_torch.ops.euler import euler_compact_dual, euler_compact_dual_plain
     from slrsfs_tpu_torch.ops.splat import (
-        _corner_taps,
         corners,
         splat_dual_normalize,
         splat_dual_normalize_plain,
@@ -2084,24 +2143,12 @@ def crop_kernel_rows(dev, crop, flow, positions, valid, disp_f, disp_p, probe,
         del want, kd, km, pd, pm, fd, fm, gd, gm
     del u
     args, k5_args, pos_c, val, da, db, u_mov, u_static, z_mov = timing
-    P, n_valid = pos_c.shape[0], int((val > 0.5).sum())
-    k2 = kernel_times(lambda: splat_dual_normalize(*args, out=out, acc=acc), reps=50)
+    P = pos_c.shape[0]
+    k2 = k2_grid_times(args, out, acc, reps=50, plain_reps=5)
     k2["err"] = max(e for _, _, e, _ in checked.values())
-    k2["plain_ms"] = cuda_time(lambda: splat_dual_normalize_plain(*args, torch.float32),
-                               reps=5)
+    del acc
     pcx, pcy = pos_c[:, 0].float(), pos_c[:, 1].float()
-    lins, rows = [], []
-    for d in (da, db):
-        for lin, wk in _corner_taps(pcx + d[:, 0], pcy + d[:, 1], hc, wc):
-            lins.append(lin)
-            rows.append(u_mov * w * (wk * val)[:, None])
-    lin_all, rows_all = torch.cat(lins), torch.cat(rows)
-    flat = u_static.reshape(hc * wc, C1).clone()
-    k2["lib"] = kernel_times(lambda: flat.index_add_(0, lin_all, rows_all), reps=50)
-    k2["bound"] = bound(n_valid * (C1 * 4 + 8 + 16) + P * 4 + hc * wc * C1 * 4
-                        + hc * wc * (C1 - 1) * 4,
-                        2 * n_valid * C1 * (1 + 4 * 2) + hc * wc * (C1 - 1))
-    del lins, rows, lin_all, rows_all, flat, acc
+    n_valid = int((val > 0.5).sum())
     k5 = kernel_times(lambda: maxwarp.maximum_warp_norm_sparse(*k5_args), reps=50)
     k5["err"] = 0.0
     k5["plain_ms"] = cuda_time(lambda: maxwarp.maximum_warp_norm_sparse_plain(*k5_args),
@@ -2269,6 +2316,269 @@ def crop_phase(dev, probe, probe_dll):
                                       probe_dll)
     print(f"phase 12 crop plan {tuple(crop)} (JAX's), window {crop.hc}x{crop.wc} = "
           f"{100.0 * crop.hc * crop.wc / CROP_W ** 2:.1f} % of the frame, P={res['P']}")
+    return res
+
+
+# ---- motion from hints at full width ---------------------------------------
+
+MOTION_TYPE = "SPADE_unet_mask_motion"
+
+
+def write_motion_ckpt(path: str, seed: int) -> str:
+    """A reference-style ``.pth`` (the state_dict under ``model.module.``,
+    the options as a Namespace) of a full-width SPADE motion regressor
+    (Options() defaults: 32 filters, 8 downs) with seeded random weights:
+    LeCun-normal kernels, zero biases, each spectral pair its kernel's top
+    singular pair (``models/baseline.py:init_random_weights``)."""
+    import argparse
+    import dataclasses
+
+    import torch
+
+    from slrsfs_tpu_torch.config import Options
+    from slrsfs_tpu_torch.models.baseline import init_random_weights
+    from slrsfs_tpu_torch.models.motion import MotionRegressor
+
+    opt = Options(model_type=MOTION_TYPE)
+    reg = MotionRegressor(opt)
+    init_random_weights(reg, seed)
+    opts = argparse.Namespace(**{k: list(v) if isinstance(v, tuple) else v
+                                 for k, v in dataclasses.asdict(opt).items()})
+    torch.save({"state_dict": {f"model.module.{k}": v for k, v in reg.state_dict().items()},
+                "opts": opts}, path)
+    return path
+
+
+def motion_phase(dev, probe, probe_dll):
+    """Motion from hints at full width (``SceneRenderer(motion_ckpt=...)``):
+    a seeded random full-width SPADE regressor written as a reference-style
+    ``.pth``, ``crop_scene``'s image and flow (a JPEG-free PNG and a .flo)
+    through ``SceneRenderer.render(..., rawsize=True)`` at W = 768, N = 60,
+    baseline Options() defaults, crop 'auto', float32 and bfloat16 (launches
+    counted). The given flow only seeds the hints; the regressor's dense
+    motion moves nearly every pixel, so the crop plans no window and K1 and
+    K2 run on the whole grid. Holds: the hints on the card against the
+    CPU's (the same centroid pixels, the field within 1e-6); the regressor
+    on the card against the same weights on the CPU (float32, TF32 off,
+    1e-4 of max |pred|; the bfloat16 renderer's regressor likewise); K1 bit
+    for bit on the predicted motion's moving set; K2 at T_MID on the
+    768^2 grid, f32 within 1e-5 with the same empty cells and bf16
+    accumulation at most twice as far from the f32 sums as its plain
+    version; the f32 render through the kernels against the plain versions
+    (1e-4); ``warp_flow_rollout`` kernels against plain (1e-5). Times t_hints
+    and t_regressor (median of 3), the regressor's peak memory, frames/s
+    with the hints and the regression included (median of 3), K1 and K2
+    as ``crop_kernel_rows`` times them."""
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.cli.render import SceneRenderer, _load_flow, load_regressor
+    from slrsfs_tpu_torch.data import hints
+    from slrsfs_tpu_torch.data.transforms import transform_flow
+    from slrsfs_tpu_torch.engine import rollout
+    from slrsfs_tpu_torch.engine.init_utils import no_tf32
+    from slrsfs_tpu_torch.ops.euler import euler_compact_dual_plain
+    from slrsfs_tpu_torch.ops.splat import (
+        splat_dual_normalize,
+        splat_dual_normalize_plain,
+        splat_scratch,
+    )
+
+    n = N_FRAMES
+    zero = {k.name: 0 for k in kernels.KERNELS}
+    img_u8, given, img = crop_scene()
+    scene_dir = os.path.join(OUT_DIR, "motion")
+    os.makedirs(scene_dir, exist_ok=True)
+    img_path, flow_path = (os.path.join(scene_dir, f) for f in ("scene.png", "scene.flo"))
+    Image.fromarray(img_u8).save(img_path)
+    write_flo(flow_path, given)
+    flow_in = transform_flow(_load_flow(flow_path), CROP_W)  # as load_inputs reads it
+    res = {"fps": {}}
+    with tempfile.TemporaryDirectory() as td:
+        ckpt = write_motion_ckpt(os.path.join(td, "motion.pth"), SEED + 30)
+        r = SceneRenderer(W=CROP_W, n_frames=n, dtype="float32", seed=SEED,
+                          motion_ckpt=ckpt)
+        rb = SceneRenderer(W=CROP_W, n_frames=n, dtype="bfloat16", seed=SEED,
+                           motion_ckpt=ckpt)
+        cpu_reg = load_regressor(ckpt, CROP_W)
+
+    # the hints: the same centroid pixels and field on the card and the CPU
+    flow_t = torch.from_numpy(flow_in).to(dev)
+    mask = hints.moving_mask_threshold(flow_t)
+    px = hints.kmeans_hint_pixels(mask, 5)
+    px_cpu = hints.kmeans_hint_pixels(mask.cpu(), 5)
+    check(np.array_equal(px, px_cpu), f"hint pixels on the card {px.tolist()}, on the "
+          f"CPU {px_cpu.tolist()}")
+    field = hints.densify_hints(flow_t, px, CROP_W / 5.0, mask)
+    field_cpu = hints.densify_hints(flow_t.cpu(), px_cpu, CROP_W / 5.0, mask.cpu())
+    hint_err = (field.cpu() - field_cpu).abs().max().item()
+    check(hint_err <= 1e-6, f"hint field, card vs CPU, max abs {hint_err}")
+    t_hints, hint_runs = call_median(lambda: hints.synthesize_hint(flow_t))
+    hint, mask = hints.synthesize_hint(flow_t)
+    check(torch.equal(hint, field), "synthesize_hint differs from its parts")
+
+    # the regressor: the card against the CPU, float32 with TF32 off
+    args = (torch.from_numpy(img[None]).to(dev), mask[None, ..., None], hint[None])
+    with torch.no_grad(), no_tf32():
+        pred = r.regressor(*args)
+        pred_cpu = cpu_reg(*(a.cpu() for a in args))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r.regressor(*args)
+        torch.cuda.synchronize()
+        reg_peak = torch.cuda.max_memory_allocated() - base
+        t_reg, reg_runs = call_median(lambda: r.regressor(*args))
+    scale = pred_cpu.abs().max().item()
+    reg_err = (pred.cpu() - pred_cpu).abs().max().item()
+    check(reg_err <= 1e-4 * scale, f"regressor, card vs CPU, max abs {reg_err} "
+          f"(max |pred| {scale})")
+    del pred_cpu, cpu_reg
+    print(f"phase 15 hints on {int(mask.sum())} moving pixels of the given flow: "
+          f"centroids {px.tolist()} on the card and the CPU, field max abs "
+          f"{hint_err:.3g} (limit 1e-6); t_hints {t_hints * 1e3:.2f} ms (runs "
+          f"{[round(x * 1e3, 2) for x in hint_runs]}); regressor ({MOTION_TYPE}, "
+          f"{sum(p.numel() for p in r.regressor.parameters())} parameters, {CROP_W}^2 "
+          f"f32, TF32 off) card vs CPU max abs {reg_err:.3g} (limit 1e-4 of max |pred| "
+          f"{scale:.3g}); t_regressor {t_reg * 1e3:.2f} ms (runs "
+          f"{[round(x * 1e3, 2) for x in reg_runs]}); peak {reg_peak / 2**30:.3f} GiB "
+          f"above its weights and inputs")
+    res.update(t_hints=t_hints, t_regressor=t_reg, regressor_peak=reg_peak)
+
+    # the main path: SceneRenderer.render with the regressor, float32
+    kernels.reset_counts()
+    out_dir, frames = render_capture(r, img_path, flow_path, os.path.join(scene_dir, "f32"),
+                                     name="scene", rawsize=True)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    check(launches == {**zero, "euler_compact_dual": 1, "splat_dual_normalize": n},
+          f"motion render launches: {launches}")
+    res["launches"] = launches
+    check(len(os.listdir(os.path.join(out_dir, "PredImg"))) == n, "PNGs written")
+    check(tuple(frames.shape) == (n, CROP_W, CROP_W, 3)
+          and bool(torch.isfinite(frames).all()), "motion render frames")
+    motion = r.scene_flow(img, flow_in, "scene", rawsize=True)
+    _, flow_m, pos, val = r._tensors(img, motion)
+    P, n_mov = pos.shape[0], int(val.sum().item())
+    (disp_f, disp_p), crop = rollout.prepare_crop(r.opt, False, flow_m, pos, val, n)
+    check((P, CROP_W, CROP_W) in r.shapes and crop is None,
+          f"motion render shapes {r.shapes}, crop {crop}")
+    res.update(P=P, n_moving=n_mov, crop=crop)
+    plain = r.frames(img, motion, plain=True)
+    render_err = (frames - plain).abs().max().item()
+    check(render_err <= 1e-4, f"motion render, kernels vs plain, max abs {render_err}")
+    del plain
+    want = euler_compact_dual_plain(flow_m, pos, n - 1, n)
+    check(torch.equal(disp_f, want[0]) and torch.equal(disp_p, want[1]),
+          "K1 on the predicted motion differs from its plain version")
+    del want
+    print(f"phase 15 motion render f32 (SceneRenderer.render, --rawsize, crop auto): "
+          f"P={P} ({n_mov} moving of {CROP_W * CROP_W} pixels), crop plan {crop}; "
+          f"launches { {k: v for k, v in launches.items() if v} }; kernels vs plain "
+          f"render max abs {render_err:.3g} (limit 1e-4); K1 bit-exact")
+
+    # K1 and K2 at these shapes: held and timed
+    cells = pos[:, 1].long() * CROP_W + pos[:, 0].long()
+    k1_case = next(c for c in euler_cases(flow_m, pos, f"{CROP_W}^2 motion from hints")
+                   if c["name"] == "K1")
+    k1 = euler_times([k1_case], {"K1": probe.latency_bound(
+        probe_dll, flow_m, cells, n, device_time)}, "phase 15")[k1_case["label"]]
+    k1["err"] = 0.0
+    k1["plain_ms"] = cuda_time(lambda: euler_compact_dual_plain(flow_m, pos, n - 1, n),
+                               reps=3, warmup=1)
+    rng = np.random.default_rng(SEED + 31)
+    ez = np.exp(-rng.uniform(0, 3, (CROP_W, CROP_W, 1))).astype(np.float32)
+    u = torch.from_numpy(np.concatenate(
+        [rng.normal(0, 1, (CROP_W, CROP_W, 64)).astype(np.float32) * ez, ez], -1)).to(dev)
+    C1 = u.shape[-1]
+    static = rollout._static_mask(pos, val, CROP_W, CROP_W)
+    u_mov = (u[pos[:, 1].long(), pos[:, 0].long()] * val[:, None]).contiguous()
+    u_static = (u * static[..., None]).contiguous()
+    del u
+    k2_args = (u_mov, pos, val, disp_f[T_MID], disp_p[n - T_MID], 0.5, 0.5, u_static)
+    out = torch.empty((CROP_W, CROP_W, C1 - 1), dtype=torch.float32, device=dev)
+    acc = splat_scratch(CROP_W, CROP_W, C1, torch.float32, dev)
+    splat_dual_normalize(*k2_args, out=out, acc=acc)
+    want = splat_dual_normalize_plain(*k2_args, torch.float32)
+    torch.cuda.synchronize()
+    k2_err = (out - want).abs().max().item()
+    check(torch.allclose(out, want, rtol=1e-5, atol=1e-5),
+          f"K2 f32 on the {CROP_W}^2 grid, motion from hints: max abs {k2_err}")
+    lone = check_zeros(out, want, f"K2 f32 on the {CROP_W}^2 grid, motion from hints")
+    bf_args = (u_mov.to(torch.bfloat16), *k2_args[1:7], u_static.to(torch.bfloat16))
+    bf = splat_dual_normalize(*bf_args, out=torch.empty_like(out))
+    bf_plain = splat_dual_normalize_plain(*bf_args, torch.float32)
+    torch.cuda.synchronize()
+    bf_err, bf_ref = ((bf - want).abs().max().item(),
+                      (bf_plain - want).abs().max().item())
+    check(bf_err <= 2.0 * bf_ref, f"K2 bf16 accumulation on the {CROP_W}^2 grid: "
+          f"{bf_err} from the f32 sums, over twice its plain version's {bf_ref}")
+    del want, bf, bf_plain, bf_args
+    k2 = k2_grid_times(k2_args, out, acc, reps=20, plain_reps=3)
+    k2["err"] = k2_err
+    del acc, out, k2_args, u_mov, u_static
+    print(f"phase 15 K1 plain at the motion's set: {k1['plain_ms']:.3f} ms (as called)")
+    print(f"phase 15 K2 f32 on the {CROP_W}^2 grid, motion from hints (P={P}): "
+          f"{fmt_times(k2)}; plain {k2['plain_ms']:.3f} ms; library "
+          f"{fmt_times(k2['lib'])}; bound {k2['bound'][0]:.4f} ms by {k2['bound'][1]}; "
+          f"per call on the card (torch.profiler): {fmt_split(k2['split'])}")
+    print(f"phase 15 K2 on the {CROP_W}^2 grid against its plain version at t={T_MID}: "
+          f"f32 max abs {k2_err:.3g} (limit 1e-5; {lone} single elements exactly 0 on "
+          f"one side only), bf16 accumulation {bf_err:.3g} from the f32 sums (plain "
+          f"{bf_ref:.3g}, limit twice that)")
+    res["kernels"] = {"K1": k1, "K2": k2}
+
+    # warp_flow_rollout: K1 once, K2 with C1 = 4 a frame
+    img_t = torch.from_numpy(img[None]).to(dev)
+    kernels.reset_counts()
+    warped = rollout.warp_flow_rollout(img_t, flow_m, n, pos, val)
+    torch.cuda.synchronize()
+    warp_launches = kernels.counts()
+    check(warp_launches == {**zero, "euler_compact_dual": 1, "splat_dual_normalize": n},
+          f"warp_flow_rollout launches {warp_launches}")
+    warp_err = (warped - rollout.warp_flow_rollout(img_t, flow_m, n, pos, val,
+                                                   plain=True)).abs().max().item()
+    check(warp_err <= 1e-5, f"warp_flow_rollout kernels vs plain max abs {warp_err}")
+    del warped
+    print(f"phase 15 warp_flow_rollout {CROP_W}^2 N={n} on the predicted motion: "
+          f"kernels vs plain max abs {warp_err:.3g} (limit 1e-5); launches "
+          f"{ {k: v for k, v in warp_launches.items() if v} }")
+
+    # frames/s with the hints and the regression included
+    def motion_render(rr):
+        return lambda: rr.frames(img, rr.scene_flow(img, flow_in, "scene", rawsize=True))
+
+    med, ts = call_median(motion_render(r))
+    res["fps"]["motion f32"] = n / med
+    print(f"phase 15 motion render f32 {CROP_W}^2 N={n} (hints + regressor + render, "
+          f"decode batch {r.decode_batch_for(CROP_W * CROP_W)}): median "
+          f"{med * 1e3:.1f} ms = {n / med:.2f} frames/s (runs "
+          f"{[round(x * 1e3, 1) for x in ts]} ms)")
+    del r, frames
+    torch.cuda.empty_cache()
+
+    kernels.reset_counts()
+    _, frames_b = render_capture(rb, img_path, flow_path, os.path.join(scene_dir, "bf16"),
+                                 name="scene", rawsize=True)
+    torch.cuda.synchronize()
+    launches_b = kernels.counts()
+    check(launches_b == launches, f"bfloat16 motion render launches {launches_b}")
+    check(bool(torch.isfinite(frames_b).all()), "bfloat16 motion render not finite")
+    motion_b = rb.scene_flow(img, flow_in, "scene", rawsize=True)
+    mb_err = float(np.abs(motion_b - motion).max())
+    check(mb_err <= 1e-4 * scale, f"the bfloat16 renderer's regressor (f32) differs "
+          f"from the float32 one's by {mb_err}")
+    med, ts = call_median(motion_render(rb))
+    res["fps"]["motion bfloat16"] = n / med
+    print(f"phase 15 motion render bfloat16 {CROP_W}^2 N={n}: regressed motion max abs "
+          f"{mb_err:.3g} from the float32 renderer's; launches as f32; median "
+          f"{med * 1e3:.1f} ms = {n / med:.2f} frames/s with hints and regressor (runs "
+          f"{[round(x * 1e3, 1) for x in ts]} ms)")
+    del rb, frames_b
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2973,8 +3283,13 @@ def main() -> int:
     sweep = sweep_phase()
     staged = stages_phase(crop)
     del crop["renderer"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ---- phase 15: summary -------------------------------------------
+    # ---- phase 15: motion from hints at 768² ---------------------------
+    motion = motion_phase(dev, probe, probe_dll)
+
+    # ---- phase 16: summary -------------------------------------------
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd, lib_ms):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_, "max_abs_err": err,
@@ -3057,11 +3372,21 @@ def main() -> int:
             ck["K5"]["err"], ck["K5"]["ms"], ck["K5"]["plain_ms"], ck["K5"]["bound"],
             ck["K5"]["lib"]["ms"]),
     ]
-    print("phase 15 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
+    mk, grid = motion["kernels"], f"{CROP_W}^2 grid, P={motion['P']}, motion from hints"
+    rows_out += [
+        row(f"euler_compact_dual ({grid})", "slrsfs_tpu_torch/csrc/euler.cu",
+            "slrsfs_tpu/ops/euler.py:145", motion["launches"]["euler_compact_dual"],
+            mk["K1"]["err"], mk["K1"]["ms"], mk["K1"]["plain_ms"], mk["K1"]["bound"], None),
+        row(f"splat_dual_normalize ({grid})", "slrsfs_tpu_torch/csrc/splat.cu",
+            "slrsfs_tpu/ops/splat.py:390", motion["launches"]["splat_dual_normalize"],
+            mk["K2"]["err"], mk["K2"]["ms"], mk["K2"]["plain_ms"], mk["K2"]["bound"],
+            mk["K2"]["lib"]["ms"]),
+    ]
+    print("phase 16 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
           + f"; training step {train['step_ms']:.1f} ms at B={train['B']} "
           f"({train['B'] / train['step_ms'] * 1e3:.2f} samples/s)")
-    print(f"phase 15 {CROP_W}^2 frames/s: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in crop["fps"].items())
+    print(f"phase 16 {CROP_W}^2 frames/s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in {**crop["fps"], **motion["fps"]}.items())
         + f"; sweep {sweep['scenes_per_hour']:.1f} scenes/hour; device busy "
         f"{100.0 * staged['busy_share']:.1f} % of a traced crop render; all checks passed")
     print(smi)

@@ -18,6 +18,11 @@ the region. Flow editing: --speed, --rotate (degrees) and --flow-scale.
 moving region's window only and pastes it onto one full-frame static decode
 (exact; engine/rollout.py, crop decode section); --profile-stages prints
 the reference's stage times for the scene (engine/stage_profile.py).
+--motion-ckpt renders motion from sparse hints (the reference's
+test_motion_4eval_rawsize_threshold.py:163-219): the given flow only seeds
+a speed-threshold mask and five k-means/RBF hints (data/hints.py), and a
+motion regressor's checkpoint (models/motion.py) predicts the dense motion
+that the render then animates, both on the renderer's device.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from slrsfs_tpu_torch.engine.init_utils import resolve_device, settle
+from slrsfs_tpu_torch.engine.init_utils import no_tf32, resolve_device, settle
 
 # Decode-chunk budget in decoded pixels x frames: the decoder's live
 # activations scale with decode_batch x window area, so the auto chooser
@@ -98,8 +103,7 @@ def outputs_to_u8(outs) -> dict:
     return {k: to_u8(v, image="Img" in k).cpu().numpy() for k, v in outs.items()}
 
 
-# titles of the ROADMAP §1 items that port what the render raises on
-MOTION = "Motion regressor, render side"
+# the title of the ROADMAP §1 item that ports what the render raises on
 MULTI_GPU = "Multi-GPU"
 
 
@@ -107,6 +111,22 @@ def _not_ported(what: str, item: str):
     """``what`` is not ported; ``item`` is the title of the ROADMAP §1 item
     that ports it."""
     return NotImplementedError(f"{what} is not ported yet: ROADMAP §1, \"{item}\"")
+
+
+def load_regressor(path: str, W: int):
+    """The ``MotionRegressor`` of a reference-style motion checkpoint
+    (``SPADE_unet_mask_motion`` or ``unet_motion``) at W² on the CPU, in
+    eval mode (JAX cli/render.py:149-157)."""
+    from slrsfs_tpu_torch.io.checkpoint import load_checkpoint, load_model_state, motion_state
+    from slrsfs_tpu_torch.models.motion import MOTION_MODEL_TYPES, MotionRegressor
+
+    sd, opt = load_checkpoint(path)
+    if opt.model_type not in MOTION_MODEL_TYPES:
+        raise ValueError(f"motion checkpoint {path}: model_type {opt.model_type!r} is "
+                         f"not a motion regressor ({', '.join(MOTION_MODEL_TYPES)})")
+    regressor = MotionRegressor(opt.replace(W=W, motionW=W, motionH=W)).eval()
+    load_model_state(regressor, motion_state(sd))
+    return regressor
 
 
 class SceneRenderer:
@@ -130,15 +150,14 @@ class SceneRenderer:
             load_checkpoint,
             load_model_state,
         )
-        from slrsfs_tpu_torch.models.baseline import BaselineModel, init_random_weights
-        from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRModel
+        from slrsfs_tpu_torch.models import get_model
+        from slrsfs_tpu_torch.models.baseline import init_random_weights
+        from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE
 
         if dtype not in DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}")
         if crop_decode not in ("auto", "off"):
             raise ValueError(f"unknown crop_decode {crop_decode!r}")
-        if motion_ckpt:
-            raise _not_ported("--motion-ckpt (motion regressor)", MOTION)
         if shard_frames:
             raise _not_ported("--shard-frames (multi-GPU)", MULTI_GPU)
         self.device = resolve_device(device)
@@ -149,10 +168,13 @@ class SceneRenderer:
         else:  # random weights (smoke/benchmark mode)
             opt = Options(W=W, bn_noise_misc=True, **(opt_overrides or {}))
         if opt.model_type not in RENDER_MODEL_TYPES:
-            raise _not_ported(f"model_type {opt.model_type!r}", MOTION)
+            raise ValueError(
+                f"model_type {opt.model_type!r} is not a render model "
+                f"({', '.join(RENDER_MODEL_TYPES)}); pass a motion "
+                f"regressor's checkpoint as motion_ckpt (--motion-ckpt)")
         self.opt = opt
         self.slr = opt.model_type == SLR_MODEL_TYPE
-        model = (SLRModel if self.slr else BaselineModel)(opt).eval()
+        model = get_model(opt).eval()
         if ckpt:
             load_model_state(model, sd)
             model = model.to(self.device)
@@ -171,6 +193,10 @@ class SceneRenderer:
         self.splat_dtype = (torch.bfloat16 if dtype == "bfloat16-fast"
                             else torch.float32)
         self.model = model.to(self.compute_dtype)
+        # motion from hints: the regressor runs in float32 whatever the
+        # render's dtype, as JAX runs its float32 variables
+        self.regressor = (None if not motion_ckpt
+                          else load_regressor(motion_ckpt, W).to(self.device))
         self.W, self.n_frames = W, n_frames
         if decode_batch is not None:
             while n_frames % decode_batch:
@@ -266,6 +292,22 @@ class SceneRenderer:
                 *args, decode_batch=self.decode_batch_for, **kw)
         return {"full": full, "crop": None if crop is None else crop[0]}
 
+    def regress_motion(self, img: np.ndarray, flow: np.ndarray) -> np.ndarray:
+        """Motion from hints (JAX cli/render.py:314-325): ``flow`` (W, W, 2)
+        only seeds the speed-threshold mask and the five k-means/RBF hints
+        (``data/hints.py:synthesize_hint``); the regressor predicts the
+        dense motion from [img (W, W, 3), mask, hint], float32 with TF32
+        off, on the renderer's device. Returns the motion (W, W, 2)."""
+        from slrsfs_tpu_torch.data.hints import synthesize_hint
+
+        dev = self.device
+        hint, mask = synthesize_hint(torch.from_numpy(
+            np.ascontiguousarray(flow, np.float32)).to(dev))
+        img_t = torch.from_numpy(np.asarray(img, np.float32)[None]).to(dev)
+        with torch.no_grad(), no_tf32():
+            pred = self.regressor(img_t, mask[None, ..., None], hint[None])
+        return pred[0].cpu().numpy()
+
     def load_inputs(self, image_path: str, flow_path: str, name: str,
                     speed: float = 1.0, align_json: str = "None",
                     rawsize: bool = False, rotate: float = 0.0,
@@ -275,7 +317,7 @@ class SceneRenderer:
 
         from slrsfs_tpu_torch.data.transforms import transform_flow
 
-        W, n_frames = self.W, self.n_frames
+        W = self.W
         img_pil = Image.open(image_path).convert("RGB")
         out_w, out_h = img_pil.size if rawsize else (img_pil.size[0] // 2,
                                                      img_pil.size[1] // 2)
@@ -284,6 +326,16 @@ class SceneRenderer:
 
         flow = edit_flow(_load_flow(flow_path), rotate, flow_scale)
         flow = transform_flow(flow, W, speed=speed)
+        return img, self.scene_flow(img, flow, name, align_json, rawsize), out_w, out_h
+
+    def scene_flow(self, img: np.ndarray, flow: np.ndarray, name: str,
+                   align_json: str = "None", rawsize: bool = False) -> np.ndarray:
+        """The motion the render animates, from the transformed flow (W, W,
+        2): with a regressor, its motion from hints (``regress_motion``);
+        then the align-json rescale and the sparsifier."""
+        n_frames = self.n_frames
+        if self.regressor is not None:
+            flow = self.regress_motion(img, flow)
         if align_json and align_json != "None":
             with open(align_json) as f:
                 align = json.load(f)
@@ -302,7 +354,7 @@ class SceneRenderer:
                       f"{speed_px[zeroed].max() * n_frames:.2f}px over "
                       f"{n_frames} frames)")
             flow = np.where(sub[..., None], 0.0, flow)
-        return img, np.asarray(flow, np.float32), out_w, out_h
+        return np.asarray(flow, np.float32)
 
     def render(self, image_path: str, flow_path: str, save_dir: str,
                name: str = None, speed: float = 1.0, align_json: str = "None",
@@ -354,12 +406,13 @@ def render_scene(image_path: str, flow_path: str, save_dir: str,
                  dtype: str = "float32", decode_batch: int = None,
                  seed: int = 0, opt_overrides: dict = None,
                  sparsify_eps: float = 0.0, alpha_region_path: str = None,
-                 crop_decode: str = "auto", device="cuda") -> str:
+                 crop_decode: str = "auto", motion_ckpt: str = None,
+                 device="cuda") -> str:
     """One-shot render of one scene (the reference single-scene script).
     Scene loops build one ``SceneRenderer`` and call ``render()`` per
     scene."""
     r = SceneRenderer(ckpt=ckpt, W=W, n_frames=n_frames, dtype=dtype,
-                      decode_batch=decode_batch, seed=seed,
+                      decode_batch=decode_batch, seed=seed, motion_ckpt=motion_ckpt,
                       opt_overrides=opt_overrides, sparsify_eps=sparsify_eps,
                       crop_decode=crop_decode, device=device)
     out_dir = r.render(image_path, flow_path, save_dir, name=name, speed=speed,
@@ -427,7 +480,8 @@ def main(argv=None):
                    help="SLR edit region: a grayscale image, white where the "
                         "two-layer composite applies")
     p.add_argument("--motion-ckpt", default=None,
-                   help="motion-regressor checkpoint (not ported yet)")
+                   help="motion-regressor checkpoint: the flow only seeds "
+                        "sparse hints, the regressor predicts the motion")
     p.add_argument("--shard-frames", action="store_true",
                    help="shard frames over several GPUs (not ported yet)")
     p.add_argument("--sparsify-eps", type=float, default=None,

@@ -559,6 +559,40 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
         return frames
 
 
+@torch.no_grad()
+def warp_flow_rollout(img: Tensor, flow: Tensor, n_frames: int, positions: Tensor,
+                      valid: Tensor, plain: bool = False) -> Tensor:
+    """Warp the image itself with the integrated motion, no network
+    (reference ``AnimatingSoftmaxSplating.warp_flow``,
+    animating_softmax_splating.py:983-1173; JAX ``warp_flow_rollout``):
+    the double-ended splat of u = [RGB, 1] (Z = 1), K1 once and K2 a frame
+    (C1 = 4, float32), the static pixels splatting onto themselves.
+
+    img (1, H, W, 3) in [-1, 1]; flow, positions, valid as for
+    ``baseline_rollout_sparse``; ``plain`` runs the kernels' plain
+    versions. Returns (N, H, W, 3) float32."""
+    N = n_frames
+    H, W = flow.shape[0], flow.shape[1]
+    f32 = torch.float32
+    u = torch.cat([img[0].to(f32), torch.ones((H, W, 1), dtype=f32, device=flow.device)],
+                  dim=-1)
+    u_static = (u * _static_mask(positions, valid, H, W)[..., None]).contiguous()
+    u_mov = (u[positions[:, 1].long(), positions[:, 0].long()] * valid[:, None]).contiguous()
+    integrate = euler_compact_dual_plain if plain else euler_compact_dual
+    disp_f, disp_p = integrate(flow, positions, N - 1, N)
+    frames = torch.empty((N, H, W, 3), dtype=f32, device=flow.device)
+    acc = splat_scratch(H, W, 4, f32, flow.device)
+    for t in range(N):
+        a, b = _alphas(t, N)
+        args = (u_mov, positions, valid, disp_f[t], disp_p[N - t], float(a), float(b),
+                u_static)
+        if plain:
+            frames[t] = splat_dual_normalize_plain(*args, f32)
+        else:
+            splat_dual_normalize(*args, out=frames[t], acc=acc)
+    return frames
+
+
 # ---------------------------------------------------------------------------
 # SLR two-layer rollouts
 # ---------------------------------------------------------------------------

@@ -70,20 +70,36 @@ RENDER_MODEL_TYPES = ("softmax_splating",
                       "softmax_splating_2layers_alpha_seperate")
 
 
+def motion_state(sd: Mapping) -> Dict:
+    """The motion regressor's keys of a raw or cleaned state_dict, named as
+    a standalone ``MotionRegressor`` names them (``motion_predictor.*``):
+    a motion checkpoint's own, which ``clean_state_dict`` moves under
+    ``motion_regressor.``, or a fluid model's embedded regressor. The JAX
+    ``import_motion_model`` (:272-276) takes either."""
+    head = "motion_regressor."
+    return {k[len(head):]: v for k, v in clean_state_dict(sd).items()
+            if k.startswith(head + "motion_predictor.")}
+
+
 def load_checkpoint(path: str) -> Tuple[Dict, Options]:
-    """(cleaned state_dict, Options) of a reference-style baseline or SLR
-    checkpoint, with ``bn_noise_misc`` set as inference does
-    (test_baseline_4eval.py:127); as the JAX ``import_checkpoint`` (:297)
-    reads it."""
+    """(cleaned state_dict, Options) of a reference-style baseline, SLR or
+    motion-regressor checkpoint, with ``bn_noise_misc`` set as inference
+    does (test_baseline_4eval.py:127); as the JAX ``import_checkpoint``
+    (:297) reads it. A regressor's weights are ``motion_state(sd)``."""
+    from slrsfs_tpu_torch.models.motion import MOTION_MODEL_TYPES
+
     # the options travel as a pickled argparse namespace
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     opt = opts_from_namespace(ckpt["opts"]) if "opts" in ckpt else Options()
     opt = opt.replace(bn_noise_misc=True)
     sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
-    if opt.model_type not in RENDER_MODEL_TYPES:
+    if opt.model_type == "bg":
         raise NotImplementedError(
-            f"model_type {opt.model_type!r} is not ported yet: the motion "
-            "regressor is ROADMAP §1, \"Motion regressor, render side\"")
+            "model_type 'bg' (the background model) is not ported yet: ROADMAP "
+            "§1, \"The rest of training\"")
+    if opt.model_type not in RENDER_MODEL_TYPES + MOTION_MODEL_TYPES:
+        raise ValueError(f"unknown model_type {opt.model_type!r}: the port loads "
+                         f"{', '.join(RENDER_MODEL_TYPES + MOTION_MODEL_TYPES)}")
     return clean_state_dict(sd), opt
 
 

@@ -1,8 +1,9 @@
 """JAX variables → the port's ``state_dict``.
 
 ``from_jax_variables`` is the inverse of ``slrsfs_tpu/io/torch_import.py``
-(:55-128) for the baseline and SLR models, the multiscale discriminator and
-VGG19Features: it takes the JAX ``{'params', 'batch_stats', 'spectral'}``
+(:55-128) for the baseline and SLR models, the motion regressor (the
+inverse of ``io/checkpoint.py:import_motion_model``), the multiscale
+discriminator and VGG19Features: it takes the JAX ``{'params', 'batch_stats', 'spectral'}``
 tree as numpy arrays and returns a ``state_dict`` under the reference's
 (torchvision's, for VGG) key names. Conv kernels go from HWIO to OIHW,
 dense kernels from (in, out) to (out, in), and a conv's spectral ``v`` from
@@ -33,6 +34,8 @@ _RENAMES = (
     (re.compile(r"\bmodel(\d+)\.0(\.0)?$"), r"model\1_conv"),
     # VGG19: torchvision features.{i} is the JAX conv_{i}
     (re.compile(r"^features\.(\d+)$"), r"conv_\1"),
+    # SPADE: the reference's nn.Sequential(conv, ReLU) is the JAX conv
+    (re.compile(r"\bmlp_shared\.0\b"), "mlp_shared"),
 )
 
 
@@ -78,16 +81,14 @@ def _jax_leaf(variables: Mapping, key: str, partial: set) -> np.ndarray:
 def from_jax_variables(variables_np: Mapping, opt: Options,
                        model: torch.nn.Module = None) -> Dict[str, torch.Tensor]:
     """JAX variables (numpy leaves) → the state_dict of ``model``: by
-    default the ``BaselineModel`` or ``SLRModel`` that ``opt.model_type``
-    names; pass a ``MultiscaleDiscriminator`` or ``VGG19Features`` (any
-    device, ``meta`` included) for those."""
-    from slrsfs_tpu_torch.models.baseline import BaselineModel
-    from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRModel
+    default the ``BaselineModel``, ``SLRModel`` or ``MotionRegressor`` that
+    ``opt.model_type`` names; pass a ``MultiscaleDiscriminator`` or
+    ``VGG19Features`` (any device, ``meta`` included) for those."""
+    from slrsfs_tpu_torch.models import get_model
 
     if model is None:
         with torch.device("meta"):
-            model = (SLRModel if opt.model_type == SLR_MODEL_TYPE
-                     else BaselineModel)(opt)
+            model = get_model(opt)
     partial = set()
     for name, mod in model.named_modules():
         if getattr(mod, "partial", False):

@@ -94,3 +94,20 @@ def upsample_bilinear_2x(x: Tensor) -> Tensor:
     """Upsample(scale_factor=2, mode='bilinear', align_corners=False)."""
     return F.interpolate(x, scale_factor=2, mode="bilinear",
                          align_corners=False)
+
+
+def resize_bilinear(x: Tensor, h: int, w: int) -> Tensor:
+    """torch F.interpolate(mode='bilinear', align_corners=False,
+    antialias=False) to (h, w): two taps at half-pixel-centred source
+    coordinates, no antialiasing on a downscale (the JAX ``resize_bilinear``
+    writes this rule out by hand)."""
+    if tuple(x.shape[-2:]) == (h, w):
+        return x
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
+                         antialias=False)
+
+
+def resize_nearest(x: Tensor, h: int, w: int) -> Tensor:
+    """torch F.interpolate(mode='nearest') to (h, w): the legacy grid, source
+    floor(i · in/out), not 'nearest-exact'."""
+    return F.interpolate(x, size=(h, w), mode="nearest")

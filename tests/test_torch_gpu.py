@@ -1154,3 +1154,78 @@ def test_crop_render_matches_full_on_card(v2):
     assert kernels.counts()["maximum_warp_norm_sparse"] == (7 if v2 else 0)
     want = baseline_rollout_sparse(*args, decode_batch=3)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _dense_motion(n: int = 256, seed: int = 21) -> np.ndarray:
+    """Every pixel moves (a regressor's dense prediction): a smooth field
+    with noise, nowhere exactly 0."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32)
+    m = np.stack([1.5 * np.sin(yy / 17.0) + 0.6 * np.cos(xx / 23.0) + 2.2,
+                  0.8 * np.cos(xx / 29.0) + 0.3], -1)
+    return (m + rng.normal(0, 0.1, m.shape)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splat_dtype", [torch.float32, torch.bfloat16])
+def test_k1_k2_match_plain_at_a_dense_moving_set_on_card(splat_dtype):
+    """The motion-from-hints shapes: every pixel of a 256^2 grid moves (P =
+    65,536, no static pixel), so K2 has no static identity and splats over
+    the whole grid. K1 bit for bit; K2 f32 at 1e-5 with the same empty
+    cells, bf16 accumulation at most twice as far from the f32 sums as its
+    plain version."""
+    dev = _card()
+    n = 256
+    m = _dense_motion(n)
+    pos, val = prepare_scene_sparse(m)
+    assert pos.shape[0] == n * n and val.all()
+    motion, positions = torch.from_numpy(m).to(dev), torch.from_numpy(pos).to(dev)
+    kernels.reset_counts()
+    kf, kb = euler_compact_dual(motion, positions, 59, 60)
+    assert kernels.counts()[kernels.EULER.name] == 1
+    pf, pb = euler_compact_dual_plain(motion, positions, 59, 60)
+    torch.cuda.synchronize()
+    assert torch.equal(kf, pf) and torch.equal(kb, pb)
+    rng = np.random.default_rng(22)
+    ez = np.exp(-rng.uniform(0, 3, (n, n, 1))).astype(np.float32)
+    u = torch.from_numpy(np.concatenate(
+        [rng.standard_normal((n, n, 64)).astype(np.float32) * ez, ez], -1)).to(dev)
+    valid = torch.from_numpy(val).to(dev)
+    static = rollout._static_mask(positions, valid, n, n)
+    assert not static.any()
+    u_mov = u[positions[:, 1].long(), positions[:, 0].long()].contiguous()
+    args = (positions, valid, pf[30], pb[30], 0.5, 0.5)
+    f32 = splat_dual_normalize_plain(u_mov, *args, u * 0.0, torch.float32)
+    rows, u_static = u_mov.to(splat_dtype), (u * 0.0).to(splat_dtype)
+    out = torch.empty((n, n, 64), dtype=torch.float32, device=dev)
+    splat_dual_normalize(rows, *args, u_static, out=out)
+    want = splat_dual_normalize_plain(rows, *args, u_static, torch.float32)
+    torch.cuda.synchronize()
+    if splat_dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal((out == 0).all(-1), (want == 0).all(-1))
+    else:
+        assert (out - f32).abs().max() <= 2 * (want - f32).abs().max()
+
+
+@pytest.mark.gpu
+def test_warp_flow_rollout_kernels_match_plain_on_card():
+    """warp_flow_rollout (K1 once, K2 with C1 = 4 a frame) against its plain
+    path, 256^2, half the rows moving and then every pixel: 1e-5."""
+    dev = _card()
+    n, N = 256, 12
+    rng = np.random.default_rng(23)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, n, n, 3)).astype(np.float32)).to(dev)
+    for half in (True, False):
+        m = _dense_motion(n)
+        if half:
+            m[: n // 2] = 0.0
+        pos, val = prepare_scene_sparse(m)
+        args = (img, torch.from_numpy(m).to(dev), N, torch.from_numpy(pos).to(dev),
+                torch.from_numpy(val).to(dev))
+        kernels.reset_counts()
+        got = rollout.warp_flow_rollout(*args)
+        assert kernels.counts()["euler_compact_dual"] == 1
+        assert kernels.counts()["splat_dual_normalize"] == N
+        want = rollout.warp_flow_rollout(*args, plain=True)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

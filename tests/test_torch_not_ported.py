@@ -15,7 +15,7 @@ from slrsfs_tpu_torch.io import checkpoint
 
 torch.set_num_threads(1)
 
-TITLES = ("Motion regressor, render side", "The rest of training", "Multi-GPU")
+TITLES = ("The rest of training", "Multi-GPU")
 
 
 def _render(**kw):
@@ -28,20 +28,17 @@ def _trainer(**kw):
     Trainer(config.Options(**kw), torch.nn.Identity(), device="cpu")
 
 
-def _checkpoint(tmp_path):
-    path = tmp_path / "motion.pth"
-    opts = argparse.Namespace(model_type="motion")
+def _checkpoint(tmp_path, model_type):
+    path = tmp_path / "model.pth"
+    opts = argparse.Namespace(model_type=model_type)
     torch.save({"opts": opts, "state_dict": {}}, path)
     checkpoint.load_checkpoint(str(path))
 
 
 BRANCHES = {
-    "render --motion-ckpt": (lambda tmp: _render(motion_ckpt="m.pth"),
-                             "Motion regressor, render side"),
     "render --shard-frames": (lambda tmp: _render(shard_frames=True), "Multi-GPU"),
-    "render model_type": (lambda tmp: _render(opt_overrides=dict(model_type="motion")),
-                          "Motion regressor, render side"),
-    "checkpoint model_type": (_checkpoint, "Motion regressor, render side"),
+    "checkpoint model_type bg": (lambda tmp: _checkpoint(tmp, "bg"),
+                                 "The rest of training"),
     "train model_type": (lambda tmp: train.build(config.Options(model_type="motion"),
                                                  device="cpu"),
                          "The rest of training"),
@@ -62,6 +59,16 @@ def test_not_ported_messages_name_the_item_by_title(branch, tmp_path):
     msg = str(err.value)
     assert title in msg and "ROADMAP" in msg, msg
     assert not re.search(r"item\s*\d", msg), msg
+
+
+def test_unknown_model_types_raise_value_error(tmp_path):
+    """A model type neither package knows is a ValueError, as in the JAX
+    ``import_checkpoint``; a render refuses one that is not a render model
+    and names the render model types."""
+    with pytest.raises(ValueError, match="unknown model_type 'motion'"):
+        _checkpoint(tmp_path, "motion")
+    with pytest.raises(ValueError, match="softmax_splating"):
+        _render(opt_overrides=dict(model_type="motion"))
 
 
 def test_train_cli_names_the_item_by_title():

@@ -104,10 +104,7 @@ def test_auto_decode_batch_divides_frames():
     assert 60 % db == 0 and db * 768 * 768 <= port_render.DECODE_PX_BUDGET
 
 
-@pytest.mark.parametrize("kw", [dict(motion_ckpt="motion.pth"),
-                                dict(shard_frames=True),
-                                dict(opt_overrides=dict(
-                                    model_type="SPADE_unet_mask_motion", ngf=8))])
+@pytest.mark.parametrize("kw", [dict(shard_frames=True)])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_render.SceneRenderer(W=16, n_frames=2, device="cpu", **kw)
