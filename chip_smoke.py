@@ -100,6 +100,18 @@ warp_flow_rollout kernels vs plain (1e-5); t_hints, t_regressor, the
 regressor's peak memory and frames/s with the hints and the regression
 included.
 
+Then the CLAW evaluation at 768² (phase 16, eval_phase): cli/render_all.py
+with --rawsize renders the sweep's four scenes (768^2 PredImg, 60 frames;
+K1 x 4, K2 x 240), each gets a seeded 60-frame GT mp4 (its input plus a few
+u8 levels of noise), and cli/eval.py scores them on the card with seeded
+random VGG16, AlexNet, LPIPS and I3D weights in the user's layouts, plain
+and --fluid: every scene scored, the four Total columns and TotalFVD
+finite, the file equal to the returned dict; one frame pair's metrics and
+four 60-frame videos' I3D features and Frechet distance card vs CPU; the
+eval's wall time, each metric's time a frame (CUDA events), the host's
+PNG loads, mp4 decode and GT resizes, I3D and preprocess_video a video,
+the eval's peak memory and the render's frames/s.
+
 Each path runs with the launch counts set to 0 just before it and read just
 after. The script times the renders and the steps with CUDA events, and
 each kernel three ways (kernel_times): as called (events around a loop of
@@ -2378,6 +2390,7 @@ def motion_phase(dev, probe, probe_dll):
     from slrsfs_tpu_torch.cli.render import SceneRenderer, _load_flow, load_regressor
     from slrsfs_tpu_torch.data import hints
     from slrsfs_tpu_torch.data.transforms import transform_flow
+    from slrsfs_tpu_torch.utils.flow_viz import write_flo
     from slrsfs_tpu_torch.engine import rollout
     from slrsfs_tpu_torch.engine.init_utils import no_tf32
     from slrsfs_tpu_torch.ops.euler import euler_compact_dual_plain
@@ -2582,14 +2595,6 @@ def motion_phase(dev, probe, probe_dll):
     return res
 
 
-def write_flo(path: str, flow: np.ndarray) -> None:
-    """A Middlebury .flo file: the tag, width, height, then (H, W, 2) f32."""
-    with open(path, "wb") as f:
-        np.array([202021.25], np.float32).tofile(f)
-        np.array([flow.shape[1], flow.shape[0]], np.int32).tofile(f)
-        np.ascontiguousarray(flow, np.float32).tofile(f)
-
-
 def sweep_phase():
     """``cli/render_all.py`` with its default flags (W = 768, bfloat16,
     crop decode auto, moving sets bucketed at 1.25) over the four
@@ -2605,6 +2610,7 @@ def sweep_phase():
     from slrsfs_tpu_torch import kernels
     from slrsfs_tpu_torch.cli import render_all
     from slrsfs_tpu_torch.cli.render import SceneRenderer
+    from slrsfs_tpu_torch.utils.flow_viz import write_flo
 
     scenes_dir = os.path.join(OUT_DIR, "sweep_scenes")
     out_dir, one_dir = os.path.join(OUT_DIR, "sweep"), os.path.join(OUT_DIR, "sweep_one")
@@ -2652,7 +2658,7 @@ def sweep_phase():
           f"{ {kk: v for kk, v in launches.items() if v} }; PredImg PNGs against "
           f"one-scene renders: at most {worst} u8 level(s) apart")
     del r
-    return {"scenes_per_hour": per_hour, **res}
+    return {"scenes_per_hour": per_hour, "scenes_dir": scenes_dir, **res}
 
 
 def stages_phase(crop: dict):
@@ -2744,6 +2750,223 @@ def stages_phase(crop: dict):
     print(f"phase 14 trace of one {CROP_W}^2 float32 crop render (torch.profiler, "
           f"{trace_dir}/trace.json; tools/trace_busy.py): {trace_busy.summary(busy)}")
     return {"stages": st, "own_s": own[0], "busy_share": share}
+
+
+# ---- evaluation on the card: the CLAW protocol at 768² -----------------------
+
+EVAL_KEYS = ("LPIPS", "Perceptual", "PSNR", "SSIM")
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of ``fn()`` between two CUDA events over ``reps``
+    calls after one warm-up, GC held off."""
+    import torch
+
+    fn()
+    ts = []
+    with no_gc():
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+    return sorted(ts)[len(ts) // 2]
+
+
+def write_gt_video(path: str, img_u8: np.ndarray, rng) -> None:
+    """``N_FRAMES`` frames of ``img_u8`` plus seeded noise of up to 4 u8
+    levels each, as an mp4v video (the card's machine has no ffmpeg)."""
+    import cv2
+
+    h, w = img_u8.shape[:2]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+    check(vw.isOpened(), f"cv2 cannot write {path}")
+    base = img_u8.astype(np.int16)
+    try:
+        for _ in range(N_FRAMES):
+            f = np.clip(base + rng.integers(-4, 5, base.shape), 0, 255).astype(np.uint8)
+            vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    finally:
+        vw.release()
+
+
+def eval_phase(scenes_dir: str, smi: str) -> dict:
+    """The CLAW protocol end to end at 768² on the card: ``cli/render_all``
+    with ``--rawsize`` renders the four ``SWEEP_SCENES`` (768² PredImg, 60
+    frames, its defaults otherwise; K1 x 4, K2 x 240), each gets a seeded
+    768² 60-frame GT mp4 (its input plus noise), and ``cli/eval`` scores
+    them with seeded random VGG16, AlexNet, LPIPS and I3D weights (the
+    user's layouts), plain and with ``--fluid`` (the sweep's .flo and
+    JPEG as the motion and the input). Holds: every scene scored, the four
+    Total columns and TotalFVD finite in both JSONs, each file equal to the
+    returned dict; one 768² frame pair's metrics card vs CPU (PSNR, SSIM
+    1e-5; Perceptual, LPIPS 1e-4 relative), the I3D features of scenes a
+    and b's real and generated videos card vs CPU (1e-4 of max |feature|)
+    and their Fréchet distance (1e-3 relative). Times the eval (wall, s
+    per scene), each metric a frame (CUDA events), the host's PNG loads,
+    mp4 decode and GT resize a frame, I3D and ``preprocess_video`` a video,
+    the eval's peak memory and the render's frames/s."""
+    import shutil
+
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.cli import eval as eval_cli
+    from slrsfs_tpu_torch.cli import render_all
+    from slrsfs_tpu_torch.data.video import VideoReader
+    from slrsfs_tpu_torch.engine.init_utils import no_tf32
+    from slrsfs_tpu_torch.eval import metrics
+    from slrsfs_tpu_torch.eval.eval_claw import _gt01, _img01
+    from slrsfs_tpu_torch.eval.i3d import FVD, frechet_distance, preprocess_video
+    from slrsfs_tpu_torch.eval.random_weights import write_random_weights
+
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT_DIR, "eval")
+    shutil.rmtree(root, ignore_errors=True)
+    pred_dir, gt_dir = os.path.join(root, "pred"), os.path.join(root, "gt")
+    os.makedirs(gt_dir)
+    k = len(SWEEP_SCENES)
+    tag = f"[{smi}]"
+
+    kernels.reset_counts()
+    with no_gc():
+        res = render_all.main([scenes_dir, pred_dir, "--rawsize"])
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    check(res["done"] == k, f"eval render: {res['done']} scenes")
+    check(launches == {**{kk.name: 0 for kk in kernels.KERNELS},
+                       "euler_compact_dual": k, "splat_dual_normalize": k * N_FRAMES},
+          f"eval render launches: {launches}")
+    for name in SWEEP_SCENES:
+        frames = os.path.join(pred_dir, name, "PredImg")
+        check(sorted(os.listdir(frames)) == [f"{t:06d}.png" for t in range(N_FRAMES)],
+              f"eval render {name}: PredImg holds {len(os.listdir(frames))} files")
+        shape = read_png(os.path.join(frames, "000000.png")).shape
+        check(shape == (CROP_W, CROP_W, 3), f"eval render {name}: PredImg {shape}")
+    render_fps = k * N_FRAMES / res["elapsed_s"]
+    print(f"phase 16 render (cli/render_all.py --rawsize, W={CROP_W}, bfloat16, crop "
+          f"auto): {k} scenes x {N_FRAMES} PredImg PNGs {CROP_W}x{CROP_W} in "
+          f"{res['elapsed_s']:.2f} s incl. saves = {render_fps:.2f} frames/s; launches "
+          f"{ {kk: v for kk, v in launches.items() if v} } {tag}")
+
+    rng = np.random.default_rng(SEED + 16)
+    for name, (seed, rows, cols) in SWEEP_SCENES.items():
+        write_gt_video(os.path.join(gt_dir, f"{name}.mp4"),
+                       synthetic_scene(seed, CROP_W, rows, cols)[0], rng)
+    w = write_random_weights(os.path.join(root, "weights"), SEED)
+    flags = ["--vgg16-pth", w["vgg16"], "--alexnet-pth", w["alexnet"],
+             "--lpips-pth", w["lpips_alex"], "--i3d-pth", w["i3d"]]
+    runs = {}
+    for label, extra in (("plain", []), ("fluid", ["--fluid", "--flow-dir", scenes_dir,
+                                                   "--input-dir", scenes_dir])):
+        out = os.path.join(root, f"metric_{label}.json")
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with no_gc():
+            got = eval_cli.main([pred_dir, gt_dir, *flags, *extra, "--out", out])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with open(out) as f:
+            check(json.load(f) == got, f"eval {label}: {out} differs from the returned dict")
+        for key in EVAL_KEYS:
+            check(sorted(got[key]) == sorted(SWEEP_SCENES),
+                  f"eval {label}: {key} scored {sorted(got[key])}")
+        totals = {key: got[key] for key in [f"Total{kk}" for kk in EVAL_KEYS] + ["TotalFVD"]}
+        check(all(isinstance(v, float) and np.isfinite(v) for v in totals.values()),
+              f"eval {label}: {totals}")
+        runs[label] = {"s": secs, "peak": peak, "totals": totals}
+        print(f"phase 16 eval {label} (cli/eval.py, all four weight flags, seeded random "
+              f"weights): {k} scenes in {secs:.2f} s = {secs / k:.2f} s a scene; "
+              + ", ".join(f"{kk} {v:.6g}" for kk, v in totals.items())
+              + f"; peak memory {peak / 2**30:.3f} GiB allocated ({base / 2**30:.3f} "
+              f"before) {tag}")
+    check(runs["fluid"]["totals"]["TotalPSNR"] != runs["plain"]["totals"]["TotalPSNR"],
+          "eval: the fluid composite left PSNR as it was")
+
+    scene = next(iter(SWEEP_SCENES))
+    vr = VideoReader(os.path.join(gt_dir, f"{scene}.mp4"))
+    pred0 = _img01(os.path.join(pred_dir, scene, "PredImg", "000000.png"))
+    gt0 = _gt01(vr[0], pred0.shape[1:3])
+    vr.close()
+    args = (w["vgg16"], w["alexnet"], w["lpips_alex"])
+    card = metrics.PerceptualMetrics(*args)
+    t0 = time.perf_counter()
+    want = metrics.PerceptualMetrics(*args, device="cpu").all_metrics(pred0, gt0)
+    cpu_s = time.perf_counter() - t0
+    got = card.all_metrics(pred0, gt0)
+    err = {kk: abs(got[kk] - want[kk]) / (1.0 if kk in ("PSNR", "SSIM") else abs(want[kk]))
+           for kk in EVAL_KEYS}
+    check(err["PSNR"] <= 1e-5 and err["SSIM"] <= 1e-5, f"eval card vs CPU: {err}")
+    check(err["Perceptual"] <= 1e-4 and err["LPIPS"] <= 1e-4, f"eval card vs CPU: {err}")
+    print(f"phase 16 metrics of one {CROP_W}^2 frame pair card vs CPU: PSNR |d| "
+          f"{err['PSNR']:.3g}, SSIM |d| {err['SSIM']:.3g} (1e-5), Perceptual "
+          f"{err['Perceptual']:.3g}, LPIPS {err['LPIPS']:.3g} relative (1e-4); the CPU "
+          f"took {cpu_s:.2f} s {tag}")
+
+    # scenes a and b's real and generated videos, scene a's loads timed
+    videos, host = [], {}
+    with no_gc():
+        for i, name in enumerate(list(SWEEP_SCENES)[:2]):
+            t0 = time.perf_counter()
+            gen = np.concatenate([_img01(os.path.join(pred_dir, name, "PredImg",
+                                                      f"{t:06d}.png")) for t in range(N_FRAMES)])
+            t1 = time.perf_counter()
+            vr = VideoReader(os.path.join(gt_dir, f"{name}.mp4"))
+            raw = [vr[t] for t in range(N_FRAMES)]
+            vr.close()
+            t2 = time.perf_counter()
+            real = np.concatenate([_gt01(f, gen.shape[1:3]) for f in raw])
+            if i == 0:
+                host = {"PNG load": (t1 - t0) * 1e3 / N_FRAMES,
+                        "mp4 decode": (t2 - t1) * 1e3 / N_FRAMES,
+                        "PIL GT resize": (time.perf_counter() - t2) * 1e3 / N_FRAMES}
+            videos += [real, gen]
+        t0 = time.perf_counter()
+        pre = [torch.from_numpy(preprocess_video(v))[None] for v in videos]
+        pre_ms = (time.perf_counter() - t0) * 1e3 / len(videos)
+    fvd_card, fvd_cpu = FVD(w["i3d"]), FVD(w["i3d"], device="cpu")
+    with torch.no_grad(), no_tf32():
+        t0 = time.perf_counter()
+        f_cpu = np.concatenate([fvd_cpu.model(x).numpy() for x in pre])
+        cpu_s = time.perf_counter() - t0
+        f_card = np.concatenate([fvd_card.model(x.to(fvd_card.device)).cpu().numpy()
+                                 for x in pre])
+    f_err = float(np.abs(f_card - f_cpu).max())
+    check(f_err <= 1e-4 * np.abs(f_cpu).max(),
+          f"I3D card vs CPU: {f_err:.3g} of max {np.abs(f_cpu).max():.3g}")
+    fd = [frechet_distance(f[0::2], f[1::2]) for f in (f_card, f_cpu)]
+    check(abs(fd[0] - fd[1]) <= 1e-3 * abs(fd[1]), f"FD card {fd[0]} vs CPU {fd[1]}")
+    print(f"phase 16 I3D features of {len(videos)} preprocessed {N_FRAMES}-frame videos "
+          f"(scenes {', '.join(list(SWEEP_SCENES)[:2])}, real and generated) card vs CPU: "
+          f"max abs {f_err:.3g} of max |feature| {np.abs(f_cpu).max():.4g} (1e-4 of it); "
+          f"their Frechet distance {fd[0]:.8g} vs {fd[1]:.8g} (1e-3 relative); the CPU "
+          f"took {cpu_s:.2f} s {tag}")
+
+    P = torch.as_tensor(pred0, device=card.device)
+    G = torch.as_tensor(gt0, device=card.device)
+    with torch.no_grad(), no_tf32():
+        ms = {"PSNR": event_ms(lambda: float(metrics.psnr01(P, G))),
+              "SSIM": event_ms(lambda: float(metrics.ssim01(P, G))),
+              "Perceptual": event_ms(lambda: float(card.perceptual(P, G))),
+              "LPIPS": event_ms(lambda: float(card.lpips(P, G)))}
+        x = pre[1].to(fvd_card.device)
+        i3d_ms = event_ms(lambda: fvd_card.model(x).sum().item(), reps=3)
+    print(f"phase 16 per frame on the card ({CROP_W}^2, CUDA events, median of 5, "
+          f"float32, TF32 off): " + ", ".join(f"{kk} {v:.3f} ms" for kk, v in ms.items())
+          + f"; host per frame (scene {scene}): "
+          + ", ".join(f"{kk} {v:.2f} ms" for kk, v in host.items())
+          + f"; I3D {i3d_ms:.2f} ms a {N_FRAMES}-frame 224^2 video on the card (median "
+          f"of 3), preprocess_video {pre_ms:.1f} ms a video on the host (mean of "
+          f"{len(videos)}); phase 16 took {time.perf_counter() - t_phase:.1f} s {tag}")
+    return {"render_fps": render_fps, "runs": runs, "metric_ms": ms, "host_ms": host,
+            "i3d_ms": i3d_ms, "preprocess_ms": pre_ms}
 
 
 def main() -> int:
@@ -3289,7 +3512,12 @@ def main() -> int:
     # ---- phase 15: motion from hints at 768² ---------------------------
     motion = motion_phase(dev, probe, probe_dll)
 
-    # ---- phase 16: summary -------------------------------------------
+    # ---- phase 16: the CLAW evaluation at 768² -------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ev = eval_phase(sweep["scenes_dir"], smi)
+
+    # ---- phase 17: summary -------------------------------------------
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd, lib_ms):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_, "max_abs_err": err,
@@ -3382,13 +3610,16 @@ def main() -> int:
             mk["K2"]["err"], mk["K2"]["ms"], mk["K2"]["plain_ms"], mk["K2"]["bound"],
             mk["K2"]["lib"]["ms"]),
     ]
-    print("phase 16 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
+    print("phase 17 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
           + f"; training step {train['step_ms']:.1f} ms at B={train['B']} "
           f"({train['B'] / train['step_ms'] * 1e3:.2f} samples/s)")
-    print(f"phase 16 {CROP_W}^2 frames/s: " + ", ".join(
+    print(f"phase 17 {CROP_W}^2 frames/s: " + ", ".join(
         f"{k} {v:.2f}" for k, v in {**crop["fps"], **motion["fps"]}.items())
         + f"; sweep {sweep['scenes_per_hour']:.1f} scenes/hour; device busy "
-        f"{100.0 * staged['busy_share']:.1f} % of a traced crop render; all checks passed")
+        f"{100.0 * staged['busy_share']:.1f} % of a traced crop render")
+    print(f"phase 17 CLAW eval of {len(SWEEP_SCENES)} {CROP_W}^2 scenes (--rawsize render "
+          f"{ev['render_fps']:.2f} frames/s): plain {ev['runs']['plain']['s']:.2f} s, fluid "
+          f"{ev['runs']['fluid']['s']:.2f} s; all checks passed")
     print(smi)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {

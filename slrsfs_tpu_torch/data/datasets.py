@@ -44,10 +44,12 @@ class LiquidDataset:
                  split: str = "train", seed: int = 0):
         if variant not in VARIANTS:
             raise NotImplementedError(
-                f"dataset {variant!r} is not ported yet; ported: {VARIANTS}")
+                f"dataset {variant!r} is not ported yet (ported: {VARIANTS}; "
+                "ROADMAP §1, \"The rest of training\")")
         if opt.random_ff_mask:
             raise NotImplementedError(
-                "the free-form occlusion mask is not ported yet")
+                "the free-form occlusion mask is not ported yet (ROADMAP §1, "
+                "\"The rest of training\")")
         self.root = root
         self.opt = opt
         self.seed = seed

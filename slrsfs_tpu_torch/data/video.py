@@ -1,10 +1,12 @@
-"""Random-access video frames on OpenCV (port of
-``slrsfs_tpu/data/video.py:VideoReader``): short training clips are
-decoded sequentially up to the highest requested index and cached."""
+"""Random-access video frames on OpenCV and the mean-video tool (port of
+``slrsfs_tpu/data/video.py``): short training clips are decoded
+sequentially up to the highest requested index and cached;
+``compute_mean_video`` is reference ``data/average_gt_video.py``."""
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -54,3 +56,40 @@ class VideoReader:
             self._cap.release()
             self._cap = None
         self._cache.clear()
+
+
+def compute_mean_video(video_path: str,
+                       max_frames: Optional[int] = None) -> np.ndarray:
+    """The temporal mean of a video's frames (at most ``max_frames``),
+    summed in float64, → (H, W, 3) uint8 (reference
+    ``data/average_gt_video.py``)."""
+    import cv2
+
+    cap = cv2.VideoCapture(video_path)
+    acc, n = None, 0
+    try:
+        while max_frames is None or n < max_frames:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            f = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB).astype(np.float64)
+            acc = f if acc is None else acc + f
+            n += 1
+    finally:
+        cap.release()
+    if acc is None:
+        raise IOError(f"no frames in {video_path}")
+    return np.clip(acc / n, 0, 255).astype(np.uint8)
+
+
+def write_mean_videos(data_dir: str, out_dir: str, split: str = "train") -> None:
+    """``<data_dir>/<split>/<scene>_gt.mp4`` → ``<out_dir>/<scene>.png``, the
+    mean video of each scene (SLR's background target)."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    vids = sorted(x for x in os.listdir(os.path.join(data_dir, split))
+                  if x.endswith("_gt.mp4"))
+    for v in vids:
+        mean = compute_mean_video(os.path.join(data_dir, split, v))
+        Image.fromarray(mean).save(os.path.join(out_dir, v[:-len("_gt.mp4")] + ".png"))

@@ -8,6 +8,12 @@ tree as numpy arrays and returns a ``state_dict`` under the reference's
 (torchvision's, for VGG) key names. Conv kernels go from HWIO to OIHW,
 dense kernels from (in, out) to (out, in), and a conv's spectral ``v`` from
 the (kh, kw, I) flattening back to torch's (I, kh, kw).
+
+The eval networks' converters (``vgg16_from_jax``, ``alexnet_from_jax``,
+``lpips_alex_from_jax``, ``i3d_from_jax``) invert the JAX importers of
+``slrsfs_tpu/eval/feature_nets.py`` (:83, :93, :101) and
+``slrsfs_tpu/eval/i3d.py:import_i3d`` (:140): torchvision's, lpips' and
+pytorch-i3d's keys.
 """
 
 from __future__ import annotations
@@ -102,4 +108,68 @@ def from_jax_variables(variables_np: Mapping, opt: Options,
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: JAX shape {arr.shape} != {tuple(ref.shape)}")
         sd[key] = torch.tensor(arr)
+    return sd
+
+
+def vgg16_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``VGG16Features`` variables (``conv_{i}`` HWIO) → torchvision's
+    ``features.{i}.weight`` (OIHW) and ``.bias``."""
+    from slrsfs_tpu_torch.eval.feature_nets import VGG16Features
+
+    with torch.device("meta"):
+        model = VGG16Features()
+    return from_jax_variables(variables_np, Options(), model)
+
+
+def alexnet_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``AlexNetFeatures`` variables (``conv_{i}_kernel`` HWIO,
+    ``conv_{i}_bias``) → torchvision's ``features.{i}.weight``, ``.bias``."""
+    from slrsfs_tpu_torch.eval.feature_nets import _ALEX_CONVS
+
+    params = variables_np["params"]
+    sd = {}
+    for li, *_ in _ALEX_CONVS:
+        sd[f"features.{li}.weight"] = torch.tensor(
+            _get(params, [f"conv_{li}_kernel"]).transpose(3, 2, 0, 1))
+        sd[f"features.{li}.bias"] = torch.tensor(_get(params, [f"conv_{li}_bias"]))
+    return sd
+
+
+def lpips_alex_from_jax(weights) -> Dict[str, torch.Tensor]:
+    """The JAX LPIPS list of five (C,) weights → ``lins.{i}.model.1.weight``,
+    (1, C, 1, 1)."""
+    return {f"lins.{i}.model.1.weight":
+            torch.tensor(np.asarray(w, np.float32).reshape(1, -1, 1, 1))
+            for i, w in enumerate(weights)}
+
+
+_I3D_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+               "running_mean": ("batch_stats", "mean"),
+               "running_var": ("batch_stats", "var")}
+
+
+def i3d_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``InceptionI3D`` variables ``{'params', 'batch_stats'}`` →
+    pytorch-i3d's keys: conv kernels (kT, kH, kW, in, out) → (out, in, kT,
+    kH, kW), BN scale/bias/mean/var → weight/bias/running_*, and
+    ``num_batches_tracked`` 0."""
+    from slrsfs_tpu_torch.eval.i3d import InceptionI3D
+
+    with torch.device("meta"):
+        model = InceptionI3D()
+    sd = {}
+    for key in model.state_dict():
+        module, leaf = key.rsplit(".", 1)
+        parts = module.split(".")
+        if leaf == "num_batches_tracked":
+            sd[key] = torch.tensor(0)
+        elif parts[-1] == "conv3d":
+            if leaf == "weight":
+                arr = _get(variables_np["params"], parts + ["kernel"]).transpose(4, 3, 0, 1, 2)
+            else:
+                arr = _get(variables_np["params"], parts + ["bias"])
+            sd[key] = torch.tensor(arr)
+        else:
+            tree, name = _I3D_LEAVES[leaf]
+            sd[key] = torch.tensor(_get(variables_np[tree], parts + [name]))
     return sd

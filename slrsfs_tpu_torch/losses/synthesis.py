@@ -51,8 +51,12 @@ class SynthesisLoss:
         self.pairs: list[Tuple[float, str]] = []
         for s in losses:
             lam, name = s.split("_")
+            if name == "style":
+                raise NotImplementedError(
+                    "the style loss is not ported yet (ROADMAP §1, \"The rest "
+                    "of training\")")
             if name not in ("l1", "content"):
-                raise ValueError(f"synthesis loss {name!r} is not ported")
+                raise ValueError(f"unknown synthesis loss: {name}")
             self.pairs.append((float(lam), name))
         self.vgg = vgg
         self.subname = subname

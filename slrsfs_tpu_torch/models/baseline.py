@@ -233,7 +233,8 @@ class BaselineTrainable(BaselineModel):
         feats = g[..., :-1]
         if "ff_mask" in batch:
             raise NotImplementedError(
-                "the free-form occlusion mask (ff_mask) is not ported yet")
+                "the free-form occlusion mask (ff_mask) is not ported yet "
+                "(ROADMAP §1, \"The rest of training\")")
         gen_fs = feats / torch.clamp(g[..., -1:], min=NORM_EPS)
         gen_img = self.decode(gen_fs, train, noise)
         pred = {"PredImg": gen_img, "OutputImg": middle_img, "Z_f": zn_f,

@@ -1229,3 +1229,60 @@ def test_warp_flow_rollout_kernels_match_plain_on_card():
         assert kernels.counts()["splat_dual_normalize"] == N
         want = rollout.warp_flow_rollout(*args, plain=True)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_perceptual_metrics_card_matches_cpu(tmp_path):
+    """The CLAW metrics of one 128^2 frame pair from seeded torchvision and
+    LPIPS weights on the card against the CPU: PSNR and SSIM within 1e-5,
+    Perceptual and LPIPS within 1e-4 relative (f32, TF32 off)."""
+    from slrsfs_tpu_torch.eval.metrics import PerceptualMetrics
+    from slrsfs_tpu_torch.eval.random_weights import write_random_weights
+
+    _card()
+    w = write_random_weights(str(tmp_path), seed=8)
+    rng = np.random.default_rng(31)
+    a = rng.uniform(0, 1, (1, 128, 128, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    args = (w["vgg16"], w["alexnet"], w["lpips_alex"])
+    got = PerceptualMetrics(*args, device="cuda").all_metrics(a, b)
+    want = PerceptualMetrics(*args, device="cpu").all_metrics(a, b)
+    assert set(got) == set(want) == {"PSNR", "SSIM", "Perceptual", "LPIPS"}
+    for k in ("PSNR", "SSIM"):
+        assert abs(got[k] - want[k]) <= 1e-5, (k, got[k], want[k])
+    for k in ("Perceptual", "LPIPS"):
+        assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), (k, got[k], want[k])
+
+
+@pytest.mark.gpu
+def test_i3d_card_matches_cpu():
+    """InceptionI3D at (1, 9, 224, 224, 3) with seeded pytorch-i3d weights
+    on the card against the CPU: 1e-4 of max |feature| (f32, TF32 off)."""
+    from slrsfs_tpu_torch.engine.init_utils import no_tf32
+    from slrsfs_tpu_torch.eval.i3d import InceptionI3D
+    from slrsfs_tpu_torch.eval.random_weights import random_state_dict
+
+    dev = _card()
+    model = InceptionI3D().eval()
+    model.load_state_dict(random_state_dict(model, np.random.default_rng(32)))
+    x = torch.from_numpy(np.random.default_rng(33).uniform(
+        -1, 1, (1, 9, 224, 224, 3)).astype(np.float32))
+    with torch.no_grad(), no_tf32():
+        want = model(x)
+        got = model.to(dev)(x.to(dev)).cpu()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_eval_cli_without_card_raises(tmp_path):
+    """cli/eval refuses to run without a card unless asked for the CPU: no
+    silent fallback."""
+    from slrsfs_tpu_torch.cli import eval as eval_cli
+    from slrsfs_tpu_torch.eval.i3d import FVD
+    from slrsfs_tpu_torch.eval.metrics import PerceptualMetrics
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    for make in (PerceptualMetrics, FVD,
+                 lambda: eval_cli.main([str(tmp_path), str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

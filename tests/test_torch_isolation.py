@@ -1,7 +1,7 @@
 """The port stands alone: importing any of its modules (or chip_smoke.py)
-pulls in neither JAX nor the JAX package nor scikit-learn (which the card's
-machine lacks), builds no kernel, and its entry points refuse to run
-without a card unless asked for the CPU."""
+pulls in neither JAX nor the JAX package nor scikit-learn nor torchvision
+(which the card's machine lacks), builds no kernel, and its entry points
+refuse to run without a card unless asked for the CPU."""
 
 import json
 import os
@@ -25,7 +25,7 @@ _PROBE = textwrap.dedent("""
     from slrsfs_tpu_torch import kernels
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                           "slrsfs_tpu", "sklearn"))
+                                           "slrsfs_tpu", "sklearn", "torchvision"))
     built = [k.name for k in kernels.KERNELS if k._fn is not None]
     print(json.dumps({"n": len(names), "leaked": leaked, "built": built}))
 """)
@@ -44,11 +44,11 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_no_jax_or_sklearn():
     """No import statement, also inside a function, names JAX, flax, the
-    JAX package or scikit-learn."""
+    JAX package, scikit-learn or torchvision."""
     import re
 
     banned = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|slrsfs_tpu|"
-                        r"sklearn)\b", re.M)
+                        r"sklearn|torchvision)\b", re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "slrsfs_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]

@@ -28,6 +28,30 @@ def _trainer(**kw):
     Trainer(config.Options(**kw), torch.nn.Identity(), device="cpu")
 
 
+def _dataset(tmp_path, variant="eulerian_data", **kw):
+    from slrsfs_tpu_torch.data.datasets import LiquidDataset
+
+    LiquidDataset(str(tmp_path), config.Options(**kw), variant=variant)
+
+
+def _ff_mask_batch(tmp_path):
+    from slrsfs_tpu_torch.models.baseline import BaselineTrainable
+
+    opt = config.Options(ngf=8, W=16, out_channel=9,
+                         refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm")
+    img = torch.zeros(1, 16, 16, 3)
+    batch = {"images": [img, img, img], "index": torch.tensor([[0, 2, 4]]),
+             "motions": torch.ones(1, 16, 16, 2), "ff_mask": torch.ones(1, 16, 16, 1)}
+    BaselineTrainable(opt, train_max_steps=4).forward_train(
+        batch, deterministic=True, plain=True)
+
+
+def _synthesis_loss(name):
+    from slrsfs_tpu_torch.losses.synthesis import SynthesisLoss
+
+    SynthesisLoss([f"1.0_{name}"])
+
+
 def _checkpoint(tmp_path, model_type):
     path = tmp_path / "model.pth"
     opts = argparse.Namespace(model_type=model_type)
@@ -48,6 +72,12 @@ BRANCHES = {
                          "The rest of training"),
     "trainer pix2pixHDorigin": (lambda tmp: _trainer(discriminator_losses="pix2pixHDorigin"),
                                 "The rest of training"),
+    "dataset variant": (lambda tmp: _dataset(tmp, "eulerian_data_bg"),
+                        "The rest of training"),
+    "dataset random_ff_mask": (lambda tmp: _dataset(tmp, random_ff_mask=True),
+                               "The rest of training"),
+    "baseline ff_mask": (_ff_mask_batch, "The rest of training"),
+    "synthesis style loss": (lambda tmp: _synthesis_loss("style"), "The rest of training"),
 }
 
 
@@ -69,6 +99,13 @@ def test_unknown_model_types_raise_value_error(tmp_path):
         _checkpoint(tmp_path, "motion")
     with pytest.raises(ValueError, match="softmax_splating"):
         _render(opt_overrides=dict(model_type="motion"))
+
+
+def test_unknown_synthesis_loss_raises_value_error():
+    """A loss neither package knows is a ValueError, as in JAX's
+    ``SynthesisLoss``."""
+    with pytest.raises(ValueError, match="unknown synthesis loss: ssim"):
+        _synthesis_loss("ssim")
 
 
 def test_train_cli_names_the_item_by_title():
