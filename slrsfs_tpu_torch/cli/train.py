@@ -1,5 +1,9 @@
-"""Stage-1 training entry point (port of ``slrsfs_tpu/cli/train.py`` for
-``--model-type softmax_splating``, reference ``train_animating.py``).
+"""Training entry point (port of ``slrsfs_tpu/cli/train.py``): stage 1,
+``--model-type softmax_splating`` (reference ``train_animating.py``), and
+SLR stage 3, ``--model-type softmax_splating_2layers_alpha_seperate``
+(reference ``train_animating_alpha_2layers_joint_*.py``: the joint
+two-layer fine-tune with the SLR loss set, on the rock-mask and mean-video
+dataset ``eulerian_data_balanced1_mask``).
 
 Epochs of ``--steps-per-epoch`` G+D steps, a validation pass on the
 validation split after each, scalars as JSON lines in
@@ -9,9 +13,17 @@ render CLIs load it).
 
     python -m slrsfs_tpu_torch.cli.train --data-root DATA --out RUNDIR \\
         [--device cpu] ...
+    python -m slrsfs_tpu_torch.cli.train --data-root DATA --out RUNDIR \\
+        --model-type softmax_splating_2layers_alpha_seperate \\
+        --init-from STAGE1.pth --init-bg-from BG.pth [--device cpu] ...
 
-Resume, preemption, accumulation, bf16 and the bg, SLR and motion model
-types are not ported yet (ROADMAP §1, "The rest of training").
+Stage 3's ``--init-from`` takes the fluid nets (and D, and the perceptual
+loss's VGG19 when the checkpoint holds it) from the stage-1 checkpoint,
+``--init-bg-from`` overlays a stage-2 checkpoint's ``net_bg``; the alpha
+nets keep their seeded initial weights.
+
+Resume, preemption, accumulation, bf16 and the bg and motion model types
+are not ported yet (ROADMAP §1, "The rest of training").
 """
 
 from __future__ import annotations
@@ -26,8 +38,23 @@ import numpy as np
 import torch
 
 from slrsfs_tpu_torch.engine.rollout import geometric_bucket
+from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE
 
 MODEL_TYPE = "softmax_splating"
+MODEL_TYPES = (MODEL_TYPE, SLR_MODEL_TYPE)
+DEFAULT_DATASETS = {MODEL_TYPE: "eulerian_data",
+                    SLR_MODEL_TYPE: "eulerian_data_balanced1_mask"}
+
+
+def stage_options(model_type: str) -> Dict:
+    """The options the JAX CLI sets for a model type (:286-307): stage 3's
+    SLR loss weights and the blending weight."""
+    slr = model_type == SLR_MODEL_TYPE
+    return dict(MVloss=1.0 if slr else 0.0, use_alpha0_as_blending_weight=slr,
+                ATVloss=0.3 if slr else 0.0, ADCloss=1.0 if slr else 0.0,
+                FluidRegionloss=3.0 if slr else 0.0,
+                RockRegionloss=30.0 if slr else 0.0,
+                RockRegionlossDecay=20.0 if slr else 0.0)
 
 
 def attach_moving_sets(batch: Dict, max_frac: float = 0.5,
@@ -101,27 +128,68 @@ def to_device_batch(batch: Dict, device) -> Dict:
 
 def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,
           steps_per_epoch: int = 500, vgg=None):
-    """The stage-1 model and trainer (``softmax_splating``) on ``device``,
-    with seeded random weights (LeCun-normal kernels, zero biases, spectral
-    vectors from power iterations)."""
+    """The model and trainer on ``device`` with seeded random weights
+    (LeCun-normal kernels, zero biases, spectral vectors from power
+    iterations): stage 1 (``softmax_splating``, ``BaselineTrainable``) or
+    stage 3 (the SLR model, ``SLRTrainable`` with ``slr_extra_losses``)."""
     from slrsfs_tpu_torch.engine.trainer import Trainer
     from slrsfs_tpu_torch.models.baseline import (
         BaselineTrainable,
         init_random_weights,
     )
+    from slrsfs_tpu_torch.models.slr import SLRTrainable, slr_extra_losses
     from slrsfs_tpu_torch.nn.discriminators import MultiscaleDiscriminator
 
-    if opt.model_type != MODEL_TYPE:
+    if opt.model_type not in MODEL_TYPES:
         raise NotImplementedError(
-            f"model_type {opt.model_type!r} is not ported yet: the bg, SLR "
-            "and motion stages are ROADMAP §1, \"The rest of training\"")
-    model = BaselineTrainable(opt, train_max_steps=train_max_steps)
+            f"model_type {opt.model_type!r} is not ported yet: the bg and "
+            "motion stages are ROADMAP §1, \"The rest of training\"")
+    slr = opt.model_type == SLR_MODEL_TYPE
+    model = (SLRTrainable if slr else BaselineTrainable)(
+        opt, train_max_steps=train_max_steps)
     init_random_weights(model, seed)
     d_model = MultiscaleDiscriminator(opt)
     init_random_weights(d_model, seed + 1)
     trainer = Trainer(opt, model, steps_per_epoch=steps_per_epoch, vgg=vgg,
-                      d_model=d_model, seed=seed, device=device)
+                      d_model=d_model, seed=seed, device=device,
+                      extra_losses_fn=slr_extra_losses if slr else None)
     return model, trainer
+
+
+def warm_start(model, trainer, init_from: str, init_bg_from: str = None) -> None:
+    """``--init-from`` (and, for stage 3, ``--init-bg-from``): G from a
+    reference-style checkpoint (stage 3: merged with the bg checkpoint's
+    ``net_bg``, the alpha nets left at their initial weights), D when it
+    holds ``netD.*`` keys, and the perceptual loss's VGG19 when it holds
+    the reference loss's slices (JAX cli/train.py:378-447)."""
+    from slrsfs_tpu_torch.io.checkpoint import (
+        clean_state_dict,
+        import_vgg_from_checkpoint,
+        load_model_state,
+        load_model_state_with_fallback,
+        merge_stage3_state_dict,
+    )
+
+    def state_dict(path):
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        return ckpt.get("state_dict", ckpt)
+
+    sd = state_dict(init_from)
+    if model.opt.model_type == SLR_MODEL_TYPE:
+        sd = merge_stage3_state_dict(
+            sd, state_dict(init_bg_from) if init_bg_from else None)
+        kept = load_model_state_with_fallback(model, clean_state_dict(sd))
+        print(f"warm start from {init_from}; kept at init: {kept}", flush=True)
+    else:
+        load_model_state(model, clean_state_dict(sd))
+    d_sd = {k[len("netD.netD."):]: v for k, v in sd.items()
+            if k.startswith("netD.netD.")}
+    if d_sd:
+        load_model_state(trainer.d_model, d_sd)
+    vgg = import_vgg_from_checkpoint(sd)
+    if vgg is not None:
+        trainer.vgg.load_state_dict(vgg)
+        print("harvested the pretrained VGG19 from the init checkpoint", flush=True)
 
 
 def main(argv=None):
@@ -129,7 +197,10 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--data-root", required=True)
     p.add_argument("--out", required=True)
-    p.add_argument("--model-type", default=MODEL_TYPE, choices=[MODEL_TYPE])
+    p.add_argument("--model-type", default=MODEL_TYPE, choices=list(MODEL_TYPES))
+    p.add_argument("--dataset", default=None,
+                   help="dataset variant (default: eulerian_data for stage 1, "
+                        "eulerian_data_balanced1_mask for stage 3)")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--W", type=int, default=256)
     p.add_argument("--ngf", type=int, default=64)
@@ -145,7 +216,11 @@ def main(argv=None):
                         "(default: seeded random VGG weights)")
     p.add_argument("--init-from", default=None,
                    help="reference-style .pth to warm-start G (and D, when "
-                        "it holds netD.* keys) from")
+                        "it holds netD.* keys, and the VGG19, when it holds "
+                        "the perceptual loss's slices) from")
+    p.add_argument("--init-bg-from", default=None,
+                   help="stage-2 .pth whose net_bg.* keys overlay --init-from "
+                        "for SLR stage 3 (reference --load_bg_model)")
     p.add_argument("--train-sparse-motion", choices=["auto", "off"],
                    default="auto",
                    help="integrate only each sample's moving pixels (compact "
@@ -157,21 +232,34 @@ def main(argv=None):
                    help="bound on the per-sample Euler steps (T)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain path")
+    # architecture overrides (reference --refine_model_type etc.)
+    p.add_argument("--refine-model-type", default=None)
+    p.add_argument("--alpha-refine-model-type", default=None)
+    p.add_argument("--bg-refine-model-type", default=None)
+    p.add_argument("--out-channel", type=int, default=None)
+    p.add_argument("--ndf", type=int, default=None)
+    p.add_argument("--num-D", type=int, default=None)
+    p.add_argument("--n-layers-D", type=int, default=None)
     a = p.parse_args(argv)
+    if a.init_bg_from and not a.init_from:
+        p.error("--init-bg-from overlays --init-from and requires it")
 
     from slrsfs_tpu_torch.config import Options
     from slrsfs_tpu_torch.data.datasets import get_dataset
-    from slrsfs_tpu_torch.io.checkpoint import (
-        clean_state_dict,
-        load_model_state,
-        save_checkpoint,
-    )
+    from slrsfs_tpu_torch.io.checkpoint import save_checkpoint
     from slrsfs_tpu_torch.nn.vgg import VGG19Features, import_vgg19
 
-    opt = Options(model_type=a.model_type, dataset="eulerian_data",
+    opt = Options(model_type=a.model_type,
+                  dataset=a.dataset or DEFAULT_DATASETS[a.model_type],
                   batch_size=a.batch_size, W=a.W, ngf=a.ngf, niter=a.niter,
                   niter_decay=a.niter_decay, lr_g=a.lr_g, lr_d=a.lr_d,
-                  seed=a.seed)
+                  seed=a.seed, **stage_options(a.model_type))
+    arch = {"refine_model_type": a.refine_model_type,
+            "alpha_refine_model_type": a.alpha_refine_model_type,
+            "bg_refine_model_type": a.bg_refine_model_type,
+            "out_channel": a.out_channel, "ndf": a.ndf, "num_D": a.num_D,
+            "n_layers_D": a.n_layers_D}
+    opt = opt.replace(**{k: v for k, v in arch.items() if v is not None})
     os.makedirs(a.out, exist_ok=True)
     with open(os.path.join(a.out, "options.json"), "w") as f:
         f.write(opt.to_json())
@@ -184,13 +272,7 @@ def main(argv=None):
     model, trainer = build(opt, a.train_max_steps, a.device, a.seed,
                            a.steps_per_epoch, vgg)
     if a.init_from:
-        ckpt = torch.load(a.init_from, map_location="cpu", weights_only=False)
-        sd = ckpt.get("state_dict", ckpt)
-        load_model_state(model, clean_state_dict(sd))
-        d_sd = {k[len("netD.netD."):]: v for k, v in sd.items()
-                if k.startswith("netD.netD.")}
-        if d_sd:
-            load_model_state(trainer.d_model, d_sd)
+        warm_start(model, trainer, a.init_from, a.init_bg_from)
 
     dataset = get_dataset(opt, a.data_root, split="train", seed=a.seed)
     sparse = a.train_sparse_motion != "off"

@@ -1,14 +1,20 @@
-"""The stage-1 training dataset (port of ``slrsfs_tpu/data/datasets.py`` for
-the ``eulerian_data`` variant, reference ``data/eulerian_data.py``).
+"""The training datasets (port of ``slrsfs_tpu/data/datasets.py``):
+``eulerian_data`` (stage 1, reference ``data/eulerian_data.py``) and
+``eulerian_data_balanced1_mask`` (stage 3, reference
+``data/eulerian_data_balanced1_mask.py``: the rock mask, the mean video and
+shallow-scene oversampling).
 
 Scene layout on disk, as the reference dataset release:
-``<root>/<split>/XXXXX_YYYYY_gt.mp4`` and ``..._motion.{npz,npy,pth}``.
-A sample is a (start, middle, end) frame triplet (start ∈ [0, N/3),
-end ∈ [2N/3, N), middle ∈ [start, end)), a random square crop of up to
-720², bicubic resize to W², an h-flip with the flow's x negated. Sampling
-is a pure function of (seed, split, epoch, index) and draws the numbers the
-JAX dataset draws. The mask, mean-video, hint and free-form-mask variants
-come with their stages.
+``<root>/<split>/XXXXX_YYYYY_gt.mp4`` and ``..._motion.{npz,npy,pth}``,
+``<root>/avr_image/XXXXX_YYYYY.png`` (the mean video),
+``<rock_label_root>/XXXXX_YYYYY.png.json`` (default ``<root>/rock_label``)
+and ``<root>/imageset_shallow.npy`` (the shallow scenes' names). A sample is
+a (start, middle, end) frame triplet (start ∈ [0, N/3), end ∈ [2N/3, N),
+middle ∈ [start, end)), a random square crop of up to 720², bicubic resize
+to W², an h-flip with the flow's x negated; the mask takes the same crop
+and flip and a nearest resize. Sampling is a pure function of (seed,
+split, epoch, index) and draws the numbers the JAX dataset draws, in its
+order. The two-view bg and hint variants come with their stages.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 from PIL import Image
 
 from slrsfs_tpu_torch.config import Options
+from slrsfs_tpu_torch.data.masks import rasterize_rock_label, transform_mask
 from slrsfs_tpu_torch.data.tensors import load_compressed_tensor, motion_to_hw2
 from slrsfs_tpu_torch.data.transforms import (
     get_params,
@@ -30,7 +37,7 @@ from slrsfs_tpu_torch.data.transforms import (
 )
 from slrsfs_tpu_torch.data.video import VideoReader
 
-VARIANTS = ("eulerian_data",)
+VARIANTS = ("eulerian_data", "eulerian_data_balanced1_mask")
 # decode threads and extra batches in flight (cv2, PIL and numpy release
 # the GIL for the heavy parts)
 WORKERS = 2
@@ -41,7 +48,8 @@ class LiquidDataset:
     """Per-sample dicts of NHWC numpy arrays; ``batches`` collates them."""
 
     def __init__(self, root: str, opt: Options, variant: str = "eulerian_data",
-                 split: str = "train", seed: int = 0):
+                 split: str = "train", seed: int = 0,
+                 rock_label_root: Optional[str] = None):
         if variant not in VARIANTS:
             raise NotImplementedError(
                 f"dataset {variant!r} is not ported yet (ported: {VARIANTS}; "
@@ -54,6 +62,14 @@ class LiquidDataset:
         self.opt = opt
         self.seed = seed
         self.epoch = 0
+        self.rock_label_root = rock_label_root or os.path.join(root, "rock_label")
+        self.with_mask = "mask" in variant
+        self.with_mean = "mask" in variant or opt.use_mean_video or opt.MVloss > 0.0
+        # shallow-scene oversampling list (eulerian_data_balanced1_mask.py:75-85)
+        self.shallow: Optional[np.ndarray] = None
+        shallow_path = os.path.join(root, "imageset_shallow.npy")
+        if "balanced" in variant and os.path.exists(shallow_path):
+            self.shallow = np.load(shallow_path, allow_pickle=True)
         self._set_split(split)
 
     def _set_split(self, split: str) -> None:
@@ -82,6 +98,14 @@ class LiquidDataset:
                ) & 0x7FFFFFFF
         return np.random.RandomState(mix)
 
+    def _pick_scene(self, rng: np.random.RandomState) -> str:
+        """A shallow scene with odds (balanced_weight − 1)/balanced_weight
+        when the list exists and the split is train, else any scene."""
+        if (self.shallow is not None and not self.isval
+                and rng.randint(self.opt.balanced_weight) > 0):
+            return str(self.shallow[rng.randint(len(self.shallow))])
+        return self.scenes[rng.randint(len(self.scenes))]
+
     def _load_motion(self, scene: str) -> np.ndarray:
         base = os.path.join(self.root, self.split, scene + "_motion")
         for ext in (".npz", ".npy", ".pth"):
@@ -92,7 +116,7 @@ class LiquidDataset:
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         W = self.opt.W
         rng = self._sample_rng(index)
-        scene = self.scenes[rng.randint(len(self.scenes))]
+        scene = self._pick_scene(rng)
         video = VideoReader(os.path.join(self.root, self.split, scene + "_gt.mp4"))
         try:
             # the reference crops 720² of its 1280x720 frames
@@ -108,10 +132,19 @@ class LiquidDataset:
                       for t in (start, middle, end)]
         finally:
             video.close()
-        flow = transform_flow(self._load_motion(scene), W, params,
-                              mode="bilinear")
-        return {"images": images, "motions": flow,
+        motion = self._load_motion(scene)
+        item = {"images": images,
+                "motions": transform_flow(motion, W, params, mode="bilinear"),
                 "index": np.asarray([start, middle, end], np.int32)}
+        if self.with_mean:
+            mv = Image.open(os.path.join(self.root, "avr_image", scene + ".png"))
+            item["mean_video"] = transform_image(mv, W, params)
+        if self.with_mask:
+            raw = rasterize_rock_label(
+                os.path.join(self.rock_label_root, scene + ".png.json"),
+                motion.shape[:2])
+            item["mask_rock"] = transform_mask(raw, W, params)[..., None]
+        return item
 
     def batches(self, batch_size: int, num_batches: Optional[int] = None
                 ) -> Iterator[Dict]:
@@ -120,10 +153,9 @@ class LiquidDataset:
 
         def make(i):
             samples = [self[i * batch_size + j] for j in range(batch_size)]
-            return {"images": [np.stack([s["images"][v] for s in samples])
-                               for v in range(3)],
-                    "motions": np.stack([s["motions"] for s in samples]),
-                    "index": np.stack([s["index"] for s in samples])}
+            return {k: [np.stack([s[k][v] for s in samples]) for v in range(3)]
+                    if k == "images" else np.stack([s[k] for s in samples])
+                    for k in samples[0]}
 
         total = num_batches if num_batches is not None else len(self) // batch_size
         with ThreadPoolExecutor(max_workers=WORKERS) as ex:

@@ -90,14 +90,23 @@ def _grads(loss: Tensor, params: List[Tensor]) -> List[Tensor]:
 
 class Trainer:
     """G+D training of a model with ``forward_train`` (stage 1: the
-    baseline) on ``device`` (the card unless the caller asks for the CPU;
-    the model, discriminator and VGG move there). ``noise`` is the step's
-    BN-noise generator; ``deterministic`` runs with zero noise instead."""
+    baseline; stage 3: the SLR model) on ``device`` (the card unless the
+    caller asks for the CPU; the model, discriminator and VGG move there).
+    ``noise`` is the step's BN-noise generator; ``deterministic`` runs with
+    zero noise instead.
+
+    ``extra_losses_fn(opt, pred, synth, epoch=...)`` returns the model's
+    losses beyond synthesis and GAN with their weighted sum under ``Total
+    Extra`` (stage 3: ``models/slr.py:slr_extra_losses``); epoch is the G
+    optimiser's step count before the update // ``steps_per_epoch``, as the
+    JAX trainer reads ``state.step``. The sum joins G's total, the terms
+    the logs; ``eval_step`` keeps the synthesis losses alone."""
 
     def __init__(self, opt: Options, model: nn.Module,
                  steps_per_epoch: int = 500, vgg: VGG19Features = None,
                  d_model: nn.Module = None, seed: int = 0,
-                 deterministic: bool = False, device="cuda"):
+                 deterministic: bool = False, device="cuda",
+                 extra_losses_fn: Optional[Callable] = None):
         if opt.num_accumulations != 1:
             raise NotImplementedError(
                 "num_accumulations > 1 is not ported yet (ROADMAP §1, \"The rest "
@@ -114,6 +123,7 @@ class Trainer:
         self.opt = opt
         self.model = model.to(dev)
         self.steps_per_epoch = steps_per_epoch
+        self.extra_losses_fn = extra_losses_fn
         self.deterministic = deterministic
         self.device = dev
         self.use_discriminator = opt.discriminator_losses != "0"
@@ -142,13 +152,19 @@ class Trainer:
 
     def g_losses(self, batch: Dict, plain: bool = False):
         """Generator forward and losses: (total, logs, gen_img)."""
-        gen_img, _ = self.model.forward_train(
+        gen_img, pred = self.model.forward_train(
             batch, train=True, deterministic=self.deterministic,
             noise=self.noise, plain=plain)
         middle = batch["images"][1]
         losses = self.synth(gen_img, middle)
         total = losses["Total Loss"]
         logs = dict(losses)
+        if self.extra_losses_fn is not None:
+            extra = self.extra_losses_fn(
+                self.opt, pred, self.synth,
+                epoch=self.opt_g.count // self.steps_per_epoch)
+            total = total + extra.pop("Total Extra")
+            logs.update(extra)
         if self.use_discriminator:
             g_gan = generator_gan_losses(
                 self.d_model, gen_img, middle, self.opt.gan_mode,

@@ -12,7 +12,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -64,6 +64,70 @@ def load_model_state(model: torch.nn.Module, sd: Mapping) -> None:
     if missing:
         raise KeyError(f"checkpoint lacks {len(missing)} keys, e.g. {missing[:3]}")
     model.load_state_dict({k: sd[k] for k in own})
+
+
+def load_model_state_with_fallback(model: torch.nn.Module, sd: Mapping) -> List[str]:
+    """``load_model_state`` by top-level submodule: a submodule none of whose
+    keys the checkpoint holds keeps its current (initial) values, as the
+    JAX ``import_slr_model(fallback=...)`` (:121) keeps the fresh alpha
+    nets of a stage-3 warm start; a submodule that is only partly present
+    raises. Returns the names of the submodules kept."""
+    own = model.state_dict()
+    groups: Dict[str, List[str]] = {}
+    for k in own:
+        groups.setdefault(k.split(".", 1)[0], []).append(k)
+    kept = []
+    merged = dict(own)
+    for name, keys in groups.items():
+        have = [k for k in keys if k in sd]
+        if not have:
+            kept.append(name)
+            continue
+        if len(have) < len(keys):
+            missing = [k for k in keys if k not in sd]
+            raise KeyError(f"checkpoint holds part of {name}: it lacks "
+                           f"{len(missing)} keys, e.g. {missing[:3]}")
+        merged.update({k: sd[k] for k in keys})
+    model.load_state_dict(merged)
+    return kept
+
+
+def merge_stage3_state_dict(sd_baseline: Mapping, sd_bg: Mapping = None) -> Dict:
+    """The SLR stage-3 warm-start state_dict (the JAX
+    ``merge_stage3_state_dict`` :97-118, reference
+    train_animating_alpha_2layers_joint_finetuneBGFluid_L1.py:430-462): the
+    stage-1 checkpoint's keys with the stage-2 checkpoint's ``net_bg`` keys
+    laid over them. The alpha nets have no keys in either; load the result
+    with ``load_model_state_with_fallback``."""
+    out = {_strip_prefixes(k): v for k, v in sd_baseline.items()}
+    if sd_bg is not None:
+        out.update({_strip_prefixes(k): v for k, v in sd_bg.items() if "net_bg" in k})
+    return out
+
+
+# torchvision vgg19.features conv index → the reference loss's slice number
+_VGG_SLICES = ((1, 0, 2), (2, 2, 7), (3, 7, 12), (4, 12, 21), (5, 21, 30))
+
+
+def import_vgg_from_checkpoint(sd: Mapping) -> Optional[Dict]:
+    """The pretrained VGG19 of a reference checkpoint's perceptual loss
+    (``loss_function.losses.{i}.model.slice{s}.{j}.weight`` and ``.bias``)
+    as ``nn/vgg.py:VGG19Features``'s state_dict, or None without such keys
+    (the JAX ``import_vgg_from_checkpoint``, :240)."""
+    from slrsfs_tpu_torch.nn.vgg import _CONVS
+
+    sd = {_strip_prefixes(k): v for k, v in sd.items()}
+    cand = [k for k in sd if "slice1.0.weight" in k]
+    if not cand:
+        return None
+    base = cand[0].rsplit("slice1.0.weight", 1)[0]
+    out = {}
+    for li, _ in _CONVS:
+        s = next(n for n, lo, hi in _VGG_SLICES if lo <= li < hi)
+        for leaf in ("weight", "bias"):
+            out[f"features.{li}.{leaf}"] = torch.as_tensor(
+                sd[f"{base}slice{s}.{li}.{leaf}"], dtype=torch.float32)
+    return out
 
 
 RENDER_MODEL_TYPES = ("softmax_splating",

@@ -1,7 +1,7 @@
-"""SLR two-layer model, inference pieces (PyTorch port of
-``slrsfs_tpu/models/slr.py``): a warped fluid layer composited over a
-hallucinated static background with alpha maps. Public tensors are NHWC, as
-in the JAX package.
+"""SLR two-layer model (PyTorch port of ``slrsfs_tpu/models/slr.py``): a
+warped fluid layer composited over a hallucinated static background with
+alpha maps, its stage-3 training pass (``SLRTrainable``) and loss set
+(``slr_extra_losses``). Public tensors are NHWC, as in the JAX package.
 
 * ``encoder`` / ``projector``: the fluid layer's encoder (with Z) and pconv
   decoder, as in the baseline;
@@ -19,20 +19,32 @@ max(σ(a_fluid) + σ(a_bg), 1e-8)`` and its variants.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from slrsfs_tpu_torch.config import Options
-from slrsfs_tpu_torch.models.baseline import _nchw, _nhwc, feature_width
+from slrsfs_tpu_torch.models.baseline import (
+    _nchw,
+    _nhwc,
+    feature_width,
+    fold_uvm,
+    train_integrate,
+    z_for_splat,
+    z_normalize,
+)
 from slrsfs_tpu_torch.nn.resnets import (
     ResNetBGDecoder,
     ResNetDecoderPconv2,
     ResNetEncoder,
     ResNetEncoderWithZ,
 )
-from slrsfs_tpu_torch.ops.splat import NORM_EPS
+from slrsfs_tpu_torch.ops.splat import (
+    NORM_EPS,
+    softsplat_sum,
+    softsplat_sum_plain_vjp,
+)
 
 Tensor = torch.Tensor
 
@@ -137,15 +149,23 @@ class SLRModel(nn.Module):
         """Raw (pre-tanh) background image."""
         return _nhwc(self.net_bg(_nchw(img), train, noise))
 
+    def alpha_encode_raw(self, img: Tensor, motion: Optional[Tensor] = None,
+                         mask_rock: Optional[Tensor] = None,
+                         bg_raw: Optional[Tensor] = None, train: bool = False,
+                         noise: Optional[torch.Generator] = None) -> Tensor:
+        """The alpha encoder's whole output (B, H, W, 2), or 3 channels with
+        ``AKLloss`` (channel 2 the alpha log-sigma)."""
+        x = build_alpha_input(self.opt, img, motion, mask_rock, bg_raw)
+        return _nhwc(self.net_alpha_encoder(_nchw(x), train, noise))
+
     def alpha_encode(self, img: Tensor, motion: Optional[Tensor] = None,
                      mask_rock: Optional[Tensor] = None,
                      bg_raw: Optional[Tensor] = None, train: bool = False,
                      noise: Optional[torch.Generator] = None
                      ) -> Tuple[Tensor, Tensor]:
         """→ (alpha_bg_logits, alpha_fluid_logits), each (B, H, W, 1)."""
-        x = build_alpha_input(self.opt, img, motion, mask_rock, bg_raw)
-        return split_alpha_output(
-            self.opt, _nhwc(self.net_alpha_encoder(_nchw(x), train, noise)))
+        return split_alpha_output(self.opt, self.alpha_encode_raw(
+            img, motion, mask_rock, bg_raw, train, noise))
 
     def decode_fluid(self, gen_fs: Tensor, train: bool = False,
                      noise: Optional[torch.Generator] = None) -> Tensor:
@@ -223,12 +243,14 @@ def slr_composite(gen_fluid_img: Tensor, gen_fluid_alpha_sig: Tensor,
                   alpha_region: Optional[Tensor] = None,
                   opt: Optional[Options] = None,
                   ga_raw: Optional[Tensor] = None,
-                  a_bg_raw: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """Two-layer composite at inference (forward_flow :1056-1088) with the
-    reference's variants: ``use_alpha_softmax`` (softmax over the two raw
-    logits), ``clamp_alpha`` (fluid weight floored, background 1 − it),
-    ``use_{fluid,bg}_alpha_only`` (normaliser 1). Returns (gen_img,
-    composite_fluid_alpha)."""
+                  a_bg_raw: Optional[Tensor] = None,
+                  train_mode: bool = False) -> Tuple[Tensor, Tensor]:
+    """Two-layer composite (forward_flow :1056-1088) with the reference's
+    variants: ``use_alpha_softmax`` (softmax over the two raw logits),
+    ``clamp_alpha`` (fluid weight floored; the background weighted by
+    σ(a_bg)/norm in training, :646-651, by 1 − the fluid weight at
+    inference, :1071-1075), ``use_{fluid,bg}_alpha_only`` (normaliser 1).
+    Returns (gen_img, composite_fluid_alpha)."""
     if (opt is not None and opt.use_alpha_softmax > 0.0
             and ga_raw is not None and a_bg_raw is not None):
         w = torch.softmax(torch.cat([ga_raw, a_bg_raw], dim=-1), dim=-1)
@@ -237,7 +259,8 @@ def slr_composite(gen_fluid_img: Tensor, gen_fluid_alpha_sig: Tensor,
     elif opt is not None and opt.clamp_alpha > 0.0:
         alpha_norm = torch.clamp(gen_fluid_alpha_sig + alpha_bg_sig, min=1e-8)
         comp = torch.clamp(gen_fluid_alpha_sig / alpha_norm, min=opt.clamp_alpha)
-        gen = comp * gen_fluid_img + (1.0 - comp) * bg_img_tanh
+        bg_w = alpha_bg_sig / alpha_norm if train_mode else 1.0 - comp
+        gen = comp * gen_fluid_img + bg_w * bg_img_tanh
     else:
         if opt is not None and (opt.use_fluid_alpha_only
                                 or opt.use_bg_alpha_only):
@@ -251,3 +274,235 @@ def slr_composite(gen_fluid_img: Tensor, gen_fluid_alpha_sig: Tensor,
     if alpha_region is not None:
         gen = gen * alpha_region + gen_fluid_img * (1.0 - alpha_region)
     return gen, comp
+
+
+# ---------------------------------------------------------------------------
+# Training (stage 3, the joint two-layer fine-tune)
+# ---------------------------------------------------------------------------
+
+def smooth_l1(x: Tensor, y: Tensor, gamma: float = 0.1) -> Tensor:
+    """Reference SmoothL1Loss (2layers file :63-65), elementwise."""
+    t = torch.abs(x - y)
+    return t + gamma * (2.0 * torch.sigmoid(5.0 * t) - 1.0)
+
+
+def total_variation(img: Tensor) -> Tensor:
+    """Reference total_variation_loss (:67-71) of an NHWC tensor."""
+    return (torch.mean(torch.abs(img[:, :, :-1, :] - img[:, :, 1:, :]))
+            + torch.mean(torch.abs(img[:, :-1, :, :] - img[:, 1:, :, :])))
+
+
+class SLRTrainable(SLRModel):
+    """Adds the (start, middle, end) training pass of the joint two-layer
+    model (reference forward, 2layers file :256-809): one phase-switched
+    integration per sample (K7) and two summation splats with their gather
+    VJPs (K3) of the packed ``[fs·e^Z, af·e^C, e^C, e^Z]`` rows."""
+
+    def __init__(self, opt: Options, train_max_steps: int = 60):
+        super().__init__(opt)
+        self.train_max_steps = train_max_steps
+
+    def forward_train(self, batch: Dict, train: bool = True,
+                      deterministic: bool = False,
+                      noise: Optional[torch.Generator] = None,
+                      plain: bool = False):
+        """batch: ``images`` [start, middle, end] (B, H, W, 3), ``index``
+        (B, 3) int, ``motions`` (B, H, W, 2|3) f32, ``mask_rock`` (B, H, W,
+        1), ``mean_video`` (B, H, W, 3), optionally ``mov_pos`` /
+        ``mov_valid``. The BN noise comes from ``noise`` unless
+        ``deterministic``; ``plain`` runs the K3 and K7 plain versions.
+        Returns (gen_img, pred), pred holding every tensor of the SLR loss
+        set under the JAX package's keys."""
+        if "ff_mask" in batch:
+            raise NotImplementedError(
+                "the free-form occlusion mask (ff_mask) is not ported yet "
+                "(ROADMAP §1, \"The rest of training\")")
+        if not deterministic and noise is None:
+            raise ValueError("forward_train needs a noise generator unless "
+                             "deterministic")
+        noise = None if deterministic else noise
+        opt = self.opt
+        start_img, middle_img, end_img = batch["images"]
+        idx = batch["index"]
+        flow = fold_uvm(batch["motions"])
+        mask_rock = batch["mask_rock"]
+        B = flow.shape[0]
+
+        # moving-region mask from the motion's speed (reference :334-344)
+        speed = torch.linalg.vector_norm(flow, dim=-1, keepdim=True)
+        small_motion_alpha = (
+            speed < speed.mean(dim=(1, 2, 3), keepdim=True) * 0.1).to(flow.dtype)
+
+        # the sub-networks in the JAX package's order: each call runs its
+        # own power iterations and BN-statistics updates
+        fs_s, z_f = self.encode(start_img, train, noise)
+        fs_e, z_p = self.encode(end_img, train, noise)
+        bg_raw = self.bg(start_img, train, noise)
+        bg_tanh = torch.tanh(bg_raw)
+        # both views take the start view's motion, mask and background
+        extras = dict(motion=flow, mask_rock=mask_rock, bg_raw=bg_raw,
+                      train=train, noise=noise)
+        out_f = self.alpha_encode_raw(start_img, **extras)
+        out_p = self.alpha_encode_raw(end_img, **extras)
+        a_bg_logits_f, a_fl_logits_f = split_alpha_output(opt, out_f)
+        _, a_fl_logits_p = split_alpha_output(opt, out_p)
+        a_bg_sig_f = torch.sigmoid(a_bg_logits_f)
+
+        # frame 0's composite fluid alpha (reference :420-430)
+        a_fl_sig_f = torch.sigmoid(a_fl_logits_f)
+        comp_i0 = a_fl_sig_f / torch.clamp(a_fl_sig_f + a_bg_sig_f, min=1e-8)
+        if opt.use_fluid_alpha_only:
+            comp_i0 = a_fl_sig_f
+        if opt.use_bg_alpha_only:
+            comp_i0 = a_bg_sig_f
+        if opt.use_alpha_softmax > 0.0:
+            comp_i0 = torch.softmax(torch.cat([a_fl_logits_f, a_bg_logits_f], -1),
+                                    dim=-1)[..., 0:1]
+
+        t_f = (idx[:, 1] - idx[:, 0]).to(torch.int32)
+        t_p = (idx[:, 2] + 1 - idx[:, 1]).to(torch.int32)
+        T = self.train_max_steps
+        tf_c = t_f.clamp(0, T)
+        tp_c = torch.minimum(t_p.clamp(min=0), T - tf_c)
+        flow_f, flow_p = train_integrate(batch, flow, tf_c, tp_c, T, plain)
+
+        alpha = torch.clamp(
+            1.0 - (idx[:, 1] - idx[:, 0]).to(fs_s.dtype)
+            / (idx[:, 2] - idx[:, 0] + 1).to(fs_s.dtype),
+            ALPHA_MIN, ALPHA_MAX).reshape(B, 1, 1, 1)
+        zn_f = z_normalize(opt, z_for_splat(opt, fs_s, z_f), flow_f)
+        zn_p = z_normalize(opt, z_for_splat(opt, fs_e, z_p), flow_p)
+
+        # both ends take frame 0's composite alpha as blending weight
+        # (reference :480-540)
+        u_f, use_alpha0 = slr_pack_splat_input(opt, fs_s, zn_f, a_fl_logits_f,
+                                               a_bg_sig_f)
+        ez_p = torch.exp(zn_p)
+        if use_alpha0:
+            comp_exp = torch.exp(comp_i0)
+            u_p = torch.cat([fs_e * ez_p, a_fl_logits_p * comp_exp, comp_exp, ez_p],
+                            dim=-1)
+        else:
+            u_p = torch.cat([fs_e * ez_p, a_fl_logits_p * ez_p, ez_p], dim=-1)
+
+        splat = softsplat_sum_plain_vjp if plain else softsplat_sum
+        g = splat(u_f, flow_f) * alpha + splat(u_p, flow_p) * (1.0 - alpha)
+        alpha_fluid_mask = (g[..., -1:] > NORM_EPS).to(g.dtype).detach()
+        gen_fs, alpha_fluid_warped = slr_unpack_splatted(g, use_alpha0)
+
+        gen_fluid_img = self.decode_fluid(gen_fs, train, noise)
+        ga_raw = self.decode_alpha(gen_fs, alpha_fluid_warped, start_img, train,
+                                   noise)
+        gen_img, comp_alpha = slr_composite(
+            gen_fluid_img, torch.sigmoid(ga_raw), a_bg_sig_f, bg_tanh, opt=opt,
+            ga_raw=ga_raw, a_bg_raw=a_bg_logits_f, train_mode=True)
+
+        # the three-way target alpha (reference :619-621)
+        moving = 1.0 - small_motion_alpha
+        gt_alpha = (mask_rock * moving * 0.25 + (1.0 - mask_rock) * moving * 1.0
+                    + small_motion_alpha * 0.5)
+        pred = {
+            "PredImg": gen_img,
+            "OutputImg": middle_img,
+            "BGImg_f": bg_tanh,
+            "MeanImg": batch["mean_video"],
+            "FluidImg": gen_fluid_img,
+            "AlphaFluid_f": a_fl_sig_f,
+            "AlphaBG_f": a_bg_sig_f,
+            "AlphaFluidLogits_f": a_fl_logits_f,
+            "CompositeFluidAlpha": comp_alpha,
+            "CompositeFluidAlpha_I0": comp_i0,
+            "AlphaFluidWarped": alpha_fluid_warped,
+            "AlphaFluidMask": alpha_fluid_mask,
+            "GenFluidAlphaRaw": ga_raw,
+            "GTAlpha": gt_alpha,
+            "SmallMotionAlpha": small_motion_alpha,
+            "RockMask": mask_rock,
+            "Z_f": zn_f,
+            "GTMotion": flow,
+        }
+        if opt.AKLloss > 0.0:
+            # the clamped log-sigma channel (:411-413); the KL term itself is
+            # commented out in the reference (:609-615)
+            pred["AlphaLogSigma"] = torch.clamp(out_p[..., 2:3], -50.0, 50.0)
+        return gen_img, pred
+
+
+def decayed_weight(base: float, decay: float, epoch: int) -> Tensor:
+    """Per-epoch multiplicative loss-weight decay of the shipped stage-3
+    training scripts (``w -= w / decay`` after every epoch, :356-358):
+    w(e) = w0 · (1 − 1/decay)^e, in float32."""
+    factor = torch.tensor(1.0 - 1.0 / decay, dtype=torch.float32)
+    return torch.tensor(base, dtype=torch.float32) * torch.pow(factor, float(epoch))
+
+
+def slr_extra_losses(opt: Options, pred: Dict[str, Tensor], synth_loss_fn=None,
+                     rock_weight=None, epoch: Optional[int] = None
+                     ) -> Dict[str, Tensor]:
+    """The SLR loss set on top of the synthesis loss (reference :658-765),
+    the JAX ``slr_extra_losses`` term for term. ``rock_weight`` overrides
+    ``opt.RockRegionloss``; ``epoch`` drives the decays ``AlphaWeightDecay``
+    (AlphaMSE) and ``RockRegionlossDecay`` (RockRegion and FluidRegion).
+    Returns the terms and their weighted sum, ``Total Extra``."""
+    out: Dict[str, Tensor] = {}
+    total = 0.0
+    moving = 1.0 - pred["SmallMotionAlpha"]
+    rock = pred["RockMask"]
+    comp_i0 = pred["CompositeFluidAlpha_I0"]
+    gt_alpha = pred["GTAlpha"]
+
+    alpha_mse_w = opt.AlphaMSEloss
+    fluid_w = opt.FluidRegionloss
+    rock_decay_on = epoch is not None and opt.RockRegionlossDecay > 0.0
+    if epoch is not None and opt.AlphaWeightDecay > 0.0:
+        alpha_mse_w = decayed_weight(opt.AlphaMSEloss, opt.AlphaWeightDecay, epoch)
+    if rock_decay_on:
+        fluid_w = decayed_weight(opt.FluidRegionloss, opt.RockRegionlossDecay, epoch)
+
+    if opt.AlphaMSEloss > 0.0:
+        v = torch.mean(torch.square(comp_i0 * moving - gt_alpha * moving))
+        out["AlphaMSEloss"] = v
+        total = total + v * alpha_mse_w
+    if opt.AlphaL1loss > 0.0:
+        v = torch.mean(smooth_l1(comp_i0 * moving, gt_alpha * moving))
+        out["AlphaL1loss"] = v
+        total = total + v * opt.AlphaL1loss
+    if opt.ATVloss > 0.0:
+        v = (total_variation(pred["AlphaFluidLogits_f"])
+             + total_variation(pred["AlphaBG_f"]))
+        out["AlphaTV"] = v
+        total = total + v * opt.ATVloss
+    if opt.MVloss > 0.0 and synth_loss_fn is not None:
+        bg_losses = synth_loss_fn(pred["BGImg_f"], pred["MeanImg"])
+        for k, v in bg_losses.items():
+            if "Perceptual" in k or "L1" in k:
+                out[k + "_bg"] = v
+        total = total + bg_losses["Total Loss"] * opt.MVloss
+    if opt.FluidRegionloss > 0.0:
+        m = (1.0 - rock) * moving
+        v = torch.mean(smooth_l1(comp_i0 * m, torch.ones_like(comp_i0) * m))
+        out["FluidRegionLoss"] = v
+        total = total + v * fluid_w
+    rw = opt.RockRegionloss if rock_weight is None else rock_weight
+    if rock_weight is None and rock_decay_on:
+        rw = decayed_weight(opt.RockRegionloss, opt.RockRegionlossDecay, epoch)
+    if rock_weight is not None or opt.RockRegionloss > 0.0:
+        m = rock * moving
+        v = torch.mean(smooth_l1(
+            comp_i0 * m, opt.RockRegionlosstarget * torch.ones_like(comp_i0) * m))
+        out["RockRegionLoss"] = v
+        total = total + v * rw
+    if opt.ADCloss > 0.0 or opt.MRADCloss > 0.0:
+        m = pred["AlphaFluidMask"]
+        adc = smooth_l1(pred["AlphaFluidWarped"].detach() * m,
+                        pred["GenFluidAlphaRaw"] * m)
+        if opt.ADCloss > 0.0:
+            v = torch.mean(adc)
+            out["Alpha Decoder Consistency Loss"] = v
+            total = total + v * opt.ADCloss
+        if opt.MRADCloss > 0.0:
+            v = torch.mean(adc * moving)
+            out["Moving Region Alpha Decoder Consistency Loss"] = v
+            total = total + v * opt.MRADCloss
+    out["Total Extra"] = total
+    return out

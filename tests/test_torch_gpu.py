@@ -1286,3 +1286,81 @@ def test_eval_cli_without_card_raises(tmp_path):
                  lambda: eval_cli.main([str(tmp_path), str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [66, 67])
+def test_k3_at_the_slr_widths_on_card(C):
+    """K3 forward and backward at SLR stage 3's packed widths (C = 67 with
+    use_alpha0_as_blending_weight, 66 without), called between calls at
+    stage 1's C = 65, as a process that trains both runs them: the
+    backward's shared memory is set again at each change of C."""
+    dev = _card()
+    for c in (65, C, 65, C):
+        inp, flow, g = _k3_inputs(dev, C=c)
+        out = softsplat_sum(inp, flow)
+        ref = softsplat_sum_plain(inp, flow)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        assert torch.equal((out == 0).all(-1), (ref == 0).all(-1))
+        gi, gf = port_splat.softsplat_sum_bwd_kernel(inp, flow, g)
+        wi, wf = softsplat_sum_grad_plain(inp, flow, g)
+        torch.cuda.synchronize()
+        for got, want in ((gi, wi), (gf, wf)):
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+def test_slr_train_step_kernels_match_plain_on_card(compact):
+    """The SLR stage-3 G+D step (TinyTest archs, W = 32, B = 2, T = 4, the
+    CLI's stage-3 options) through K3 and K7 against the same step through
+    their plain versions from one snapshot: losses within 1e-4 relative,
+    gradients within 1e-3 of the largest; 2 K3 forward, 2 backward and 1
+    K7 launch a step, nothing else."""
+    from slrsfs_tpu_torch.cli.train import (
+        SLR_MODEL_TYPE,
+        attach_moving_sets,
+        build,
+        stage_options,
+        to_device_batch,
+    )
+
+    dev = _card()
+    opt = Options(ngf=8, W=32, out_channel=9, model_type=SLR_MODEL_TYPE, ndf=8, num_D=1,
+                  n_layers_D=2, refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm",
+                  alpha_refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm",
+                  bg_refine_model_type="resnet_TinyTestBG_nonorm",
+                  **stage_options(SLR_MODEL_TYPE))
+    _, tr = build(opt, train_max_steps=4, device=dev, seed=0)
+    rng = np.random.default_rng(40)
+    B = 2
+    motions = (rng.standard_normal((B, 32, 32, 2)) * 0.8).astype(np.float32)
+    motions[:, :16] = 0.0
+    batch = {"images": [(rng.standard_normal((B, 32, 32, 3)) * 0.25).astype(np.float32)
+                        for _ in range(3)],
+             "index": np.array([[0, 1, 4], [0, 3, 4]], np.int32), "motions": motions,
+             "mask_rock": (rng.random((B, 32, 32, 1)) < 0.3).astype(np.float32),
+             "mean_video": (rng.standard_normal((B, 32, 32, 3)) * 0.25).astype(np.float32)}
+    if compact:
+        batch = attach_moving_sets(batch)
+        assert "mov_pos" in batch
+    batch = to_device_batch(batch, dev)
+    snap = tr.snapshot()
+    kernels.reset_counts()
+    got = tr.train_step(batch)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    g_k = [x.clone() for x in tr.last_grads["g"] + tr.last_grads["d"]]
+    tr.restore(snap)
+    want = tr.train_step(batch, plain=True)
+    g_p = tr.last_grads["g"] + tr.last_grads["d"]
+    assert launches == {**{k.name: 0 for k in kernels.KERNELS}, "splat_dense_fwd": 2,
+                        "splat_dense_bwd": 2, "euler_phased": 1}
+    assert set(got) == set(want) and "RockRegionLoss" in got
+    for k in want:
+        assert torch.isfinite(got[k]), k
+        assert abs(got[k].item() - want[k].item()) <= 1e-4 * max(abs(want[k].item()), 1e-12), k
+    scale = max(x.abs().max().item() for x in g_p)
+    assert max((a - b).abs().max().item() for a, b in zip(g_k, g_p)) <= 1e-3 * scale

@@ -46,6 +46,22 @@ def _ff_mask_batch(tmp_path):
         batch, deterministic=True, plain=True)
 
 
+def _slr_ff_mask_batch(tmp_path):
+    from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRTrainable
+
+    opt = config.Options(
+        ngf=8, W=16, out_channel=9, model_type=SLR_MODEL_TYPE,
+        refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm",
+        alpha_refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm",
+        bg_refine_model_type="resnet_TinyTestBG_nonorm")
+    img = torch.zeros(1, 16, 16, 3)
+    batch = {"images": [img, img, img], "index": torch.tensor([[0, 2, 4]]),
+             "motions": torch.ones(1, 16, 16, 2), "mask_rock": torch.zeros(1, 16, 16, 1),
+             "mean_video": img, "ff_mask": torch.ones(1, 16, 16, 1)}
+    SLRTrainable(opt, train_max_steps=4).forward_train(batch, deterministic=True,
+                                                       plain=True)
+
+
 def _synthesis_loss(name):
     from slrsfs_tpu_torch.losses.synthesis import SynthesisLoss
 
@@ -77,6 +93,10 @@ BRANCHES = {
     "dataset random_ff_mask": (lambda tmp: _dataset(tmp, random_ff_mask=True),
                                "The rest of training"),
     "baseline ff_mask": (_ff_mask_batch, "The rest of training"),
+    "SLR ff_mask": (_slr_ff_mask_batch, "The rest of training"),
+    "train model_type bg": (lambda tmp: train.build(config.Options(model_type="bg"),
+                                                    device="cpu"),
+                            "The rest of training"),
     "synthesis style loss": (lambda tmp: _synthesis_loss("style"), "The rest of training"),
 }
 
