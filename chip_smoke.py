@@ -134,6 +134,23 @@ forward; K7 on the compact batch, bit for bit and timed; a kernel-path
 step against a plain-path step (losses 1e-4, gradients 1e-3); ms/step,
 samples/s, CUDA-event stages and the peak memory.
 
+Then the remaining training stages. Phase 18 (embedded_phase): the
+unfrozen joint step and the fix-motion step on Options() widths with the
+shipped 8-down SPADE regressor (width 32) and 1.0_EndPointError, batch
+16, W = 256, T = 60, f32, synthetic hint batches; one warm-up and 3 timed
+steps each with 6 K3 forward, 6 backward and 3 K7 launches, and 3 K7
+backward launches when unfrozen (0 frozen), nothing else; a kernel-path
+step against a plain-path step by sub-network (the regressor's included);
+K3 and K7 on the joint step's own inputs checked and timed. Phase 19
+(k7_bwd_phase): K7's backward against the plain autograd (1e-5 of the
+gradient's max, two launches) on the step's predicted motion, the leaving
+flow and a batch with t_f = 0, t_p = 0 and static pixels, timed beside its
+bound. Phase 20 (other_stages_phase): the bg stage-2 step and the
+motion-GAN step at batch 16, 256². Phase 21 (stage_chains_phase): the train
+CLI at 256², batch 2, two steps each: motion GAN → fix-motion → joint →
+SceneRenderer with the joint checkpoint as --motion-ckpt, and stage 1 → bg
+stage 2 → SLR stage 3 from the port's own stage-2 checkpoint.
+
 Each path runs with the launch counts set to 0 just before it and read just
 after. The script times the renders and the steps with CUDA events, and
 each kernel three ways (kernel_times): as called (events around a loop of
@@ -176,6 +193,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -314,21 +332,26 @@ def fmt_times(t: dict) -> str:
 def launch_split(fn, reps: int = 10) -> dict:
     """The card's work in one call of ``fn``, split by CUDA kernel, memset
     and copy: {name: (launches per call, device us per call)}, from a
-    ``torch.profiler`` trace of ``reps`` calls after one warm-up."""
+    ``torch.profiler`` trace of ``reps`` calls after one warm-up. A trace
+    that reports no device event at all (CUPTI now and then returns none)
+    is taken again, at most three times; an empty split stays empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     total = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = total.get(e.name, (0, 0.0))
-            total[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = total.get(e.name, (0, 0.0))
+                total[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        if total:
+            break
     return {k: (n / reps, us / reps) for k, (n, us) in total.items()}
 
 
@@ -341,6 +364,8 @@ def kernels_per_call(fn, reps: int = 4):
 
 
 def fmt_split(split: dict) -> str:
+    if not split:
+        return "not measured (the trace held no device event)"
     return "; ".join(f"{k} {us:.2f} us" for k, (_, us) in split.items()) + (
         f" (sum {sum(us for _, us in split.values()):.2f} us)")
 
@@ -2022,11 +2047,16 @@ def step_runs(dev, phase: int, label: str, options, make_batch, log_keys=()) -> 
     return res
 
 
-def kernel_vs_plain_steps(phase: int, label: str, tr, batches: dict) -> dict:
+def kernel_vs_plain_steps(phase: int, label: str, tr, batches: dict,
+                          own_limit: float = None) -> dict:
     """A kernel-path step against a plain-path step from one snapshot for
     each batch: losses within 1e-4 relative, gradients within 1e-3 of the
-    largest; the trainer restored after."""
+    largest, printed also by sub-network (G's top-level children and D,
+    each against the largest and against its own largest) and, with
+    ``own_limit``, held within it of each sub-network's own largest; the
+    trainer restored after."""
     path = {}
+    names = tr.g_names + [f"D.{n}" for n, _ in tr.d_model.named_parameters()]
     for kind, b in batches.items():
         snap = tr.snapshot()
         got = tr.train_step(b)
@@ -2038,15 +2068,27 @@ def kernel_vs_plain_steps(phase: int, label: str, tr, batches: dict) -> dict:
         loss_rel = max(abs(got[k].item() - want_l[k].item())
                        / max(abs(want_l[k].item()), 1e-12) for k in want_l)
         g_diff, g_scale = _max_grad_diff(g_k, g_p)
+        groups = {}
+        for n, a, w in zip(names, g_k, g_p):
+            top = n.split(".", 1)[0]
+            d, s = groups.get(top, (0.0, 0.0))
+            groups[top] = (max(d, (a - w).abs().max().item()), max(s, w.abs().max().item()))
         check(loss_rel <= 1e-4, f"{label} {kind} kernel vs plain step: losses differ "
               f"by {loss_rel:.3g} relative")
         check(g_diff <= 1e-3 * g_scale, f"{label} {kind} kernel vs plain step: "
               f"gradients differ by {g_diff:.3g} (largest {g_scale:.3g})")
-        path[kind] = (loss_rel, g_diff / g_scale)
+        for n, (d, s) in groups.items():
+            check(own_limit is None or d <= own_limit * s, f"{label} {kind} kernel vs plain "
+                  f"step: {n}'s gradients differ by {d:.3g} (its largest {s:.3g})")
+        path[kind] = (loss_rel, g_diff / g_scale,
+                      {n: (d / g_scale, d / max(s, 1e-30)) for n, (d, s) in groups.items()})
         del g_k, g_p, snap
     print(f"phase {phase} {label} kernel vs plain step: " + "; ".join(
-        f"{k}: losses {v[0]:.3g} relative (limit 1e-4), gradients "
-        f"{v[1]:.3g} of the largest (limit 1e-3)" for k, v in path.items()))
+        f"{k}: losses {v[0]:.3g} relative (limit 1e-4), gradients {v[1]:.3g} of the "
+        f"largest (limit 1e-3); by sub-network, of the largest / of its own largest"
+        + ("" if own_limit is None else f" (limit {own_limit:g})") + ": "
+        + ", ".join(f"{n} {a:.3g} / {o:.3g}" for n, (a, o) in v[2].items())
+        for k, v in path.items()))
     return path
 
 
@@ -2084,11 +2126,14 @@ def training_phase(dev):
 def write_train_fixture(root: str, seed: int):
     """Two training scenes and one validation scene in the reference layout
     (<split>/<scene>_gt.mp4 and _motion.npz, avr_image/<scene>.png, one
-    rock_label/<scene>.png.json), as tests/conftest.py makes them: 12
-    frames of 256x144, the bottom half moving, the first frame as the mean
-    video, a rock polygon on the first training scene."""
+    rock_label/<scene>.png.json, <split>/<scene>_sparse_motion.flo), as
+    tests/conftest.py makes them: 12 frames of 256x144, the bottom half
+    moving, the first frame as the mean video, half the motion as the
+    hints, a rock polygon on the first training scene."""
     import cv2
     from PIL import Image
+
+    from slrsfs_tpu_torch.utils.flow_viz import write_flo
 
     rng = np.random.default_rng(seed)
     h, w, n = 144, 256, 12
@@ -2114,6 +2159,7 @@ def write_train_fixture(root: str, seed: int):
             motion[h // 2:, :, 0] = 1.0
             np.savez_compressed(os.path.join(root, split,
                                              f"{scene}_motion.npz"), motion)
+            write_flo(os.path.join(root, split, f"{scene}_sparse_motion.flo"), motion * 0.5)
             Image.fromarray(base).save(os.path.join(root, "avr_image", f"{scene}.png"))
 
 
@@ -2394,6 +2440,456 @@ def slr_training_phase(dev):
           f"{st['D step']:.1f} ms; updates {st['updates']:.1f} ms; K3 and K7 "
           f"together {100 * k3k7 / res['step_ms']:.2f} % of the step")
     return res
+
+
+# ---- the remaining training stages: embedded motion, K7's backward, the --
+# ---- motion GAN, bg stage 2 and the CLI chains ---------------------------
+#
+# The embedded-motion stages on Options() widths (ngf 64) with the shipped
+# 8-down SPADE regressor (motion_num_filters 32) and 1.0_EndPointError,
+# batch 16, W = 256, T = 60, f32: the regressor's motion is dense, so K7
+# runs its dense form and, unfrozen, its backward.
+
+
+def make_motion_train_batch(rng, B: int, W_: int):
+    """``make_train_batch`` plus sparse hints (the motion at ~2 % of the
+    pixels), as numpy."""
+    batch = make_train_batch(rng, B, W_)
+    keep = rng.random((B, W_, W_, 1)) < 0.02
+    batch["hints"] = (batch["motions"] * keep).astype(np.float32)
+    return batch
+
+
+def make_bg_batch(rng, B: int, W_: int):
+    """Stage 2's batch: two views, counts with middle = end, zero motion and
+    a mean video, as numpy."""
+    imgs = [(rng.standard_normal((B, W_, W_, 3)) * 0.25).astype(np.float32)
+            for _ in range(2)]
+    idx = np.zeros((B, 3), np.int32)
+    idx[:, 1:] = rng.integers(1, 59, size=(B, 1))
+    return {"images": imgs, "index": idx, "motions": np.zeros((B, W_, W_, 2), np.float32),
+            "mean_video": (rng.standard_normal((B, W_, W_, 3)) * 0.25).astype(np.float32)}
+
+
+def make_motion_gan_batch(rng, B: int, W_: int):
+    """The motion GAN's batch: one view, the motion and its hints."""
+    batch = make_motion_train_batch(rng, B, W_)
+    return {"images": batch["images"][:1], "motions": batch["motions"],
+            "hints": batch["hints"]}
+
+
+def timed_steps(phase: int, label: str, tr, batch, want_launches: dict, log_keys=()):
+    """One warm-up and 3 timed G+D steps: the launches over the 3, every
+    loss finite and each of ``log_keys`` logged, the peak memory of the
+    warm-up; printed. Returns {step_ms, host, stages, launches, peak}."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr.train_step(batch)  # warm-up
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    kernels.reset_counts()
+    host, stages, logs = _step_times(tr, batch, 3)
+    launches = kernels.counts()
+    want = {**{k.name: 0 for k in kernels.KERNELS}, **want_launches}
+    check(launches == want, f"{label} launches over 3 steps: {launches}")
+    for k in log_keys:
+        check(k in logs, f"{label} logs lack {k}: {sorted(logs)}")
+    for k, v in logs.items():
+        check(bool(torch.isfinite(v)), f"{label} loss {k} = {v}")
+    step_ms = float(np.median(host))
+    B = batch["images"][0].shape[0]
+    print(f"phase {phase} {label}: B={B} {W}^2: {step_ms:.1f} ms/step median = "
+          f"{B / step_ms * 1e3:.2f} samples/s (runs {[round(x, 1) for x in host]} ms); "
+          f"stages " + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
+          + f"; launches over 3 steps { {k: v for k, v in launches.items() if v} }; peak "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the resident "
+          f"{base / 2**30:.2f}); losses " + ", ".join(f"{k} {v.item():.4f}"
+                                                     for k, v in logs.items()))
+    return {"step_ms": step_ms, "host": host, "stages": stages, "launches": launches,
+            "peak": peak}
+
+
+def embedded_inputs(tr, batch):
+    """The joint step's own K3 and K7 inputs, from one forward (restored
+    after): [(packed rows, flow)] of the two splats and (motion, t_f, t_p)
+    of the integration."""
+    import torch
+
+    from slrsfs_tpu_torch.models import baseline as base_mod
+
+    seen, phased = [], {}
+    splat, integ = base_mod.softsplat_sum, base_mod.euler_integrate_phased
+
+    def spy_splat(inp, flow):
+        seen.append((inp.detach().clone(), flow.detach().clone()))
+        return splat(inp, flow)
+
+    def spy_phased(m, tf, tp, n):
+        phased.update(m=m.detach().clone(), tf=tf.clone(), tp=tp.clone())
+        return integ(m, tf, tp, n)
+
+    snap = tr.snapshot()
+    base_mod.softsplat_sum, base_mod.euler_integrate_phased = spy_splat, spy_phased
+    try:
+        with torch.no_grad():
+            tr.model.forward_train(batch, train=True, deterministic=True)
+    finally:
+        base_mod.softsplat_sum, base_mod.euler_integrate_phased = splat, integ
+        tr.restore(snap)
+    return seen, (phased["m"], phased["tf"], phased["tp"])
+
+
+def embedded_phase(dev):
+    """Phase 18: the unfrozen joint step and the fix-motion step at full
+    width (``timed_steps``: K3 fwd 6, K3 bwd 6, K7 fwd 3 over 3 steps in
+    both, K7 bwd 3 joint and 0 frozen), each kernel step against a plain
+    step by sub-network, the regressor's included; on the joint step's own
+    inputs K3 forward and backward (C = 65) and K7 dense forward checked
+    and timed. Returns the runs and the joint step's K7 inputs."""
+    import torch
+
+    from slrsfs_tpu_torch.cli.train import MODEL_TYPE, build, stage_options, to_device_batch
+    from slrsfs_tpu_torch.config import Options
+    from slrsfs_tpu_torch.ops.euler import euler_integrate_phased, euler_integrate_phased_plain
+
+    res = {}
+    for label, frozen in (("joint", False), ("fix-motion", True)):
+        opt = Options(W=W, batch_size=TRAIN_B, freeze_motion=frozen,
+                      **stage_options(MODEL_TYPE, True))
+        _, tr = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED)
+        check(any(n.startswith("motion_regressor.") for n in tr.g_names) != frozen,
+              f"{label}: the regressor in G's Adam = {not frozen} expected")
+        batch = to_device_batch(make_motion_train_batch(np.random.default_rng(SEED), TRAIN_B,
+                                                        W), dev)
+        run = timed_steps(18, f"{label} step (8-down SPADE regressor nf "
+                              f"{opt.motion_num_filters}, dense K7, T={TRAIN_T})", tr, batch,
+                          {"splat_dense_fwd": 6, "splat_dense_bwd": 6, "euler_phased": 3,
+                           "euler_phased_bwd": 0 if frozen else 3},
+                          ("EndPointError", "L1", "Perceptual", "GAN"))
+        run["path"] = kernel_vs_plain_steps(18, label, tr, {"dense": batch}, own_limit=1e-3)
+        if not frozen:
+            seen, k7_in = embedded_inputs(tr, batch)
+            res["k7_in"] = k7_in
+            check(len(seen) == 2 and all(tuple(u.shape) == (TRAIN_B, H, W, TRAIN_C)
+                                         for u, _ in seen),
+                  f"joint splat inputs {[tuple(u.shape) for u, _ in seen]}")
+            gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+            run.update(fwd_err=0.0, bwd_err=0.0)
+            for end, (inp, flow) in zip(("start", "end"), seen):
+                e, n_cancel, n_empty = k3_check(f"joint K3 forward ({end})", inp, flow)
+                eb = k3_bwd_check(f"joint K3 backward ({end})", inp, flow,
+                                  torch.randn(inp.shape, generator=gen, device=dev))
+                run["fwd_err"] = max(run["fwd_err"], e)
+                run["bwd_err"] = max(run["bwd_err"], *eb)
+                print(f"phase 18 K3 at the joint step's {end} rows ({TRAIN_B}, {H}, {W}, "
+                      f"{TRAIN_C}): forward max abs {e:.3g} (atol/rtol 1e-5), empty cells "
+                      f"match ({n_empty}; {n_cancel} reached elements exactly 0 on one side); "
+                      f"backward max abs grad_inp {eb[0]:.3g}, grad_flow {eb[1]:.3g} (limit "
+                      f"1e-5 of each output's max)")
+            inp, flow = seen[0]
+            del seen
+            run["k3_fwd"] = k3_fwd_times(dev, f"phase 18 joint K3 forward ({TRAIN_B}, {H}, "
+                                              f"{W}, {TRAIN_C})", inp, flow, reps=20,
+                                         plain_reps=3)
+            g = torch.randn(inp.shape, generator=gen, device=dev)
+            run["k3_bwd"] = k3_bwd_times(dev, f"phase 18 joint K3 backward ({TRAIN_B}, {H}, "
+                                              f"{W}, {TRAIN_C})", inp, flow, g, plain_reps=3)
+            del inp, flow, g
+            m, tf_b, tp_b = k7_in
+            got = euler_integrate_phased(m, tf_b, tp_b, TRAIN_T)
+            ref = euler_integrate_phased_plain(m, tf_b, tp_b, TRAIN_T)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                  "joint K7 forward: kernel differs from plain on the predicted motion")
+            t = kernel_times(lambda: euler_integrate_phased(m, tf_b, tp_b, TRAIN_T), reps=20)
+            plain_ms = cuda_time(lambda: euler_integrate_phased_plain(m, tf_b, tp_b, TRAIN_T),
+                                 reps=3, warmup=1)
+            steps = k7_gathers(m, tf_b, tp_b, TRAIN_T)
+            bnd = bound(m.numel() * 4 * 3 + TRAIN_B * 8, steps * 20, peak=LANE_OPS)
+            run["k7"] = {"t": t, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd,
+                         "err": 0.0}
+            print(f"phase 18 joint K7 dense on the predicted motion: bit-exact; "
+                  f"{fmt_times(t)}; plain {plain_ms:.2f} ms; bound {bnd[0]:.4f} ms by "
+                  f"{bnd[1]} ({steps} gathers of {m.numel() // 2 * TRAIN_T} at most)")
+        res[label] = run
+        del tr, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def k7_bwd_work(m, tf_b, tp_b, out_f, out_p, T: int) -> int:
+    """The reductions K7's backward issues on these inputs
+    (csrc/euler_phased.cu: euler_phased_bwd): for each phase that latches,
+    every step of each valid row whose source moves, and one for each valid
+    static row."""
+    oob = float(max(m.shape[1], m.shape[2]) + 1)
+    rest = (m == 0).all(-1).reshape(m.shape[0], -1)
+    total = 0
+    for b in range(m.shape[0]):
+        tf, tp = int(tf_b[b]), int(tp_b[b])
+        for steps, latches, out in ((tf, 1 <= tf <= T, out_f),
+                                    (tf + tp - max(tf, 0), tp > 0 and 1 <= tf + tp <= T,
+                                     out_p)):
+            if not latches:
+                continue
+            valid = out[b].reshape(-1, 2)[:, 0] != oob
+            total += int((valid & ~rest[b]).sum()) * steps + int((valid & rest[b]).sum())
+    return total
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_step_instructions(kernel, function: str) -> tuple:
+    """(fewest, most) SASS instructions a step of ``function``'s loops in
+    ``kernel``'s build, read with the toolkit's ``cuobjdump``: a loop is a
+    backward branch, its body the instructions from the branch's target to
+    the branch, NOPs left out, and a step one reduction (RED*) in the body
+    (an unrolled body holds several)."""
+    from slrsfs_tpu_torch.kernels import nvcc_path
+
+    kernel.load()
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", kernel._lib_path()], capture_output=True,
+                          text=True, check=True).stdout
+    body = next(part for part in sass.split("Function : ")[1:]
+                if part.split("\n", 1)[0].strip().find(function) >= 0)
+    insns = [(int(a, 16), op, rest) for a, op, rest in _SASS_INSN.findall(body)]
+    per_step = []
+    for addr, op, rest in insns:
+        target = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+        if target is None or int(target.group(1), 16) >= addr:
+            continue
+        loop = [o for a, o, _ in insns if int(target.group(1), 16) <= a <= addr and o != "NOP"]
+        n_red = sum(o.startswith("RED") for o in loop)
+        if n_red:
+            per_step.append(len(loop) / n_red)
+    check(per_step, f"no loop with a reduction in {function}'s SASS")
+    return min(per_step), max(per_step)
+
+
+def k7_bwd_phase(dev, k7_in) -> dict:
+    """Phase 19: K7's backward against the plain version's autograd, within
+    1e-5 of the gradient's largest magnitude on two launches each, on the
+    joint step's own predicted motion and counts, on ``leaving_flow`` and
+    on random motion with a static third, t_f = 0 and t_p = 0 samples and
+    t_f + t_p = T; timed on the predicted motion (device, as called, host),
+    the plain autograd (forward and backward) and the bound: the
+    reductions these inputs need (``k7_bwd_work``), each a step of the
+    build's SASS (``sass_step_instructions``, its fewest), at the
+    lane-instruction rate, or the bytes (motion, both outputs and
+    cotangents in, the gradient out) at 3.35 TB/s, both printed."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.ops.euler import (
+        euler_integrate_phased,
+        euler_integrate_phased_plain,
+        euler_phased_bwd,
+    )
+
+    T = TRAIN_T
+    m, tf_b, tp_b = k7_in
+    B = m.shape[0]
+    rng = np.random.default_rng(SEED + 19)
+    rand = (rng.standard_normal(tuple(m.shape)) * 2.0).astype(np.float32)
+    rand[:, : H // 3] = 0.0
+    t_f = rng.integers(0, T + 1, size=B).astype(np.int32)
+    t_p = (rng.integers(0, T + 1, size=B) % (T - t_f + 1)).astype(np.int32)
+    t_f[:3], t_p[:3] = [T, 0, T // 2], [0, T, T - T // 2]
+    cases = {"predicted motion (joint step)": (m, tf_b, tp_b),
+             "leaving flow": (leaving_flow(dev)[None].expand(B, -1, -1, -1).contiguous(),
+                              tf_b, tp_b),
+             "random, static third, t_f = 0, t_p = 0": (
+                 torch.from_numpy(rand).to(dev), torch.from_numpy(t_f).to(dev),
+                 torch.from_numpy(t_p).to(dev))}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    err = 0.0
+    for label, (mm, tf, tp) in cases.items():
+        cf = torch.randn(mm.shape, generator=gen, device=dev)
+        cp = torch.randn(mm.shape, generator=gen, device=dev)
+
+        def grad(fn):
+            x = mm.clone().requires_grad_(True)
+            a, b = fn(x, tf, tp, T)
+            return torch.autograd.grad((a * cf).sum() + (b * cp).sum(), x)[0]
+
+        want = grad(euler_integrate_phased_plain)
+        scale = want.abs().max().item()
+        for i in range(2):
+            kernels.reset_counts()
+            got = grad(euler_integrate_phased)
+            torch.cuda.synchronize()
+            check(kernels.counts()["euler_phased_bwd"] == 1, f"K7 bwd {label}: launches")
+            e = (got - want).abs().max().item()
+            check(e <= 1e-5 * scale, f"K7 backward {label} launch {i}: max abs {e} vs 1e-5 "
+                  f"x {scale}")
+            err = max(err, e)
+        with torch.no_grad():
+            out_f, out_p = euler_integrate_phased(mm, tf, tp, T)
+        oob = max(H, W) + 1
+        static = (mm == 0).all(-1)
+        print(f"phase 19 K7 backward {label}: B={B} {H}x{W} T={T}: max abs {e:.3g} of "
+              f"{scale:.4g} (limit 1e-5 of the max), two launches; "
+              f"{int((out_f[..., 0] == oob).sum()) + int((out_p[..., 0] == oob).sum())} "
+              f"latched sentinels (no gradient), {int(static.sum())} static sources"
+              + (f" (gradient max {want[static].abs().max().item():.4g}, not 0)"
+                 if static.any() else ""))
+        del want, got
+    cf = torch.randn(m.shape, generator=gen, device=dev)
+    cp = torch.randn(m.shape, generator=gen, device=dev)
+    with torch.no_grad():
+        out_f, out_p = euler_integrate_phased(m, tf_b, tp_b, T)
+    t = kernel_times(lambda: euler_phased_bwd(m, tf_b, tp_b, out_f, out_p, cf, cp, T), reps=20)
+
+    def plain():
+        x = m.clone().requires_grad_(True)
+        a, b = euler_integrate_phased_plain(x, tf_b, tp_b, T)
+        return torch.autograd.grad((a * cf).sum() + (b * cp).sum(), x)[0]
+
+    plain_ms = cuda_time(plain, reps=3, warmup=1)
+    work = k7_bwd_work(m, tf_b, tp_b, out_f, out_p, T)
+    per_step, per_step_most = sass_step_instructions(kernels.EULER_PHASED_BWD,
+                                                     "euler_phased_bwd_kernel")
+    n_bytes = m.numel() * 4 * 6
+    bnd = bound(n_bytes, work * per_step, peak=LANE_OPS)
+    print(f"phase 19 K7 backward on the predicted motion: {fmt_times(t)}; plain autograd "
+          f"(forward and backward) {plain_ms:.2f} ms; bound {bnd[0]:.4f} ms by {bnd[1]}: "
+          f"bytes {n_bytes} = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; "
+          f"operations {work} reductions (of {m.numel() // 2 * T} at most) x {per_step:.4g} "
+          f"SASS instructions a step (the build's loops: {per_step:.4g} to "
+          f"{per_step_most:.4g}) = {work * per_step / LANE_OPS * 1e3:.4f} ms at "
+          f"{LANE_OPS:.3g} lane-instructions/s; library: none")
+    return {"t": t, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd, "err": err}
+
+
+def other_stages_phase(dev) -> dict:
+    """Phase 20: the bg stage-2 step (``BackgroundModel``, task 'bg', MVloss
+    1) and the motion-GAN step (the 8-down SPADE regressor, task 'motion',
+    10.0_EndPointError, a 2-channel D) at B = 16, 256²: ``timed_steps``
+    (no kernel launches: neither integrates nor splats)."""
+    import torch
+
+    from slrsfs_tpu_torch.cli.train import build, stage_options, to_device_batch
+    from slrsfs_tpu_torch.config import Options
+
+    res = {}
+    for label, mt, make, keys in (
+            ("bg stage-2 step", "bg", make_bg_batch, ("L1_bg", "Perceptual_bg", "GAN")),
+            ("motion-GAN step", "SPADE_unet_mask_motion", make_motion_gan_batch,
+             ("EndPointError", "PSNR_motion", "GAN"))):
+        opt = Options(W=W, batch_size=TRAIN_B, model_type=mt, **stage_options(mt))
+        _, tr = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED)
+        batch = to_device_batch(make(np.random.default_rng(SEED), TRAIN_B, W), dev)
+        res[mt] = timed_steps(20, label, tr, batch, {}, keys)
+        del tr, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def run_train_cli(label: str, root: str, out: str, *args) -> tuple:
+    """``python -m slrsfs_tpu_torch.cli.train`` (W = 256, batch 2, 2 steps, 1
+    validation step): (checkpoint, stdout, seconds, the last train row)."""
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "slrsfs_tpu_torch.cli.train", "--data-root", root,
+           "--out", out, "--batch-size", "2", "--W", str(W), "--niter", "1",
+           "--niter-decay", "0", "--steps-per-epoch", "2", "--val-steps", "1",
+           "--seed", str(SEED), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{label} CLI failed:\n{proc.stdout}\n{proc.stderr}")
+    ckpt = os.path.join(out, "checkpoint.pth")
+    check(os.path.exists(ckpt), f"{label} CLI wrote no checkpoint")
+    with open(os.path.join(out, "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r for r in rows if r["split"] == "train"]
+    check(len(steps) == 2, f"{label} CLI logged {len(steps)} steps")
+    for r in rows:
+        check(all(np.isfinite(v) for k, v in r.items() if k != "split"),
+              f"{label} CLI log not finite: {r}")
+    return ckpt, proc.stdout, secs, steps[-1]
+
+
+def stage_chains_phase(scene_dir: str, img_path: str, flow_path: str) -> dict:
+    """Phase 21: the CLI chains at 256² (the 8-down regressor's smallest
+    input), full width, batch 2, two steps each: the motion GAN → the
+    fix-motion finetune (``--init-from`` a stage-1 run, ``--init-motion-from``
+    the motion GAN's, ``--freeze-motion``; its regressor the motion GAN's)
+    → the unfrozen joint stage from the fix-motion checkpoint (its regressor
+    moved) → ``SceneRenderer`` with the joint checkpoint as ``--ckpt`` and
+    ``--motion-ckpt``; stage 1 → bg stage 2 → SLR stage 3 with
+    ``--init-bg-from`` the port's own stage-2 checkpoint."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+
+    root = os.path.join(OUT_DIR, "train_data")
+    out = lambda name: os.path.join(OUT_DIR, f"chain_{name}")  # noqa: E731
+    runs = {}
+    runs["motion GAN"] = run_train_cli("motion GAN", root, out("motion"), "--model-type",
+                                       "SPADE_unet_mask_motion")
+    runs["stage 1"] = run_train_cli("stage 1", root, out("s1"))
+    runs["fix-motion"] = run_train_cli(
+        "fix-motion", root, out("fix"), "--embed-motion", "--freeze-motion", "--init-from",
+        runs["stage 1"][0], "--init-motion-from", runs["motion GAN"][0])
+    check("motion regressor loaded" in runs["fix-motion"][1],
+          f"fix-motion warm start: {runs['fix-motion'][1]}")
+    runs["joint"] = run_train_cli("joint", root, out("joint"), "--embed-motion",
+                                  "--init-from", runs["fix-motion"][0])
+    runs["bg stage 2"] = run_train_cli("bg stage 2", root, out("bg"), "--model-type", "bg")
+    runs["SLR stage 3"] = run_train_cli(
+        "SLR stage 3", root, out("s3"), "--model-type", SLR_OPTS["model_type"], "--init-from",
+        runs["stage 1"][0], "--init-bg-from", runs["bg stage 2"][0])
+    check("kept at init: ['net_alpha_encoder', 'net_alpha_decoder']" in runs["SLR stage 3"][1],
+          f"stage-3 warm start: {runs['SLR stage 3'][1]}")
+
+    def sd(name):
+        return torch.load(runs[name][0], map_location="cpu", weights_only=False)["state_dict"]
+
+    gan = {k[len("model.module."):]: v for k, v in sd("motion GAN").items()
+           if k.startswith("model.module.motion_predictor.")}
+    head = "model.module.motion_regressor."
+    fix = {k[len(head):]: v for k, v in sd("fix-motion").items() if k.startswith(head)}
+    joint = {k[len(head):]: v for k, v in sd("joint").items() if k.startswith(head)}
+    params = [k for k in gan if not k.endswith(("weight_u", "weight_v"))]
+    check(params and all(torch.equal(fix[k], gan[k]) for k in params),
+          "the fix-motion regressor is not the motion GAN's")
+    check(any(not torch.equal(joint[k], fix[k]) for k in params),
+          "the joint stage's regressor did not train")
+    r = SceneRenderer(ckpt=runs["joint"][0], motion_ckpt=runs["joint"][0], W=W, n_frames=8,
+                      crop_decode="off")
+    kernels.reset_counts()
+    out_dir, frames = render_capture(r, img_path, flow_path,
+                                     os.path.join(scene_dir, "trained_joint"), name="synthetic")
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    check(launches["euler_compact_dual"] == 1 and launches["splat_dual_normalize"] == 8,
+          f"joint render launches {launches}")
+    check(tuple(frames.shape) == (8, W, W, 3) and bool(torch.isfinite(frames).all()),
+          f"joint render frames {frames.shape}")
+    pngs = sorted(os.listdir(os.path.join(out_dir, "PredImg")))
+    check(len(pngs) == 8, f"joint render wrote {len(pngs)} PNGs")
+    print("phase 21 CLI chains (W=256, batch 2, 2 steps + validation + checkpoint each): "
+          + "; ".join(f"{k} {v[2]:.1f} s (Total Loss {v[3]['Total Loss']:.4f})"
+                      for k, v in runs.items())
+          + f"; fix-motion regressor = motion GAN's; joint regressor trained; SceneRenderer "
+          f"with --motion-ckpt = the joint checkpoint: launches "
+          f"{ {k: v for k, v in launches.items() if v} }, 8 PNGs, frame range "
+          f"[{frames.min().item():.3f}, {frames.max().item():.3f}]; stage 3 from the port's "
+          "own stage-2 checkpoint")
+    return {k: v[2] for k, v in runs.items()}
 
 
 # ---- crop decode at full width, the scene sweep, stages and a trace ------
@@ -3927,7 +4423,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     slr_train = slr_training_phase(dev)
 
-    # ---- phase 18: summary -------------------------------------------
+    # ---- phases 18-21: the embedded-motion stages, K7's backward, the
+    # ---- motion GAN and bg stage 2, the CLI chains ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    emb = embedded_phase(dev)
+    k7b = k7_bwd_phase(dev, emb.pop("k7_in"))
+    jt = emb["joint"]
+    k3k7 = jt["k7"]["ms"] + k7b["ms"] + 2 * jt["k3_fwd"]["ms"] + 2 * jt["k3_bwd"]["ms"]
+    print(f"phase 19 joint step with the kernels (B={TRAIN_B}): G forward "
+          f"{jt['stages']['G forward']:.1f} ms, of which K7 {jt['k7']['ms']:.4f} ms and K3 "
+          f"forward x2 {2 * jt['k3_fwd']['ms']:.3f} ms; G backward "
+          f"{jt['stages']['G backward']:.1f} ms, of which K7 backward {k7b['ms']:.4f} ms and "
+          f"K3 backward x2 {2 * jt['k3_bwd']['ms']:.3f} ms; K3 and both K7s "
+          f"{100 * k3k7 / jt['step_ms']:.2f} % of the step")
+    others = other_stages_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage_chains_phase(scene_dir, img_path, flow_path)
+
+    # ---- phase 22: summary -------------------------------------------
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd, lib_ms):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_, "max_abs_err": err,
@@ -4001,6 +4516,20 @@ def main() -> int:
             "slrsfs_tpu/ops/euler.py:249", slr_train["launches"]["euler_phased"], 0.0,
             slr_train["k7"]["ms"], slr_train["k7"]["plain_ms"], slr_train["k7"]["bound"],
             None),
+        row("euler_phased_bwd", "slrsfs_tpu_torch/csrc/euler_phased.cu",
+            "slrsfs_tpu/ops/euler.py:249", jt["launches"]["euler_phased_bwd"], k7b["err"],
+            k7b["ms"], k7b["plain_ms"], k7b["bound"], None),
+        row("splat_dense_fwd (joint motion step)", "slrsfs_tpu_torch/csrc/splat_dense.cu",
+            "slrsfs_tpu/ops/splat.py:139", jt["launches"]["splat_dense_fwd"], jt["fwd_err"],
+            jt["k3_fwd"]["ms"], jt["k3_fwd"]["plain_ms"], jt["k3_fwd"]["bound"],
+            jt["k3_fwd"]["lib_ms"]),
+        row("splat_dense_bwd (joint motion step)", "slrsfs_tpu_torch/csrc/splat_dense.cu",
+            "slrsfs_tpu/ops/splat.py:111", jt["launches"]["splat_dense_bwd"], jt["bwd_err"],
+            jt["k3_bwd"]["ms"], jt["k3_bwd"]["plain_ms"], jt["k3_bwd"]["bound"], None),
+        row("euler_phased (joint motion step, predicted motion)",
+            "slrsfs_tpu_torch/csrc/euler_phased.cu", "slrsfs_tpu/ops/euler.py:249",
+            jt["launches"]["euler_phased"], jt["k7"]["err"], jt["k7"]["ms"],
+            jt["k7"]["plain_ms"], jt["k7"]["bound"], None),
         row("fused_conv3x3_relu_conv3x3", "slrsfs_tpu_torch/csrc/fused_conv.cu",
             "tools/pallas_conv_prototype.py:118", k9["launches"], k9["err"],
             k9["ms"], k9["plain_ms"], k9["bound"], k9["lib_ms"]),
@@ -4033,17 +4562,25 @@ def main() -> int:
             mk["K2"]["err"], mk["K2"]["ms"], mk["K2"]["plain_ms"], mk["K2"]["bound"],
             mk["K2"]["lib"]["ms"]),
     ]
-    print("phase 18 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
+    print("phase 22 render fps: " + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
           + f"; training step {train['step_ms']:.1f} ms at B={train['B']} "
           f"({train['B'] / train['step_ms'] * 1e3:.2f} samples/s); SLR stage-3 step "
           f"{slr_train['step_ms']:.1f} ms at B={slr_train['B']} "
           f"({slr_train['B'] / slr_train['step_ms'] * 1e3:.2f} samples/s; compact "
           f"{slr_train['step_ms_compact']:.1f} ms), peak {slr_train['peak'] / 2**30:.2f} GiB")
-    print(f"phase 18 {CROP_W}^2 frames/s: " + ", ".join(
+    print(f"phase 22 training steps (B={TRAIN_B}, 256^2): joint {jt['step_ms']:.1f} ms "
+          f"({TRAIN_B / jt['step_ms'] * 1e3:.2f} samples/s, peak {jt['peak'] / 2**30:.2f} "
+          f"GiB), fix-motion {emb['fix-motion']['step_ms']:.1f} ms "
+          f"({TRAIN_B / emb['fix-motion']['step_ms'] * 1e3:.2f} samples/s, peak "
+          f"{emb['fix-motion']['peak'] / 2**30:.2f} GiB), bg stage 2 "
+          f"{others['bg']['step_ms']:.1f} ms (peak {others['bg']['peak'] / 2**30:.2f} GiB), "
+          f"motion GAN {others['SPADE_unet_mask_motion']['step_ms']:.1f} ms (peak "
+          f"{others['SPADE_unet_mask_motion']['peak'] / 2**30:.2f} GiB)")
+    print(f"phase 22 {CROP_W}^2 frames/s: " + ", ".join(
         f"{k} {v:.2f}" for k, v in {**crop["fps"], **motion["fps"]}.items())
         + f"; sweep {sweep['scenes_per_hour']:.1f} scenes/hour; device busy "
         f"{100.0 * staged['busy_share']:.1f} % of a traced crop render")
-    print(f"phase 18 CLAW eval of {len(SWEEP_SCENES)} {CROP_W}^2 scenes (--rawsize render "
+    print(f"phase 22 CLAW eval of {len(SWEEP_SCENES)} {CROP_W}^2 scenes (--rawsize render "
           f"{ev['render_fps']:.2f} frames/s): plain {ev['runs']['plain']['s']:.2f} s, fluid "
           f"{ev['runs']['fluid']['s']:.2f} s; all checks passed")
     print(smi)

@@ -115,15 +115,18 @@ def _not_ported(what: str, item: str):
 
 def load_regressor(path: str, W: int):
     """The ``MotionRegressor`` of a reference-style motion checkpoint
-    (``SPADE_unet_mask_motion`` or ``unet_motion``) at W² on the CPU, in
-    eval mode (JAX cli/render.py:149-157)."""
+    (``SPADE_unet_mask_motion`` or ``unet_motion``, JAX cli/render.py:
+    149-157), or the embedded regressor of a fluid checkpoint of the
+    embedded-motion stages (``motion_regressor.motion_predictor.*``, built
+    from its ``motion_model_type``), at W² on the CPU, in eval mode."""
     from slrsfs_tpu_torch.io.checkpoint import load_checkpoint, load_model_state, motion_state
     from slrsfs_tpu_torch.models.motion import MOTION_MODEL_TYPES, MotionRegressor
 
     sd, opt = load_checkpoint(path)
-    if opt.model_type not in MOTION_MODEL_TYPES:
+    if opt.model_type not in MOTION_MODEL_TYPES and not motion_state(sd):
         raise ValueError(f"motion checkpoint {path}: model_type {opt.model_type!r} is "
-                         f"not a motion regressor ({', '.join(MOTION_MODEL_TYPES)})")
+                         f"not a motion regressor ({', '.join(MOTION_MODEL_TYPES)}) and "
+                         f"holds no embedded one")
     regressor = MotionRegressor(opt.replace(W=W, motionW=W, motionH=W)).eval()
     load_model_state(regressor, motion_state(sd))
     return regressor

@@ -1,29 +1,52 @@
-"""Training entry point (port of ``slrsfs_tpu/cli/train.py``): stage 1,
-``--model-type softmax_splating`` (reference ``train_animating.py``), and
-SLR stage 3, ``--model-type softmax_splating_2layers_alpha_seperate``
-(reference ``train_animating_alpha_2layers_joint_*.py``: the joint
-two-layer fine-tune with the SLR loss set, on the rock-mask and mean-video
-dataset ``eulerian_data_balanced1_mask``).
+"""Training entry point (port of ``slrsfs_tpu/cli/train.py``), every
+shipped stage of the reference (JAX ``build`` :145-176):
+
+* stage 1, ``--model-type softmax_splating`` (``train_animating.py``);
+* bg stage 2, ``--model-type bg`` (``train_bg.sh``: the background network
+  on ``eulerian_data_bg``, the mean video as target, MVloss 1);
+* SLR stage 3, ``--model-type softmax_splating_2layers_alpha_seperate``
+  (``train_animating_alpha_2layers_joint_*.py``: the joint two-layer
+  fine-tune with the SLR loss set, on ``eulerian_data_balanced1_mask``);
+* the motion GAN, ``--model-type SPADE_unet_mask_motion`` or
+  ``unet_motion`` (``train_motion_EPE_MotionGAN.sh``: the regressor against
+  the ground-truth motion on ``eulerian_data_motion_hint`` with online
+  hints, ``10.0_EndPointError``);
+* the embedded-motion stages, ``--embed-motion`` on stage 1's model type:
+  the splat flow from an embedded regressor on ``eulerian_data_hint``, its
+  motion losses (``1.0_EndPointError``) joining the total; with
+  ``--freeze-motion`` the fix-motion finetune
+  (``train_animating_fixmotion.py``), without it the unfrozen joint stage
+  (``train_animating_motion_IGANonly.py``), whose gradient reaches the
+  regressor through K7's backward.
 
 Epochs of ``--steps-per-epoch`` G+D steps, a validation pass on the
 validation split after each, scalars as JSON lines in
 ``<out>/scalars.jsonl``, and a reference-style checkpoint
 ``<out>/checkpoint.pth`` after each epoch (the port's and the JAX package's
-render CLIs load it).
+loaders read it).
 
     python -m slrsfs_tpu_torch.cli.train --data-root DATA --out RUNDIR \\
         [--device cpu] ...
-    python -m slrsfs_tpu_torch.cli.train --data-root DATA --out RUNDIR \\
+    python -m slrsfs_tpu_torch.cli.train ... --model-type bg
+    python -m slrsfs_tpu_torch.cli.train ... \\
         --model-type softmax_splating_2layers_alpha_seperate \\
-        --init-from STAGE1.pth --init-bg-from BG.pth [--device cpu] ...
+        --init-from STAGE1.pth --init-bg-from BG.pth
+    python -m slrsfs_tpu_torch.cli.train ... --model-type SPADE_unet_mask_motion
+    python -m slrsfs_tpu_torch.cli.train ... --embed-motion --freeze-motion \\
+        --init-from STAGE1.pth --init-motion-from MOTION.pth
+    python -m slrsfs_tpu_torch.cli.train ... --embed-motion --init-from FIXMOTION.pth
 
-Stage 3's ``--init-from`` takes the fluid nets (and D, and the perceptual
-loss's VGG19 when the checkpoint holds it) from the stage-1 checkpoint,
-``--init-bg-from`` overlays a stage-2 checkpoint's ``net_bg``; the alpha
-nets keep their seeded initial weights.
+``--init-from`` takes G (and D, and the perceptual loss's VGG19 when the
+checkpoint holds them) from a reference-style checkpoint; for stage 3
+``--init-bg-from`` overlays a stage-2 checkpoint's ``net_bg`` and the alpha
+nets keep their seeded initial weights; for the embedded-motion stages
+``--init-motion-from`` overlays a motion checkpoint's regressor, which
+otherwise comes from ``--init-from`` when it holds one and keeps its seeded
+initial weights when not.
 
-Resume, preemption, accumulation, bf16 and the bg and motion model types
-are not ported yet (ROADMAP §1, "The rest of training").
+Resume, preemption, accumulation, bf16, the pix2pixHDorigin discriminator
+and the free-form mask are not ported yet (ROADMAP §1,
+"The rest of training").
 """
 
 from __future__ import annotations
@@ -38,23 +61,47 @@ import numpy as np
 import torch
 
 from slrsfs_tpu_torch.engine.rollout import geometric_bucket
-from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE
+from slrsfs_tpu_torch.models.motion import MOTION_MODEL_TYPES
+from slrsfs_tpu_torch.models.slr import BG_MODEL_TYPE, SLR_MODEL_TYPE
 
 MODEL_TYPE = "softmax_splating"
-MODEL_TYPES = (MODEL_TYPE, SLR_MODEL_TYPE)
+MODEL_TYPES = (MODEL_TYPE, SLR_MODEL_TYPE, BG_MODEL_TYPE) + MOTION_MODEL_TYPES
 DEFAULT_DATASETS = {MODEL_TYPE: "eulerian_data",
-                    SLR_MODEL_TYPE: "eulerian_data_balanced1_mask"}
+                    SLR_MODEL_TYPE: "eulerian_data_balanced1_mask",
+                    BG_MODEL_TYPE: "eulerian_data_bg",
+                    **{t: "eulerian_data_motion_hint" for t in MOTION_MODEL_TYPES}}
+# the embedded-motion stages train on the precomputed sparse hints
+# (train_animating_scripts/train_animating_fixedMotion_*.sh:16)
+EMBEDDED_DATASET = "eulerian_data_hint"
 
 
-def stage_options(model_type: str) -> Dict:
-    """The options the JAX CLI sets for a model type (:286-307): stage 3's
-    SLR loss weights and the blending weight."""
+def default_dataset(model_type: str, embed_motion: bool = False) -> str:
+    """The dataset a stage trains on unless ``--dataset`` says otherwise."""
+    return EMBEDDED_DATASET if embed_motion else DEFAULT_DATASETS[model_type]
+
+
+def stage_options(model_type: str, embed_motion: bool = False) -> Dict:
+    """The options the JAX CLI sets for a stage (:286-319): stage 3's SLR
+    loss weights and blending weight, MVloss 1 for stages 2 and 3, online
+    hints for the motion types, and the shipped motion-loss defaults:
+    ``10.0_EndPointError`` for the motion GAN
+    (train_motion_EPE_MotionGAN.sh:17), ``1.0_EndPointError`` for embedded
+    motion (train_animating_fixedMotion_finetuneFluid_IGANonly.sh:22)."""
     slr = model_type == SLR_MODEL_TYPE
-    return dict(MVloss=1.0 if slr else 0.0, use_alpha0_as_blending_weight=slr,
-                ATVloss=0.3 if slr else 0.0, ADCloss=1.0 if slr else 0.0,
-                FluidRegionloss=3.0 if slr else 0.0,
-                RockRegionloss=30.0 if slr else 0.0,
-                RockRegionlossDecay=20.0 if slr else 0.0)
+    out = dict(MVloss=1.0 if slr or model_type == BG_MODEL_TYPE else 0.0,
+               use_alpha0_as_blending_weight=slr,
+               ATVloss=0.3 if slr else 0.0, ADCloss=1.0 if slr else 0.0,
+               FluidRegionloss=3.0 if slr else 0.0,
+               RockRegionloss=30.0 if slr else 0.0,
+               RockRegionlossDecay=20.0 if slr else 0.0,
+               use_online_hint=("motion" in model_type.lower()
+                                or "unet" in model_type.lower()),
+               train_motion=embed_motion)
+    if model_type in MOTION_MODEL_TYPES:
+        out["motion_losses"] = ("10.0_EndPointError",)
+    elif embed_motion:
+        out["motion_losses"] = ("1.0_EndPointError",)
+    return out
 
 
 def attach_moving_sets(batch: Dict, max_frac: float = 0.5,
@@ -128,58 +175,94 @@ def to_device_batch(batch: Dict, device) -> Dict:
 
 def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,
           steps_per_epoch: int = 500, vgg=None):
-    """The model and trainer on ``device`` with seeded random weights
-    (LeCun-normal kernels, zero biases, spectral vectors from power
-    iterations): stage 1 (``softmax_splating``, ``BaselineTrainable``) or
-    stage 3 (the SLR model, ``SLRTrainable`` with ``slr_extra_losses``)."""
+    """The model and trainer of ``opt``'s stage on ``device`` with seeded
+    random weights (LeCun-normal kernels, zero biases, spectral vectors from
+    power iterations), in JAX ``build``'s order: ``bg`` (``BackgroundModel``,
+    task 'bg'), the motion types (``MotionRegressor``, task 'motion', a
+    2-channel D), stage 3 (``SLRTrainable`` with ``slr_extra_losses``),
+    ``opt.train_motion`` (``BaselineMotionTrainable`` with
+    ``baseline_motion_extra_losses``), else stage 1
+    (``BaselineTrainable``). An unknown model type is a ``ValueError``."""
     from slrsfs_tpu_torch.engine.trainer import Trainer
     from slrsfs_tpu_torch.models.baseline import (
+        BaselineMotionTrainable,
         BaselineTrainable,
+        baseline_motion_extra_losses,
         init_random_weights,
     )
-    from slrsfs_tpu_torch.models.slr import SLRTrainable, slr_extra_losses
+    from slrsfs_tpu_torch.models.motion import MotionRegressor
+    from slrsfs_tpu_torch.models.slr import (
+        BackgroundModel,
+        SLRTrainable,
+        slr_extra_losses,
+    )
     from slrsfs_tpu_torch.nn.discriminators import MultiscaleDiscriminator
 
     if opt.model_type not in MODEL_TYPES:
-        raise NotImplementedError(
-            f"model_type {opt.model_type!r} is not ported yet: the bg and "
-            "motion stages are ROADMAP §1, \"The rest of training\"")
-    slr = opt.model_type == SLR_MODEL_TYPE
-    model = (SLRTrainable if slr else BaselineTrainable)(
-        opt, train_max_steps=train_max_steps)
+        raise ValueError(f"unknown model_type {opt.model_type!r}: the train CLI "
+                         f"builds {', '.join(MODEL_TYPES)}")
+    task, extra, d_in = "synthesis", None, 3
+    if opt.model_type == BG_MODEL_TYPE:
+        model, task = BackgroundModel(opt), "bg"
+    elif opt.model_type in MOTION_MODEL_TYPES:
+        model, task, d_in = MotionRegressor(opt), "motion", 2
+    elif opt.model_type == SLR_MODEL_TYPE:
+        model = SLRTrainable(opt, train_max_steps=train_max_steps)
+        extra = slr_extra_losses
+    elif opt.train_motion:
+        model = BaselineMotionTrainable(opt, train_max_steps=train_max_steps)
+        extra = baseline_motion_extra_losses
+    else:
+        model = BaselineTrainable(opt, train_max_steps=train_max_steps)
     init_random_weights(model, seed)
-    d_model = MultiscaleDiscriminator(opt)
+    d_model = MultiscaleDiscriminator(opt, in_channels=d_in)
     init_random_weights(d_model, seed + 1)
     trainer = Trainer(opt, model, steps_per_epoch=steps_per_epoch, vgg=vgg,
                       d_model=d_model, seed=seed, device=device,
-                      extra_losses_fn=slr_extra_losses if slr else None)
+                      extra_losses_fn=extra, task=task)
     return model, trainer
 
 
-def warm_start(model, trainer, init_from: str, init_bg_from: str = None) -> None:
-    """``--init-from`` (and, for stage 3, ``--init-bg-from``): G from a
-    reference-style checkpoint (stage 3: merged with the bg checkpoint's
-    ``net_bg``, the alpha nets left at their initial weights), D when it
-    holds ``netD.*`` keys, and the perceptual loss's VGG19 when it holds
-    the reference loss's slices (JAX cli/train.py:378-447)."""
+def warm_start(model, trainer, init_from: str, init_bg_from: str = None,
+               init_motion_from: str = None) -> None:
+    """``--init-from`` (with ``--init-bg-from`` for stage 3 and
+    ``--init-motion-from`` for the embedded-motion stages): G from a
+    reference-style checkpoint, D when it holds ``netD.*`` keys, and the
+    perceptual loss's VGG19 when it holds the reference loss's slices (JAX
+    cli/train.py:378-447). Stage 3 merges the bg checkpoint's ``net_bg``
+    and leaves the alpha nets at their initial weights; the embedded-motion
+    stages merge the motion checkpoint's regressor and load by
+    ``load_embedded_baseline``; a motion regressor loads the
+    ``motion_predictor.*`` keys of a motion or embedded checkpoint."""
     from slrsfs_tpu_torch.io.checkpoint import (
         clean_state_dict,
         import_vgg_from_checkpoint,
+        load_embedded_baseline,
         load_model_state,
         load_model_state_with_fallback,
         merge_stage3_state_dict,
+        motion_state,
     )
 
     def state_dict(path):
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
         return ckpt.get("state_dict", ckpt)
 
+    opt = model.opt
     sd = state_dict(init_from)
-    if model.opt.model_type == SLR_MODEL_TYPE:
+    if opt.model_type == SLR_MODEL_TYPE:
         sd = merge_stage3_state_dict(
             sd, state_dict(init_bg_from) if init_bg_from else None)
         kept = load_model_state_with_fallback(model, clean_state_dict(sd))
         print(f"warm start from {init_from}; kept at init: {kept}", flush=True)
+    elif opt.model_type in MOTION_MODEL_TYPES:
+        load_model_state(model, motion_state(sd))
+    elif opt.train_motion:
+        sd = merge_stage3_state_dict(
+            sd, sd_motion=state_dict(init_motion_from) if init_motion_from else None)
+        loaded = load_embedded_baseline(model, clean_state_dict(sd))
+        print(f"warm start from {init_from}; motion regressor "
+              + ("loaded" if loaded else "kept at init"), flush=True)
     else:
         load_model_state(model, clean_state_dict(sd))
     d_sd = {k[len("netD.netD."):]: v for k, v in sd.items()
@@ -187,7 +270,7 @@ def warm_start(model, trainer, init_from: str, init_bg_from: str = None) -> None
     if d_sd:
         load_model_state(trainer.d_model, d_sd)
     vgg = import_vgg_from_checkpoint(sd)
-    if vgg is not None:
+    if vgg is not None and trainer.vgg is not None:
         trainer.vgg.load_state_dict(vgg)
         print("harvested the pretrained VGG19 from the init checkpoint", flush=True)
 
@@ -200,7 +283,9 @@ def main(argv=None):
     p.add_argument("--model-type", default=MODEL_TYPE, choices=list(MODEL_TYPES))
     p.add_argument("--dataset", default=None,
                    help="dataset variant (default: eulerian_data for stage 1, "
-                        "eulerian_data_balanced1_mask for stage 3)")
+                        "eulerian_data_bg for bg, eulerian_data_balanced1_mask "
+                        "for stage 3, eulerian_data_motion_hint for the motion "
+                        "types, eulerian_data_hint with --embed-motion)")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--W", type=int, default=256)
     p.add_argument("--ngf", type=int, default=64)
@@ -221,6 +306,21 @@ def main(argv=None):
     p.add_argument("--init-bg-from", default=None,
                    help="stage-2 .pth whose net_bg.* keys overlay --init-from "
                         "for SLR stage 3 (reference --load_bg_model)")
+    p.add_argument("--init-motion-from", default=None,
+                   help="motion-regressor .pth whose motion_predictor.* keys "
+                        "overlay --init-from as motion_regressor.* (reference "
+                        "--load_motion_regressor; needs --embed-motion)")
+    p.add_argument("--embed-motion", action="store_true",
+                   help="embed the motion regressor in the fluid model: the "
+                        "splat flow comes from it instead of the ground truth "
+                        "(the fix-motion and joint stages)")
+    p.add_argument("--freeze-motion", action="store_true",
+                   help="freeze the embedded regressor (the fix-motion finetune, "
+                        "reference train_animating_fixmotion.py:448-450)")
+    p.add_argument("--motion-losses", nargs="+", default=None,
+                   help="motion loss spec, e.g. 10.0_EndPointError (default: "
+                        "the shipped 10.0_EndPointError for the motion GAN, "
+                        "1.0_EndPointError with --embed-motion)")
     p.add_argument("--train-sparse-motion", choices=["auto", "off"],
                    default="auto",
                    help="integrate only each sample's moving pixels (compact "
@@ -241,8 +341,14 @@ def main(argv=None):
     p.add_argument("--num-D", type=int, default=None)
     p.add_argument("--n-layers-D", type=int, default=None)
     a = p.parse_args(argv)
-    if a.init_bg_from and not a.init_from:
-        p.error("--init-bg-from overlays --init-from and requires it")
+    if (a.init_bg_from or a.init_motion_from) and not a.init_from:
+        p.error("--init-bg-from/--init-motion-from overlay --init-from and "
+                "require it")
+    if a.init_motion_from and not a.embed_motion:
+        p.error("--init-motion-from needs --embed-motion (only the embedded-motion "
+                "fluid model has a motion_regressor)")
+    if a.freeze_motion and not a.embed_motion:
+        p.error("--freeze-motion needs --embed-motion")
 
     from slrsfs_tpu_torch.config import Options
     from slrsfs_tpu_torch.data.datasets import get_dataset
@@ -250,10 +356,13 @@ def main(argv=None):
     from slrsfs_tpu_torch.nn.vgg import VGG19Features, import_vgg19
 
     opt = Options(model_type=a.model_type,
-                  dataset=a.dataset or DEFAULT_DATASETS[a.model_type],
+                  dataset=a.dataset or default_dataset(a.model_type, a.embed_motion),
                   batch_size=a.batch_size, W=a.W, ngf=a.ngf, niter=a.niter,
                   niter_decay=a.niter_decay, lr_g=a.lr_g, lr_d=a.lr_d,
-                  seed=a.seed, **stage_options(a.model_type))
+                  seed=a.seed, freeze_motion=a.freeze_motion,
+                  **stage_options(a.model_type, a.embed_motion))
+    if a.motion_losses:
+        opt = opt.replace(motion_losses=tuple(a.motion_losses))
     arch = {"refine_model_type": a.refine_model_type,
             "alpha_refine_model_type": a.alpha_refine_model_type,
             "bg_refine_model_type": a.bg_refine_model_type,
@@ -272,10 +381,14 @@ def main(argv=None):
     model, trainer = build(opt, a.train_max_steps, a.device, a.seed,
                            a.steps_per_epoch, vgg)
     if a.init_from:
-        warm_start(model, trainer, a.init_from, a.init_bg_from)
+        warm_start(model, trainer, a.init_from, a.init_bg_from, a.init_motion_from)
 
     dataset = get_dataset(opt, a.data_root, split="train", seed=a.seed)
-    sparse = a.train_sparse_motion != "off"
+    # the compact moving-set integration applies where the splat flow is the
+    # dataset's (GT motion with exact zeros); predicted motion and the
+    # non-fluid stages integrate dense fields or nothing (JAX :459-463)
+    sparse = (a.train_sparse_motion != "off" and not a.embed_motion
+              and a.model_type in (MODEL_TYPE, SLR_MODEL_TYPE))
     eps = a.train_sparsify_eps
     if eps is None:
         eps = 0.5 / a.train_max_steps if sparse else 0.0
@@ -299,7 +412,8 @@ def main(argv=None):
                 if it % 100 == 0:
                     print(f"epoch {epoch} it {it}: " + " ".join(
                         f"{k}={row[k]:.4f}" for k in
-                        ("Total Loss", "L1", "Perceptual", "psnr", "GAN")
+                        ("Total Loss", "L1", "Perceptual", "psnr", "GAN",
+                         "L1_bg", "EndPointError")
                         if k in row), flush=True)
             dataset.toval(epoch)
             val: Dict = {}

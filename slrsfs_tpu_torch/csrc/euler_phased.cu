@@ -230,3 +230,124 @@ extern "C" int euler_phased(const void* motion, const void* positions,
   }
   return (int)cudaGetLastError();
 }
+
+// ---- euler_phased_bwd: the motion's gradient ------------------------------
+//
+// Replaces the VJP that XLA derives from euler_integrate_phased (:249; the
+// jnp.take at :284 is the gather it transposes). round carries no
+// gradient, so each step's destination d_k = d_{k-1} + sign_k * M[i_k]
+// passes the cotangent of the latched displacement straight back: for a
+// row whose latched output is valid, every step k of that phase up to the
+// latch adds sign_k * cot[row] into grad[i_k], where i_k is the step's
+// rounded, clamped position (+1 and cot_f in the forward phase, -1 and
+// cot_p in the backward one). A row whose latched output is the sentinel
+// max(H, W) + 1 left the frame and stayed invalid to the latch, so its
+// phase adds nothing; no valid displacement is that large, so the saved
+// outputs (out_f, out_p) say which rows to skip. A phase that latched
+// nothing (t_f = 0 for out_f, t_p = 0 for out_p) adds nothing either.
+//
+// The walk re-runs the forward's step arithmetic (round_even, clamp,
+// gather, add; the build has -fmad=false as the forward's has), so every
+// rounded index equals the forward's. A static source (its own motion
+// zero) reads M[src] at every step too, so its gradient is not zero:
+// grad[src] gets steps * sign * cot in one add. Sums are f32 atomics
+// (red.global.add.v2.f32) in an order that changes from launch to launch;
+// the result is held against the plain version's autograd within a bound.
+//
+// What bounds it on an H100: the issue rate, as the forward: per valid
+// trajectory and step ~20 SASS instructions in the loop unrolled by 4, 25
+// in its remainder (round, clamp, index, 64-bit addresses of the gather
+// and the reduction, gather, reduction, adds; chip_smoke.py:
+// sass_step_instructions reads them from the build). Bytes: motion, both
+// cotangents and both saved outputs read, the gradient written (~50 MB at
+// B = 16, 256^2).
+// Design: one thread a row, rows of a sample in order, so that a warp's
+// reductions of one step land on neighbouring cells of the field, which
+// stays in L2 (512 KB a sample).
+
+__device__ __forceinline__ void red_add_f32x2(float2* addr, float x, float y) {
+  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(addr), "f"(x), "f"(y)
+               : "memory");
+}
+
+// One phase's gradient for a valid row from source (cx, cy): `steps` steps
+// of sign -1 when kNeg, each adding sign * (gx, gy) at its gathered cell.
+template <bool kNeg>
+__device__ __forceinline__ void phase_bwd(const float2* __restrict__ m_b, float2* __restrict__ g_b,
+                                          float cx, float cy, bool rest, int steps, int H, int W,
+                                          float gx, float gy) {
+  const float s = kNeg ? -1.0f : 1.0f;
+  if (rest) {  // every step gathers the source's zero motion
+    const float k = (float)steps * s;
+    red_add_f32x2(&g_b[(int)cy * W + (int)cx], k * gx, k * gy);
+    return;
+  }
+  float dx = cx, dy = cy;
+  for (int k = 0; k < steps; ++k) {
+    const int ix = min(max(round_even(dx), 0), W - 1);
+    const int iy = min(max(round_even(dy), 0), H - 1);
+    const int at = iy * W + ix;
+    float2 m = __ldg(&m_b[at]);
+    red_add_f32x2(&g_b[at], s * gx, s * gy);
+    if (kNeg) {
+      m.x = -m.x;
+      m.y = -m.y;
+    }
+    dx = dx + m.x;
+    dy = dy + m.y;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    euler_phased_bwd_kernel(const float2* __restrict__ motion, const int* __restrict__ t_fwd,
+                            const int* __restrict__ t_bwd, const float2* __restrict__ out_f,
+                            const float2* __restrict__ out_p, const float2* __restrict__ cot_f,
+                            const float2* __restrict__ cot_p, float2* __restrict__ grad, int B,
+                            int H, int W, int n_steps) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long HW = (long long)H * W;
+  if (t >= (long long)B * HW) return;
+  const int b = (int)(t / HW);
+  const int p = (int)(t - (long long)b * HW);
+  const float cx = (float)(p % W);
+  const float cy = (float)(p / W);
+  const size_t cell0 = (size_t)b * HW;
+  const float2* __restrict__ m_b = motion + cell0;
+  float2* __restrict__ g_b = grad + cell0;
+  const float oob = (float)((H > W ? H : W) + 1);
+  const float2 m0 = __ldg(&m_b[p]);
+  const bool rest = m0.x == 0.0f && m0.y == 0.0f;
+  const int tf = t_fwd[b];
+  const int tp = t_bwd[b];
+  // the forward phase: steps 1 .. tf; the backward phase: k0+1 .. tf+tp
+  if (cot_f != nullptr && tf >= 1 && tf <= n_steps && out_f[cell0 + p].x != oob) {
+    const float2 c = cot_f[cell0 + p];
+    phase_bwd<false>(m_b, g_b, cx, cy, rest, tf, H, W, c.x, c.y);
+  }
+  const int k0 = tf > 0 ? tf : 0;
+  if (cot_p != nullptr && tp > 0 && tf + tp >= 1 && tf + tp <= n_steps &&
+      out_p[cell0 + p].x != oob) {
+    const float2 c = cot_p[cell0 + p];
+    phase_bwd<true>(m_b, g_b, cx, cy, rest, tf + tp - k0, H, W, c.x, c.y);
+  }
+}
+
+// Dense form only. motion (B, H, W, 2) f32; t_fwd, t_bwd (B,) int32 as the
+// forward took them; out_f, out_p (B, H, W, 2) the forward's outputs;
+// cot_f, cot_p (B, H, W, 2) their cotangents (NULL: zero); grad
+// (B, H, W, 2) f32, zeroed by the caller, += the motion's gradient.
+extern "C" int euler_phased_bwd(const void* motion, const void* t_fwd, const void* t_bwd,
+                                const void* out_f, const void* out_p, const void* cot_f,
+                                const void* cot_p, void* grad, int B, int H, int W,
+                                int n_steps, void* stream) {
+  if (H >= (1 << 22) || W >= (1 << 22)) return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)B * H * W;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0 && (cot_f != nullptr || cot_p != nullptr)) {
+    euler_phased_bwd_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float2*)motion, (const int*)t_fwd, (const int*)t_bwd, (const float2*)out_f,
+        (const float2*)out_p, (const float2*)cot_f, (const float2*)cot_p, (float2*)grad, B, H,
+        W, n_steps);
+  }
+  return (int)cudaGetLastError();
+}

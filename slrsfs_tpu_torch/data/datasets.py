@@ -1,8 +1,18 @@
-"""The training datasets (port of ``slrsfs_tpu/data/datasets.py``):
-``eulerian_data`` (stage 1, reference ``data/eulerian_data.py``) and
-``eulerian_data_balanced1_mask`` (stage 3, reference
-``data/eulerian_data_balanced1_mask.py``: the rock mask, the mean video and
-shallow-scene oversampling).
+"""The training datasets (port of ``slrsfs_tpu/data/datasets.py``), the
+reference's six loader variants (registry ``options/options.py:36-120``):
+
+* ``eulerian_data``: three views and the motion (stage 1,
+  ``data/eulerian_data.py``);
+* ``eulerian_data_balanced1_mask``: plus the rock mask, the mean video and
+  shallow-scene oversampling (stage 3);
+* ``eulerian_data_bg``: two views by a biased draw and the mean video
+  (stage 2, ``eulerian_data_bg.py``);
+* ``eulerian_data_hint``: plus the precomputed ``*_sparse_motion.flo``
+  hints (the embedded-motion stages);
+* ``eulerian_data_mask_hint``: the hints and the rock mask;
+* ``eulerian_data_motion_hint``: one view, the motion and hints
+  synthesised online (``data/hints.py:synthesize_hint_online``) when
+  ``use_online_hint``, else read from the ``.flo`` (the motion GAN).
 
 Scene layout on disk, as the reference dataset release:
 ``<root>/<split>/XXXXX_YYYYY_gt.mp4`` and ``..._motion.{npz,npy,pth}``,
@@ -14,7 +24,8 @@ middle ∈ [start, end)), a random square crop of up to 720², bicubic resize
 to W², an h-flip with the flow's x negated; the mask takes the same crop
 and flip and a nearest resize. Sampling is a pure function of (seed,
 split, epoch, index) and draws the numbers the JAX dataset draws, in its
-order. The two-view bg and hint variants come with their stages.
+order. Hints (``..._sparse_motion.flo``, or synthesised) take the flow's
+crop, flip and bilinear resize.
 """
 
 from __future__ import annotations
@@ -36,8 +47,11 @@ from slrsfs_tpu_torch.data.transforms import (
     transform_image,
 )
 from slrsfs_tpu_torch.data.video import VideoReader
+from slrsfs_tpu_torch.utils.flow_viz import read_flo
 
-VARIANTS = ("eulerian_data", "eulerian_data_balanced1_mask")
+VARIANTS = ("eulerian_data", "eulerian_data_balanced1_mask", "eulerian_data_bg",
+            "eulerian_data_hint", "eulerian_data_motion_hint",
+            "eulerian_data_mask_hint")
 # decode threads and extra batches in flight (cv2, PIL and numpy release
 # the GIL for the heavy parts)
 WORKERS = 2
@@ -51,9 +65,7 @@ class LiquidDataset:
                  split: str = "train", seed: int = 0,
                  rock_label_root: Optional[str] = None):
         if variant not in VARIANTS:
-            raise NotImplementedError(
-                f"dataset {variant!r} is not ported yet (ported: {VARIANTS}; "
-                "ROADMAP §1, \"The rest of training\")")
+            raise ValueError(f"unknown dataset {variant!r}; known: {VARIANTS}")
         if opt.random_ff_mask:
             raise NotImplementedError(
                 "the free-form occlusion mask is not ported yet (ROADMAP §1, "
@@ -64,7 +76,12 @@ class LiquidDataset:
         self.epoch = 0
         self.rock_label_root = rock_label_root or os.path.join(root, "rock_label")
         self.with_mask = "mask" in variant
-        self.with_mean = "mask" in variant or opt.use_mean_video or opt.MVloss > 0.0
+        self.with_mean = ("mask" in variant or "bg" in variant or opt.use_mean_video
+                          or opt.MVloss > 0.0)
+        self.with_hint = "hint" in variant
+        self.online_hint = variant == "eulerian_data_motion_hint" and opt.use_online_hint
+        self.single_view = "motion_hint" in variant
+        self.two_view = variant == "eulerian_data_bg"
         # shallow-scene oversampling list (eulerian_data_balanced1_mask.py:75-85)
         self.shallow: Optional[np.ndarray] = None
         shallow_path = os.path.join(root, "imageset_shallow.npy")
@@ -128,8 +145,15 @@ class LiquidDataset:
             start = rng.randint(0, max(N // 3, 1))
             end = rng.randint(N // 3 * 2, N)
             middle = rng.randint(start, end)
+            if self.two_view:
+                # the biased two-view draw (eulerian_data_bg.py:81-82)
+                pair = rng.randint(0, N, size=2)
+                start, end = int(pair.min()), int(pair.max())
+                middle = end
+            views = ([start] if self.single_view else
+                     [start, end] if self.two_view else [start, middle, end])
             images = [transform_image(Image.fromarray(video[t]), W, params)
-                      for t in (start, middle, end)]
+                      for t in views]
         finally:
             video.close()
         motion = self._load_motion(scene)
@@ -144,6 +168,19 @@ class LiquidDataset:
                 os.path.join(self.rock_label_root, scene + ".png.json"),
                 motion.shape[:2])
             item["mask_rock"] = transform_mask(raw, W, params)[..., None]
+        if self.with_hint:
+            if self.online_hint:
+                import torch
+
+                from slrsfs_tpu_torch.data.hints import synthesize_hint_online
+
+                hint_raw, _ = synthesize_hint_online(
+                    torch.from_numpy(motion), np.random.default_rng(rng.randint(2 ** 31)))
+                hint_raw = hint_raw.numpy()
+            else:
+                hint_raw = read_flo(os.path.join(self.root, self.split,
+                                                 scene + "_sparse_motion.flo"))
+            item["hints"] = transform_flow(hint_raw, W, params, mode="bilinear")
         return item
 
     def batches(self, batch_size: int, num_batches: Optional[int] = None
@@ -153,7 +190,8 @@ class LiquidDataset:
 
         def make(i):
             samples = [self[i * batch_size + j] for j in range(batch_size)]
-            return {k: [np.stack([s[k][v] for s in samples]) for v in range(3)]
+            return {k: [np.stack([s[k][v] for s in samples])
+                        for v in range(len(samples[0][k]))]
                     if k == "images" else np.stack([s[k] for s in samples])
                     for k in samples[0]}
 
@@ -174,4 +212,6 @@ class LiquidDataset:
 
 def get_dataset(opt: Options, root: str, split: str = "train",
                 **kw) -> LiquidDataset:
+    """The dataset ``opt.dataset`` names (reference ``options/options.py:
+    36-120``); an unknown name is a ``ValueError``."""
     return LiquidDataset(root, opt, variant=opt.dataset, split=split, **kw)

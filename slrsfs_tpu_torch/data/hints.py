@@ -24,9 +24,10 @@ centroids a run on the CPU picks: the points are integer pixels, so every
 sum it decides on (the seeding potential, the centres' sums, the
 inertia's) is exact in float64 in any order. Its draws are not
 scikit-learn's, so on a region with several near-equal optima the two may
-settle in different ones; on separated clusters they agree. The
-training-time ``synthesize_hint_online`` is not ported (ROADMAP §1, "The
-rest of training").
+settle in different ones; on separated clusters they agree.
+``synthesize_hint_online`` is the training-time variant of the motion GAN's
+dataset (k and σ drawn per sample, reference
+``eulerian_data_motion_hint.py:120-160``).
 """
 
 from __future__ import annotations
@@ -192,4 +193,20 @@ def synthesize_hint(motion: Tensor, n_hints: int = 5, sigma: Optional[float] = N
     if sigma is None:
         sigma = H / 5.0
     hints = kmeans_hint_pixels(mask, n_hints, seed)
+    return densify_hints(motion, hints, sigma, mask), mask
+
+
+def synthesize_hint_online(motion: Tensor, rng: np.random.Generator
+                           ) -> Tuple[Tensor, Tensor]:
+    """The training-time variant (reference :132-160): k ∈ [1, 5] and
+    σ ∈ [H/(2k), 2H/k) drawn from ``rng``, then the k-means seed; fewer
+    than 10 moving pixels give a zero hint. motion (H, W, 2) float32 →
+    (hint field (H, W, 2), moving mask (H, W))."""
+    H = motion.shape[0]
+    mask = moving_mask_threshold(motion)
+    if float(mask.sum()) < 10:
+        return torch.zeros_like(motion), mask
+    k = int(1 + rng.integers(5))
+    sigma = float(rng.integers(H // (k * 2), max(H // (k * 2) + 1, int(H / (k / 2.0)))))
+    hints = kmeans_hint_pixels(mask, k, int(rng.integers(2 ** 31)))
     return densify_hints(motion, hints, sigma, mask), mask

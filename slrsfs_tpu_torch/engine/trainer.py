@@ -14,6 +14,16 @@ Adam is written out as optax's ``adam`` computes it: the first update of a
 parameter is lr·g/(|g| + 1e-8), and the schedule is evaluated at the
 update count, so the first update uses ``schedule(0)``.
 
+``task`` picks the reconstruction target and loss (JAX
+``engine/trainer.py:61-77, 152-176``): 'synthesis' (stages 1 and 3 and the
+embedded-motion stages: the middle image), 'bg' (stage 2: the mean video,
+the loss keys suffixed ``_bg`` and the total weighted by MVloss) and
+'motion' (the motion GAN: ``MotionLoss`` against the ground-truth motion,
+no VGG, a 2-channel discriminator). With ``opt.freeze_motion`` the
+embedded regressor's parameters stay out of G's Adam, as optax's
+``multi_transform`` with ``set_to_zero`` leaves them; its spectral vectors
+still run their power iterations in train mode.
+
 This port supports one micro-batch per step and float32 compute; the
 reference's accumulation and the bf16 training mode raise.
 """
@@ -33,6 +43,7 @@ from slrsfs_tpu_torch.losses.gan import (
     generator_gan_losses,
 )
 from slrsfs_tpu_torch.losses.synthesis import SynthesisLoss
+from slrsfs_tpu_torch.models.motion import motion_losses
 from slrsfs_tpu_torch.nn.discriminators import MultiscaleDiscriminator
 from slrsfs_tpu_torch.nn.vgg import VGG19Features, init_random_vgg
 
@@ -90,7 +101,9 @@ def _grads(loss: Tensor, params: List[Tensor]) -> List[Tensor]:
 
 class Trainer:
     """G+D training of a model with ``forward_train`` (stage 1: the
-    baseline; stage 3: the SLR model) on ``device`` (the card unless the
+    baseline; stage 2: the background model; stage 3: the SLR model; the
+    motion GAN: the regressor; the embedded-motion stages: the baseline
+    with a regressor) on ``device`` (the card unless the
     caller asks for the CPU; the model, discriminator and VGG move there).
     ``noise`` is the step's BN-noise generator; ``deterministic`` runs with
     zero noise instead.
@@ -100,13 +113,21 @@ class Trainer:
     Extra`` (stage 3: ``models/slr.py:slr_extra_losses``); epoch is the G
     optimiser's step count before the update // ``steps_per_epoch``, as the
     JAX trainer reads ``state.step``. The sum joins G's total, the terms
-    the logs; ``eval_step`` keeps the synthesis losses alone."""
+    the logs; ``eval_step`` keeps the reconstruction losses alone.
+
+    ``task`` is 'synthesis', 'bg' or 'motion' (the module docstring); the
+    motion task builds no VGG."""
+
+    TASKS = ("synthesis", "bg", "motion")
 
     def __init__(self, opt: Options, model: nn.Module,
                  steps_per_epoch: int = 500, vgg: VGG19Features = None,
                  d_model: nn.Module = None, seed: int = 0,
                  deterministic: bool = False, device="cuda",
-                 extra_losses_fn: Optional[Callable] = None):
+                 extra_losses_fn: Optional[Callable] = None,
+                 task: str = "synthesis"):
+        if task not in self.TASKS:
+            raise ValueError(f"unknown task {task!r}: one of {self.TASKS}")
         if opt.num_accumulations != 1:
             raise NotImplementedError(
                 "num_accumulations > 1 is not ported yet (ROADMAP §1, \"The rest "
@@ -124,18 +145,27 @@ class Trainer:
         self.model = model.to(dev)
         self.steps_per_epoch = steps_per_epoch
         self.extra_losses_fn = extra_losses_fn
+        self.task = task
         self.deterministic = deterministic
         self.device = dev
         self.use_discriminator = opt.discriminator_losses != "0"
-        self.d_model = (d_model if d_model is not None
-                        else MultiscaleDiscriminator(opt)).to(dev)
-        if vgg is None:
-            vgg = init_random_vgg(VGG19Features(), seed)
-        self.vgg = vgg.to(dev).requires_grad_(False)
-        self.synth = SynthesisLoss(opt.losses, self.vgg)
+        if d_model is None:
+            d_model = MultiscaleDiscriminator(opt, in_channels=2 if task == "motion" else 3)
+        self.d_model = d_model.to(dev)
+        self.vgg = self.synth = None
+        if task != "motion":  # the motion task's loss is MotionLoss alone
+            if vgg is None:
+                vgg = init_random_vgg(VGG19Features(), seed)
+            self.vgg = vgg.to(dev).requires_grad_(False)
+            self.synth = SynthesisLoss(opt.losses, self.vgg)
         self.noise = torch.Generator(device=dev)
         self.noise.manual_seed(seed)
-        self.g_params = [p for p in model.parameters() if p.requires_grad]
+        frozen = "motion_regressor." if opt.freeze_motion else None
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad and not (frozen and n.startswith(frozen))]
+        # G's Adam parameters and their names (``last_grads["g"]``' order)
+        self.g_names = [n for n, _ in named]
+        self.g_params = [p for _, p in named]
         self.d_params = [p for p in self.d_model.parameters()]
         self.opt_g = Adam(self.g_params, make_lr_schedule(
             opt.lr_g, opt.niter, opt.niter_decay, steps_per_epoch),
@@ -150,13 +180,37 @@ class Trainer:
     def step_count(self) -> int:
         return self.opt_g.count
 
+    def target(self, batch: Dict) -> Tensor:
+        """The reconstruction target: the middle image, the mean video (bg)
+        or the ground-truth motion (motion)."""
+        if self.task == "bg":
+            return batch["mean_video"]
+        if self.task == "motion":
+            return batch["motions"]
+        return batch["images"][1]
+
+    def recon_losses(self, gen: Tensor, target: Tensor) -> Dict[str, Tensor]:
+        """The task's reconstruction losses and metrics with "Total Loss"
+        (JAX ``_recon_losses``)."""
+        if self.task == "motion":
+            return motion_losses(self.opt, gen, target)
+        losses = self.synth(gen, target)
+        if self.task == "bg":
+            # stage 2: the total is the MV-weighted synthesis loss
+            # (reference 2layers BackgroundNetwork :1196-1203)
+            losses = {**{k + "_bg": v for k, v in losses.items()
+                         if "Perceptual" in k or "L1" in k},
+                      "Total Loss": losses["Total Loss"] * self.opt.MVloss,
+                      "psnr": losses["psnr"], "ssim": losses["ssim"]}
+        return losses
+
     def g_losses(self, batch: Dict, plain: bool = False):
         """Generator forward and losses: (total, logs, gen_img)."""
         gen_img, pred = self.model.forward_train(
             batch, train=True, deterministic=self.deterministic,
             noise=self.noise, plain=plain)
-        middle = batch["images"][1]
-        losses = self.synth(gen_img, middle)
+        middle = self.target(batch)
+        losses = self.recon_losses(gen_img, middle)
         total = losses["Total Loss"]
         logs = dict(losses)
         if self.extra_losses_fn is not None:
@@ -192,7 +246,7 @@ class Trainer:
             d_grads = None
             if self.use_discriminator:
                 d = discriminator_losses(self.d_model, gen_img,
-                                         batch["images"][1],
+                                         self.target(batch),
                                          self.opt.gan_mode, train=True)
                 d_grads = _grads(d["Total Loss"], self.d_params)
                 logs["D_Fake"], logs["D_real"] = d["D_Fake"], d["D_real"]
@@ -235,4 +289,4 @@ class Trainer:
             gen_img, _ = self.model.forward_train(
                 batch, train=False, deterministic=self.deterministic,
                 noise=self.noise)
-            return self.synth(gen_img, batch["images"][1])
+            return self.recon_losses(gen_img, self.target(batch))

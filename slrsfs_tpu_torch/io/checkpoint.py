@@ -92,17 +92,50 @@ def load_model_state_with_fallback(model: torch.nn.Module, sd: Mapping) -> List[
     return kept
 
 
-def merge_stage3_state_dict(sd_baseline: Mapping, sd_bg: Mapping = None) -> Dict:
-    """The SLR stage-3 warm-start state_dict (the JAX
-    ``merge_stage3_state_dict`` :97-118, reference
-    train_animating_alpha_2layers_joint_finetuneBGFluid_L1.py:430-462): the
-    stage-1 checkpoint's keys with the stage-2 checkpoint's ``net_bg`` keys
-    laid over them. The alpha nets have no keys in either; load the result
-    with ``load_model_state_with_fallback``."""
+def merge_stage3_state_dict(sd_baseline: Mapping, sd_bg: Mapping = None,
+                            sd_motion: Mapping = None) -> Dict:
+    """A warm start's merged state_dict (the JAX ``merge_stage3_state_dict``
+    :97-118, reference train_animating_alpha_2layers_joint_finetuneBGFluid_L1
+    .py:430-462): the stage-1 checkpoint's keys with the stage-2
+    checkpoint's ``net_bg`` keys laid over them (SLR stage 3), and a motion
+    checkpoint's ``motion_predictor`` keys under ``motion_regressor.``
+    (the fix-motion finetune, train_animating_fixmotion.py:438-446). The
+    SLR alpha nets have no keys in any; load the SLR result with
+    ``load_model_state_with_fallback``, the embedded one with
+    ``load_embedded_baseline``."""
     out = {_strip_prefixes(k): v for k, v in sd_baseline.items()}
     if sd_bg is not None:
         out.update({_strip_prefixes(k): v for k, v in sd_bg.items() if "net_bg" in k})
+    if sd_motion is not None:
+        for k, v in sd_motion.items():
+            k = _strip_prefixes(k)
+            if "motion_predictor" in k and "motion_regressor" not in k:
+                out["motion_regressor." + k] = v
     return out
+
+
+def load_embedded_baseline(model: torch.nn.Module, sd: Mapping) -> bool:
+    """Load a ``BaselineMotionTrainable`` from a cleaned state_dict by the
+    JAX ``import_embedded_baseline`` rule (:175-205): the fluid nets must be
+    there; the regressor comes from the ``motion_regressor.*`` keys when
+    the checkpoint holds them and keeps its current (seeded initial)
+    weights otherwise. A regressor that is only partly present raises.
+    Returns whether the regressor was loaded."""
+    own = model.state_dict()
+    head = "motion_regressor."
+    fluid = [k for k in own if not k.startswith(head)]
+    missing = [k for k in fluid if k not in sd]
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} keys of the fluid nets, "
+                       f"e.g. {missing[:3]}")
+    regressor = [k for k in own if k.startswith(head)]
+    have = [k for k in regressor if k in sd]
+    if have and len(have) < len(regressor):
+        missing = [k for k in regressor if k not in sd]
+        raise KeyError(f"checkpoint holds part of motion_regressor: it lacks "
+                       f"{len(missing)} keys, e.g. {missing[:3]}")
+    model.load_state_dict({k: sd[k] if k in sd else v for k, v in own.items()})
+    return bool(have)
 
 
 # torchvision vgg19.features conv index → the reference loss's slice number
@@ -146,24 +179,24 @@ def motion_state(sd: Mapping) -> Dict:
 
 
 def load_checkpoint(path: str) -> Tuple[Dict, Options]:
-    """(cleaned state_dict, Options) of a reference-style baseline, SLR or
-    motion-regressor checkpoint, with ``bn_noise_misc`` set as inference
-    does (test_baseline_4eval.py:127); as the JAX ``import_checkpoint``
-    (:297) reads it. A regressor's weights are ``motion_state(sd)``."""
+    """(cleaned state_dict, Options) of a reference-style baseline, SLR,
+    motion-regressor or background (stage 2, the JAX ``import_bg_model``
+    :208: ``net_bg.*``) checkpoint, with ``bn_noise_misc`` set as
+    inference does (test_baseline_4eval.py:127); as the JAX
+    ``import_checkpoint`` (:297) reads it. A regressor's weights are
+    ``motion_state(sd)``."""
     from slrsfs_tpu_torch.models.motion import MOTION_MODEL_TYPES
+    from slrsfs_tpu_torch.models.slr import BG_MODEL_TYPE
 
     # the options travel as a pickled argparse namespace
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     opt = opts_from_namespace(ckpt["opts"]) if "opts" in ckpt else Options()
     opt = opt.replace(bn_noise_misc=True)
     sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
-    if opt.model_type == "bg":
-        raise NotImplementedError(
-            "model_type 'bg' (the background model) is not ported yet: ROADMAP "
-            "§1, \"The rest of training\"")
-    if opt.model_type not in RENDER_MODEL_TYPES + MOTION_MODEL_TYPES:
+    known = RENDER_MODEL_TYPES + MOTION_MODEL_TYPES + (BG_MODEL_TYPE,)
+    if opt.model_type not in known:
         raise ValueError(f"unknown model_type {opt.model_type!r}: the port loads "
-                         f"{', '.join(RENDER_MODEL_TYPES + MOTION_MODEL_TYPES)}")
+                         f"{', '.join(known)}")
     return clean_state_dict(sd), opt
 
 
@@ -171,10 +204,14 @@ def save_checkpoint(path: str, G: torch.nn.Module, D: torch.nn.Module,
                     opt: Options, epoch: int = 0) -> str:
     """Write a reference-style ``.pth``: the generator's state under
     ``model.module.`` (BaseModel + DataParallel) and the discriminator's
-    under ``netD.netD.``, with ``opts`` as an argparse namespace. The port's
-    ``load_checkpoint`` and the JAX ``import_checkpoint`` (:297) and
-    ``import_discriminator`` (:227) read it. Written to a temporary file and
-    renamed, so a crash leaves the previous checkpoint."""
+    under ``netD.netD.``, with ``opts`` as an argparse namespace. Every
+    model kind keeps the reference's keys: the fluid models (with an
+    embedded regressor under ``motion_regressor.motion_predictor.*``), the
+    motion regressor (``motion_predictor.*``) and the background model
+    (``net_bg.*``). The port's ``load_checkpoint`` and the JAX
+    ``import_checkpoint`` (:297), ``import_embedded_baseline`` (:175) and
+    ``import_discriminator`` (:227) read it. Written to a temporary file
+    and renamed, so a crash leaves the previous checkpoint."""
     sd = {f"model.module.{k}": v.detach().cpu()
           for k, v in G.state_dict().items()}
     sd.update({f"netD.netD.{k}": v.detach().cpu()

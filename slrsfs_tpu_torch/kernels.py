@@ -13,7 +13,9 @@ points may share one source; it is built once: ``euler.cu`` holds K1
 epilogues (``splat_dual_normalize``,
 ``splat_dual_normalize_slr``, f32 or bf16 accumulation) and K8
 (``splat_sum_at``), ``maxwarp.cu`` K5 (``maximum_warp_norm_sparse``) and K6
-(``maximum_warp_norm_splat``), ``splat_dense.cu`` K3's forward and backward;
+(``maximum_warp_norm_splat``), ``splat_dense.cu`` K3's forward and backward,
+``euler_phased.cu`` K7's forward (``euler_phased``) and backward
+(``euler_phased_bwd``);
 ``fused_conv.cu`` is K9 (``fused_conv3x3_relu_conv3x3``). Nothing is
 compiled at import: this module imports on a host without CUDA.
 
@@ -257,6 +259,12 @@ EULER_PHASED = Kernel(
     # n_steps, stream
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
+EULER_PHASED_BWD = Kernel(
+    "euler_phased_bwd", "slrsfs_tpu_torch/csrc/euler_phased.cu", "euler_phased_bwd",
+    # motion, t_fwd, t_bwd, out_f, out_p, cot_f, cot_p (NULL: zero), grad,
+    # B, H, W, n_steps, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+
 FUSED_CONV = Kernel(
     "fused_conv3x3_relu_conv3x3", "slrsfs_tpu_torch/csrc/fused_conv.cu",
     "fused_conv3x3_relu_conv3x3",
@@ -266,7 +274,7 @@ FUSED_CONV = Kernel(
 
 KERNELS: List[Kernel] = [EULER, EULER_ALL, SPLAT, SPLAT_SLR, SPLAT_SUM_AT,
                          MAXWARP_SPARSE, MAXWARP_SPLAT, SPLAT_DENSE_FWD,
-                         SPLAT_DENSE_BWD, EULER_PHASED, FUSED_CONV]
+                         SPLAT_DENSE_BWD, EULER_PHASED, EULER_PHASED_BWD, FUSED_CONV]
 
 
 def build_all() -> Dict[str, float]:

@@ -3,7 +3,8 @@
 
 ``SynthesisLoss`` parses the reference's ``--losses '1.0_l1' '10.0_content'``
 strings and adds the PSNR and SSIM metrics. Images are NHWC in [-1, 1].
-``MotionLoss`` comes with the motion stages.
+``MotionLoss`` parses ``--motion-losses '10.0_EndPointError'`` (the motion
+stages' loss on flow, NHWC).
 """
 
 from __future__ import annotations
@@ -79,5 +80,45 @@ class SynthesisLoss:
         with torch.no_grad():  # metrics only
             out["psnr" + self.subname] = psnr(pred, gt)
             out["ssim" + self.subname] = ssim(pred, gt)
+        out["Total Loss"] = total
+        return out
+
+
+def end_point_error(pred_motion: Tensor, gt_motion: Tensor) -> Tensor:
+    """The mean L2 norm of the difference; 3-channel uv·m motion folded
+    first (synthesis.py:147-160). NHWC. At an exactly zero difference the
+    norm's gradient is 0 here and NaN in JAX."""
+
+    def fold(m):
+        return m[..., :2] * m[..., 2:3] if m.shape[-1] == 3 else m
+
+    d = fold(pred_motion) - fold(gt_motion)
+    return torch.mean(torch.linalg.vector_norm(d, dim=-1))
+
+
+class MotionLoss:
+    """Reference MotionLoss (synthesis.py:11-58): 'λ_MotionL1' and
+    'λ_EndPointError', each weighted by its λ into "Total Loss"."""
+
+    NAMES = ("MotionL1", "EndPointError")
+
+    def __init__(self, losses: Sequence[str]):
+        self.pairs: list[Tuple[float, str]] = []
+        for s in losses:
+            lam, name = s.split("_")
+            if name not in self.NAMES:
+                raise ValueError(f"unknown motion loss: {name}")
+            self.pairs.append((float(lam), name))
+
+    def __call__(self, pred_motion: Tensor, gt_motion: Tensor) -> Dict[str, Tensor]:
+        out: Dict[str, Tensor] = {}
+        total = torch.zeros((), device=pred_motion.device)
+        for lam, name in self.pairs:
+            if name == "MotionL1":
+                v = l1(pred_motion, gt_motion)
+            else:
+                v = end_point_error(pred_motion, gt_motion)
+            out[name] = v
+            total = total + lam * v
         out["Total Loss"] = total
         return out

@@ -11,7 +11,12 @@ def get_model(opt: Options):
     device with uninitialised weights."""
     from slrsfs_tpu_torch.models.baseline import BaselineModel
     from slrsfs_tpu_torch.models.motion import MOTION_MODEL_TYPES, MotionRegressor
-    from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRModel
+    from slrsfs_tpu_torch.models.slr import (
+        BG_MODEL_TYPE,
+        SLR_MODEL_TYPE,
+        BackgroundModel,
+        SLRModel,
+    )
 
     if opt.model_type == "softmax_splating":
         return BaselineModel(opt)
@@ -19,4 +24,6 @@ def get_model(opt: Options):
         return SLRModel(opt)
     if opt.model_type in MOTION_MODEL_TYPES:
         return MotionRegressor(opt)
+    if opt.model_type == BG_MODEL_TYPE:
+        return BackgroundModel(opt)
     raise ValueError(f"the port builds no model_type {opt.model_type!r}")

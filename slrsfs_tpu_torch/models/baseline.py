@@ -1,8 +1,10 @@
 """Single-layer animating model (PyTorch port of
 ``slrsfs_tpu/models/baseline.py``): encoder → symmetric double-ended softmax
-splat → partial-conv decoder, and the (start, middle, end) training pass of
-``BaselineTrainable``. Public tensors are NHWC, as in the JAX package.
-``train`` and ``noise`` are the switches of ``nn/norm.py``.
+splat → partial-conv decoder, the (start, middle, end) training pass of
+``BaselineTrainable``, and ``BaselineMotionTrainable``, the same pass with
+the splat flow predicted by an embedded motion regressor (the fix-motion
+finetune and the unfrozen joint stage). Public tensors are NHWC, as in the
+JAX package. ``train`` and ``noise`` are the switches of ``nn/norm.py``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from slrsfs_tpu_torch.config import Options
+from slrsfs_tpu_torch.losses.synthesis import MotionLoss
 from slrsfs_tpu_torch.nn.archs import get_resnet_arch
 from slrsfs_tpu_torch.nn.norm import l2_normalize
 from slrsfs_tpu_torch.nn.resnets import ResNetDecoderPconv2, ResNetEncoderWithZ
@@ -240,3 +243,61 @@ class BaselineTrainable(BaselineModel):
         pred = {"PredImg": gen_img, "OutputImg": middle_img, "Z_f": zn_f,
                 "GTMotion": flow}
         return gen_img, pred
+
+
+class BaselineMotionTrainable(BaselineTrainable):
+    """The baseline with an embedded motion regressor (reference
+    ``train_motion`` branches, animating_softmax_splating.py:514-536): the
+    splat flow comes from the regressor instead of the ground truth, and
+    the motion losses join the total (``baseline_motion_extra_losses``).
+    With ``opt.freeze_motion`` the prediction is detached (the fix-motion
+    finetune) and the trainer leaves the regressor out of G's Adam;
+    without it the synthesis loss's gradient reaches the regressor through
+    dense K7's backward and K3's ``grad_flow`` (the unfrozen joint
+    stage)."""
+
+    def __init__(self, opt: Options, train_max_steps: int = 60):
+        from slrsfs_tpu_torch.models.motion import MotionRegressor
+
+        super().__init__(opt, train_max_steps)
+        self.motion_regressor = MotionRegressor(opt)
+
+    def forward_train(self, batch: Dict, train: bool = True,
+                      deterministic: bool = False,
+                      noise: Optional[torch.Generator] = None,
+                      plain: bool = False):
+        """``BaselineTrainable.forward_train`` on the regressor's motion
+        from ``images[0]``, the ground truth's moving mask and ``hints``:
+        the regressor predicts before the two encodes, as in JAX, at
+        motionW x motionH, scaled by W/motionW and W/motionH for the splat.
+        The moving sets are dropped (a predicted motion is dense). Adds
+        ``PredMotion`` and ``GTMotionRaw`` (the batch's motion) to pred."""
+        from slrsfs_tpu_torch.models.motion import moving_region_mask
+
+        gt_motion = batch["motions"]
+        mask = moving_region_mask(gt_motion)
+        pred_scaled = self.motion_regressor.predict(
+            batch["images"][0], mask, batch.get("hints"), train)
+        if self.opt.freeze_motion:
+            pred_scaled = pred_scaled.detach()
+        scale = torch.tensor([self.opt.W / self.opt.motionW,
+                              self.opt.W / self.opt.motionH],
+                             dtype=pred_scaled.dtype, device=pred_scaled.device)
+        batch = {k: v for k, v in batch.items() if k not in ("mov_pos", "mov_valid")}
+        batch["motions"] = pred_scaled * scale
+        gen_img, pred = super().forward_train(batch, train, deterministic, noise, plain)
+        pred["PredMotion"] = pred_scaled
+        pred["GTMotionRaw"] = gt_motion
+        return gen_img, pred
+
+
+def baseline_motion_extra_losses(opt: Options, pred: Dict[str, Tensor],
+                                 synth_loss_fn=None, epoch=None) -> Dict[str, Tensor]:
+    """The motion losses joining the fluid total (reference :748-754):
+    ``MotionLoss`` of PredMotion against GTMotionRaw, logged; their total
+    is "Total Extra", 0 when the regressor is frozen."""
+    ml = MotionLoss(opt.motion_losses)(pred["PredMotion"], pred["GTMotionRaw"])
+    out = {k: v for k, v in ml.items() if k != "Total Loss"}
+    out["Total Extra"] = (torch.zeros((), device=ml["Total Loss"].device)
+                          if opt.freeze_motion else ml["Total Loss"])
+    return out

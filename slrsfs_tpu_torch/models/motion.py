@@ -14,20 +14,21 @@ sparse hints (PyTorch port of ``slrsfs_tpu/models/motion.py``).
 Children carry the reference's names (``motion_predictor.conv1..8``,
 ``dconv1..8``, ``spade_layer*``, ``mlp_shared.0``), so a reference
 ``.pth`` loads as it is. Public tensors are NHWC, as in the JAX package;
-inside, NCHW. The training pass (``forward_train``) and ``motion_losses``
-are not ported: they come with the motion GAN (ROADMAP §1, "The rest of
-training").
+inside, NCHW. ``MotionRegressor.forward_train`` and ``motion_losses`` are
+the motion GAN's training pass and loss (reference ``unet_motion.py:
+131-172``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from slrsfs_tpu_torch.config import Options, spectral
+from slrsfs_tpu_torch.losses.synthesis import MotionLoss, psnr
 from slrsfs_tpu_torch.nn.conv import (
     Conv,
     resize_bilinear,
@@ -236,3 +237,33 @@ class MotionRegressor(nn.Module):
     def forward(self, image: Tensor, mask: Optional[Tensor] = None,
                 hint: Optional[Tensor] = None, train: bool = False) -> Tensor:
         return self.predict(image, mask, hint, train)
+
+    def forward_train(self, batch: Dict, train: bool = True,
+                      deterministic: bool = False,
+                      noise: Optional[torch.Generator] = None,
+                      plain: bool = False):
+        """The motion GAN's training pass (unet_motion.py:131-172): the
+        mask from the ground-truth motion's speed, the prediction from
+        ``images[0]``, the mask and ``hints`` when the batch has them.
+        Returns (prediction · div_flow, pred dict). The regressor has no
+        noise and no kernels: ``deterministic``, ``noise`` and ``plain``
+        are the trainer's common switches and change nothing."""
+        image = batch["images"][0]
+        gt_motion = batch["motions"]
+        mask = moving_region_mask(gt_motion)
+        hint = batch.get("hints")
+        pred = self.predict(image, mask, hint, train)
+        pred_dict = {"PredMotion": pred / self.opt.div_flow, "GTMotion": gt_motion,
+                     "InputImg": image, "MovingMask": mask}
+        if hint is not None:
+            pred_dict["HintMotion"] = hint
+        return pred, pred_dict
+
+
+def motion_losses(opt: Options, pred_scaled: Tensor, gt_motion: Tensor
+                  ) -> Dict[str, Tensor]:
+    """MotionLoss and the PSNR metric (unet_motion.py:158-159)."""
+    ml = MotionLoss(opt.motion_losses)(pred_scaled, gt_motion)
+    with torch.no_grad():  # a metric only
+        ml["PSNR_motion"] = psnr(pred_scaled, gt_motion)
+    return ml

@@ -49,6 +49,7 @@ from slrsfs_tpu_torch.ops.splat import (
 Tensor = torch.Tensor
 
 SLR_MODEL_TYPE = "softmax_splating_2layers_alpha_seperate"
+BG_MODEL_TYPE = "bg"  # stage 2, BackgroundModel
 ALPHA_MIN, ALPHA_MAX = 1.0 / 600.0, 599.0 / 600.0  # reference :461,952
 
 
@@ -209,6 +210,36 @@ class SLRModel(nn.Module):
         else:
             x = packed
         return _nhwc(self.net_alpha_decoder(_nchw(x), train, noise))
+
+
+class BackgroundModel(nn.Module):
+    """The stage-2 background network (reference ``BackgroundNetwork``,
+    2layers file :1117-1234): ``net_bg`` alone, trained to reproduce the
+    temporal mean video from the start view. Its keys are the SLR model's
+    (``net_bg.*``), so stage 3 takes them as they are."""
+
+    def __init__(self, opt: Options):
+        super().__init__()
+        self.opt = opt
+        self.net_bg = ResNetBGDecoder(opt)
+
+    def forward(self, img: Tensor, train: bool = False,
+                noise: Optional[torch.Generator] = None) -> Tensor:
+        """img (B, H, W, 3) → tanh(net_bg(img)) (B, H, W, 3)."""
+        return _nhwc(torch.tanh(self.net_bg(_nchw(img), train, noise)))
+
+    def forward_train(self, batch: Dict, train: bool = True,
+                      deterministic: bool = False,
+                      noise: Optional[torch.Generator] = None,
+                      plain: bool = False):
+        """The background from ``images[0]``, with ``mean_video`` as the
+        target (reference :1128-1225; the trainer's ``bg`` task compares
+        them). No kernels: ``plain`` changes nothing. Returns (bg, pred)."""
+        if not deterministic and noise is None:
+            raise ValueError("forward_train needs a noise generator unless "
+                             "deterministic")
+        bg_f = self(batch["images"][0], train, None if deterministic else noise)
+        return bg_f, {"PredImg": bg_f, "OutputImg": batch["mean_video"]}
 
 
 def slr_pack_splat_input(opt: Options, fs: Tensor, zn: Tensor,

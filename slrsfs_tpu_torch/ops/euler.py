@@ -19,10 +19,14 @@ return visibility (1.0 where the trajectory never left the frame).
 training pass's integrators (K7, ``csrc/euler_phased.cu``), batched over
 samples with per-sample step counts; ``*_plain`` are their plain versions.
 
-The kernels have no backward yet: on the card every wrapper refuses a
-motion that would need a gradient (``_refuse_motion_grad``) instead of
-returning displacements that silently drop it. The plain versions on the
-CPU carry the gradient through their gathers, as JAX does.
+Dense K7 has a backward kernel (``euler_phased_bwd``, bound through
+``_EulerPhased``): the unfrozen joint motion stage differentiates the
+predicted motion through it. K1, K4 and compact K7 have none (JAX never
+differentiates them: a predicted motion drops the moving sets): their card
+branches refuse a motion that would need a gradient
+(``_refuse_motion_grad``) instead of returning displacements that silently
+drop it. The plain versions on the CPU carry the gradient through their
+gathers, as JAX does.
 """
 
 from __future__ import annotations
@@ -191,15 +195,17 @@ def check_euler_limits(kernel: str, H: int, W: int) -> None:
 
 
 def _refuse_motion_grad(motion: Tensor) -> None:
-    """Raise when ``motion`` would need a gradient: the CUDA integrators
-    (K1, K4, K7) write fresh tensors with no backward. Every card branch
-    calls it before it allocates or launches anything; it does not look at
-    the device."""
+    """Raise when ``motion`` would need a gradient: the CUDA integrators K1,
+    K4 and compact K7 write fresh tensors with no backward. Their card
+    branches call it before they allocate or launch anything; it does not
+    look at the device."""
     if torch.is_grad_enabled() and motion.requires_grad:
         raise RuntimeError(
-            "the CUDA Euler integrators have no backward yet: the motion "
-            "requires grad, and the displacements would drop its gradient; "
-            "detach the motion or run under torch.no_grad()")
+            "the CUDA Euler integrators K1 (euler_compact_dual), K4 (euler_all) "
+            "and compact K7 (euler_integrate_phased_compact) have no backward: "
+            "the motion requires grad, and the displacements would drop its "
+            "gradient; detach the motion, run under torch.no_grad(), or use the "
+            "dense euler_integrate_phased")
 
 
 def euler_compact_dual(motion: Tensor, positions: Tensor, n_fwd: int,
@@ -403,7 +409,6 @@ def _check_phased(motion: Tensor, t_fwd: Tensor, t_bwd: Tensor,
 
 
 def _launch_phased(motion, positions, valid, t_fwd, t_bwd, n_steps, R):
-    _refuse_motion_grad(motion)
     B, H, W, _ = motion.shape
     check_euler_limits("K7 (euler_phased)", H, W)
     named = dict(motion=motion, t_fwd=t_fwd, t_bwd=t_bwd)
@@ -435,8 +440,77 @@ def euler_integrate_phased(motion: Tensor, t_fwd: Tensor, t_bwd: Tensor,
         return euler_integrate_phased_plain(motion, t_fwd, t_bwd, n_steps)
     if motion.device.type != "cuda":
         raise ValueError(f"unsupported device {motion.device}")
+    if torch.is_grad_enabled() and motion.requires_grad:
+        return _EulerPhased.apply(motion, t_fwd, t_bwd, n_steps)
     B, H, W, _ = motion.shape
     return _launch_phased(motion, None, None, t_fwd, t_bwd, n_steps, H * W)
+
+
+def euler_phased_bwd(motion: Tensor, t_fwd: Tensor, t_bwd: Tensor,
+                     out_f: Tensor, out_p: Tensor, cot_f: Optional[Tensor],
+                     cot_p: Optional[Tensor], n_steps: int) -> Tensor:
+    """K7's backward kernel, dense: the motion's gradient (B, H, W, 2) f32
+    from the cotangents ``cot_f``, ``cot_p`` (None: zero) of the forward's
+    outputs ``out_f``, ``out_p``, which tell it the rows that left the
+    frame (the sentinel). Card tensors only: on the CPU the gradient is the
+    plain version's autograd."""
+    _check_phased(motion, t_fwd, t_bwd, n_steps)
+    if motion.device.type != "cuda":
+        raise ValueError(f"euler_phased_bwd runs on the card, got {motion.device}")
+    B, H, W, _ = motion.shape
+    check_euler_limits("K7 (euler_phased_bwd)", H, W)
+    named = dict(motion=motion, t_fwd=t_fwd, t_bwd=t_bwd, out_f=out_f, out_p=out_p)
+    if cot_f is not None:
+        named["cot_f"] = cot_f
+    if cot_p is not None:
+        named["cot_p"] = cot_p
+    for name, t in named.items():
+        if t.device != motion.device:
+            raise ValueError(f"{name} is on {t.device}, motion on {motion.device}")
+        if t.shape[0] != B or (t.ndim == 4 and tuple(t.shape) != tuple(motion.shape)):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, motion "
+                             f"{tuple(motion.shape)}")
+        if t.ndim == 4 and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 8:
+            raise ValueError(f"{name} must be contiguous and 8-byte aligned")
+    grad = torch.zeros_like(motion)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    with torch.cuda.device(motion.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.EULER_PHASED_BWD.launch(
+            motion.data_ptr(), t_fwd.data_ptr(), t_bwd.data_ptr(), out_f.data_ptr(),
+            out_p.data_ptr(), ptr(cot_f), ptr(cot_p), grad.data_ptr(), B, H, W,
+            n_steps, stream)
+    return grad
+
+
+class _EulerPhased(torch.autograd.Function):
+    """Dense K7 with its backward kernel: the forward launches
+    ``euler_phased`` and keeps its outputs, the backward launches
+    ``euler_phased_bwd``. The counts carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, motion, t_fwd, t_bwd, n_steps):
+        B, H, W, _ = motion.shape
+        out_f, out_p = _launch_phased(motion, None, None, t_fwd, t_bwd, n_steps, H * W)
+        ctx.save_for_backward(motion, t_fwd, t_bwd, out_f, out_p)
+        ctx.n_steps = n_steps
+        return out_f, out_p
+
+    @staticmethod
+    def backward(ctx, g_f, g_p):
+        motion, t_fwd, t_bwd, out_f, out_p = ctx.saved_tensors
+
+        def cot(g):
+            return None if g is None else g.contiguous()
+
+        grad = euler_phased_bwd(motion, t_fwd, t_bwd, out_f, out_p, cot(g_f),
+                                cot(g_p), ctx.n_steps)
+        return grad, None, None, None
 
 
 def euler_integrate_phased_compact(motion: Tensor, positions: Tensor,
@@ -465,5 +539,6 @@ def euler_integrate_phased_compact(motion: Tensor, positions: Tensor,
                                                     t_fwd, t_bwd, n_steps)
     if motion.device.type != "cuda":
         raise ValueError(f"unsupported device {motion.device}")
+    _refuse_motion_grad(motion)
     return _launch_phased(motion, positions, valid, t_fwd, t_bwd, n_steps,
                           positions.shape[1])

@@ -16,8 +16,12 @@ the plain version (also at channel widths that are not multiples of the
 quarters' 8-channel reductions, with P not a multiple of 32); K9
 at 2^-7 of max |plain| with at most 0.1 % of the elements more than one
 bf16 ulp apart; a rollout through the kernels is held at 1e-4 against one
-through the plain versions. The card branches of K1, K4 and K7 refuse a
-motion that requires grad, before they launch anything."""
+through the plain versions. The card branches of K1, K4 and compact K7
+refuse a motion that requires grad, before they launch anything; dense
+K7 takes one and differentiates it through its backward kernel
+(``euler_phased_bwd``), held against the plain version's autograd within
+1e-5 of the gradient's largest magnitude (f32 atomics in a run-to-run
+order), on two launches."""
 
 import numpy as np
 import pytest
@@ -376,12 +380,15 @@ def _integrator_calls(dev):
 
 @pytest.mark.gpu
 def test_integrators_refuse_a_motion_gradient_on_card():
-    """K1, K4 and K7 have no backward: on the card each wrapper raises for
-    a motion that requires grad under grad mode, before it launches
-    anything, and runs under torch.no_grad()."""
+    """K1, K4 and compact K7 have no backward: on the card each wrapper
+    raises for a motion that requires grad under grad mode, before it
+    launches anything, and runs under torch.no_grad(). Dense K7 has one and
+    does not raise (``test_k7_backward_matches_plain_autograd_on_card``)."""
     dev = _card()
     motion = torch.from_numpy(_motion(8)).to(dev).requires_grad_(True)
     for name, kernel, fn in _integrator_calls(dev):
+        if name == "euler_integrate_phased":
+            continue
         kernels.reset_counts()
         with pytest.raises(RuntimeError, match="no backward"):
             fn(motion)
@@ -1364,3 +1371,117 @@ def test_slr_train_step_kernels_match_plain_on_card(compact):
         assert abs(got[k].item() - want[k].item()) <= 1e-4 * max(abs(want[k].item()), 1e-12), k
     scale = max(x.abs().max().item() for x in g_p)
     assert max((a - b).abs().max().item() for a, b in zip(g_k, g_p)) <= 1e-3 * scale
+
+
+def _k7_grad(fn, motion, t_f, t_p, T, g_f, g_p):
+    m = motion.clone().requires_grad_(True)
+    out_f, out_p = fn(m, t_f, t_p, T)
+    (grad,) = torch.autograd.grad((out_f * g_f).sum() + (out_p * g_p).sum(), m)
+    return grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["phased", "static_and_leaving"])
+def test_k7_backward_matches_plain_autograd_on_card(case):
+    """Dense K7 under grad: one forward and one backward launch; the
+    gradient against the plain version's autograd within 1e-5 of its
+    largest magnitude, on two launches (atomics in another order each
+    time), with static sources (their gradient is steps x cotangent, not
+    0), rows that leave the frame (none), t_f = 0 and t_p = 0 samples."""
+    dev = _card()
+    motion, t_f, t_p, T = _phased_inputs(dev)
+    if case == "static_and_leaving":
+        motion = motion.clone()
+        motion[:, : H // 3] = 0.0
+        motion[:, H - 4:, :, 1] += 6.0
+        t_f = torch.tensor([0, 3, T, 2], dtype=torch.int32, device=dev)
+        t_p = torch.tensor([T, 0, 0, 5], dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g_f = torch.randn(motion.shape, generator=gen, device=dev)
+    g_p = torch.randn(motion.shape, generator=gen, device=dev)
+    want = _k7_grad(euler_integrate_phased_plain, motion, t_f, t_p, T, g_f, g_p)
+    for _ in range(2):
+        kernels.reset_counts()
+        got = _k7_grad(euler_integrate_phased, motion, t_f, t_p, T, g_f, g_p)
+        torch.cuda.synchronize()
+        assert kernels.counts()[kernels.EULER_PHASED.name] == 1
+        assert kernels.counts()[kernels.EULER_PHASED_BWD.name] == 1
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    static = (motion == 0).all(-1)
+    assert static.any() and want[static].abs().max() > 0
+    if case == "static_and_leaving":
+        with torch.no_grad():
+            out_f, out_p = euler_integrate_phased_plain(motion, t_f, t_p, T)
+        oob = max(motion.shape[1], motion.shape[2]) + 1
+        assert (out_f == oob).any() or (out_p == oob).any()
+
+
+@pytest.mark.gpu
+def test_compact_k7_still_refuses_a_motion_gradient_on_card():
+    """The compact form has no backward: under grad it raises before any
+    launch, naming the dense form."""
+    dev = _card()
+    motion, t_f, t_p, T = _phased_inputs(dev)
+    B = motion.shape[0]
+    pos = torch.zeros((B, 64, 2), dtype=torch.int32, device=dev)
+    val = torch.ones((B, 64), dtype=torch.float32, device=dev)
+    kernels.reset_counts()
+    with pytest.raises(RuntimeError, match="no backward.*dense euler_integrate_phased"):
+        euler_integrate_phased_compact(motion.clone().requires_grad_(True), pos, val,
+                                       t_f, t_p, T)
+    assert sum(kernels.counts().values()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frozen", [False, True], ids=["joint", "frozen"])
+def test_embedded_motion_step_kernels_match_plain_on_card(frozen):
+    """The embedded-motion G+D step (TinyTest fluid archs, a depth-4
+    regressor of width 4, W = 32, B = 2, T = 4) through K3 and K7 against
+    the same step through their plain versions from one snapshot: losses
+    within 1e-4 relative, gradients within 1e-3 of the largest and of each
+    sub-network's own largest (the regressor's too when unfrozen); 2 K3
+    forward, 2 backward, 1 K7 forward a step, and 1 K7 backward when
+    unfrozen."""
+    from slrsfs_tpu_torch.cli.train import build, stage_options, to_device_batch
+
+    dev = _card()
+    opt = Options(ngf=8, W=32, out_channel=9, ndf=8, num_D=1, n_layers_D=2,
+                  refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm",
+                  motionW=32, motionH=32, motion_num_filters=4, motion_unet_downs=4,
+                  freeze_motion=frozen, **stage_options("softmax_splating", True))
+    _, tr = build(opt, train_max_steps=4, device=dev, seed=0)
+    rng = np.random.default_rng(41)
+    B = 2
+    motions = (rng.standard_normal((B, 32, 32, 2)) * 0.8).astype(np.float32)
+    batch = to_device_batch(
+        {"images": [(rng.standard_normal((B, 32, 32, 3)) * 0.25).astype(np.float32)
+                    for _ in range(3)],
+         "index": np.array([[0, 1, 4], [0, 3, 4]], np.int32), "motions": motions,
+         "hints": (motions * (rng.random((B, 32, 32, 1)) < 0.2)).astype(np.float32)}, dev)
+    snap = tr.snapshot()
+    kernels.reset_counts()
+    got = tr.train_step(batch)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    g_k = [x.clone() for x in tr.last_grads["g"] + tr.last_grads["d"]]
+    tr.restore(snap)
+    want = tr.train_step(batch, plain=True)
+    g_p = tr.last_grads["g"] + tr.last_grads["d"]
+    assert launches == {**{k.name: 0 for k in kernels.KERNELS}, "splat_dense_fwd": 2,
+                        "splat_dense_bwd": 2, "euler_phased": 1,
+                        "euler_phased_bwd": 0 if frozen else 1}
+    assert any(n.startswith("motion_regressor.") for n in tr.g_names) != frozen
+    for k in want:
+        assert torch.isfinite(got[k]), k
+        assert abs(got[k].item() - want[k].item()) <= 1e-4 * max(abs(want[k].item()), 1e-12), k
+    scale = max(x.abs().max().item() for x in g_p)
+    assert max((a - b).abs().max().item() for a, b in zip(g_k, g_p)) <= 1e-3 * scale
+    names = tr.g_names + [f"D.{n}" for n, _ in tr.d_model.named_parameters()]
+    groups = {}
+    for n, a, b in zip(names, g_k, g_p):
+        d, s = groups.get(n.split(".", 1)[0], (0.0, 0.0))
+        groups[n.split(".", 1)[0]] = (max(d, (a - b).abs().max().item()),
+                                      max(s, b.abs().max().item()))
+    assert ("motion_regressor" in groups) != frozen
+    for n, (d, s) in groups.items():
+        assert d <= 1e-3 * s, (n, d, s)

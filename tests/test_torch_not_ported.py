@@ -77,26 +77,16 @@ def _checkpoint(tmp_path, model_type):
 
 BRANCHES = {
     "render --shard-frames": (lambda tmp: _render(shard_frames=True), "Multi-GPU"),
-    "checkpoint model_type bg": (lambda tmp: _checkpoint(tmp, "bg"),
-                                 "The rest of training"),
-    "train model_type": (lambda tmp: train.build(config.Options(model_type="motion"),
-                                                 device="cpu"),
-                         "The rest of training"),
     "trainer num_accumulations": (lambda tmp: _trainer(num_accumulations=2),
                                   "The rest of training"),
     "trainer bfloat16": (lambda tmp: _trainer(train_compute_dtype="bfloat16"),
                          "The rest of training"),
     "trainer pix2pixHDorigin": (lambda tmp: _trainer(discriminator_losses="pix2pixHDorigin"),
                                 "The rest of training"),
-    "dataset variant": (lambda tmp: _dataset(tmp, "eulerian_data_bg"),
-                        "The rest of training"),
     "dataset random_ff_mask": (lambda tmp: _dataset(tmp, random_ff_mask=True),
                                "The rest of training"),
     "baseline ff_mask": (_ff_mask_batch, "The rest of training"),
     "SLR ff_mask": (_slr_ff_mask_batch, "The rest of training"),
-    "train model_type bg": (lambda tmp: train.build(config.Options(model_type="bg"),
-                                                    device="cpu"),
-                            "The rest of training"),
     "synthesis style loss": (lambda tmp: _synthesis_loss("style"), "The rest of training"),
 }
 
@@ -114,11 +104,22 @@ def test_not_ported_messages_name_the_item_by_title(branch, tmp_path):
 def test_unknown_model_types_raise_value_error(tmp_path):
     """A model type neither package knows is a ValueError, as in the JAX
     ``import_checkpoint``; a render refuses one that is not a render model
-    and names the render model types."""
+    and names the render model types; the train CLI's ``build`` refuses
+    one it does not build ('motion' names no model type: the motion types
+    are SPADE_unet_mask_motion and unet_motion) and names those it does."""
     with pytest.raises(ValueError, match="unknown model_type 'motion'"):
         _checkpoint(tmp_path, "motion")
     with pytest.raises(ValueError, match="softmax_splating"):
         _render(opt_overrides=dict(model_type="motion"))
+    with pytest.raises(ValueError, match="unknown model_type 'motion'.*SPADE_unet_mask_motion"):
+        train.build(config.Options(model_type="motion"), device="cpu")
+
+
+def test_unknown_dataset_raises_value_error(tmp_path):
+    """A dataset variant the reference's registry does not list is a
+    ValueError, as in the JAX ``get_dataset``."""
+    with pytest.raises(ValueError, match="unknown dataset 'eulerian_data_nope'"):
+        _dataset(tmp_path, "eulerian_data_nope")
 
 
 def test_unknown_synthesis_loss_raises_value_error():

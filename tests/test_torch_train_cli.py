@@ -85,9 +85,11 @@ def test_checkpoint_loads_in_jax_and_renders_alike(trained):
 
 
 def test_train_cli_refuses_other_model_types(fixture_root, tmp_path):
+    """'motion' names no model type (the motion types are
+    SPADE_unet_mask_motion and unet_motion): argparse refuses it."""
     with pytest.raises(SystemExit):
         port_train.main(["--data-root", fixture_root, "--out", str(tmp_path),
-                         "--model-type", "bg", "--device", "cpu"])
+                         "--model-type", "motion", "--device", "cpu"])
 
 
 SLR_TYPE = "softmax_splating_2layers_alpha_seperate"
