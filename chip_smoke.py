@@ -6,6 +6,7 @@
     python3 chip_smoke.py --k2-in TREE        # K2 and K8 of another tree
     python3 chip_smoke.py --k3-in TREE        # K3 and K7 of another tree
     python3 chip_smoke.py --k1-in TREE        # K1 and K4 of another tree
+    python3 chip_smoke.py --k7bwd-in TREE     # K7's backward of another tree
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the main paths'
@@ -143,9 +144,11 @@ backward launches when unfrozen (0 frozen), nothing else; a kernel-path
 step against a plain-path step by sub-network (the regressor's included);
 K3 and K7 on the joint step's own inputs checked and timed. Phase 19
 (k7_bwd_phase): K7's backward against the plain autograd (1e-5 of the
-gradient's max, two launches) on the step's predicted motion, the leaving
-flow and a batch with t_f = 0, t_p = 0 and static pixels, timed beside its
-bound. Phase 20 (other_stages_phase): the bg stage-2 step and the
+gradient's max, two launches) on the step's predicted motion, the scene
+flow, the leaving flow and a batch with t_f = 0, t_p = 0 and static
+pixels; timed on the first three beside its bound and its window counts
+(runs, window hits and misses, the cells a block's flush adds), with the
+counts of two other windows. Phase 20 (other_stages_phase): the bg stage-2 step and the
 motion-GAN step at batch 16, 256². Phase 21 (stage_chains_phase): the train
 CLI at 256², batch 2, two steps each: motion GAN → fix-motion → joint →
 SceneRenderer with the joint checkpoint as --motion-ckpt, and stage 1 → bg
@@ -183,8 +186,11 @@ compact (each with its split), the dense float32 render and the stage-1
 training step; with --k1-in TREE, K1 on the scene, quarter-pixel and
 leaving flows and K4's four forms on the scene, leaving and random flows
 (each held bit for bit, timed, split and set beside its bytes and latency
-bounds) and the baseline float32 render (slrsfs_tpu_torch/tools/compare.sh
-runs any of them on several trees in turns).
+bounds) and the baseline float32 render; with --k7bwd-in TREE, K7's
+backward on the joint step's predicted motion, the scene flow and the
+leaving flow beside its window counts, and the joint step
+(slrsfs_tpu_torch/tools/compare.sh runs any of them on several trees in
+turns).
 """
 
 from __future__ import annotations
@@ -2623,11 +2629,59 @@ def embedded_phase(dev):
     return res
 
 
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_of(lib: str, function: str) -> list:
+    """[(address, opcode, operands)] of the first kernel in the shared
+    library ``lib`` whose name contains ``function``, read with the
+    toolkit's ``cuobjdump``."""
+    from slrsfs_tpu_torch.kernels import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    body = next(part for part in sass.split("Function : ")[1:]
+                if function in part.split("\n", 1)[0])
+    return [(int(a, 16), op, rest) for a, op, rest in _SASS_INSN.findall(body)]
+
+
+def sass_step_instructions(kernel, function: str):
+    """(fewest, most) SASS instructions a step of ``function``'s loops in
+    ``kernel``'s build, or None when no loop gathers: a loop is a backward
+    branch, its body the instructions from the branch's target to the
+    branch, NOPs left out (branches taken now and then included), and a
+    step one gather (LDG) in the body (an unrolled body holds several)."""
+    kernel.load()
+    insns = sass_of(kernel._lib_path(), function)
+    per_step = []
+    for addr, op, rest in insns:
+        target = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+        if target is None or int(target.group(1), 16) >= addr:
+            continue
+        loop = [o for a, o, _ in insns if int(target.group(1), 16) <= a <= addr and o != "NOP"]
+        n_gather = sum(o.startswith("LDG") for o in loop)
+        if n_gather:
+            per_step.append(len(loop) / n_gather)
+    return (min(per_step), max(per_step)) if per_step else None
+
+
+# The bound's yardstick for K7's backward: the SASS instructions a step of
+# the first design's loop (a thread a row, one global reduction a step,
+# unrolled by 4: round, clamp, index, 64-bit addresses, gather, reduction,
+# adds; its build's fewest, read by sass_step_instructions). A constant,
+# so that a redesign does not move its own bound.
+K7_BWD_STEP_INSNS = 19.75
+# (tile, margin) of the backward's window whose counts phase 19 prints: the
+# kernel's first, then two larger candidates it was chosen over
+K7_BWD_WINDOWS = ((32, 16), (32, 32), (64, 48))
+
+
 def k7_bwd_work(m, tf_b, tp_b, out_f, out_p, T: int) -> int:
-    """The reductions K7's backward issues on these inputs
-    (csrc/euler_phased.cu: euler_phased_bwd): for each phase that latches,
-    every step of each valid row whose source moves, and one for each valid
-    static row."""
+    """The reductions the first design of K7's backward issued on these
+    inputs (one a step of each valid row whose source moves, one for each
+    valid static row, for each phase that latches): the work its bound
+    counts."""
     oob = float(max(m.shape[1], m.shape[2]) + 1)
     rest = (m == 0).all(-1).reshape(m.shape[0], -1)
     total = 0
@@ -2643,56 +2697,39 @@ def k7_bwd_work(m, tf_b, tp_b, out_f, out_p, T: int) -> int:
     return total
 
 
-_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+def k7_bwd_counts(label: str, m, tf_b, tp_b) -> dict:
+    """The backward's window counts on these inputs
+    (``ops/euler.py:phased_bwd_window_counts``) for each of
+    ``K7_BWD_WINDOWS``, printed; returns the first's, or {} for a package
+    without them (an older tree of ``--k7bwd-in``)."""
+    from slrsfs_tpu_torch.ops import euler as E
+
+    if not hasattr(E, "phased_bwd_window_counts"):
+        print(f"{label}: window counts: this package's backward has no window")
+        return {}
+    res = {}
+    for tile, margin in K7_BWD_WINDOWS:
+        n = E.phased_bwd_window_counts(m, tf_b, tp_b, TRAIN_T, tile, margin)
+        red = max(n["reductions"], 1)
+        print(f"{label}: window {tile}x{tile} tile, margin {margin}: "
+              f"{n['reductions']} reductions, {100 * n['repeats'] / red:.1f} % on the "
+              f"previous step's cell; {n['runs']} runs ({100 * n['runs'] / red:.1f} %): "
+              f"hits {n['hits']} ({100 * n['hits'] / max(n['runs'], 1):.2f} % of the runs), "
+              f"misses {n['misses']} ({100 * n['misses'] / red:.2f} % of the reductions); "
+              f"touched cells {n['touched']} ({100 * n['touched'] / red:.2f} %); to device "
+              f"memory misses + touched = {n['misses'] + n['touched']} "
+              f"({100 * (n['misses'] + n['touched']) / red:.2f} %)")
+        res.setdefault("kernel", n)
+    return res["kernel"]
 
 
-def sass_step_instructions(kernel, function: str) -> tuple:
-    """(fewest, most) SASS instructions a step of ``function``'s loops in
-    ``kernel``'s build, read with the toolkit's ``cuobjdump``: a loop is a
-    backward branch, its body the instructions from the branch's target to
-    the branch, NOPs left out, and a step one reduction (RED*) in the body
-    (an unrolled body holds several)."""
-    from slrsfs_tpu_torch.kernels import nvcc_path
-
-    kernel.load()
-    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", kernel._lib_path()], capture_output=True,
-                          text=True, check=True).stdout
-    body = next(part for part in sass.split("Function : ")[1:]
-                if part.split("\n", 1)[0].strip().find(function) >= 0)
-    insns = [(int(a, 16), op, rest) for a, op, rest in _SASS_INSN.findall(body)]
-    per_step = []
-    for addr, op, rest in insns:
-        target = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
-        if target is None or int(target.group(1), 16) >= addr:
-            continue
-        loop = [o for a, o, _ in insns if int(target.group(1), 16) <= a <= addr and o != "NOP"]
-        n_red = sum(o.startswith("RED") for o in loop)
-        if n_red:
-            per_step.append(len(loop) / n_red)
-    check(per_step, f"no loop with a reduction in {function}'s SASS")
-    return min(per_step), max(per_step)
-
-
-def k7_bwd_phase(dev, k7_in) -> dict:
-    """Phase 19: K7's backward against the plain version's autograd, within
-    1e-5 of the gradient's largest magnitude on two launches each, on the
-    joint step's own predicted motion and counts, on ``leaving_flow`` and
-    on random motion with a static third, t_f = 0 and t_p = 0 samples and
-    t_f + t_p = T; timed on the predicted motion (device, as called, host),
-    the plain autograd (forward and backward) and the bound: the
-    reductions these inputs need (``k7_bwd_work``), each a step of the
-    build's SASS (``sass_step_instructions``, its fewest), at the
-    lane-instruction rate, or the bytes (motion, both outputs and
-    cotangents in, the gradient out) at 3.35 TB/s, both printed."""
+def k7_bwd_inputs(dev, k7_in) -> dict:
+    """Phase 19's inputs, {label: (motion, t_f, t_p)}: the joint step's own
+    predicted motion and counts (``k7_in``), the scene flow at the same
+    counts (``k7_timing_inputs``' motion: what a trained regressor
+    predicts), ``leaving_flow`` and random motion with a static third,
+    t_f = 0 and t_p = 0 samples and t_f + t_p = T."""
     import torch
-
-    from slrsfs_tpu_torch import kernels
-    from slrsfs_tpu_torch.ops.euler import (
-        euler_integrate_phased,
-        euler_integrate_phased_plain,
-        euler_phased_bwd,
-    )
 
     T = TRAIN_T
     m, tf_b, tp_b = k7_in
@@ -2703,45 +2740,33 @@ def k7_bwd_phase(dev, k7_in) -> dict:
     t_f = rng.integers(0, T + 1, size=B).astype(np.int32)
     t_p = (rng.integers(0, T + 1, size=B) % (T - t_f + 1)).astype(np.int32)
     t_f[:3], t_p[:3] = [T, 0, T // 2], [0, T, T - T // 2]
-    cases = {"predicted motion (joint step)": (m, tf_b, tp_b),
-             "leaving flow": (leaving_flow(dev)[None].expand(B, -1, -1, -1).contiguous(),
-                              tf_b, tp_b),
-             "random, static third, t_f = 0, t_p = 0": (
-                 torch.from_numpy(rand).to(dev), torch.from_numpy(t_f).to(dev),
-                 torch.from_numpy(t_p).to(dev))}
-    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
-    err = 0.0
-    for label, (mm, tf, tp) in cases.items():
-        cf = torch.randn(mm.shape, generator=gen, device=dev)
-        cp = torch.randn(mm.shape, generator=gen, device=dev)
+    return {"predicted motion (joint step)": (m, tf_b, tp_b),
+            "scene flow": (k7_timing_inputs(dev, synthetic_scene(SEED, H)[1])[0], tf_b, tp_b),
+            "leaving flow": (leaving_flow(dev)[None].expand(B, -1, -1, -1).contiguous(),
+                             tf_b, tp_b),
+            "random, static third, t_f = 0, t_p = 0": (
+                torch.from_numpy(rand).to(dev), torch.from_numpy(t_f).to(dev),
+                torch.from_numpy(t_p).to(dev))}
 
-        def grad(fn):
-            x = mm.clone().requires_grad_(True)
-            a, b = fn(x, tf, tp, T)
-            return torch.autograd.grad((a * cf).sum() + (b * cp).sum(), x)[0]
 
-        want = grad(euler_integrate_phased_plain)
-        scale = want.abs().max().item()
-        for i in range(2):
-            kernels.reset_counts()
-            got = grad(euler_integrate_phased)
-            torch.cuda.synchronize()
-            check(kernels.counts()["euler_phased_bwd"] == 1, f"K7 bwd {label}: launches")
-            e = (got - want).abs().max().item()
-            check(e <= 1e-5 * scale, f"K7 backward {label} launch {i}: max abs {e} vs 1e-5 "
-                  f"x {scale}")
-            err = max(err, e)
-        with torch.no_grad():
-            out_f, out_p = euler_integrate_phased(mm, tf, tp, T)
-        oob = max(H, W) + 1
-        static = (mm == 0).all(-1)
-        print(f"phase 19 K7 backward {label}: B={B} {H}x{W} T={T}: max abs {e:.3g} of "
-              f"{scale:.4g} (limit 1e-5 of the max), two launches; "
-              f"{int((out_f[..., 0] == oob).sum()) + int((out_p[..., 0] == oob).sum())} "
-              f"latched sentinels (no gradient), {int(static.sum())} static sources"
-              + (f" (gradient max {want[static].abs().max().item():.4g}, not 0)"
-                 if static.any() else ""))
-        del want, got
+def k7_bwd_times(dev, label: str, m, tf_b, tp_b, plain_reps: int = 0) -> dict:
+    """K7's backward on (m, t_f, t_p) with seeded random cotangents: timed
+    (device, as called, host), the plain autograd (forward and backward,
+    ``plain_reps`` > 0), the window counts (``k7_bwd_counts``) and the
+    bound: the first design's reductions (``k7_bwd_work``) x
+    ``K7_BWD_STEP_INSNS`` at the lane-instruction rate, or the bytes
+    (motion, both outputs and cotangents in, the gradient out) at 3.35
+    TB/s; printed after ``label``."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.euler import (
+        euler_integrate_phased,
+        euler_integrate_phased_plain,
+        euler_phased_bwd,
+    )
+
+    T = TRAIN_T
+    gen = torch.Generator(device=dev).manual_seed(SEED + 191)
     cf = torch.randn(m.shape, generator=gen, device=dev)
     cp = torch.randn(m.shape, generator=gen, device=dev)
     with torch.no_grad():
@@ -2753,20 +2778,120 @@ def k7_bwd_phase(dev, k7_in) -> dict:
         a, b = euler_integrate_phased_plain(x, tf_b, tp_b, T)
         return torch.autograd.grad((a * cf).sum() + (b * cp).sum(), x)[0]
 
-    plain_ms = cuda_time(plain, reps=3, warmup=1)
+    plain_ms = cuda_time(plain, reps=plain_reps, warmup=1) if plain_reps else None
     work = k7_bwd_work(m, tf_b, tp_b, out_f, out_p, T)
-    per_step, per_step_most = sass_step_instructions(kernels.EULER_PHASED_BWD,
-                                                     "euler_phased_bwd_kernel")
     n_bytes = m.numel() * 4 * 6
-    bnd = bound(n_bytes, work * per_step, peak=LANE_OPS)
-    print(f"phase 19 K7 backward on the predicted motion: {fmt_times(t)}; plain autograd "
-          f"(forward and backward) {plain_ms:.2f} ms; bound {bnd[0]:.4f} ms by {bnd[1]}: "
-          f"bytes {n_bytes} = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; "
-          f"operations {work} reductions (of {m.numel() // 2 * T} at most) x {per_step:.4g} "
-          f"SASS instructions a step (the build's loops: {per_step:.4g} to "
-          f"{per_step_most:.4g}) = {work * per_step / LANE_OPS * 1e3:.4f} ms at "
-          f"{LANE_OPS:.3g} lane-instructions/s; library: none")
-    return {"t": t, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd, "err": err}
+    bnd = bound(n_bytes, work * K7_BWD_STEP_INSNS, peak=LANE_OPS)
+    plain_txt = "" if plain_ms is None else (f"; plain autograd (forward and backward) "
+                                             f"{plain_ms:.2f} ms")
+    print(f"{label}: {fmt_times(t)}{plain_txt}; bound {bnd[0]:.4f} ms by {bnd[1]} "
+          f"({100 * bnd[0] / t['ms']:.1f} % of it): bytes {n_bytes} = "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; operations {work} "
+          f"reductions of the first design (of {m.numel() // 2 * T} at most) x "
+          f"{K7_BWD_STEP_INSNS} SASS instructions a step = "
+          f"{work * K7_BWD_STEP_INSNS / LANE_OPS * 1e3:.4f} ms at {LANE_OPS:.3g} "
+          f"lane-instructions/s; library: none")
+    counts = k7_bwd_counts(label, m, tf_b, tp_b)
+    return {"t": t, "ms": t["ms"], "plain_ms": plain_ms, "bound": bnd, "counts": counts}
+
+
+def k7_bwd_phase(dev, k7_in) -> dict:
+    """Phase 19: K7's backward against the plain version's autograd, within
+    1e-5 of the gradient's largest magnitude on two launches each, on
+    ``k7_bwd_inputs``; the window's geometry in the library against
+    ``ops/euler.py``'s; timed (``k7_bwd_times``) on the predicted motion
+    (with the plain autograd), the scene flow and the leaving flow, each
+    beside its window counts and the bound. Returns the predicted motion's
+    times, bound and the largest error."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.ops import euler as E
+
+    T = TRAIN_T
+    geometry = (kernels.EULER_PHASED_BWD.query("euler_phased_bwd_tile"),
+                kernels.EULER_PHASED_BWD.query("euler_phased_bwd_margin"))
+    check(geometry == (E.PHASED_BWD_TILE, E.PHASED_BWD_MARGIN) == K7_BWD_WINDOWS[0],
+          f"K7 backward window {geometry} vs ops/euler.py's "
+          f"{(E.PHASED_BWD_TILE, E.PHASED_BWD_MARGIN)}")
+    cases = k7_bwd_inputs(dev, k7_in)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    err = 0.0
+    for label, (mm, tf, tp) in cases.items():
+        B = mm.shape[0]
+        cf = torch.randn(mm.shape, generator=gen, device=dev)
+        cp = torch.randn(mm.shape, generator=gen, device=dev)
+
+        def grad(fn):
+            x = mm.clone().requires_grad_(True)
+            a, b = fn(x, tf, tp, T)
+            return torch.autograd.grad((a * cf).sum() + (b * cp).sum(), x)[0]
+
+        want = grad(E.euler_integrate_phased_plain)
+        scale = want.abs().max().item()
+        for i in range(2):
+            kernels.reset_counts()
+            got = grad(E.euler_integrate_phased)
+            torch.cuda.synchronize()
+            check(kernels.counts()["euler_phased_bwd"] == 1, f"K7 bwd {label}: launches")
+            e = (got - want).abs().max().item()
+            check(e <= 1e-5 * scale, f"K7 backward {label} launch {i}: max abs {e} vs 1e-5 "
+                  f"x {scale}")
+            err = max(err, e)
+        with torch.no_grad():
+            out_f, out_p = E.euler_integrate_phased(mm, tf, tp, T)
+        oob = max(H, W) + 1
+        static = (mm == 0).all(-1)
+        print(f"phase 19 K7 backward {label}: B={B} {H}x{W} T={T}: max abs {e:.3g} of "
+              f"{scale:.4g} (limit 1e-5 of the max), two launches; "
+              f"{int((out_f[..., 0] == oob).sum()) + int((out_p[..., 0] == oob).sum())} "
+              f"latched sentinels (no gradient), {int(static.sum())} static sources"
+              + (f" (gradient max {want[static].abs().max().item():.4g}, not 0)"
+                 if static.any() else ""))
+        del want, got
+    res = {}
+    for label in ("predicted motion (joint step)", "scene flow", "leaving flow"):
+        res[label] = k7_bwd_times(dev, f"phase 19 K7 backward timed, {label}", *cases[label],
+                                  plain_reps=3 if not res else 0)
+    steps = sass_step_instructions(kernels.EULER_PHASED_BWD, "euler_phased_bwd_kernel")
+    print("phase 19 K7 backward, this build's SASS a step (information only; the bound "
+          f"counts {K7_BWD_STEP_INSNS}): "
+          + ("no loop with a gather" if steps is None else
+             f"{steps[0]:.4g} to {steps[1]:.4g} instructions a gather in its loops"))
+    return {**res["predicted motion (joint step)"], "err": err}
+
+
+def k7bwd_in(tree: str) -> int:
+    """``python3 chip_smoke.py --k7bwd-in TREE``: on the package of another
+    unpacked tree of this repository, K7's backward (``k7_bwd_times``:
+    device, as called and host times, the window counts, the bound) on the
+    unfrozen joint step's predicted motion (phase 18's trainer and batch),
+    the scene flow and the leaving flow, and the joint step (median of 3),
+    to compare commits on one card (slrsfs_tpu_torch/tools/compare.sh
+    k7bwd)."""
+    import torch
+
+    dev = use_tree(tree)
+    from slrsfs_tpu_torch.cli.train import MODEL_TYPE, build, stage_options, to_device_batch
+    from slrsfs_tpu_torch.config import Options
+
+    opt = Options(W=W, batch_size=TRAIN_B, freeze_motion=False,
+                  **stage_options(MODEL_TYPE, True))
+    _, tr = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED)
+    batch = to_device_batch(make_motion_train_batch(np.random.default_rng(SEED), TRAIN_B, W),
+                            dev)
+    # the motion of the seeded weights, before any step moves them
+    _, k7_in = embedded_inputs(tr, batch)
+    timed_steps(18, "k7bwd joint step", tr, batch,
+                {"splat_dense_fwd": 6, "splat_dense_bwd": 6, "euler_phased": 3,
+                 "euler_phased_bwd": 3})
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cases = k7_bwd_inputs(dev, k7_in)
+    for label in ("predicted motion (joint step)", "scene flow", "leaving flow"):
+        k7_bwd_times(dev, f"k7bwd {label}", *cases[label])
+    return 0
 
 
 def other_stages_phase(dev) -> dict:
@@ -4592,10 +4717,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     modes = {"--maxwarp-in": maxwarp_in, "--k2-in": k2_in, "--k3-in": k3_in,
-             "--k1-in": k1_in}
+             "--k1-in": k1_in, "--k7bwd-in": k7bwd_in}
     if len(sys.argv) == 3 and sys.argv[1] in modes:
         sys.exit(modes[sys.argv[1]](sys.argv[2]))
     check(len(sys.argv) == 1,
           f"usage: {sys.argv[0]} [--maxwarp-in TREE | --k2-in TREE | --k3-in TREE "
-          f"| --k1-in TREE]")
+          f"| --k1-in TREE | --k7bwd-in TREE]")
     sys.exit(main())

@@ -488,6 +488,84 @@ def euler_phased_bwd(motion: Tensor, t_fwd: Tensor, t_bwd: Tensor,
     return grad
 
 
+# csrc/euler_phased.cu's backward: a block's tile of sources and the margin
+# of its shared-memory window (kBwdTile, kBwdMargin)
+PHASED_BWD_TILE = 32
+PHASED_BWD_MARGIN = 16
+
+
+def phased_bwd_window_counts(motion: Tensor, t_fwd: Tensor, t_bwd: Tensor,
+                             n_steps: int, tile: int = PHASED_BWD_TILE,
+                             margin: int = PHASED_BWD_MARGIN) -> dict:
+    """What K7's backward kernel does with both cotangents given (non-zero):
+    its tiling, window and run rule repeated on the host from the motion
+    and the counts alone, on the device the motion is on. A block owns a
+    ``tile`` x ``tile`` tile of a sample's sources and a window of the
+    gradient, the tile dilated by ``margin``; a row walks each phase whose
+    latched output is valid, keeping a run while its rounded cell stays
+    the same (both phases share the runs; a static source is one run).
+    Returns ints: ``reductions`` (one a step, one a static row and phase:
+    the first design's global reductions), ``repeats`` (steps after a
+    phase's first on the previous step's cell), ``runs`` (``hits`` into
+    the window plus ``misses``, added to device memory) and ``touched``
+    (the distinct window cells that hits reach, summed over blocks: the
+    flush's reductions)."""
+    B, H, W, _ = motion.shape
+    dev = motion.device
+    with torch.no_grad():
+        out_f, out_p = euler_integrate_phased_plain(motion, t_fwd, t_bwd, n_steps)
+    oob = float(max(H, W) + 1)
+    tf = t_fwd.to(torch.int64)
+    tp = t_bwd.to(torch.int64)
+    n_f = tf
+    n_p = tf + tp - tf.clamp(min=0)
+    lat_f = (tf >= 1) & (tf <= n_steps)
+    lat_p = (tp > 0) & (tf + tp >= 1) & (tf + tp <= n_steps)
+    m = motion.detach().reshape(B, H * W, 2)
+    rest = (m == 0).all(-1)
+    valid_f = lat_f[:, None] & (out_f.reshape(B, -1, 2)[..., 0] != oob)
+    valid_p = lat_p[:, None] & (out_p.reshape(B, -1, 2)[..., 0] != oob)
+    grid = _grid(H, W, dev).to(torch.int64)
+    x, y = grid[:, 0], grid[:, 1]
+    win = tile + 2 * margin
+    tiles_x, tiles_y = -(-W // tile), -(-H // tile)
+    block = (torch.arange(B, device=dev)[:, None] * (tiles_x * tiles_y)
+             + (y // tile * tiles_x + x // tile)[None])
+    wx0, wy0 = x // tile * tile - margin, y // tile * tile - margin
+    hit_cells = torch.zeros(B * tiles_x * tiles_y * win * win, dtype=torch.bool,
+                            device=dev)
+    n = dict(reductions=0, repeats=0, hits=0, misses=0)
+    rx, ry = x.expand(B, -1).clone(), y.expand(B, -1).clone()
+
+    def add_runs(rows):
+        lx, ly = rx - wx0, ry - wy0
+        inside = (lx >= 0) & (lx < win) & (ly >= 0) & (ly < win)
+        hit = rows & inside
+        n["hits"] += int(hit.sum())
+        n["misses"] += int((rows & ~inside).sum())
+        hit_cells[((block * win + ly) * win + lx)[hit]] = True
+
+    for sign, steps, valid in ((1.0, n_f, valid_f), (-1.0, n_p, valid_p)):
+        on = valid & ~rest
+        n["reductions"] += int((on.sum(1) * steps).sum()) + int((valid & rest).sum())
+        d = grid.to(m.dtype).expand(B, -1, -1)
+        for k in range(int(steps.max()) if B else 0):
+            act = on & (k < steps)[:, None]
+            ix = torch.round(d[..., 0]).to(torch.int64).clamp(0, W - 1)
+            iy = torch.round(d[..., 1]).to(torch.int64).clamp(0, H - 1)
+            change = act & ((ix != rx) | (iy != ry))
+            if k:
+                n["repeats"] += int((act & ~change).sum())
+            add_runs(change)
+            rx, ry = torch.where(change, ix, rx), torch.where(change, iy, ry)
+            g = torch.gather(m, 1, (iy * W + ix)[..., None].expand(-1, -1, 2))
+            d = torch.where(act[..., None], d + g * sign, d)
+    add_runs(valid_f | valid_p)  # every row's last run
+    n["runs"] = n["hits"] + n["misses"]
+    n["touched"] = int(hit_cells.sum())
+    return n
+
+
 class _EulerPhased(torch.autograd.Function):
     """Dense K7 with its backward kernel: the forward launches
     ``euler_phased`` and keeps its outputs, the backward launches

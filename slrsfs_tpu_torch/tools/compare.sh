@@ -34,7 +34,13 @@
 #          and the host's cost per call, split by torch.profiler, beside
 #          its bytes bound and its latency bound (this checkout's
 #          tools/chase_probe.py); and the baseline float32 render (median
-#          of 5).
+#          of 5);
+# k7bwd    this checkout's chip_smoke.py --k7bwd-in TREE: K7's backward of
+#          each tree's package on the unfrozen joint step's predicted
+#          motion, the scene flow and the leaving flow, as called, on the
+#          card alone and the host's cost per call, beside its bound and
+#          the window's counts (misses, flushed cells); and the joint step
+#          (median of 3).
 #
 # Prints the card's name and power limit, then each tree's bench lines
 # (JSON lines left out) prefixed with the tree. Exits 1 if a bench failed.
@@ -42,8 +48,8 @@ set -u -o pipefail
 bench=${1:-}
 shift
 case $bench in
-  k9 | maxwarp | k2 | k3 | k1) ;;
-  *) echo "usage: $0 k9|maxwarp|k2|k3|k1 TREE..." >&2; exit 2 ;;
+  k9 | maxwarp | k2 | k3 | k1 | k7bwd) ;;
+  *) echo "usage: $0 k9|maxwarp|k2|k3|k1|k7bwd TREE..." >&2; exit 2 ;;
 esac
 here=$(cd "$(dirname "$0")/../.." && pwd)
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -55,6 +61,7 @@ for tree in "$@" $(printf '%s\n' "$@" | tac); do
     k2) python "$here/chip_smoke.py" --k2-in "$tree" ;;
     k3) python "$here/chip_smoke.py" --k3-in "$tree" ;;
     k1) python "$here/chip_smoke.py" --k1-in "$tree" ;;
+    k7bwd) python "$here/chip_smoke.py" --k7bwd-in "$tree" ;;
   esac 2>&1 | grep -v '^{' | sed "s|^|[$tree] |" || rc=1
 done
 exit $rc

@@ -11,7 +11,7 @@
 // need stride to be a multiple of their width (the pad channels receive
 // +0). The same taps in the same bytes (but the pad) with 1x, 1/2x or 1/4x
 // the reductions: whether the scatter's time follows their count or their
-// bytes. Not on any path.
+// bytes. Below it, two access patterns of K7's backward. Not on any path.
 
 #include <cuda_runtime.h>
 
@@ -93,5 +93,85 @@ extern "C" int red_probe(const void* u, const void* positions, const void* valid
   if (vec == 1) probe_kernel<1><<<blocks, 256, 0, s>>>(uu, pp, vv, da, db, w_a, w_b, aa, P, C1, stride, H, W);
   if (vec == 2) probe_kernel<2><<<blocks, 256, 0, s>>>(uu, pp, vv, da, db, w_a, w_b, aa, P, C1, stride, H, W);
   if (vec == 4) probe_kernel<4><<<blocks, 256, 0, s>>>(uu, pp, vv, da, db, w_a, w_b, aa, P, C1, stride, H, W);
+  return (int)cudaGetLastError();
+}
+
+// ---- the access patterns of K7's backward (csrc/euler_phased.cu) ----------
+//
+// (a) repeat_probe: n threads, each issuing `steps` red.global.add.v2.f32
+//     of (1, 1) either to its own cell every time (same = 1: the first
+//     backward design's steps that stay on a cell, queued at one address)
+//     or to a new cell a step (same = 0: cell t + k * 4099 mod n, lanes on
+//     neighbouring cells). acc holds n float2 cells, zeroed by the caller.
+// (b) shared_probe: blocks of 256 threads, each with a window of `win`
+//     float2 cells in dynamic shared memory (72 KB at win 9216), each
+//     thread adding (1, 1) `steps` times into the window with the add the
+//     backward kernel would use (form 0: two atomicAdd(float *), form 1: a
+//     64-bit atomicCAS loop over the float2), `share` neighbouring lanes on
+//     one cell; the window is then added into acc (win cells a block).
+
+__device__ __forceinline__ void red2v(float2* a, float x, float y) {
+  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(a), "f"(x), "f"(y) : "memory");
+}
+
+__global__ void repeat_probe_kernel(float2* __restrict__ acc, int n, int steps, int same) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  for (int k = 0; k < steps; ++k) {
+    const int c = same ? t : (int)(((long long)t + (long long)k * 4099) % n);
+    red2v(&acc[c], 1.0f, 1.0f);
+  }
+}
+
+__device__ __forceinline__ void cas_add2(float2* a, float x, float y) {
+  unsigned long long* p = reinterpret_cast<unsigned long long*>(a);
+  unsigned long long old = *p, seen;
+  do {
+    seen = old;
+    float2 v = *reinterpret_cast<float2*>(&seen);
+    v.x += x;
+    v.y += y;
+    old = atomicCAS(p, seen, *reinterpret_cast<unsigned long long*>(&v));
+  } while (old != seen);
+}
+
+template <int kForm>
+__global__ void shared_probe_kernel(float2* __restrict__ acc, int win, int steps, int share) {
+  extern __shared__ float2 w[];
+  for (int i = threadIdx.x; i < win; i += blockDim.x) w[i] = make_float2(0.0f, 0.0f);
+  __syncthreads();
+  const int base = threadIdx.x / share;
+  for (int k = 0; k < steps; ++k) {
+    float2* c = &w[(base + k * 37) % win];
+    if (kForm == 0) {
+      atomicAdd(&c->x, 1.0f);
+      atomicAdd(&c->y, 1.0f);
+    } else {
+      cas_add2(c, 1.0f, 1.0f);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < win; i += blockDim.x) {
+    const float2 v = w[i];
+    if (v.x != 0.0f || v.y != 0.0f) red2v(&acc[i], v.x, v.y);
+  }
+}
+
+// pattern 0: (a) with `same`; pattern 1: (b) with form `arg` and `share`
+// lanes a cell over `blocks` blocks. acc: n (a) or win (b) float2 cells.
+extern "C" int red_pattern_probe(void* acc, int pattern, int n, int steps, int arg, int share,
+                                 int blocks, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  float2* a = (float2*)acc;
+  if (pattern == 0) {
+    if (n > 0) repeat_probe_kernel<<<(n + 255) / 256, 256, 0, s>>>(a, n, steps, arg);
+    return (int)cudaGetLastError();
+  }
+  if (share < 1 || n < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  const int smem = n * (int)sizeof(float2);
+  auto kernel = arg == 0 ? shared_probe_kernel<0> : shared_probe_kernel<1>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, 256, smem, s>>>(a, n, steps, share);
   return (int)cudaGetLastError();
 }

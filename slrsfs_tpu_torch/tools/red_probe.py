@@ -12,6 +12,17 @@ and 68), ``red.global.add.v2.f32`` and ``red.global.add.v4.f32`` (stride
 plain splat, atol/rtol 1e-5); each is timed on the card alone
 (``chip_smoke.device_time``), and the line gives its reductions, the bytes
 they carry, and both rates. A missing card raises.
+
+Then the two access patterns that shape K7's backward
+(``csrc/euler_phased.cu:euler_phased_bwd``), each timed on the card alone:
+(a) 2^20 threads issuing 60 ``red.global.add.v2.f32`` each, all to the
+thread's own cell or each to a new cell (lanes on neighbouring cells);
+(b) the shared-memory float2 add a block's window would use, 1024 blocks
+of 256 threads with a 72 KB window, 60 adds a thread, as two
+``atomicAdd(float *)`` or as a 64-bit ``atomicCAS`` loop, with one lane or
+four lanes a cell; each (b) kernel's atomic SASS opcodes are read from the
+build with the toolkit's ``cuobjdump`` (a native add, or a compare-and-swap
+loop). The sums are checked exactly (integers below 2^24).
 """
 
 from __future__ import annotations
@@ -44,7 +55,65 @@ def build() -> ctypes.CDLL:
     P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll.red_probe.argtypes = [P_, P_, P_, P_, P_, F_, F_, P_] + [I_] * 6 + [P_]
     dll.red_probe.restype = ctypes.c_int
+    dll.red_pattern_probe.argtypes = [P_] + [I_] * 6 + [P_]
+    dll.red_pattern_probe.restype = ctypes.c_int
+    dll.path = lib
     return dll
+
+
+def atomic_opcodes(lib: str, function: str) -> list:
+    """The distinct atomic and reduction SASS opcodes (ATOM*, RED*) of the
+    kernels in ``lib`` whose name contains ``function``."""
+    import chip_smoke as cs
+
+    return sorted({op for _, op, _ in cs.sass_of(lib, function)
+                   if op.startswith(("ATOM", "RED"))})
+
+
+def k7_patterns(dll, stream) -> None:
+    """Patterns (a) and (b) of K7's backward, printed."""
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    n, steps = 1 << 20, 60
+    acc = torch.zeros((n, 2), device=dev)
+    for same, what in ((1, "to the thread's own cell, repeated"),
+                       (0, "to a new cell a step, lanes on neighbouring cells")):
+        def call():
+            err = dll.red_pattern_probe(acc.data_ptr(), 0, n, steps, same, 1, 0, stream)
+            if err:
+                raise RuntimeError(f"CUDA error {err} in red_pattern_probe (a)")
+
+        acc.zero_()
+        call()
+        torch.cuda.synchronize()
+        cs.check(bool((acc == steps).all()), f"red_probe (a) {what}: wrong sums")
+        ms, host_us = cs.device_time(call, reps=20)
+        print(f"red_probe (a) {n * steps} red.global.add.v2.f32 {what}: {ms * 1e3:.2f} us "
+              f"on the card = {n * steps / ms / 1e6:.1f} G reductions/s (host "
+              f"{host_us:.1f} us a call)")
+    win, blocks = 96 * 96, 1024
+    out = torch.zeros((win, 2), device=dev)
+    for form, what, name in ((0, "two atomicAdd(float *)", "shared_probe_kernelILi0"),
+                             (1, "a 64-bit atomicCAS loop", "shared_probe_kernelILi1")):
+        for share in (1, 4):
+            def call():
+                err = dll.red_pattern_probe(out.data_ptr(), 1, win, steps, form, share,
+                                            blocks, stream)
+                if err:
+                    raise RuntimeError(f"CUDA error {err} in red_pattern_probe (b)")
+
+            out.zero_()
+            call()
+            torch.cuda.synchronize()
+            cs.check(int(out[:, 0].sum().item()) == blocks * 256 * steps,
+                     f"red_probe (b) {what}: wrong sum")
+            ms, host_us = cs.device_time(call, reps=20)
+            adds = blocks * 256 * steps
+            print(f"red_probe (b) {adds} shared float2 adds as {what}, {share} lane(s) a "
+                  f"cell, 72 KB windows: {ms * 1e3:.2f} us on the card = "
+                  f"{adds / ms / 1e6:.1f} G float2 adds/s (host {host_us:.1f} us a call); "
+                  f"SASS {atomic_opcodes(dll.path, name)}")
 
 
 def main() -> int:
@@ -105,8 +174,9 @@ def main() -> int:
         n_bytes = n_red * vec * 4
         print(f"red_probe {name} stride {stride}: {n_red} reductions of {vec * 4} B "
               f"({n_bytes / 1e6:.1f} MB) in {ms * 1e3:.2f} us on the card = "
-              f"{n_red / ms / 1e9:.1f} G reductions/s, {n_bytes / ms / 1e9:.2f} TB/s "
+              f"{n_red / ms / 1e6:.1f} G reductions/s, {n_bytes / ms / 1e9:.2f} TB/s "
               f"(host {host_us:.1f} us a call); max abs {err:.3g} vs plain")
+    k7_patterns(dll, stream)
     return 0
 
 

@@ -21,7 +21,9 @@ refuse a motion that requires grad, before they launch anything; dense
 K7 takes one and differentiates it through its backward kernel
 (``euler_phased_bwd``), held against the plain version's autograd within
 1e-5 of the gradient's largest magnitude (f32 atomics in a run-to-run
-order), on two launches."""
+order), on two launches, also on cases that exercise its window (one run
+a row, window misses, partial tiles, the count rules, a static band, rows
+leaving the frame, the training shape)."""
 
 import numpy as np
 import pytest
@@ -1414,6 +1416,97 @@ def test_k7_backward_matches_plain_autograd_on_card(case):
             out_f, out_p = euler_integrate_phased_plain(motion, t_f, t_p, T)
         oob = max(motion.shape[1], motion.shape[2]) + 1
         assert (out_f == oob).any() or (out_p == oob).any()
+
+
+K7_WINDOW_CASES = ["one run a row", "drift leaves the window", "partial tiles",
+                   "count rules", "static band", "rows leave the frame",
+                   "training shape (16, 256, 256), T = 60"]
+
+
+def _k7_window_case(dev, name: str):
+    """K7's backward inputs that exercise its block rule at card sizes
+    (tiles of 32 sources, windows with a margin of 32): (motion, t_f, t_p,
+    T), from a numpy seed."""
+    rng = np.random.default_rng(70 + K7_WINDOW_CASES.index(name))
+    T, B, Hc, Wc = 14, 4, 101, 147  # neither side a multiple of the tile
+    t_f = np.array([8, 0, 14, 5], np.int32)
+    t_p = np.array([6, 14, 0, 4], np.int32)
+    m = (rng.standard_normal((B, Hc, Wc, 2)) * 1.2).astype(np.float32)
+    if name == "one run a row":
+        m *= 0.01 / 1.2
+    elif name == "drift leaves the window":
+        # ~3 px a step to the right: most rows end past their window
+        T, Hc, Wc = 20, 64, 256
+        m = (rng.standard_normal((2, Hc, Wc, 2)) * 0.1).astype(np.float32)
+        m[..., 0] += 3.0
+        t_f, t_p = np.array([20, 16], np.int32), np.array([0, 4], np.int32)
+    elif name == "count rules":
+        t_f, t_p = np.array([14, 0, 6, 0], np.int32), np.array([0, 14, 8, 0], np.int32)
+    elif name == "static band":
+        m[:, 20:60] = 0.0
+    elif name == "rows leave the frame":
+        m[:, Hc - 10:, :, 1] += 4.0
+    elif name.startswith("training shape"):
+        T = 60
+        m = (rng.standard_normal((16, 256, 256, 2)) * 0.6).astype(np.float32)
+        m[:, :64] = 0.0
+        t_f = rng.integers(0, T + 1, size=16).astype(np.int32)
+        t_p = (rng.integers(0, T + 1, size=16) % (T - t_f + 1)).astype(np.int32)
+    return (torch.from_numpy(m).to(dev), torch.from_numpy(t_f).to(dev),
+            torch.from_numpy(t_p).to(dev), T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", K7_WINDOW_CASES)
+def test_k7_backward_window_cases_match_plain_autograd_on_card(name):
+    """K7's backward (a block's window of the gradient in shared memory,
+    runs summed in registers, misses added to device memory) against the
+    plain autograd within 1e-5 of the gradient's largest magnitude, on two
+    launches of one forward and one backward kernel each; the drift case
+    misses the window (the host count)."""
+    dev = _card()
+    motion, t_f, t_p, T = _k7_window_case(dev, name)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g_f = torch.randn(motion.shape, generator=gen, device=dev)
+    g_p = torch.randn(motion.shape, generator=gen, device=dev)
+    want = _k7_grad(euler_integrate_phased_plain, motion, t_f, t_p, T, g_f, g_p)
+    for _ in range(2):
+        kernels.reset_counts()
+        got = _k7_grad(euler_integrate_phased, motion, t_f, t_p, T, g_f, g_p)
+        torch.cuda.synchronize()
+        assert kernels.counts()[kernels.EULER_PHASED.name] == 1
+        assert kernels.counts()[kernels.EULER_PHASED_BWD.name] == 1
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    n = port_euler.phased_bwd_window_counts(motion, t_f, t_p, T)
+    assert n["runs"] > 0
+    if name == "drift leaves the window":
+        assert n["misses"] > n["runs"] // 4
+    if name == "one run a row":
+        assert n["reductions"] > n["runs"] * T / 2
+
+
+@pytest.mark.gpu
+def test_k7_backward_with_a_non_finite_cotangent_on_card():
+    """A block whose cotangents hold NaN or Inf has no fixed-point bound and
+    adds every run in f32 to the gradient: the same cells as the plain
+    autograd's are NaN, the rest within 1e-5 of the finite maximum."""
+    dev = _card()
+    motion, t_f, t_p, T = _k7_window_case(dev, "partial tiles")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    g_f = torch.randn(motion.shape, generator=gen, device=dev)
+    g_p = torch.randn(motion.shape, generator=gen, device=dev)
+    g_f[0, 40, 50, 0] = float("nan")
+    g_p[3, 70, 20, 1] = float("inf")
+    want = _k7_grad(euler_integrate_phased_plain, motion, t_f, t_p, T, g_f, g_p)
+    kernels.reset_counts()
+    got = _k7_grad(euler_integrate_phased, motion, t_f, t_p, T, g_f, g_p)
+    torch.cuda.synchronize()
+    assert kernels.counts()[kernels.EULER_PHASED_BWD.name] == 1
+    assert want.isnan().any() and torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    ok = want.isfinite()
+    torch.testing.assert_close(got[ok], want[ok], rtol=0,
+                               atol=1e-5 * want[ok].abs().max().item())
 
 
 @pytest.mark.gpu
