@@ -150,9 +150,29 @@ pixels; timed on the first three beside its bound and its window counts
 (runs, window hits and misses, the cells a block's flush adds), with the
 counts of two other windows. Phase 20 (other_stages_phase): the bg stage-2 step and the
 motion-GAN step at batch 16, 256². Phase 21 (stage_chains_phase): the train
-CLI at 256², batch 2, two steps each: motion GAN → fix-motion → joint →
+CLI at 256², batch 2, two steps each (the joint run four: --init-from
+restores the fix-motion run's Adam count): motion GAN → fix-motion → joint →
 SceneRenderer with the joint checkpoint as --motion-ckpt, and stage 1 → bg
 stage 2 → SLR stage 3 from the port's own stage-2 checkpoint.
+
+Then the rest of training (phase 23, rest_of_training_phase): K3's bf16
+mode (bf16 rows, f32 flow) on the bf16 stage-1 (C = 65) and SLR stage-3
+(C = 67) steps' own rows: the forward within the per-cell bf16 bound of
+the f32 sums of the same rows (bf16_cell_bound), the backward's grad_inp
+within one bf16 ulp of the plain version and grad_flow within 1e-5 of its
+max, each timed beside its bound, its plain version and (forward) one
+bf16 index_add_; the two bf16 steps at batch 16 (6 K3 bf16 forward and
+backward and 3 K7 launches over 3 steps, every persistent tensor float32,
+L1 and Total within 0.12·|f32| + 0.05 of the f32 step from the same
+state, both with zero BN noise); one stage-1 step over two micro-batches of 16 in each
+accumulation scale (with b1 = 0, Adam's first moment under 'reference'
+4x the one under 'mean' within 1e-5 on the same micro-batch gradients); the motion GAN with the
+pix2pixHDorigin D (GAN_Feat 0) and a stage-1 step with the style loss and
+the free-form mask, each timed; and the CLI at 256², batch 2: SIGUSR1
+mid-epoch saves at epoch - 1 and exits, the resume file loads on the card
+bit for bit, --resume continues at the next step and writes HALT, a
+re-run returns at once, --init-from the finished checkpoint restores the
+count and both Adam states bit for bit.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. The script times the renders and the steps with CUDA events, and
@@ -200,6 +220,7 @@ import gc
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -339,15 +360,19 @@ def launch_split(fn, reps: int = 10) -> dict:
     """The card's work in one call of ``fn``, split by CUDA kernel, memset
     and copy: {name: (launches per call, device us per call)}, from a
     ``torch.profiler`` trace of ``reps`` calls after one warm-up. A trace
-    that reports no device event at all (CUPTI now and then returns none)
-    is taken again, at most three times; an empty split stays empty."""
+    that reports no device event at all, or a kernel fewer times than a
+    whole number of calls would launch it (CUPTI now and then drops
+    events: once K5 showed 3 launches in 4 calls), is taken again, at most
+    three times; the last trace is returned as it is, so an empty split
+    stays empty and a count that stays fractional reaches the caller's
+    checks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    total = {}
     for _ in range(3):
+        total = {}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -356,7 +381,7 @@ def launch_split(fn, reps: int = 10) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 n, us = total.get(e.name, (0, 0.0))
                 total[e.name] = (n + 1, us + e.time_range.elapsed_us())
-        if total:
+        if total and all(n % reps == 0 for n, _ in total.values()):
             break
     return {k: (n / reps, us / reps) for k, (n, us) in total.items()}
 
@@ -2919,15 +2944,16 @@ def other_stages_phase(dev) -> dict:
     return res
 
 
-def run_train_cli(label: str, root: str, out: str, *args) -> tuple:
-    """``python -m slrsfs_tpu_torch.cli.train`` (W = 256, batch 2, 2 steps, 1
-    validation step): (checkpoint, stdout, seconds, the last train row)."""
+def run_train_cli(label: str, root: str, out: str, *args, n_steps: int = 2) -> tuple:
+    """``python -m slrsfs_tpu_torch.cli.train`` (W = 256, batch 2, ``n_steps``
+    steps (``--steps-per-epoch``), 1 validation step): (checkpoint, stdout,
+    seconds, the last train row)."""
     import shutil
 
     shutil.rmtree(out, ignore_errors=True)
     cmd = [sys.executable, "-m", "slrsfs_tpu_torch.cli.train", "--data-root", root,
            "--out", out, "--batch-size", "2", "--W", str(W), "--niter", "1",
-           "--niter-decay", "0", "--steps-per-epoch", "2", "--val-steps", "1",
+           "--niter-decay", "0", "--steps-per-epoch", str(n_steps), "--val-steps", "1",
            "--seed", str(SEED), *args]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
@@ -2939,7 +2965,7 @@ def run_train_cli(label: str, root: str, out: str, *args) -> tuple:
     with open(os.path.join(out, "scalars.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     steps = [r for r in rows if r["split"] == "train"]
-    check(len(steps) == 2, f"{label} CLI logged {len(steps)} steps")
+    check(len(steps) == n_steps, f"{label} CLI logged {len(steps)} steps")
     for r in rows:
         check(all(np.isfinite(v) for k, v in r.items() if k != "split"),
               f"{label} CLI log not finite: {r}")
@@ -2948,7 +2974,8 @@ def run_train_cli(label: str, root: str, out: str, *args) -> tuple:
 
 def stage_chains_phase(scene_dir: str, img_path: str, flow_path: str) -> dict:
     """Phase 21: the CLI chains at 256² (the 8-down regressor's smallest
-    input), full width, batch 2, two steps each: the motion GAN → the
+    input), full width, batch 2, two steps each (the joint run four, its
+    rate above 0 after the restored Adam count): the motion GAN → the
     fix-motion finetune (``--init-from`` a stage-1 run, ``--init-motion-from``
     the motion GAN's, ``--freeze-motion``; its regressor the motion GAN's)
     → the unfrozen joint stage from the fix-motion checkpoint (its regressor
@@ -2971,8 +2998,12 @@ def stage_chains_phase(scene_dir: str, img_path: str, flow_path: str) -> dict:
         runs["stage 1"][0], "--init-motion-from", runs["motion GAN"][0])
     check("motion regressor loaded" in runs["fix-motion"][1],
           f"fix-motion warm start: {runs['fix-motion'][1]}")
+    # --init-from restores the fix-motion run's Adam states and count (4
+    # steps: stage 1's 2 and its own 2), which with one epoch of 2 steps
+    # and no decay would start the joint run at a rate of 0; 4 steps an
+    # epoch keep it above 0
     runs["joint"] = run_train_cli("joint", root, out("joint"), "--embed-motion",
-                                  "--init-from", runs["fix-motion"][0])
+                                  "--init-from", runs["fix-motion"][0], n_steps=4)
     runs["bg stage 2"] = run_train_cli("bg stage 2", root, out("bg"), "--model-type", "bg")
     runs["SLR stage 3"] = run_train_cli(
         "SLR stage 3", root, out("s3"), "--model-type", SLR_OPTS["model_type"], "--init-from",
@@ -3006,7 +3037,8 @@ def stage_chains_phase(scene_dir: str, img_path: str, flow_path: str) -> dict:
           f"joint render frames {frames.shape}")
     pngs = sorted(os.listdir(os.path.join(out_dir, "PredImg")))
     check(len(pngs) == 8, f"joint render wrote {len(pngs)} PNGs")
-    print("phase 21 CLI chains (W=256, batch 2, 2 steps + validation + checkpoint each): "
+    print("phase 21 CLI chains (W=256, batch 2, 2 steps (the joint run 4) + validation + "
+          "checkpoint each): "
           + "; ".join(f"{k} {v[2]:.1f} s (Total Loss {v[3]['Total Loss']:.4f})"
                       for k, v in runs.items())
           + f"; fix-motion regressor = motion GAN's; joint regressor trained; SceneRenderer "
@@ -3016,6 +3048,467 @@ def stage_chains_phase(scene_dir: str, img_path: str, flow_path: str) -> dict:
           "own stage-2 checkpoint")
     return {k: v[2] for k, v in runs.items()}
 
+
+# ---- phase 23: the rest of training --------------------------------------
+#
+# K3's bf16 mode on a bf16 step's own rows, the bf16 stage-1 and SLR steps,
+# accumulation, the motion GAN with the origin D, the style loss with the
+# free-form mask, and the resume, preemption and HALT chain of the CLI.
+
+
+def dense_tap_counts(flow):
+    """(B, H, W, 1) float32: the corner taps with a nonzero weight that each
+    cell of each sample receives from the dense splat by ``flow``."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.splat import _corner_taps
+
+    B, H_, W_, _ = flow.shape
+    n = torch.zeros((B, H_ * W_), dtype=torch.float32, device=flow.device)
+    xs = torch.arange(W_, dtype=torch.float32, device=flow.device)[None, :]
+    ys = torch.arange(H_, dtype=torch.float32, device=flow.device)[:, None]
+    for b in range(B):
+        for lin, w in _corner_taps((xs + flow[b, ..., 0]).reshape(-1),
+                                   (ys + flow[b, ..., 1]).reshape(-1), H_, W_):
+            n[b].index_add_(0, lin, (w != 0).float())
+    return n.reshape(B, H_, W_, 1)
+
+
+def bf16_splat_inputs(tr, batch, module):
+    """The packed bf16 rows and f32 flows of the two splats of one bf16
+    forward of ``tr`` (``module``: the model's module, whose
+    ``softsplat_sum`` is spied on), from a snapshot restored after."""
+    import torch
+
+    seen = []
+    kernel_splat = module.softsplat_sum
+
+    def spy(inp, flow):
+        seen.append((inp.detach().clone(), flow.detach().clone()))
+        return kernel_splat(inp, flow)
+
+    snap = tr.snapshot()
+    module.softsplat_sum = spy
+    try:
+        with torch.no_grad():
+            tr.forward_train(batch)
+    finally:
+        module.softsplat_sum = kernel_splat
+        tr.restore(snap)
+    return seen
+
+
+def k3_bf16_case(dev, label: str, inp, flow) -> dict:
+    """K3's bf16 forward and backward on one splat's rows: the forward within
+    the per-cell bf16 bound of the f32 sums of the same rows (each term
+    passes n + 4 roundings: the weight, the product, its quarter's adds and
+    the combine's three), the backward's grad_inp within one bf16 ulp of the
+    plain version (both sum the four corners in f32 in one order) and
+    grad_flow within 1e-5 of its max; timed with the plain versions, the
+    library call (one ``index_add_`` of the 4·B·HW bf16 rows) and the
+    bounds (bf16 rows and outputs, f32 flows)."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.splat import (
+        _corner_taps,
+        softsplat_sum_bwd_bf16_kernel,
+        softsplat_sum_fwd_bf16_kernel,
+        softsplat_sum_grad_plain,
+        softsplat_sum_plain,
+    )
+
+    B, H_, W_, C = inp.shape
+    out = softsplat_sum_fwd_bf16_kernel(inp, flow)
+    plain = softsplat_sum_plain(inp, flow)
+    ref32 = softsplat_sum_plain(inp.float(), flow)
+    abs_terms = softsplat_sum_plain(inp.float().abs(), flow)
+    bnd = bf16_cell_bound(ref32, abs_terms, dense_tap_counts(flow) + 2.0)
+    torch.cuda.synchronize()
+    cell = bf16_cell_check(f"{label} K3 bf16 forward", out, plain, ref32, bnd)
+    empty = bnd == 0
+    check(bool((out.float()[empty] == 0).all()), f"{label} K3 bf16: an empty cell is not 0")
+    f32_err = (out.float() - ref32).abs().max().item()
+    fwd_err = (out.float() - plain.float()).abs().max().item()
+    del plain, ref32, abs_terms, bnd, empty
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    g = torch.randn(inp.shape, generator=gen, device=dev).to(torch.bfloat16)
+    gi, gf = softsplat_sum_bwd_bf16_kernel(inp, flow, g)
+    wi, wf = softsplat_sum_grad_plain(inp, flow, g)
+    torch.cuda.synchronize()
+    d_i = (gi.float() - wi.float()).abs()
+    n_ulp = int((d_i > 0).sum())
+    check(bool((d_i <= 2.0 ** -7 * wi.float().abs()).all()),
+          f"{label} K3 bf16 backward grad_inp beyond one bf16 ulp at "
+          f"{int((d_i > 2.0 ** -7 * wi.float().abs()).sum())} elements")
+    scale = wf.abs().max().item()
+    d_f = (gf - wf).abs().max().item()
+    check(d_f <= 1e-5 * scale, f"{label} K3 bf16 backward grad_flow {d_f} vs 1e-5 x {scale}")
+    bwd_err = max(d_i.max().item(), d_f)
+    del gi, gf, wi, wf, d_i
+    t_fwd = kernel_times(lambda: softsplat_sum_fwd_bf16_kernel(inp, flow), reps=10)
+    split = launch_split(lambda: softsplat_sum_fwd_bf16_kernel(inp, flow), reps=4)
+    t_bwd = kernel_times(lambda: softsplat_sum_bwd_bf16_kernel(inp, flow, g), reps=10)
+    plain_fwd = cuda_time(lambda: softsplat_sum_plain(inp, flow), reps=2, warmup=1)
+    plain_bwd = cuda_time(lambda: softsplat_sum_grad_plain(inp, flow, g), reps=2, warmup=1)
+    xs = torch.arange(W_, device=dev, dtype=torch.float32)[None, :]
+    ys = torch.arange(H_, device=dev, dtype=torch.float32)[:, None]
+    lins, rows = [], []
+    for b in range(B):
+        for lin, w in _corner_taps((xs + flow[b, ..., 0]).reshape(-1),
+                                   (ys + flow[b, ..., 1]).reshape(-1), H_, W_):
+            lins.append(lin + b * H_ * W_)
+            rows.append(inp[b].reshape(H_ * W_, C) * w.to(torch.bfloat16)[:, None])
+    lin_all, rows_all = torch.cat(lins), torch.cat(rows)
+    del lins, rows
+    acc = torch.zeros((B * H_ * W_, C), device=dev, dtype=torch.bfloat16)
+    t_lib = kernel_times(lambda: acc.index_add_(0, lin_all, rows_all), reps=10)
+    del lin_all, rows_all, acc
+    n = B * H_ * W_
+    # bf16 rows in and out, the f32 flow in; per pixel ~20 ops of corner
+    # math and per channel 4 multiplies and 4 adds (the backward: inp and g
+    # in, grad_inp out in bf16, flow in and grad_flow out in f32, 2
+    # multiply-adds per channel and corner)
+    b_fwd = bound(n * C * 2 * 2 + n * 8, n * (8 * C + 20))
+    b_bwd = bound(n * C * 2 * 3 + n * 8 * 2, n * (16 * C + 40))
+    print(f"phase 23 K3 bf16 {label} ({B}, {H_}, {W_}, {C}): forward (each term's n counted "
+          f"as n + 2, the weight's and the combine's roundings) {fmt_bf16(cell)}, max "
+          f"abs {f32_err:.3g} from the f32 sums, {fwd_err:.3g} from the plain version; "
+          f"backward grad_inp {n_ulp} elements one bf16 ulp from the plain version (limit "
+          f"one ulp), grad_flow max abs {d_f:.3g} (limit 1e-5 x {scale:.3g})")
+    print(f"phase 23 K3 bf16 forward {label}: {fmt_times(t_fwd)}; plain {plain_fwd:.3f} ms; "
+          f"index_add_ {fmt_times(t_lib)}; bound {b_fwd[0]:.4f} ms by {b_fwd[1]}; per call "
+          f"on the card (torch.profiler): {fmt_split(split)}")
+    print(f"phase 23 K3 bf16 backward {label}: {fmt_times(t_bwd)}; plain {plain_bwd:.3f} ms; "
+          f"bound {b_bwd[0]:.4f} ms by {b_bwd[1]}")
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "fwd": t_fwd, "bwd": t_bwd,
+            "plain_fwd": plain_fwd, "plain_bwd": plain_bwd, "lib_fwd": t_lib["ms"],
+            "bound_fwd": b_fwd, "bound_bwd": b_bwd}
+
+
+def f32_state_check(label: str, tr) -> None:
+    """Every persistent tensor of a bf16-compute trainer is float32."""
+    import torch
+
+    for module in (tr.model, tr.d_model):
+        for k, v in module.state_dict().items():
+            check(not v.is_floating_point() or v.dtype == torch.float32,
+                  f"{label}: {k} is {v.dtype}")
+    for adam in (tr.opt_g, tr.opt_d):
+        for t in adam.mu + adam.nu:
+            check(t.dtype == torch.float32, f"{label}: an Adam state is {t.dtype}")
+
+
+def bf16_step_case(dev, label: str, options, make_batch, module, k3_label: str) -> dict:
+    """A bf16 step of ``options`` at B = 16, 256²: its splats' rows through
+    ``k3_bf16_case``; one bf16 and one f32 step from one snapshot (L1 and
+    Total within JAX's own check, 0.12·|f32| + 0.05); then ``timed_steps``
+    (6 K3 bf16 forward and backward, 3 K7 launches over 3 steps) and every
+    persistent tensor float32. The bf16-f32 comparison runs with zero BN
+    noise."""
+    import torch
+
+    from slrsfs_tpu_torch.cli.train import build, to_device_batch
+
+    opt = options(TRAIN_B)
+    _, tr = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED)
+    batch = to_device_batch(make_batch(np.random.default_rng(SEED), TRAIN_B, W), dev)
+    seen = bf16_splat_inputs(tr, batch, module)
+    check(len(seen) == 2 and all(u.dtype == torch.bfloat16 and f.dtype == torch.float32
+                                 for u, f in seen),
+          f"{label}: splat inputs {[(u.dtype, f.dtype) for u, f in seen]}")
+    k3 = k3_bf16_case(dev, k3_label, *seen[0])
+    del seen
+    # zero BN noise for the comparison, as the CPU parity tests run: with
+    # random weights the drawn noise makes the outputs chaotic enough that
+    # its bf16 rounding alone moves the losses
+    snap = tr.snapshot()
+    tr.deterministic = True
+    logs16 = tr.train_step(batch)
+    tr.restore(snap)
+    tr.compute_dtype = torch.float32
+    logs32 = tr.train_step(batch)
+    tr.compute_dtype = torch.bfloat16
+    tr.deterministic = False
+    tr.restore(snap)
+    del snap
+    for k in ("L1", "Total Loss"):
+        a, b = logs16[k].item(), logs32[k].item()
+        check(abs(a - b) <= 0.12 * abs(b) + 0.05, f"{label} {k}: bf16 {a} vs f32 {b}")
+    run = timed_steps(23, label, tr, batch, {"splat_dense_fwd_bf16": 6,
+                                             "splat_dense_bwd_bf16": 6, "euler_phased": 3})
+    f32_state_check(label, tr)
+    print(f"phase 23 {label}: every parameter, statistic, vector and Adam state float32; "
+          f"L1 bf16 {logs16['L1'].item():.5f} vs f32 {logs32['L1'].item():.5f}, Total "
+          f"{logs16['Total Loss'].item():.4f} vs {logs32['Total Loss'].item():.4f} (limit "
+          f"0.12·|f32| + 0.05)")
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**run, "k3": k3}
+
+
+def accumulation_case(dev) -> dict:
+    """One stage-1 step over two micro-batches of 16 in each scale from one
+    snapshot. The reference-scale step replays the mean step's micro-batch
+    gradients (``Trainer._micro_step``), so that the accumulation, the scale
+    and Adam run anew on the same sums: with b1 = 0 Adam's first moment
+    under 'reference' is then 4x the one under 'mean' within 1e-5 of its
+    largest entry. An independent reference step is timed too; its
+    distance from 4x the mean step's moment is printed, not held: the K3
+    forward's atomics add in another order each run, and the losses' kinks
+    carry that into the gradients. Returns the two steps' ms."""
+    import torch
+
+    from slrsfs_tpu_torch.cli.train import build, to_device_batch
+    from slrsfs_tpu_torch.config import Options
+
+    opt = Options(W=W, batch_size=TRAIN_B, num_accumulations=2)
+    _, tr = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED)
+    micro = [to_device_batch(make_train_batch(np.random.default_rng(SEED + s), TRAIN_B, W),
+                             dev) for s in (0, 1)]
+    snap = tr.snapshot()
+    cached, ms = [], {}
+
+    def record(*a, **k):
+        cached.append(type(tr)._micro_step(tr, *a, **k))
+        return cached[-1]
+
+    def step(scale, micro_step=None):
+        tr.opt = tr.opt.replace(accum_scale=scale)
+        if micro_step is not None:
+            tr._micro_step = micro_step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = tr.train_step(micro)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) * 1e3
+        if micro_step is not None:
+            del tr._micro_step
+        check(tr.step_count == 1, f"accumulation: {tr.step_count} Adam steps")
+        for k, v in logs.items():
+            check(bool(torch.isfinite(v)), f"accumulation {scale}: {k} = {v}")
+        mu = [m.clone() for m in tr.opt_g.mu + tr.opt_d.mu]
+        tr.restore(snap)
+        return mu, secs
+
+    mu_mean, ms["mean"] = step("mean", record)
+    replay = iter(cached)
+    mu_ref, _ = step("reference", lambda *a, **k: next(replay))
+    mu_ind, ms["reference"] = step("reference")
+    del snap, cached
+
+    def rel(a):
+        big = max(x.abs().max().item() for x in a)
+        return max((x - 4.0 * m).abs().max().item() for x, m in zip(a, mu_mean)) / big
+
+    err, err_ind = rel(mu_ref), rel(mu_ind)
+    check(err <= 1e-5, f"accumulation: reference moment vs 4 x mean {err:.3g} relative")
+    print(f"phase 23 accumulation (stage 1, two micro-batches of {TRAIN_B}, one Adam step): "
+          f"mean {ms['mean']:.1f} ms, reference {ms['reference']:.1f} ms (first calls); "
+          f"Adam's first moment under reference = 4 x mean within {err:.3g} of its largest "
+          f"entry on the same micro-batch gradients (limit 1e-5); {err_ind:.3g} in an "
+          f"independent reference step (K3's atomic order; not held)")
+    del tr, micro, mu_mean, mu_ref, mu_ind
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms}
+
+
+def origin_and_style_case(dev) -> dict:
+    """The motion-GAN step with the pix2pixHD origin D (GAN_Feat 0, no
+    kernel launches) and a stage-1 step with the style loss and the
+    free-form mask (6 K3 and 3 K7 launches over 3 steps), each timed."""
+    import torch
+
+    from slrsfs_tpu_torch.cli.train import build, stage_options, to_device_batch
+    from slrsfs_tpu_torch.config import Options
+    from slrsfs_tpu_torch.data.augment import ff_keep_mask
+    from slrsfs_tpu_torch.nn.pix2pixhd import OriginMultiscaleDiscriminator
+
+    res = {}
+    mt = "SPADE_unet_mask_motion"
+    opt = Options(W=W, batch_size=TRAIN_B, model_type=mt, discriminator_losses="pix2pixHDorigin",
+                  **stage_options(mt))
+    _, tr = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED)
+    check(isinstance(tr.d_model, OriginMultiscaleDiscriminator), "the origin D was not built")
+    batch = to_device_batch(make_motion_gan_batch(np.random.default_rng(SEED), TRAIN_B, W), dev)
+    logs = tr.train_step(batch)
+    check(logs["GAN_Feat"].item() == 0.0, f"origin D: GAN_Feat {logs['GAN_Feat'].item()}")
+    res["origin"] = timed_steps(23, "motion-GAN step, pix2pixHDorigin D", tr, batch, {},
+                                ("EndPointError", "GAN", "GAN_Feat"))
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = Options(W=W, batch_size=TRAIN_B, losses=("1.0_l1", "10.0_content", "1.0_style"),
+                  random_ff_mask=True)
+    _, tr = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED)
+    nb = make_train_batch(np.random.default_rng(SEED), TRAIN_B, W)
+    nb["ff_mask"] = np.stack([ff_keep_mask(np.random.default_rng(SEED + b), W, W, rate=1.0)
+                              for b in range(TRAIN_B)]).astype(np.float32)
+    holes = float((nb["ff_mask"] == 0).mean())
+    batch = to_device_batch(nb, dev)
+    res["style"] = timed_steps(23, "stage-1 step, style loss and ff mask", tr, batch,
+                               {"splat_dense_fwd": 6, "splat_dense_bwd": 6, "euler_phased": 3},
+                               ("Style", "Perceptual", "L1"))
+    print(f"phase 23 origin D: GAN_Feat 0; ff mask holes {100 * holes:.1f} % of the pixels")
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_cli_rows(out: str) -> list:
+    with open(os.path.join(out, "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def resume_chain_case(dev, root: str) -> dict:
+    """The CLI at 256², full width, batch 2: a run sent SIGUSR1 after its
+    second step saves at epoch - 1 and exits; its resume file loads into a
+    trainer on the card bit for bit; ``--resume`` continues at the saved
+    step + 1 and writes HALT; a re-run returns at once; ``--init-from`` the
+    finished checkpoint restores the count and both Adam states bit for
+    bit (in process, then through the CLI)."""
+    import shutil
+
+    import torch
+
+    from slrsfs_tpu_torch.cli import train as cli_train
+    from slrsfs_tpu_torch.config import Options
+
+    out = os.path.join(OUT_DIR, "resume_run")
+    shutil.rmtree(out, ignore_errors=True)
+    base = [sys.executable, "-m", "slrsfs_tpu_torch.cli.train", "--data-root", root,
+            "--out", out, "--batch-size", "2", "--W", str(W), "--niter", "1",
+            "--niter-decay", "0", "--val-steps", "1", "--seed", str(SEED)]
+    cwd = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "SLURM_JOB_ID"}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(base + ["--steps-per-epoch", "200"], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    log = os.path.join(out, "scalars.jsonl")
+    sent = False
+    while time.perf_counter() - t0 < 300 and proc.poll() is None:
+        if os.path.exists(log) and len(train_cli_rows(out)) >= 2:
+            proc.send_signal(signal.SIGUSR1)
+            sent = True
+            break
+        time.sleep(0.1)
+    text, _ = proc.communicate(timeout=300)
+    secs_pre = time.perf_counter() - t0
+    check(sent and proc.returncode == 0 and "preemption signal received" in text,
+          f"SIGUSR1 run: sent {sent}, rc {proc.returncode}:\n{text}")
+    ckpt_path = os.path.join(out, "checkpoint.pth")
+    saved = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    n_rows = len(train_cli_rows(out))
+    check(saved["epoch"] == -1 and saved["step"] == n_rows and n_rows < 200,
+          f"preempted save: epoch {saved['epoch']}, step {saved['step']}, {n_rows} rows")
+    check(not os.path.exists(os.path.join(out, "HALT")), "a preempted run wrote HALT")
+
+    with open(os.path.join(out, "options.json")) as f:
+        opt = Options.from_json(f.read())
+    model, tr = cli_train.build(opt, device=dev, seed=SEED + 9)
+    meta = cli_train.load_resume(ckpt_path, model, tr)
+    sd = saved["state_dict"]
+    same = all(torch.equal(v.cpu(), sd[f"model.module.{k}"])
+               for k, v in model.state_dict().items())
+    same &= all(torch.equal(v.cpu(), sd[f"netD.netD.{k}"])
+                for k, v in tr.d_model.state_dict().items())
+    for key, adam in (("optimizerG", tr.opt_g), ("optimizerD", tr.opt_d)):
+        st = saved[key]["state"]
+        same &= all(torch.equal(m.cpu(), st[i]["exp_avg"]) and torch.equal(v.cpu(),
+                                                                           st[i]["exp_avg_sq"])
+                    for i, (m, v) in enumerate(zip(adam.mu, adam.nu)))
+    check(same and meta["epoch"] == -1 and tr.step_count == saved["step"],
+          "the resume file did not load bit for bit")
+    del model, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(base + ["--steps-per-epoch", "2", "--resume"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=600)
+    secs_resume = time.perf_counter() - t0
+    check(proc.returncode == 0 and "resumed from epoch -1" in proc.stdout,
+          f"--resume run: rc {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    rows = train_cli_rows(out)[n_rows:]
+    steps = [r["step"] for r in rows if r["split"] == "train"]
+    check(steps == [saved["step"] + 1, saved["step"] + 2] and rows[-1]["split"] == "val"
+          and all(r["epoch"] == 0 for r in rows), f"resumed rows {rows}")
+    check(os.path.exists(os.path.join(out, "HALT")), "the finished run wrote no HALT")
+    check(os.path.exists(os.path.join(out, "checkpoint_best.pth"))
+          and os.path.exists(os.path.join(out, "images", "epoch0000_PredImg.png")),
+          "no best checkpoint or validation images")
+    n_done = len(train_cli_rows(out))
+    t0 = time.perf_counter()
+    proc = subprocess.run(base + ["--steps-per-epoch", "2", "--resume"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=600)
+    secs_halt = time.perf_counter() - t0
+    check(proc.returncode == 0 and "HALT marker present" in proc.stdout
+          and len(train_cli_rows(out)) == n_done, f"HALT re-run:\n{proc.stdout}")
+
+    final = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    model, tr = cli_train.build(opt, device=dev, seed=SEED + 9)
+    cli_train.warm_start(model, tr, ckpt_path)
+    st = final["optimizerG"]["state"]
+    same = tr.step_count == final["step"] and all(
+        torch.equal(m.cpu(), st[i]["exp_avg"]) and torch.equal(v.cpu(), st[i]["exp_avg_sq"])
+        for i, (m, v) in enumerate(zip(tr.opt_g.mu, tr.opt_g.nu)))
+    check(same, "--init-from did not restore the Adam states bit for bit")
+    del model, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out2 = os.path.join(OUT_DIR, "init_run")
+    ckpt2, stdout, secs_init, last = run_train_cli("init-from", root, out2, "--init-from",
+                                                   ckpt_path)
+    check(f"restored torch Adam states (step {final['step']})" in stdout
+          and last["step"] == final["step"] + 2, f"--init-from run:\n{stdout}")
+    print(f"phase 23 CLI chain (W={W}, batch 2): SIGUSR1 after step {saved['step']} saved at "
+          f"epoch -1 and exited in {secs_pre:.1f} s; the resume file loaded on the card bit "
+          f"for bit; --resume ran steps {steps} + validation in {secs_resume:.1f} s and wrote "
+          f"HALT, the best checkpoint and the validation PNGs; the re-run returned in "
+          f"{secs_halt:.1f} s; --init-from restored step {final['step']} and both Adam "
+          f"states bit for bit and continued at step {last['step'] - 1} ({secs_init:.1f} s)")
+    return {"pre_s": secs_pre, "resume_s": secs_resume, "halt_s": secs_halt,
+            "init_s": secs_init}
+
+
+def rest_of_training_phase(dev) -> dict:
+    """Phase 23 (`` (a)``–``(e)``): K3's bf16 mode on the bf16 stage-1
+    (C = 65) and SLR stage-3 (C = 67) steps' own rows, those two bf16
+    steps, accumulation, the origin-D motion GAN and the style + ff-mask
+    step at full width (``Options()`` defaults, B = 16, 256², T = 60), then
+    the resume chain of the CLI on phase 11's data."""
+    import torch
+
+    from slrsfs_tpu_torch.cli.train import stage_options
+    from slrsfs_tpu_torch.config import Options
+    from slrsfs_tpu_torch.models import baseline as base_mod
+    from slrsfs_tpu_torch.models import slr as slr_mod
+
+    t0 = time.perf_counter()
+    slr_type = SLR_OPTS["model_type"]
+    res = {"bf16": bf16_step_case(
+        dev, "bf16 stage-1 step", lambda B: Options(W=W, batch_size=B,
+                                                    train_compute_dtype="bfloat16"),
+        make_train_batch, base_mod, f"stage 1, C={TRAIN_C}")}
+    res["bf16_slr"] = bf16_step_case(
+        dev, f"bf16 SLR stage-3 step (C={SLR_TRAIN_C})",
+        lambda B: Options(W=W, batch_size=B, model_type=slr_type,
+                          train_compute_dtype="bfloat16", **stage_options(slr_type)),
+        make_slr_batch, slr_mod, f"SLR stage 3, C={SLR_TRAIN_C}")
+    res["accum"] = accumulation_case(dev)
+    res.update(origin_and_style_case(dev))
+    res["cli"] = resume_chain_case(dev, os.path.join(OUT_DIR, "train_data"))
+    b16, s16 = res["bf16"], res["bf16_slr"]
+    print(f"phase 23 the rest of training in {time.perf_counter() - t0:.1f} s: bf16 stage 1 "
+          f"{b16['step_ms']:.1f} ms = {TRAIN_B / b16['step_ms'] * 1e3:.2f} samples/s (peak "
+          f"{b16['peak'] / 2**30:.2f} GiB), bf16 SLR {s16['step_ms']:.1f} ms = "
+          f"{TRAIN_B / s16['step_ms'] * 1e3:.2f} samples/s (peak {s16['peak'] / 2**30:.2f} "
+          f"GiB); origin-D motion GAN {res['origin']['step_ms']:.1f} ms; style + ff mask "
+          f"{res['style']['step_ms']:.1f} ms; all checks passed")
+    torch.cuda.empty_cache()
+    return res
 
 # ---- crop decode at full width, the scene sweep, stages and a trace ------
 
@@ -3695,11 +4188,17 @@ def stages_phase(crop: dict):
     t_softmax_splating, t_decoder), each > 0. A profile's stages are those
     of its fastest pass (JAX's ``stage_profile`` takes the fastest too),
     and one f32 768² render varies from pass to pass by up to ~10 %, so
-    each profile is held to the fastest render of the same kind: the full stages' sum
-    within 10 % of phase 12's fastest float32 no-crop run, the crop stages'
-    within 10 % of its fastest crop run. The CLI render's own time (its
-    ``frames`` call, a crop render, timed here) is printed beside them.
-    Then one crop render under
+    each profile is held to the fastest render of the same kind timed
+    beside it: the full stages' sum within 10 % of the faster of two
+    float32 no-crop renders just before the CLI call (the CLI profiles the
+    full rollout first), the crop stages' within 10 % of the faster of the
+    CLI's own render (its ``frames`` call, a crop render right after the
+    crop profile, timed here) and one crop render just after it. The card's
+    clock drifts over a minute of f32 work (on NVIDIA H100 80GB HBM3
+    cards at 700 W phase 12's fastest crop run measured 2177 ms in one run
+    of this script and 2402 ms in another, and a crop profile once came out
+    13 % above it), so phase 12's fastest runs, a sweep earlier, are only
+    printed beside them. Then one crop render under
     ``engine/profiler.py:profile_trace``: the device's busy share of the
     traced render (``tools/trace_busy.py``: the union of its kernel, copy
     and memset intervals over the render's span, beside the sum of their
@@ -3729,6 +4228,24 @@ def stages_phase(crop: dict):
         own.append(time.perf_counter() - t0)
         return out
 
+    rend = crop["renderer"]
+
+    def beside(mode: str, reps: int) -> list:
+        """Seconds of ``reps`` float32 renders of the scene in ``mode``; the
+        renderer is warm from phase 12."""
+        rend.crop_decode = mode
+        ts = []
+        with no_gc():
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rend.frames(img, flow_np)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+        rend.crop_decode = "auto"
+        return ts
+
+    full_beside = beside("off", 2)
     render_cli.SceneRenderer.frames = timed_frames
     try:
         with no_gc():
@@ -3741,32 +4258,34 @@ def stages_phase(crop: dict):
     del r
     check(st is not None and st["crop"] is not None, f"stage profiles {st}")
     check(len(own) == 1, f"the CLI rendered {len(own)} times")
-    refs = {"full": (crop["fastest_ms"]["baseline float32 no-crop"] / 1e3,
-                     "phase 12's fastest float32 no-crop run"),
-            "crop": (crop["fastest_ms"]["baseline float32 crop"] / 1e3,
-                     "phase 12's fastest float32 crop run")}
+    crop_beside = own + beside("auto", 1)
+    refs = {"full": (min(full_beside), "the faster of 2 no-crop renders just before",
+                     crop["fastest_ms"]["baseline float32 no-crop"]),
+            "crop": (min(crop_beside), "the faster of the CLI's render and 1 crop "
+                     "render just after", crop["fastest_ms"]["baseline float32 crop"])}
     names = ("t_encoder", "t_euler_integration", "t_softmax_splating", "t_decoder")
     for kind in ("full", "crop"):
         s = st[kind]
         total = sum(s[k] for k in names)
-        ref, what = refs[kind]
+        ref, what, p12_ms = refs[kind]
+        runs = full_beside if kind == "full" else crop_beside
         print(f"phase 14 {kind} stages (--profile-stages, {CROP_W}^2 float32): "
               + ", ".join(f"{k} {s[k] * 1e3:.2f} ms" for k in names)
               + f"; sum {total * 1e3:.1f} ms, profiled pass {s['total'] * 1e3:.1f} ms, "
-              f"{what} {ref * 1e3:.1f} ms ({100.0 * (total / ref - 1.0):+.1f} %)"
-              + (f"; the CLI render's own time {own[0] * 1e3:.1f} ms" if kind == "crop"
-                 else ""))
+              f"{what} {ref * 1e3:.1f} ms ({100.0 * (total / ref - 1.0):+.1f} %; runs "
+              f"{[round(x * 1e3, 1) for x in runs]} ms); phase 12's fastest float32 "
+              f"{'no-crop' if kind == 'full' else 'crop'} run {p12_ms:.1f} ms "
+              f"({100.0 * (total / (p12_ms / 1e3) - 1.0):+.1f} %, printed only)")
         check(all(s[k] > 0 for k in names), f"{kind} stages not all > 0: {s}")
         check(abs(total / ref - 1.0) <= 0.10, f"{kind} stages sum {total} s, "
               f"{what} {ref} s: more than 10 % apart")
 
-    r = crop["renderer"]
     trace_dir = os.path.join(OUT_DIR, "trace")
-    r.frames(img, flow_np)
+    rend.frames(img, flow_np)
     torch.cuda.synchronize()
     with profile_trace(trace_dir):
         with torch.profiler.record_function(trace_busy.SPAN):
-            r.frames(img, flow_np)
+            rend.frames(img, flow_np)
             torch.cuda.synchronize()
     busy = trace_busy.device_busy(
         trace_busy.load_events(os.path.join(trace_dir, "trace.json")), trace_busy.SPAN)
@@ -4567,6 +5086,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     stage_chains_phase(scene_dir, img_path, flow_path)
 
+    # ---- phase 23: the rest of training ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    rest = rest_of_training_phase(dev)
+
     # ---- phase 22: summary -------------------------------------------
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd, lib_ms):
         return {"name": name, "route": "cuda", "source": source,
@@ -4655,6 +5179,14 @@ def main() -> int:
             "slrsfs_tpu_torch/csrc/euler_phased.cu", "slrsfs_tpu/ops/euler.py:249",
             jt["launches"]["euler_phased"], jt["k7"]["err"], jt["k7"]["ms"],
             jt["k7"]["plain_ms"], jt["k7"]["bound"], None),
+        *[row(f"splat_dense_{d}_bf16 ({label})", "slrsfs_tpu_torch/csrc/splat_dense.cu",
+              f"slrsfs_tpu/ops/splat.py:{79 if d == 'fwd' else 111}",
+              r["launches"][f"splat_dense_{d}_bf16"], r["k3"][f"{d}_err"], r["k3"][d]["ms"],
+              r["k3"][f"plain_{d}"], r["k3"][f"bound_{d}"],
+              r["k3"]["lib_fwd"] if d == "fwd" else None)
+          for label, r in ((f"bf16 stage 1, C={TRAIN_C}", rest["bf16"]),
+                           (f"bf16 SLR stage 3, C={SLR_TRAIN_C}", rest["bf16_slr"]))
+          for d in ("fwd", "bwd")],
         row("fused_conv3x3_relu_conv3x3", "slrsfs_tpu_torch/csrc/fused_conv.cu",
             "tools/pallas_conv_prototype.py:118", k9["launches"], k9["err"],
             k9["ms"], k9["plain_ms"], k9["bound"], k9["lib_ms"]),

@@ -19,11 +19,28 @@ shipped stage of the reference (JAX ``build`` :145-176):
   (``train_animating_motion_IGANonly.py``), whose gradient reaches the
   regressor through K7's backward.
 
-Epochs of ``--steps-per-epoch`` G+D steps, a validation pass on the
-validation split after each, scalars as JSON lines in
-``<out>/scalars.jsonl``, and a reference-style checkpoint
-``<out>/checkpoint.pth`` after each epoch (the port's and the JAX package's
-loaders read it).
+Epochs of ``--steps-per-epoch`` G+D steps (each over
+``--num-accumulations`` micro-batches), a validation pass on the validation
+split after each, scalars as JSON lines in ``<out>/scalars.jsonl``, the
+validation prediction's images as PNG grids under ``<out>/images/``, and a
+reference-style checkpoint ``<out>/checkpoint.pth`` after each epoch (the
+port's and the JAX package's loaders read it). It is also the resume file:
+both Adam states in torch Adam's layout (``optimizerG``, ``optimizerD``;
+the JAX ``import_optimizer_states`` reads them), the update count, the
+BN-noise generator's state, the epoch, the best validation Perceptual loss
+and the validation means. ``checkpoint_best.pth`` is the epoch with the
+lowest validation Perceptual loss (Total Loss without one), copied to
+``checkpoint_best{epoch}.pth`` every 25 epochs from epoch 50
+(train_animating.py:350-359).
+
+Preemption (train_animating.py:27-83): SIGUSR1 sets a flag polled every
+step; the run then saves the resume file at epoch - 1 (the interrupted
+epoch runs again on resume, from the saved weights, optimizer states and
+count), runs ``scontrol requeue $SLURM_JOB_ID`` when ``SLURM_JOB_ID`` is
+set and ``SLURM_PROCID`` is 0, and exits. ``--resume`` continues from
+``<out>/checkpoint.pth`` when it holds the resume metadata, at its epoch +
+1, with the best value restored. A finished run writes ``<out>/HALT``; a
+run that finds it returns at once.
 
     python -m slrsfs_tpu_torch.cli.train --data-root DATA --out RUNDIR \\
         [--device cpu] ...
@@ -36,17 +53,19 @@ loaders read it).
         --init-from STAGE1.pth --init-motion-from MOTION.pth
     python -m slrsfs_tpu_torch.cli.train ... --embed-motion --init-from FIXMOTION.pth
 
-``--init-from`` takes G (and D, and the perceptual loss's VGG19 when the
-checkpoint holds them) from a reference-style checkpoint; for stage 3
+``--init-from`` takes G (and D, the perceptual loss's VGG19 and both Adam
+states with the update count when the checkpoint holds them) from a
+reference-style checkpoint; for stage 3
 ``--init-bg-from`` overlays a stage-2 checkpoint's ``net_bg`` and the alpha
 nets keep their seeded initial weights; for the embedded-motion stages
 ``--init-motion-from`` overlays a motion checkpoint's regressor, which
 otherwise comes from ``--init-from`` when it holds one and keeps its seeded
 initial weights when not.
 
-Resume, preemption, accumulation, bf16, the pix2pixHDorigin discriminator
-and the free-form mask are not ported yet (ROADMAP §1,
-"The rest of training").
+``--train-compute-dtype bfloat16`` runs G in bf16 (engine/trainer.py); with
+``--embed-motion`` it is not ported yet
+(ROADMAP §1, "The rest of training"). ``--random-ff-mask`` adds the
+free-form occlusion mask to the training batches (data/augment.py).
 """
 
 from __future__ import annotations
@@ -54,6 +73,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import signal
+import subprocess
+import sys
 import time
 from typing import Dict, Optional
 
@@ -73,6 +96,86 @@ DEFAULT_DATASETS = {MODEL_TYPE: "eulerian_data",
 # the embedded-motion stages train on the precomputed sparse hints
 # (train_animating_scripts/train_animating_fixedMotion_*.sh:16)
 EMBEDDED_DATASET = "eulerian_data_hint"
+
+
+_SIGNAL_RECEIVED = False
+
+
+def _handle_preempt(signum, frame):
+    global _SIGNAL_RECEIVED
+    _SIGNAL_RECEIVED = True
+    print("preemption signal received; will checkpoint and requeue", file=sys.stderr,
+          flush=True)
+
+
+def trigger_job_requeue() -> None:
+    """``scontrol requeue $SLURM_JOB_ID`` from rank 0 of a SLURM job
+    (reference train_animating.py:49-75); nothing outside one."""
+    job_id = os.environ.get("SLURM_JOB_ID")
+    if job_id and os.environ.get("SLURM_PROCID", "0") == "0":
+        subprocess.run(["scontrol", "requeue", job_id], check=False)
+
+
+RESUME_KEYS = ("optimizerG", "step", "epoch", "best_perceptual")
+
+
+def load_resume(path: str, model, trainer) -> Optional[Dict]:
+    """Restore a run from the resume file ``path`` (``save_checkpoint`` with
+    the trainer): G and D weights and buffers, both Adam states and the
+    count, the noise generator's state. Returns its metadata (epoch,
+    best_perceptual, ...), or None when the file is missing or is not a
+    resume file (weights only)."""
+    from slrsfs_tpu_torch.io.checkpoint import load_trainer_adam_states
+
+    if not os.path.exists(path):
+        return None
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if not all(k in ckpt for k in RESUME_KEYS):
+        return None
+    sd = ckpt["state_dict"]
+    g_head, d_head = "model.module.", "netD.netD."
+    model.load_state_dict({k[len(g_head):]: v for k, v in sd.items()
+                           if k.startswith(g_head)})
+    trainer.d_model.load_state_dict({k[len(d_head):]: v for k, v in sd.items()
+                                     if k.startswith(d_head)})
+    load_trainer_adam_states(trainer, ckpt)
+    if "noise_state" in ckpt:
+        trainer.noise.set_state(ckpt["noise_state"].to(trainer.noise.get_state().device))
+    return {k: v for k, v in ckpt.items()
+            if k not in ("state_dict", "opts", "optimizerG", "optimizerD", "noise_state")}
+
+
+def image_grids(pred: Dict, normalize_image: bool = True, n: int = 4) -> Dict:
+    """The validation prediction's images (reference train_animating.py:
+    101-138): each 4-D entry with 1 to 3 channels as one uint8 (h, n·w, 3)
+    row of its first ``n`` samples; 2-channel flows through
+    ``utils/flow_viz.py:flow_to_image``, images ("Img" in the key) mapped
+    from [-1, 1] when ``normalize_image``, everything clipped to [0, 1]."""
+    from slrsfs_tpu_torch.utils.flow_viz import flow_to_image
+
+    out = {}
+    for k, v in pred.items():
+        if not torch.is_tensor(v) or v.ndim != 4 or v.shape[-1] not in (1, 2, 3):
+            continue
+        tiles = []
+        for a in v[:n].detach().float().cpu().numpy():
+            if a.shape[-1] == 2:
+                a = flow_to_image(a).astype(np.float32) / 255.0
+            elif normalize_image and "Img" in k:
+                a = a * 0.5 + 0.5
+            if a.shape[-1] == 1:
+                a = np.repeat(a, 3, axis=-1)
+            tiles.append(np.clip(a, 0.0, 1.0))
+        out[k] = (np.concatenate(tiles, axis=1) * 255.0 + 0.5).astype(np.uint8)
+    return out
+
+
+def write_image_grids(out_dir: str, epoch: int, pred: Dict, normalize_image: bool) -> None:
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    for k, grid in image_grids(pred, normalize_image).items():
+        Image.fromarray(grid).save(os.path.join(out_dir, f"epoch{epoch:04d}_{k}.png"))
 
 
 def default_dataset(model_type: str, embed_motion: bool = False) -> str:
@@ -183,7 +286,7 @@ def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,
     ``opt.train_motion`` (``BaselineMotionTrainable`` with
     ``baseline_motion_extra_losses``), else stage 1
     (``BaselineTrainable``). An unknown model type is a ``ValueError``."""
-    from slrsfs_tpu_torch.engine.trainer import Trainer
+    from slrsfs_tpu_torch.engine.trainer import Trainer, make_discriminator
     from slrsfs_tpu_torch.models.baseline import (
         BaselineMotionTrainable,
         BaselineTrainable,
@@ -196,8 +299,6 @@ def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,
         SLRTrainable,
         slr_extra_losses,
     )
-    from slrsfs_tpu_torch.nn.discriminators import MultiscaleDiscriminator
-
     if opt.model_type not in MODEL_TYPES:
         raise ValueError(f"unknown model_type {opt.model_type!r}: the train CLI "
                          f"builds {', '.join(MODEL_TYPES)}")
@@ -215,7 +316,7 @@ def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,
     else:
         model = BaselineTrainable(opt, train_max_steps=train_max_steps)
     init_random_weights(model, seed)
-    d_model = MultiscaleDiscriminator(opt, in_channels=d_in)
+    d_model = make_discriminator(opt, d_in)
     init_random_weights(d_model, seed + 1)
     trainer = Trainer(opt, model, steps_per_epoch=steps_per_epoch, vgg=vgg,
                       d_model=d_model, seed=seed, device=device,
@@ -233,7 +334,12 @@ def warm_start(model, trainer, init_from: str, init_bg_from: str = None,
     and leaves the alpha nets at their initial weights; the embedded-motion
     stages merge the motion checkpoint's regressor and load by
     ``load_embedded_baseline``; a motion regressor loads the
-    ``motion_predictor.*`` keys of a motion or embedded checkpoint."""
+    ``motion_predictor.*`` keys of a motion or embedded checkpoint. A
+    checkpoint with ``optimizerG`` (a resume file of this CLI or of the
+    reference) also restores both Adam states and the update count (JAX
+    :426-441); one whose states do not fit the model is skipped with a
+    message, as in JAX: both Adam states stay as they were and the
+    weights stay loaded."""
     from slrsfs_tpu_torch.io.checkpoint import (
         clean_state_dict,
         import_vgg_from_checkpoint,
@@ -249,7 +355,8 @@ def warm_start(model, trainer, init_from: str, init_bg_from: str = None,
         return ckpt.get("state_dict", ckpt)
 
     opt = model.opt
-    sd = state_dict(init_from)
+    ckpt = torch.load(init_from, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt)
     if opt.model_type == SLR_MODEL_TYPE:
         sd = merge_stage3_state_dict(
             sd, state_dict(init_bg_from) if init_bg_from else None)
@@ -273,6 +380,14 @@ def warm_start(model, trainer, init_from: str, init_bg_from: str = None,
     if vgg is not None and trainer.vgg is not None:
         trainer.vgg.load_state_dict(vgg)
         print("harvested the pretrained VGG19 from the init checkpoint", flush=True)
+    if "optimizerG" in ckpt:
+        from slrsfs_tpu_torch.io.checkpoint import load_trainer_adam_states
+
+        try:
+            count = load_trainer_adam_states(trainer, ckpt)
+            print(f"restored torch Adam states (step {count})", flush=True)
+        except (KeyError, ValueError) as e:  # the weights alone still help
+            print(f"optimizer-state import skipped: {e}", flush=True)
 
 
 def main(argv=None):
@@ -330,6 +445,23 @@ def main(argv=None):
                         "0.5/train_max_steps; 0 disables")
     p.add_argument("--train-max-steps", type=int, default=60,
                    help="bound on the per-sample Euler steps (T)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from <out>/checkpoint.pth (weights, both Adam "
+                        "states and the count, epoch + 1, the best value)")
+    p.add_argument("--random-ff-mask", action="store_true",
+                   help="free-form occlusion augmentation (reference --random_ff_mask)")
+    p.add_argument("--random-ff-mask-rate", type=float, default=0.5)
+    p.add_argument("--num-accumulations", type=int, default=1,
+                   help="micro-batches per optimizer step (reference "
+                        "base_model.py:95-163)")
+    p.add_argument("--accum-scale", choices=["mean", "reference"], default="mean",
+                   help="'mean' averages the micro-batches' gradients; 'reference' "
+                        "repeats the reference's loss/weight quirk (the summed "
+                        "gradients times num_accumulations)")
+    p.add_argument("--train-compute-dtype", choices=["float32", "bfloat16"],
+                   default="float32",
+                   help="G's forward and backward dtype: 'bfloat16' keeps float32 "
+                        "parameters, Adam states and losses")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain path")
     # architecture overrides (reference --refine_model_type etc.)
@@ -360,6 +492,11 @@ def main(argv=None):
                   batch_size=a.batch_size, W=a.W, ngf=a.ngf, niter=a.niter,
                   niter_decay=a.niter_decay, lr_g=a.lr_g, lr_d=a.lr_d,
                   seed=a.seed, freeze_motion=a.freeze_motion,
+                  random_ff_mask=a.random_ff_mask,
+                  random_ff_mask_rate=a.random_ff_mask_rate,
+                  num_accumulations=a.num_accumulations,
+                  accum_scale=a.accum_scale,
+                  train_compute_dtype=a.train_compute_dtype,
                   **stage_options(a.model_type, a.embed_motion))
     if a.motion_losses:
         opt = opt.replace(motion_losses=tuple(a.motion_losses))
@@ -372,6 +509,14 @@ def main(argv=None):
     os.makedirs(a.out, exist_ok=True)
     with open(os.path.join(a.out, "options.json"), "w") as f:
         f.write(opt.to_json())
+    halt_file = os.path.join(a.out, "HALT")
+    ckpt_path = os.path.join(a.out, "checkpoint.pth")
+    if os.path.exists(halt_file):
+        print("HALT marker present; training already finished", flush=True)
+        return ckpt_path
+    global _SIGNAL_RECEIVED
+    _SIGNAL_RECEIVED = False
+    signal.signal(signal.SIGUSR1, _handle_preempt)
 
     vgg = None
     if a.vgg_pth:
@@ -380,7 +525,13 @@ def main(argv=None):
             torch.load(a.vgg_pth, map_location="cpu", weights_only=False)))
     model, trainer = build(opt, a.train_max_steps, a.device, a.seed,
                            a.steps_per_epoch, vgg)
-    if a.init_from:
+    start_epoch, best = 0, float("inf")
+    meta = load_resume(ckpt_path, model, trainer) if a.resume else None
+    if meta is not None:
+        start_epoch, best = meta["epoch"] + 1, meta["best_perceptual"]
+        print(f"resumed from epoch {meta['epoch']} (step {trainer.step_count})",
+              flush=True)
+    elif a.init_from:
         warm_start(model, trainer, a.init_from, a.init_bg_from, a.init_motion_from)
 
     dataset = get_dataset(opt, a.data_root, split="train", seed=a.seed)
@@ -394,27 +545,50 @@ def main(argv=None):
         eps = 0.5 / a.train_max_steps if sparse else 0.0
     mov_state: Dict = {}
     dev = trainer.device
+    accum = opt.num_accumulations
     log_path = os.path.join(a.out, "scalars.jsonl")
-    ckpt_path = os.path.join(a.out, "checkpoint.pth")
+    best_path = os.path.join(a.out, "checkpoint_best.pth")
+
+    def micro_batches(stream):
+        """The batch stream grouped into steps of ``accum`` micro-batches
+        (JAX :472-484)."""
+        group = []
+        for b in stream:
+            if sparse:
+                b = attach_moving_sets(b, state=mov_state, eps=eps,
+                                       n_steps=a.train_max_steps)
+            group.append(to_device_batch(b, dev))
+            if len(group) == accum:
+                yield group if accum > 1 else group[0]
+                group = []
+
+    def save(path, epoch, **extra):
+        save_checkpoint(path, model, trainer.d_model, opt, epoch=epoch, trainer=trainer,
+                        meta={"best_perceptual": best, **extra})
+
     with open(log_path, "a") as log:
-        for epoch in range(a.niter + a.niter_decay):
+        for epoch in range(start_epoch, a.niter + a.niter_decay):
             dataset.totrain(epoch)
             t0 = time.time()
-            for it, batch in enumerate(dataset.batches(
-                    a.batch_size, num_batches=a.steps_per_epoch)):
-                if sparse:
-                    batch = attach_moving_sets(batch, state=mov_state, eps=eps,
-                                               n_steps=a.train_max_steps)
-                logs = trainer.train_step(to_device_batch(batch, dev))
+            for it, batch in enumerate(micro_batches(dataset.batches(
+                    a.batch_size, num_batches=a.steps_per_epoch * accum))):
+                logs = trainer.train_step(batch)
                 row = {k: float(v) for k, v in logs.items()}
                 log.write(json.dumps({"split": "train", "epoch": epoch,
                                       "step": trainer.step_count, **row}) + "\n")
+                log.flush()
                 if it % 100 == 0:
                     print(f"epoch {epoch} it {it}: " + " ".join(
                         f"{k}={row[k]:.4f}" for k in
                         ("Total Loss", "L1", "Perceptual", "psnr", "GAN",
                          "L1_bg", "EndPointError")
                         if k in row), flush=True)
+                if _SIGNAL_RECEIVED:
+                    save(ckpt_path, epoch - 1)
+                    print(f"preempted in epoch {epoch} at step {trainer.step_count}; "
+                          f"saved {ckpt_path}", flush=True)
+                    trigger_job_requeue()
+                    return ckpt_path
             dataset.toval(epoch)
             val: Dict = {}
             for batch in dataset.batches(a.batch_size, num_batches=a.val_steps):
@@ -424,9 +598,23 @@ def main(argv=None):
             log.write(json.dumps({"split": "val", "epoch": epoch,
                                   "step": trainer.step_count, **val_means}) + "\n")
             log.flush()
-            save_checkpoint(ckpt_path, model, trainer.d_model, opt, epoch=epoch)
+            write_image_grids(os.path.join(a.out, "images"), epoch, trainer.last_pred,
+                              opt.normalize_image)
+            perceptual = val_means.get("Perceptual", val_means.get("Total Loss", 0.0))
+            improved = perceptual < best
+            best = min(best, perceptual)
+            save(ckpt_path, epoch, val=val_means)
+            if improved:
+                shutil.copyfile(ckpt_path, best_path)
+            if epoch % 25 == 0 and epoch >= 50 and os.path.exists(best_path):
+                # an epoch-numbered copy of the best so far, so that a late
+                # regression cannot overwrite the only good weights
+                # (train_animating.py:357-359)
+                shutil.copyfile(best_path, os.path.join(a.out, f"checkpoint_best{epoch}.pth"))
             print(f"epoch {epoch} done in {time.time() - t0:.0f}s; val "
                   f"{val_means}; saved {ckpt_path}", flush=True)
+    with open(halt_file, "w") as f:
+        f.write("done")
     return ckpt_path
 
 

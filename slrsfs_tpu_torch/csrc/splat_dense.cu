@@ -58,9 +58,31 @@
 // the corners in the order NW, NE, SW, SE, as the plain version does (bit
 // for bit); the inner products are summed in another order, within 1e-5
 // of each output's max. An out-of-grid corner reads 0.
+//
+// bf16 mode (inp bf16, flow f32: the bf16 training step's features,
+// slrsfs_tpu/engine/trainer.py:197-236). The forward sums in bf16 in the
+// JAX quad layout's grouping, as K2's bf16 mode does (splat_quarters.cuh):
+// each corner weight is computed in f32 (0 off the grid) and rounded to
+// bf16, each weighted channel (the exact f32 product of two bf16 values)
+// rounded to bf16 and added into its corner's bf16 quarter of the cell by
+// red.global.add.noftz.v4.bf16x2, 8 channels at a time, a thread per 8
+// channels of a pixel; the epilogue writes NW + NE + SW + SE, each add
+// rounded to bf16. The wrapper allocates the (B * H * W, 4, C8) bf16
+// quarters, C8 = C rounded up to a multiple of 8 (604 MB at B = 16, 256^2,
+// C = 65 or 67). The atomic order varies, so the result agrees with the
+// plain version (one index_add_ in row order) within the bf16 rounding of
+// each cell's terms, not bit for bit. The backward is a plain gather, a
+// warp per pixel, lanes over channels, with no staging: it reads the bf16
+// inp row and the four corners' bf16 g rows, sums grad_inp (corners in
+// the order NW, NE, SW, SE, as the plain version: bit for bit after the
+// rounding to bf16) and the four inner products in f32, stores grad_inp
+// in bf16 and grad_flow in f32. Bytes bound both: at (16, 256, 256, 65)
+// the forward reads 136 + 8 MB and writes 136 MB, the backward reads
+// 280 MB and writes 144 MB.
 
 #include <cuda_runtime.h>
 
+#include "splat_quarters.cuh"
 #include "splat_window.cuh"
 
 // The tile of a unit of splat_window::scatter.
@@ -538,4 +560,186 @@ extern "C" int splat_dense_bwd_smem_most(void) {
       cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
     return -1;
   return most;
+}
+
+// ---- bf16 mode ------------------------------------------------------------
+
+constexpr int kBf16Threads = 256;
+
+// quarters (B * H * W, 4, C8) bf16, zeroed, += the splat of inp (B, H, W, C)
+// bf16 by flow: corner k of pixel p into quarter k of its cell (cells
+// numbered over the batch). blockDim.x / n pixels a block, n = C8 / 8
+// threads a pixel.
+__global__ void splat_dense_fwd_bf16_kernel(const bf16* __restrict__ inp,
+                                            const float2* __restrict__ flow,
+                                            bf16* __restrict__ quarters, int B, int H, int W,
+                                            int C) {
+  __shared__ int s_cell[kBf16Threads][4];  // -1: corner off the grid
+  __shared__ float s_w[kBf16Threads][4];   // the weight rounded to bf16
+  const int C8 = quarter_stride(C);
+  const int n = C8 >> 3;
+  const int per_block = blockDim.x / n;
+  const long long HW = (long long)H * W;
+  const long long total = (long long)B * HW;
+  const long long pix0 = (long long)blockIdx.x * per_block;
+  if (threadIdx.x < per_block) {
+    const long long p = pix0 + threadIdx.x;
+    int cell[4] = {-1, -1, -1, -1};
+    float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (p < total) {
+      const int b = (int)(p / HW);
+      const int rem = (int)(p - (long long)b * HW);
+      const int y = rem / W, x = rem - (rem / W) * W;
+      const float2 f = flow[p];
+      const float ox = (float)x + f.x;
+      const float oy = (float)y + f.y;
+      const float x0f = floorf(ox);
+      const float y0f = floorf(oy);
+      const float dx = ox - x0f;
+      const float dy = oy - y0f;
+      const int ix = (int)x0f, iy = (int)y0f;
+      const float ws[4] = {(1.0f - dx) * (1.0f - dy), dx * (1.0f - dy), (1.0f - dx) * dy,
+                           dx * dy};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int cx = ix + (k & 1), cy = iy + (k >> 1);
+        if (cx >= 0 && cx < W && cy >= 0 && cy < H) {
+          cell[k] = b * (int)HW + cy * W + cx;
+          w[k] = __bfloat162float(__float2bfloat16_rn(ws[k]));
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      s_cell[threadIdx.x][k] = cell[k];
+      s_w[threadIdx.x][k] = w[k];
+    }
+  }
+  __syncthreads();
+  const int r = threadIdx.x / n;
+  const int j = threadIdx.x - r * n;
+  const long long p = pix0 + r;
+  if (r >= per_block || p >= total) return;
+  const bf16* row = inp + p * C + 8 * j;
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = 8 * j + e < C ? __bfloat162float(row[e]) : 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int cell = s_cell[r][k];
+    if (cell < 0) continue;
+    const float w = s_w[r][k];
+    uint32_t packed[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) packed[m] = pack_bf16x2(v[2 * m] * w, v[2 * m + 1] * w);
+    red_add_bf16x8(quarters + ((size_t)cell * 4 + k) * C8 + 8 * j, packed);
+  }
+}
+
+// inp (B, H, W, C) bf16, flow (B, H, W, 2) f32, quarters (B * H * W, 4, C8)
+// bf16 scratch, 16-byte aligned; writes the splat to out (B, H, W, C) bf16:
+// the quarters zeroed, the scatter, the epilogue. C <= 2048 and
+// B * H * W < 2^31 (the wrapper checks both).
+extern "C" int splat_dense_fwd_bf16(const void* inp, const void* flow, void* quarters,
+                                    void* out, int B, int H, int W, int C, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long pixels = (long long)B * H * W;
+  if (pixels == 0 || C == 0) return (int)cudaGetLastError();
+  const int C8 = quarter_stride(C);
+  const int n = C8 >> 3;
+  if (n > kBf16Threads || pixels > INT_MAX || H >= 32768 || W >= 32768)
+    return (int)cudaErrorInvalidValue;
+  const int per_block = kBf16Threads / n;
+  cudaError_t err = cudaMemsetAsync(quarters, 0, (size_t)pixels * 4 * C8 * sizeof(bf16), s);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((pixels + per_block - 1) / per_block);
+  splat_dense_fwd_bf16_kernel<<<blocks, per_block * n, 0, s>>>(
+      (const bf16*)inp, (const float2*)flow, (bf16*)quarters, B, H, W, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = (size_t)per_block * (C8 + C + 8) * sizeof(bf16);
+  quarters_epilogue_kernel<bf16, kSum><<<blocks, per_block * n, smem, s>>>(
+      (const bf16*)quarters, nullptr, (bf16*)out, (int)pixels, C);
+  return (int)cudaGetLastError();
+}
+
+// The backward in bf16: a warp per pixel (blockDim.x / 32 pixels a block),
+// lane l over channels l, l + 32, ...; the taps operation for operation as
+// _corners and _corner_weight_grads.
+__global__ void splat_dense_bwd_bf16_kernel(const bf16* __restrict__ inp,
+                                            const float2* __restrict__ flow,
+                                            const bf16* __restrict__ g,
+                                            bf16* __restrict__ grad_inp,
+                                            float2* __restrict__ grad_flow, int B, int H, int W,
+                                            int C) {
+  const int lane = threadIdx.x & 31;
+  const long long HW = (long long)H * W;
+  const long long p = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (p >= (long long)B * HW) return;
+  const int b = (int)(p / HW);
+  const int rem = (int)(p - (long long)b * HW);
+  const int y = rem / W, x = rem - (rem / W) * W;
+  const float2 f = flow[p];
+  const float ox = (float)x + f.x;
+  const float oy = (float)y + f.y;
+  const float x0f = floorf(ox);
+  const float y0f = floorf(oy);
+  const float dx = ox - x0f;
+  const float dy = oy - y0f;
+  const int ix = (int)x0f, iy = (int)y0f;
+  const float w[4] = {(1.0f - dx) * (1.0f - dy), dx * (1.0f - dy), (1.0f - dx) * dy, dx * dy};
+  const float dwdx[4] = {-(1.0f - dy), 1.0f - dy, -dy, dy};
+  const float dwdy[4] = {-(1.0f - dx), -dx, 1.0f - dx, dx};
+  const bf16* gk[4];
+  bool hv[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int cx = ix + (k & 1), cy = iy + (k >> 1);
+    hv[k] = cx >= 0 && cx < W && cy >= 0 && cy < H;
+    gk[k] = g + ((size_t)b * HW + (hv[k] ? (size_t)cy * W + cx : 0)) * C;
+  }
+  const bf16* xr = inp + (size_t)p * C;
+  bf16* gr = grad_inp + (size_t)p * C;
+  float inner[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int c = lane; c < C; c += 32) {
+    const float xv = __bfloat162float(xr[c]);
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float gv = hv[k] ? __bfloat162float(gk[k][c]) : 0.0f;
+      acc = acc + gv * w[k];
+      inner[k] = inner[k] + xv * gv;
+    }
+    gr[c] = __float2bfloat16_rn(acc);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    for (int off = 16; off > 0; off >>= 1)
+      inner[k] += __shfl_xor_sync(0xffffffffu, inner[k], off);
+  if (lane == 0) {
+    float gx = 0.0f, gy = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      gx = gx + inner[k] * dwdx[k];
+      gy = gy + inner[k] * dwdy[k];
+    }
+    grad_flow[p] = make_float2(gx, gy);
+  }
+}
+
+// inp (B, H, W, C) bf16, flow (B, H, W, 2) f32, g (B, H, W, C) bf16; writes
+// grad_inp (B, H, W, C) bf16 and grad_flow (B, H, W, 2) f32. No shared
+// memory; B * H * W < 2^31.
+extern "C" int splat_dense_bwd_bf16(const void* inp, const void* flow, const void* g,
+                                    void* grad_inp, void* grad_flow, int B, int H, int W,
+                                    int C, void* stream) {
+  const long long pixels = (long long)B * H * W;
+  if (pixels == 0 || C == 0) return (int)cudaGetLastError();
+  if (pixels > INT_MAX || H >= 32768 || W >= 32768) return (int)cudaErrorInvalidValue;
+  const int warps = kBf16Threads / 32;
+  splat_dense_bwd_bf16_kernel<<<(unsigned)((pixels + warps - 1) / warps), kBf16Threads, 0,
+                                (cudaStream_t)stream>>>(
+      (const bf16*)inp, (const float2*)flow, (const bf16*)g, (bf16*)grad_inp,
+      (float2*)grad_flow, B, H, W, C);
+  return (int)cudaGetLastError();
 }

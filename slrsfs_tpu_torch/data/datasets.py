@@ -25,7 +25,9 @@ to W², an h-flip with the flow's x negated; the mask takes the same crop
 and flip and a nearest resize. Sampling is a pure function of (seed,
 split, epoch, index) and draws the numbers the JAX dataset draws, in its
 order. Hints (``..._sparse_motion.flo``, or synthesised) take the flow's
-crop, flip and bilinear resize.
+crop, flip and bilinear resize. With ``random_ff_mask`` a training sample
+(never a validation one) also carries ``ff_mask`` (W, W, 1), the
+free-form occlusion keep-mask of ``data/augment.py``.
 """
 
 from __future__ import annotations
@@ -66,10 +68,6 @@ class LiquidDataset:
                  rock_label_root: Optional[str] = None):
         if variant not in VARIANTS:
             raise ValueError(f"unknown dataset {variant!r}; known: {VARIANTS}")
-        if opt.random_ff_mask:
-            raise NotImplementedError(
-                "the free-form occlusion mask is not ported yet (ROADMAP §1, "
-                "\"The rest of training\")")
         self.root = root
         self.opt = opt
         self.seed = seed
@@ -181,6 +179,14 @@ class LiquidDataset:
                 hint_raw = read_flo(os.path.join(self.root, self.split,
                                                  scene + "_sparse_motion.flo"))
             item["hints"] = transform_flow(hint_raw, W, params, mode="bilinear")
+        if self.opt.random_ff_mask and not self.isval:
+            # the free-form occlusion keep-mask on the splatted features,
+            # training batches only (reference --random_ff_mask and its rate,
+            # train_options.py:569-574; JAX datasets.py:177-185)
+            from slrsfs_tpu_torch.data.augment import ff_keep_mask
+
+            item["ff_mask"] = ff_keep_mask(np.random.default_rng(rng.randint(2 ** 31)), W, W,
+                                           rate=self.opt.random_ff_mask_rate)
         return item
 
     def batches(self, batch_size: int, num_batches: Optional[int] = None

@@ -24,8 +24,30 @@ embedded regressor's parameters stay out of G's Adam, as optax's
 ``multi_transform`` with ``set_to_zero`` leaves them; its spectral vectors
 still run their power iterations in train mode.
 
-This port supports one micro-batch per step and float32 compute; the
-reference's accumulation and the bf16 training mode raise.
+``opt.num_accumulations`` = k > 1 takes a list of k micro-batches a step
+(reference base_model.py:95-163, JAX ``make_train_step(accum)``): each
+micro-batch's G and D gradients are summed, BN statistics and spectral
+vectors carry from one micro-batch to the next (they update in place), and
+each optimizer steps once, on the sum times 1/k (``accum_scale`` 'mean') or
+times k (``'reference'``, the reference's literal loss/weight quirk); the
+logged losses are the micro-batches' means.
+
+``opt.train_compute_dtype`` 'bfloat16' runs G's forward and backward in
+bf16 (JAX ``engine/trainer.py:197-236``): G's parameters, BN statistics,
+spectral vectors and the batch's float fields except the motion (and the
+moving sets) are cast to bf16 inside the autograd graph, so the gradients
+that reach Adam are float32; the prediction is cast back to float32 before
+the losses, VGG and D, which run in float32; the updated statistics and
+vectors are stored back in float32. Every persistent tensor (parameters,
+both Adam states, statistics, vectors) stays float32. The dense splat then
+takes bf16 features and an f32 flow: K3's bf16 mode on the card. An
+embedded regressor's bf16 motion would need K7 and K3 with a bf16 flow,
+which are not ported: that combination raises.
+
+``opt.discriminator_losses`` 'pix2pixHDorigin' trains against the
+reference's instance-norm pix2pixHD discriminator (``nn/pix2pixhd.py``,
+ndf 64, 3 layers, 2 scales; JAX :78-85), which returns no intermediate
+features, so ``GAN_Feat`` is 0.
 """
 
 from __future__ import annotations
@@ -93,6 +115,36 @@ class Adam:
             p.add_(upd * -lr)
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# batch fields that stay float32 in a bf16 step: the motion (bf16 would
+# quantise the integrated pixel coordinates; JAX keeps it f32 too) and the
+# moving sets
+KEEP_F32 = ("motions", "mov_pos", "mov_valid")
+
+
+def make_discriminator(opt: Options, in_channels: int) -> nn.Module:
+    """The discriminator ``opt.discriminator_losses`` names: the reference's
+    pix2pixHD origin D for 'pix2pixHDorigin' (ndf 64, 3 layers, 2 scales,
+    reference gan_loss.py:127-144), else the spectral multiscale D."""
+    if opt.discriminator_losses == "pix2pixHDorigin":
+        from slrsfs_tpu_torch.nn.pix2pixhd import OriginMultiscaleDiscriminator
+
+        return OriginMultiscaleDiscriminator(in_channels, ndf=64, n_layers=3, num_D=2)
+    return MultiscaleDiscriminator(opt, in_channels=in_channels)
+
+
+class _ForwardTrain(nn.Module):
+    """``model.forward_train`` as a module's forward, for
+    ``torch.func.functional_call`` with substituted (bf16) tensors."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, **kw):
+        return self.model.forward_train(batch, **kw)
+
+
 def _grads(loss: Tensor, params: List[Tensor]) -> List[Tensor]:
     """d loss / d params; a parameter the loss does not reach gets zeros."""
     gs = torch.autograd.grad(loss, params, allow_unused=True)
@@ -128,17 +180,19 @@ class Trainer:
                  task: str = "synthesis"):
         if task not in self.TASKS:
             raise ValueError(f"unknown task {task!r}: one of {self.TASKS}")
-        if opt.num_accumulations != 1:
+        if opt.num_accumulations < 1:
+            raise ValueError(f"num_accumulations must be at least 1, got "
+                             f"{opt.num_accumulations}")
+        if opt.accum_scale not in ("mean", "reference"):
+            raise ValueError(f"accum_scale must be 'mean' or 'reference', got "
+                             f"{opt.accum_scale!r}")
+        if opt.train_compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"train_compute_dtype must be one of "
+                             f"{tuple(COMPUTE_DTYPES)}, got {opt.train_compute_dtype!r}")
+        if opt.train_compute_dtype == "bfloat16" and opt.train_motion:
             raise NotImplementedError(
-                "num_accumulations > 1 is not ported yet (ROADMAP §1, \"The rest "
-                "of training\")")
-        if opt.train_compute_dtype != "float32":
-            raise NotImplementedError(
-                "bfloat16 training is not ported yet (ROADMAP §1, \"The rest of "
-                "training\")")
-        if opt.discriminator_losses == "pix2pixHDorigin":
-            raise NotImplementedError(
-                "the pix2pixHDorigin discriminator is not ported yet (ROADMAP §1, "
+                "bfloat16 training with an embedded motion regressor needs K7 and "
+                "K3 with a bf16 motion, which are not ported yet (ROADMAP §1, "
                 "\"The rest of training\")")
         dev = resolve_device(device)
         self.opt = opt
@@ -150,7 +204,7 @@ class Trainer:
         self.device = dev
         self.use_discriminator = opt.discriminator_losses != "0"
         if d_model is None:
-            d_model = MultiscaleDiscriminator(opt, in_channels=2 if task == "motion" else 3)
+            d_model = make_discriminator(opt, 2 if task == "motion" else 3)
         self.d_model = d_model.to(dev)
         self.vgg = self.synth = None
         if task != "motion":  # the motion task's loss is MotionLoss alone
@@ -158,6 +212,8 @@ class Trainer:
                 vgg = init_random_vgg(VGG19Features(), seed)
             self.vgg = vgg.to(dev).requires_grad_(False)
             self.synth = SynthesisLoss(opt.losses, self.vgg)
+        self.accum = opt.num_accumulations
+        self.compute_dtype = COMPUTE_DTYPES[opt.train_compute_dtype]
         self.noise = torch.Generator(device=dev)
         self.noise.manual_seed(seed)
         frozen = "motion_regressor." if opt.freeze_motion else None
@@ -173,8 +229,10 @@ class Trainer:
         self.opt_d = Adam(self.d_params, make_lr_schedule(
             opt.lr_d, opt.niter, opt.niter_decay, steps_per_epoch),
             opt.beta1, opt.beta2)
-        # filled by each step: the G and D gradients, for checks
+        # filled by each step: the G and D gradients, for checks; by each
+        # eval_step: its prediction dict
         self.last_grads: Dict[str, List[Tensor]] = {}
+        self.last_pred: Dict[str, Tensor] = {}
 
     @property
     def step_count(self) -> int:
@@ -204,11 +262,41 @@ class Trainer:
                       "psnr": losses["psnr"], "ssim": losses["ssim"]}
         return losses
 
+    def forward_train(self, batch: Dict, plain: bool = False):
+        """G's training forward in the compute dtype: (gen_img, pred), both
+        float32. In bf16 the parameters, statistics, vectors and float batch
+        fields (not the motion or the moving sets) are cast to bf16 inside
+        the graph, and the statistics and vectors the forward updated are
+        stored back in float32."""
+        if self.compute_dtype == torch.float32:
+            return self.model.forward_train(batch, train=True,
+                                            deterministic=self.deterministic,
+                                            noise=self.noise, plain=plain)
+        cd = self.compute_dtype
+
+        def cast(v):
+            if isinstance(v, (list, tuple)):
+                return [cast(x) for x in v]
+            return v.to(cd) if torch.is_floating_point(v) else v
+
+        state = {n: p.to(cd) for n, p in self.model.named_parameters()}
+        buffers = {n: cast(b) for n, b in self.model.named_buffers()}
+        state.update(buffers)
+        batch_c = {k: v if k in KEEP_F32 else cast(v) for k, v in batch.items()}
+        gen_img, pred = torch.func.functional_call(
+            _ForwardTrain(self.model), {"model." + n: t for n, t in state.items()},
+            (batch_c,), dict(train=True, deterministic=self.deterministic,
+                             noise=self.noise, plain=plain))
+        with torch.no_grad():
+            for n, b in self.model.named_buffers():
+                b.copy_(buffers[n])
+        f32 = torch.float32
+        return gen_img.to(f32), {k: v.to(f32) if torch.is_floating_point(v) else v
+                                 for k, v in pred.items()}
+
     def g_losses(self, batch: Dict, plain: bool = False):
         """Generator forward and losses: (total, logs, gen_img)."""
-        gen_img, pred = self.model.forward_train(
-            batch, train=True, deterministic=self.deterministic,
-            noise=self.noise, plain=plain)
+        gen_img, pred = self.forward_train(batch, plain)
         middle = self.target(batch)
         losses = self.recon_losses(gen_img, middle)
         total = losses["Total Loss"]
@@ -228,35 +316,57 @@ class Trainer:
         logs["Total Loss"] = total
         return total, logs, gen_img
 
-    def train_step(self, batch: Dict, plain: bool = False,
+    def _micro_step(self, batch: Dict, plain: bool, mark):
+        """G and D gradients and the logs of one micro-batch."""
+        self.d_model.requires_grad_(False)
+        total, logs, gen_img = self.g_losses(batch, plain)
+        mark("G forward")
+        g_grads = _grads(total, self.g_params)
+        mark("G backward")
+        self.d_model.requires_grad_(True)
+        d_grads = None
+        if self.use_discriminator:
+            d = discriminator_losses(self.d_model, gen_img, self.target(batch),
+                                     self.opt.gan_mode, train=True)
+            d_grads = _grads(d["Total Loss"], self.d_params)
+            logs["D_Fake"], logs["D_real"] = d["D_Fake"], d["D_real"]
+            mark("D step")
+        return g_grads, d_grads, {k: v.detach() for k, v in logs.items()}
+
+    def train_step(self, batch, plain: bool = False,
                    timer: Optional[Callable[[str], None]] = None
                    ) -> Dict[str, Tensor]:
         """One optimizer step of G and D on ``batch`` (tensors on the
-        model's device). ``plain`` runs the K3/K7 plain versions. ``timer``,
+        model's device), or on a list of ``opt.num_accumulations``
+        micro-batches. ``plain`` runs the K3/K7 plain versions. ``timer``,
         when given, is called with a stage name after each stage (G forward,
-        G backward, D step, updates). Returns the logged losses, detached."""
+        G backward, D step, per micro-batch; updates). Returns the logged
+        losses, detached (with accumulation, the micro-batches' means)."""
         mark = timer or (lambda _name: None)
+        micro = list(batch) if isinstance(batch, (list, tuple)) else [batch]
+        if len(micro) != self.accum:
+            raise ValueError(f"a step takes {self.accum} micro-batches, got {len(micro)}")
         with no_tf32():
-            self.d_model.requires_grad_(False)
-            total, logs, gen_img = self.g_losses(batch, plain)
-            mark("G forward")
-            g_grads = _grads(total, self.g_params)
-            mark("G backward")
-            self.d_model.requires_grad_(True)
-            d_grads = None
-            if self.use_discriminator:
-                d = discriminator_losses(self.d_model, gen_img,
-                                         self.target(batch),
-                                         self.opt.gan_mode, train=True)
-                d_grads = _grads(d["Total Loss"], self.d_params)
-                logs["D_Fake"], logs["D_real"] = d["D_Fake"], d["D_real"]
-                mark("D step")
+            g_grads, d_grads, logs = self._micro_step(micro[0], plain, mark)
+            for b in micro[1:]:
+                g, d, l = self._micro_step(b, plain, mark)
+                g_grads = [a + x for a, x in zip(g_grads, g)]
+                if d_grads is not None:
+                    d_grads = [a + x for a, x in zip(d_grads, d)]
+                logs = {k: logs[k] + l[k] for k in logs}
+            if self.accum > 1:
+                k = float(self.accum)
+                w = k if self.opt.accum_scale == "reference" else 1.0 / k
+                g_grads = [g * w for g in g_grads]
+                if d_grads is not None:
+                    d_grads = [d * w for d in d_grads]
+                logs = {n: v * (1.0 / k) for n, v in logs.items()}
             self.opt_g.step(g_grads)
             if d_grads is not None:
                 self.opt_d.step(d_grads)
             mark("updates")
         self.last_grads = {"g": g_grads, "d": d_grads or []}
-        return {k: v.detach() for k, v in logs.items()}
+        return logs
 
     def snapshot(self) -> Dict:
         """Copies of all that a step changes: G and D weights and buffers,
@@ -284,9 +394,11 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: Dict) -> Dict[str, Tensor]:
         """Validation forward (reference base_model.py:106-116): eval-mode
-        BN and spectral weights, noise drawn unless deterministic."""
+        BN and spectral weights, noise drawn unless deterministic, in
+        float32. Keeps the prediction dict in ``last_pred`` (the CLI's
+        validation images)."""
         with no_tf32():
-            gen_img, _ = self.model.forward_train(
+            gen_img, self.last_pred = self.model.forward_train(
                 batch, train=False, deterministic=self.deterministic,
                 noise=self.noise)
             return self.recon_losses(gen_img, self.target(batch))

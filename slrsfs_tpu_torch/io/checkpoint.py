@@ -200,8 +200,126 @@ def load_checkpoint(path: str) -> Tuple[Dict, Options]:
     return clean_state_dict(sd), opt
 
 
+# ---------------------------------------------------------------------------
+# Adam states in torch.optim.Adam's state_dict layout (the resume format)
+# ---------------------------------------------------------------------------
+#
+# The reference resumes from its .pth with both optimizers' state_dicts
+# (train_animating.py:270-288). torch's Adam numbers parameters by their
+# place in ``parameters()``, which is the state_dict's order without the
+# buffers, so a checkpoint's state_dict alone gives the numbering. The JAX
+# package reads it the same way (slrsfs_tpu/io/checkpoint.py:333-344, whose
+# rule this copy repeats).
+
+BUFFER_SUFFIXES = (
+    "stored_mean", "stored_var", "accumulation_counter",
+    "weight_u", "weight_v", "num_batches_tracked",
+    "running_mean", "running_var",
+)
+
+
+def ordered_param_names(raw_sd: Mapping, prefix: str = "") -> List[str]:
+    """The parameter names of ``raw_sd`` under ``prefix`` in torch's
+    ``parameters()`` order: its keys without the buffers."""
+    return [k for k in raw_sd
+            if k.startswith(prefix) and k.split(".")[-1] not in BUFFER_SUFFIXES]
+
+
+def adam_state_dict(adam, names: List[str], numbering: List[str]) -> Dict:
+    """``torch.optim.Adam.state_dict()`` of the port's ``Adam`` (engine/
+    trainer.py) over the parameters ``names`` (``adam.params``' order):
+    ``state[i]`` = {step, exp_avg, exp_avg_sq}, i the parameter's place in
+    ``numbering`` (all of the module's parameters, as ``ordered_param_names``
+    gives them); parameters the optimizer never steps have no entry."""
+    at = {n: i for i, n in enumerate(numbering)}
+    missing = [n for n in names if n not in at]
+    if missing:
+        raise KeyError(f"Adam parameters missing from the numbering: {missing[:3]}")
+    step = torch.tensor(float(adam.count))
+    state = {at[n]: {"step": step.clone(), "exp_avg": mu.detach().cpu().clone(),
+                     "exp_avg_sq": nu.detach().cpu().clone()}
+             for n, mu, nu in zip(names, adam.mu, adam.nu)}
+    return {"state": state,
+            "param_groups": [{"lr": float(adam.schedule(adam.count)),
+                              "betas": (adam.b1, adam.b2), "eps": adam.eps,
+                              "weight_decay": 0.0, "amsgrad": False,
+                              "params": sorted(state)}]}
+
+
+def read_adam_state(adam, opt_sd: Mapping, names: List[str],
+                    numbering: List[str]) -> Tuple[List[torch.Tensor], List[torch.Tensor], int]:
+    """The moments and count that a torch Adam state_dict numbered by
+    ``numbering`` holds for the port's ``Adam`` over ``names``: new tensors
+    on the moments' device, zeros where a parameter has no entry (as the
+    JAX ``import_adam_moments`` does), the count from the entries' ``step``.
+    ``adam`` is not changed; a name outside the numbering is a ``KeyError``
+    and a shape that does not fit a ``ValueError``."""
+    state = opt_sd["state"]
+    at = {n: i for i, n in enumerate(numbering)}
+    missing = [n for n in names if n not in at]
+    if missing:
+        raise KeyError(f"Adam parameters missing from the numbering: {missing[:3]}")
+    mus, nus, count = [], [], 0
+    for n, mu, nu in zip(names, adam.mu, adam.nu):
+        ent = state.get(at[n], state.get(str(at[n])))
+        if ent is None:
+            mus.append(torch.zeros_like(mu))
+            nus.append(torch.zeros_like(nu))
+            continue
+        for out, dst, key in ((mus, mu, "exp_avg"), (nus, nu, "exp_avg_sq")):
+            src = torch.as_tensor(ent[key])
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{key} of {n}: {tuple(src.shape)}, the parameter "
+                                 f"is {tuple(dst.shape)}")
+            out.append(src.to(device=dst.device, dtype=dst.dtype, copy=True))
+        s = ent["step"]
+        count = int(s.item() if hasattr(s, "item") else s)
+    return mus, nus, count
+
+
+def trainer_adam_states(trainer) -> Dict:
+    """``optimizerG`` and ``optimizerD`` of a trainer, numbered by G's and
+    D's parameters in state_dict order (the numbering of the saved
+    ``model.module.*`` and ``netD.netD.*`` keys)."""
+    out = {}
+    for key, adam, module, names in (
+            ("optimizerG", trainer.opt_g, trainer.model, trainer.g_names),
+            ("optimizerD", trainer.opt_d, trainer.d_model,
+             [n for n, _ in trainer.d_model.named_parameters()])):
+        numbering = ordered_param_names(module.state_dict())
+        if numbering != [n for n, _ in module.named_parameters()]:
+            raise ValueError("the state_dict's keys without BUFFER_SUFFIXES are not "
+                             "the module's parameters: a buffer of another name")
+        out[key] = adam_state_dict(adam, names, numbering)
+    return out
+
+
+def load_trainer_adam_states(trainer, ckpt: Mapping) -> int:
+    """Restore both Adam states (and the counts) of a trainer from a
+    checkpoint's ``optimizerG`` (and ``optimizerD``, when present),
+    numbered by its ``state_dict``'s ``model.*`` and ``netD.netD.*`` keys
+    (the JAX ``import_optimizer_states`` rule, :408). All or nothing: both
+    states are read and checked first, and a ``KeyError`` or ``ValueError``
+    leaves the trainer as it was, as JAX keeps its state when the import
+    raises (cli/train.py:431-441). Returns G's count."""
+    raw = ckpt["state_dict"]
+    g_prefix = "model." if any(k.startswith("model.") for k in raw) else ""
+    g_num = [_strip_prefixes(k) for k in ordered_param_names(raw, g_prefix)]
+    read = [(trainer.opt_g, read_adam_state(trainer.opt_g, ckpt["optimizerG"],
+                                            trainer.g_names, g_num))]
+    if "optimizerD" in ckpt:
+        d_num = [k[len("netD.netD."):] for k in ordered_param_names(raw, "netD.netD.")]
+        read.append((trainer.opt_d, read_adam_state(
+            trainer.opt_d, ckpt["optimizerD"],
+            [n for n, _ in trainer.d_model.named_parameters()], d_num)))
+    for adam, (mus, nus, count) in read:
+        adam.mu, adam.nu, adam.count = mus, nus, count
+    return read[0][1][2]
+
+
 def save_checkpoint(path: str, G: torch.nn.Module, D: torch.nn.Module,
-                    opt: Options, epoch: int = 0) -> str:
+                    opt: Options, epoch: int = 0, trainer=None,
+                    meta: Optional[Dict] = None) -> str:
     """Write a reference-style ``.pth``: the generator's state under
     ``model.module.`` (BaseModel + DataParallel) and the discriminator's
     under ``netD.netD.``, with ``opts`` as an argparse namespace. Every
@@ -211,7 +329,13 @@ def save_checkpoint(path: str, G: torch.nn.Module, D: torch.nn.Module,
     (``net_bg.*``). The port's ``load_checkpoint`` and the JAX
     ``import_checkpoint`` (:297), ``import_embedded_baseline`` (:175) and
     ``import_discriminator`` (:227) read it. Written to a temporary file
-    and renamed, so a crash leaves the previous checkpoint."""
+    and renamed, so a crash leaves the previous checkpoint.
+
+    With ``trainer`` it is also the resume file: ``optimizerG`` and
+    ``optimizerD`` in torch Adam's layout (``trainer_adam_states``; the JAX
+    ``import_optimizer_states`` reads them), ``step`` (the update count),
+    ``noise_state`` (the BN-noise generator's state) and ``meta`` (e.g.
+    ``best_perceptual`` and the validation means) at the top level."""
     sd = {f"model.module.{k}": v.detach().cpu()
           for k, v in G.state_dict().items()}
     sd.update({f"netD.netD.{k}": v.detach().cpu()
@@ -219,7 +343,12 @@ def save_checkpoint(path: str, G: torch.nn.Module, D: torch.nn.Module,
     opts = argparse.Namespace(**{
         k: list(v) if isinstance(v, tuple) else v
         for k, v in dataclasses.asdict(opt).items()})
+    ckpt = {"state_dict": sd, "opts": opts, "epoch": epoch}
+    if trainer is not None:
+        ckpt.update(trainer_adam_states(trainer), step=trainer.step_count,
+                    noise_state=trainer.noise.get_state().cpu())
+    ckpt.update(meta or {})
     tmp = f"{path}.tmp"
-    torch.save({"state_dict": sd, "opts": opts, "epoch": epoch}, tmp)
+    torch.save(ckpt, tmp)
     os.replace(tmp, path)
     return path

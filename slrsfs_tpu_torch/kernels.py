@@ -5,15 +5,17 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root, named after its
 source and a hash of the source, the headers it includes from ``csrc/``
 (``splat_window.cuh``, the f32 window scatter of ``splat.cu`` and
-``splat_dense.cu``) and the flags, so a changed source or header never
-loads a stale build; nvcc's report (ptxas's registers and spills) is kept beside
-it and read again when a later process loads the library. Several entry
-points may share one source; it is built once: ``euler.cu`` holds K1
+``splat_dense.cu``; ``splat_quarters.cuh``, the bf16 quarters of both)
+and the flags, so a changed source or header never loads a stale build;
+nvcc's report (ptxas's registers and spills) is kept beside it and read
+again when a later process loads the library. Several entry points may
+share one source; it is built once: ``euler.cu`` holds K1
 (``euler_compact_dual``) and K4 (``euler_all``), ``splat.cu`` K2's two
 epilogues (``splat_dual_normalize``,
 ``splat_dual_normalize_slr``, f32 or bf16 accumulation) and K8
 (``splat_sum_at``), ``maxwarp.cu`` K5 (``maximum_warp_norm_sparse``) and K6
-(``maximum_warp_norm_splat``), ``splat_dense.cu`` K3's forward and backward,
+(``maximum_warp_norm_splat``), ``splat_dense.cu`` K3's forward and backward
+in float32 and in bf16 (``splat_dense_fwd_bf16``, ``splat_dense_bwd_bf16``),
 ``euler_phased.cu`` K7's forward (``euler_phased``) and backward
 (``euler_phased_bwd``);
 ``fused_conv.cu`` is K9 (``fused_conv3x3_relu_conv3x3``). Nothing is
@@ -253,6 +255,19 @@ SPLAT_DENSE_BWD = Kernel(
     # splat_dense_bwd_smem_most() the card's most a block
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 
+SPLAT_DENSE_FWD_BF16 = Kernel(
+    "splat_dense_fwd_bf16", "slrsfs_tpu_torch/csrc/splat_dense.cu",
+    "splat_dense_fwd_bf16",
+    # inp (bf16), flow, quarters (bf16 scratch), out (bf16), B, H, W, C, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+
+SPLAT_DENSE_BWD_BF16 = Kernel(
+    "splat_dense_bwd_bf16", "slrsfs_tpu_torch/csrc/splat_dense.cu",
+    "splat_dense_bwd_bf16",
+    # inp (bf16), flow, g (bf16), grad_inp (bf16), grad_flow, B, H, W, C,
+    # stream
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+
 EULER_PHASED = Kernel(
     "euler_phased", "slrsfs_tpu_torch/csrc/euler_phased.cu", "euler_phased",
     # motion, positions, valid, t_fwd, t_bwd, out_f, out_p, B, R, H, W,
@@ -274,7 +289,8 @@ FUSED_CONV = Kernel(
 
 KERNELS: List[Kernel] = [EULER, EULER_ALL, SPLAT, SPLAT_SLR, SPLAT_SUM_AT,
                          MAXWARP_SPARSE, MAXWARP_SPLAT, SPLAT_DENSE_FWD,
-                         SPLAT_DENSE_BWD, EULER_PHASED, EULER_PHASED_BWD, FUSED_CONV]
+                         SPLAT_DENSE_BWD, SPLAT_DENSE_FWD_BF16, SPLAT_DENSE_BWD_BF16,
+                         EULER_PHASED, EULER_PHASED_BWD, FUSED_CONV]
 
 
 def build_all() -> Dict[str, float]:

@@ -72,7 +72,9 @@ def generator_gan_losses(d_model, fake: Tensor, real: Tensor, gan_mode: str,
     total = out["GAN"]
     if feat_matching:
         num_d = len(pred_fake)
-        feat = 0.0
+        # 0 where the discriminator returns no intermediate features (the
+        # pix2pixHD origin D)
+        feat = fake.new_zeros(())
         for i in range(num_d):
             for j in range(len(pred_fake[i]) - 1):
                 feat = feat + F.l1_loss(pred_fake[i][j],

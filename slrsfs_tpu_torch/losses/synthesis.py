@@ -44,19 +44,38 @@ def perceptual(vgg: VGG19Features, pred: Tensor, gt: Tensor) -> Tensor:
     return loss
 
 
+def _gram(x: Tensor) -> Tensor:
+    """(B, C, C) Gram matrix of NCHW features over (C·H·W)."""
+    b, c, h, w = x.shape
+    f = x.reshape(b, c, h * w)
+    return torch.bmm(f, f.transpose(1, 2)) / (c * h * w)
+
+
+def style(vgg: VGG19Features, pred: Tensor, gt: Tensor) -> Tensor:
+    """Gram-matrix MSE over the five VGG19 slices with the perceptual
+    weights (synthesis.py:187-233); the target's Gram matrices carry no
+    gradient."""
+    pf = vgg(pred)
+    with torch.no_grad():
+        gf = vgg(gt)
+    loss = 0.0
+    for w, p, g in zip(PERCEPTUAL_WEIGHTS, pf, gf):
+        loss = loss + w * torch.mean(torch.square(_gram(p) - _gram(g).detach()))
+    return loss
+
+
 class SynthesisLoss:
-    """Combiner for '--losses λ_name' strings plus PSNR/SSIM metrics."""
+    """Combiner for '--losses λ_name' strings (l1, content, style) plus
+    PSNR/SSIM metrics."""
+
+    NAMES = ("l1", "content", "style")
 
     def __init__(self, losses: Sequence[str],
                  vgg: Optional[VGG19Features] = None, subname: str = ""):
         self.pairs: list[Tuple[float, str]] = []
         for s in losses:
             lam, name = s.split("_")
-            if name == "style":
-                raise NotImplementedError(
-                    "the style loss is not ported yet (ROADMAP §1, \"The rest "
-                    "of training\")")
-            if name not in ("l1", "content"):
+            if name not in self.NAMES:
                 raise ValueError(f"unknown synthesis loss: {name}")
             self.pairs.append((float(lam), name))
         self.vgg = vgg
@@ -69,9 +88,12 @@ class SynthesisLoss:
             if name == "l1":
                 v = l1(pred, gt)
                 out["L1" + self.subname] = v
-            else:
+            elif name == "content":
                 v = perceptual(self.vgg, pred, gt)
                 out["Perceptual" + self.subname] = v
+            else:
+                v = style(self.vgg, pred, gt)
+                out["Style" + self.subname] = v
             # reference quirk kept: the FIRST loss enters Total without its
             # lambda (synthesis.py:98-105)
             total = v if total is None else total + lam * v

@@ -197,7 +197,8 @@ class BaselineTrainable(BaselineModel):
                       plain: bool = False):
         """batch: ``images`` [start, middle, end] (B, H, W, 3), ``index``
         (B, 3) int [start, middle, end], ``motions`` (B, H, W, 2|3) f32,
-        optionally ``mov_pos``/``mov_valid``. The BN noise comes from the
+        optionally ``mov_pos``/``mov_valid`` and ``ff_mask`` (B, H, W, 1),
+        the free-form occlusion keep-mask. The BN noise comes from the
         generator ``noise`` unless ``deterministic``. ``plain`` runs the K3
         and K7 plain versions on any device. Returns (gen_img, pred)."""
         if not deterministic and noise is None:
@@ -235,9 +236,9 @@ class BaselineTrainable(BaselineModel):
              + splat(pack_splat_input(fs_e, zn_p), flow_p) * (1.0 - alpha))
         feats = g[..., :-1]
         if "ff_mask" in batch:
-            raise NotImplementedError(
-                "the free-form occlusion mask (ff_mask) is not ported yet "
-                "(ROADMAP §1, \"The rest of training\")")
+            # the free-form occlusion mask multiplies the features, not the
+            # normaliser (reference :680-692)
+            feats = feats * batch["ff_mask"]
         gen_fs = feats / torch.clamp(g[..., -1:], min=NORM_EPS)
         gen_img = self.decode(gen_fs, train, noise)
         pred = {"PredImg": gen_img, "OutputImg": middle_img, "Z_f": zn_f,

@@ -340,14 +340,11 @@ class SLRTrainable(SLRModel):
         """batch: ``images`` [start, middle, end] (B, H, W, 3), ``index``
         (B, 3) int, ``motions`` (B, H, W, 2|3) f32, ``mask_rock`` (B, H, W,
         1), ``mean_video`` (B, H, W, 3), optionally ``mov_pos`` /
-        ``mov_valid``. The BN noise comes from ``noise`` unless
+        ``mov_valid`` and ``ff_mask`` (B, H, W, 1), the free-form occlusion
+        keep-mask on the normalised features. The BN noise comes from ``noise`` unless
         ``deterministic``; ``plain`` runs the K3 and K7 plain versions.
         Returns (gen_img, pred), pred holding every tensor of the SLR loss
         set under the JAX package's keys."""
-        if "ff_mask" in batch:
-            raise NotImplementedError(
-                "the free-form occlusion mask (ff_mask) is not ported yet "
-                "(ROADMAP §1, \"The rest of training\")")
         if not deterministic and noise is None:
             raise ValueError("forward_train needs a noise generator unless "
                              "deterministic")
@@ -420,6 +417,9 @@ class SLRTrainable(SLRModel):
         g = splat(u_f, flow_f) * alpha + splat(u_p, flow_p) * (1.0 - alpha)
         alpha_fluid_mask = (g[..., -1:] > NORM_EPS).to(g.dtype).detach()
         gen_fs, alpha_fluid_warped = slr_unpack_splatted(g, use_alpha0)
+        if "ff_mask" in batch:
+            # SLR applies the occlusion mask after the normalisation (:586-594)
+            gen_fs = gen_fs * batch["ff_mask"]
 
         gen_fluid_img = self.decode_fluid(gen_fs, train, noise)
         ga_raw = self.decode_alpha(gen_fs, alpha_fluid_warped, start_img, train,

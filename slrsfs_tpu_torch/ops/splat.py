@@ -27,7 +27,9 @@ the JAX order of bf16 roundings, then the division.
 dense rollouts (K3, ``csrc/splat_dense.cu``) as a
 ``torch.autograd.Function``: on the card a scatter kernel forward and a
 gather kernel backward; on the CPU its plain versions
-``softsplat_sum_plain`` and ``softsplat_sum_grad_plain``. ``softsplat``
+``softsplat_sum_plain`` and ``softsplat_sum_grad_plain``. A bfloat16
+``inp`` (with a float32 flow, the bf16 training step) takes K3's bf16 mode:
+a bf16 sum in the JAX quad layout forward, f32 sums backward. ``softsplat``
 builds the reference's four splat modes on it.
 """
 
@@ -79,7 +81,10 @@ def softsplat_sum_plain(inp: Tensor, flow: Tensor) -> Tensor:
     """Summation forward splat (plain). inp (B, H, W, C), flow (B, H, W, 2).
 
     Weights are computed at flow precision and cast to ``inp.dtype``, as the
-    JAX ``_splat_sum_single`` does."""
+    JAX ``_splat_sum_single`` does. A bfloat16 ``inp`` sums in bf16 in the
+    JAX quad layout (``_dense_quad_plain``)."""
+    if inp.dtype == torch.bfloat16:
+        return _dense_quad_plain(inp, flow)
     B, H, W, C = inp.shape
     xs = torch.arange(W, dtype=flow.dtype, device=flow.device)[None, :]
     ys = torch.arange(H, dtype=flow.dtype, device=flow.device)[:, None]
@@ -91,6 +96,59 @@ def softsplat_sum_plain(inp: Tensor, flow: Tensor) -> Tensor:
         for lin, w in _corner_taps(ox, oy, H, W):
             out[b].index_add_(0, lin, rows * w.to(inp.dtype)[:, None])
     return out.reshape(B, H, W, C)
+
+
+def _dense_quad_plain(inp: Tensor, flow: Tensor) -> Tensor:
+    """The JAX ``_splat_sum_single`` in bf16, op for op, for every sample:
+    the (H·W, 4C) rows [NW | NE | SW | SE] of ``inp`` times each corner's
+    weight (f32, 0 off the grid) cast to bf16, the products rounded to
+    bf16, added at the NW corner's padded flat index (every add rounded to
+    bf16, in row order: ``_index_add_in_order``), then the four quarters
+    shifted onto their cells and added left to right in bf16. The samples'
+    padded buffers are stacked into one, so one pass adds them all."""
+    B, H, W, C = inp.shape
+    HW, pad = H * W, W + 1
+    span = HW + 2 * pad
+    xs = torch.arange(W, dtype=flow.dtype, device=flow.device)[None, :]
+    ys = torch.arange(H, dtype=flow.dtype, device=flow.device)[:, None]
+    ox = (xs + flow[..., 0]).reshape(B, HW)
+    oy = (ys + flow[..., 1]).reshape(B, HW)
+    rows = inp.reshape(B, HW, C)
+    upd = torch.cat([rows * w.to(inp.dtype)[..., None]
+                     for _, w in _corner_taps(ox, oy, H, W)], dim=-1)
+    q = (torch.floor(oy).to(torch.int64) * W + torch.floor(ox).to(torch.int64)
+         + pad).clamp(0, span - 1)
+    q = q + span * torch.arange(B, device=q.device)[:, None]
+    buf = torch.zeros((B * span, 4 * C), dtype=inp.dtype, device=inp.device)
+    _index_add_in_order(buf, q.reshape(-1), upd.reshape(B * HW, 4 * C))
+    buf = buf.reshape(B, span, 4 * C)
+    return (buf[:, pad:pad + HW, :C]
+            + buf[:, pad - 1:pad - 1 + HW, C:2 * C]
+            + buf[:, pad - W:pad - W + HW, 2 * C:3 * C]
+            + buf[:, pad - W - 1:pad - W - 1 + HW, 3 * C:]).reshape(B, H, W, C)
+
+
+def _index_add_in_order(buf: Tensor, q: Tensor, upd: Tensor) -> None:
+    """``buf[q[i]] += upd[i]`` for i in order, each add rounded to
+    ``buf.dtype``, as XLA's scatter adds. (PyTorch's ``index_add_`` of bf16
+    rows on the CPU sums a row's repeats before it rounds.) Rows go in
+    rounds, the r-th repeat of every index in round r, so that no round
+    holds an index twice."""
+    n = q.numel()
+    if n == 0:
+        return
+    order = torch.argsort(q, stable=True)
+    qs = q[order]
+    at = torch.arange(n, device=q.device)
+    first = torch.ones(n, dtype=torch.bool, device=q.device)
+    first[1:] = qs[1:] != qs[:-1]
+    rank = at - torch.cummax(torch.where(first, at, torch.zeros_like(at)), 0).values
+    by_rank = order[torch.argsort(rank, stable=True)]
+    start = 0
+    for size in torch.bincount(rank).tolist():
+        rows = by_rank[start:start + size]
+        buf.index_add_(0, q[rows], upd[rows])
+        start += size
 
 
 def softsplat_sum_grad_plain(inp: Tensor, flow: Tensor, g: Tensor
@@ -202,11 +260,92 @@ def softsplat_sum_bwd_kernel(inp: Tensor, flow: Tensor, g: Tensor
     return grad_inp, grad_flow
 
 
+# K3's bf16 forward adds 8 channels of a quarter with one 16-byte reduction,
+# a thread per 8 channels of a pixel in blocks of 256 threads; its pixels
+# and cells are 32-bit indices
+DENSE_BF16_MAX_C = 2048
+DENSE_BF16_MAX_PIXELS = 2 ** 31 - 1
+
+
+def dense_bf16_scratch_numel(B: int, H: int, W: int, C: int) -> int:
+    """Elements of K3's bf16 quarters: (B·H·W, 4, C8) bf16, C8 = C rounded up
+    to a multiple of 8 (``csrc/splat_quarters.cuh:quarter_stride``; at B =
+    16, 256², C = 65 or 67: 301,989,888 elements, 604 MB)."""
+    return B * H * W * 4 * (-(-C // 8) * 8)
+
+
+def _check_bf16_dense(kernel: str, inp: Tensor, flow: Tensor) -> None:
+    """What K3's bf16 kernels take, checked before anything is allocated:
+    the sides, the 32-bit pixel count, the channel limit and the dtypes."""
+    B, H, W, C = inp.shape
+    _check_dense_sides(kernel, H, W)
+    if B * H * W > DENSE_BF16_MAX_PIXELS:
+        raise ValueError(f"{kernel} takes at most {DENSE_BF16_MAX_PIXELS} pixels "
+                         f"(32-bit cell indices); got B*H*W = {B * H * W}")
+    if C > DENSE_BF16_MAX_C:
+        raise ValueError(f"{kernel} takes at most {DENSE_BF16_MAX_C} channels "
+                         f"(8 a thread in blocks of 256); got C = {C}")
+    for name, t, want in (("inp", inp, torch.bfloat16), ("flow", flow, torch.float32)):
+        if t.dtype != want:
+            raise TypeError(f"{kernel} takes {want} {name}, got {t.dtype}")
+
+
+def _bf16_args(kernel: str, named: dict) -> list:
+    """The pointers of K3's bf16 arguments, once each is checked for its
+    dtype (f32 flows, bf16 rows), contiguity and alignment."""
+    for name, t in named.items():
+        want = torch.float32 if name in ("flow", "grad_flow") else torch.bfloat16
+        if t.dtype != want:
+            raise TypeError(f"{kernel} takes {want} {name}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % (16 if name == "quarters" else 4):
+            raise ValueError(f"{name} must be contiguous and aligned")
+    return [t.data_ptr() for t in named.values()]
+
+
+def softsplat_sum_fwd_bf16_kernel(inp: Tensor, flow: Tensor) -> Tensor:
+    """K3's bf16 forward on the card: ``softsplat_sum_plain(inp, flow)``
+    for bf16 ``inp`` and f32 ``flow``, summed in four bf16 quarters a cell
+    in the JAX quad layout's grouping (``csrc/splat_dense.cu``), up to the
+    order of the atomic adds. The scratch quarters are allocated here
+    (``dense_bf16_scratch_numel``), after the shapes are checked."""
+    B, H, W, C = inp.shape
+    name = "K3's bf16 forward (splat_dense_fwd_bf16)"
+    _check_bf16_dense(name, inp, flow)
+    quarters = torch.empty((dense_bf16_scratch_numel(B, H, W, C),), dtype=torch.bfloat16,
+                           device=inp.device)
+    out = torch.empty_like(inp)
+    ptrs = _bf16_args(name, dict(inp=inp, flow=flow, quarters=quarters, out=out))
+    with torch.cuda.device(inp.device):
+        kernels.SPLAT_DENSE_FWD_BF16.launch(*ptrs, B, H, W, C,
+                                            torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def softsplat_sum_bwd_bf16_kernel(inp: Tensor, flow: Tensor, g: Tensor
+                                  ) -> Tuple[Tensor, Tensor]:
+    """K3's bf16 backward on the card: ``softsplat_sum_grad_plain(inp, flow,
+    g)`` for bf16 ``inp`` and ``g``: both cotangents summed in f32,
+    ``grad_inp`` stored in bf16, ``grad_flow`` in f32."""
+    B, H, W, C = inp.shape
+    if tuple(g.shape) != tuple(inp.shape):
+        raise ValueError(f"g must be {tuple(inp.shape)}, got {tuple(g.shape)}")
+    name = "K3's bf16 backward (splat_dense_bwd_bf16)"
+    _check_bf16_dense(name, inp, flow)
+    grad_inp = torch.empty_like(inp)
+    grad_flow = torch.empty_like(flow)
+    ptrs = _bf16_args(name, dict(inp=inp, flow=flow, g=g, grad_inp=grad_inp,
+                                 grad_flow=grad_flow))
+    with torch.cuda.device(inp.device):
+        kernels.SPLAT_DENSE_BWD_BF16.launch(*ptrs, B, H, W, C,
+                                            torch.cuda.current_stream().cuda_stream)
+    return grad_inp, grad_flow
+
+
 class SoftsplatSum(torch.autograd.Function):
     """The summation splat with its gather VJP (the JAX ``custom_vjp``).
     ``plain`` selects the plain versions on any device; otherwise tensors on
-    the card go through the K3 kernels and tensors on the CPU through the
-    plain versions."""
+    the card go through the K3 kernels (float32 or bf16 ``inp``, by its
+    dtype) and tensors on the CPU through the plain versions."""
 
     @staticmethod
     def forward(ctx, inp: Tensor, flow: Tensor, plain: bool) -> Tensor:
@@ -214,6 +353,8 @@ class SoftsplatSum(torch.autograd.Function):
         ctx.plain = plain or inp.device.type == "cpu"
         if ctx.plain:
             return softsplat_sum_plain(inp, flow)
+        if inp.dtype == torch.bfloat16:
+            return softsplat_sum_fwd_bf16_kernel(inp, flow)
         return softsplat_sum_fwd_kernel(inp, flow)
 
     @staticmethod
@@ -222,6 +363,8 @@ class SoftsplatSum(torch.autograd.Function):
         g = g.contiguous()
         if ctx.plain:
             grad_inp, grad_flow = softsplat_sum_grad_plain(inp, flow, g)
+        elif inp.dtype == torch.bfloat16:
+            grad_inp, grad_flow = softsplat_sum_bwd_bf16_kernel(inp, flow, g)
         else:
             grad_inp, grad_flow = softsplat_sum_bwd_kernel(inp, flow, g)
         return grad_inp, grad_flow, None
@@ -230,8 +373,9 @@ class SoftsplatSum(torch.autograd.Function):
 def softsplat_sum(inp: Tensor, flow: Tensor) -> Tensor:
     """K3 wrapper: the summation splat of inp (B, H, W, C) by flow
     (B, H, W, 2), differentiable in both. On the card its forward and
-    backward are the K3 kernels (float32, contiguous inputs); on the CPU
-    their plain versions."""
+    backward are the K3 kernels (contiguous inputs; inp float32, or
+    bfloat16 for the bf16 mode with a float32 flow); on the CPU their plain
+    versions."""
     _check_dense(inp, flow)
     return SoftsplatSum.apply(inp, flow, False)
 

@@ -23,7 +23,11 @@ K7 takes one and differentiates it through its backward kernel
 1e-5 of the gradient's largest magnitude (f32 atomics in a run-to-run
 order), on two launches, also on cases that exercise its window (one run
 a row, window misses, partial tiles, the count rules, a static band, rows
-leaving the frame, the training shape)."""
+leaving the frame, the training shape). K3's bf16 mode (bf16 rows, f32
+flow) is held against the f32 sums of the same rows within the per-cell
+bf16 bound (forward) and against its plain version within one bf16 ulp
+(grad_inp) and 1e-5 of the max (grad_flow); a bf16 training step through
+it against the plain step (losses 1e-2, gradients 0.25 in L2)."""
 
 import numpy as np
 import pytest
@@ -1578,3 +1582,192 @@ def test_embedded_motion_step_kernels_match_plain_on_card(frozen):
     assert ("motion_regressor" in groups) != frozen
     for n, (d, s) in groups.items():
         assert d <= 1e-3 * s, (n, d, s)
+
+
+# ---- K3's bf16 mode --------------------------------------------------------
+
+def _bf16_dense_bound(x, flow):
+    """Per element, the most any order of K3's bf16 sum can move it from
+    the f32 sums of the same bf16 rows: a cell of n nonzero taps sums terms
+    that each pass at most n + 4 roundings to bf16 (the weight, the
+    product, the quarter's adds, the three adds of the combine), so the
+    distance is within gamma_(n+4)(2^-8) sum |terms| (plus the f32
+    reference's own gamma at 2^-24)."""
+    B, Hh, Ww, _ = x.shape
+    abs_terms = softsplat_sum_plain(x.float().abs(), flow)
+    n = torch.zeros((B, Hh * Ww), device=x.device)
+    xs = torch.arange(Ww, dtype=torch.float32, device=x.device)[None, :]
+    ys = torch.arange(Hh, dtype=torch.float32, device=x.device)[:, None]
+    for b in range(B):
+        ox = (xs + flow[b, ..., 0]).reshape(-1)
+        oy = (ys + flow[b, ..., 1]).reshape(-1)
+        for lin, w in port_splat._corner_taps(ox, oy, Hh, Ww):
+            n[b].index_add_(0, lin, (w != 0).float())
+    k = n.reshape(B, Hh, Ww, 1) + 4.0
+    gamma = k * 2.0 ** -8 / (1.0 - k * 2.0 ** -8) + k * 2.0 ** -24
+    return gamma * abs_terms + k * 2.0 ** -133
+
+
+@pytest.mark.gpu
+def test_k3_bf16_matches_plain_on_card():
+    """K3's bf16 forward and backward at C = 65, then C = 67 in the same
+    process: the forward within the per-cell bf16 bound of the f32 sums of
+    the same rows (cells no corner reaches exactly 0), the backward's
+    grad_inp within one bf16 ulp of the plain version (both sum the four
+    corners in f32 in one order) and grad_flow within 1e-5 of its largest
+    entry; one launch of each bf16 kernel and none of the f32 ones."""
+    dev = _card()
+    for C in (65, 67):
+        inp, flow, g = _k3_inputs(dev, C=C)
+        x = inp.to(torch.bfloat16).requires_grad_(True)
+        f = flow.clone().requires_grad_(True)
+        kernels.reset_counts()
+        out = softsplat_sum(x, f)
+        out.backward(g.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        assert counts[kernels.SPLAT_DENSE_FWD_BF16.name] == 1, counts
+        assert counts[kernels.SPLAT_DENSE_BWD_BF16.name] == 1, counts
+        assert counts[kernels.SPLAT_DENSE_FWD.name] == counts[kernels.SPLAT_DENSE_BWD.name] == 0
+        assert out.dtype == torch.bfloat16
+        xb = x.detach()
+        ref32 = softsplat_sum_plain(xb.float(), flow)
+        bnd = _bf16_dense_bound(xb, flow)
+        assert bool(((out.float() - ref32).abs() <= bnd).all()), C
+        plain = softsplat_sum_plain(xb, flow)
+        assert bool(((plain.float() - ref32).abs() <= bnd).all()), C
+        empty = bnd == 0
+        assert bool((out.float()[empty] == 0).all())
+        want_i, want_f = softsplat_sum_grad_plain(xb, flow, g.to(torch.bfloat16))
+        assert x.grad.dtype == torch.bfloat16 and f.grad.dtype == torch.float32
+        torch.testing.assert_close(x.grad.float(), want_i.float(), rtol=2.0 ** -7, atol=0)
+        scale = want_f.abs().max().item()
+        torch.testing.assert_close(f.grad, want_f, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+def test_k3_bf16_refuses_an_f32_flow_mismatch_on_card():
+    """A bf16 input on the card takes the bf16 kernels or raises: a flow of
+    another dtype is refused before any launch, never run on an upcast
+    copy or by the plain version."""
+    dev = _card()
+    inp, flow, _ = _k3_inputs(dev, C=9)
+    kernels.reset_counts()
+    with pytest.raises(TypeError):
+        softsplat_sum(inp.to(torch.bfloat16), flow.double())
+    with pytest.raises(TypeError):
+        port_splat.softsplat_sum_fwd_bf16_kernel(inp, flow)
+    assert sum(kernels.counts().values()) == 0
+
+
+@pytest.mark.gpu
+def test_bf16_train_step_kernels_match_plain_on_card(capsys, monkeypatch):
+    """The bf16 stage-1 G+D step (TinyTest archs, W = 32, B = 2, T = 4)
+    through K3's bf16 kernels and K7 against the same step through their
+    plain versions from one snapshot: 2 K3 bf16 forward, 2 backward and 1
+    K7 launch, nothing else; every persistent tensor float32.
+
+    The bf16 forward adds with atomics in no fixed order, and another order
+    of the same bf16 sum moves this random-weight step's gradients by
+    0.11-0.14 of their L2 norm (tests/test_torch_train_rest.py:
+    test_bf16_step_gradients_move_with_the_splat_order). So the plain step
+    is given the kernel forward's own output (its inputs checked bit-equal
+    first; the forward is held against the f32 sums by the K3 bf16 tests),
+    and only the backward differs: cuDNN deterministic, the losses are
+    bit-equal and the splat's incoming cotangent too. The bf16 backward's
+    grad_inp is then held within one bf16 ulp of the plain version's
+    (2^-7 relative: both round an f32 sum, added in another order, to
+    bf16) and its grad_flow within 1e-5 of its largest entry; each
+    sub-network's gradient, entry by entry, within 2^-6 of its own largest
+    entry (that ulp carried through the encoder's bf16 backward, one more
+    rounding on)."""
+    from slrsfs_tpu_torch.cli.train import build, to_device_batch
+
+    dev = _card()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    opt = Options(ngf=8, W=32, out_channel=9, ndf=8, num_D=1, n_layers_D=2,
+                  refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm",
+                  train_compute_dtype="bfloat16")
+    _, tr = build(opt, train_max_steps=4, device=dev, seed=0)
+    rng = np.random.default_rng(41)
+    B = 2
+    batch = to_device_batch(
+        {"images": [(rng.standard_normal((B, 32, 32, 3)) * 0.25).astype(np.float32)
+                    for _ in range(3)],
+         "index": np.array([[0, 1, 4], [0, 3, 4]], np.int32),
+         "motions": (rng.standard_normal((B, 32, 32, 2)) * 0.8).astype(np.float32)}, dev)
+
+    fwd, bwd, plain_bwd = [], [], []
+    kernel_fwd = port_splat.softsplat_sum_fwd_bf16_kernel
+    kernel_bwd = port_splat.softsplat_sum_bwd_bf16_kernel
+    plain_grad = port_splat.softsplat_sum_grad_plain
+
+    def record_fwd(inp, flow):
+        out = kernel_fwd(inp, flow)
+        fwd.append((inp.clone(), flow.clone(), out.clone()))
+        return out
+
+    def record_bwd(inp, flow, g):
+        gi, gf = kernel_bwd(inp, flow, g)
+        bwd.append((g.clone(), gi.clone(), gf.clone()))
+        return gi, gf
+
+    def replay_fwd(inp, flow):
+        k_inp, k_flow, k_out = fwd[replay_fwd.n]
+        replay_fwd.n += 1
+        assert torch.equal(inp, k_inp) and torch.equal(flow, k_flow)
+        return k_out.clone()
+    replay_fwd.n = 0
+
+    def record_plain_bwd(inp, flow, g):
+        gi, gf = plain_grad(inp, flow, g)
+        plain_bwd.append((g.clone(), gi, gf))
+        return gi, gf
+
+    snap = tr.snapshot()
+    monkeypatch.setattr(port_splat, "softsplat_sum_fwd_bf16_kernel", record_fwd)
+    monkeypatch.setattr(port_splat, "softsplat_sum_bwd_bf16_kernel", record_bwd)
+    kernels.reset_counts()
+    got = tr.train_step(batch)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    g_k = [x.clone() for x in tr.last_grads["g"] + tr.last_grads["d"]]
+    for module in (tr.model, tr.d_model):
+        for name, t in module.state_dict().items():
+            assert not t.is_floating_point() or t.dtype == torch.float32, name
+    assert all(t.dtype == torch.float32 for t in tr.opt_g.mu + tr.opt_g.nu + g_k)
+    tr.restore(snap)
+    monkeypatch.setattr(port_splat, "softsplat_sum_plain", replay_fwd)
+    monkeypatch.setattr(port_splat, "softsplat_sum_grad_plain", record_plain_bwd)
+    want = tr.train_step(batch, plain=True)
+    g_p = tr.last_grads["g"] + tr.last_grads["d"]
+    assert launches == {**{k.name: 0 for k in kernels.KERNELS}, "splat_dense_fwd_bf16": 2,
+                        "splat_dense_bwd_bf16": 2, "euler_phased": 1}
+    assert replay_fwd.n == 2 and len(bwd) == len(plain_bwd) == 2
+    for k in want:
+        assert torch.isfinite(got[k]), k
+        assert got[k].item() == want[k].item(), (k, got[k].item(), want[k].item())
+    bwd_err = []
+    for (g, gi, gf), (pg, pgi, pgf) in zip(bwd, plain_bwd):
+        assert torch.equal(g, pg)
+        assert gi.dtype == torch.bfloat16 and gf.dtype == torch.float32
+        torch.testing.assert_close(gi.float(), pgi.float(), rtol=2.0 ** -7, atol=0)
+        scale = pgf.abs().max().item()
+        torch.testing.assert_close(gf, pgf, rtol=0, atol=1e-5 * scale)
+        bwd_err.append(((gi.float() - pgi.float()).abs().max().item()
+                        / max(pgi.float().abs().max().item(), 1e-30)))
+    names = tr.g_names + [f"D.{n}" for n, _ in tr.d_model.named_parameters()]
+    groups = {}
+    for n, a, b in zip(names, g_k, g_p):
+        err, big = groups.get(n.split(".")[0], (0.0, 0.0))
+        groups[n.split(".")[0]] = (max(err, (a - b).abs().max().item()),
+                                   max(big, b.abs().max().item()))
+    rel = {k: err / max(big, 1e-30) for k, (err, big) in groups.items()}
+    with capsys.disabled():
+        print(f"\nbf16 step kernel vs plain (forward replayed): losses bit-equal; "
+              f"K3 bwd grad_inp {max(bwd_err):.3g} of its largest; by sub-network of its "
+              f"own largest: " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+    assert set(rel) >= {"encoder", "projector", "D"}
+    for k, v in rel.items():
+        assert v <= 2.0 ** -6, (k, v)

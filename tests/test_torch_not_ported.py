@@ -34,34 +34,6 @@ def _dataset(tmp_path, variant="eulerian_data", **kw):
     LiquidDataset(str(tmp_path), config.Options(**kw), variant=variant)
 
 
-def _ff_mask_batch(tmp_path):
-    from slrsfs_tpu_torch.models.baseline import BaselineTrainable
-
-    opt = config.Options(ngf=8, W=16, out_channel=9,
-                         refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm")
-    img = torch.zeros(1, 16, 16, 3)
-    batch = {"images": [img, img, img], "index": torch.tensor([[0, 2, 4]]),
-             "motions": torch.ones(1, 16, 16, 2), "ff_mask": torch.ones(1, 16, 16, 1)}
-    BaselineTrainable(opt, train_max_steps=4).forward_train(
-        batch, deterministic=True, plain=True)
-
-
-def _slr_ff_mask_batch(tmp_path):
-    from slrsfs_tpu_torch.models.slr import SLR_MODEL_TYPE, SLRTrainable
-
-    opt = config.Options(
-        ngf=8, W=16, out_channel=9, model_type=SLR_MODEL_TYPE,
-        refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm",
-        alpha_refine_model_type="resnet_TinyTest_de_resnet_pconv2_nonorm",
-        bg_refine_model_type="resnet_TinyTestBG_nonorm")
-    img = torch.zeros(1, 16, 16, 3)
-    batch = {"images": [img, img, img], "index": torch.tensor([[0, 2, 4]]),
-             "motions": torch.ones(1, 16, 16, 2), "mask_rock": torch.zeros(1, 16, 16, 1),
-             "mean_video": img, "ff_mask": torch.ones(1, 16, 16, 1)}
-    SLRTrainable(opt, train_max_steps=4).forward_train(batch, deterministic=True,
-                                                       plain=True)
-
-
 def _synthesis_loss(name):
     from slrsfs_tpu_torch.losses.synthesis import SynthesisLoss
 
@@ -77,17 +49,9 @@ def _checkpoint(tmp_path, model_type):
 
 BRANCHES = {
     "render --shard-frames": (lambda tmp: _render(shard_frames=True), "Multi-GPU"),
-    "trainer num_accumulations": (lambda tmp: _trainer(num_accumulations=2),
-                                  "The rest of training"),
-    "trainer bfloat16": (lambda tmp: _trainer(train_compute_dtype="bfloat16"),
-                         "The rest of training"),
-    "trainer pix2pixHDorigin": (lambda tmp: _trainer(discriminator_losses="pix2pixHDorigin"),
-                                "The rest of training"),
-    "dataset random_ff_mask": (lambda tmp: _dataset(tmp, random_ff_mask=True),
-                               "The rest of training"),
-    "baseline ff_mask": (_ff_mask_batch, "The rest of training"),
-    "SLR ff_mask": (_slr_ff_mask_batch, "The rest of training"),
-    "synthesis style loss": (lambda tmp: _synthesis_loss("style"), "The rest of training"),
+    "trainer bfloat16 with an embedded regressor": (
+        lambda tmp: _trainer(train_compute_dtype="bfloat16", train_motion=True),
+        "The rest of training"),
 }
 
 

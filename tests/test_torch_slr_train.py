@@ -315,15 +315,6 @@ def test_forward_train_matches_jax(case, ft_variables):
     assert n_state > 100
 
 
-def test_forward_train_refuses_ff_mask():
-    _, popt = _ft_opts()
-    batch = _port_batch(slr_batch(4))
-    batch["ff_mask"] = torch.ones(B, HW, HW, 1)
-    with pytest.raises(NotImplementedError, match="The rest of training"):
-        pslr.SLRTrainable(popt, train_max_steps=T).forward_train(
-            batch, deterministic=True, plain=True)
-
-
 # ---- the G+D step -----------------------------------------------------------
 
 def _step_opts():

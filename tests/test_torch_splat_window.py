@@ -142,7 +142,9 @@ def test_a_smooth_unit_fits_its_window():
 @pytest.mark.parametrize("name", ["splat.cu", "splat_dense.cu"])
 def test_the_build_hash_covers_the_window_header(name):
     files = kernels.source_files(kernels.os.path.join(kernels._CSRC, name))
-    assert [kernels.os.path.basename(f) for f in files] == [name, "splat_window.cuh"]
+    # both sources also include the bf16 quarters (splat_quarters.cuh)
+    assert [kernels.os.path.basename(f) for f in files] == [
+        name, "splat_quarters.cuh", "splat_window.cuh"]
 
 
 def test_a_changed_header_changes_the_library(tmp_path, monkeypatch):

@@ -109,8 +109,11 @@ def _chain(fixture_root, tmp_path_factory):
     out["fix"] = _run(root, tmp / "fix", "--embed-motion", "--freeze-motion", "--W", "256",
                       *TINY, "--init-from", out["stage1"],
                       "--init-motion-from", out["motion"])
+    # --init-from restores the fix-motion run's Adam states and count (2
+    # steps), which with one epoch and no decay puts its first step at the
+    # end of the schedule; two steps an epoch keep the rate above 0
     out["joint"] = _run(root, tmp / "joint", "--embed-motion", "--W", "256", *TINY,
-                        "--init-from", out["fix"])
+                        "--init-from", out["fix"], "--steps-per-epoch", "2")
     return out
 
 
