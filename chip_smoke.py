@@ -158,10 +158,13 @@ stage 2 → SLR stage 3 from the port's own stage-2 checkpoint.
 Then the rest of training (phase 23, rest_of_training_phase): K3's bf16
 mode (bf16 rows, f32 flow) on the bf16 stage-1 (C = 65) and SLR stage-3
 (C = 67) steps' own rows: the forward within the per-cell bf16 bound of
-the f32 sums of the same rows (bf16_cell_bound), the backward's grad_inp
-within one bf16 ulp of the plain version and grad_flow within 1e-5 of its
-max, each timed beside its bound, its plain version and (forward) one
-bf16 index_add_; the two bf16 steps at batch 16 (6 K3 bf16 forward and
+the f32 sums of the same rows (bf16_cell_bound), every element whose
+terms are all 0 exactly 0, the backward's grad_inp bit for bit the plain
+version's (the count of elements that differ printed and held at 0) and
+grad_flow within 1e-5 of its max, each timed beside its bound, its plain
+version and (forward) one bf16 index_add_, split per launch (the
+forward's zeroing and scatter) and with its window misses; the two bf16
+steps at batch 16 (6 K3 bf16 forward and
 backward and 3 K7 launches over 3 steps, every persistent tensor float32,
 L1 and Total within 0.12·|f32| + 0.05 of the f32 step from the same
 state, both with zero BN noise); one stage-1 step over two micro-batches of 16 in each
@@ -201,9 +204,11 @@ scatter and epilogue, and the f32 window scatter's misses), K8 and the
 float32, bfloat16 and bfloat16-fast renders of both models; with --k3-in
 TREE, K3's forward at the dense render's and the training shape (split
 into the output's zeroing and the scatter, with the window misses), K3's
-backward on the training shape's random and scene flows, K7 dense and
-compact (each with its split), the dense float32 render and the stage-1
-training step; with --k1-in TREE, K1 on the scene, quarter-pixel and
+backward on the training shape's random and scene flows, K3's bf16
+forward and backward on the bf16 stage-1 and SLR steps' own rows (held
+as phase 23 holds them, split, with bounds and window misses), K7 dense
+and compact (each with its split), the dense float32 render and the
+stage-1 training step; with --k1-in TREE, K1 on the scene, quarter-pixel and
 leaving flows and K4's four forms on the scene, leaving and random flows
 (each held bit for bit, timed, split and set beside its bytes and latency
 bounds) and the baseline float32 render; with --k7bwd-in TREE, K7's
@@ -411,17 +416,23 @@ def window_misses(kind: str, *args) -> str:
     Kind "dense bwd", args flow and C: the same count for K3's backward
     (a corner outside the window reads g from device memory), with the
     share of its tiles that hold such a corner (``dense_window_units``).
-    A package without the window (an older tree of ``--k2-in`` or
-    ``--k3-in``) says so."""
+    Kinds "dense bf16" (args flow) and "dense bf16 bwd" (args flow and
+    C): the same two counts for K3's bf16 mode. A package without the
+    window (an older tree of ``--k2-in`` or ``--k3-in``) says so."""
     from slrsfs_tpu_torch import kernels
     from slrsfs_tpu_torch.ops import splat as S
 
-    if kind == "dense bwd":
+    if kind.startswith("dense bf16"):
+        kernels.SPLAT_DENSE_BWD_BF16.load()
+        if not hasattr(kernels.SPLAT_DENSE_BWD_BF16._lib, "splat_dense_bwd_bf16_window_cells"):
+            return "window misses: this package's bf16 mode has no window"
+    if kind in ("dense bwd", "dense bf16 bwd"):
         if not hasattr(S, "dense_window_units"):
             return "window misses: this package's backward has no window"
         lib = kernels.SPLAT_DENSE_BWD
         tile = (lib.query("splat_dense_bwd_tile_rows"), lib.query("splat_dense_bwd_tile_cols"))
-        cap = lib.query("splat_dense_bwd_window_cells", args[1])
+        cap = lib.query("splat_dense_bwd_bf16_window_cells" if "bf16" in kind
+                        else "splat_dense_bwd_window_cells", args[1])
         n_in, n_miss = S.dense_window_misses(args[0], tile, cap)
         units, missing = S.dense_window_units(args[0], tile, cap)
         return (f"window misses {n_miss} of {n_in} corners in the grid "
@@ -1553,6 +1564,10 @@ def k3_in(tree: str) -> int:
       the window misses);
     * K3's backward on phase 9's two flows, held and timed likewise
       (``k3_bwd_times``);
+    * K3's bf16 forward and backward on the bf16 stage-1 (C = 65) and SLR
+      stage-3 (C = 67) steps' own rows (``bf16_step_rows``), held as phase
+      23 holds them (``k3_bf16_check``) and timed with their splits,
+      bounds and window misses (``k3_bf16_times``);
     * K7 dense and compact on phase 8's timing inputs (``k7_times``);
     * the dense baseline float32 render of the scene (median of 5) and the
       stage-1 training step (median of 3)."""
@@ -1582,6 +1597,12 @@ def k3_in(tree: str) -> int:
               f"(limit 1e-5 of each output's max)")
         k3_bwd_times(dev, label, inp, f, g, plain_reps=0)
     del inp, g, flows
+    for name, (x, disp) in bf16_step_rows(dev).items():
+        label = f"k3 bf16, {name}"
+        g = k3_bf16_check(dev, label, x, disp)["g"]
+        k3_bf16_times(dev, label, x, disp, g, plain=False)
+        del x, disp, g
+    torch.cuda.empty_cache()
     k7_times(dev, "k7", *k7_timing_inputs(dev, flow_np), plain_reps=0)
     # the end-to-end metrics: the dense render (K3's forward) and the
     # training step (K3 both ways, K7)
@@ -3098,15 +3119,113 @@ def bf16_splat_inputs(tr, batch, module):
     return seen
 
 
-def k3_bf16_case(dev, label: str, inp, flow) -> dict:
-    """K3's bf16 forward and backward on one splat's rows: the forward within
-    the per-cell bf16 bound of the f32 sums of the same rows (each term
-    passes n + 4 roundings: the weight, the product, its quarter's adds and
-    the combine's three), the backward's grad_inp within one bf16 ulp of the
-    plain version (both sum the four corners in f32 in one order) and
-    grad_flow within 1e-5 of its max; timed with the plain versions, the
-    library call (one ``index_add_`` of the 4·B·HW bf16 rows) and the
-    bounds (bf16 rows and outputs, f32 flows)."""
+def bf16_step_options(slr: bool):
+    """(label, options of a batch size, batch maker, model module) of phase
+    23's bf16 stage-1 or SLR stage-3 step."""
+    from slrsfs_tpu_torch.cli.train import stage_options
+    from slrsfs_tpu_torch.config import Options
+    from slrsfs_tpu_torch.models import baseline as base_mod
+    from slrsfs_tpu_torch.models import slr as slr_mod
+
+    if not slr:
+        return (f"stage 1, C={TRAIN_C}",
+                lambda B: Options(W=W, batch_size=B, train_compute_dtype="bfloat16"),
+                make_train_batch, base_mod)
+    slr_type = SLR_OPTS["model_type"]
+    return (f"SLR stage 3, C={SLR_TRAIN_C}",
+            lambda B: Options(W=W, batch_size=B, model_type=slr_type,
+                              train_compute_dtype="bfloat16", **stage_options(slr_type)),
+            make_slr_batch, slr_mod)
+
+
+def bf16_step_rows(dev) -> dict:
+    """{label: (bf16 rows, f32 flow)} of the first splat of phase 23's bf16
+    stage-1 and SLR stage-3 steps at B = 16, 256², each trainer built from
+    the seed as phase 23 builds it and dropped after one forward."""
+    import torch
+
+    from slrsfs_tpu_torch.cli.train import build, to_device_batch
+
+    rows = {}
+    for slr in (False, True):
+        label, options, make_batch, module = bf16_step_options(slr)
+        _, tr = build(options(TRAIN_B), train_max_steps=TRAIN_T, device=dev, seed=SEED)
+        batch = to_device_batch(make_batch(np.random.default_rng(SEED), TRAIN_B, W), dev)
+        rows[label] = bf16_splat_inputs(tr, batch, module)[0]
+        del tr, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k3_bf16_check(dev, label: str, inp, flow) -> dict:
+    """K3's bf16 forward and backward on one splat's rows against the plain
+    versions: the forward within the per-cell bf16 bound of the f32 sums of
+    the same rows (``bf16_cell_bound`` with n + 4 roundings a term: the
+    plain version's weight, product, quarter adds and the combine's three;
+    the window kernel's terms pass at most n + 1, its entry's and the
+    cell's adds), cells whose terms are all 0 exactly 0; the backward's
+    grad_inp bit for bit the plain version's (both sum the four corners in
+    f32 in the order NW, NE, SW, SE and round once: the count of elements
+    that differ must be 0) and grad_flow within 1e-5 of its max. Returns
+    the errors and the cotangent ``g`` the backward was given."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.splat import (
+        softsplat_sum_bwd_bf16_kernel,
+        softsplat_sum_fwd_bf16_kernel,
+        softsplat_sum_grad_plain,
+        softsplat_sum_plain,
+    )
+
+    out = softsplat_sum_fwd_bf16_kernel(inp, flow)
+    plain = softsplat_sum_plain(inp, flow)
+    ref32 = softsplat_sum_plain(inp.float(), flow)
+    abs_terms = softsplat_sum_plain(inp.float().abs(), flow)
+    bnd = bf16_cell_bound(ref32, abs_terms, dense_tap_counts(flow) + 2.0)
+    torch.cuda.synchronize()
+    cell = bf16_cell_check(f"{label} K3 bf16 forward", out, plain, ref32, bnd)
+    empty = bnd == 0
+    check(bool((out.float()[empty] == 0).all()), f"{label} K3 bf16: an empty cell is not 0")
+    no_terms = abs_terms == 0
+    n_no_terms = int(no_terms.sum())
+    check(bool((out.float()[no_terms] == 0).all()),
+          f"{label} K3 bf16: an element whose terms are all 0 is not 0")
+    f32_err = (out.float() - ref32).abs().max().item()
+    fwd_err = (out.float() - plain.float()).abs().max().item()
+    del out, plain, ref32, abs_terms, bnd, empty, no_terms
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    g = torch.randn(inp.shape, generator=gen, device=dev).to(torch.bfloat16)
+    gi, gf = softsplat_sum_bwd_bf16_kernel(inp, flow, g)
+    wi, wf = softsplat_sum_grad_plain(inp, flow, g)
+    torch.cuda.synchronize()
+    d_i = (gi.float() - wi.float()).abs()
+    n_diff = int((gi != wi).sum())
+    check(bool((d_i <= 2.0 ** -7 * wi.float().abs()).all()),
+          f"{label} K3 bf16 backward grad_inp beyond one bf16 ulp at "
+          f"{int((d_i > 2.0 ** -7 * wi.float().abs()).sum())} elements")
+    check(n_diff == 0, f"{label} K3 bf16 backward grad_inp differs from the plain version's "
+          f"at {n_diff} elements")
+    scale = wf.abs().max().item()
+    d_f = (gf - wf).abs().max().item()
+    check(d_f <= 1e-5 * scale, f"{label} K3 bf16 backward grad_flow {d_f} vs 1e-5 x {scale}")
+    bwd_err = max(d_i.max().item(), d_f)
+    print(f"{label} K3 bf16 {tuple(inp.shape)}: forward (each term's n counted "
+          f"as n + 2, the plain version's weight's and combine's roundings) {fmt_bf16(cell)}, "
+          f"max abs {f32_err:.3g} from the f32 sums, {fwd_err:.3g} from the plain version, "
+          f"{n_no_terms} elements without a nonzero term all 0; backward grad_inp {n_diff} "
+          f"elements differ from the plain version (limit 0), grad_flow max abs {d_f:.3g} "
+          f"(limit 1e-5 x {scale:.3g})")
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "grad_inp_diff": n_diff, "g": g}
+
+
+def k3_bf16_times(dev, label: str, inp, flow, g, plain: bool = True) -> dict:
+    """K3's bf16 forward and backward on one splat's rows timed
+    (``kernel_times``), each split by ``launch_split`` (the forward: the
+    output's zeroing and the scatter), beside its bound (bf16 rows and
+    outputs, f32 flows), one bf16 ``index_add_`` of the 4·B·HW rows (the
+    forward's library call), the window misses, and (``plain``) the plain
+    versions."""
     import torch
 
     from slrsfs_tpu_torch.ops.splat import (
@@ -3118,38 +3237,14 @@ def k3_bf16_case(dev, label: str, inp, flow) -> dict:
     )
 
     B, H_, W_, C = inp.shape
-    out = softsplat_sum_fwd_bf16_kernel(inp, flow)
-    plain = softsplat_sum_plain(inp, flow)
-    ref32 = softsplat_sum_plain(inp.float(), flow)
-    abs_terms = softsplat_sum_plain(inp.float().abs(), flow)
-    bnd = bf16_cell_bound(ref32, abs_terms, dense_tap_counts(flow) + 2.0)
-    torch.cuda.synchronize()
-    cell = bf16_cell_check(f"{label} K3 bf16 forward", out, plain, ref32, bnd)
-    empty = bnd == 0
-    check(bool((out.float()[empty] == 0).all()), f"{label} K3 bf16: an empty cell is not 0")
-    f32_err = (out.float() - ref32).abs().max().item()
-    fwd_err = (out.float() - plain.float()).abs().max().item()
-    del plain, ref32, abs_terms, bnd, empty
-    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
-    g = torch.randn(inp.shape, generator=gen, device=dev).to(torch.bfloat16)
-    gi, gf = softsplat_sum_bwd_bf16_kernel(inp, flow, g)
-    wi, wf = softsplat_sum_grad_plain(inp, flow, g)
-    torch.cuda.synchronize()
-    d_i = (gi.float() - wi.float()).abs()
-    n_ulp = int((d_i > 0).sum())
-    check(bool((d_i <= 2.0 ** -7 * wi.float().abs()).all()),
-          f"{label} K3 bf16 backward grad_inp beyond one bf16 ulp at "
-          f"{int((d_i > 2.0 ** -7 * wi.float().abs()).sum())} elements")
-    scale = wf.abs().max().item()
-    d_f = (gf - wf).abs().max().item()
-    check(d_f <= 1e-5 * scale, f"{label} K3 bf16 backward grad_flow {d_f} vs 1e-5 x {scale}")
-    bwd_err = max(d_i.max().item(), d_f)
-    del gi, gf, wi, wf, d_i
     t_fwd = kernel_times(lambda: softsplat_sum_fwd_bf16_kernel(inp, flow), reps=10)
     split = launch_split(lambda: softsplat_sum_fwd_bf16_kernel(inp, flow), reps=4)
     t_bwd = kernel_times(lambda: softsplat_sum_bwd_bf16_kernel(inp, flow, g), reps=10)
-    plain_fwd = cuda_time(lambda: softsplat_sum_plain(inp, flow), reps=2, warmup=1)
-    plain_bwd = cuda_time(lambda: softsplat_sum_grad_plain(inp, flow, g), reps=2, warmup=1)
+    split_bwd = launch_split(lambda: softsplat_sum_bwd_bf16_kernel(inp, flow, g), reps=4)
+    plain_fwd = plain_bwd = None
+    if plain:
+        plain_fwd = cuda_time(lambda: softsplat_sum_plain(inp, flow), reps=2, warmup=1)
+        plain_bwd = cuda_time(lambda: softsplat_sum_grad_plain(inp, flow, g), reps=2, warmup=1)
     xs = torch.arange(W_, device=dev, dtype=torch.float32)[None, :]
     ys = torch.arange(H_, device=dev, dtype=torch.float32)[:, None]
     lins, rows = [], []
@@ -3170,19 +3265,25 @@ def k3_bf16_case(dev, label: str, inp, flow) -> dict:
     # multiply-adds per channel and corner)
     b_fwd = bound(n * C * 2 * 2 + n * 8, n * (8 * C + 20))
     b_bwd = bound(n * C * 2 * 3 + n * 8 * 2, n * (16 * C + 40))
-    print(f"phase 23 K3 bf16 {label} ({B}, {H_}, {W_}, {C}): forward (each term's n counted "
-          f"as n + 2, the weight's and the combine's roundings) {fmt_bf16(cell)}, max "
-          f"abs {f32_err:.3g} from the f32 sums, {fwd_err:.3g} from the plain version; "
-          f"backward grad_inp {n_ulp} elements one bf16 ulp from the plain version (limit "
-          f"one ulp), grad_flow max abs {d_f:.3g} (limit 1e-5 x {scale:.3g})")
-    print(f"phase 23 K3 bf16 forward {label}: {fmt_times(t_fwd)}; plain {plain_fwd:.3f} ms; "
-          f"index_add_ {fmt_times(t_lib)}; bound {b_fwd[0]:.4f} ms by {b_fwd[1]}; per call "
-          f"on the card (torch.profiler): {fmt_split(split)}")
-    print(f"phase 23 K3 bf16 backward {label}: {fmt_times(t_bwd)}; plain {plain_bwd:.3f} ms; "
-          f"bound {b_bwd[0]:.4f} ms by {b_bwd[1]}")
-    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "fwd": t_fwd, "bwd": t_bwd,
-            "plain_fwd": plain_fwd, "plain_bwd": plain_bwd, "lib_fwd": t_lib["ms"],
-            "bound_fwd": b_fwd, "bound_bwd": b_bwd}
+    plain_f = "not timed" if plain_fwd is None else f"{plain_fwd:.3f} ms"
+    plain_b = "not timed" if plain_bwd is None else f"{plain_bwd:.3f} ms"
+    print(f"{label} K3 bf16 forward {tuple(inp.shape)}: {fmt_times(t_fwd)}; plain {plain_f}; "
+          f"index_add_ {fmt_times(t_lib)}; bound {b_fwd[0]:.4f} ms by {b_fwd[1]} "
+          f"({100.0 * b_fwd[0] / t_fwd['ms']:.1f} %); per call on the card (torch.profiler): "
+          f"{fmt_split(split)}; {window_misses('dense bf16', flow)}")
+    print(f"{label} K3 bf16 backward {tuple(inp.shape)}: {fmt_times(t_bwd)}; plain {plain_b}; "
+          f"bound {b_bwd[0]:.4f} ms by {b_bwd[1]} ({100.0 * b_bwd[0] / t_bwd['ms']:.1f} %); "
+          f"per call on the card: {fmt_split(split_bwd)}; "
+          f"{window_misses('dense bf16 bwd', flow, C)}")
+    return {"fwd": t_fwd, "bwd": t_bwd, "plain_fwd": plain_fwd, "plain_bwd": plain_bwd,
+            "lib_fwd": t_lib["ms"], "bound_fwd": b_fwd, "bound_bwd": b_bwd}
+
+
+def k3_bf16_case(dev, label: str, inp, flow) -> dict:
+    """``k3_bf16_check`` and ``k3_bf16_times`` on one splat's rows."""
+    res = k3_bf16_check(dev, f"phase 23 {label}", inp, flow)
+    res.update(k3_bf16_times(dev, f"phase 23 {label}", inp, flow, res.pop("g")))
+    return res
 
 
 def f32_state_check(label: str, tr) -> None:
@@ -3481,22 +3582,13 @@ def rest_of_training_phase(dev) -> dict:
     the resume chain of the CLI on phase 11's data."""
     import torch
 
-    from slrsfs_tpu_torch.cli.train import stage_options
-    from slrsfs_tpu_torch.config import Options
-    from slrsfs_tpu_torch.models import baseline as base_mod
-    from slrsfs_tpu_torch.models import slr as slr_mod
-
     t0 = time.perf_counter()
-    slr_type = SLR_OPTS["model_type"]
-    res = {"bf16": bf16_step_case(
-        dev, "bf16 stage-1 step", lambda B: Options(W=W, batch_size=B,
-                                                    train_compute_dtype="bfloat16"),
-        make_train_batch, base_mod, f"stage 1, C={TRAIN_C}")}
-    res["bf16_slr"] = bf16_step_case(
-        dev, f"bf16 SLR stage-3 step (C={SLR_TRAIN_C})",
-        lambda B: Options(W=W, batch_size=B, model_type=slr_type,
-                          train_compute_dtype="bfloat16", **stage_options(slr_type)),
-        make_slr_batch, slr_mod, f"SLR stage 3, C={SLR_TRAIN_C}")
+    k3_label, options, make_batch, module = bf16_step_options(False)
+    res = {"bf16": bf16_step_case(dev, "bf16 stage-1 step", options, make_batch, module,
+                                  k3_label)}
+    k3_label, options, make_batch, module = bf16_step_options(True)
+    res["bf16_slr"] = bf16_step_case(dev, f"bf16 SLR stage-3 step (C={SLR_TRAIN_C})",
+                                     options, make_batch, module, k3_label)
     res["accum"] = accumulation_case(dev)
     res.update(origin_and_style_case(dev))
     res["cli"] = resume_chain_case(dev, os.path.join(OUT_DIR, "train_data"))

@@ -63,8 +63,9 @@ otherwise comes from ``--init-from`` when it holds one and keeps its seeded
 initial weights when not.
 
 ``--train-compute-dtype bfloat16`` runs G in bf16 (engine/trainer.py); with
-``--embed-motion`` it is not ported yet
-(ROADMAP §1, "The rest of training"). ``--random-ff-mask`` adds the
+``--embed-motion`` the trainer raises a ``ValueError``: the JAX package
+cannot run that combination either (ROADMAP §1, "The rest of training",
+the struck last sub-item). ``--random-ff-mask`` adds the
 free-form occlusion mask to the training batches (data/augment.py).
 """
 

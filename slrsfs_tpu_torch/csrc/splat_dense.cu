@@ -60,29 +60,33 @@
 // of each output's max. An out-of-grid corner reads 0.
 //
 // bf16 mode (inp bf16, flow f32: the bf16 training step's features,
-// slrsfs_tpu/engine/trainer.py:197-236). The forward sums in bf16 in the
-// JAX quad layout's grouping, as K2's bf16 mode does (splat_quarters.cuh):
-// each corner weight is computed in f32 (0 off the grid) and rounded to
-// bf16, each weighted channel (the exact f32 product of two bf16 values)
-// rounded to bf16 and added into its corner's bf16 quarter of the cell by
-// red.global.add.noftz.v4.bf16x2, 8 channels at a time, a thread per 8
-// channels of a pixel; the epilogue writes NW + NE + SW + SE, each add
-// rounded to bf16. The wrapper allocates the (B * H * W, 4, C8) bf16
-// quarters, C8 = C rounded up to a multiple of 8 (604 MB at B = 16, 256^2,
-// C = 65 or 67). The atomic order varies, so the result agrees with the
-// plain version (one index_add_ in row order) within the bf16 rounding of
-// each cell's terms, not bit for bit. The backward is a plain gather, a
-// warp per pixel, lanes over channels, with no staging: it reads the bf16
-// inp row and the four corners' bf16 g rows, sums grad_inp (corners in
-// the order NW, NE, SW, SE, as the plain version: bit for bit after the
-// rounding to bf16) and the four inner products in f32, stores grad_inp
-// in bf16 and grad_flow in f32. Bytes bound both: at (16, 256, 256, 65)
-// the forward reads 136 + 8 MB and writes 136 MB, the backward reads
-// 280 MB and writes 144 MB.
+// slrsfs_tpu/engine/trainer.py:197-236): the same two designs over bf16
+// rows, every sum in f32. Forward: splat_window::scatter with bf16 rows
+// (read from device memory: staging them was slower) into the bf16
+// output, which the wrapper zeroes; there is no other scratch. An entry's
+// weighted rows (f32 weights, computed as _corners does) are summed in f32
+// registers, rounded once to bf16 and added into the cell with one
+// red.global.add.noftz.v4.bf16x2 for each 16-byte line its run touches
+// (an odd C starts every other run 2 bytes into a word; a line's elements
+// outside the run get +0, which changes nothing). A term thus passes at
+// most n + 1 bf16 roundings in a cell of n nonzero taps (its entry's, then
+// its own add and the later adds into the cell); the adds come in no fixed
+// order, so the result agrees with the plain version (one index_add_ in
+// row order, weights and products rounded to bf16 as JAX rounds them)
+// within the bf16 rounding of each cell's terms, not bit for bit. Cells
+// that no corner reaches stay exactly 0. Backward: the f32 kernel over
+// bf16 rows, staged in aligned words and quads at their offset in a
+// 16-byte line (a run at an odd element offset brings its neighbours' half
+// words); grad_inp adds g * w over NW, NE, SW, SE in f32 without FMA and
+// rounds once, as the plain version does (bit for bit), grad_flow in f32.
+// Every C up to the wrapper's 2048 fits a block's shared memory (148 KB
+// at C = 2048). Bytes bound both: at (16, 256, 256, 65) the forward reads
+// 136 + 8 MB and writes 136 MB, the backward reads 280 MB and writes
+// 144 MB.
 
 #include <cuda_runtime.h>
 
-#include "splat_quarters.cuh"
+#include "splat_quarters.cuh"  // bf16, from_f32
 #include "splat_window.cuh"
 
 // The tile of a unit of splat_window::scatter.
@@ -90,19 +94,22 @@ constexpr int kTileY = 4;
 constexpr int kTileX = 4;
 
 // The pixels of inp (B, H, W, C) as units of splat_window::scatter: unit
-// (b * tiles_y + ty) * tiles_x + tx is tile (ty, tx) of sample b.
-struct DenseSource {
+// (b * tiles_y + ty) * tiles_x + tx is tile (ty, tx) of sample b. Rows and
+// grid of T: float, or bf16 for the bf16 mode.
+template <class T>
+struct DenseSourceOf {
+  using Elem = T;
   static constexpr int kItems = kTileY * kTileX;
   static constexpr bool kScaled = false;  // the weights multiply inp itself
-  const float* inp;
+  const T* inp;
   const float2* flow;
-  float* out;
+  T* out;
   int B, H, W, C, tiles_y, tiles_x;
 
   __device__ int units() const { return B * tiles_y * tiles_x; }
   __device__ float scale(int) const { return 1.0f; }
   __device__ int items(int) const { return kTileY * kTileX; }
-  __device__ bool item(int unit, int i, splat_window::Item& it) const {
+  __device__ bool item(int unit, int i, splat_window::ItemOf<T>& it) const {
     const int per_sample = tiles_y * tiles_x;
     const int b = unit / per_sample;
     const int tile = unit - b * per_sample;
@@ -117,27 +124,30 @@ struct DenseSource {
     it.oy = (float)y + f.y;
     return true;
   }
-  __device__ float* grid(int unit) const {
+  __device__ T* grid(int unit) const {
     return out + (size_t)(unit / (tiles_y * tiles_x)) * H * W * C;
   }
+  __device__ const T* grid_lo() const { return out; }
+  __device__ const T* grid_hi() const { return out + (size_t)B * H * W * C; }
 };
 
 // kStage: the rows staged in shared memory (inp larger than L2: the
 // training batch) or read from L2 (the dense render's one frame end).
-template <bool kStage>
+template <class T, bool kStage>
 __global__ void __launch_bounds__(splat_window::kGroups * 32)
-    splat_dense_fwd_kernel(DenseSource src) {
+    splat_dense_fwd_kernel(DenseSourceOf<T> src) {
   splat_window::scatter<kStage>(src, src.H, src.W, src.C);
 }
 
-template <bool kStage>
-static cudaError_t dense_fwd(const DenseSource& src, long long units, cudaStream_t s) {
+template <class T, bool kStage>
+static cudaError_t dense_fwd(const DenseSourceOf<T>& src, long long units, cudaStream_t s) {
   unsigned blocks = 0;
   size_t smem = 0;
-  cudaError_t err = splat_window::launch_shape<DenseSource::kItems, kStage>(
-      splat_dense_fwd_kernel<kStage>, src.C, units, &blocks, &smem);
+  cudaError_t err = splat_window::launch_shape<DenseSourceOf<T>::kItems, kStage, T>(
+      splat_dense_fwd_kernel<T, kStage>, src.C, units, &blocks, &smem);
   if (err != cudaSuccess) return err;
-  splat_dense_fwd_kernel<kStage><<<blocks, splat_window::kGroups * 32, smem, s>>>(src);
+  splat_dense_fwd_kernel<T, kStage>
+      <<<blocks, splat_window::kGroups * 32, smem, s>>>(src);
   return cudaGetLastError();
 }
 
@@ -145,16 +155,17 @@ static cudaError_t dense_fwd(const DenseSource& src, long long units, cudaStream
 // (B, H, W, C) f32, which the caller zeroes.
 extern "C" int splat_dense_fwd(const void* inp, const void* flow, void* out,
                                int B, int H, int W, int C, void* stream) {
-  const DenseSource src = {(const float*)inp, (const float2*)flow, (float*)out, B, H, W, C,
-                           (H + kTileY - 1) / kTileY, (W + kTileX - 1) / kTileX};
+  const DenseSourceOf<float> src = {(const float*)inp, (const float2*)flow, (float*)out,
+                                    B, H, W, C, (H + kTileY - 1) / kTileY,
+                                    (W + kTileX - 1) / kTileX};
   const long long units = (long long)B * src.tiles_y * src.tiles_x;
   if (units == 0 || C == 0) return (int)cudaGetLastError();
   if (H >= 32768 || W >= 32768) return (int)cudaErrorInvalidValue;
   bool stage = false;
   cudaError_t err = splat_window::stage_rows((size_t)B * H * W * C * sizeof(float), &stage);
   if (err == cudaSuccess)
-    err = stage ? dense_fwd<true>(src, units, (cudaStream_t)stream)
-                : dense_fwd<false>(src, units, (cudaStream_t)stream);
+    err = stage ? dense_fwd<float, true>(src, units, (cudaStream_t)stream)
+                : dense_fwd<float, false>(src, units, (cudaStream_t)stream);
   return (int)err;
 }
 
@@ -171,7 +182,7 @@ extern "C" int splat_dense_window_cells(void) { return splat_window::kMapCells; 
 // cells a window holds, and the floats of shared memory a warp aims at: its
 // staged inp rows and its pool (the window's g rows, or a round's corner
 // rows) fill them; a wide C shrinks the window, to none, and the rounds.
-// Eight such warps fit an SM.
+// Eight such warps fit an SM (f32 rows).
 constexpr int kBwdTileY = 4;
 constexpr int kBwdTileX = 8;
 constexpr int kBwdMaxCells = 64;
@@ -181,6 +192,14 @@ constexpr int kBwdWarpFloats = 6912;
 constexpr int kRowPad = 37;
 constexpr int kPaddedRows = 8;
 
+// Shared memory is counted in 4-byte words ("floats"): a run of n f32
+// rows' elements is n words; a run of n bf16 at any offset spans at most
+// (n + 3) / 2 aligned words (a half word beyond each end included).
+template <class T>
+__host__ __device__ inline int words(int n) {
+  return std::is_same<T, float>::value ? n : (n + 3) / 2;
+}
+
 // Floats of shared memory for a run of n floats staged at any phase: a
 // multiple of 4, padded so that the next run starts 8 banks further on.
 __host__ __device__ inline int run_stride(int n) {
@@ -189,42 +208,66 @@ __host__ __device__ inline int run_stride(int n) {
 }
 
 // Floats of one staged corner row of C channels, at any phase.
-__host__ __device__ inline int row_stride(int C) { return (C + 6) & ~3; }
-
-__host__ __device__ inline int bwd_tile_floats(int C) {
-  return kBwdTileY * run_stride(kBwdTileX * C);
+template <class T>
+__host__ __device__ inline int row_stride(int C) {
+  return (words<T>(C) + 6) & ~3;
 }
 
-__host__ __device__ inline int bwd_budget(int C) { return kBwdWarpFloats - bwd_tile_floats(C); }
+template <class T>
+__host__ __device__ inline int bwd_tile_floats(int C) {
+  return kBwdTileY * run_stride(words<T>(kBwdTileX * C));
+}
+
+template <class T>
+__host__ __device__ inline int bwd_budget(int C) {
+  return kBwdWarpFloats - bwd_tile_floats<T>(C);
+}
+
+// Floats a window cell costs at most: its C elements and its share of a
+// row's phase and rounding (rows <= cells).
+template <class T>
+__host__ __device__ inline int cell_floats(int C) {
+  return std::is_same<T, float>::value ? C + 6 : (C + 1) / 2 + 8;
+}
 
 // Window cells of a warp for C channels: rows of at most kPaddedRows runs
-// take run_stride, taller windows (lw * C + 3) rounded to 4 floats.
+// take run_stride, taller windows their words rounded to 4 floats.
+template <class T>
 __host__ __device__ inline int bwd_window_cells(int C) {
-  const int spare = bwd_budget(C) - kPaddedRows * kRowPad;
-  const int cells = spare > 0 ? spare / (C + 6) : 0;
+  const int spare = bwd_budget<T>(C) - kPaddedRows * kRowPad;
+  const int cells = spare > 0 ? spare / cell_floats<T>(C) : 0;
   return cells < kBwdMaxCells ? cells : kBwdMaxCells;
 }
 
 // Pixels of one round of a tile with a miss: 16, or fewer where their 4
 // corner rows each exceed the budget (at least 1).
+template <class T>
 __host__ __device__ inline int bwd_round_pixels(int C) {
   int p = 16;
-  while (p > 1 && 4 * p * row_stride(C) > bwd_budget(C)) p >>= 1;
+  while (p > 1 && 4 * p * row_stride<T>(C) > bwd_budget<T>(C)) p >>= 1;
   return p;
 }
 
+template <class T>
 __host__ __device__ inline int bwd_pool_floats(int C) {
-  const int cap = bwd_window_cells(C);
-  const int win = cap > 0 ? cap * (C + 6) + kPaddedRows * kRowPad : 0;
-  const int rows = 4 * bwd_round_pixels(C) * row_stride(C);
+  const int cap = bwd_window_cells<T>(C);
+  const int win = cap > 0 ? cap * cell_floats<T>(C) + kPaddedRows * kRowPad : 0;
+  const int rows = 4 * bwd_round_pixels<T>(C) * row_stride<T>(C);
   return win > rows ? win : rows;
 }
 
+template <class T>
 __host__ __device__ inline int bwd_warp_floats(int C) {
-  return (bwd_tile_floats(C) + bwd_pool_floats(C) + 3) & ~3;
+  return (bwd_tile_floats<T>(C) + bwd_pool_floats<T>(C) + 3) & ~3;
 }
 
 __device__ __forceinline__ int phase_of(const float* p) { return (int)(((uintptr_t)p >> 2) & 3); }
+
+// An element's offset in its 16-byte line: f32 0..3, bf16 0..7.
+__device__ __forceinline__ int elem_phase(const float* p) { return phase_of(p); }
+__device__ __forceinline__ int elem_phase(const bf16* p) {
+  return (int)(((uintptr_t)p >> 1) & 7);
+}
 
 __device__ __forceinline__ void copy16_async(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
@@ -266,8 +309,35 @@ __device__ __forceinline__ void stage_run(float* dst, const float* src, int n, i
   }
 }
 
-// Stores src[ph, ph + n) (shared, staged by stage_run at phase ph) to
-// dst[0, n): 16-byte stores where dst has the same phase, else scalars.
+// The n bf16 at src (of a 4-byte aligned tensor that ends at `end`) into
+// dst, 16-byte aligned: element e lands at dst[elem_phase(src) + e], copied
+// as the aligned words that hold them (a half word beyond either end comes
+// along, from inside the tensor) by stage_run; a last word that would reach
+// past `end` is its one element, by a plain load.
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, int n, int first,
+                                           int step, const bf16* end) {
+  const uintptr_t a1 = (uintptr_t)(src + n);
+  const float* w0 = reinterpret_cast<const float*>((uintptr_t)src & ~(uintptr_t)3);
+  const bool cut = ((a1 + 3) & ~(uintptr_t)3) > (uintptr_t)end;
+  const int words = (int)((((a1 + 3) & ~(uintptr_t)3) - (uintptr_t)w0) >> 2) - cut;
+  stage_run(reinterpret_cast<float*>(dst), w0, words, first, step);
+  if (cut && first == 0) dst[elem_phase(src) + n - 1] = src[n - 1];
+}
+
+// A run of n elements into dst (16-byte aligned), element e at element
+// elem_phase(src) + e: f32 by stage_run; bf16 by stage_bf16 (its tensor
+// ends at `end`).
+__device__ __forceinline__ void stage(float* dst, const float* src, int n, int first, int step,
+                                      const float*) {
+  stage_run(dst, src, n, first, step);
+}
+__device__ __forceinline__ void stage(float* dst, const bf16* src, int n, int first, int step,
+                                      const bf16* end) {
+  stage_bf16(reinterpret_cast<bf16*>(dst), src, n, first, step, end);
+}
+
+// Stores src[ph, ph + n) (shared, staged at phase ph) to dst[0, n):
+// 16-byte stores where dst has the same phase, else element by element.
 __device__ __forceinline__ void store_run(float* dst, const float* src, int ph, int n,
                                           int lane) {
   if (phase_of(dst) != ph) {
@@ -283,22 +353,43 @@ __device__ __forceinline__ void store_run(float* dst, const float* src, int ph, 
       dst[j] = src[ph + j];
   }
 }
+__device__ __forceinline__ void store_run(bf16* dst, const bf16* src, int ph, int n, int lane) {
+  if (elem_phase(dst) != ph) {
+    for (int j = lane; j < n; j += 32) dst[j] = src[ph + j];
+    return;
+  }
+  const int head = splat_window::imin((8 - ph) & 7, n);
+  const int vecs = (n - head) >> 3;
+  for (int i = lane; i < n - 7 * vecs; i += 32) {
+    if (i >= head && i < head + vecs) {
+      const int j = head + 8 * (i - head);
+      *reinterpret_cast<uint4*>(dst + j) = *reinterpret_cast<const uint4*>(src + ph + j);
+    } else {
+      const int j = i < head ? i : i + 7 * vecs;
+      dst[j] = src[ph + j];
+    }
+  }
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 // One pixel's channels [c0, c1) from shared memory: row holds its inp and
 // receives grad_inp = sum_k g_k * w_k (k in the order NW, NE, SW, SE; g_k
-// read from gk[k] where hv[k], else 0); inner[k] += sum_c inp * g_k. Four
-// channels a step, their loads first.
-__device__ __forceinline__ void gather_pixel(float* row, const float* const* gk, const bool* hv,
+// read from gk[k] where hv[k], else 0; f32 adds, rounded once to T);
+// inner[k] += sum_c inp * g_k. Four channels a step, their loads first.
+template <class T>
+__device__ __forceinline__ void gather_pixel(T* row, const T* const* gk, const bool* hv,
                                              const float* w, int c0, int c1, float* inner) {
   int c = c0;
   for (; c + 4 <= c1; c += 4) {
     float x[4], g[4][4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) x[u] = row[c + u];
+    for (int u = 0; u < 4; ++u) x[u] = to_f32(row[c + u]);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) g[k][u] = hv[k] ? gk[k][c + u] : 0.0f;
+      for (int u = 0; u < 4; ++u) g[k][u] = hv[k] ? to_f32(gk[k][c + u]) : 0.0f;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       float acc = 0.0f;
@@ -307,38 +398,40 @@ __device__ __forceinline__ void gather_pixel(float* row, const float* const* gk,
         acc = acc + g[k][u] * w[k];
         inner[k] = inner[k] + x[u] * g[k][u];
       }
-      row[c + u] = acc;
+      row[c + u] = from_f32<T>(acc);
     }
   }
   for (; c < c1; ++c) {
-    const float x = row[c];
+    const float x = to_f32(row[c]);
     float acc = 0.0f;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float g = hv[k] ? gk[k][c] : 0.0f;
+      const float g = hv[k] ? to_f32(gk[k][c]) : 0.0f;
       acc = acc + g * w[k];
       inner[k] = inner[k] + x * g;
     }
-    row[c] = acc;
+    row[c] = from_f32<T>(acc);
   }
 }
 
+template <class T>
 struct BwdArgs {
-  const float* inp;
+  const T* inp;
   const float2* flow;
-  const float* g;
-  float* grad_inp;
+  const T* g;
+  T* grad_inp;
   float2* grad_flow;
   int B, H, W, C, tiles_y, tiles_x, cap, round_pixels;
 };
 
-__global__ void __launch_bounds__(32) splat_dense_bwd_kernel(BwdArgs a) {
+template <class T>
+__global__ void __launch_bounds__(32) splat_dense_bwd_kernel(BwdArgs<T> a) {
   extern __shared__ __align__(16) float buf[];  // the tile's rows, then g rows
   const int lane = threadIdx.x;
   const int per_sample = a.tiles_y * a.tiles_x;
   const long long unit = blockIdx.x;
   const int H = a.H, W = a.W, C = a.C;
-  float* pool = buf + bwd_tile_floats(C);
+  float* pool = buf + bwd_tile_floats<T>(C);
   const int b = (int)(unit / per_sample);
   const int tile = (int)(unit - (long long)b * per_sample);
   const int y0 = (tile / a.tiles_x) * kBwdTileY;
@@ -348,13 +441,14 @@ __global__ void __launch_bounds__(32) splat_dense_bwd_kernel(BwdArgs a) {
   const int py = lane / kBwdTileX, px = lane % kBwdTileX;
   const bool live = py < ny && px < nx;
   const size_t sample = (size_t)b * H * W;
-  const float* g_b = a.g + sample * C;
-  const int tstride = run_stride(kBwdTileX * C);
+  const size_t numel = (size_t)a.B * H * W * C;
+  const T* g_b = a.g + sample * C;
+  const int tstride = run_stride(words<T>(kBwdTileX * C));
 
   // the tile's inp rows into shared memory
   for (int r = 0; r < ny; ++r)
-    stage_run(buf + r * tstride, a.inp + (sample + (size_t)(y0 + r) * W + x0) * C, nx * C, lane,
-              32);
+    stage(buf + r * tstride, a.inp + (sample + (size_t)(y0 + r) * W + x0) * C, nx * C, lane,
+          32, a.inp + numel);
 
   // taps, operation for operation as _corners and _corner_weight_grads
   float w[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dwdx[4] = {0.0f, 0.0f, 0.0f, 0.0f},
@@ -426,23 +520,26 @@ __global__ void __launch_bounds__(32) splat_dense_bwd_kernel(BwdArgs a) {
   float inner[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (hits == n) {
     // every corner in the window: stage it, lanes over pixels
-    const int wstride = wd.rows <= kPaddedRows ? run_stride(wd.lw * C) : (wd.lw * C + 6) & ~3;
-    const float* g_win = g_b + ((size_t)wd.oy * W + wd.ox) * C;  // the window's origin
+    const int wn = words<T>(wd.lw * C);
+    const int wstride = wd.rows <= kPaddedRows ? run_stride(wn) : (wn + 6) & ~3;
+    const T* g_win = g_b + ((size_t)wd.oy * W + wd.ox) * C;  // the window's origin
     for (int r = 0; r < wd.rows; ++r)
-      stage_run(pool + r * wstride, g_win + (size_t)r * W * C, wd.lw * C, lane, 32);
+      stage(pool + r * wstride, g_win + (size_t)r * W * C, wd.lw * C, lane, 32, a.g + numel);
     asm volatile("cp.async.wait_all;" ::: "memory");
     __syncwarp();
     if (live) {
-      const float* gk[4];
+      const T* gk[4];
       bool hv[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int u = cx[k] - wd.ox, v = cy[k] - wd.oy;
         hv[k] = cell[k] >= 0;
-        gk[k] = pool + (hv[k] ? v * wstride + phase_of(g_win + (size_t)v * W * C) + u * C : 0);
+        gk[k] = reinterpret_cast<const T*>(pool + (hv[k] ? v * wstride : 0)) +
+                (hv[k] ? elem_phase(g_win + (size_t)v * W * C) + u * C : 0);
       }
-      const int ph = phase_of(a.inp + (sample + (size_t)(y0 + py) * W + x0) * C);
-      gather_pixel(buf + py * tstride + ph + px * C, gk, hv, w, 0, C, inner);
+      const int ph = elem_phase(a.inp + (sample + (size_t)(y0 + py) * W + x0) * C);
+      gather_pixel(reinterpret_cast<T*>(buf + py * tstride) + ph + px * C, gk, hv, w, 0, C,
+                   inner);
     }
   } else {
     // a corner outside the window: rounds of P pixels, each pixel's corner
@@ -450,7 +547,7 @@ __global__ void __launch_bounds__(32) splat_dense_bwd_kernel(BwdArgs a) {
     asm volatile("cp.async.wait_all;" ::: "memory");
     const int P = a.round_pixels;
     const int parts = 32 / P;
-    const int rs = row_stride(C);
+    const int rs = row_stride<T>(C);
     const int p = lane % P, q = lane / P;
     const int span = (C + parts - 1) / parts;
     const int c0 = splat_window::imin(q * span, C), c1 = splat_window::imin(c0 + span, C);
@@ -462,25 +559,28 @@ __global__ void __launch_bounds__(32) splat_dense_bwd_kernel(BwdArgs a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) cl[j] = __shfl_sync(0xffffffffu, cell[j], r * P + idx % P);
         const int c = k == 0 ? cl[0] : k == 1 ? cl[1] : k == 2 ? cl[2] : cl[3];
-        if (idx < 4 * P && c >= 0) stage_run(pool + idx * rs, g_b + (size_t)c * C, C, 0, 1);
+        if (idx < 4 * P && c >= 0)
+          stage(pool + idx * rs, g_b + (size_t)c * C, C, 0, 1, a.g + numel);
       }
       asm volatile("cp.async.wait_all;" ::: "memory");
       __syncwarp();
       const int i = r * P + p;  // the lane's pixel this round
       float wi[4], part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const float* gk[4];
+      const T* gk[4];
       bool hv[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         wi[k] = __shfl_sync(0xffffffffu, w[k], i);
         const int c = __shfl_sync(0xffffffffu, cell[k], i);
         hv[k] = c >= 0;
-        gk[k] = pool + (p + P * k) * rs + (hv[k] ? phase_of(g_b + (size_t)c * C) : 0);
+        gk[k] = reinterpret_cast<const T*>(pool + (p + P * k) * rs) +
+                (hv[k] ? elem_phase(g_b + (size_t)c * C) : 0);
       }
       const int iy = i / kBwdTileX, ix = i % kBwdTileX;
       if (iy < ny && ix < nx) {
-        const int ph = phase_of(a.inp + (sample + (size_t)(y0 + iy) * W + x0) * C);
-        gather_pixel(buf + iy * tstride + ph + ix * C, gk, hv, wi, c0, c1, part);
+        const int ph = elem_phase(a.inp + (sample + (size_t)(y0 + iy) * W + x0) * C);
+        gather_pixel(reinterpret_cast<T*>(buf + iy * tstride) + ph + ix * C, gk, hv, wi, c0, c1,
+                     part);
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -502,26 +602,26 @@ __global__ void __launch_bounds__(32) splat_dense_bwd_kernel(BwdArgs a) {
   __syncwarp();
   for (int r = 0; r < ny; ++r) {
     const size_t at = (sample + (size_t)(y0 + r) * W + x0) * C;
-    store_run(a.grad_inp + at, buf + r * tstride, phase_of(a.inp + at), nx * C, lane);
+    store_run(a.grad_inp + at, reinterpret_cast<const T*>(buf + r * tstride),
+              elem_phase(a.inp + at), nx * C, lane);
   }
 }
 
-// inp, flow as above, g (B, H, W, C) f32 the output's cotangent; writes
-// grad_inp (B, H, W, C) and grad_flow (B, H, W, 2), both f32. A C whose
-// staged tile rows do not fit a block's shared memory is refused
-// (cudaErrorInvalidValue; C above ~1700).
-extern "C" int splat_dense_bwd(const void* inp, const void* flow,
-                               const void* g, void* grad_inp, void* grad_flow,
-                               int B, int H, int W, int C, void* stream) {
+// One launch of the backward for rows of T: a block a tile, the shared
+// memory of bwd_warp_floats<T>(C) (the card's opt-in limit set once per
+// device and C; a C past it is cudaErrorInvalidValue).
+template <class T>
+static int dense_bwd(const void* inp, const void* flow, const void* g, void* grad_inp,
+                     void* grad_flow, int B, int H, int W, int C, void* stream) {
   const int tiles_y = (H + kBwdTileY - 1) / kBwdTileY;
   const int tiles_x = (W + kBwdTileX - 1) / kBwdTileX;
   const long long units = (long long)B * tiles_y * tiles_x;
   if (units == 0 || C == 0) return (int)cudaGetLastError();
   if (H >= 32768 || W >= 32768 || units > INT_MAX) return (int)cudaErrorInvalidValue;
-  const BwdArgs args = {(const float*)inp, (const float2*)flow, (const float*)g,
-                        (float*)grad_inp, (float2*)grad_flow, B, H, W, C, tiles_y, tiles_x,
-                        bwd_window_cells(C), bwd_round_pixels(C)};
-  const size_t smem = (size_t)bwd_warp_floats(C) * sizeof(float);
+  const BwdArgs<T> args = {(const T*)inp, (const float2*)flow, (const T*)g, (T*)grad_inp,
+                           (float2*)grad_flow, B, H, W, C, tiles_y, tiles_x,
+                           bwd_window_cells<T>(C), bwd_round_pixels<T>(C)};
+  const size_t smem = (size_t)bwd_warp_floats<T>(C) * sizeof(float);
   static int dev_seen = -1, c_seen = -1;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -531,28 +631,40 @@ extern "C" int splat_dense_bwd(const void* inp, const void* flow,
     err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return (int)err;
     if (smem > (size_t)most) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(splat_dense_bwd_kernel,
+    err = cudaFuncSetAttribute(splat_dense_bwd_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dev_seen = dev;
     c_seen = C;
   }
-  splat_dense_bwd_kernel<<<(unsigned)units, 32, smem, (cudaStream_t)stream>>>(args);
+  splat_dense_bwd_kernel<T><<<(unsigned)units, 32, smem, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
+}
+
+// inp, flow as above, g (B, H, W, C) f32 the output's cotangent; writes
+// grad_inp (B, H, W, C) and grad_flow (B, H, W, 2), both f32. A C whose
+// staged tile rows do not fit a block's shared memory is refused
+// (cudaErrorInvalidValue; C above ~1700).
+extern "C" int splat_dense_bwd(const void* inp, const void* flow,
+                               const void* g, void* grad_inp, void* grad_flow,
+                               int B, int H, int W, int C, void* stream) {
+  return dense_bwd<float>(inp, flow, g, grad_inp, grad_flow, B, H, W, C, stream);
 }
 
 // The backward's geometry, for the host's count of window misses
 // (ops/splat.py:dense_window_misses, dense_window_units): the tile's rows
-// and columns and the window's cells for C channels. They launch nothing.
+// and columns and the window's cells for C channels (f32 rows, and bf16
+// rows). They launch nothing.
 extern "C" int splat_dense_bwd_tile_rows(void) { return kBwdTileY; }
 extern "C" int splat_dense_bwd_tile_cols(void) { return kBwdTileX; }
-extern "C" int splat_dense_bwd_window_cells(int C) { return bwd_window_cells(C); }
+extern "C" int splat_dense_bwd_window_cells(int C) { return bwd_window_cells<float>(C); }
+extern "C" int splat_dense_bwd_bf16_window_cells(int C) { return bwd_window_cells<bf16>(C); }
 
-// The backward's shared memory a block for C channels, and the card's most
-// a block (the current device's opt-in limit; -1 if it cannot be read):
-// the wrapper refuses a C whose rows do not fit before it launches.
+// The f32 backward's shared memory a block for C channels, and the card's
+// most a block (the current device's opt-in limit; -1 if it cannot be
+// read): the wrapper refuses a C whose rows do not fit before it launches.
 extern "C" int splat_dense_bwd_smem_bytes(int C) {
-  return bwd_warp_floats(C) * (int)sizeof(float);
+  return bwd_warp_floats<float>(C) * (int)sizeof(float);
 }
 extern "C" int splat_dense_bwd_smem_most(void) {
   int dev = 0, most = 0;
@@ -564,182 +676,29 @@ extern "C" int splat_dense_bwd_smem_most(void) {
 
 // ---- bf16 mode ------------------------------------------------------------
 
-constexpr int kBf16Threads = 256;
-
-// quarters (B * H * W, 4, C8) bf16, zeroed, += the splat of inp (B, H, W, C)
-// bf16 by flow: corner k of pixel p into quarter k of its cell (cells
-// numbered over the batch). blockDim.x / n pixels a block, n = C8 / 8
-// threads a pixel.
-__global__ void splat_dense_fwd_bf16_kernel(const bf16* __restrict__ inp,
-                                            const float2* __restrict__ flow,
-                                            bf16* __restrict__ quarters, int B, int H, int W,
-                                            int C) {
-  __shared__ int s_cell[kBf16Threads][4];  // -1: corner off the grid
-  __shared__ float s_w[kBf16Threads][4];   // the weight rounded to bf16
-  const int C8 = quarter_stride(C);
-  const int n = C8 >> 3;
-  const int per_block = blockDim.x / n;
-  const long long HW = (long long)H * W;
-  const long long total = (long long)B * HW;
-  const long long pix0 = (long long)blockIdx.x * per_block;
-  if (threadIdx.x < per_block) {
-    const long long p = pix0 + threadIdx.x;
-    int cell[4] = {-1, -1, -1, -1};
-    float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (p < total) {
-      const int b = (int)(p / HW);
-      const int rem = (int)(p - (long long)b * HW);
-      const int y = rem / W, x = rem - (rem / W) * W;
-      const float2 f = flow[p];
-      const float ox = (float)x + f.x;
-      const float oy = (float)y + f.y;
-      const float x0f = floorf(ox);
-      const float y0f = floorf(oy);
-      const float dx = ox - x0f;
-      const float dy = oy - y0f;
-      const int ix = (int)x0f, iy = (int)y0f;
-      const float ws[4] = {(1.0f - dx) * (1.0f - dy), dx * (1.0f - dy), (1.0f - dx) * dy,
-                           dx * dy};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int cx = ix + (k & 1), cy = iy + (k >> 1);
-        if (cx >= 0 && cx < W && cy >= 0 && cy < H) {
-          cell[k] = b * (int)HW + cy * W + cx;
-          w[k] = __bfloat162float(__float2bfloat16_rn(ws[k]));
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      s_cell[threadIdx.x][k] = cell[k];
-      s_w[threadIdx.x][k] = w[k];
-    }
-  }
-  __syncthreads();
-  const int r = threadIdx.x / n;
-  const int j = threadIdx.x - r * n;
-  const long long p = pix0 + r;
-  if (r >= per_block || p >= total) return;
-  const bf16* row = inp + p * C + 8 * j;
-  float v[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = 8 * j + e < C ? __bfloat162float(row[e]) : 0.0f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int cell = s_cell[r][k];
-    if (cell < 0) continue;
-    const float w = s_w[r][k];
-    uint32_t packed[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) packed[m] = pack_bf16x2(v[2 * m] * w, v[2 * m + 1] * w);
-    red_add_bf16x8(quarters + ((size_t)cell * 4 + k) * C8 + 8 * j, packed);
-  }
-}
-
-// inp (B, H, W, C) bf16, flow (B, H, W, 2) f32, quarters (B * H * W, 4, C8)
-// bf16 scratch, 16-byte aligned; writes the splat to out (B, H, W, C) bf16:
-// the quarters zeroed, the scatter, the epilogue. C <= 2048 and
-// B * H * W < 2^31 (the wrapper checks both).
-extern "C" int splat_dense_fwd_bf16(const void* inp, const void* flow, void* quarters,
-                                    void* out, int B, int H, int W, int C, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long pixels = (long long)B * H * W;
-  if (pixels == 0 || C == 0) return (int)cudaGetLastError();
-  const int C8 = quarter_stride(C);
-  const int n = C8 >> 3;
-  if (n > kBf16Threads || pixels > INT_MAX || H >= 32768 || W >= 32768)
+// inp (B, H, W, C) bf16, flow (B, H, W, 2) f32; adds the splat into out
+// (B, H, W, C) bf16, which the caller zeroes: splat_window::scatter over
+// bf16 rows read from device memory (staging them in shared memory was
+// slower). inp and out 2-byte aligned; B * H * W < 2^31 (the wrapper
+// checks both).
+extern "C" int splat_dense_fwd_bf16(const void* inp, const void* flow, void* out, int B,
+                                    int H, int W, int C, void* stream) {
+  const DenseSourceOf<bf16> src = {(const bf16*)inp, (const float2*)flow, (bf16*)out,
+                                   B, H, W, C, (H + kTileY - 1) / kTileY,
+                                   (W + kTileX - 1) / kTileX};
+  const long long units = (long long)B * src.tiles_y * src.tiles_x;
+  if (units == 0 || C == 0) return (int)cudaGetLastError();
+  if (H >= 32768 || W >= 32768 || (long long)B * H * W > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const int per_block = kBf16Threads / n;
-  cudaError_t err = cudaMemsetAsync(quarters, 0, (size_t)pixels * 4 * C8 * sizeof(bf16), s);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((pixels + per_block - 1) / per_block);
-  splat_dense_fwd_bf16_kernel<<<blocks, per_block * n, 0, s>>>(
-      (const bf16*)inp, (const float2*)flow, (bf16*)quarters, B, H, W, C);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)per_block * (C8 + C + 8) * sizeof(bf16);
-  quarters_epilogue_kernel<bf16, kSum><<<blocks, per_block * n, smem, s>>>(
-      (const bf16*)quarters, nullptr, (bf16*)out, (int)pixels, C);
-  return (int)cudaGetLastError();
+  return (int)dense_fwd<bf16, false>(src, units, (cudaStream_t)stream);
 }
 
-// The backward in bf16: a warp per pixel (blockDim.x / 32 pixels a block),
-// lane l over channels l, l + 32, ...; the taps operation for operation as
-// _corners and _corner_weight_grads.
-__global__ void splat_dense_bwd_bf16_kernel(const bf16* __restrict__ inp,
-                                            const float2* __restrict__ flow,
-                                            const bf16* __restrict__ g,
-                                            bf16* __restrict__ grad_inp,
-                                            float2* __restrict__ grad_flow, int B, int H, int W,
-                                            int C) {
-  const int lane = threadIdx.x & 31;
-  const long long HW = (long long)H * W;
-  const long long p = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (p >= (long long)B * HW) return;
-  const int b = (int)(p / HW);
-  const int rem = (int)(p - (long long)b * HW);
-  const int y = rem / W, x = rem - (rem / W) * W;
-  const float2 f = flow[p];
-  const float ox = (float)x + f.x;
-  const float oy = (float)y + f.y;
-  const float x0f = floorf(ox);
-  const float y0f = floorf(oy);
-  const float dx = ox - x0f;
-  const float dy = oy - y0f;
-  const int ix = (int)x0f, iy = (int)y0f;
-  const float w[4] = {(1.0f - dx) * (1.0f - dy), dx * (1.0f - dy), (1.0f - dx) * dy, dx * dy};
-  const float dwdx[4] = {-(1.0f - dy), 1.0f - dy, -dy, dy};
-  const float dwdy[4] = {-(1.0f - dx), -dx, 1.0f - dx, dx};
-  const bf16* gk[4];
-  bool hv[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int cx = ix + (k & 1), cy = iy + (k >> 1);
-    hv[k] = cx >= 0 && cx < W && cy >= 0 && cy < H;
-    gk[k] = g + ((size_t)b * HW + (hv[k] ? (size_t)cy * W + cx : 0)) * C;
-  }
-  const bf16* xr = inp + (size_t)p * C;
-  bf16* gr = grad_inp + (size_t)p * C;
-  float inner[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int c = lane; c < C; c += 32) {
-    const float xv = __bfloat162float(xr[c]);
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float gv = hv[k] ? __bfloat162float(gk[k][c]) : 0.0f;
-      acc = acc + gv * w[k];
-      inner[k] = inner[k] + xv * gv;
-    }
-    gr[c] = __float2bfloat16_rn(acc);
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    for (int off = 16; off > 0; off >>= 1)
-      inner[k] += __shfl_xor_sync(0xffffffffu, inner[k], off);
-  if (lane == 0) {
-    float gx = 0.0f, gy = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      gx = gx + inner[k] * dwdx[k];
-      gy = gy + inner[k] * dwdy[k];
-    }
-    grad_flow[p] = make_float2(gx, gy);
-  }
-}
-
-// inp (B, H, W, C) bf16, flow (B, H, W, 2) f32, g (B, H, W, C) bf16; writes
-// grad_inp (B, H, W, C) bf16 and grad_flow (B, H, W, 2) f32. No shared
-// memory; B * H * W < 2^31.
+// inp (B, H, W, C) bf16, flow (B, H, W, 2) f32, g (B, H, W, C) bf16, each
+// 4-byte aligned; writes grad_inp (B, H, W, C) bf16 and grad_flow
+// (B, H, W, 2) f32: the f32 backward's kernel over bf16 rows.
 extern "C" int splat_dense_bwd_bf16(const void* inp, const void* flow, const void* g,
                                     void* grad_inp, void* grad_flow, int B, int H, int W,
                                     int C, void* stream) {
-  const long long pixels = (long long)B * H * W;
-  if (pixels == 0 || C == 0) return (int)cudaGetLastError();
-  if (pixels > INT_MAX || H >= 32768 || W >= 32768) return (int)cudaErrorInvalidValue;
-  const int warps = kBf16Threads / 32;
-  splat_dense_bwd_bf16_kernel<<<(unsigned)((pixels + warps - 1) / warps), kBf16Threads, 0,
-                                (cudaStream_t)stream>>>(
-      (const bf16*)inp, (const float2*)flow, (const bf16*)g, (bf16*)grad_inp,
-      (float2*)grad_flow, B, H, W, C);
-  return (int)cudaGetLastError();
+  if ((long long)B * H * W > INT_MAX) return (int)cudaErrorInvalidValue;
+  return dense_bwd<bf16>(inp, flow, g, grad_inp, grad_flow, B, H, W, C, stream);
 }

@@ -1,6 +1,6 @@
-// The tile-and-window f32 splat scatter shared by K2 and K8
-// (csrc/splat.cu, packed rows) and K3's forward (csrc/splat_dense.cu,
-// dense pixels).
+// The tile-and-window splat scatter shared by K2 and K8 (csrc/splat.cu,
+// packed rows, f32) and K3's forward (csrc/splat_dense.cu, dense pixels, f32
+// rows or, in its bf16 mode, bf16 rows and a bf16 grid).
 //
 // An f32 splat adds, for every source item (a packed row or a pixel), its
 // C channels times each bilinear weight into the four integer neighbours
@@ -47,12 +47,28 @@
 // more add. place_window is repeated on the host by
 // slrsfs_tpu_torch/ops/splat.py:place_windows, which counts the corners
 // that miss their window from the displacements alone.
+//
+// bf16 rows and grid (a source whose `Elem` is __nv_bfloat16; K3's bf16
+// mode): the same units, window and entries, the rows read from device
+// memory. An entry's sum is taken in f32 registers (the weights f32, each
+// row element widened exactly, fused multiply-adds), then rounded once to
+// bf16 and added into its cell with bf16 reductions (rounded to nearest
+// even), one red.global.add.noftz.v4.bf16x2 for each 16-byte line that the
+// cell's run of C bf16 touches: an odd C starts every other run 2 bytes
+// into a word, so a line's elements outside the run (the neighbouring
+// cells') receive +0, which leaves them as they are (a cell is never -0:
+// it starts at +0, and an add rounds an exact zero sum to +0). A line
+// that would reach outside the grid's tensor is added element by element.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "splat_quarters.cuh"  // bf16, pack_bf16x2
 
 namespace splat_window {
 
@@ -95,10 +111,22 @@ __host__ __device__ inline Window place_window(int bx0, int bx1, int by0, int by
   return w;
 }
 
-// One source item: its channels `row` (C floats) and its target position.
-struct Item {
-  const float* row;
+// One source item: its channels `row` (C elements) and its target position.
+template <class T>
+struct ItemOf {
+  const T* row;
   float ox, oy;
+};
+using Item = ItemOf<float>;
+
+// A source's element type: Src::Elem where it names one, else float.
+template <class S, class = void>
+struct ElemOf {
+  using type = float;
+};
+template <class S>
+struct ElemOf<S, std::void_t<typename S::Elem>> {
+  using type = typename S::Elem;
 };
 
 // Shared memory of one warp for units of kItems items, 16-byte aligned
@@ -109,10 +137,10 @@ struct Item {
 // per corner its cell (-1: off the grid), its (x, y) in 16 bits each, its
 // window cell (-1: a miss, -2: off the grid), its rank in its cell (a
 // miss: its entry) and its weight; per item its row in device memory.
-template <int kItems, bool kStage>
+template <int kItems, bool kStage, class T = float>
 struct WarpSmem {
   static constexpr int kCorners = 4 * kItems;
-  float* rows;
+  T* rows;
   int* count;
   int* entry_cell;
   int* entry_slot;
@@ -123,11 +151,11 @@ struct WarpSmem {
   int* slot;
   int* rank;
   float* wgt;
-  const float** row;
+  const T** row;
   int* n_entries;
 
   __host__ __device__ static size_t rows_bytes(int C) {
-    return kStage ? align16((size_t)kItems * C * 4) : 0;
+    return kStage ? align16((size_t)kItems * C * sizeof(T)) : 0;
   }
 
   __host__ __device__ static size_t bytes(int C) {
@@ -136,7 +164,7 @@ struct WarpSmem {
   }
 
   __device__ WarpSmem(unsigned char* p, int C) {
-    rows = (float*)p;        p += rows_bytes(C);
+    rows = (T*)p;            p += rows_bytes(C);
     count = (int*)p;         p += align16(kMapCells * 4);
     entry_cell = (int*)p;    p += align16(kCorners * 4);
     entry_slot = (int*)p;    p += align16(kCorners * 4);
@@ -147,14 +175,14 @@ struct WarpSmem {
     slot = (int*)p;          p += align16(kCorners * 4);
     rank = (int*)p;          p += align16(kCorners * 4);
     wgt = (float*)p;         p += align16(kCorners * 4);
-    row = (const float**)p;  p += align16(kItems * sizeof(void*));
+    row = (const T**)p;      p += align16(kItems * sizeof(void*));
     n_entries = (int*)p;
   }
 };
 
-template <int kItems, bool kStage>
+template <int kItems, bool kStage, class T = float>
 __host__ __device__ inline size_t block_bytes(int C) {
-  return kGroups * WarpSmem<kItems, kStage>::bytes(C);
+  return kGroups * WarpSmem<kItems, kStage, T>::bytes(C);
 }
 
 __device__ __forceinline__ void red4(float* a, float4 v) {
@@ -171,28 +199,57 @@ __device__ __forceinline__ void copy4_async(float* dst, const float* src) {
                : "memory");
 }
 
+// ---- bf16 lines ------------------------------------------------------------
+
+// line[0, 8) += acc rounded to bf16, line 16-byte aligned: one reduction,
+// every element its own bf16 add.
+__device__ __forceinline__ void red_line_bf16(bf16* line, const float* acc) {
+  asm volatile("red.global.add.noftz.v4.bf16x2 [%0], {%1, %2, %3, %4};" ::"l"(line),
+               "r"(pack_bf16x2(acc[0], acc[1])), "r"(pack_bf16x2(acc[2], acc[3])),
+               "r"(pack_bf16x2(acc[4], acc[5])), "r"(pack_bf16x2(acc[6], acc[7]))
+               : "memory");
+}
+
+// One element: *dst += x rounded to bf16 (sm_90).
+__device__ __forceinline__ void red_one_bf16(bf16* dst, float x) {
+  asm volatile("red.global.add.noftz.bf16 [%0], %1;" ::"l"(dst),
+               "h"(__bfloat16_as_ushort(__float2bfloat16_rn(x)))
+               : "memory");
+}
+
 // The grid a source writes to: `Src` provides
 //   static constexpr int kItems;        items of a unit, at most (<= 32)
 //   static constexpr bool kScaled;      rows are scaled before the weights
 //   float scale(int unit) const;        the unit's scale (when kScaled)
 //   int units() const;                  the work units
 //   int items(int unit) const;          items of the unit (<= kItems)
-//   bool item(int unit, int i, Item&) const;  false: the item adds nothing
-//   float* grid(int unit) const;        the (H, W, C) grid of the unit
+//   bool item(int unit, int i, ItemOf<Elem>&) const;  false: the item adds nothing
+//   Elem* grid(int unit) const;         the (H, W, C) grid of the unit
+//   using Elem = __nv_bfloat16;         optional: bf16 rows and grid, which
+//   const Elem* grid_lo() const;        then also give the bounds of the
+//   const Elem* grid_hi() const;        grids' tensor (kStage false)
 // H and W are below 32768 (a corner's (x, y) packs into 32 bits).
 template <bool kStage, class Src>
 __device__ void scatter(const Src& src, int H, int W, int C) {
+  using T = typename ElemOf<Src>::type;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(kF32 || (std::is_same<T, bf16>::value && !Src::kScaled && !kStage),
+                "f32 rows, or unscaled bf16 rows read from device memory");
   constexpr int kItems = Src::kItems;
   static_assert(kItems >= 1 && kItems <= 32, "a unit's items are one per lane");
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  WarpSmem<kItems, kStage> s(smem + warp * WarpSmem<kItems, kStage>::bytes(C), C);
+  WarpSmem<kItems, kStage, T> s(smem + warp * WarpSmem<kItems, kStage, T>::bytes(C), C);
   const int side = isqrt(kMapCells);
-  int max_ops = 1;  // ops of a run of C floats, at its worst phase
-  for (int d = 0; d < 4; ++d) {
-    const int head = imin((4 - d) & 3, C), quads = (C - head) >> 2;
-    max_ops = imax(max_ops, head + quads + (C - head - 4 * quads));
+  // ops of a run of C elements at its worst phase (bf16: the lines it touches)
+  int max_ops = (C + 14) >> 3;
+  if (kF32) {
+    max_ops = 1;
+    for (int d = 0; d < 4; ++d) {
+      const int head = imin((4 - d) & 3, C), quads = (C - head) >> 2;
+      max_ops = imax(max_ops, head + quads + (C - head - 4 * quads));
+    }
   }
 
   for (int i = lane; i < kMapCells; i += 32) s.count[i] = 0;
@@ -201,13 +258,13 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
 
   const int n_units = src.units();
   for (int unit = blockIdx.x * kGroups + warp; unit < n_units; unit += gridDim.x * kGroups) {
-    float* __restrict__ grid = src.grid(unit);
+    T* __restrict__ grid = src.grid(unit);
     const int n_items = src.items(unit);
     // ---- P1: corners, weights, the unit's bounding box; the rows copied
     int bx0 = INT_MAX, bx1 = INT_MIN, by0 = INT_MAX, by1 = INT_MIN, sx = 0, sy = 0, n = 0;
     if (lane < n_items) {
       bool any = false;  // the item has a corner in the grid
-      Item it = {nullptr, 0.0f, 0.0f};
+      ItemOf<T> it = {nullptr, 0.0f, 0.0f};
       const bool live = src.item(unit, lane, it);
       const float x0f = floorf(it.ox);
       const float y0f = floorf(it.oy);
@@ -239,9 +296,9 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
       s.row[lane] = any ? it.row : nullptr;
     }
     __syncwarp();
-    if (kStage) {
+    if constexpr (kStage) {
       for (int i = 0; i < n_items; ++i) {
-        const float* r = s.row[i];
+        const T* r = s.row[i];
         if (r != nullptr)
           for (int c = lane; c < C; c += 32) copy4_async(s.rows + i * C + c, r + c);
       }
@@ -303,14 +360,16 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
     }
     pre -= sum;
     __syncwarp();
-    const uintptr_t grid_phase = ((uintptr_t)grid >> 2) & 3;
+    // the grid's phase in elements of a 16-byte line
+    const unsigned line = kF32 ? 3u : 7u;
+    const uintptr_t grid_phase = ((uintptr_t)grid / sizeof(T)) & line;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int j = 4 * lane + q;
       if (j < n_ent) {
         const int cell = s.entry_cell[j];
         s.entry[j] = make_int4(pre, pre + cnt[q], cell,
-                               (int)((grid_phase + (unsigned)cell * (unsigned)C) & 3u));
+                               (int)((grid_phase + (unsigned)cell * (unsigned)C) & line));
         if (s.entry_slot[j] >= 0) s.count[s.entry_slot[j]] = j;  // now the entry
       }
       pre += cnt[q];
@@ -338,45 +397,77 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
 
     // ---- P3: each entry's sums, reduced into its cell once; lanes over
     // (entry, op), an op a 16-byte quad of the run's aligned middle or a
-    // scalar at its two ends
-    const float sc = Src::kScaled ? src.scale(unit) : 1.0f;
+    // scalar at its two ends (bf16: a 16-byte line of the run)
     int j = lane / max_ops, o = lane - (lane / max_ops) * max_ops;
-    for (; j < n_ent;) {
-      const int4 e = s.entry[j];  // {first corner, end, cell, phase}
-      const int head = imin((4 - e.w) & 3, C);
-      const int quads = (C - head) >> 2;
-      if (o < head + quads + (C - head - 4 * quads)) {
-        const bool quad = o >= head && o < head + quads;
-        const int c = quad ? head + 4 * (o - head) : (o < head ? o : o + 3 * quads);
-        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        for (int p = e.x; p < e.y; ++p) {
-          const int2 ct = s.contrib[p];  // {row offset or item, weight}
-          const float w = __int_as_float(ct.y);
-          const float* r = kStage ? s.rows + ct.x + c : s.row[ct.x] + c;
-          if (Src::kScaled) {
-            acc.x = acc.x + (r[0] * sc) * w;
-            if (quad) {
-              acc.y = acc.y + (r[1] * sc) * w;
-              acc.z = acc.z + (r[2] * sc) * w;
-              acc.w = acc.w + (r[3] * sc) * w;
-            }
-          } else {
-            acc.x = acc.x + r[0] * w;
-            if (quad) {
-              acc.y = acc.y + r[1] * w;
-              acc.z = acc.z + r[2] * w;
-              acc.w = acc.w + r[3] * w;
+    if constexpr (kF32) {
+      const float sc = Src::kScaled ? src.scale(unit) : 1.0f;
+      for (; j < n_ent;) {
+        const int4 e = s.entry[j];  // {first corner, end, cell, phase}
+        const int head = imin((4 - e.w) & 3, C);
+        const int quads = (C - head) >> 2;
+        if (o < head + quads + (C - head - 4 * quads)) {
+          const bool quad = o >= head && o < head + quads;
+          const int c = quad ? head + 4 * (o - head) : (o < head ? o : o + 3 * quads);
+          float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int p = e.x; p < e.y; ++p) {
+            const int2 ct = s.contrib[p];  // {row offset or item, weight}
+            const float w = __int_as_float(ct.y);
+            const float* r = kStage ? s.rows + ct.x + c : s.row[ct.x] + c;
+            if (Src::kScaled) {
+              acc.x = acc.x + (r[0] * sc) * w;
+              if (quad) {
+                acc.y = acc.y + (r[1] * sc) * w;
+                acc.z = acc.z + (r[2] * sc) * w;
+                acc.w = acc.w + (r[3] * sc) * w;
+              }
+            } else {
+              acc.x = acc.x + r[0] * w;
+              if (quad) {
+                acc.y = acc.y + r[1] * w;
+                acc.z = acc.z + r[2] * w;
+                acc.w = acc.w + r[3] * w;
+              }
             }
           }
+          float* dst = grid + (size_t)e.z * C + c;
+          if (quad) {
+            red4(dst, acc);
+          } else {
+            atomicAdd(dst, acc.x);
+          }
         }
-        float* dst = grid + (size_t)e.z * C + c;
-        if (quad) {
-          red4(dst, acc);
-        } else {
-          atomicAdd(dst, acc.x);
-        }
+        for (o += 32; o >= max_ops; o -= max_ops) ++j;
       }
-      for (o += 32; o >= max_ops; o -= max_ops) ++j;
+    } else {
+      // op o of an entry: the o-th 16-byte line of its cell's run, the
+      // run's elements [8 o - phase, 8 o - phase + 8)
+      const T* lo = src.grid_lo();
+      const T* hi = src.grid_hi();
+      for (; j < n_ent;) {
+        const int4 e = s.entry[j];  // {first corner, end, cell, phase}
+        if (o < (e.w + C + 7) >> 3) {
+          const int c0 = 8 * o - e.w;
+          float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+          for (int p = e.x; p < e.y; ++p) {
+            const int2 ct = s.contrib[p];  // {item, weight}
+            const float w = __int_as_float(ct.y);
+            const T* r = s.row[ct.x];
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (c0 + u >= 0 && c0 + u < C)
+                acc[u] = __fmaf_rn(__bfloat162float(r[c0 + u]), w, acc[u]);
+          }
+          T* line = grid + (size_t)e.z * C + c0;
+          if (line >= lo && line + 8 <= hi) {
+            red_line_bf16(line, acc);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (c0 + u >= 0 && c0 + u < C) red_one_bf16(line + u, acc[u]);
+          }
+        }
+        for (o += 32; o >= max_ops; o -= max_ops) ++j;
+      }
     }
     __syncwarp();
     if (lane == 0) *s.n_entries = 0;
@@ -388,12 +479,12 @@ __device__ void scatter(const Src& src, int H, int W, int C) {
 // persistent blocks for `n_units` units of kItems items (rows staged or
 // not): at most the blocks the card holds at once. The card's shape is
 // queried once per (kernel, device, C).
-template <int kItems, bool kStage, class Kernel>
+template <int kItems, bool kStage, class T = float, class Kernel>
 inline cudaError_t launch_shape(Kernel kernel, int C, long long n_units, unsigned* blocks,
                                 size_t* smem) {
   static const void* kernel_seen = nullptr;
   static int dev_seen = -1, c_seen = -1, most = 0;
-  *smem = block_bytes<kItems, kStage>(C);
+  *smem = block_bytes<kItems, kStage, T>(C);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

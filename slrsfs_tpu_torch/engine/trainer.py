@@ -190,10 +190,11 @@ class Trainer:
             raise ValueError(f"train_compute_dtype must be one of "
                              f"{tuple(COMPUTE_DTYPES)}, got {opt.train_compute_dtype!r}")
         if opt.train_compute_dtype == "bfloat16" and opt.train_motion:
-            raise NotImplementedError(
-                "bfloat16 training with an embedded motion regressor needs K7 and "
-                "K3 with a bf16 motion, which are not ported yet (ROADMAP §1, "
-                "\"The rest of training\")")
+            raise ValueError(
+                "bfloat16 training with an embedded motion regressor is not "
+                "supported: the JAX package does not run it either (its step "
+                "raises a TypeError: the regressor's bf16 weights meet the f32 "
+                "moving-region mask in a convolution)")
         dev = resolve_device(device)
         self.opt = opt
         self.model = model.to(dev)

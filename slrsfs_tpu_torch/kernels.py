@@ -4,8 +4,9 @@ Each source is compiled on first use by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root, named after its
 source and a hash of the source, the headers it includes from ``csrc/``
-(``splat_window.cuh``, the f32 window scatter of ``splat.cu`` and
-``splat_dense.cu``; ``splat_quarters.cuh``, the bf16 quarters of both)
+(``splat_window.cuh``, the window scatter of ``splat.cu`` and
+``splat_dense.cu``; ``splat_quarters.cuh``, K2's bf16 quarters and the
+bf16 helpers both use)
 and the flags, so a changed source or header never loads a stale build;
 nvcc's report (ptxas's registers and spills) is kept beside it and read
 again when a later process loads the library. Several entry points may
@@ -258,14 +259,14 @@ SPLAT_DENSE_BWD = Kernel(
 SPLAT_DENSE_FWD_BF16 = Kernel(
     "splat_dense_fwd_bf16", "slrsfs_tpu_torch/csrc/splat_dense.cu",
     "splat_dense_fwd_bf16",
-    # inp (bf16), flow, quarters (bf16 scratch), out (bf16), B, H, W, C, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+    # inp (bf16), flow, out (bf16, zeroed), B, H, W, C, stream
+    [_P, _P, _P, _I, _I, _I, _I, _P])
 
 SPLAT_DENSE_BWD_BF16 = Kernel(
     "splat_dense_bwd_bf16", "slrsfs_tpu_torch/csrc/splat_dense.cu",
     "splat_dense_bwd_bf16",
     # inp (bf16), flow, g (bf16), grad_inp (bf16), grad_flow, B, H, W, C,
-    # stream
+    # stream; splat_dense_bwd_bf16_window_cells(C) is its window
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 
 EULER_PHASED = Kernel(

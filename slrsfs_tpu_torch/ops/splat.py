@@ -29,7 +29,7 @@ dense rollouts (K3, ``csrc/splat_dense.cu``) as a
 gather kernel backward; on the CPU its plain versions
 ``softsplat_sum_plain`` and ``softsplat_sum_grad_plain``. A bfloat16
 ``inp`` (with a float32 flow, the bf16 training step) takes K3's bf16 mode:
-a bf16 sum in the JAX quad layout forward, f32 sums backward. ``softsplat``
+f32 sums rounded to bf16 (forward and backward). ``softsplat``
 builds the reference's four splat modes on it.
 """
 
@@ -260,18 +260,10 @@ def softsplat_sum_bwd_kernel(inp: Tensor, flow: Tensor, g: Tensor
     return grad_inp, grad_flow
 
 
-# K3's bf16 forward adds 8 channels of a quarter with one 16-byte reduction,
-# a thread per 8 channels of a pixel in blocks of 256 threads; its pixels
-# and cells are 32-bit indices
+# K3's bf16 kernels index pixels and cells in 32 bits; the backward stages a
+# tile's rows in a block's shared memory (148 KB at 2048 channels)
 DENSE_BF16_MAX_C = 2048
 DENSE_BF16_MAX_PIXELS = 2 ** 31 - 1
-
-
-def dense_bf16_scratch_numel(B: int, H: int, W: int, C: int) -> int:
-    """Elements of K3's bf16 quarters: (B·H·W, 4, C8) bf16, C8 = C rounded up
-    to a multiple of 8 (``csrc/splat_quarters.cuh:quarter_stride``; at B =
-    16, 256², C = 65 or 67: 301,989,888 elements, 604 MB)."""
-    return B * H * W * 4 * (-(-C // 8) * 8)
 
 
 def _check_bf16_dense(kernel: str, inp: Tensor, flow: Tensor) -> None:
@@ -284,7 +276,7 @@ def _check_bf16_dense(kernel: str, inp: Tensor, flow: Tensor) -> None:
                          f"(32-bit cell indices); got B*H*W = {B * H * W}")
     if C > DENSE_BF16_MAX_C:
         raise ValueError(f"{kernel} takes at most {DENSE_BF16_MAX_C} channels "
-                         f"(8 a thread in blocks of 256); got C = {C}")
+                         f"(a tile's rows in a block's shared memory); got C = {C}")
     for name, t, want in (("inp", inp, torch.bfloat16), ("flow", flow, torch.float32)):
         if t.dtype != want:
             raise TypeError(f"{kernel} takes {want} {name}, got {t.dtype}")
@@ -297,24 +289,23 @@ def _bf16_args(kernel: str, named: dict) -> list:
         want = torch.float32 if name in ("flow", "grad_flow") else torch.bfloat16
         if t.dtype != want:
             raise TypeError(f"{kernel} takes {want} {name}, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % (16 if name == "quarters" else 4):
-            raise ValueError(f"{name} must be contiguous and aligned")
+        if not t.is_contiguous() or t.data_ptr() % 4:
+            raise ValueError(f"{name} must be contiguous and 4-byte aligned")
     return [t.data_ptr() for t in named.values()]
 
 
 def softsplat_sum_fwd_bf16_kernel(inp: Tensor, flow: Tensor) -> Tensor:
     """K3's bf16 forward on the card: ``softsplat_sum_plain(inp, flow)``
-    for bf16 ``inp`` and f32 ``flow``, summed in four bf16 quarters a cell
-    in the JAX quad layout's grouping (``csrc/splat_dense.cu``), up to the
-    order of the atomic adds. The scratch quarters are allocated here
-    (``dense_bf16_scratch_numel``), after the shapes are checked."""
+    for bf16 ``inp`` and f32 ``flow`` by the window scatter over bf16 rows
+    (``csrc/splat_window.cuh``): each entry summed in f32 with f32
+    weights, rounded once to bf16 and added into the zeroed bf16 output,
+    which is all it allocates (after the shapes are checked); equal to the
+    plain version up to the bf16 roundings of each cell's terms."""
     B, H, W, C = inp.shape
     name = "K3's bf16 forward (splat_dense_fwd_bf16)"
     _check_bf16_dense(name, inp, flow)
-    quarters = torch.empty((dense_bf16_scratch_numel(B, H, W, C),), dtype=torch.bfloat16,
-                           device=inp.device)
-    out = torch.empty_like(inp)
-    ptrs = _bf16_args(name, dict(inp=inp, flow=flow, quarters=quarters, out=out))
+    out = torch.zeros_like(inp)
+    ptrs = _bf16_args(name, dict(inp=inp, flow=flow, out=out))
     with torch.cuda.device(inp.device):
         kernels.SPLAT_DENSE_FWD_BF16.launch(*ptrs, B, H, W, C,
                                             torch.cuda.current_stream().cuda_stream)
@@ -324,8 +315,9 @@ def softsplat_sum_fwd_bf16_kernel(inp: Tensor, flow: Tensor) -> Tensor:
 def softsplat_sum_bwd_bf16_kernel(inp: Tensor, flow: Tensor, g: Tensor
                                   ) -> Tuple[Tensor, Tensor]:
     """K3's bf16 backward on the card: ``softsplat_sum_grad_plain(inp, flow,
-    g)`` for bf16 ``inp`` and ``g``: both cotangents summed in f32,
-    ``grad_inp`` stored in bf16, ``grad_flow`` in f32."""
+    g)`` for bf16 ``inp`` and ``g`` by the f32 backward's tiled gather over
+    bf16 rows: both cotangents summed in f32, ``grad_inp`` (bit for bit the
+    plain version's) stored in bf16, ``grad_flow`` in f32."""
     B, H, W, C = inp.shape
     if tuple(g.shape) != tuple(inp.shape):
         raise ValueError(f"g must be {tuple(inp.shape)}, got {tuple(g.shape)}")

@@ -25,7 +25,9 @@
 #          and split into the output's zeroing and the scatter, beside
 #          index_add_, with the window misses; K3's backward on the random
 #          and the scene flow, and K7 dense and compact, each with its
-#          split; the dense baseline float32 render (median of 5) and the
+#          split; K3's bf16 forward and backward on the bf16 stage-1 and
+#          SLR steps' own rows, with their splits, bounds and window
+#          misses; the dense baseline float32 render (median of 5) and the
 #          training step (median of 3);
 # k1       this checkout's chip_smoke.py --k1-in TREE: K1 of each tree's
 #          package on the scene, quarter-pixel and leaving flows, and K4's

@@ -25,7 +25,7 @@ order), on two launches, also on cases that exercise its window (one run
 a row, window misses, partial tiles, the count rules, a static band, rows
 leaving the frame, the training shape). K3's bf16 mode (bf16 rows, f32
 flow) is held against the f32 sums of the same rows within the per-cell
-bf16 bound (forward) and against its plain version within one bf16 ulp
+bf16 bound (forward) and against its plain version bit for bit
 (grad_inp) and 1e-5 of the max (grad_flow); a bf16 training step through
 it against the plain step (losses 1e-2, gradients 0.25 in L2)."""
 
@@ -1608,17 +1608,42 @@ def _bf16_dense_bound(x, flow):
     return gamma * abs_terms + k * 2.0 ** -133
 
 
+def _k3_bf16_cases(dev):
+    """(label, inp, flow, g) of K3's bf16 checks: C = 65, then C = 67 in the
+    same process (``_k3_inputs``: random flow, integer landings, the OOB
+    sentinel); C of 1, 8, 65, 67, 130 and the wrapper's largest on a
+    random flow (the window misses) and on a leaving flow (most corners off
+    the grid), at B = 2 with odd H and W; and one of an odd element
+    count."""
+    for C in (65, 67):
+        yield (f"C={C}",) + _k3_inputs(dev, C=C)
+    rng = np.random.default_rng(23)
+    Bo, Ho, Wo = 2, 17, 23
+    for C in (1, 8, 65, 67, 130, port_splat.DENSE_BF16_MAX_C):
+        for kind, scale in (("random", 4.0), ("leaving", 40.0)):
+            flow = (rng.standard_normal((Bo, Ho, Wo, 2)) * scale).astype(np.float32)
+            yield (f"C={C} {kind} ({Bo}, {Ho}, {Wo})",
+                   *(torch.from_numpy(a).to(dev) for a in (
+                       rng.standard_normal((Bo, Ho, Wo, C)).astype(np.float32), flow,
+                       rng.standard_normal((Bo, Ho, Wo, C)).astype(np.float32))))
+    # an odd count of elements: the last row ends inside a 4-byte word
+    yield ("C=67 random (1, 17, 23)", *(torch.from_numpy(a).to(dev) for a in (
+        rng.standard_normal((1, Ho, Wo, 67)).astype(np.float32),
+        (rng.standard_normal((1, Ho, Wo, 2)) * 4.0).astype(np.float32),
+        rng.standard_normal((1, Ho, Wo, 67)).astype(np.float32))))
+
+
 @pytest.mark.gpu
 def test_k3_bf16_matches_plain_on_card():
-    """K3's bf16 forward and backward at C = 65, then C = 67 in the same
-    process: the forward within the per-cell bf16 bound of the f32 sums of
-    the same rows (cells no corner reaches exactly 0), the backward's
-    grad_inp within one bf16 ulp of the plain version (both sum the four
-    corners in f32 in one order) and grad_flow within 1e-5 of its largest
-    entry; one launch of each bf16 kernel and none of the f32 ones."""
+    """K3's bf16 forward and backward on each of ``_k3_bf16_cases``: the
+    forward within the per-cell bf16 bound of the f32 sums of the same
+    rows, cells whose terms are all 0 exactly 0; the backward's grad_inp
+    bit for bit the plain version's (both sum the four corners in f32 in
+    the order NW, NE, SW, SE and round once) and grad_flow within 1e-5 of
+    its largest entry; one launch of each bf16 kernel and none of the f32
+    ones."""
     dev = _card()
-    for C in (65, 67):
-        inp, flow, g = _k3_inputs(dev, C=C)
+    for label, inp, flow, g in _k3_bf16_cases(dev):
         x = inp.to(torch.bfloat16).requires_grad_(True)
         f = flow.clone().requires_grad_(True)
         kernels.reset_counts()
@@ -1633,14 +1658,17 @@ def test_k3_bf16_matches_plain_on_card():
         xb = x.detach()
         ref32 = softsplat_sum_plain(xb.float(), flow)
         bnd = _bf16_dense_bound(xb, flow)
-        assert bool(((out.float() - ref32).abs() <= bnd).all()), C
+        assert bool(((out.float() - ref32).abs() <= bnd).all()), label
         plain = softsplat_sum_plain(xb, flow)
-        assert bool(((plain.float() - ref32).abs() <= bnd).all()), C
+        assert bool(((plain.float() - ref32).abs() <= bnd).all()), label
         empty = bnd == 0
         assert bool((out.float()[empty] == 0).all())
+        no_terms = softsplat_sum_plain(xb.float().abs(), flow) == 0
+        assert bool((out.float()[no_terms] == 0).all()), label
         want_i, want_f = softsplat_sum_grad_plain(xb, flow, g.to(torch.bfloat16))
         assert x.grad.dtype == torch.bfloat16 and f.grad.dtype == torch.float32
         torch.testing.assert_close(x.grad.float(), want_i.float(), rtol=2.0 ** -7, atol=0)
+        assert torch.equal(x.grad, want_i), label
         scale = want_f.abs().max().item()
         torch.testing.assert_close(f.grad, want_f, rtol=0, atol=1e-5 * scale)
 

@@ -13,6 +13,8 @@ largest entry (the channel sums of the inner products run in another
 order). The
 kernels themselves run on the card only (``tests/test_torch_gpu.py``)."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -119,10 +121,42 @@ def test_index_add_in_order_rounds_every_add(n, span):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("C, C8", [(1, 8), (8, 8), (65, 72), (67, 72), (2048, 2048)])
-def test_bf16_scratch_size(C, C8):
-    assert port_splat.dense_bf16_scratch_numel(3, 5, 7, C) == 3 * 5 * 7 * 4 * C8
-    assert port_splat.dense_bf16_scratch_numel(16, 256, 256, 65) * 2 == 603_979_776
+@pytest.mark.parametrize("C", [1, 8, 65, 67, 2048])
+def test_bf16_forward_allocates_only_its_output(C, monkeypatch):
+    """The bf16 forward's wrapper, its launch replaced by a recorder: one
+    allocation, the zeroed bf16 output of inp's shape, handed to the kernel
+    with inp and flow as 4-byte aligned pointers (no scratch)."""
+    inp = torch.ones((2, 3, 5, C), dtype=torch.bfloat16)
+    flow = torch.zeros((2, 3, 5, 2))
+    allocs, launches = [], []
+    for fn in ("empty", "empty_like", "zeros", "zeros_like"):
+        real = getattr(torch, fn)
+
+        def record(*a, _real=real, **k):
+            t = _real(*a, **k)
+            allocs.append(t)
+            return t
+        monkeypatch.setattr(port_splat.torch, fn, record)
+
+    class Recorder:
+        def launch(self, *args):
+            launches.append(args)
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(port_splat.kernels, "SPLAT_DENSE_FWD_BF16", Recorder())
+    monkeypatch.setattr(port_splat.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(port_splat.torch.cuda, "current_stream", lambda: Stream())
+    out = port_splat.softsplat_sum_fwd_bf16_kernel(inp, flow)
+    assert len(allocs) == 1 and allocs[0] is out
+    assert out.dtype == torch.bfloat16 and out.shape == inp.shape
+    assert bool((out == 0).all())
+    assert len(launches) == 1
+    ptrs, rest = launches[0][:3], launches[0][3:]
+    assert ptrs == (inp.data_ptr(), flow.data_ptr(), out.data_ptr())
+    assert all(p % 4 == 0 for p in ptrs)
+    assert rest == (2, 3, 5, C, 0)
 
 
 @pytest.mark.parametrize("which", ["forward", "backward"])

@@ -22,12 +22,6 @@ def _render(**kw):
     render.SceneRenderer(W=32, n_frames=2, device="cpu", **kw)
 
 
-def _trainer(**kw):
-    from slrsfs_tpu_torch.engine.trainer import Trainer
-
-    Trainer(config.Options(**kw), torch.nn.Identity(), device="cpu")
-
-
 def _dataset(tmp_path, variant="eulerian_data", **kw):
     from slrsfs_tpu_torch.data.datasets import LiquidDataset
 
@@ -49,9 +43,6 @@ def _checkpoint(tmp_path, model_type):
 
 BRANCHES = {
     "render --shard-frames": (lambda tmp: _render(shard_frames=True), "Multi-GPU"),
-    "trainer bfloat16 with an embedded regressor": (
-        lambda tmp: _trainer(train_compute_dtype="bfloat16", train_motion=True),
-        "The rest of training"),
 }
 
 

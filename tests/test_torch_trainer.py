@@ -278,6 +278,6 @@ def test_lr_schedule_and_unported_options():
     assert sched(60) == sched(100) == 0.0
     model = BaselineTrainable(Options(ngf=8, W=16, refine_model_type=(
         "resnet_TinyTest_de_resnet_pconv2_nonorm"), out_channel=9))
-    with pytest.raises(NotImplementedError, match="The rest of training"):
+    with pytest.raises(ValueError, match="the JAX package does not run it either"):
         Trainer(Options(train_compute_dtype="bfloat16", train_motion=True), model,
                 device="cpu")
