@@ -68,7 +68,14 @@ plain versions, each timed with its split and bound (K3's backward on a
 random and the scene flow); one warm-up and 3 timed G+D steps of Trainer.train_step on
 a synthetic batch, dense and with 50 % moving rows (compact K7), with their
 launch counts, CUDA-event stage times and peak memory; a kernel-path step
-against a plain-path step from one snapshot; and the train CLI for 2 steps
+against a plain-path step from one snapshot (kernel_vs_plain_steps: the
+convolutions off cuDNN, the bilinear upsampling's backward without atomics, the
+kernel step's K3 forwards replayed into the plain step after its inputs
+are checked bit-equal, so that the losses and the K3 backwards' incoming
+cotangents are bit-equal; a self-check that two plain steps from the
+snapshot agree within 1e-5 of the largest gradient; each backward kernel
+call held against its plain version on its own inputs; the gradients
+within 1e-3 of the largest); and the train CLI for 2 steps
 on a synthetic dataset, whose checkpoint SceneRenderer then renders; then
 SLR stage 3 through the train CLI for 2 steps from that checkpoint and a
 seeded bg checkpoint (the SLR losses logged, the alpha nets kept at their
@@ -176,6 +183,17 @@ mid-epoch saves at epoch - 1 and exits, the resume file loads on the card
 bit for bit, --resume continues at the next step and writes HALT, a
 re-run returns at once, --init-from the finished checkpoint restores the
 count and both Adam states bit for bit.
+
+Then Multi-GPU on one card (phase 24, multi_gpu_phase): a 1-rank NCCL
+group formed in this process and destroyed after; the frame-sharded
+baseline and SLR renders (SceneRenderer(shard_frames=True), float32, N =
+60) within 1e-4 of the unsharded renders, their launches, and frames/s of
+both in turns; the data-parallel stage-1 step (Trainer(mesh=...), batch
+16) against the plain unsharded step from one snapshot through
+kernel_vs_plain_steps, its launches over 3 steps (6 K3 forward, 6
+backward, 3 K7), its step time beside the unsharded step's and the
+gradient all-reduce's time (CUDA events) and bytes. One card holds one
+rank: no multi-rank speed is measured.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. The script times the renders and the steps with CUDA events, and
@@ -2099,48 +2117,415 @@ def step_runs(dev, phase: int, label: str, options, make_batch, log_keys=()) -> 
     return res
 
 
+def _upsample2x_adjoint_1d(g, dim: int):
+    """The VJP of 2x bilinear upsampling (align_corners False) along
+    ``dim`` (even size 2n): output 2k takes 0.25 x[k-1] + 0.75 x[k] (x[0]
+    at k = 0), output 2k+1 takes 0.75 x[k] + 0.25 x[k+1] (x[n-1] at the
+    end). Slices and adds only, so the same inputs give the same bits."""
+    n = g.shape[dim] // 2
+    pairs = g.unflatten(dim, (n, 2))
+    even, odd = pairs.select(dim + 1, 0), pairs.select(dim + 1, 1)
+    gx = 0.75 * (even + odd)
+    gx.narrow(dim, 0, n - 1).add_(0.25 * even.narrow(dim, 1, n - 1))
+    gx.narrow(dim, 1, n - 1).add_(0.25 * odd.narrow(dim, 0, n - 1))
+    gx.narrow(dim, 0, 1).add_(0.25 * even.narrow(dim, 0, 1))
+    gx.narrow(dim, n - 1, 1).add_(0.25 * odd.narrow(dim, n - 1, 1))
+    return gx
+
+
+def upsample_bilinear_2x_deterministic(x):
+    """``nn/conv.py:upsample_bilinear_2x`` (the same forward) whose
+    backward adds without atomics (``_upsample2x_adjoint_1d`` along H,
+    then W), where the card's F.interpolate backward adds with atomics in
+    a run-to-run order."""
+    import torch
+    import torch.nn.functional as F
+
+    class _Up(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+        @staticmethod
+        def backward(ctx, g):
+            return _upsample2x_adjoint_1d(_upsample2x_adjoint_1d(g, 2), 3)
+
+    return _Up.apply(x)
+
+
+@contextlib.contextmanager
+def deterministic_steps():
+    """Training steps whose sums are added in one order every run, but for
+    the kernels' atomics: the convolutions off cuDNN (PyTorch's own
+    im2col and GEMM convolutions, whose order of sums does not depend on
+    the device memory free, as cuDNN's choice of algorithm does), and the
+    bilinear upsampling of the decoders and the motion regressor with
+    ``upsample_bilinear_2x_deterministic``'s backward."""
+    import torch
+
+    from slrsfs_tpu_torch.models import motion
+    from slrsfs_tpu_torch.nn import blocks
+
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.enabled, blocks.upsample_bilinear_2x, motion.upsample_bilinear_2x)
+    cudnn.enabled = False
+    blocks.upsample_bilinear_2x = motion.upsample_bilinear_2x = \
+        upsample_bilinear_2x_deterministic
+    try:
+        yield
+    finally:
+        cudnn.enabled, blocks.upsample_bilinear_2x, motion.upsample_bilinear_2x = prev
+
+
+def _host(t):
+    """A host copy of a tensor (None stays None)."""
+    return None if t is None else t.detach().to("cpu", copy=True)
+
+
+class StepRecorder:
+    """The K3 and K7 calls of one training step, for a plain step to replay
+    or to be compared with, kept in host memory. ``record()`` wraps the
+    kernel entries (K3's and K7's forwards as the model calls them, K3's
+    and K7's backwards) and keeps each call's inputs and outputs;
+    ``replay(rec)`` makes the plain path's K3 and K7 forwards return the
+    recorded kernel forwards' outputs (their inputs checked bit-equal
+    first; a K7 motion that requires grad gets the plain autograd as its
+    VJP) and keeps each plain K3 backward's inputs and outputs, on the
+    host. ``device``: the calls' device."""
+
+    def __init__(self):
+        self.fwd, self.bwd, self.k7, self.k7_bwd = [], [], [], []
+        self.device = None
+
+    @contextlib.contextmanager
+    def record(self):
+        from slrsfs_tpu_torch.models import baseline as port_models
+        from slrsfs_tpu_torch.ops import euler as port_euler
+        from slrsfs_tpu_torch.ops import splat as port_splat
+
+        fwd, bwd, k7b = (port_splat.softsplat_sum_fwd_kernel,
+                         port_splat.softsplat_sum_bwd_kernel, port_euler.euler_phased_bwd)
+
+        def rec_k7(fn):
+            def call(motion, *args):
+                out_f, out_p = fn(motion, *args)
+                self.k7.append((tuple(_host(a) for a in (motion,) + args[:-1]), args[-1],
+                                _host(out_f), _host(out_p)))
+                return out_f, out_p
+            return call
+
+        def rec_fwd(inp, flow):
+            out = fwd(inp, flow)
+            self.device = inp.device
+            self.fwd.append((_host(inp), _host(flow), _host(out)))
+            return out
+
+        def rec_bwd(inp, flow, g):
+            gi, gf = bwd(inp, flow, g)
+            self.bwd.append(tuple(_host(t) for t in (inp, flow, g, gi, gf)))
+            return gi, gf
+
+        def rec_k7b(motion, t_fwd, t_bwd, out_f, out_p, cot_f, cot_p, n_steps):
+            grad = k7b(motion, t_fwd, t_bwd, out_f, out_p, cot_f, cot_p, n_steps)
+            self.k7_bwd.append(tuple(_host(t) for t in (
+                motion, t_fwd, t_bwd, cot_f, cot_p, grad)) + (n_steps,))
+            return grad
+
+        with _patched(port_splat, softsplat_sum_fwd_kernel=rec_fwd,
+                      softsplat_sum_bwd_kernel=rec_bwd), \
+                _patched(port_euler, euler_phased_bwd=rec_k7b), \
+                _patched(port_models, euler_integrate_phased=rec_k7(
+                    port_models.euler_integrate_phased),
+                    euler_integrate_phased_compact=rec_k7(
+                        port_models.euler_integrate_phased_compact)):
+            yield self
+
+    @contextlib.contextmanager
+    def replay(self, rec: "StepRecorder"):
+        import torch
+
+        from slrsfs_tpu_torch.models import baseline as port_models
+        from slrsfs_tpu_torch.ops import splat as port_splat
+
+        grad_plain = port_splat.softsplat_sum_grad_plain
+        n, m = [0], [0]
+
+        class ReplayedK7(torch.autograd.Function):
+            """A recorded K7 forward's outputs, copied to ``device``, whose
+            VJP is the plain version's autograd (``fn``, recomputed)."""
+
+            @staticmethod
+            def forward(ctx, motion, out_f, out_p, device, fn, args):
+                ctx.save_for_backward(motion)
+                ctx.fn, ctx.args = fn, args
+                return out_f.to(device), out_p.to(device)
+
+            @staticmethod
+            def backward(ctx, g_f, g_p):
+                (motion,) = ctx.saved_tensors
+                with torch.enable_grad():
+                    x = motion.detach().requires_grad_(True)
+                    a, b = ctx.fn(x, *ctx.args)
+                    loss = sum((o * g).sum() for o, g in ((a, g_f), (b, g_p))
+                               if g is not None)
+                    grad = torch.autograd.grad(loss, x)[0]
+                return grad, None, None, None, None, None
+
+        def replay_k7(fn):
+            def call(motion, *args):
+                check(m[0] < len(rec.k7), "the plain step integrates more often than the "
+                      "kernel step")
+                k_in, k_steps, k_f, k_p = rec.k7[m[0]]
+                m[0] += 1
+                check(k_steps == args[-1] and len(k_in) == len(args) and all(
+                    torch_equal(a.detach().cpu(), b) for a, b in zip((motion,) + args[:-1], k_in)),
+                    f"the plain step's K7 forward {m[0]} has other inputs than the kernel's")
+                self.k7.append(None)
+                if torch.is_grad_enabled() and motion.requires_grad:
+                    return ReplayedK7.apply(motion, k_f, k_p, motion.device, fn, args)
+                return k_f.to(motion.device), k_p.to(motion.device)
+            return call
+
+        def replay_fwd(inp, flow):
+            check(n[0] < len(rec.fwd), "the plain step splats more often than the kernel step")
+            k_inp, k_flow, k_out = rec.fwd[n[0]]
+            n[0] += 1
+            check(torch_equal(inp.cpu(), k_inp) and torch_equal(flow.cpu(), k_flow),
+                  f"the plain step's K3 forward {n[0]} has other inputs than the kernel's")
+            self.device = inp.device
+            self.fwd.append(None)
+            return k_out.to(inp.device)
+
+        def rec_bwd(inp, flow, g):
+            gi, gf = grad_plain(inp, flow, g)
+            self.bwd.append(tuple(_host(t) for t in (inp, flow, g, gi, gf)))
+            return gi, gf
+
+        with _patched(port_splat, softsplat_sum_plain=replay_fwd,
+                      softsplat_sum_grad_plain=rec_bwd), \
+                _patched(port_models, euler_integrate_phased_plain=replay_k7(
+                    port_models.euler_integrate_phased_plain),
+                    euler_integrate_phased_compact_plain=replay_k7(
+                        port_models.euler_integrate_phased_compact_plain)):
+            yield self
+        check(n[0] == len(rec.fwd) and m[0] == len(rec.k7), f"the plain step replayed "
+              f"{n[0]} of {len(rec.fwd)} K3 forwards and {m[0]} of {len(rec.k7)} K7 forwards")
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+@contextlib.contextmanager
+def _patched(module, **attrs):
+    prev = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            setattr(module, k, v)
+
+
+def k3_grad_flow_terms(inp, flow, g):
+    """(B, H, W, 2) float64: the sum of |terms| of each grad_flow entry of
+    K3's backward, sum over the corners of |dw/d{x,y}| · sum over the
+    channels of |inp · g at the corner|, with the corners and fractions
+    computed in f32 as both versions compute them."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.splat import corners
+
+    B, H_, W_, C = inp.shape
+    xs = torch.arange(W_, dtype=flow.dtype, device=flow.device)[None, :]
+    ys = torch.arange(H_, dtype=flow.dtype, device=flow.device)[:, None]
+    out = torch.zeros((B, H_ * W_, 2), dtype=torch.float64, device=flow.device)
+    for b in range(B):
+        ox = (xs + flow[b, ..., 0]).reshape(-1)
+        oy = (ys + flow[b, ..., 1]).reshape(-1)
+        dx = (ox - torch.floor(ox)).double()
+        dy = (oy - torch.floor(oy)).double()
+        x = inp[b].reshape(H_ * W_, C).abs().double()
+        gb = g[b].reshape(H_ * W_, C).abs().double()
+        for (lin, _, inside), ax, ay in zip(corners(ox, oy, H_, W_),
+                                            (1.0 - dy, 1.0 - dy, dy, dy),
+                                            (1.0 - dx, dx, 1.0 - dx, dx)):
+            inner = (x * torch.where(inside[:, None], gb[lin], 0.0)).sum(-1)
+            out[b, :, 0] += inner * ax
+            out[b, :, 1] += inner * ay
+    return out.reshape(B, H_, W_, 2)
+
+
+def bwd_kernel_checks(label: str, rec: StepRecorder) -> dict:
+    """Each recorded backward kernel call against its plain version on the
+    same inputs: K3's grad_inp within 1e-5 of its largest entry
+    (``k3_bwd_check``'s bound; it is bit for bit); K3's grad_flow, a sum
+    over the C channels and four corners that the step's own cotangents
+    make cancel, entry by entry within the two f32 sums' rounding bound,
+    2 gamma_(C+6) (u = 2^-24) times the entry's sum of |terms|
+    (``k3_grad_flow_terms``), its distance of the largest entry printed;
+    K7's gradient within 1e-5 of its largest (the plain forward's
+    autograd). Returns the largest shares."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.euler import euler_integrate_phased_plain
+    from slrsfs_tpu_torch.ops.splat import softsplat_sum_grad_plain
+
+    out = {"K3 grad_inp": 0.0, "K3 grad_flow": 0.0, "K3 grad_flow of its bound": 0.0,
+           "K7": 0.0}
+    for call in rec.bwd:
+        inp, flow, g, gi, gf = (t.to(rec.device) for t in call)
+        wi, wf = softsplat_sum_grad_plain(inp, flow, g)
+        r = (gi - wi).abs().max().item() / max(wi.abs().max().item(), 1e-30)
+        check(r <= 1e-5, f"{label} K3 grad_inp: {r:.3g} of its largest (limit 1e-5)")
+        out["K3 grad_inp"] = max(out["K3 grad_inp"], r)
+        d = (gf - wf).abs().double()
+        bnd = 2.0 * rounding_gamma(torch.tensor(float(inp.shape[-1] + 6)), F32_U).item() \
+            * k3_grad_flow_terms(inp, flow, g)
+        share = (d / bnd.clamp(min=1e-300)).max().item()
+        check(bool((d <= bnd).all()), f"{label} K3 grad_flow: {share:.3g} of its rounding "
+              f"bound 2 gamma_(C+6) x the sum of |terms| (limit 1)")
+        out["K3 grad_flow of its bound"] = max(out["K3 grad_flow of its bound"], share)
+        out["K3 grad_flow"] = max(out["K3 grad_flow"], d.max().item()
+                                  / max(wf.abs().max().item(), 1e-30))
+    for call in rec.k7_bwd:
+        motion, t_fwd, t_bwd, cot_f, cot_p, grad = (
+            None if t is None else t.to(rec.device) for t in call[:-1])
+        n_steps = call[-1]
+        x = motion.clone().requires_grad_(True)
+        a, b = euler_integrate_phased_plain(x, t_fwd, t_bwd, n_steps)
+        loss = sum((o * c).sum() for o, c in ((a, cot_f), (b, cot_p)) if c is not None)
+        want = torch.autograd.grad(loss, x)[0]
+        r = (grad - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        check(r <= 1e-5, f"{label} K7 backward: {r:.3g} of its largest (limit 1e-5)")
+        out["K7"] = max(out["K7"], r)
+    return out
+
+
+def _left_sources(a: StepRecorder, b: StepRecorder, la: dict, lb: dict) -> list:
+    """Where two plain steps' recorded calls first differ: the losses, then
+    each K3 backward's incoming cotangent and outputs in call order."""
+    left = [f"loss {k}" for k in la if la[k].item() != lb[k].item()]
+    for i, (x, y) in enumerate(zip(a.bwd, b.bwd)):
+        for name, s, t in zip(("cotangent", "grad_inp", "grad_flow"), x[2:], y[2:]):
+            if not torch_equal(s, t):
+                left.append(f"K3 backward {i} {name}")
+    return left or ["the steps' other sums (the K7 plain backward's scatter, the "
+                    "optimizers' inputs)"]
+
+
 def kernel_vs_plain_steps(phase: int, label: str, tr, batches: dict,
-                          own_limit: float = None) -> dict:
+                          own_limit: float = None, ref=None) -> dict:
     """A kernel-path step against a plain-path step from one snapshot for
-    each batch: losses within 1e-4 relative, gradients within 1e-3 of the
-    largest, printed also by sub-network (G's top-level children and D,
-    each against the largest and against its own largest) and, with
-    ``own_limit``, held within it of each sub-network's own largest; the
-    trainer restored after."""
+    each batch, measuring the kernels and not the run-to-run order of sums.
+
+    Under ``deterministic_steps`` (the convolutions off cuDNN, the
+    bilinear upsampling's backward without atomics) the kernel step
+    records each K3 forward (whose f32 atomics reorder from run to run),
+    each K7 forward and each K3 and K7 backward (``StepRecorder``); the
+    plain step (``ref``'s, ``tr``'s by default) replays the kernel
+    forwards' outputs after checking that their inputs are bit-equal.
+    cuDNN is off because the algorithm it picks depends on the device
+    memory free when a shape is first seen (under the whole script's
+    memory pressure the first deterministic-mode step of phase 17's
+    trainer took other algorithms than the steps after it, and so the
+    losses parted by one ulp); PyTorch's own convolutions sum in one
+    order whatever the memory. So the two steps' forwards are the same
+    bits: the losses must be bit-equal, and so must each K3 backward's
+    incoming cotangent (K7's carries K3's backward's difference). Held:
+
+    * self-check: a second plain step from the snapshot, replaying too,
+      within 1e-5 of the largest gradient of the first (else the phase
+      fails and names the sums left);
+    * each backward kernel call against its plain version on its own
+      recorded inputs (``bwd_kernel_checks``);
+    * the gradients within 1e-3 of the largest, printed by sub-network
+      (G's top-level children and D, each against the largest and against
+      its own largest) and, with ``own_limit``, held within it of each
+      sub-network's own largest.
+
+    Both trainers are restored after."""
+    import torch
+
+    ref = tr if ref is None else ref
     path = {}
     names = tr.g_names + [f"D.{n}" for n, _ in tr.d_model.named_parameters()]
+
+    def _fresh():
+        tr.last_grads = ref.last_grads = {}
+        gc.collect()
+
     for kind, b in batches.items():
-        snap = tr.snapshot()
-        got = tr.train_step(b)
-        g_k = [x.clone() for x in tr.last_grads["g"] + tr.last_grads["d"]]
-        tr.restore(snap)
-        want_l = tr.train_step(b, plain=True)
-        g_p = tr.last_grads["g"] + tr.last_grads["d"]
-        tr.restore(snap)
-        loss_rel = max(abs(got[k].item() - want_l[k].item())
-                       / max(abs(want_l[k].item()), 1e-12) for k in want_l)
+        snap, snap_ref = tr.snapshot(), (None if ref is tr else ref.snapshot())
+        with deterministic_steps():
+            k_rec = StepRecorder()
+            _fresh()
+            with k_rec.record():
+                got = tr.train_step(b)
+            g_k = [_host(x) for x in tr.last_grads["g"] + tr.last_grads["d"]]
+            tr.restore(snap)
+            runs = []
+            for _ in range(2):
+                p_rec = StepRecorder()
+                _fresh()
+                with p_rec.replay(k_rec):
+                    logs = ref.train_step(b, plain=True)
+                runs.append((p_rec, logs, [_host(x) for x in ref.last_grads["g"]
+                                           + ref.last_grads["d"]]))
+                ref.restore(snap if snap_ref is None else snap_ref)
+        (p_rec, want_l, g_p), (p_rec2, want_l2, g_p2) = runs
+        d, s = _max_grad_diff(g_p2, g_p)
+        self_rel = d / max(s, 1e-30)
+        check(self_rel <= 1e-5, f"{label} {kind}: two plain steps from one snapshot differ "
+              f"by {self_rel:.3g} of the largest gradient (limit 1e-5); sums left: "
+              + ", ".join(_left_sources(p_rec, p_rec2, want_l, want_l2)))
+        differ = {k: (got[k].item(), want_l[k].item()) for k in want_l
+                  if got[k].item() != want_l[k].item()}
+        if differ:
+            check(False, f"{label} {kind}: the kernel and plain steps' forwards are the "
+                  f"same bits but their losses differ: {differ}; device memory free "
+                  f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB after the steps, peak "
+                  f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(len(k_rec.bwd) == len(p_rec.bwd) and all(
+            torch_equal(x[2], y[2]) for x, y in zip(k_rec.bwd, p_rec.bwd)),
+            f"{label} {kind}: a K3 backward's incoming cotangent differs between the "
+            f"kernel and plain steps")
+        bwd = bwd_kernel_checks(f"{label} {kind}", k_rec)
         g_diff, g_scale = _max_grad_diff(g_k, g_p)
         groups = {}
         for n, a, w in zip(names, g_k, g_p):
             top = n.split(".", 1)[0]
             d, s = groups.get(top, (0.0, 0.0))
             groups[top] = (max(d, (a - w).abs().max().item()), max(s, w.abs().max().item()))
-        check(loss_rel <= 1e-4, f"{label} {kind} kernel vs plain step: losses differ "
-              f"by {loss_rel:.3g} relative")
         check(g_diff <= 1e-3 * g_scale, f"{label} {kind} kernel vs plain step: "
               f"gradients differ by {g_diff:.3g} (largest {g_scale:.3g})")
         for n, (d, s) in groups.items():
             check(own_limit is None or d <= own_limit * s, f"{label} {kind} kernel vs plain "
                   f"step: {n}'s gradients differ by {d:.3g} (its largest {s:.3g})")
-        path[kind] = (loss_rel, g_diff / g_scale,
-                      {n: (d / g_scale, d / max(s, 1e-30)) for n, (d, s) in groups.items()})
-        del g_k, g_p, snap
-    print(f"phase {phase} {label} kernel vs plain step: " + "; ".join(
-        f"{k}: losses {v[0]:.3g} relative (limit 1e-4), gradients {v[1]:.3g} of the "
-        f"largest (limit 1e-3); by sub-network, of the largest / of its own largest"
-        + ("" if own_limit is None else f" (limit {own_limit:g})") + ": "
-        + ", ".join(f"{n} {a:.3g} / {o:.3g}" for n, (a, o) in v[2].items())
-        for k, v in path.items()))
+        path[kind] = {"self": self_rel, "grad": g_diff / g_scale, "bwd": bwd,
+                      "k3_calls": len(k_rec.fwd), "k7_calls": len(k_rec.k7),
+                      "k7_bwd_calls": len(k_rec.k7_bwd),
+                      "groups": {n: (d / g_scale, d / max(s, 1e-30))
+                                 for n, (d, s) in groups.items()}}
+        del g_k, g_p, g_p2, k_rec, p_rec, p_rec2, runs, snap, snap_ref
+    print(f"phase {phase} {label} kernel vs plain step (convolutions off cuDNN, "
+          f"upsampling backward without atomics, the kernel's K3 and K7 forwards replayed "
+          f"into the plain step): " + "; ".join(
+              f"{k}: self-check two plain steps {v['self']:.3g} of the largest gradient "
+              f"(limit 1e-5); losses and the K3 backwards' incoming cotangents "
+              f"bit-equal ({v['k3_calls']} K3 and {v['k7_calls']} K7 forwards replayed); "
+              f"backward kernels on "
+              f"their own inputs, of their largest (limit 1e-5 but grad_flow's): "
+              + ", ".join(f"{n} {x:.3g}" for n, x in v["bwd"].items())
+              + f" (limit 1; {v['k7_bwd_calls']} K7 backward calls); "
+              f"gradients {v['grad']:.3g} of the largest (limit 1e-3); by sub-network, of "
+              f"the largest / of its own largest"
+              + ("" if own_limit is None else f" (limit {own_limit:g})") + ": "
+              + ", ".join(f"{n} {a:.3g} / {o:.3g}" for n, (a, o) in v["groups"].items())
+              for k, v in path.items()))
     return path
 
 
@@ -4607,6 +4992,149 @@ def eval_phase(scenes_dir: str, smi: str) -> dict:
             "i3d_ms": i3d_ms, "preprocess_ms": pre_ms}
 
 
+# ---- phase 24: Multi-GPU on one card ---------------------------------------
+#
+# A 1-rank NCCL group formed in this process (file:// rendezvous in the
+# output directory), destroyed at the end of the phase. The frame-sharded
+# renders (SceneRenderer(shard_frames=True): this rank's block of frames,
+# gathered by all_gather_into_tensor) against the unsharded ones, and the
+# data-parallel stage-1 step (Trainer(mesh=...): BN moments and the Z
+# maximum all-reduced, the gradients averaged by bucketed all-reduces)
+# against the plain Trainer step through kernel_vs_plain_steps. One card
+# holds one rank, so no multi-rank speed is measured here.
+
+
+def _render_turns(fns: dict, reps: int = 2) -> dict:
+    """Seconds of each render in turns (a, b, b, a, ...), synchronised,
+    GC held off: {label: [seconds]}."""
+    import torch
+
+    order = list(fns)
+    out = {k: [] for k in order}
+    with no_gc():
+        for i in range(reps):
+            for k in (order if i % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                fns[k]()
+                torch.cuda.synchronize()
+                out[k].append(time.perf_counter() - t0)
+    return out
+
+
+def multi_gpu_phase(dev, img, flow_np, region) -> dict:
+    """Phase 24 (see above): the renders within 1e-4 of the unsharded ones
+    with their launches (K1 once, K2 or K2-SLR N times) and frames/s in
+    turns; the data-parallel step held against the plain unsharded step
+    from one snapshot, its launches over 3 steps (K3 forward 6, backward 6,
+    K7 3), its step ms beside the unsharded step's, the gradient
+    all-reduce's ms (CUDA events) and bytes."""
+    import torch
+    import torch.distributed as dist
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+    from slrsfs_tpu_torch.cli.train import build, to_device_batch
+    from slrsfs_tpu_torch.config import Options
+    from slrsfs_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    t_phase = time.perf_counter()
+    rdzv = os.path.join(OUT_DIR, "phase24_rendezvous")
+    if os.path.exists(rdzv):
+        os.remove(rdzv)
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    res = {}
+    try:
+        mesh = make_mesh(1)
+        check(mesh.backend == "nccl" and mesh.world == 1 and not mesh.owns_group,
+              f"phase 24 mesh: {mesh}")
+        for label, overrides, k2 in (("baseline", None, "splat_dual_normalize"),
+                                     ("SLR", SLR_OPTS, "splat_dual_normalize_slr")):
+            kw = dict(W=W, n_frames=N_FRAMES, dtype="float32", seed=SEED, sparsify_eps=0.0,
+                      crop_decode="off", opt_overrides=overrides)
+            r1 = SceneRenderer(**kw)
+            rs = SceneRenderer(shard_frames=True, **kw)
+            check(rs.mesh is not None and rs.mesh.world == 1, "phase 24 renderer's mesh")
+            reg = region if overrides else None
+            kernels.reset_counts()
+            got = rs.frames(img, flow_np, alpha_region=reg)
+            torch.cuda.synchronize()
+            launches = kernels.counts()
+            check(launches == {**{k.name: 0 for k in kernels.KERNELS},
+                               "euler_compact_dual": 1, k2: N_FRAMES},
+                  f"phase 24 sharded {label} render launches: {launches}")
+            want = r1.frames(img, flow_np, alpha_region=reg)
+            got, want = ({"PredImg": o} if torch.is_tensor(o) else o for o in (got, want))
+            check(set(got) == set(want), f"phase 24 {label} outputs {sorted(got)}")
+            err = max((got[k] - want[k]).abs().max().item() for k in want)
+            check(err <= 1e-4, f"phase 24 sharded {label} render vs unsharded: max abs {err}")
+            check(all(bool(torch.isfinite(v).all()) for v in got.values()),
+                  f"phase 24 sharded {label} render not finite")
+            del got, want
+            secs = _render_turns({"sharded": lambda: rs.frames(img, flow_np, alpha_region=reg),
+                                  "unsharded": lambda: r1.frames(img, flow_np,
+                                                                 alpha_region=reg)})
+            fps = {k: N_FRAMES / float(np.mean(v)) for k, v in secs.items()}
+            res[label] = {"err": err, "fps": fps, "launches": launches}
+            print(f"phase 24 {label} f32 render, frame-sharded over a 1-rank NCCL group "
+                  f"(SceneRenderer(shard_frames=True), {N_FRAMES} frames {H}^2): max abs "
+                  f"{err:.3g} from the unsharded render (limit 1e-4); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }; in turns (sharded, "
+                  f"unsharded, unsharded, sharded, GC off): sharded {fps['sharded']:.2f} "
+                  f"frames/s (runs {[round(x * 1e3, 1) for x in secs['sharded']]} ms), "
+                  f"unsharded {fps['unsharded']:.2f} (runs "
+                  f"{[round(x * 1e3, 1) for x in secs['unsharded']]} ms)")
+            del r1, rs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        opt = Options(W=W, batch_size=TRAIN_B)
+        _, tr_dp = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED, mesh=mesh)
+        _, tr = build(opt, train_max_steps=TRAIN_T, device=dev, seed=SEED)
+        for a, b in ((tr_dp.model, tr.model), (tr_dp.d_model, tr.d_model)):
+            sa, sb = a.state_dict(), b.state_dict()
+            check(all(torch.equal(sa[k], sb[k]) for k in sb),
+                  "phase 24: the data-parallel and unsharded trainers start apart")
+        batch_np = make_train_batch(np.random.default_rng(SEED), TRAIN_B, W)
+        batch = to_device_batch(batch_np, dev)
+        mine = to_device_batch(shard_batch(batch_np, mesh, batch_size=TRAIN_B), dev)
+        res["path"] = kernel_vs_plain_steps(24, "data-parallel", tr_dp, {"dense": mine},
+                                            ref=tr)
+        tr_dp.train_step(mine)  # warm-up
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        host, stages, logs = _step_times(tr_dp, mine, 3)
+        launches = kernels.counts()
+        want = {**{k.name: 0 for k in kernels.KERNELS}, "splat_dense_fwd": 6,
+                "splat_dense_bwd": 6, "euler_phased": 3}
+        check(launches == want, f"phase 24 data-parallel launches over 3 steps: {launches}")
+        for k, v in logs.items():
+            check(bool(torch.isfinite(v)), f"phase 24 data-parallel loss {k} = {v}")
+        host1, stages1, _ = _step_times(tr, batch, 3)
+        ar_bytes = sum(p.numel() * p.element_size() for p in tr_dp.g_params + tr_dp.d_params)
+        dp_ms, one_ms = float(np.median(host)), float(np.median(host1))
+        res.update(step_ms=dp_ms, step_ms_unsharded=one_ms, allreduce_ms=stages["all-reduce"],
+                   allreduce_bytes=ar_bytes, launches=launches)
+        print(f"phase 24 data-parallel stage-1 step on 1 NCCL rank (Trainer(mesh=...), "
+              f"B={TRAIN_B} {W}^2 T={TRAIN_T}): {dp_ms:.1f} ms/step median (runs "
+              f"{[round(x, 1) for x in host]} ms) beside the unsharded step's {one_ms:.1f} "
+              f"(runs {[round(x, 1) for x in host1]} ms); gradient all-reduce "
+              f"{stages['all-reduce']:.2f} ms (CUDA events) over {ar_bytes} bytes of G and D "
+              f"gradients ({ar_bytes / 2**20:.1f} MiB) and the logs; stages "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
+              + f" (unsharded: " + ", ".join(f"{k} {v:.1f} ms" for k, v in stages1.items())
+              + f"); launches over 3 steps { {k: v for k, v in launches.items() if v} }")
+        del tr_dp, tr, batch, mine
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 24 wall {res['seconds']:.1f} s (no multi-rank speed: one card, one rank)")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -5183,6 +5711,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     rest = rest_of_training_phase(dev)
 
+    # ---- phase 24: Multi-GPU on one card ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi = multi_gpu_phase(dev, img, flow_np, region)
+
     # ---- phase 22: summary -------------------------------------------
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd, lib_ms):
         return {"name": name, "route": "cuda", "source": source,
@@ -5329,6 +5862,12 @@ def main() -> int:
         f"{k} {v:.2f}" for k, v in {**crop["fps"], **motion["fps"]}.items())
         + f"; sweep {sweep['scenes_per_hour']:.1f} scenes/hour; device busy "
         f"{100.0 * staged['busy_share']:.1f} % of a traced crop render")
+    print(f"phase 22 phase 24 (1 NCCL rank): sharded renders baseline "
+          f"{multi['baseline']['fps']['sharded']:.2f} / SLR {multi['SLR']['fps']['sharded']:.2f} "
+          f"frames/s (unsharded {multi['baseline']['fps']['unsharded']:.2f} / "
+          f"{multi['SLR']['fps']['unsharded']:.2f}); data-parallel step "
+          f"{multi['step_ms']:.1f} ms (unsharded {multi['step_ms_unsharded']:.1f}, all-reduce "
+          f"{multi['allreduce_ms']:.2f}); phase wall {multi['seconds']:.1f} s")
     print(f"phase 22 CLAW eval of {len(SWEEP_SCENES)} {CROP_W}^2 scenes (--rawsize render "
           f"{ev['render_fps']:.2f} frames/s): plain {ev['runs']['plain']['s']:.2f} s, fluid "
           f"{ev['runs']['fluid']['s']:.2f} s; all checks passed")

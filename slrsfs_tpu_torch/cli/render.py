@@ -23,6 +23,10 @@ test_motion_4eval_rawsize_threshold.py:163-219): the given flow only seeds
 a speed-threshold mask and five k-means/RBF hints (data/hints.py), and a
 motion regressor's checkpoint (models/motion.py) predicts the dense motion
 that the render then animates, both on the renderer's device.
+--shard-frames renders each scene's frames in contiguous blocks over the
+ranks of a torch.distributed group, one GPU a rank (``torchrun
+--nproc_per_node=K -m slrsfs_tpu_torch.cli.render ...``; without
+torchrun's environment, one rank), and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -103,16 +107,6 @@ def outputs_to_u8(outs) -> dict:
     return {k: to_u8(v, image="Img" in k).cpu().numpy() for k, v in outs.items()}
 
 
-# the title of the ROADMAP §1 item that ports what the render raises on
-MULTI_GPU = "Multi-GPU"
-
-
-def _not_ported(what: str, item: str):
-    """``what`` is not ported; ``item`` is the title of the ROADMAP §1 item
-    that ports it."""
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP §1, \"{item}\"")
-
-
 def load_regressor(path: str, W: int):
     """The ``MotionRegressor`` of a reference-style motion checkpoint
     (``SPADE_unet_mask_motion`` or ``unet_motion``, JAX cli/render.py:
@@ -138,7 +132,15 @@ class SceneRenderer:
     ``frames()`` renders in memory; ``render()`` adds the file protocol
     (image/flow loading, PNG and mp4 output). The PNGs and mp4s are written
     on a background thread while the next scene renders, at most two scenes
-    pending; ``finish()`` waits for them."""
+    pending; ``finish()`` waits for them.
+
+    ``shard_frames`` (JAX cli/render.py:160-169) forms or joins the mesh of
+    every rank (``parallel.mesh.make_mesh``; each rank on ``cuda:LOCAL_RANK``
+    or, with device 'cpu', a gloo rank), replicates rank 0's weights and
+    renders through the frame-sharded rollouts: this rank's N / world
+    frames, gathered on every rank. N % world != 0 is a ``ValueError``;
+    only rank 0 writes files; ``profile_stages`` is ignored, as in JAX.
+    ``close()`` also destroys a group that the renderer formed."""
 
     def __init__(self, ckpt: str = None, W: int = 256, n_frames: int = 60,
                  dtype: str = "float32", decode_batch: int = None,
@@ -161,9 +163,18 @@ class SceneRenderer:
             raise ValueError(f"unknown dtype {dtype!r}")
         if crop_decode not in ("auto", "off"):
             raise ValueError(f"unknown crop_decode {crop_decode!r}")
+        self.mesh = None
         if shard_frames:
-            raise _not_ported("--shard-frames (multi-GPU)", MULTI_GPU)
-        self.device = resolve_device(device)
+            from slrsfs_tpu_torch.parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(device=device)
+            if n_frames % self.mesh.world:
+                self.mesh.close()
+                raise ValueError(f"n_frames={n_frames} must divide over "
+                                 f"{self.mesh.world} ranks")
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(device)
 
         if ckpt:
             sd, opt = load_checkpoint(ckpt)
@@ -195,14 +206,20 @@ class SceneRenderer:
                               else torch.float32)
         self.splat_dtype = (torch.bfloat16 if dtype == "bfloat16-fast"
                             else torch.float32)
+        if self.mesh is not None:
+            from slrsfs_tpu_torch.parallel.mesh import replicate
+
+            replicate(model, self.mesh)
         self.model = model.to(self.compute_dtype)
         # motion from hints: the regressor runs in float32 whatever the
         # render's dtype, as JAX runs its float32 variables
         self.regressor = (None if not motion_ckpt
                           else load_regressor(motion_ckpt, W).to(self.device))
         self.W, self.n_frames = W, n_frames
+        # the frames this rank renders: all N, or its block of N / world
+        self.rank_frames = n_frames if self.mesh is None else n_frames // self.mesh.world
         if decode_batch is not None:
-            while n_frames % decode_batch:
+            while self.rank_frames % decode_batch:
                 decode_batch -= 1
         self.decode_batch = decode_batch
         # zero sub-threshold motion so estimated (dense) flows ride the
@@ -223,9 +240,12 @@ class SceneRenderer:
         self._pending = []
 
     def decode_batch_for(self, area: int) -> int:
+        """The frames of a decode chunk, a divisor of the frames this rank
+        renders: ``decode_batch``, or the budget's choice for a window of
+        ``area`` pixels."""
         if self.decode_batch is not None:
             return self.decode_batch
-        return auto_decode_batch(self.n_frames, area, slr=self.slr)
+        return auto_decode_batch(self.rank_frames, area, slr=self.slr)
 
     def _tensors(self, img: np.ndarray, flow: np.ndarray):
         """(img (1, W, W, 3), flow, positions, valid) on the device, the
@@ -249,30 +269,32 @@ class SceneRenderer:
         the kernels. With ``crop_decode`` 'auto' the scene's crop is planned
         here (``prepare_crop``, which also integrates it) and the rollout
         runs on it, or uncropped when the plan is None; the decode batch is
-        sized to the decode window."""
-        from slrsfs_tpu_torch.engine.rollout import (
-            baseline_rollout_sparse,
-            prepare_crop,
-            slr_rollout_sparse,
-        )
+        sized to the decode window. With a mesh the frame-sharded rollouts
+        render this rank's block and every rank returns all N frames."""
+        from slrsfs_tpu_torch.engine import rollout
 
         img_t, flow_t, pos_t, val_t = self._tensors(img, flow)
         crop = disp = None
         if self.crop_decode == "auto":
-            disp, crop = prepare_crop(self.opt, self.slr, flow_t, pos_t, val_t,
-                                      self.n_frames, plain=plain)
+            disp, crop = rollout.prepare_crop(self.opt, self.slr, flow_t, pos_t,
+                                              val_t, self.n_frames, plain=plain)
         hc, wc = (self.W, self.W) if crop is None else (crop.hc, crop.wc)
         self.shapes.add((pos_t.shape[0], hc, wc))
         args = (self.model, img_t, flow_t, self.n_frames, pos_t, val_t)
         kw = dict(decode_batch=self.decode_batch_for(hc * wc),
                   compute_dtype=self.compute_dtype, plain=plain,
                   splat_dtype=self.splat_dtype, crop=crop, disp=disp)
-        if not self.slr:
-            return baseline_rollout_sparse(*args, **kw)
-        region = (None if alpha_region is None
-                  else torch.from_numpy(np.asarray(alpha_region, np.float32)
-                                        [None, ..., None]).to(self.device))
-        return slr_rollout_sparse(*args, alpha_region=region, **kw)
+        if self.slr:
+            kw["alpha_region"] = (
+                None if alpha_region is None
+                else torch.from_numpy(np.asarray(alpha_region, np.float32)
+                                      [None, ..., None]).to(self.device))
+        if self.mesh is not None:
+            fn = (rollout.slr_rollout_frame_sharded if self.slr
+                  else rollout.baseline_rollout_frame_sharded)
+            return fn(*args, self.mesh, **kw)
+        fn = rollout.slr_rollout_sparse if self.slr else rollout.baseline_rollout_sparse
+        return fn(*args, **kw)
 
     def profile(self, img: np.ndarray, flow: np.ndarray) -> dict:
         """The baseline's stage times on this scene
@@ -367,7 +389,6 @@ class SceneRenderer:
 
         name = name or os.path.splitext(os.path.basename(image_path))[0]
         out_dir = os.path.join(save_dir, name)
-        os.makedirs(out_dir, exist_ok=True)
         img, flow, out_w, out_h = self.load_inputs(
             image_path, flow_path, name, speed, align_json, rawsize, rotate,
             flow_scale)
@@ -375,7 +396,7 @@ class SceneRenderer:
         if alpha_region_path:
             r = Image.open(alpha_region_path).convert("L").resize((self.W, self.W))
             region = np.asarray(r, np.float32) / 255.0
-        if self.profile_stages and not self.slr:
+        if self.profile_stages and not self.slr and self.mesh is None:
             from slrsfs_tpu_torch.engine.stage_profile import format_stages
 
             self.stage_profiles = self.profile(img, flow)
@@ -386,7 +407,11 @@ class SceneRenderer:
                       else f"[profile {name}] crop (t_euler_integration = "
                            f"prepare_crop): {format_stages(stc)}")
             self.profile_stages = False  # once a process
-        outs = outputs_to_u8(self.frames(img, flow, alpha_region=region))
+        outs = self.frames(img, flow, alpha_region=region)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return out_dir  # rank 0 writes the files
+        os.makedirs(out_dir, exist_ok=True)
+        outs = outputs_to_u8(outs)
         # each pending save holds a scene's outputs in host memory
         while len(self._pending) >= 2:
             self._pending.pop(0).result()
@@ -399,6 +424,13 @@ class SceneRenderer:
         pending, self._pending = self._pending, []
         for f in pending:
             f.result()
+
+    def close(self):
+        """``finish()``, then destroy the process group if this renderer
+        formed it."""
+        self.finish()
+        if self.mesh is not None:
+            self.mesh.close()
 
 
 def render_scene(image_path: str, flow_path: str, save_dir: str,
@@ -486,7 +518,9 @@ def main(argv=None):
                    help="motion-regressor checkpoint: the flow only seeds "
                         "sparse hints, the regressor predicts the motion")
     p.add_argument("--shard-frames", action="store_true",
-                   help="shard frames over several GPUs (not ported yet)")
+                   help="render each rank's block of frames, one GPU a rank "
+                        "(torchrun --nproc_per_node=K; one rank without it); "
+                        "rank 0 writes the files")
     p.add_argument("--sparsify-eps", type=float, default=None,
                    help="zero motion below this speed so dense estimated "
                         "flows ride the sparse path; default: 0.5/N for "
@@ -514,7 +548,7 @@ def main(argv=None):
     out = r.render(a.image, a.flow, a.save_dir, name=a.name, speed=a.speed,
                    align_json=a.align, rawsize=a.rawsize, rotate=a.rotate,
                    flow_scale=a.flow_scale, alpha_region_path=a.alpha_region)
-    r.finish()
+    r.close()
     print(f"rendered to {out}")
     return r
 

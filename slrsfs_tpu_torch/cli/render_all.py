@@ -40,7 +40,8 @@ def main(argv=None) -> dict:
     p.add_argument("--flow-suffix", default="_motion.flo",
                    help="motion file suffix paired with _input.jpg")
     p.add_argument("--shard-frames", action="store_true",
-                   help="shard frames over several GPUs (not ported yet)")
+                   help="render each rank's block of frames, one GPU a rank "
+                        "(torchrun --nproc_per_node=K); rank 0 writes the files")
     p.add_argument("--sparsify-eps", type=float, default=None,
                    help="zero motion below this speed (see cli.render; "
                         "default 0.5/N for --rawsize, 0 otherwise)")
@@ -91,7 +92,7 @@ def main(argv=None) -> dict:
         done += 1
         print(f"[{done}/{len(inputs)}] {name} "
               f"({time.perf_counter() - t0:.1f}s elapsed)", flush=True)
-    renderer.finish()
+    renderer.close()
     elapsed = time.perf_counter() - t0
     if skipped:
         print(f"skipped (no motion file): {skipped}")

@@ -278,7 +278,7 @@ def to_device_batch(batch: Dict, device) -> Dict:
 
 
 def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,
-          steps_per_epoch: int = 500, vgg=None):
+          steps_per_epoch: int = 500, vgg=None, mesh=None):
     """The model and trainer of ``opt``'s stage on ``device`` with seeded
     random weights (LeCun-normal kernels, zero biases, spectral vectors from
     power iterations), in JAX ``build``'s order: ``bg`` (``BackgroundModel``,
@@ -286,7 +286,8 @@ def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,
     2-channel D), stage 3 (``SLRTrainable`` with ``slr_extra_losses``),
     ``opt.train_motion`` (``BaselineMotionTrainable`` with
     ``baseline_motion_extra_losses``), else stage 1
-    (``BaselineTrainable``). An unknown model type is a ``ValueError``."""
+    (``BaselineTrainable``). An unknown model type is a ``ValueError``.
+    ``mesh`` makes the trainer data-parallel (``engine/trainer.py``)."""
     from slrsfs_tpu_torch.engine.trainer import Trainer, make_discriminator
     from slrsfs_tpu_torch.models.baseline import (
         BaselineMotionTrainable,
@@ -321,7 +322,7 @@ def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,
     init_random_weights(d_model, seed + 1)
     trainer = Trainer(opt, model, steps_per_epoch=steps_per_epoch, vgg=vgg,
                       d_model=d_model, seed=seed, device=device,
-                      extra_losses_fn=extra, task=task)
+                      extra_losses_fn=extra, task=task, mesh=mesh)
     return model, trainer
 
 

@@ -83,6 +83,19 @@ def _auto_decode_batch(n_frames: int, decode_batch: Optional[int]) -> int:
     return db
 
 
+def _frame_range(n_frames: int, frame_range: Optional[range],
+                 decode_batch: int) -> range:
+    """The frames a sparse rollout renders: all N, or ``frame_range``, a
+    contiguous block of them; ``decode_batch`` must divide its length."""
+    ts = range(n_frames) if frame_range is None else frame_range
+    if ts.step != 1 or ts.start < 0 or ts.stop > n_frames or not len(ts):
+        raise ValueError(f"frame_range {frame_range} is not a block of the "
+                         f"{n_frames} frames")
+    if len(ts) % decode_batch:
+        raise ValueError(f"decode_batch {decode_batch} does not divide {len(ts)} frames")
+    return ts
+
+
 def _alphas(t: int, n: int, slr: bool = False):
     """(α, 1-α) of frame t in float32 arithmetic, as the JAX rollouts form
     them (1 - t/N, clamped to [1/600, 599/600] for SLR)."""
@@ -479,7 +492,8 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
                             plain: bool = False,
                             splat_dtype: torch.dtype = torch.float32,
                             crop: Optional[CropSpec] = None, disp=None,
-                            stages=None) -> Tensor:
+                            stages=None, frame_range: Optional[range] = None
+                            ) -> Tensor:
     """Sparse-splat, frame-batched-decode rollout; equal to
     ``baseline_rollout`` when the static pixels have exactly zero motion.
 
@@ -499,12 +513,14 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
     integration. ``stages`` (``engine.profiler.StageProfiler``) times the
     stages under the reference's names: t_encoder, t_euler_integration
     (without ``disp``), t_softmax_splating (the packing and the N splats),
-    t_decoder (the decodes). Returns (N, H, W, 3) float32 in [-1, 1].
+    t_decoder (the decodes). ``frame_range``, a contiguous block of frames
+    of the N (``baseline_rollout_frame_sharded``'s rank block), renders
+    those frames alone, decode_batch dividing their count. Returns
+    (N, H, W, 3) float32 in [-1, 1], or (len(frame_range), H, W, 3).
     """
     opt = model.opt
     N = n_frames
-    if N % decode_batch:
-        raise ValueError(f"decode_batch {decode_batch} does not divide {N} frames")
+    ts = _frame_range(N, frame_range, decode_batch)
     H, W = flow.shape[0], flow.shape[1]
     dev = flow.device
     f32 = torch.float32
@@ -521,7 +537,7 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
         disp_f, disp_p = disp
         C = fs.shape[-1]
 
-        frames = torch.empty((N, H, W, 3), dtype=f32, device=dev)
+        frames = torch.empty((len(ts), H, W, 3), dtype=f32, device=dev)
         if crop is not None:
             # the frame outside the paste window: one full-frame decode
             with _stage(stages, "t_decoder"):
@@ -536,10 +552,10 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
             chunk = torch.empty((decode_batch, hc, wc, C), dtype=compute_dtype,
                                 device=dev)
             acc = splat_scratch(hc, wc, C + 1, splat_dtype, dev)
-        for c0 in range(0, N, decode_batch):
+        for c0 in range(0, len(ts), decode_batch):
             with _stage(stages, "t_softmax_splating"):
                 for j in range(decode_batch):
-                    t = c0 + j
+                    t = ts[c0 + j]
                     a, b = _alphas(t, N)
                     u_static, u_mov = pack(disp_f[t])
                     if plain:
@@ -728,7 +744,8 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
                        compute_dtype: torch.dtype = torch.float32,
                        mask_rock: Tensor = None, plain: bool = False,
                        splat_dtype: torch.dtype = torch.float32,
-                       crop: Optional[CropSpec] = None, disp=None):
+                       crop: Optional[CropSpec] = None, disp=None,
+                       frame_range: Optional[range] = None):
     """Two-layer SLR rollout (reference test_v1_4eval*.py semantics):
     encode, background and alpha head once; per frame the dual-ended sparse
     splat of ``[features, fluid alpha]`` (K2 with the SLR epilogue under
@@ -741,14 +758,14 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
     accumulates in ``splat_dtype``; the composite stays f32. With ``crop``
     the image, background, alpha head and region are cropped to the window
     for the chunk decodes, and the static fluid and alpha decode and its
-    composite run once at full frame. Returns a dict of f32 tensors:
-    PredImg, FluidImg (N, H, W, 3), CompositeFluidAlpha (N, H, W, 1) and
-    BGImg (H, W, 3).
+    composite run once at full frame. ``frame_range`` as for
+    ``baseline_rollout_sparse``. Returns a dict of f32 tensors: PredImg,
+    FluidImg (N, H, W, 3), CompositeFluidAlpha (N, H, W, 1) (with
+    ``frame_range``, its frames) and BGImg (H, W, 3).
     """
     opt = model.opt
     N = n_frames
-    if N % decode_batch:
-        raise ValueError(f"decode_batch {decode_batch} does not divide {N} frames")
+    ts = _frame_range(N, frame_range, decode_batch)
     H, W = flow.shape[0], flow.shape[1]
     dev = flow.device
     f32 = torch.float32
@@ -774,7 +791,7 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
         disp_f, disp_p = disp
         region = (None if alpha_region is None
                   else gaussian_blur_region(alpha_region.to(f32), W))
-        outs = _slr_outputs(N, H, W, dev)
+        outs = _slr_outputs(len(ts), H, W, dev)
         bg_full = bg_tanh[0]
         if crop is not None:
             # the static frame: u_full normalises pointwise to every frame's
@@ -806,9 +823,9 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
                             dtype=compute_dtype, device=dev)
         acc = splat_scratch(hc, wc, C1, splat_dtype, dev)
         img_b = img.expand(decode_batch, -1, -1, -1)
-        for c0 in range(0, N, decode_batch):
+        for c0 in range(0, len(ts), decode_batch):
             for j in range(decode_batch):
-                t = c0 + j
+                t = ts[c0 + j]
                 a, b = _alphas(t, N, slr=True)
                 # v2: one Z-norm, from the forward displacement, for both ends
                 u_static, u_mov = pack(disp_f[t])
@@ -827,6 +844,53 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
                     _paste(outs[key][c0:c0 + decode_batch], v, crop)
         outs["BGImg"] = bg_full
         return outs
+
+
+# ---------------------------------------------------------------------------
+# Frame-sharded renders (several GPUs)
+# ---------------------------------------------------------------------------
+#
+# Frames are independent given the integrated displacements, so each rank
+# of a ``parallel.mesh.Mesh`` does the per-scene work (encode, Z-norm,
+# pack, the K1 integration unless ``disp`` is given; the SLR background,
+# alpha heads and crop statics) and renders its contiguous block of N /
+# world frames through the sparse rollout, then the blocks are gathered
+# onto every rank: JAX's ``P('data')`` over ``arange(N)``.
+
+
+def baseline_rollout_frame_sharded(model: BaselineModel, img: Tensor, flow: Tensor,
+                                   n_frames: int, positions: Tensor, valid: Tensor,
+                                   mesh, **kw) -> Tensor:
+    """``baseline_rollout_sparse`` with the frame axis sharded over
+    ``mesh``'s ranks (JAX ``baseline_rollout_frame_sharded``): this rank
+    renders ``parallel.mesh.frame_block`` (N % world != 0 is a
+    ``ValueError``), and every rank returns all (N, H, W, 3) frames.
+    ``kw``: ``baseline_rollout_sparse``'s decode_batch (which must divide
+    the block), compute_dtype, plain, splat_dtype, crop and disp."""
+    from slrsfs_tpu_torch.parallel.mesh import all_gather_frames, frame_block
+
+    block = frame_block(n_frames, mesh)
+    local = baseline_rollout_sparse(model, img, flow, n_frames, positions, valid,
+                                    frame_range=block, **kw)
+    return all_gather_frames(local, mesh)
+
+
+def slr_rollout_frame_sharded(model: SLRModel, img: Tensor, flow: Tensor,
+                              n_frames: int, positions: Tensor, valid: Tensor,
+                              mesh, **kw):
+    """``slr_rollout_sparse`` with the frame axis sharded over ``mesh``'s
+    ranks, as ``baseline_rollout_frame_sharded`` (JAX
+    ``slr_rollout_frame_sharded``): the same dict on every rank, PredImg,
+    FluidImg and CompositeFluidAlpha gathered, BGImg the rank's own (every
+    rank computes the same). ``kw``: ``slr_rollout_sparse``'s
+    alpha_region, decode_batch (which must divide the block),
+    compute_dtype, mask_rock, plain, splat_dtype, crop and disp."""
+    from slrsfs_tpu_torch.parallel.mesh import all_gather_frames, frame_block
+
+    block = frame_block(n_frames, mesh)
+    outs = slr_rollout_sparse(model, img, flow, n_frames, positions, valid,
+                              frame_range=block, **kw)
+    return {k: v if k == "BGImg" else all_gather_frames(v, mesh) for k, v in outs.items()}
 
 
 @torch.no_grad()

@@ -40,9 +40,24 @@ that reach Adam are float32; the prediction is cast back to float32 before
 the losses, VGG and D, which run in float32; the updated statistics and
 vectors are stored back in float32. Every persistent tensor (parameters,
 both Adam states, statistics, vectors) stays float32. The dense splat then
-takes bf16 features and an f32 flow: K3's bf16 mode on the card. An
-embedded regressor's bf16 motion would need K7 and K3 with a bf16 flow,
-which are not ported: that combination raises.
+takes bf16 features and an f32 flow: K3's bf16 mode on the card. bf16
+with an embedded motion regressor (``opt.train_motion``) raises a
+``ValueError``: the JAX package does not run it either (its step raises a
+``TypeError`` where the regressor's bf16 weights meet the f32
+moving-region mask in a convolution).
+
+``mesh`` (``parallel/mesh.py``) makes the step data-parallel, as the JAX
+step over a sharded batch: each rank passes its own rows
+(``shard_batch``), G, D and the VGG start from rank 0's weights
+(``replicate``), the BN layers take the global batch's moments and draw
+its noise (``nn/norm.py``), the summed (accumulated) G and D gradients are
+averaged over the ranks by bucketed all-reduces before the Adam updates,
+and so are the logged losses. Every loss is a mean over equal shards (the
+SSIM divides per sample), so the mean of the ranks' gradients is the
+global batch's. Parameters, statistics, spectral vectors and both Adam
+states then stay equal on every rank; ``io/checkpoint.py:
+save_checkpoint`` writes from rank 0 only. Without a mesh none of this
+runs.
 
 ``opt.discriminator_losses`` 'pix2pixHDorigin' trains against the
 reference's instance-norm pix2pixHD discriminator (``nn/pix2pixhd.py``,
@@ -177,7 +192,7 @@ class Trainer:
                  d_model: nn.Module = None, seed: int = 0,
                  deterministic: bool = False, device="cuda",
                  extra_losses_fn: Optional[Callable] = None,
-                 task: str = "synthesis"):
+                 task: str = "synthesis", mesh=None):
         if task not in self.TASKS:
             raise ValueError(f"unknown task {task!r}: one of {self.TASKS}")
         if opt.num_accumulations < 1:
@@ -195,7 +210,8 @@ class Trainer:
                 "supported: the JAX package does not run it either (its step "
                 "raises a TypeError: the regressor's bf16 weights meet the f32 "
                 "moving-region mask in a convolution)")
-        dev = resolve_device(device)
+        dev = resolve_device(device if mesh is None else mesh.device)
+        self.mesh = mesh
         self.opt = opt
         self.model = model.to(dev)
         self.steps_per_epoch = steps_per_epoch
@@ -213,6 +229,14 @@ class Trainer:
                 vgg = init_random_vgg(VGG19Features(), seed)
             self.vgg = vgg.to(dev).requires_grad_(False)
             self.synth = SynthesisLoss(opt.losses, self.vgg)
+        if mesh is not None:
+            from slrsfs_tpu_torch.parallel.mesh import attach, replicate
+
+            for m in (self.model, self.d_model, self.vgg):
+                if m is not None:
+                    replicate(m, mesh)
+            attach(self.model, mesh)
+            attach(self.d_model, mesh)
         self.accum = opt.num_accumulations
         self.compute_dtype = COMPUTE_DTYPES[opt.train_compute_dtype]
         self.noise = torch.Generator(device=dev)
@@ -341,8 +365,9 @@ class Trainer:
         model's device), or on a list of ``opt.num_accumulations``
         micro-batches. ``plain`` runs the K3/K7 plain versions. ``timer``,
         when given, is called with a stage name after each stage (G forward,
-        G backward, D step, per micro-batch; updates). Returns the logged
-        losses, detached (with accumulation, the micro-batches' means)."""
+        G backward, D step, per micro-batch; with a mesh all-reduce;
+        updates). Returns the logged losses, detached (with accumulation,
+        the micro-batches' means; with a mesh, the ranks' means)."""
         mark = timer or (lambda _name: None)
         micro = list(batch) if isinstance(batch, (list, tuple)) else [batch]
         if len(micro) != self.accum:
@@ -362,12 +387,25 @@ class Trainer:
                 if d_grads is not None:
                     d_grads = [d * w for d in d_grads]
                 logs = {n: v * (1.0 / k) for n, v in logs.items()}
+            if self.mesh is not None:
+                logs = self._reduce(g_grads, d_grads or [], logs)
+                mark("all-reduce")
             self.opt_g.step(g_grads)
             if d_grads is not None:
                 self.opt_d.step(d_grads)
             mark("updates")
         self.last_grads = {"g": g_grads, "d": d_grads or []}
         return logs
+
+    def _reduce(self, g_grads, d_grads, logs):
+        """The gradients averaged over the ranks in place, and the logs'
+        means."""
+        from slrsfs_tpu_torch.parallel.mesh import all_reduce_mean
+
+        keys = list(logs)
+        stacked = torch.stack([logs[k].to(torch.float32) for k in keys])
+        all_reduce_mean(g_grads + d_grads + [stacked], self.mesh)
+        return dict(zip(keys, stacked.unbind()))
 
     def snapshot(self) -> Dict:
         """Copies of all that a step changes: G and D weights and buffers,

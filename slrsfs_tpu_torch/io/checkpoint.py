@@ -335,7 +335,10 @@ def save_checkpoint(path: str, G: torch.nn.Module, D: torch.nn.Module,
     ``optimizerD`` in torch Adam's layout (``trainer_adam_states``; the JAX
     ``import_optimizer_states`` reads them), ``step`` (the update count),
     ``noise_state`` (the BN-noise generator's state) and ``meta`` (e.g.
-    ``best_perceptual`` and the validation means) at the top level."""
+    ``best_perceptual`` and the validation means) at the top level. A
+    data-parallel trainer's ranks other than 0 write nothing."""
+    if trainer is not None and trainer.mesh is not None and trainer.mesh.rank != 0:
+        return path
     sd = {f"model.module.{k}": v.detach().cpu()
           for k, v in G.state_dict().items()}
     sd.update({f"netD.netD.{k}": v.detach().cpu()

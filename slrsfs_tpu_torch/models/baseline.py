@@ -112,11 +112,14 @@ def init_random_weights(model: nn.Module, seed: int,
             mod.weight_v.copy_(v)
 
 
-def z_normalize(opt: Options, z: Tensor, flow: Tensor = None) -> Tensor:
+def z_normalize(opt: Options, z: Tensor, flow: Tensor = None, mesh=None) -> Tensor:
     """Reference Z-norm variants (animating_softmax_splating.py:593-605).
 
     z (B, H, W, 1); flow (B, H, W, 2) f32, needed only for v2, whose
-    per-source maximum-warp norm runs through K6."""
+    per-source maximum-warp norm runs through K6. The default variant
+    subtracts the batch's maximum: with a ``mesh`` of more than one rank,
+    the global batch's (``parallel.mesh.all_reduce_max``), as the JAX
+    maximum over a sharded batch."""
     if opt.use_softmax_splatter_v2:
         if flow is None:
             raise ValueError("the v2 Z-norm needs the flow")
@@ -127,6 +130,10 @@ def z_normalize(opt: Options, z: Tensor, flow: Tensor = None) -> Tensor:
         zn = z
     elif opt.use_softmax_splatter_v3:
         zn = torch.sigmoid(z) * 20.0
+    elif mesh is not None and mesh.world > 1:
+        from slrsfs_tpu_torch.parallel.mesh import all_reduce_max
+
+        zn = z - all_reduce_max(z.max(), mesh)
     else:
         zn = z - z.max()
     if not opt.no_clamp_Z:
@@ -185,7 +192,11 @@ class BaselineTrainable(BaselineModel):
     """Adds the (start, middle, end) training pass (reference
     ``AnimatingSoftmaxSplating.forward``, animating_softmax_splating.py:
     445-775): one phase-switched integration of ``train_max_steps`` steps
-    per sample (K7) and two summation splats with their gather VJPs (K3)."""
+    per sample (K7) and two summation splats with their gather VJPs (K3).
+    ``mesh`` (``parallel.mesh.attach``): the data-parallel group whose
+    batch ``z_normalize``'s maximum spans."""
+
+    mesh = None
 
     def __init__(self, opt: Options, train_max_steps: int = 60):
         super().__init__(opt)
@@ -228,8 +239,8 @@ class BaselineTrainable(BaselineModel):
         z_f = z_for_splat(opt, fs_s, z_f)
         z_p = z_for_splat(opt, fs_e, z_p)
         # each end normalises with its own flow (reference :593-650)
-        zn_f = z_normalize(opt, z_f, flow_f)
-        zn_p = z_normalize(opt, z_p, flow_p)
+        zn_f = z_normalize(opt, z_f, flow_f, self.mesh)
+        zn_p = z_normalize(opt, z_p, flow_p, self.mesh)
 
         splat = softsplat_sum_plain_vjp if plain else softsplat_sum
         g = (splat(pack_splat_input(fs_s, zn_f), flow_f) * alpha

@@ -327,7 +327,10 @@ class SLRTrainable(SLRModel):
     """Adds the (start, middle, end) training pass of the joint two-layer
     model (reference forward, 2layers file :256-809): one phase-switched
     integration per sample (K7) and two summation splats with their gather
-    VJPs (K3) of the packed ``[fs·e^Z, af·e^C, e^C, e^Z]`` rows."""
+    VJPs (K3) of the packed ``[fs·e^Z, af·e^C, e^C, e^Z]`` rows.
+    ``mesh`` as for ``BaselineTrainable``."""
+
+    mesh = None
 
     def __init__(self, opt: Options, train_max_steps: int = 60):
         super().__init__(opt)
@@ -398,8 +401,8 @@ class SLRTrainable(SLRModel):
             1.0 - (idx[:, 1] - idx[:, 0]).to(fs_s.dtype)
             / (idx[:, 2] - idx[:, 0] + 1).to(fs_s.dtype),
             ALPHA_MIN, ALPHA_MAX).reshape(B, 1, 1, 1)
-        zn_f = z_normalize(opt, z_for_splat(opt, fs_s, z_f), flow_f)
-        zn_p = z_normalize(opt, z_for_splat(opt, fs_e, z_p), flow_p)
+        zn_f = z_normalize(opt, z_for_splat(opt, fs_s, z_f), flow_f, self.mesh)
+        zn_p = z_normalize(opt, z_for_splat(opt, fs_e, z_p), flow_p, self.mesh)
 
         # both ends take frame 0's composite alpha as blending weight
         # (reference :480-540)

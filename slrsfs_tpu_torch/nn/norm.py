@@ -113,7 +113,16 @@ class ManualBN(nn.Module):
     (B, H, W), or, given per-channel mask ``counts``, the sums divided by
     ``counts + BN_EPS`` (reference ``partial_manual_bn``); the stored
     statistics move towards them with momentum 0.1. Otherwise the stored
-    statistics normalise."""
+    statistics normalise.
+
+    ``mesh`` (``parallel.mesh.attach``): with more than one rank the
+    train-mode moments are the global batch's, the reference's SyncBN: the
+    per-channel sums of x and x² and the element count (or ``counts``) are
+    summed over the ranks by one differentiable all-reduce, whose backward
+    sums the cotangents over the ranks. With one rank or none the moments
+    are this process's, as above."""
+
+    mesh = None
 
     def __init__(self, features: int):
         super().__init__()
@@ -125,7 +134,9 @@ class ManualBN(nn.Module):
         if not train:
             return fused_bn(x, self.stored_mean, self.stored_var, gain, bias)
         xf = x.to(torch.float32)
-        if counts is None:
+        if self.mesh is not None and self.mesh.world > 1:
+            m, m2 = self._global_moments(xf, counts)
+        elif counts is None:
             m = xf.mean(dim=(0, 2, 3))
             m2 = torch.square(xf).mean(dim=(0, 2, 3))
         else:
@@ -140,6 +151,23 @@ class ManualBN(nn.Module):
                                   + var * BN_MOMENTUM)
         return fused_bn(x, m, var, gain, bias)
 
+    def _global_moments(self, xf: Tensor, counts: Optional[Tensor]):
+        """(E[x], E[x²]) over every rank's batch: one all-reduce of [Σx,
+        Σx², count] (C, C and 1 or C entries)."""
+        from slrsfs_tpu_torch.parallel.mesh import all_reduce_sum
+
+        C = xf.shape[1]
+        if counts is None:
+            counts = torch.full((1,), float(xf.numel() // C), device=xf.device)
+            eps = 0.0
+        else:
+            eps = BN_EPS
+        s = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                      torch.square(xf).sum(dim=(0, 2, 3)),
+                                      counts.to(torch.float32)]), self.mesh)
+        n = s[2 * C:] + eps
+        return s[:C] / n, s[C:2 * C] / n
+
 
 class NoiseBN(nn.Module):
     """Reference ``LinearNoiseLayer`` / ``PartialLinearNoiseLayer``
@@ -150,9 +178,15 @@ class NoiseBN(nn.Module):
 
     The noise maps run whenever the layer trains (their spectral vectors
     update even with zero noise, as in JAX) or the noise is drawn; at eval
-    with zero noise gain = 1 and bias = 0 exactly, so they are skipped."""
+    with zero noise gain = 1 and bias = 0 exactly, so they are skipped.
+
+    ``mesh`` (``parallel.mesh.attach``): with more than one rank the noise
+    is drawn for the global batch (world x this rank's rows, every rank's
+    generator in step) and this rank keeps its block, so that an N-rank
+    step draws what one process's step on the whole batch draws."""
 
     noise_sz = 20
+    mesh = None
 
     def __init__(self, features: int, spectral: bool = True,
                  partial: bool = False):
@@ -174,6 +208,10 @@ class NoiseBN(nn.Module):
             if noise is None:
                 n = torch.zeros((x.shape[0], self.noise_sz), dtype=x.dtype,
                                 device=x.device)
+            elif self.mesh is not None and self.mesh.world > 1:
+                B, r = x.shape[0], self.mesh.rank
+                n = torch.randn((B * self.mesh.world, self.noise_sz), generator=noise,
+                                dtype=x.dtype, device=x.device)[r * B:(r + 1) * B]
             else:
                 n = torch.randn((x.shape[0], self.noise_sz), generator=noise,
                                 dtype=x.dtype, device=x.device)

@@ -1799,3 +1799,39 @@ def test_bf16_train_step_kernels_match_plain_on_card(capsys, monkeypatch):
     assert set(rel) >= {"encoder", "projector", "D"}
     for k, v in rel.items():
         assert v <= 2.0 ** -6, (k, v)
+
+
+@pytest.mark.gpu
+def test_frame_sharded_render_on_one_nccl_rank_matches_unsharded():
+    """``SceneRenderer(shard_frames=True)`` forms a 1-rank NCCL group (no
+    torchrun environment), renders its block (all N frames), gathers it
+    with ``all_gather_into_tensor`` and equals the unsharded render within
+    1e-4, for the baseline and the SLR model (random weights from one
+    seed, 64², N = 6); ``close()`` destroys the group."""
+    import torch.distributed as dist
+
+    from slrsfs_tpu_torch.cli.render import SceneRenderer
+
+    _card()
+    rng = np.random.default_rng(31)
+    img = (rng.standard_normal((64, 64, 3)) * 0.25).astype(np.float32)
+    flow = np.zeros((64, 64, 2), np.float32)
+    flow[32:] = rng.standard_normal((32, 64, 2)).astype(np.float32) * 1.5
+    for overrides in (None, dict(model_type=SLR_MODEL_TYPE,
+                                 use_alpha0_as_blending_weight=True)):
+        kw = dict(W=64, n_frames=6, seed=0, sparsify_eps=0.0, crop_decode="off",
+                  opt_overrides=overrides)
+        rs = SceneRenderer(shard_frames=True, **kw)
+        try:
+            assert rs.mesh.backend == "nccl" and rs.mesh.world == 1 and rs.mesh.owns_group
+            got = rs.frames(img, flow)
+            want = SceneRenderer(**kw).frames(img, flow)
+            torch.cuda.synchronize()
+        finally:
+            rs.close()
+        assert not dist.is_initialized()
+        got, want = ({"PredImg": o} if torch.is_tensor(o) else o for o in (got, want))
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].shape == want[k].shape, k
+            assert (got[k] - want[k]).abs().max().item() <= 1e-4, k

@@ -105,9 +105,16 @@ def test_auto_decode_batch_divides_frames():
 
 
 @pytest.mark.parametrize("kw", [dict(shard_frames=True)])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_render.SceneRenderer(W=16, n_frames=2, device="cpu", **kw)
+def test_unported_options_raise(kw, monkeypatch):
+    """An option the renderer cannot honour raises before any work:
+    ``shard_frames`` over a group whose world size does not divide the
+    frames (a 2-rank mesh stands in for the group here), as JAX asserts."""
+    from slrsfs_tpu_torch.parallel import mesh as port_mesh
+
+    monkeypatch.setattr(port_mesh, "make_mesh", lambda **_: port_mesh.Mesh(
+        None, 0, 2, torch.device("cpu")))
+    with pytest.raises(ValueError, match="must divide over 2 ranks"):
+        port_render.SceneRenderer(W=16, n_frames=3, device="cpu", **kw)
 
 
 def test_unknown_crop_decode_raises():
