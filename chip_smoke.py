@@ -53,7 +53,12 @@ the elements more than one bf16 ulp apart; the kernel's, the plain
 chain's and cuDNN's share beyond one ulp of a float64 chain is printed.
 K5 and K6 (one cooperative launch each) are held bit for bit in every
 case, all rows padded and a batch of 2 included, and torch.profiler
-counts the CUDA kernels one call of each runs on the card (one). A v2
+counts the CUDA kernels one call of each runs on the card (one). K6's
+two halves as entries of their own, K6a (max_splat) and K6b
+(inverse_max_gather, csrc/maxsplat.cu), are held bit for bit at C = 1, 3
+and 65 and, in turn, against K6's one launch, and timed at 256^2 and
+768^2 (phase 25, which also holds the plain ResNetDecoder on its five arch
+tables at ngf 64, card against CPU within 1e-4 of max). A v2
 render comparison above 1e-5 (the usual value is ~1e-6; the limit is 1e-4)
 reruns both sides and prints each stage's largest difference (packed
 rows, splat field, decoded frames) and the splat field's elements that
@@ -5135,12 +5140,219 @@ def multi_gpu_phase(dev, img, flow_np, region) -> dict:
     return res
 
 
+# ---- phase 25: the last modules: K6's two halves, ResNetDecoder ------------
+#
+# K6a (max_splat: the -1000 fill, then one atomic max per in-grid corner)
+# and K6b (inverse_max_gather: a gather, no atomics), csrc/maxsplat.cu,
+# against their plain versions bit for bit (±0 equal) at C = 1, 3 and 65 on
+# a ragged (2, 256, 232) grid with the special rows of the CPU tests
+# (sentinel, integer shifts, border landings, off the grid); the pair
+# against K6's one cooperative launch at the dense v2 render's (1, 256,
+# 256, 1), bit for bit; the CUDA kernels one call of each runs
+# (torch.profiler: 2 and 1); each timed at (1, 256, 256, 1) and (1, 768,
+# 768, 1) beside its bytes bound, its plain version, for K6a one
+# scatter_reduce_(amax) of the 4·B·HW corner rows, and the pair's sum
+# beside K6's one launch. No render path launches K6a or K6b (phases 5 and
+# 6 check their counts at 0). Then the plain ResNetDecoder on the five arch
+# tables the JAX package builds, at ngf 64 and 64², card against CPU
+# within 1e-4 of max |CPU|, TF32 off.
+
+DECODER_TABLES = ("resnet_256W16UpDown64_nonorm", "resnet_256W5UpDown64BG_nonorm",
+                  "resnet_256W8UpDown64SingleAlpha_nonorm",
+                  "resnet_256W5UpDown64Layers_nonorm", "resnet_256W5UpDown64_nonorm")
+
+
+def special_flow(rng, B: int, H_: int, W_: int):
+    """A random flow (B, H_, W_, 2) with the CPU tests' special rows
+    (tests/test_torch_maxsplat.py:_inputs), numpy."""
+    flow = (rng.standard_normal((B, H_, W_, 2)) * 2.5).astype(np.float32)
+    flow[0, 0::5] = max(H_, W_) + 1
+    flow[0, 1::5] = [3.0, -2.0]
+    flow[-1, 2::5] = [-0.75, -H_ + 0.5]
+    flow[-1, :, -3:] = [W_ + 4.0, 0.25]
+    return flow
+
+
+def pair_inputs(dev, size: int):
+    """z (1, size, size, 1) from a seed and the dense displacement at T_MID
+    of the synthetic scene's flow at that size (the plain integrator)."""
+    import torch
+
+    from slrsfs_tpu_torch.ops.euler import euler_integrate_all_dual_plain
+
+    _, flow_np = synthetic_scene(SEED, size)
+    flow = torch.from_numpy(flow_np).to(dev)
+    fl = euler_integrate_all_dual_plain(flow, N_FRAMES - 1, 1)[0][T_MID][None].contiguous()
+    z = torch.from_numpy((np.random.default_rng(SEED + 25).standard_normal(
+        (1, size, size, 1)) * 3.0).astype(np.float32)).to(dev)
+    return z, fl
+
+
+def max_splat_times(dev, label: str, z, fl) -> dict:
+    """K6a, K6b and K6 on (z, fl): ``kernel_times`` each, the plain
+    versions as called, K6a's library call (one scatter_reduce_(amax) of
+    the 4·B·HW corner rows into a -1000 map) and the bytes bounds."""
+    import torch
+
+    from slrsfs_tpu_torch.ops import maxwarp
+    from slrsfs_tpu_torch.ops.splat import corners
+
+    B, H_, W_, C = z.shape
+    mx = maxwarp.max_splat(z, fl)
+    px = B * H_ * W_
+    taps = corners((torch.arange(W_, device=dev)[None, :] + fl[0, ..., 0]).reshape(-1),
+                   (torch.arange(H_, device=dev)[:, None] + fl[0, ..., 1]).reshape(-1),
+                   H_, W_)
+    lin_all = torch.cat([lin for lin, _, _ in taps])[:, None].expand(-1, C).contiguous()
+    val_all = torch.cat([torch.where(inside[:, None], z[0].reshape(-1, C) * w[:, None],
+                                     float("-inf")) for _, w, inside in taps])
+    lib_map = torch.full((H_ * W_, C), -1000.0, device=dev)
+    res = {
+        # K6a: inp and flow in, out once; per pixel ~16 ops for the corners
+        # and weights, per element 4 products and 4 maxes
+        "K6a": dict(kernel_times(lambda: maxwarp.max_splat(z, fl), reps=50),
+                    plain_ms=cuda_time(lambda: maxwarp.max_splat_plain(z, fl), reps=5),
+                    bound=bound(px * (4 * C + 8 + 4 * C), px * (16 + 8 * C)),
+                    lib=kernel_times(lambda: lib_map.scatter_reduce_(
+                        0, lin_all, val_all, reduce="amax"), reps=50)),
+        # K6b: maxmap, flow and init in, out once; ~16 ops a pixel, 4 maxes
+        # an element
+        "K6b": dict(kernel_times(lambda: maxwarp.inverse_max_gather(mx, fl, z), reps=50),
+                    plain_ms=cuda_time(lambda: maxwarp.inverse_max_gather_plain(mx, fl, z),
+                                       reps=5),
+                    bound=bound(px * (4 * C + 8 + 4 * C + 4 * C), px * (16 + 4 * C)),
+                    lib=None),
+        "K6": dict(kernel_times(lambda: maxwarp.maximum_warp_norm_splat(z, fl), reps=50)),
+    }
+    for name in ("K6a", "K6b"):
+        r = res[name]
+        lib = "none: no single PyTorch call" if r["lib"] is None else (
+            f"scatter_reduce_(amax) of the {4 * px} corner rows {fmt_times(r['lib'])}")
+        print(f"phase 25 {name} {label}: {fmt_times(r)}; plain {r['plain_ms']:.4f} ms; "
+              f"bound {r['bound'][0]:.5f} ms by {r['bound'][1]}; library {lib}")
+    pair = res["K6a"]["ms"] + res["K6b"]["ms"]
+    print(f"phase 25 K6a + K6b {label}: device {pair:.4f} ms beside K6's one cooperative "
+          f"launch {fmt_times(res['K6'])} ({pair / res['K6']['ms']:.2f}x)")
+    return res
+
+
+def decoder_tables_phase(dev) -> float:
+    """The plain ResNetDecoder on each of DECODER_TABLES at ngf 64, 64²,
+    random weights from a seed: card against CPU within 1e-4 of max |CPU|;
+    returns the largest share of max."""
+    import torch
+
+    from slrsfs_tpu_torch.config import Options
+    from slrsfs_tpu_torch.models.baseline import init_random_weights
+    from slrsfs_tpu_torch.nn.archs import get_resnet_arch
+    from slrsfs_tpu_torch.nn.resnets import ResNetDecoder
+
+    worst = 0.0
+    for i, table in enumerate(DECODER_TABLES):
+        opt = Options(ngf=64, refine_model_type=table, addtional_decoder_output=0)
+        dec = ResNetDecoder(opt).eval()
+        with torch.no_grad():
+            init_random_weights(dec, SEED + i)
+        c_in = get_resnet_arch(table, opt)["layers_dec"][0]
+        x = torch.from_numpy(np.random.default_rng(SEED + i).standard_normal(
+            (1, c_in, 64, 64)).astype(np.float32))
+        with torch.no_grad():
+            want = dec(x)
+            got = dec.to(dev)(x.to(dev)).cpu()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        check(bool(torch.isfinite(want).all()) and scale > 0,
+              f"phase 25 ResNetDecoder {table}: CPU output not finite or all 0")
+        check(tuple(got.shape) == tuple(want.shape) and err <= 1e-4 * scale,
+              f"phase 25 ResNetDecoder {table}: card vs CPU {err} of max {scale}")
+        worst = max(worst, err / scale)
+        print(f"phase 25 ResNetDecoder {table} (ngf 64, in {c_in}, 64^2 -> "
+              f"{tuple(want.shape)}): card vs CPU max abs {err:.3g} = {err / scale:.3g} of "
+              f"max {scale:.3g} (limit 1e-4)")
+        del dec
+    return worst
+
+
+def max_splat_phase(dev, z4, fl_mid) -> dict:
+    """Phase 25 (see above); returns {"err", "K6a", "K6b", "per_call"}."""
+    import torch
+
+    from slrsfs_tpu_torch import kernels
+    from slrsfs_tpu_torch.ops import maxwarp
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 26)
+    err = 0.0
+    for C in (1, 3, 65):
+        z = torch.from_numpy((rng.standard_normal((2, H, 232, C)) * 3.0)
+                             .astype(np.float32)).to(dev)
+        fl = torch.from_numpy(special_flow(rng, 2, H, 232)).to(dev)
+        kernels.reset_counts()
+        mx = maxwarp.max_splat(z, fl)
+        for maxmap in (mx, torch.randn_like(z) * 3.0):
+            got = maxwarp.inverse_max_gather(maxmap, fl, z)
+            want = maxwarp.inverse_max_gather_plain(maxmap, fl, z)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"phase 25 K6b C={C}: kernel differs from plain")
+            err = max(err, (got - want).abs().max().item())
+        want_mx = maxwarp.max_splat_plain(z, fl)
+        torch.cuda.synchronize()
+        check(torch.equal(mx, want_mx), f"phase 25 K6a C={C}: kernel differs from plain")
+        err = max(err, (mx - want_mx).abs().max().item())
+        n = kernels.counts()
+        check(n["max_splat"] == 1 and n["inverse_max_gather"] == 2,
+              f"phase 25 C={C} launches {n}")
+        pair = maxwarp.maximum_warp_norm_splat(z, fl)
+        torch.cuda.synchronize()
+        check(torch.equal(pair, maxwarp.maximum_warp_norm_splat_plain(z, fl)),
+              f"phase 25 maximum_warp_norm_splat C={C}: differs from plain")
+        print(f"phase 25 K6a, K6b (2, {H}, 232, {C}), special rows: bit-exact (±0 equal); "
+              f"{int((want_mx == -1000.0).sum())} cells nothing reaches")
+    kernels.reset_counts()
+    pair = maxwarp.inverse_max_gather(maxwarp.max_splat(z4, fl_mid), fl_mid, z4)
+    one = maxwarp.maximum_warp_norm_splat(z4, fl_mid)
+    torch.cuda.synchronize()
+    n = kernels.counts()
+    check(n["max_splat"] == n["inverse_max_gather"] == n["maximum_warp_norm_splat"] == 1,
+          f"phase 25 pair vs K6 launches {n}")
+    check(torch.equal(pair, one), "phase 25 K6a -> K6b differs from K6's one launch")
+    print(f"phase 25 K6a -> K6b against K6's one launch at the dense v2 render's "
+          f"{tuple(z4.shape)}: bit-exact")
+    per_call = {"K6a": kernels_per_call(lambda: maxwarp.max_splat(z4, fl_mid), reps=8),
+                "K6b": kernels_per_call(lambda: maxwarp.inverse_max_gather(
+                    pair, fl_mid, z4), reps=8)}
+    want_names = {"K6a": ("fill_kernel", "max_splat_kernel"),
+                  "K6b": ("inverse_max_gather_kernel",)}
+    for name, (k, names) in per_call.items():
+        # the trace must hold exactly the entry's own kernels; CUPTI now and
+        # then drops a few microsecond-long kernels' events (K6b once showed
+        # 0.5 a call in three traces in a row), so a count below the
+        # design's is printed as a drop, one above fails
+        want = want_names[name]
+        check(len(names) == len(want) and all(w in n for w, n in zip(want, names))
+              and 0 < k <= len(want),
+              f"phase 25 {name}: {k} CUDA kernels per call ({names})")
+        drop = "" if k == len(want) else f" (the trace dropped events: {len(want)} by design)"
+        print(f"phase 25 {name}: {k:g} CUDA kernels per call{drop} (torch.profiler: "
+              f"{', '.join(names)})")
+    res = {"err": err, "per_call": per_call}
+    res.update(max_splat_times(dev, f"(1, {H}, {W}, 1)", z4, fl_mid))
+    z768, fl768 = pair_inputs(dev, CROP_W)
+    res[f"{CROP_W}"] = max_splat_times(dev, f"(1, {CROP_W}, {CROP_W}, 1)", z768, fl768)
+    del z768, fl768
+    res["decoder"] = decoder_tables_phase(dev)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 25 wall {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
     from slrsfs_tpu_torch import kernels
     from slrsfs_tpu_torch.cli.render import SceneRenderer, outputs_to_u8, to_u8
     from slrsfs_tpu_torch.engine import rollout
@@ -5188,6 +5400,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED + 1)
 
     # ---- phase 2: K1 against its plain version, bit for bit ----------
+    print(f"phase 2 start: {time.perf_counter() - t_main:.1f} s into the script")
     lat = euler_latency(probe_dll, probe, flow, positions)
     print(f"phase 2 latency bounds (tools/chase_probe.py, {N_FRAMES} dependent "
           f"gathers a trajectory, no stores): K1's rows {lat['K1']:.4f} ms, K4's "
@@ -5220,6 +5433,7 @@ def main() -> int:
     k4 = k4_phase(dev, flow, lat)
 
     # ---- phase 3: K2, both epilogues, against the plain versions -----
+    print(f"phase 3 start: {time.perf_counter() - t_main:.1f} s into the script")
     static = (flow.abs().sum(-1) == 0).to(torch.float32)
     px, py = positions[:, 0].long(), positions[:, 1].long()
     k2 = k2_inputs(dev, rng, flow, positions, valid)
@@ -5284,6 +5498,7 @@ def main() -> int:
     k8 = k8_phase(dev, k2["K2"]["u_mov"], positions, disp_f[T_MID], disp_b[T_MID])
 
     # ---- phase 4: K5 and K6 against the plain versions, bit for bit ---
+    print(f"phase 4 start: {time.perf_counter() - t_main:.1f} s into the script")
     z2d = torch.from_numpy((rng.standard_normal((H, W)) * 3.0)
                            .astype(np.float32)).to(dev)
     z_mov = z2d[py, px].contiguous()
@@ -5331,6 +5546,7 @@ def main() -> int:
               f"(torch.profiler: {', '.join(r['names'])})")
 
     # ---- phase 5: the baseline path through SceneRenderer.render -----
+    print(f"phase 5 start: {time.perf_counter() - t_main:.1f} s into the script")
     from PIL import Image
 
     scene_dir = os.path.join(OUT_DIR, "scene")
@@ -5435,6 +5651,7 @@ def main() -> int:
     k3_dense = k3_dense_render_times(dev, flow)
 
     # ---- phase 6: the SLR paths through SceneRenderer.render ---------
+    print(f"phase 6 start: {time.perf_counter() - t_main:.1f} s into the script")
     slr = {
         "float32": SceneRenderer(W=W, n_frames=N_FRAMES, dtype="float32",
                                  seed=SEED, sparsify_eps=0.0, crop_decode="off",
@@ -5553,6 +5770,7 @@ def main() -> int:
                            img, flow_np)
 
     # ---- phase 7: times, bounds, peak memory -------------------------
+    print(f"phase 7 start: {time.perf_counter() - t_main:.1f} s into the script")
     k1_cases = [c for m, label in ((flow, "scene"), (leaving, "leaving"))
                 for c in euler_cases(m, positions, label) if c["name"] == "K1"]
     k1_lat = {"K1": lat["K1"]}  # the leaving flow's chains end early: no latency bound
@@ -5650,6 +5868,7 @@ def main() -> int:
     k9 = k9_phase(dev)
 
     # ---- phases 8-11: training ---------------------------------------
+    print(f"phases 8-11 start: {time.perf_counter() - t_main:.1f} s into the script")
     k7 = k7_phase(dev, flow_np)
     k3 = k3_phase(dev, flow_np)
     train = training_phase(dev)
@@ -5665,6 +5884,7 @@ def main() -> int:
     train_cli_phase(scene_dir, img_path, flow_path)
 
     # ---- phases 12-14: crop decode at 768², the sweep, stages, trace ---
+    print(f"phases 12-14 start: {time.perf_counter() - t_main:.1f} s into the script")
     gc.collect()
     torch.cuda.empty_cache()
     crop = crop_phase(dev, probe, probe_dll)
@@ -5675,19 +5895,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 15: motion from hints at 768² ---------------------------
+    print(f"phase 15 start: {time.perf_counter() - t_main:.1f} s into the script")
     motion = motion_phase(dev, probe, probe_dll)
 
     # ---- phase 16: the CLAW evaluation at 768² -------------------------
+    print(f"phase 16 start: {time.perf_counter() - t_main:.1f} s into the script")
     gc.collect()
     torch.cuda.empty_cache()
     ev = eval_phase(sweep["scenes_dir"], smi)
 
     # ---- phase 17: the SLR stage-3 step at full width -----------------
+    print(f"phase 17 start: {time.perf_counter() - t_main:.1f} s into the script")
     gc.collect()
     torch.cuda.empty_cache()
     slr_train = slr_training_phase(dev)
 
     # ---- phases 18-21: the embedded-motion stages, K7's backward, the
+    print(f"phases 18-21 start: {time.perf_counter() - t_main:.1f} s into the script")
     # ---- motion GAN and bg stage 2, the CLI chains ----------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -5707,14 +5931,22 @@ def main() -> int:
     stage_chains_phase(scene_dir, img_path, flow_path)
 
     # ---- phase 23: the rest of training ---------------------------------
+    print(f"phase 23 start: {time.perf_counter() - t_main:.1f} s into the script")
     gc.collect()
     torch.cuda.empty_cache()
     rest = rest_of_training_phase(dev)
 
     # ---- phase 24: Multi-GPU on one card ------------------------------
+    print(f"phase 24 start: {time.perf_counter() - t_main:.1f} s into the script")
     gc.collect()
     torch.cuda.empty_cache()
     multi = multi_gpu_phase(dev, img, flow_np, region)
+
+    # ---- phase 25: K6's two halves, the plain ResNetDecoder -------------
+    print(f"phase 25 start: {time.perf_counter() - t_main:.1f} s into the script")
+    gc.collect()
+    torch.cuda.empty_cache()
+    halves = max_splat_phase(dev, z4, fl_mid)
 
     # ---- phase 22: summary -------------------------------------------
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd, lib_ms):
@@ -5762,6 +5994,12 @@ def main() -> int:
             "slrsfs_tpu/ops/splat.py:240",
             dense_launches["maximum_warp_norm_splat"], k6_err, mw["K6"]["ms"],
             mw["K6"]["plain_ms"], mw["K6"]["bound"], mw["K6"]["lib"]["ms"]),
+        *[row(name, "slrsfs_tpu_torch/csrc/maxsplat.cu", f"slrsfs_tpu/ops/splat.py:{line}",
+              launches[name], halves["err"], halves[key]["ms"], halves[key]["plain_ms"],
+              halves[key]["bound"], None if halves[key]["lib"] is None
+              else halves[key]["lib"]["ms"])
+          for name, key, line in (("max_splat", "K6a", 214),
+                                  ("inverse_max_gather", "K6b", 236))],
         row("splat_dense_fwd", "slrsfs_tpu_torch/csrc/splat_dense.cu",
             "slrsfs_tpu/ops/splat.py:139", train["launches"]["splat_dense_fwd"],
             k3["fwd_err"], k3["ms_fwd"], k3["plain_fwd"], k3["bound_fwd"],
@@ -5868,9 +6106,14 @@ def main() -> int:
           f"{multi['SLR']['fps']['unsharded']:.2f}); data-parallel step "
           f"{multi['step_ms']:.1f} ms (unsharded {multi['step_ms_unsharded']:.1f}, all-reduce "
           f"{multi['allreduce_ms']:.2f}); phase wall {multi['seconds']:.1f} s")
+    print(f"phase 22 phase 25: K6a {halves['K6a']['ms']:.4f} + K6b {halves['K6b']['ms']:.4f} "
+          f"ms against K6's one launch {halves['K6']['ms']:.4f} ms at (1, {H}, {W}, 1); "
+          f"ResNetDecoder card vs CPU {halves['decoder']:.3g} of max; phase wall "
+          f"{halves['seconds']:.1f} s")
     print(f"phase 22 CLAW eval of {len(SWEEP_SCENES)} {CROP_W}^2 scenes (--rawsize render "
           f"{ev['render_fps']:.2f} frames/s): plain {ev['runs']['plain']['s']:.2f} s, fluid "
           f"{ev['runs']['fluid']['s']:.2f} s; all checks passed")
+    print(f"phase 22 whole script {time.perf_counter() - t_main:.1f} s (build included)")
     print(smi)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {

@@ -442,18 +442,21 @@ def render_scene(image_path: str, flow_path: str, save_dir: str,
                  seed: int = 0, opt_overrides: dict = None,
                  sparsify_eps: float = 0.0, alpha_region_path: str = None,
                  crop_decode: str = "auto", motion_ckpt: str = None,
-                 device="cuda") -> str:
+                 shard_frames: bool = False, device="cuda") -> str:
     """One-shot render of one scene (the reference single-scene script).
     Scene loops build one ``SceneRenderer`` and call ``render()`` per
-    scene."""
+    scene. ``shard_frames`` as for ``SceneRenderer``: this rank renders its
+    block of frames, and the group the renderer formed is destroyed at the
+    end."""
     r = SceneRenderer(ckpt=ckpt, W=W, n_frames=n_frames, dtype=dtype,
                       decode_batch=decode_batch, seed=seed, motion_ckpt=motion_ckpt,
                       opt_overrides=opt_overrides, sparsify_eps=sparsify_eps,
-                      crop_decode=crop_decode, device=device)
+                      crop_decode=crop_decode, shard_frames=shard_frames,
+                      device=device)
     out_dir = r.render(image_path, flow_path, save_dir, name=name, speed=speed,
                        align_json=align_json, rawsize=rawsize, rotate=rotate,
                        flow_scale=flow_scale, alpha_region_path=alpha_region_path)
-    r.finish()
+    r.close()
     return out_dir
 
 

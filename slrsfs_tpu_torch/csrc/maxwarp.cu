@@ -32,7 +32,8 @@
 // corners, including all four of the Euler OOB sentinel max(H, W) + 1,
 // neither write nor are read. Weights are computed in f32 as the JAX
 // _corners does; the build disables FMA contraction so they round as
-// PyTorch rounds them.
+// PyTorch rounds them. The corners, the grid test and the float atomic max
+// live in maxwarp_corners.cuh, shared with K6's two halves (maxsplat.cu).
 //
 // What bounds them on an H100: bytes, and at these sizes the fixed cost of
 // a launch. K5 reads z and the static mask (8 B a cell) and the moving rows
@@ -49,59 +50,29 @@
 //       (c) zmax_dense per cell and zmax_mov per row;
 //   K6: (a) fill mx with -1000 | (b) splat per source pixel |
 //       (c) inverse gather per source pixel.
-// The float atomic max is one instruction: atomicMax on the int bits of a
-// value whose sign bit is clear, atomicMin on the unsigned bits of one whose
-// sign bit is set (both orders agree with the float order across signs).
-// It gives the bits of fmaxf up to the sign of a zero, which the equality
-// checks against the plain versions treat as equal. No fallback: a refused
+// The float atomic max (maxwarp_corners.cuh) is one instruction and gives
+// the bits of fmaxf up to the sign of a zero, which the equality checks
+// against the plain versions treat as equal. No fallback: a refused
 // launch returns its CUDA error and the wrapper raises.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "maxwarp_corners.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr float kNegInit = -1000.0f;
+using maxwarp::atomic_max_f32;
+using maxwarp::Corners;
+using maxwarp::corners_of;
+using maxwarp::in_grid;
+using maxwarp::kNegInit;
+
 constexpr int kThreads = 256;
 constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-  if (__float_as_int(v) >= 0) {
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  } else {
-    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
-  }
-}
-
-// corners (NW, NE, SW, SE) of a source at (x, y) moved by d
-struct Corners {
-  int x0, y0;
-  float w[4];
-};
-
-__device__ __forceinline__ Corners corners_of(int x, int y, float2 d) {
-  const float ox = (float)x + d.x;
-  const float oy = (float)y + d.y;
-  const float x0f = floorf(ox);
-  const float y0f = floorf(oy);
-  const float dx = ox - x0f;
-  const float dy = oy - y0f;
-  Corners c;
-  c.x0 = (int)x0f;
-  c.y0 = (int)y0f;
-  c.w[0] = (1.0f - dx) * (1.0f - dy);
-  c.w[1] = dx * (1.0f - dy);
-  c.w[2] = (1.0f - dx) * dy;
-  c.w[3] = dx * dy;
-  return c;
-}
-
-__device__ __forceinline__ bool in_grid(int x, int y, int H, int W) {
-  return x >= 0 && x < W && y >= 0 && y < H;
-}
 
 // max of v * w[k] into each in-grid corner of c
 __device__ __forceinline__ void splat_max(float* m, const Corners& c, float v,

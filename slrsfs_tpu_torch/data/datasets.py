@@ -65,12 +65,13 @@ class LiquidDataset:
 
     def __init__(self, root: str, opt: Options, variant: str = "eulerian_data",
                  split: str = "train", seed: int = 0,
-                 rock_label_root: Optional[str] = None):
+                 rock_label_root: Optional[str] = None, no_flip: bool = False):
         if variant not in VARIANTS:
             raise ValueError(f"unknown dataset {variant!r}; known: {VARIANTS}")
         self.root = root
         self.opt = opt
         self.seed = seed
+        self.no_flip = no_flip
         self.epoch = 0
         self.rock_label_root = rock_label_root or os.path.join(root, "rock_label")
         self.with_mask = "mask" in variant
@@ -138,7 +139,7 @@ class LiquidDataset:
             # (eulerian_data.py:26-27,63); smaller videos crop their short side
             crop = min(720, video.height, video.width)
             params = None if self.isval else get_params(
-                rng, (video.width, video.height), crop)
+                rng, (video.width, video.height), crop, no_flip=self.no_flip)
             N = len(video)
             start = rng.randint(0, max(N // 3, 1))
             end = rng.randint(N // 3 * 2, N)

@@ -1,10 +1,11 @@
-"""LZ4-frame decompression over the system ``liblz4`` (ctypes).
+"""LZ4-frame codec over the system ``liblz4`` (ctypes).
 
 The reference stores per-scene motion as lz4framed-compressed pickles
 (``utils/utils.py:111-115``, ``load_compressed_tensor``). Those are standard
 LZ4 frames (magic 0x184D2204), and ``liblz4.so`` ships the frame API
 (LZ4F_*), so reference ``*_motion.pth`` files load without a Python lz4
-package. Copy of ``slrsfs_tpu/data/lz4f.py`` without the compressor.
+package; ``compress`` writes such frames (motion files in the reference's
+format, without any Python lz4 package). Copy of ``slrsfs_tpu/data/lz4f.py``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,12 @@ def _bind(lib):
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t),
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t),
         ctypes.c_void_p]
+    lib.LZ4F_compressFrameBound.restype = ctypes.c_size_t
+    lib.LZ4F_compressFrameBound.argtypes = [ctypes.c_size_t, ctypes.c_void_p]
+    lib.LZ4F_compressFrame.restype = ctypes.c_size_t
+    lib.LZ4F_compressFrame.argtypes = [
+        ctypes.c_void_p, ctypes.c_size_t,
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
 
 
 _LIB = _load_lib()
@@ -101,3 +108,13 @@ def decompress(data: bytes) -> bytes:
         return b"".join(out)
     finally:
         _LIB.LZ4F_freeDecompressionContext(dctx)
+
+
+def compress(data: bytes) -> bytes:
+    """Compress ``data`` into a single LZ4 frame (default preferences)."""
+    if _LIB is None:
+        raise ImportError("liblz4 not found on this system")
+    bound = _LIB.LZ4F_compressFrameBound(len(data), None)
+    dst = ctypes.create_string_buffer(bound)
+    n = _check(_LIB.LZ4F_compressFrame(dst, bound, data, len(data), None))
+    return dst.raw[:n]

@@ -42,7 +42,7 @@ def load_compressed_tensor(path: str) -> np.ndarray:
                 raise ImportError(
                     f"{path} is lz4-framed (the reference's format) but "
                     "neither the lz4 package nor liblz4.so is available; "
-                    "re-encode it as a (H, W, 2) float32 .npz")
+                    "re-encode it with slrsfs_tpu_torch.data.tensors.save_motion")
             raw = lz4f.decompress(blob)
         # the reference's motion files are pickled torch tensors
         return _to_numpy(pickle.loads(raw))
@@ -55,6 +55,15 @@ def _to_numpy(t) -> np.ndarray:
     if hasattr(t, "detach"):
         return t.detach().cpu().numpy()
     return np.asarray(t)
+
+
+def save_motion(path: str, flow_hw2: np.ndarray) -> None:
+    """The native compressed flow format: (H, W, 2) float32 ``.npz`` under
+    the key ``flow``, as the JAX ``save_motion`` writes it."""
+    flow_hw2 = np.asarray(flow_hw2, np.float32)
+    if flow_hw2.ndim != 3 or flow_hw2.shape[-1] != 2:
+        raise ValueError(f"motion must be (H, W, 2), got {flow_hw2.shape}")
+    np.savez_compressed(path, flow=flow_hw2)
 
 
 def motion_to_hw2(flow) -> np.ndarray:

@@ -715,13 +715,15 @@ def _slr_decode_chunk(model: SLRModel, packed: Tensor, img_b: Tensor,
     return gen, fluid, comp
 
 
-def _slr_heads(model: SLRModel, img, flow, mask_rock):
+def _slr_heads(model: SLRModel, img, flow, mask_rock, bg_img_raw=None):
     """Per-scene SLR work: (fs, z for the splat, bg_tanh, a_bg_logits f32,
-    a_bg_sig, a_fl_logits)."""
+    a_bg_sig, a_fl_logits). ``bg_img_raw``, the background network's raw
+    (1, H, W, 3) output, is computed unless it is given."""
     opt = model.opt
     fs, z = model.encode(img)
     z = z_for_splat(opt, fs, z)
-    bg_img_raw = model.bg(img)
+    if bg_img_raw is None:
+        bg_img_raw = model.bg(img)
     a_bg_logits, a_fl_logits = model.alpha_encode(
         img, **_alpha_extras(opt, img, flow, bg_img_raw, mask_rock))
     a_bg_logits = a_bg_logits.to(torch.float32)
@@ -745,7 +747,8 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
                        mask_rock: Tensor = None, plain: bool = False,
                        splat_dtype: torch.dtype = torch.float32,
                        crop: Optional[CropSpec] = None, disp=None,
-                       frame_range: Optional[range] = None):
+                       frame_range: Optional[range] = None,
+                       bg_img_raw: Tensor = None):
     """Two-layer SLR rollout (reference test_v1_4eval*.py semantics):
     encode, background and alpha head once; per frame the dual-ended sparse
     splat of ``[features, fluid alpha]`` (K2 with the SLR epilogue under
@@ -761,7 +764,10 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
     composite run once at full frame. ``frame_range`` as for
     ``baseline_rollout_sparse``. Returns a dict of f32 tensors: PredImg,
     FluidImg (N, H, W, 3), CompositeFluidAlpha (N, H, W, 1) (with
-    ``frame_range``, its frames) and BGImg (H, W, 3).
+    ``frame_range``, its frames) and BGImg (H, W, 3). ``bg_img_raw``, a
+    precomputed (1, H, W, 3) background before its tanh (a scene's own
+    ``model.bg(img)``, or another), takes the place of the background
+    network's pass, as in JAX.
     """
     opt = model.opt
     N = n_frames
@@ -774,7 +780,7 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
         model = cast_for_compute(model, compute_dtype)
         img = img.to(compute_dtype)
         fs, z, bg_tanh, a_bg_logits, a_bg_sig, a_fl_logits = _slr_heads(
-            model, img, flow, mask_rock)
+            model, img, flow, mask_rock, bg_img_raw)
         hc, wc, positions_c = _crop_window(crop, positions, H, W)
         pack, use_alpha0, u_full = _slr_pack_fn(
             opt, fs, z, a_fl_logits, a_bg_sig, positions, valid,
@@ -897,12 +903,13 @@ def slr_rollout_frame_sharded(model: SLRModel, img: Tensor, flow: Tensor,
 def slr_rollout_dense(model: SLRModel, img: Tensor, flow: Tensor,
                       n_frames: int, alpha_region: Tensor = None,
                       mask_rock: Tensor = None,
-                      decode_batch: Optional[int] = None, plain: bool = False):
+                      decode_batch: Optional[int] = None, plain: bool = False,
+                      bg_img_raw: Tensor = None):
     """Dense SLR rollout, f32, every pixel splatted: K4 integrates, two K3
     forwards splat each frame and the v2 Z-norm runs over the full grid
     through K6 (``plain``: the plain versions of K4 and K3). It renders
     what ``slr_rollout_sparse`` renders and is its check. Returns the same
-    dict.
+    dict. ``bg_img_raw`` as for ``slr_rollout_sparse``.
     """
     opt = model.opt
     N = n_frames
@@ -912,7 +919,7 @@ def slr_rollout_dense(model: SLRModel, img: Tensor, flow: Tensor,
     splat = softsplat_sum_plain if plain else softsplat_sum
     with _fp32_convs(torch.float32):
         fs, z, bg_tanh, a_bg_logits, a_bg_sig, a_fl_logits = _slr_heads(
-            model, img, flow, mask_rock)
+            model, img, flow, mask_rock, bg_img_raw)
         disp_f, disp_p = integrate(flow, N - 1, N)
         if not v2:
             u, use_alpha0 = slr_pack_splat_input(

@@ -3,7 +3,7 @@
 ``from_jax_variables`` is the inverse of ``slrsfs_tpu/io/torch_import.py``
 (:55-128) for the baseline and SLR models, the motion regressor (the
 inverse of ``io/checkpoint.py:import_motion_model``), the multiscale
-discriminator and VGG19Features: it takes the JAX ``{'params', 'batch_stats', 'spectral'}``
+discriminator, VGG19Features and the plain ``ResNetDecoder``: it takes the JAX ``{'params', 'batch_stats', 'spectral'}``
 tree as numpy arrays and returns a ``state_dict`` under the reference's
 (torchvision's, for VGG) key names. Conv kernels go from HWIO to OIHW,
 dense kernels from (in, out) to (out, in), and a conv's spectral ``v`` from
@@ -88,8 +88,9 @@ def from_jax_variables(variables_np: Mapping, opt: Options,
                        model: torch.nn.Module = None) -> Dict[str, torch.Tensor]:
     """JAX variables (numpy leaves) → the state_dict of ``model``: by
     default the ``BaselineModel``, ``SLRModel`` or ``MotionRegressor`` that
-    ``opt.model_type`` names; pass a ``MultiscaleDiscriminator`` or
-    ``VGG19Features`` (any device, ``meta`` included) for those."""
+    ``opt.model_type`` names; pass a ``MultiscaleDiscriminator``,
+    ``VGG19Features`` or ``nn.resnets.ResNetDecoder`` (any device, ``meta``
+    included) for those."""
     from slrsfs_tpu_torch.models import get_model
 
     if model is None:

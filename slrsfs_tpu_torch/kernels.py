@@ -6,7 +6,8 @@ library lands in ``build/kernels/`` at the repository root, named after its
 source and a hash of the source, the headers it includes from ``csrc/``
 (``splat_window.cuh``, the window scatter of ``splat.cu`` and
 ``splat_dense.cu``; ``splat_quarters.cuh``, K2's bf16 quarters and the
-bf16 helpers both use)
+bf16 helpers both use; ``maxwarp_corners.cuh``, the corners and float
+atomic max of ``maxwarp.cu`` and ``maxsplat.cu``)
 and the flags, so a changed source or header never loads a stale build;
 nvcc's report (ptxas's registers and spills) is kept beside it and read
 again when a later process loads the library. Several entry points may
@@ -15,7 +16,9 @@ share one source; it is built once: ``euler.cu`` holds K1
 epilogues (``splat_dual_normalize``,
 ``splat_dual_normalize_slr``, f32 or bf16 accumulation) and K8
 (``splat_sum_at``), ``maxwarp.cu`` K5 (``maximum_warp_norm_sparse``) and K6
-(``maximum_warp_norm_splat``), ``splat_dense.cu`` K3's forward and backward
+(``maximum_warp_norm_splat``), ``maxsplat.cu`` K6's two halves for any
+channel count, K6a (``max_splat``) and K6b (``inverse_max_gather``),
+``splat_dense.cu`` K3's forward and backward
 in float32 and in bf16 (``splat_dense_fwd_bf16``, ``splat_dense_bwd_bf16``),
 ``euler_phased.cu`` K7's forward (``euler_phased``) and backward
 (``euler_phased_bwd``);
@@ -242,6 +245,17 @@ MAXWARP_SPLAT = Kernel(
     # z, flow, mx, out, B, H, W, stream
     [_P, _P, _P, _P, _I, _I, _I, _P])
 
+MAX_SPLAT = Kernel(
+    "max_splat", "slrsfs_tpu_torch/csrc/maxsplat.cu", "max_splat",
+    # inp, flow, out, B, H, W, C, stream
+    [_P, _P, _P, _I, _I, _I, _I, _P])
+
+INVERSE_MAX_GATHER = Kernel(
+    "inverse_max_gather", "slrsfs_tpu_torch/csrc/maxsplat.cu",
+    "inverse_max_gather",
+    # maxmap, flow, init, out, B, H, W, C, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+
 SPLAT_DENSE_FWD = Kernel(
     "splat_dense_fwd", "slrsfs_tpu_torch/csrc/splat_dense.cu",
     "splat_dense_fwd",
@@ -289,7 +303,8 @@ FUSED_CONV = Kernel(
     [_P, _P, _P, _I, _I, _I, _I, _I, _P])
 
 KERNELS: List[Kernel] = [EULER, EULER_ALL, SPLAT, SPLAT_SLR, SPLAT_SUM_AT,
-                         MAXWARP_SPARSE, MAXWARP_SPLAT, SPLAT_DENSE_FWD,
+                         MAXWARP_SPARSE, MAXWARP_SPLAT, MAX_SPLAT,
+                         INVERSE_MAX_GATHER, SPLAT_DENSE_FWD,
                          SPLAT_DENSE_BWD, SPLAT_DENSE_FWD_BF16, SPLAT_DENSE_BWD_BF16,
                          EULER_PHASED, EULER_PHASED_BWD, FUSED_CONV]
 

@@ -13,6 +13,7 @@ its channel sum is what the count needs. The mask carries no gradient.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -96,15 +97,41 @@ def upsample_bilinear_2x(x: Tensor) -> Tensor:
                          align_corners=False)
 
 
+@functools.lru_cache(maxsize=None)
+def _bilinear_taps(out_size: int, in_size: int, device: torch.device
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(low index, high index, weight of the high tap) of each output row
+    or column: the source coordinate ``(i + 0.5) · in/out − 0.5`` in f32,
+    floored and clamped to the input, its fraction clipped to [0, 1] (the
+    edge clamp where the coordinate is below 0). Made on ``device`` from
+    ``arange`` and host scalars (a scalar copied to the card would stall the
+    host on every call) and kept per (out, in, device): SPADE resizes its
+    segmap to the same few sizes in every layer of every step."""
+    i = torch.arange(out_size, dtype=torch.float32, device=device)
+    # in/out rounded to f32 first, as JAX's weakly typed scalar is
+    scale = torch.tensor(in_size / out_size, dtype=torch.float32).item()
+    src = (i + 0.5) * scale - 0.5
+    lo = torch.floor(src).clamp(0, in_size - 1)
+    frac = (src - lo).clamp(0.0, 1.0)
+    lo_i = lo.to(torch.int64)
+    return lo_i, (lo_i + 1).clamp(max=in_size - 1), frac
+
+
 def resize_bilinear(x: Tensor, h: int, w: int) -> Tensor:
     """torch F.interpolate(mode='bilinear', align_corners=False,
     antialias=False) to (h, w): two taps at half-pixel-centred source
-    coordinates, no antialiasing on a downscale (the JAX ``resize_bilinear``
-    writes this rule out by hand)."""
+    coordinates, no antialiasing on a downscale. Written out as the JAX
+    ``resize_bilinear`` writes it, with its f32 steps (rows first, then
+    columns, each ``a · (1 − f) + b · f``), so that the two packages give
+    the same bits; ``F.interpolate`` rounds the source coordinate in
+    another step."""
     if tuple(x.shape[-2:]) == (h, w):
         return x
-    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
-                         antialias=False)
+    ylo, yhi, fy = _bilinear_taps(h, x.shape[-2], x.device)
+    xlo, xhi, fx = _bilinear_taps(w, x.shape[-1], x.device)
+    fy = fy[:, None]
+    top = x[..., ylo, :] * (1.0 - fy) + x[..., yhi, :] * fy
+    return top[..., xlo] * (1.0 - fx) + top[..., xhi] * fx
 
 
 def resize_nearest(x: Tensor, h: int, w: int) -> Tensor:

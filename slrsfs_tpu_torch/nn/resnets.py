@@ -1,6 +1,7 @@
 """Encoders and decoders (PyTorch port of ``slrsfs_tpu/nn/resnets.py``):
-the baseline's encoder and partial-conv decoder, and the SLR model's plain
-encoder (alpha head) and background decoder. NCHW inside; the children are
+the baseline's encoder and partial-conv decoder, the SLR model's plain
+encoder (alpha head) and background decoder, and the plain decoder of the
+reference's other arch tables. NCHW inside; the children are
 named as in the reference (``gblocks.{i}``, ``eblocks.{i}``). ``train`` and
 ``noise`` are the switches of ``nn/norm.py``.
 """
@@ -44,13 +45,13 @@ class ResNetEncoder(nn.Module):
         return x
 
 
-class ResNetBGDecoder(nn.Module):
-    """Background ('mean video') network: image in, image out, no output
-    nonlinearity (reference architectures.py:233-260, utilities.py:98-101)."""
+class ResNetDecoder(nn.Module):
+    """Plain (non-pconv) decoder over ``model_type``'s arch table, or
+    ``opt.refine_model_type``'s (reference architectures.py:209-230)."""
 
-    def __init__(self, opt: Options):
+    def __init__(self, opt: Options, model_type: Optional[str] = None):
         super().__init__()
-        arch = get_resnet_arch(opt.bg_refine_model_type, opt)
+        arch = get_resnet_arch(model_type or opt.refine_model_type, opt)
         self.eblocks = _block_stack(opt, arch["layers_dec"], arch["upsample"])
 
     def forward(self, x: Tensor, train: bool = False,
@@ -58,6 +59,15 @@ class ResNetBGDecoder(nn.Module):
         for blk in self.eblocks:
             x = blk(x, train, noise)
         return x
+
+
+class ResNetBGDecoder(ResNetDecoder):
+    """Background ('mean video') network: image in, image out, no output
+    nonlinearity (reference architectures.py:233-260, utilities.py:98-101):
+    the plain decoder over ``opt.bg_refine_model_type``."""
+
+    def __init__(self, opt: Options):
+        super().__init__(opt, opt.bg_refine_model_type)
 
 
 class ResNetEncoderWithZ(nn.Module):

@@ -1,20 +1,27 @@
 """Maximum-warp norm, the v2 Z-normaliser (PyTorch port of
-``slrsfs_tpu/ops/splat.py:maximum_warp_norm_splat`` and
-``maximum_warp_norm_sparse``).
+``slrsfs_tpu/ops/splat.py:maximum_warp_norm_splat``, its two halves
+``max_splat`` and ``inverse_max_gather``, and ``maximum_warp_norm_sparse``).
 
 For every source pixel: the max of Z over the cells its bilinear splat
 reaches, where a cell holds the max of ``z·w`` over everything splatted onto
 it (floor −1000, reference ``softsplat.py:590``). The v2 normalisation is
 then ``z − zmax``.
 
-``maximum_warp_norm_splat`` is the dense form (K6), used by the dense
-rollouts; ``maximum_warp_norm_sparse`` is the sparse form (K5) of the
-sparse rollouts, where static pixels reduce to fixed stencils and only the
-moving rows scatter. Both kernels live in ``csrc/maxwarp.cu``, one
-cooperative launch each. Each wrapper launches its kernel for tensors on
-the card and runs its ``*_plain`` version for tensors on the CPU. On the
-card a wrapper allocates once: its outputs and the kernel's scratch max
-map are views of one buffer.
+``maximum_warp_norm_splat`` is the dense form, used by the dense
+rollouts: for one channel it is K6, ONE cooperative launch of
+``csrc/maxwarp.cu``; for C > 1 it runs its two halves in turn,
+``max_splat`` (K6a) and ``inverse_max_gather`` (K6b), the kernels of
+``csrc/maxsplat.cu``. ``maximum_warp_norm_sparse`` is the sparse form (K5)
+of the sparse rollouts, where static pixels reduce to fixed stencils and
+only the moving rows scatter, one cooperative launch of ``maxwarp.cu``.
+Each wrapper launches its kernel for tensors on the card and runs its
+``*_plain`` version for tensors on the CPU. On the card the K5 and K6
+wrappers allocate once: their outputs and the kernel's scratch max map are
+views of one buffer.
+
+The kernels take the max with ``fmaxf`` and an atomic max on the float's
+bits: they agree with the plain versions up to the sign of a zero, and a
+NaN input is dropped where ``torch.maximum`` keeps it. Inputs are finite.
 """
 
 from __future__ import annotations
@@ -32,28 +39,52 @@ NEG_INIT = -1000.0  # reference max-splat init (models/softsplat.py:590)
 _NEG_INF = float("-inf")
 
 
-def maximum_warp_norm_splat_plain(z: Tensor, flow: Tensor) -> Tensor:
-    """Plain version of K6. z (B, H, W, C), flow (B, H, W, 2) → (B, H, W, C).
-
-    Max-splat ``z`` (init −1000; off-grid corners do not write), then gather
-    the per-target maxima back onto each source, starting from ``z``."""
-    B, H, W, C = z.shape
+def _taps(flow: Tensor, b: int):
+    """The four corners of sample ``b``'s pixels moved by ``flow[b]``."""
+    H, W = flow.shape[1:3]
     xs = torch.arange(W, dtype=flow.dtype, device=flow.device)[None, :]
     ys = torch.arange(H, dtype=flow.dtype, device=flow.device)[:, None]
+    return corners((xs + flow[b, ..., 0]).reshape(-1),
+                   (ys + flow[b, ..., 1]).reshape(-1), H, W)
+
+
+def max_splat_plain(inp: Tensor, flow: Tensor) -> Tensor:
+    """Plain version of K6a. inp (B, H, W, C), flow (B, H, W, 2) → (B, H,
+    W, C): per target cell the max of ``inp · w`` over the in-grid corners
+    that reach it; cells nothing reaches stay at −1000."""
+    B, H, W, C = inp.shape
     out = []
     for b in range(B):
-        taps = corners((xs + flow[b, ..., 0]).reshape(-1),
-                       (ys + flow[b, ..., 1]).reshape(-1), H, W)
-        zf = z[b].reshape(H * W, C)
-        mx = torch.full((H * W, C), NEG_INIT, dtype=z.dtype, device=z.device)
-        for lin, w, inside in taps:
-            v = torch.where(inside[:, None], zf * w[:, None], _NEG_INF)
+        f = inp[b].reshape(H * W, C)
+        mx = torch.full((H * W, C), NEG_INIT, dtype=inp.dtype, device=inp.device)
+        for lin, w, inside in _taps(flow, b):
+            v = torch.where(inside[:, None], f * w[:, None], _NEG_INF)
             mx.scatter_reduce_(0, lin[:, None].expand(-1, C), v, reduce="amax")
-        o = zf
-        for lin, _, inside in taps:
-            o = torch.maximum(o, torch.where(inside[:, None], mx[lin], _NEG_INF))
+        out.append(mx.reshape(H, W, C))
+    return torch.stack(out)
+
+
+def inverse_max_gather_plain(maxmap: Tensor, flow: Tensor, init: Tensor) -> Tensor:
+    """Plain version of K6b. maxmap, init (B, H, W, C), flow (B, H, W, 2) →
+    (B, H, W, C): per source pixel the max of ``init`` and ``maxmap`` at its
+    in-grid corners."""
+    B, H, W, C = maxmap.shape
+    out = []
+    for b in range(B):
+        flat = maxmap[b].reshape(H * W, C)
+        o = init[b].reshape(H * W, C)
+        for lin, _, inside in _taps(flow, b):
+            o = torch.maximum(o, torch.where(inside[:, None], flat[lin], _NEG_INF))
         out.append(o.reshape(H, W, C))
     return torch.stack(out)
+
+
+def maximum_warp_norm_splat_plain(z: Tensor, flow: Tensor) -> Tensor:
+    """Plain version of K6 (and of the K6a → K6b pair). z (B, H, W, C),
+    flow (B, H, W, 2) → (B, H, W, C): max-splat ``z`` (init −1000;
+    off-grid corners do not write), then gather the per-target maxima back
+    onto each source, starting from ``z``."""
+    return inverse_max_gather_plain(max_splat_plain(z, flow), flow, z)
 
 
 def _shift2d(a: Tensor, dy: int, dx: int, fill: float) -> Tensor:
@@ -128,19 +159,60 @@ def _launch(kernel: kernels.Kernel, device: torch.device, *args) -> None:
             kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
 
 
-def maximum_warp_norm_splat(z: Tensor, flow: Tensor) -> Tensor:
-    """K6 wrapper: ``maximum_warp_norm_splat_plain(z, flow)`` for one
-    channel, z (B, H, W, 1) f32, flow (B, H, W, 2) f32. The CUDA kernel
-    computes it on the card, the plain version on the CPU."""
-    B, H, W = z.shape[:3]
+def _dense_inputs(named: dict, device) -> Tuple[int, int, int, int]:
+    """Check the dense wrappers' (B, H, W, C) f32 tensors and their (B, H,
+    W, 2) f32 ``flow``, all on ``device``; returns (B, H, W, C)."""
+    first, t = next(iter(named.items()))
+    if t.dim() != 4:
+        raise ValueError(f"{first} must be (B, H, W, C), got {tuple(t.shape)}")
+    B, H, W, C = t.shape
     f32 = torch.float32
-    _check({"z": (z, (B, H, W, 1), f32), "flow": (flow, (B, H, W, 2), f32)},
-           z.device)
+    _check({**{k: (t, (B, H, W, C), f32) for k, t in named.items() if k != "flow"},
+            "flow": (named["flow"], (B, H, W, 2), f32)}, device)
+    if device.type == "cuda" and named["flow"].data_ptr() % 8:
+        raise ValueError("flow must be 8-byte aligned")
+    return B, H, W, C
+
+
+def max_splat(inp: Tensor, flow: Tensor) -> Tensor:
+    """K6a wrapper: ``max_splat_plain(inp, flow)``, inp (B, H, W, C) f32,
+    flow (B, H, W, 2) f32. The CUDA kernel computes it on the card (the
+    −1000 fill and the scatter, two launches of one entry), the plain
+    version on the CPU."""
+    B, H, W, C = _dense_inputs({"inp": inp, "flow": flow}, inp.device)
+    if inp.device.type == "cpu":
+        return max_splat_plain(inp, flow)
+    out = torch.empty_like(inp)
+    _launch(kernels.MAX_SPLAT, inp.device, inp.data_ptr(), flow.data_ptr(),
+            out.data_ptr(), B, H, W, C)
+    return out
+
+
+def inverse_max_gather(maxmap: Tensor, flow: Tensor, init: Tensor) -> Tensor:
+    """K6b wrapper: ``inverse_max_gather_plain(maxmap, flow, init)``, maxmap
+    and init (B, H, W, C) f32, flow (B, H, W, 2) f32. The CUDA kernel
+    computes it on the card, the plain version on the CPU."""
+    B, H, W, C = _dense_inputs({"maxmap": maxmap, "init": init, "flow": flow},
+                               maxmap.device)
+    if maxmap.device.type == "cpu":
+        return inverse_max_gather_plain(maxmap, flow, init)
+    out = torch.empty_like(maxmap)
+    _launch(kernels.INVERSE_MAX_GATHER, maxmap.device, maxmap.data_ptr(),
+            flow.data_ptr(), init.data_ptr(), out.data_ptr(), B, H, W, C)
+    return out
+
+
+def maximum_warp_norm_splat(z: Tensor, flow: Tensor) -> Tensor:
+    """``maximum_warp_norm_splat_plain(z, flow)``, z (B, H, W, C) f32, flow
+    (B, H, W, 2) f32. On the card one channel is K6's one cooperative
+    launch (the dense v2 render's form) and C > 1 runs ``max_splat`` (K6a)
+    and then ``inverse_max_gather`` (K6b); the plain version on the CPU."""
+    B, H, W, C = _dense_inputs({"z": z, "flow": flow}, z.device)
     if z.device.type == "cpu":
         return maximum_warp_norm_splat_plain(z, flow)
-    if flow.data_ptr() % 8:
-        raise ValueError("flow must be 8-byte aligned")
-    buf = torch.empty((2, B, H, W, 1), dtype=f32, device=z.device)
+    if C > 1:
+        return inverse_max_gather(max_splat(z, flow), flow, z)
+    buf = torch.empty((2, B, H, W, 1), dtype=torch.float32, device=z.device)
     out = buf[0]  # buf[1] is the scratch max map
     _launch(kernels.MAXWARP_SPLAT, z.device, z.data_ptr(), flow.data_ptr(),
             buf.data_ptr() + out.nbytes, out.data_ptr(), B, H, W)

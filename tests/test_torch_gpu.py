@@ -5,8 +5,8 @@ no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-K1, K4, K5, K6 and K7 must match bit for bit (same arithmetic, no FMA
-contraction; max is order-free; K7's compact form stores each moving
+K1, K4, K5, K6 (and its two halves K6a, K6b) and K7 must match bit for
+bit (same arithmetic, no FMA contraction; max is order-free; K7's compact form stores each moving
 row's result at its own cell); K2 (both epilogues), K8 and K3's forward sum with atomics
 in another order, so they are held at 1e-5 in float32, and K3's backward
 at 1e-5 of each output's maximum (its grad_inp bit for bit); in bf16 accumulation K2 and K8 round
@@ -282,6 +282,87 @@ def test_maxwarp_wrappers_refuse_misaligned_pairs_on_card():
     with pytest.raises(ValueError, match="8-byte aligned"):
         maxwarp.maximum_warp_norm_splat(z[None, ..., None].contiguous(),
                                         _misaligned(flow))
+
+
+def _maxsplat_inputs(dev, C: int, shape=(2, H, W - 3)):
+    """(inp, flow) on ``dev``: a random flow with the CPU tests' special
+    rows (tests/test_torch_maxsplat.py): the sentinel, integer shifts,
+    landings across the top edge and pixels off the right edge."""
+    B, h, w = shape
+    rng = np.random.default_rng(C)
+    inp = (rng.standard_normal((B, h, w, C)) * 3.0).astype(np.float32)
+    flow = (rng.standard_normal((B, h, w, 2)) * 2.5).astype(np.float32)
+    flow[0, 0::5] = max(h, w) + 1
+    flow[0, 1::5] = [3.0, -2.0]
+    flow[-1, 2::5] = [-0.75, -h + 0.5]
+    flow[-1, :, -3:] = [w + 4.0, 0.25]
+    return torch.from_numpy(inp).to(dev), torch.from_numpy(flow).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 3, 65])
+def test_k6a_and_k6b_match_plain_on_card(C):
+    """K6a (max_splat) and K6b (inverse_max_gather, on K6a's map and on a
+    random one) bit for bit (torch.equal: ±0 equal), one launch each."""
+    dev = _card()
+    inp, flow = _maxsplat_inputs(dev, C)
+    kernels.reset_counts()
+    mx = maxwarp.max_splat(inp, flow)
+    assert kernels.counts()[kernels.MAX_SPLAT.name] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(mx, maxwarp.max_splat_plain(inp, flow))
+    for maxmap in (mx, torch.randn_like(inp) * 3.0):
+        got = maxwarp.inverse_max_gather(maxmap, flow, inp)
+        torch.cuda.synchronize()
+        assert torch.equal(got, maxwarp.inverse_max_gather_plain(maxmap, flow, inp))
+    assert kernels.counts()[kernels.INVERSE_MAX_GATHER.name] == 2
+
+
+@pytest.mark.gpu
+def test_k6_pair_equals_the_one_launch_on_card():
+    """At the dense v2 render's (1, 256, 256, 1) the pair gives K6's bits;
+    above one channel K6's wrapper runs the pair, not K6."""
+    dev = _card()
+    z, flow = _maxsplat_inputs(dev, 1, (1, 256, 256))
+    kernels.reset_counts()
+    pair = maxwarp.inverse_max_gather(maxwarp.max_splat(z, flow), flow, z)
+    one = maxwarp.maximum_warp_norm_splat(z, flow)
+    torch.cuda.synchronize()
+    assert torch.equal(pair, one)
+    z2, flow2 = _maxsplat_inputs(dev, 2)
+    kernels.reset_counts()
+    got = maxwarp.maximum_warp_norm_splat(z2, flow2)
+    n = kernels.counts()
+    assert (n[kernels.MAX_SPLAT.name], n[kernels.INVERSE_MAX_GATHER.name],
+            n[kernels.MAXWARP_SPLAT.name]) == (1, 1, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, maxwarp.maximum_warp_norm_splat_plain(z2, flow2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["dtype", "layout", "device", "misaligned"])
+def test_k6a_and_k6b_wrappers_refuse_on_card(bad):
+    """float64 is a ``TypeError`` that names it; a non-contiguous input, a
+    flow on another device and a flow off 8-byte alignment are
+    ``ValueError``s; nothing is launched."""
+    dev = _card()
+    inp, flow = _maxsplat_inputs(dev, 3)
+    if bad == "dtype":
+        inp = inp.double()
+    elif bad == "layout":
+        inp = inp.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "device":
+        flow = flow.cpu()
+    else:
+        flow = _misaligned(flow)
+    kernels.reset_counts()
+    err, match = (TypeError, "float64") if bad == "dtype" else (ValueError, None)
+    with pytest.raises(err, match=match):
+        maxwarp.max_splat(inp, flow)
+    with pytest.raises(err, match=match):
+        maxwarp.inverse_max_gather(inp, flow, inp)
+    assert kernels.counts()[kernels.MAX_SPLAT.name] == 0
+    assert kernels.counts()[kernels.INVERSE_MAX_GATHER.name] == 0
 
 
 @pytest.mark.gpu

@@ -111,12 +111,10 @@ def test_dense_matches_jax(case):
     got = maxwarp.maximum_warp_norm_splat_plain(torch.from_numpy(z),
                                                 torch.from_numpy(flow))
     np.testing.assert_array_equal(got.numpy(), want)
-    if z.shape[-1] == 1:
-        kernels.reset_counts()
-        w = maxwarp.maximum_warp_norm_splat(torch.from_numpy(z),
-                                            torch.from_numpy(flow))
-        assert torch.equal(w, got)
-        assert kernels.counts()["maximum_warp_norm_splat"] == 0
+    kernels.reset_counts()
+    w = maxwarp.maximum_warp_norm_splat(torch.from_numpy(z), torch.from_numpy(flow))
+    assert torch.equal(w, got)
+    assert sum(kernels.counts().values()) == 0
 
 
 def test_sparse_equals_dense_on_a_scene():
@@ -157,17 +155,32 @@ def test_wrappers_reject_bad_inputs(bad):
     elif bad == "layout":
         z = z.t()
         flow = torch.zeros((1, 8, 2, 8)).transpose(2, 3)
-    elif bad == "channels":  # the kernel takes one channel
+    elif bad == "channels":  # K5 takes one channel (K6 any: the test below)
         static = static[:, :4]
-        zd = torch.zeros((1, 8, 8, 2))
     else:  # neither CPU nor CUDA: no silent path
         z, static, z_mov, positions, valid, disp = (
             t.to("meta") for t in (z, static, z_mov, positions, valid, disp))
         zd, flow = zd.to("meta"), flow.to("meta")
     with pytest.raises((TypeError, ValueError)):
         maxwarp.maximum_warp_norm_sparse(z, static, z_mov, positions, valid, disp)
-    with pytest.raises((TypeError, ValueError)):
-        maxwarp.maximum_warp_norm_splat(zd, flow)
+    if bad != "channels":
+        with pytest.raises((TypeError, ValueError)):
+            maxwarp.maximum_warp_norm_splat(zd, flow)
+
+
+def test_dense_wrapper_takes_two_channels():
+    """K6's wrapper takes any channel count, as JAX's
+    ``maximum_warp_norm_splat`` does (two channels: on the card the K6a →
+    K6b pair, on the CPU the plain version): equal to JAX at C = 2 on a
+    trajectory displacement with the special rows."""
+    m = _motion(6)
+    disp_f, _ = euler_integrate_all_dual(m, 3, 3)
+    flow = _special(np.array(disp_f[3]).reshape(-1, 2)).reshape(1, H, W, 2)
+    z = np.stack([_z(7), -0.5 * _z(8)], axis=-1)[None]
+    want = np.asarray(jax_dense(jnp.asarray(z), jnp.asarray(flow)))
+    got = maxwarp.maximum_warp_norm_splat(torch.from_numpy(z), torch.from_numpy(flow))
+    assert got.shape == (1, H, W, 2)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_k5_and_k6_share_one_source_with_one_cooperative_launch_each():

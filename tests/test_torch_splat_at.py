@@ -205,12 +205,12 @@ def test_softsplat_modes_match_jax(mode):
 
 
 def test_ops_export_the_jax_names():
-    """The port's ops package exports every name of the JAX one that it
-    has; max_splat and inverse_max_gather live inside K6's one entry."""
+    """The port's ops package exports every name of the JAX one, K6's two
+    halves (max_splat, inverse_max_gather) included."""
     import slrsfs_tpu.ops as jax_ops
     import slrsfs_tpu_torch.ops as port_ops
 
     missing = set(jax_ops.__all__) - set(port_ops.__all__)
-    assert missing == {"max_splat", "inverse_max_gather"}, missing
+    assert missing == set(), missing
     for name in port_ops.__all__:
         assert callable(getattr(port_ops, name)), name
