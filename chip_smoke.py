@@ -7,6 +7,7 @@
     python3 chip_smoke.py --k3-in TREE        # K3 and K7 of another tree
     python3 chip_smoke.py --k1-in TREE        # K1 and K4 of another tree
     python3 chip_smoke.py --k7bwd-in TREE     # K7's backward of another tree
+    python3 chip_smoke.py --maxsplat-in TREE  # K6a and K6b of another tree
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each against its plain PyTorch version at the main paths'
@@ -54,10 +55,15 @@ chain's and cuDNN's share beyond one ulp of a float64 chain is printed.
 K5 and K6 (one cooperative launch each) are held bit for bit in every
 case, all rows padded and a batch of 2 included, and torch.profiler
 counts the CUDA kernels one call of each runs on the card (one). K6's
-two halves as entries of their own, K6a (max_splat) and K6b
-(inverse_max_gather, csrc/maxsplat.cu), are held bit for bit at C = 1, 3
-and 65 and, in turn, against K6's one launch, and timed at 256^2 and
-768^2 (phase 25, which also holds the plain ResNetDecoder on its five arch
+two halves as entries of their own, K6a (max_splat, a window
+max-scatter at one channel) and K6b (inverse_max_gather, a run of
+pixels a warp; both
+csrc/maxsplat.cu), are held bit for bit at C = 1, 3, 4 and 65 on a ragged
+(2, 253, 232) grid with the special rows, a smooth field and a scattered
+flow, the pair against K6's one launch, and timed at 256^2 and 768^2
+beside their bytes bounds and the launch floor (an empty kernel,
+slrsfs_tpu_torch/tools/maxsplat_probe.py), with K6a's window misses
+(phase 25, which also holds the plain ResNetDecoder on its five arch
 tables at ngf 64, card against CPU within 1e-4 of max). A v2
 render comparison above 1e-5 (the usual value is ~1e-6; the limit is 1e-4)
 reruns both sides and prints each stage's largest difference (packed
@@ -236,7 +242,12 @@ leaving flows and K4's four forms on the scene, leaving and random flows
 (each held bit for bit, timed, split and set beside its bytes and latency
 bounds) and the baseline float32 render; with --k7bwd-in TREE, K7's
 backward on the joint step's predicted motion, the scene flow and the
-leaving flow beside its window counts, and the joint step
+leaving flow beside its window counts, and the joint step; with
+--maxsplat-in TREE, K6a, K6b and the pair beside K6 at (1, 256, 256, 1),
+(1, 768, 768, 1), (1, 256, 256, 65) and on a scattered flow at (1, 256,
+256, 1), each held bit for bit, timed, K6a split by torch.profiler into
+its fill and its scatter, beside the bytes bounds, the launch floor, the
+plain versions, scatter_reduce_(amax) and K6a's window misses
 (slrsfs_tpu_torch/tools/compare.sh runs any of them on several trees in
 turns).
 """
@@ -440,11 +451,26 @@ def window_misses(kind: str, *args) -> str:
     (a corner outside the window reads g from device memory), with the
     share of its tiles that hold such a corner (``dense_window_units``).
     Kinds "dense bf16" (args flow) and "dense bf16 bwd" (args flow and
-    C): the same two counts for K3's bf16 mode. A package without the
-    window (an older tree of ``--k2-in`` or ``--k3-in``) says so."""
+    C): the same two counts for K3's bf16 mode. Kind "max splat" (args
+    flow and C): K6a's window max-scatter, which runs at one channel only.
+    A package without the window (an older tree of ``--k2-in``, ``--k3-in``
+    or ``--maxsplat-in``) says so."""
     from slrsfs_tpu_torch import kernels
     from slrsfs_tpu_torch.ops import splat as S
 
+    if kind == "max splat":
+        lib = kernels.MAX_SPLAT
+        lib.load()
+        if not hasattr(lib._lib, "max_splat_window_cells"):
+            return "window misses: this package's K6a has no window"
+        if args[1] != 1:
+            return "window misses: none, K6a has no window above one channel"
+        tile = (lib.query("max_splat_tile_rows"), lib.query("max_splat_tile_cols"))
+        cap = lib.query("max_splat_window_cells")
+        n_in, n_miss = S.dense_window_misses(args[0], tile, cap)
+        return (f"window misses {n_miss} of {n_in} corners in the grid "
+                f"({100.0 * n_miss / max(n_in, 1):.2f} %; {tile[0]}x{tile[1]} tiles, "
+                f"windows of {cap} cells)")
     if kind.startswith("dense bf16"):
         kernels.SPLAT_DENSE_BWD_BF16.load()
         if not hasattr(kernels.SPLAT_DENSE_BWD_BF16._lib, "splat_dense_bwd_bf16_window_cells"):
@@ -861,18 +887,19 @@ def euler_times(cases, lat: dict, prefix: str) -> dict:
     return out
 
 
-def chase_probe_module():
-    """This checkout's ``slrsfs_tpu_torch/tools/chase_probe.py``, loaded by
-    its path (an older tree of ``--k1-in`` lacks it); it builds with the
-    imported package's ``kernels`` flags."""
+def tool_module(name: str):
+    """This checkout's ``slrsfs_tpu_torch/tools/<name>.py``, loaded by its
+    path (an older tree of ``--k1-in`` or ``--maxsplat-in`` lacks it); it
+    builds with the imported package's ``kernels`` flags."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "slrsfs_tpu_torch",
-                        "tools", "chase_probe.py")
-    spec = importlib.util.spec_from_file_location("chase_probe", path)
+                        "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
 
 
 def k2_inputs(dev, rng, flow, positions, valid) -> dict:
@@ -1674,7 +1701,7 @@ def k1_in(tree: str) -> int:
     from slrsfs_tpu_torch.engine.rollout import prepare_scene_sparse
     from slrsfs_tpu_torch.ops import euler as E
 
-    probe = chase_probe_module()
+    probe = tool_module("chase_probe")
     dll = probe.finish_build(probe.start_build())
     img_u8, flow_np = synthetic_scene(SEED)
     flow = torch.from_numpy(flow_np).to(dev)
@@ -5142,11 +5169,14 @@ def multi_gpu_phase(dev, img, flow_np, region) -> dict:
 
 # ---- phase 25: the last modules: K6's two halves, ResNetDecoder ------------
 #
-# K6a (max_splat: the -1000 fill, then one atomic max per in-grid corner)
-# and K6b (inverse_max_gather: a gather, no atomics), csrc/maxsplat.cu,
-# against their plain versions bit for bit (±0 equal) at C = 1, 3 and 65 on
-# a ragged (2, 256, 232) grid with the special rows of the CPU tests
-# (sentinel, integer shifts, border landings, off the grid); the pair
+# K6a (max_splat: the -1000 fill, then at one channel the window
+# max-scatter, above a thread a (pixel, channel) and one atomic max a
+# corner) and K6b (inverse_max_gather: a gather, no atomics),
+# csrc/maxsplat.cu, against their plain versions bit for bit (±0 equal) at
+# C = 1, 3, 4 and 65 on a ragged (2, 253, 232) grid with the special rows
+# of the CPU tests (sentinel, integer shifts, border landings, off the
+# grid), a smooth flow (every corner in its window) and a scattered one
+# (most miss it); the pair
 # against K6's one cooperative launch at the dense v2 render's (1, 256,
 # 256, 1), bit for bit; the CUDA kernels one call of each runs
 # (torch.profiler: 2 and 1); each timed at (1, 256, 256, 1) and (1, 768,
@@ -5188,10 +5218,34 @@ def pair_inputs(dev, size: int):
     return z, fl
 
 
-def max_splat_times(dev, label: str, z, fl) -> dict:
-    """K6a, K6b and K6 on (z, fl): ``kernel_times`` each, the plain
-    versions as called, K6a's library call (one scatter_reduce_(amax) of
-    the 4·B·HW corner rows into a -1000 map) and the bytes bounds."""
+def smooth_flow(B: int, H_: int, W_: int):
+    """A smooth flow (B, H_, W_, 2) that moves every pixel by a fractional,
+    slowly turning displacement, numpy: the corners of each 8x16 tile meet
+    in a few cells, all inside K6a's window."""
+    yy, xx = np.mgrid[0:H_, 0:W_].astype(np.float32)
+    flow = np.stack([1.5 * np.sin(yy / 17.0) + 0.6 * np.cos(xx / 23.0) + 0.37,
+                     0.8 * np.cos(xx / 29.0) - 0.41], axis=-1).astype(np.float32)
+    return np.ascontiguousarray(np.broadcast_to(flow, (B, H_, W_, 2)))
+
+
+def scattered_flow(rng, B: int, H_: int, W_: int):
+    """A flow (B, H_, W_, 2) that sends each pixel to a target drawn
+    uniformly over the grid from ``rng``, numpy: the corners of a tile
+    scatter, and most miss K6a's window."""
+    yy, xx = np.mgrid[0:H_, 0:W_]
+    tx = rng.uniform(0.0, W_ - 1.0, (B, H_, W_))
+    ty = rng.uniform(0.0, H_ - 1.0, (B, H_, W_))
+    return np.stack([tx - xx, ty - yy], axis=-1).astype(np.float32)
+
+
+def max_splat_times(dev, prefix: str, label: str, z, fl, floor_ms: float) -> dict:
+    """K6a, K6b and, at one channel, K6 on (z, fl), B = 1, each held bit for
+    bit against its plain version first: ``kernel_times`` each, the plain
+    versions as called, K6a's card work a call split by CUDA kernel
+    (``launch_split``: the fill and the scatter), K6a's library call (one
+    scatter_reduce_(amax) of the 4·HW corner rows into a -1000 map), the
+    bytes bounds beside the launch floor ``floor_ms`` (an empty kernel's
+    device time) and K6a's window misses."""
     import torch
 
     from slrsfs_tpu_torch.ops import maxwarp
@@ -5199,6 +5253,12 @@ def max_splat_times(dev, label: str, z, fl) -> dict:
 
     B, H_, W_, C = z.shape
     mx = maxwarp.max_splat(z, fl)
+    gathered = maxwarp.inverse_max_gather(mx, fl, z)
+    torch.cuda.synchronize()
+    check(torch.equal(mx, maxwarp.max_splat_plain(z, fl)),
+          f"{prefix} K6a {label}: kernel differs from plain")
+    check(torch.equal(gathered, maxwarp.inverse_max_gather_plain(mx, fl, z)),
+          f"{prefix} K6b {label}: kernel differs from plain")
     px = B * H_ * W_
     taps = corners((torch.arange(W_, device=dev)[None, :] + fl[0, ..., 0]).reshape(-1),
                    (torch.arange(H_, device=dev)[:, None] + fl[0, ..., 1]).reshape(-1),
@@ -5214,7 +5274,8 @@ def max_splat_times(dev, label: str, z, fl) -> dict:
                     plain_ms=cuda_time(lambda: maxwarp.max_splat_plain(z, fl), reps=5),
                     bound=bound(px * (4 * C + 8 + 4 * C), px * (16 + 8 * C)),
                     lib=kernel_times(lambda: lib_map.scatter_reduce_(
-                        0, lin_all, val_all, reduce="amax"), reps=50)),
+                        0, lin_all, val_all, reduce="amax"), reps=50),
+                    split=launch_split(lambda: maxwarp.max_splat(z, fl))),
         # K6b: maxmap, flow and init in, out once; ~16 ops a pixel, 4 maxes
         # an element
         "K6b": dict(kernel_times(lambda: maxwarp.inverse_max_gather(mx, fl, z), reps=50),
@@ -5222,18 +5283,75 @@ def max_splat_times(dev, label: str, z, fl) -> dict:
                                        reps=5),
                     bound=bound(px * (4 * C + 8 + 4 * C + 4 * C), px * (16 + 4 * C)),
                     lib=None),
-        "K6": dict(kernel_times(lambda: maxwarp.maximum_warp_norm_splat(z, fl), reps=50)),
+        "floor_ms": floor_ms,
+        "misses": window_misses("max splat", fl, C),
     }
-    for name in ("K6a", "K6b"):
+    if C == 1:
+        res["K6"] = kernel_times(lambda: maxwarp.maximum_warp_norm_splat(z, fl), reps=50)
+    for name, launches in (("K6a", 2), ("K6b", 1)):
         r = res[name]
         lib = "none: no single PyTorch call" if r["lib"] is None else (
             f"scatter_reduce_(amax) of the {4 * px} corner rows {fmt_times(r['lib'])}")
-        print(f"phase 25 {name} {label}: {fmt_times(r)}; plain {r['plain_ms']:.4f} ms; "
-              f"bound {r['bound'][0]:.5f} ms by {r['bound'][1]}; library {lib}")
+        split = f"; split {fmt_split(r['split'])}" if "split" in r else ""
+        print(f"{prefix} {name} {label}: {fmt_times(r)}{split}; plain {r['plain_ms']:.4f} ms; "
+              f"bound {r['bound'][0]:.5f} ms by {r['bound'][1]}; launch floor {floor_ms:.5f} "
+              f"ms ({launches} launches {launches * floor_ms:.5f}); library {lib}")
+    print(f"{prefix} K6a {label}: {res['misses']}")
     pair = res["K6a"]["ms"] + res["K6b"]["ms"]
-    print(f"phase 25 K6a + K6b {label}: device {pair:.4f} ms beside K6's one cooperative "
-          f"launch {fmt_times(res['K6'])} ({pair / res['K6']['ms']:.2f}x)")
+    beside = (f" beside K6's one cooperative launch {fmt_times(res['K6'])} "
+              f"({pair / res['K6']['ms']:.2f}x)" if C == 1 else "")
+    print(f"{prefix} K6a + K6b {label}: device {pair:.4f} ms{beside}")
     return res
+
+
+def maxsplat_shapes(dev) -> list:
+    """(label, z, flow) at the shapes ``--maxsplat-in`` times: (1, 256,
+    256, 1) and (1, 768, 768, 1) on the synthetic scene's displacement at
+    T_MID (``pair_inputs``), (1, 256, 256, 65) on the same flow (a shape
+    above one channel, where maximum_warp_norm_splat would run the pair:
+    no caller of the port sends one, models/baseline.py:z_normalize passes
+    C = 1) and (1, 256, 256, 1) on a scattered flow."""
+    import torch
+
+    z256, fl256 = pair_inputs(dev, W)
+    z768, fl768 = pair_inputs(dev, CROP_W)
+    z65 = torch.from_numpy((np.random.default_rng(SEED + 27).standard_normal((1, H, W, 65))
+                            * 3.0).astype(np.float32)).to(dev)
+    scattered = torch.from_numpy(scattered_flow(np.random.default_rng(SEED + 28), 1, H, W)).to(dev)
+    return [(f"(1, {H}, {W}, 1)", z256, fl256),
+            (f"(1, {CROP_W}, {CROP_W}, 1)", z768, fl768),
+            (f"(1, {H}, {W}, 65)", z65, fl256),
+            (f"(1, {H}, {W}, 1), scattered flow", z256, scattered)]
+
+
+def launch_floor(probe, dll) -> dict:
+    """``kernel_times`` of one empty kernel (``tools/maxsplat_probe.py``),
+    the faster of two takes: the first take in a process once read 0.0117
+    ms against 0.0019 for every later one."""
+    return min((kernel_times(lambda: probe.launch_floor(dll), reps=50) for _ in range(2)),
+               key=lambda t: t["ms"])
+
+
+def maxsplat_in(tree: str) -> int:
+    """``python3 chip_smoke.py --maxsplat-in TREE``: K6a, K6b and the pair
+    beside K6 (``max_splat_times``) at ``maxsplat_shapes`` on the package of
+    another unpacked tree of this repository (its kernels built in
+    TREE/build), beside the launch floor (this checkout's
+    ``tools/maxsplat_probe.py``), to compare commits on one card
+    (slrsfs_tpu_torch/tools/compare.sh)."""
+    dev = use_tree(tree)
+    from slrsfs_tpu_torch import kernels
+
+    probe = tool_module("maxsplat_probe")
+    job = probe.start_build()
+    kernels.build_all()
+    dll = probe.finish_build(job)
+    floor = launch_floor(probe, dll)
+    print(f"maxsplat launch floor (an empty kernel of one warp, tools/maxsplat_probe.py): "
+          f"{fmt_times(floor)}")
+    for label, z, fl in maxsplat_shapes(dev):
+        max_splat_times(dev, "maxsplat", label, z, fl, floor["ms"])
+    return 0
 
 
 def decoder_tables_phase(dev) -> float:
@@ -5273,41 +5391,64 @@ def decoder_tables_phase(dev) -> float:
     return worst
 
 
-def max_splat_phase(dev, z4, fl_mid) -> dict:
-    """Phase 25 (see above); returns {"err", "K6a", "K6b", "per_call"}."""
+MAX_SPLAT_GRID = (2, 253, 232)  # B, H, W: a ragged grid that no 8x16 tile divides
+MAX_SPLAT_CHANNELS = (1, 3, 4, 65)
+
+
+def max_splat_phase(dev, z4, fl_mid, probe, probe_dll) -> dict:
+    """Phase 25 (see above); ``probe``, ``probe_dll``: this checkout's
+    ``tools/maxsplat_probe.py`` and its library, for the launch floor.
+    Returns {"err", "K6a", "K6b", "K6", "per_call", "floor", ...}."""
     import torch
 
     from slrsfs_tpu_torch import kernels
     from slrsfs_tpu_torch.ops import maxwarp
 
     t_phase = time.perf_counter()
+    lib = kernels.MAX_SPLAT
+    geometry = ((lib.query("max_splat_tile_rows"), lib.query("max_splat_tile_cols")),
+                lib.query("max_splat_window_cells"))
+    mirror = (maxwarp.MAX_SPLAT_TILE, maxwarp.MAX_SPLAT_WINDOW_CELLS)
+    check(geometry == mirror, f"phase 25: K6a's library reports tile and window "
+          f"{geometry}, ops/maxwarp.py {mirror}")
     rng = np.random.default_rng(SEED + 26)
     err = 0.0
-    for C in (1, 3, 65):
-        z = torch.from_numpy((rng.standard_normal((2, H, 232, C)) * 3.0)
-                             .astype(np.float32)).to(dev)
-        fl = torch.from_numpy(special_flow(rng, 2, H, 232)).to(dev)
-        kernels.reset_counts()
-        mx = maxwarp.max_splat(z, fl)
-        for maxmap in (mx, torch.randn_like(z) * 3.0):
-            got = maxwarp.inverse_max_gather(maxmap, fl, z)
-            want = maxwarp.inverse_max_gather_plain(maxmap, fl, z)
+    B_, H_, W_ = MAX_SPLAT_GRID
+    flows = {"special rows": special_flow(rng, B_, H_, W_), "smooth": smooth_flow(B_, H_, W_),
+             "scattered": scattered_flow(rng, B_, H_, W_)}
+    for kind, fl_np in flows.items():
+        fl = torch.from_numpy(fl_np).to(dev)
+        misses = window_misses("max splat", fl, 1)
+        print(f"phase 25 {kind} flow on {MAX_SPLAT_GRID}: K6a at one channel {misses}")
+        for C in MAX_SPLAT_CHANNELS:
+            case = f"phase 25 ({B_}, {H_}, {W_}, {C}), {kind}"
+            z = torch.from_numpy((rng.standard_normal((B_, H_, W_, C)) * 3.0)
+                                 .astype(np.float32)).to(dev)
+            kernels.reset_counts()
+            mx = maxwarp.max_splat(z, fl)
+            for maxmap in (mx, torch.randn_like(z) * 3.0):
+                got = maxwarp.inverse_max_gather(maxmap, fl, z)
+                want = maxwarp.inverse_max_gather_plain(maxmap, fl, z)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"{case}: K6b differs from plain")
+                err = max(err, (got - want).abs().max().item())
+            want_mx = maxwarp.max_splat_plain(z, fl)
             torch.cuda.synchronize()
-            check(torch.equal(got, want), f"phase 25 K6b C={C}: kernel differs from plain")
-            err = max(err, (got - want).abs().max().item())
-        want_mx = maxwarp.max_splat_plain(z, fl)
-        torch.cuda.synchronize()
-        check(torch.equal(mx, want_mx), f"phase 25 K6a C={C}: kernel differs from plain")
-        err = max(err, (mx - want_mx).abs().max().item())
-        n = kernels.counts()
-        check(n["max_splat"] == 1 and n["inverse_max_gather"] == 2,
-              f"phase 25 C={C} launches {n}")
-        pair = maxwarp.maximum_warp_norm_splat(z, fl)
-        torch.cuda.synchronize()
-        check(torch.equal(pair, maxwarp.maximum_warp_norm_splat_plain(z, fl)),
-              f"phase 25 maximum_warp_norm_splat C={C}: differs from plain")
-        print(f"phase 25 K6a, K6b (2, {H}, 232, {C}), special rows: bit-exact (±0 equal); "
-              f"{int((want_mx == -1000.0).sum())} cells nothing reaches")
+            check(torch.equal(mx, want_mx), f"{case}: K6a differs from plain")
+            err = max(err, (mx - want_mx).abs().max().item())
+            n = kernels.counts()
+            check(n["max_splat"] == 1 and n["inverse_max_gather"] == 2, f"{case}: launches {n}")
+            norm = maxwarp.maximum_warp_norm_splat(z, fl)  # K6 at one channel, else the pair
+            torch.cuda.synchronize()
+            check(torch.equal(norm, maxwarp.maximum_warp_norm_splat_plain(z, fl)),
+                  f"{case}: maximum_warp_norm_splat differs from plain")
+            beside = ""
+            if C == 1:
+                check(torch.equal(maxwarp.inverse_max_gather(mx, fl, z), norm),
+                      f"{case}: K6a -> K6b differs from K6's one launch")
+                beside = "; the pair equals K6's one launch"
+            print(f"{case}: K6a, K6b bit-exact (±0 equal){beside}; "
+                  f"{int((want_mx == -1000.0).all(-1).sum())} cells nothing reaches")
     kernels.reset_counts()
     pair = maxwarp.inverse_max_gather(maxwarp.max_splat(z4, fl_mid), fl_mid, z4)
     one = maxwarp.maximum_warp_norm_splat(z4, fl_mid)
@@ -5318,11 +5459,17 @@ def max_splat_phase(dev, z4, fl_mid) -> dict:
     check(torch.equal(pair, one), "phase 25 K6a -> K6b differs from K6's one launch")
     print(f"phase 25 K6a -> K6b against K6's one launch at the dense v2 render's "
           f"{tuple(z4.shape)}: bit-exact")
+    z3 = z4.repeat(1, 1, 1, 3)
     per_call = {"K6a": kernels_per_call(lambda: maxwarp.max_splat(z4, fl_mid), reps=8),
+                "K6a, C = 3": kernels_per_call(lambda: maxwarp.max_splat(z3, fl_mid), reps=8),
                 "K6b": kernels_per_call(lambda: maxwarp.inverse_max_gather(
                     pair, fl_mid, z4), reps=8)}
-    want_names = {"K6a": ("fill_kernel", "max_splat_kernel"),
-                  "K6b": ("inverse_max_gather_kernel",)}
+    # K6a's two kernels (the fill, then at one channel the window
+    # max-scatter, above the scatter a thread a (pixel, channel)) and the
+    # run gather, by name
+    want_names = {"K6a": ("max_splat_fill_kernel", "max_splat_window_kernel"),
+                  "K6a, C = 3": ("max_splat_fill_kernel", "max_splat_kernel"),
+                  "K6b": ("inverse_max_gather_run_kernel",)}
     for name, (k, names) in per_call.items():
         # the trace must hold exactly the entry's own kernels; CUPTI now and
         # then drops a few microsecond-long kernels' events (K6b once showed
@@ -5335,10 +5482,14 @@ def max_splat_phase(dev, z4, fl_mid) -> dict:
         drop = "" if k == len(want) else f" (the trace dropped events: {len(want)} by design)"
         print(f"phase 25 {name}: {k:g} CUDA kernels per call{drop} (torch.profiler: "
               f"{', '.join(names)})")
-    res = {"err": err, "per_call": per_call}
-    res.update(max_splat_times(dev, f"(1, {H}, {W}, 1)", z4, fl_mid))
+    floor = launch_floor(probe, probe_dll)
+    print(f"phase 25 launch floor (an empty kernel of one warp, tools/maxsplat_probe.py): "
+          f"{fmt_times(floor)}")
+    res = {"err": err, "per_call": per_call, "floor": floor["ms"]}
+    res.update(max_splat_times(dev, "phase 25", f"(1, {H}, {W}, 1)", z4, fl_mid, floor["ms"]))
     z768, fl768 = pair_inputs(dev, CROP_W)
-    res[f"{CROP_W}"] = max_splat_times(dev, f"(1, {CROP_W}, {CROP_W}, 1)", z768, fl768)
+    res[f"{CROP_W}"] = max_splat_times(dev, "phase 25", f"(1, {CROP_W}, {CROP_W}, 1)", z768,
+                                       fl768, floor["ms"])
     del z768, fl768
     res["decoder"] = decoder_tables_phase(dev)
     res["seconds"] = time.perf_counter() - t_phase
@@ -5378,12 +5529,16 @@ def main() -> int:
     print(f"phase 1 device: {kind}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    probe = chase_probe_module()  # K1's and K4's latency bound
+    probe = tool_module("chase_probe")  # K1's and K4's latency bound
     probe_job = probe.start_build()
+    ms_probe = tool_module("maxsplat_probe")  # the launch floor
+    ms_probe_job = ms_probe.start_build()
     times = kernels.build_all()
     probe_dll = probe.finish_build(probe_job)
+    ms_probe_dll = ms_probe.finish_build(ms_probe_job)
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s wall (with "
-          f"tools/chase_probe.cu), " + ", ".join(f"{n} {s:.1f} s" for n, s in times.items()))
+          f"tools/chase_probe.cu and tools/maxsplat_probe.cu), "
+          + ", ".join(f"{n} {s:.1f} s" for n, s in times.items()))
     for source in dict.fromkeys(k.source for k in kernels.KERNELS):
         log = next(k.build_log for k in kernels.KERNELS if k.source == source)
         for line in log.splitlines():  # ptxas: registers, spills, wgmma
@@ -5946,7 +6101,7 @@ def main() -> int:
     print(f"phase 25 start: {time.perf_counter() - t_main:.1f} s into the script")
     gc.collect()
     torch.cuda.empty_cache()
-    halves = max_splat_phase(dev, z4, fl_mid)
+    halves = max_splat_phase(dev, z4, fl_mid, ms_probe, ms_probe_dll)
 
     # ---- phase 22: summary -------------------------------------------
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd, lib_ms):
@@ -6107,8 +6262,10 @@ def main() -> int:
           f"{multi['step_ms']:.1f} ms (unsharded {multi['step_ms_unsharded']:.1f}, all-reduce "
           f"{multi['allreduce_ms']:.2f}); phase wall {multi['seconds']:.1f} s")
     print(f"phase 22 phase 25: K6a {halves['K6a']['ms']:.4f} + K6b {halves['K6b']['ms']:.4f} "
-          f"ms against K6's one launch {halves['K6']['ms']:.4f} ms at (1, {H}, {W}, 1); "
-          f"ResNetDecoder card vs CPU {halves['decoder']:.3g} of max; phase wall "
+          f"ms against K6's one launch {halves['K6']['ms']:.4f} ms at (1, {H}, {W}, 1) "
+          f"(launch floor {halves['floor']:.5f} ms); {CROP_W}^2 K6a "
+          f"{halves[f'{CROP_W}']['K6a']['ms']:.4f} + K6b {halves[f'{CROP_W}']['K6b']['ms']:.4f}"
+          f" ms; ResNetDecoder card vs CPU {halves['decoder']:.3g} of max; phase wall "
           f"{halves['seconds']:.1f} s")
     print(f"phase 22 CLAW eval of {len(SWEEP_SCENES)} {CROP_W}^2 scenes (--rawsize render "
           f"{ev['render_fps']:.2f} frames/s): plain {ev['runs']['plain']['s']:.2f} s, fluid "
@@ -6123,10 +6280,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     modes = {"--maxwarp-in": maxwarp_in, "--k2-in": k2_in, "--k3-in": k3_in,
-             "--k1-in": k1_in, "--k7bwd-in": k7bwd_in}
+             "--k1-in": k1_in, "--k7bwd-in": k7bwd_in, "--maxsplat-in": maxsplat_in}
     if len(sys.argv) == 3 and sys.argv[1] in modes:
         sys.exit(modes[sys.argv[1]](sys.argv[2]))
     check(len(sys.argv) == 1,
           f"usage: {sys.argv[0]} [--maxwarp-in TREE | --k2-in TREE | --k3-in TREE "
-          f"| --k1-in TREE | --k7bwd-in TREE]")
+          f"| --k1-in TREE | --k7bwd-in TREE | --maxsplat-in TREE]")
     sys.exit(main())

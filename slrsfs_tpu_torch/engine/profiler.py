@@ -26,15 +26,21 @@ from typing import Dict
 import numpy as np
 import torch
 
+from slrsfs_tpu_torch.engine.init_utils import resolve_device
+
 
 class StageProfiler:
     """Seconds per stage, a list for each name (reference stage names:
     t_encoder, t_euler_integration, t_softmax_splating, t_decoder). On the
     card a stage is timed by CUDA events recorded at its start and end,
-    the end synchronised; on the CPU by the host clock."""
+    the end synchronised; on the CPU by the host clock. The device defaults
+    to the card, as every entry point of the port does, and a host without
+    one raises (``engine.init_utils.resolve_device``): host-clock timing of
+    queued card work would time its enqueue. ``device="cpu"`` is the
+    host-clock mode."""
 
-    def __init__(self, device="cpu"):
-        self.cuda = torch.device(device).type == "cuda"
+    def __init__(self, device="cuda"):
+        self.cuda = resolve_device(device).type == "cuda"
         self.times: Dict[str, list] = defaultdict(list)
 
     @contextlib.contextmanager

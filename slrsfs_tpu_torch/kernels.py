@@ -7,7 +7,8 @@ source and a hash of the source, the headers it includes from ``csrc/``
 (``splat_window.cuh``, the window scatter of ``splat.cu`` and
 ``splat_dense.cu``; ``splat_quarters.cuh``, K2's bf16 quarters and the
 bf16 helpers both use; ``maxwarp_corners.cuh``, the corners and float
-atomic max of ``maxwarp.cu`` and ``maxsplat.cu``)
+atomic max of ``maxwarp.cu`` and ``maxsplat.cu``, which also takes
+``splat_window.cuh``'s window rule)
 and the flags, so a changed source or header never loads a stale build;
 nvcc's report (ptxas's registers and spills) is kept beside it and read
 again when a later process loads the library. Several entry points may
@@ -247,13 +248,17 @@ MAXWARP_SPLAT = Kernel(
 
 MAX_SPLAT = Kernel(
     "max_splat", "slrsfs_tpu_torch/csrc/maxsplat.cu", "max_splat",
-    # inp, flow, out, B, H, W, C, stream
+    # inp, flow, out, B, H, W, C, stream: the -1000 fill, then the scatter
+    # as its programmatic dependent (at one channel the window max-scatter,
+    # whose geometry max_splat_tile_rows(), max_splat_tile_cols() and
+    # max_splat_window_cells() report; above, a thread a (pixel, channel))
     [_P, _P, _P, _I, _I, _I, _I, _P])
 
 INVERSE_MAX_GATHER = Kernel(
     "inverse_max_gather", "slrsfs_tpu_torch/csrc/maxsplat.cu",
     "inverse_max_gather",
-    # maxmap, flow, init, out, B, H, W, C, stream
+    # maxmap, flow, init, out, B, H, W, C, stream: one launch, a run of
+    # consecutive pixels a warp
     [_P, _P, _P, _P, _I, _I, _I, _I, _P])
 
 SPLAT_DENSE_FWD = Kernel(

@@ -11,7 +11,17 @@ then ``z − zmax``.
 rollouts: for one channel it is K6, ONE cooperative launch of
 ``csrc/maxwarp.cu``; for C > 1 it runs its two halves in turn,
 ``max_splat`` (K6a) and ``inverse_max_gather`` (K6b), the kernels of
-``csrc/maxsplat.cu``. ``maximum_warp_norm_sparse`` is the sparse form (K5)
+``csrc/maxsplat.cu``. K6a is the −1000 fill and a scatter launched as its
+programmatic dependent. At one channel the scatter is a window
+max-scatter: an 8 x 16 tile of source pixels a warp places
+splat_window.cuh's window over its corners, takes each window cell's max
+in shared memory and reduces it into the output once (``MAX_SPLAT_TILE``,
+``MAX_SPLAT_WINDOW_CELLS``; ``ops.splat.dense_window_misses`` counts the
+corners outside the window, each reduced alone); above one channel it is
+a thread a (pixel, channel) and one atomic max a corner. K6b takes a run
+of consecutive pixels a warp, their corners once for all channels, and
+the lanes over the pixels' contiguous channel runs.
+``maximum_warp_norm_sparse`` is the sparse form (K5)
 of the sparse rollouts, where static pixels reduce to fixed stencils and
 only the moving rows scatter, one cooperative launch of ``maxwarp.cu``.
 Each wrapper launches its kernel for tensors on the card and runs its
@@ -37,6 +47,11 @@ Tensor = torch.Tensor
 
 NEG_INIT = -1000.0  # reference max-splat init (models/softsplat.py:590)
 _NEG_INF = float("-inf")
+# K6a's tile of source pixels at one channel, (rows, columns), and the cells
+# of its window (csrc/maxsplat.cu kTileY, kTileX, kCells; its library reports them as
+# max_splat_tile_rows, max_splat_tile_cols and max_splat_window_cells)
+MAX_SPLAT_TILE = (8, 16)
+MAX_SPLAT_WINDOW_CELLS = 256
 
 
 def _taps(flow: Tensor, b: int):
@@ -178,7 +193,9 @@ def max_splat(inp: Tensor, flow: Tensor) -> Tensor:
     """K6a wrapper: ``max_splat_plain(inp, flow)``, inp (B, H, W, C) f32,
     flow (B, H, W, 2) f32. The CUDA kernel computes it on the card (the
     −1000 fill and the scatter, two launches of one entry), the plain
-    version on the CPU."""
+    version on the CPU. At one channel the card takes B ≤ 65535 and
+    ⌈H / 8⌉ ≤ 65535 (the launch grid's limits): beyond them the launch is
+    refused and this raises."""
     B, H, W, C = _dense_inputs({"inp": inp, "flow": flow}, inp.device)
     if inp.device.type == "cpu":
         return max_splat_plain(inp, flow)
@@ -191,7 +208,10 @@ def max_splat(inp: Tensor, flow: Tensor) -> Tensor:
 def inverse_max_gather(maxmap: Tensor, flow: Tensor, init: Tensor) -> Tensor:
     """K6b wrapper: ``inverse_max_gather_plain(maxmap, flow, init)``, maxmap
     and init (B, H, W, C) f32, flow (B, H, W, 2) f32. The CUDA kernel
-    computes it on the card, the plain version on the CPU."""
+    computes it on the card (one launch, a run of pixels a warp), the plain
+    version on the CPU; it indexes pixels with 32-bit integers, so
+    B·H·W must not exceed 2**31 − 32 (the launch is refused and this
+    raises)."""
     B, H, W, C = _dense_inputs({"maxmap": maxmap, "init": init, "flow": flow},
                                maxmap.device)
     if maxmap.device.type == "cpu":

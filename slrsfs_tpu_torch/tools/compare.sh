@@ -42,7 +42,15 @@
 #          motion, the scene flow and the leaving flow, as called, on the
 #          card alone and the host's cost per call, beside its bound and
 #          the window's counts (misses, flushed cells); and the joint step
-#          (median of 3).
+#          (median of 3);
+# maxsplat this checkout's chip_smoke.py --maxsplat-in TREE: K6a and K6b of
+#          each tree's package and the pair beside K6 at (1, 256, 256, 1),
+#          (1, 768, 768, 1), (1, 256, 256, 65) and on a scattered flow at
+#          (1, 256, 256, 1), each held bit for bit, as called, on the card
+#          alone and the host's cost per call, K6a split into its fill and
+#          its scatter, beside the bytes bounds, the launch floor (an empty
+#          kernel, this checkout's tools/maxsplat_probe.py), the plain
+#          versions, scatter_reduce_(amax) and K6a's window misses.
 #
 # Prints the card's name and power limit, then each tree's bench lines
 # (JSON lines left out) prefixed with the tree. Exits 1 if a bench failed.
@@ -50,8 +58,8 @@ set -u -o pipefail
 bench=${1:-}
 shift
 case $bench in
-  k9 | maxwarp | k2 | k3 | k1 | k7bwd) ;;
-  *) echo "usage: $0 k9|maxwarp|k2|k3|k1|k7bwd TREE..." >&2; exit 2 ;;
+  k9 | maxwarp | k2 | k3 | k1 | k7bwd | maxsplat) ;;
+  *) echo "usage: $0 k9|maxwarp|k2|k3|k1|k7bwd|maxsplat TREE..." >&2; exit 2 ;;
 esac
 here=$(cd "$(dirname "$0")/../.." && pwd)
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -64,6 +72,7 @@ for tree in "$@" $(printf '%s\n' "$@" | tac); do
     k3) python "$here/chip_smoke.py" --k3-in "$tree" ;;
     k1) python "$here/chip_smoke.py" --k1-in "$tree" ;;
     k7bwd) python "$here/chip_smoke.py" --k7bwd-in "$tree" ;;
+    maxsplat) python "$here/chip_smoke.py" --maxsplat-in "$tree" ;;
   esac 2>&1 | grep -v '^{' | sed "s|^|[$tree] |" || rc=1
 done
 exit $rc

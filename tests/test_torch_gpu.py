@@ -5,7 +5,10 @@ no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-K1, K4, K5, K6 (and its two halves K6a, K6b) and K7 must match bit for
+K1, K4, K5, K6 (and its two halves K6a, K6b: the window max-scatter at
+one channel, the scatter a thread a (pixel, channel) above, and the run
+gather, also on a ragged grid with a smooth and a scattered flow)
+and K7 must match bit for
 bit (same arithmetic, no FMA contraction; max is order-free; K7's compact form stores each moving
 row's result at its own cell); K2 (both epilogues), K8 and K3's forward sum with atomics
 in another order, so they are held at 1e-5 in float32, and K3's backward
@@ -339,6 +342,59 @@ def test_k6_pair_equals_the_one_launch_on_card():
     assert torch.equal(got, maxwarp.maximum_warp_norm_splat_plain(z2, flow2))
 
 
+def _window_flow(kind: str, B: int, h: int, w: int) -> np.ndarray:
+    """(B, h, w, 2) f32 flows for K6a's window: the special rows of
+    ``_maxsplat_inputs``, a smooth fractional field whose 8x16 tiles' corners
+    all fit their window, or targets drawn uniformly over the grid (most
+    corners miss it)."""
+    rng = np.random.default_rng(len(kind))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    if kind == "special rows":
+        flow = (rng.standard_normal((B, h, w, 2)) * 2.5).astype(np.float32)
+        flow[0, 0::5] = max(h, w) + 1
+        flow[0, 1::5] = [3.0, -2.0]
+        flow[-1, 2::5] = [-0.75, -h + 0.5]
+        flow[-1, :, -3:] = [w + 4.0, 0.25]
+        return flow
+    if kind == "smooth":
+        f = np.stack([1.5 * np.sin(yy / 17.0) + 0.6 * np.cos(xx / 23.0) + 0.37,
+                      0.8 * np.cos(xx / 29.0) - 0.41], axis=-1)
+        return np.ascontiguousarray(np.broadcast_to(f, (B, h, w, 2)), dtype=np.float32)
+    return np.stack([rng.uniform(0.0, w - 1.0, (B, h, w)) - xx,
+                     rng.uniform(0.0, h - 1.0, (B, h, w)) - yy], axis=-1).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["special rows", "smooth", "scattered"])
+@pytest.mark.parametrize("C", [1, 3, 4, 65])
+def test_k6a_window_and_k6b_tiles_match_plain_on_card(C, kind):
+    """K6a (the window max-scatter at one channel, a thread a (pixel,
+    channel) above) and the run gather K6b (on K6a's map and on a random
+    one) bit for bit (±0 equal) on a ragged (2, 253, 232) grid that no 8x16
+    tile divides, with the window holding every corner (smooth) or missing
+    most (scattered); one launch of each entry a call; at one channel the
+    pair equals K6's one launch."""
+    dev = _card()
+    rng = np.random.default_rng(C)
+    flow = torch.from_numpy(_window_flow(kind, 2, 253, 232)).to(dev)
+    inp = torch.from_numpy((rng.standard_normal((2, 253, 232, C)) * 3.0)
+                           .astype(np.float32)).to(dev)
+    kernels.reset_counts()
+    mx = maxwarp.max_splat(inp, flow)
+    torch.cuda.synchronize()
+    assert torch.equal(mx, maxwarp.max_splat_plain(inp, flow))
+    for maxmap in (mx, torch.randn_like(inp) * 3.0):
+        got = maxwarp.inverse_max_gather(maxmap, flow, inp)
+        torch.cuda.synchronize()
+        assert torch.equal(got, maxwarp.inverse_max_gather_plain(maxmap, flow, inp))
+    n = kernels.counts()
+    assert (n[kernels.MAX_SPLAT.name], n[kernels.INVERSE_MAX_GATHER.name]) == (1, 2)
+    if C == 1:
+        one = maxwarp.maximum_warp_norm_splat(inp, flow)
+        torch.cuda.synchronize()
+        assert torch.equal(maxwarp.inverse_max_gather(mx, flow, inp), one)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bad", ["dtype", "layout", "device", "misaligned"])
 def test_k6a_and_k6b_wrappers_refuse_on_card(bad):
@@ -363,6 +419,18 @@ def test_k6a_and_k6b_wrappers_refuse_on_card(bad):
         maxwarp.inverse_max_gather(inp, flow, inp)
     assert kernels.counts()[kernels.MAX_SPLAT.name] == 0
     assert kernels.counts()[kernels.INVERSE_MAX_GATHER.name] == 0
+
+
+@pytest.mark.gpu
+def test_k6a_refuses_more_samples_than_its_grid_on_card():
+    """At one channel K6a's launch grid holds at most 65535 samples: more
+    are refused with the CUDA error, and the wrapper raises."""
+    dev = _card()
+    inp = torch.ones(65536, 1, 1, 1, device=dev)
+    with pytest.raises(RuntimeError, match="launching max_splat"):
+        maxwarp.max_splat(inp, torch.zeros(65536, 1, 1, 2, device=dev))
+    assert torch.equal(maxwarp.max_splat(inp[:65535], torch.zeros(65535, 1, 1, 2, device=dev)),
+                       inp[:65535])
 
 
 @pytest.mark.gpu
