@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from slrsfs_tpu_torch.engine.init_utils import no_tf32, resolve_device, settle
+from slrsfs_tpu_torch.engine.profiler import count, span
 
 # Decode-chunk budget in decoded pixels x frames: the decoder's live
 # activations scale with decode_batch x window area, so the auto chooser
@@ -101,10 +102,13 @@ def to_u8(frames: torch.Tensor, image: bool = True) -> torch.Tensor:
 
 def outputs_to_u8(outs) -> dict:
     """{key: uint8 numpy} of a rollout's outputs: a tensor is PredImg; keys
-    with 'Img' are [-1, 1] images, the others [0, 1] alpha maps."""
+    with 'Img' are [-1, 1] images, the others [0, 1] alpha maps. The copies
+    to the host are the timed span ``render.d2h``."""
     if torch.is_tensor(outs):
         outs = {"PredImg": outs}
-    return {k: to_u8(v, image="Img" in k).cpu().numpy() for k, v in outs.items()}
+    u8 = {k: to_u8(v, image="Img" in k) for k, v in outs.items()}
+    with span("render.d2h", timed=True):
+        return {k: v.cpu().numpy() for k, v in u8.items()}
 
 
 def load_regressor(path: str, W: int):
@@ -249,14 +253,17 @@ class SceneRenderer:
 
     def _tensors(self, img: np.ndarray, flow: np.ndarray):
         """(img (1, W, W, 3), flow, positions, valid) on the device, the
-        moving set bucketed by ``p_bucket_ratio``."""
+        moving set bucketed by ``p_bucket_ratio`` (spans
+        ``render.moving_set`` and ``render.upload``)."""
         from slrsfs_tpu_torch.engine.rollout import prepare_scene_sparse
 
-        positions, valid = prepare_scene_sparse(flow,
-                                                bucket_ratio=self.p_bucket_ratio)
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in (np.asarray(img, np.float32)[None],
-                               np.asarray(flow, np.float32), positions, valid))
+        with span("render.moving_set"):
+            positions, valid = prepare_scene_sparse(flow,
+                                                    bucket_ratio=self.p_bucket_ratio)
+        with span("render.upload"):
+            return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                         for a in (np.asarray(img, np.float32)[None],
+                                   np.asarray(flow, np.float32), positions, valid))
 
     def frames(self, img: np.ndarray, flow: np.ndarray, plain: bool = False,
                alpha_region: np.ndarray = None):
@@ -270,9 +277,11 @@ class SceneRenderer:
         here (``prepare_crop``, which also integrates it) and the rollout
         runs on it, or uncropped when the plan is None; the decode batch is
         sized to the decode window. With a mesh the frame-sharded rollouts
-        render this rank's block and every rank returns all N frames."""
+        render this rank's block and every rank returns all N frames; the
+        counter ``render.frames`` adds this rank's frames."""
         from slrsfs_tpu_torch.engine import rollout
 
+        count("render.frames", self.rank_frames)
         img_t, flow_t, pos_t, val_t = self._tensors(img, flow)
         crop = disp = None
         if self.crop_decode == "auto":
@@ -357,7 +366,10 @@ class SceneRenderer:
                    align_json: str = "None", rawsize: bool = False) -> np.ndarray:
         """The motion the render animates, from the transformed flow (W, W,
         2): with a regressor, its motion from hints (``regress_motion``);
-        then the align-json rescale and the sparsifier."""
+        then the align-json rescale and the sparsifier (span
+        ``render.sparsify``). A scene starts here: the counter
+        ``render.scenes``."""
+        count("render.scenes")
         n_frames = self.n_frames
         if self.regressor is not None:
             flow = self.regress_motion(img, flow)
@@ -370,15 +382,16 @@ class SceneRenderer:
         if eps is None:
             eps = 0.5 / n_frames if rawsize else 0.0
         if eps > 0.0:
-            speed_px = np.sqrt(flow[..., 0] ** 2 + flow[..., 1] ** 2)
-            sub = speed_px < eps
-            zeroed = sub & (speed_px > 0)
-            if zeroed.any():
-                print(f"sparsify eps={eps:g}: zeroed {zeroed.mean():.1%} of "
-                      f"pixels (max trajectory drift "
-                      f"{speed_px[zeroed].max() * n_frames:.2f}px over "
-                      f"{n_frames} frames)")
-            flow = np.where(sub[..., None], 0.0, flow)
+            with span("render.sparsify"):
+                speed_px = np.sqrt(flow[..., 0] ** 2 + flow[..., 1] ** 2)
+                sub = speed_px < eps
+                zeroed = sub & (speed_px > 0)
+                if zeroed.any():
+                    print(f"sparsify eps={eps:g}: zeroed {zeroed.mean():.1%} of "
+                          f"pixels (max trajectory drift "
+                          f"{speed_px[zeroed].max() * n_frames:.2f}px over "
+                          f"{n_frames} frames)")
+                flow = np.where(sub[..., None], 0.0, flow)
         return np.asarray(flow, np.float32)
 
     def render(self, image_path: str, flow_path: str, save_dir: str,

@@ -84,6 +84,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from slrsfs_tpu_torch.engine.profiler import span
 from slrsfs_tpu_torch.engine.rollout import geometric_bucket
 from slrsfs_tpu_torch.models.motion import MOTION_MODEL_TYPES
 from slrsfs_tpu_torch.models.slr import BG_MODEL_TYPE, SLR_MODEL_TYPE
@@ -220,7 +221,13 @@ def attach_moving_sets(batch: Dict, max_frac: float = 0.5,
     ``max_frac``. ``eps`` > 0 first zeroes motion slower than ``eps``
     (a zeroed pixel drifts at most T·eps over a T-step integration).
     ``state``, a dict kept across batches, makes the choice sticky for a
-    run: the first batch picks sparse or dense and P only grows."""
+    run: the first batch picks sparse or dense and P only grows. The span
+    ``train.moving_sets`` holds the call."""
+    with span("train.moving_sets"):
+        return _attach_moving_sets(batch, max_frac, state, eps, n_steps)
+
+
+def _attach_moving_sets(batch, max_frac, state, eps, n_steps):
     m = np.asarray(batch["motions"])
     flow = m[..., :2] * m[..., 2:3] if m.shape[-1] == 3 else m
     if eps > 0.0:
@@ -269,12 +276,14 @@ def attach_moving_sets(batch: Dict, max_frac: float = 0.5,
 
 
 def to_device_batch(batch: Dict, device) -> Dict:
-    """numpy batch → tensors on ``device`` (images stay a list of three)."""
+    """numpy batch → tensors on ``device`` (images stay a list of three),
+    in the span ``train.upload``."""
     def t(a):
         return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
 
-    return {k: [t(x) for x in v] if k == "images" else t(v)
-            for k, v in batch.items()}
+    with span("train.upload"):
+        return {k: [t(x) for x in v] if k == "images" else t(v)
+                for k, v in batch.items()}
 
 
 def build(opt, train_max_steps: int = 60, device="cuda", seed: int = 0,

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from slrsfs_tpu_torch.engine.init_utils import no_tf32
+from slrsfs_tpu_torch.engine.profiler import count, span
 from slrsfs_tpu_torch.models.baseline import (
     BaselineModel,
     pack_splat_input,
@@ -343,12 +344,13 @@ def prepare_crop(opt, slr: bool, flow: Tensor, positions: Tensor,
     four floats to the host."""
     N = n_frames
     H, W = flow.shape[0], flow.shape[1]
-    integrate = euler_compact_dual_plain if plain else euler_compact_dual
-    disp_f, disp_p = integrate(flow, positions, N - 1, N)
-    radius, align = model_crop_params(opt, slr)
-    bounds = _target_bounds(positions, valid, disp_f, disp_p, H, W).tolist()
-    crop = plan_crop(bounds, H, W, radius, align,
-                     max_area_frac=max_area_frac, bucket=bucket)
+    with span("rollout.crop_plan"):
+        integrate = euler_compact_dual_plain if plain else euler_compact_dual
+        disp_f, disp_p = integrate(flow, positions, N - 1, N)
+        radius, align = model_crop_params(opt, slr)
+        bounds = _target_bounds(positions, valid, disp_f, disp_p, H, W).tolist()
+        crop = plan_crop(bounds, H, W, radius, align,
+                         max_area_frac=max_area_frac, bucket=bucket)
     return (disp_f, disp_p), crop
 
 
@@ -385,6 +387,21 @@ def _stage(stages, name: str):
     """``stages.stage(name)`` (an ``engine.profiler.StageProfiler``), or
     nothing when no profiler is given."""
     return contextlib.nullcontext() if stages is None else stages.stage(name)
+
+
+def _count_decodes(frames: int, height: int, width: int,
+                   crop: Optional[CropSpec]) -> None:
+    """The rollout's decode counters for ``frames`` frames: the pixels the
+    decodes take in (``rollout.decoded_px``) and those that reach the
+    frames (``rollout.kept_px``): a crop window's paste interior a frame
+    and the static decode's frame outside it; the whole frame uncropped."""
+    if crop is None:
+        count("rollout.decoded_px", frames * height * width)
+        count("rollout.kept_px", frames * height * width)
+        return
+    paste = crop.ph * crop.pw
+    count("rollout.decoded_px", frames * crop.hc * crop.wc + height * width)
+    count("rollout.kept_px", frames * paste + height * width - paste)
 
 
 def _v2_z(z: Tensor, positions: Tensor):
@@ -525,6 +542,7 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
     dev = flow.device
     f32 = torch.float32
 
+    _count_decodes(len(ts), H, W, crop)
     with _fp32_convs(compute_dtype):
         with _stage(stages, "t_encoder"):
             model = cast_for_compute(model, compute_dtype)
@@ -540,7 +558,7 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
         frames = torch.empty((len(ts), H, W, 3), dtype=f32, device=dev)
         if crop is not None:
             # the frame outside the paste window: one full-frame decode
-            with _stage(stages, "t_decoder"):
+            with span("rollout.static_decode", timed=True, stages=stages):
                 frames[:] = model.decode(_baseline_static_decode_input(
                     opt, fs, z, positions, valid, plain, splat_dtype
                 ).to(compute_dtype))[0]
@@ -566,7 +584,7 @@ def baseline_rollout_sparse(model: BaselineModel, img: Tensor, flow: Tensor,
                         splat_dual_normalize(u_mov, positions_c, valid, disp_f[t],
                                              disp_p[N - t], float(a), float(b),
                                              u_static, out=chunk[j], acc=acc)
-            with _stage(stages, "t_decoder"):
+            with span("rollout.decode", timed=True, stages=stages):
                 out = model.decode(chunk)
                 if crop is None:
                     frames[c0:c0 + decode_batch] = out
@@ -776,6 +794,7 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
     dev = flow.device
     f32 = torch.float32
 
+    _count_decodes(len(ts), H, W, crop)
     with _fp32_convs(compute_dtype):
         model = cast_for_compute(model, compute_dtype)
         img = img.to(compute_dtype)
@@ -812,10 +831,11 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
             u_st = u_st.to(splat_dtype).to(f32)
             packed_st = torch.cat(slr_unpack_splatted(u_st[None], use_alpha0),
                                   dim=-1).to(compute_dtype)
-            res = _slr_decode_chunk(model, packed_st, img, a_bg_sig, a_bg_logits,
-                                    bg_tanh, region, opt)
-            for key, v in zip(outs, res):
-                outs[key][:] = v[0]
+            with span("rollout.static_decode", timed=True):
+                res = _slr_decode_chunk(model, packed_st, img, a_bg_sig, a_bg_logits,
+                                        bg_tanh, region, opt)
+                for key, v in zip(outs, res):
+                    outs[key][:] = v[0]
 
             def cr(a):  # the window of a (1, H, W, ch) tensor
                 return a[:, crop.y0:crop.y0 + hc, crop.x0:crop.x0 + wc]
@@ -841,13 +861,14 @@ def slr_rollout_sparse(model: SLRModel, img: Tensor, flow: Tensor,
                     chunk[j] = splat(*args, compute_dtype)
                 else:
                     splat(*args, out=chunk[j], acc=acc)
-            res = _slr_decode_chunk(model, chunk, img_b, a_bg_sig,
-                                    a_bg_logits, bg_tanh, region, opt)
-            for key, v in zip(outs, res):
-                if crop is None:
-                    outs[key][c0:c0 + decode_batch] = v
-                else:
-                    _paste(outs[key][c0:c0 + decode_batch], v, crop)
+            with span("rollout.decode", timed=True):
+                res = _slr_decode_chunk(model, chunk, img_b, a_bg_sig,
+                                        a_bg_logits, bg_tanh, region, opt)
+                for key, v in zip(outs, res):
+                    if crop is None:
+                        outs[key][c0:c0 + decode_batch] = v
+                    else:
+                        _paste(outs[key][c0:c0 + decode_batch], v, crop)
         outs["BGImg"] = bg_full
         return outs
 

@@ -75,6 +75,7 @@ from torch import nn
 
 from slrsfs_tpu_torch.config import Options
 from slrsfs_tpu_torch.engine.init_utils import no_tf32, resolve_device
+from slrsfs_tpu_torch.engine.profiler import count
 from slrsfs_tpu_torch.losses.gan import (
     discriminator_losses,
     generator_gan_losses,
@@ -366,12 +367,15 @@ class Trainer:
         micro-batches. ``plain`` runs the K3/K7 plain versions. ``timer``,
         when given, is called with a stage name after each stage (G forward,
         G backward, D step, per micro-batch; with a mesh all-reduce;
-        updates). Returns the logged losses, detached (with accumulation,
-        the micro-batches' means; with a mesh, the ranks' means)."""
+        updates). Each step adds one to the counter ``train.steps``
+        (``engine.profiler.count``). Returns the logged losses, detached
+        (with accumulation, the micro-batches' means; with a mesh, the
+        ranks' means)."""
         mark = timer or (lambda _name: None)
         micro = list(batch) if isinstance(batch, (list, tuple)) else [batch]
         if len(micro) != self.accum:
             raise ValueError(f"a step takes {self.accum} micro-batches, got {len(micro)}")
+        count("train.steps")
         with no_tf32():
             g_grads, d_grads, logs = self._micro_step(micro[0], plain, mark)
             for b in micro[1:]:
